@@ -1,0 +1,259 @@
+"""Transformer building blocks on plain dicts of tensors.
+
+The port of ``repro.models.layers`` without the sharding helpers.
+Parameter layouts are the reference's (``wq [D,H,Dh]``, ``wo
+[H,Dh,D]``, ``wi [D,F]``, ...), so carrying weights across is a copy.
+Activations flow in ``cfg.cdtype``; norms, softmax and RoPE compute in
+f32 and round where the reference rounds. Attention is grouped-query.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+
+NEG_INF = -2.0e38  # f32-safe mask value
+
+# query-chunk size of the prefill path: bounds the live scores buffer to
+# [B, H, Q_CHUNK, T] instead of [B, H, S, T]
+Q_CHUNK = 512
+
+
+# --------------------------------------------------------------------------
+# initialisers
+# --------------------------------------------------------------------------
+
+def normal_init(gen: torch.Generator, shape, dtype, device,
+                scale: float = 0.02) -> torch.Tensor:
+    x = torch.randn(shape, generator=gen, device=device,
+                    dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
+def init_rmsnorm(d: int, dtype, device) -> dict:
+    return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def init_attention(cfg: ModelConfig, gen, device) -> dict:
+    d = cfg.d_model
+    hd, h, hkv = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
+    dt = cfg.pdtype
+    p = {
+        "wq": normal_init(gen, (d, h, hd), dt, device),
+        "wk": normal_init(gen, (d, hkv, hd), dt, device),
+        "wv": normal_init(gen, (d, hkv, hd), dt, device),
+        "wo": normal_init(gen, (h, hd, d), dt, device,
+                          scale=0.02 / math.sqrt(2 * cfg.num_layers)),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((h, hd), dtype=dt, device=device)
+        p["bk"] = torch.zeros((hkv, hd), dtype=dt, device=device)
+        p["bv"] = torch.zeros((hkv, hd), dtype=dt, device=device)
+    return p
+
+
+def init_mlp(cfg: ModelConfig, gen, device) -> dict:
+    d, f, dt = cfg.d_model, cfg.d_ff, cfg.pdtype
+    out_scale = 0.02 / math.sqrt(2 * cfg.num_layers)
+    p = {"wi": normal_init(gen, (d, f), dt, device)}
+    if cfg.act == "silu":
+        p["wg"] = normal_init(gen, (d, f), dt, device)
+    p["wo"] = normal_init(gen, (f, d), dt, device, out_scale)
+    return p
+
+
+def init_embedding(cfg: ModelConfig, gen, device) -> dict:
+    p = {"table": normal_init(gen, (cfg.vocab_size, cfg.d_model),
+                              cfg.pdtype, device)}
+    if not cfg.tie_embeddings:
+        p["head"] = normal_init(gen, (cfg.d_model, cfg.vocab_size),
+                                cfg.pdtype, device)
+    return p
+
+
+# --------------------------------------------------------------------------
+# norms / rotary embeddings
+# --------------------------------------------------------------------------
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    """x / rms(x) * (1 + scale): f32-accumulated sum of squares, the
+    normalised activations in x's dtype (the reference's rounding)."""
+    ss = x.float().square().sum(dim=-1, keepdim=True)
+    inv = torch.rsqrt(ss / x.shape[-1] + eps)
+    y = x * inv.to(x.dtype)
+    return y * (1.0 + params["scale"]).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10000.0) -> torch.Tensor:
+    """x: [B, S, H, Dh]; positions: [B, S] (int). f32 math, x-dtype out.
+    Frequencies as ``exp(-log(theta) * i / half)``, as the reference
+    computes them (``theta ** (-2i/d)`` rounds differently)."""
+    half = x.shape[-1] // 2
+    freq = torch.exp(-math.log(theta)
+                     * torch.arange(half, dtype=torch.float32,
+                                    device=x.device) / half)
+    angles = positions[..., None].float() * freq             # [B,S,half]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x32 = x.float()
+    x1, x2 = x32[..., :half], x32[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+
+def _qkv(params: dict, x: torch.Tensor, cfg: ModelConfig):
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
+    k = torch.einsum("btd,dhk->bthk", x, params["wk"].to(dt))
+    v = torch.einsum("btd,dhk->bthk", x, params["wv"].to(dt))
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(dt)
+        k = k + params["bk"].to(dt)
+        v = v + params["bv"].to(dt)
+    return q, k, v
+
+
+def gqa_scores_apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask) -> torch.Tensor:
+    """q: [B,S,H,Dh], k/v: [B,T,Hkv,Dh]. ``mask`` is None, an additive
+    tensor broadcastable to [B,1,S,T], or the lazy ``("causal",
+    window)`` predicate of the prefill path. Returns [B,S,H,Dh]."""
+    b, s, h, dh = q.shape
+    hkv = k.shape[2]
+
+    if s == 1:
+        # one query: grouped contraction, f32 scores/softmax/probs·V
+        grp = h // hkv
+        qg = q.reshape(b, 1, hkv, grp, dh).float()
+        scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) \
+            / math.sqrt(dh)
+        if isinstance(mask, tuple):
+            raise ValueError("decode path expects an explicit mask")
+        if mask is not None:
+            scores = scores + mask[:, :, None]
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+        return out.reshape(b, 1, h, dh).to(q.dtype)
+
+    if hkv != h:
+        rep = h // hkv
+        t = k.shape[1]
+        k = k[:, :, :, None, :].expand(b, t, hkv, rep, dh) \
+            .reshape(b, t, h, dh)
+        v = v[:, :, :, None, :].expand(b, t, hkv, rep, dh) \
+            .reshape(b, t, h, dh)
+
+    def full(qq, mm, q_offset):
+        scores = torch.einsum("bshd,bthd->bhst", qq, k).float()
+        scores = scores / math.sqrt(dh)
+        if isinstance(mm, tuple):
+            # lazy causal/window mask: a bool predicate for this chunk's
+            # rows only, never a materialised [S, T] additive tensor
+            _, window = mm
+            qpos = q_offset + torch.arange(qq.shape[1],
+                                           device=qq.device)[:, None]
+            kpos = torch.arange(k.shape[1], device=qq.device)[None, :]
+            ok = kpos <= qpos
+            if window is not None:
+                ok = ok & (kpos > qpos - window)
+            scores = torch.where(ok[None, None], scores, NEG_INF)
+        elif mm is not None:
+            scores = scores + mm
+        probs = torch.softmax(scores, dim=-1).to(qq.dtype)
+        return torch.einsum("bhst,bthd->bshd", probs, v)
+
+    if s <= Q_CHUNK or s % Q_CHUNK != 0:
+        return full(q, mask, 0)
+
+    # long sequences: loop over query chunks (exact, bounded memory)
+    out = []
+    for off in range(0, s, Q_CHUNK):
+        mi = mask
+        if mask is not None and not isinstance(mask, tuple) \
+                and mask.shape[2] > 1:
+            mi = mask[:, :, off:off + Q_CHUNK]
+        out.append(full(q[:, off:off + Q_CHUNK], mi, off))
+    return torch.cat(out, dim=1)
+
+
+def attention(params: dict, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, mask, return_kv: bool = False):
+    """Self-attention over a full sequence. ``return_kv=True`` also
+    returns the rope'd K and V [B,T,Hkv,Dh]: exactly what decode writes
+    into its cache, so a prefill forward can dump a decode-ready
+    cache."""
+    q, k, v = _qkv(params, x, cfg)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    out = gqa_scores_apply(q, k, v, mask)
+    out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def attention_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor, pos, *,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """One-token decode. x: [B,1,D]; caches [B,T,Hkv,Dh], updated in
+    place; pos: an int (every row at the same depth) or a [B] int32
+    tensor of per-row depths (the engine's continuous batching).
+    ``pos`` is the index to write (= tokens already cached). Windowed
+    layers keep a ring of length T (write slot pos % T) and RoPE uses
+    absolute positions. Projections and RoPE are here; the append,
+    mask and contraction are ``ops.attention_decode`` (the Hopper
+    kernel on CUDA). Returns out [B,1,D]."""
+    b = x.shape[0]
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        posv = pos
+    else:
+        posv = torch.full((b,), int(pos), dtype=torch.int32,
+                          device=x.device)
+    q, k, v = _qkv(params, x, cfg)
+    posb = posv[:, None]
+    q = rope(q, posb, cfg.rope_theta)
+    k = rope(k, posb, cfg.rope_theta)
+    out = ops.attention_decode(q, k, v, k_cache, v_cache, posv,
+                               window=window)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+
+
+# --------------------------------------------------------------------------
+# MLP / embeddings
+# --------------------------------------------------------------------------
+
+def mlp(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    h = x @ params["wi"].to(x.dtype)
+    if cfg.act == "silu":
+        g = x @ params["wg"].to(x.dtype)
+        h = F.silu(g) * h
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(h, approximate="tanh")
+    return h @ params["wo"].to(x.dtype)
+
+
+def embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor
+          ) -> torch.Tensor:
+    x = params["table"][tokens].to(cfg.cdtype)
+    return x * math.sqrt(cfg.d_model)
+
+
+def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor
+            ) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        w = params["table"].to(x.dtype).T
+    else:
+        w = params["head"].to(x.dtype)
+    return x @ w

@@ -1,0 +1,77 @@
+"""Serving: batched prefill + autoregressive decode with KV caches.
+
+``prefill`` is single-shot: ONE full-sequence ``model.prefill`` forward
+that emits the last-position logits and the populated KV cache.
+``prefill_reference`` streams the prompt token by token through
+``decode_step``: the oracle the tests hold the batched path against.
+``generate`` is the per-request host loop; the continuous-batching
+scheduler lives in :mod:`repro_torch.serving.engine`.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import device as _device
+from repro_torch.models.registry import Model
+
+
+def make_serve_step(model: Model) -> Callable:
+    """(params, cache, tokens [B,1], pos) -> (next_tokens [B,1], cache)."""
+
+    def serve_step(params, cache, tokens, pos):
+        logits, cache = model.decode_step(params, cache, tokens, pos)
+        nxt = torch.argmax(logits[:, -1:], dim=-1)
+        return nxt.to(torch.int32), cache
+
+    return serve_step
+
+
+def prefill_reference(model: Model, params, tokens: torch.Tensor,
+                      max_len: int):
+    """Token-by-token prefill through decode_step: O(seq_len) steps,
+    kept ONLY as the parity oracle of the batched ``prefill``."""
+    b, s = tokens.shape
+    cache = model.init_cache(params, b, max_len)
+    last = None
+    for t in range(s):
+        last, cache = model.decode_step(params, cache,
+                                        tokens[:, t:t + 1], t)
+    return last, cache
+
+
+def prefill(model: Model, params, tokens: torch.Tensor, max_len: int):
+    """Batched prefill: (last-position logits [B,1,V], cache)."""
+    b, s = tokens.shape
+    last = torch.full((b,), s - 1, dtype=torch.int64,
+                      device=tokens.device)
+    return model.prefill(params, tokens, max_len, logits_at=last)
+
+
+def generate(model: Model, params, prompt, *, num_tokens: int,
+             max_len: Optional[int] = None, temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None,
+             device="cuda") -> torch.Tensor:
+    """Greedy/temperature generation on ``device`` (where ``params``
+    must lie). prompt: [B, S] ints -> [B, num_tokens] int32."""
+    dev = _device.resolve(device)
+    prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int64,
+                             device=dev)
+    b, s = prompt.shape
+    max_len = max_len or (s + num_tokens)
+    logits, cache = prefill(model, params, prompt, max_len)
+    out = []
+    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    for i in range(num_tokens):
+        out.append(tok)
+        logits, cache = model.decode_step(params, cache, tok, s + i)
+        lg = logits[:, -1]
+        if temperature > 0 and generator is not None:
+            probs = torch.softmax(lg.float() / temperature, dim=-1)
+            tok = torch.multinomial(probs, 1, generator=generator)
+        else:
+            tok = torch.argmax(lg, dim=-1)[:, None]
+        tok = tok.to(torch.int32)
+    return torch.cat(out, dim=1)

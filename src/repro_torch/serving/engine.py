@@ -1,0 +1,325 @@
+"""Continuous-batching LM serving engine.
+
+One :class:`Engine` owns a fixed-slot decode batch (``ServeConfig.
+slots`` rows, ``max_len`` cache entries each — the
+:class:`~repro_torch.serving.kv_cache.PagedKVCache` pool), a waiting
+queue, and one decode step. Requests are admitted into free slots via
+single-shot batched prefill (``model.prefill``: one full-sequence
+forward + KV dump, padded to power-of-two length/count buckets), then
+every ``step()`` advances ALL occupied slots one token in one decode
+call — requests enter and leave mid-flight without changing any
+device shape:
+
+* the cache is always ``[slots, T]`` per layer and decode appends into
+  it in place (on CUDA, inside the Hopper decode kernel),
+* per-slot depths ride in as a ``[slots]`` int32 position tensor on
+  the device,
+* free slots decode garbage that is never read (their mask attends
+  position 0 only; admission overwrites the whole slot row).
+
+``stats()["kernel_launches"]`` counts the decode-attention kernel
+launches this engine's decode steps made (``kernels.ops.launches``);
+it stays 0 on the CPU, where the plain version runs.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from repro_torch import device as _device
+from repro_torch.configs.base import torch_dtype
+from repro_torch.kernels import ops
+from repro_torch.models.registry import get_model
+from repro_torch.obs import trace
+from repro_torch.serving import sampling
+from repro_torch.serving.kv_cache import PagedKVCache
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """The one public serving configuration.
+
+    slots: decode-batch width (concurrent in-flight requests).
+    max_len: KV cache entries per slot; every request must satisfy
+        ``prompt_len + max_new_tokens <= max_len``.
+    page_size: KV page granularity (tokens); ``max_len`` must divide
+        into whole pages.
+    prefill_batch: max requests admitted in one batched prefill.
+    sampling: :class:`SamplingParams` (default greedy).
+    cache_dtype: KV pool storage dtype override (e.g. "bfloat16" to
+        halve pool bytes; decode accumulates in f32 either way).
+    """
+    slots: int = 8
+    max_len: int = 256
+    page_size: int = 16
+    prefill_batch: int = 4
+    sampling: sampling.SamplingParams = dataclasses.field(
+        default_factory=sampling.SamplingParams)
+    cache_dtype: Optional[str] = None
+
+    def __post_init__(self):
+        if self.slots < 1:
+            raise ValueError(f"slots must be >= 1, got {self.slots}")
+        if self.cache_dtype is not None:
+            torch_dtype(self.cache_dtype)      # raises ValueError
+        if self.page_size < 1:
+            raise ValueError(
+                f"page_size must be >= 1, got {self.page_size}")
+        if self.max_len < 1 or self.max_len % self.page_size:
+            raise ValueError(
+                f"max_len ({self.max_len}) must be a positive multiple "
+                f"of page_size ({self.page_size})")
+        if self.prefill_batch < 1:
+            raise ValueError(
+                f"prefill_batch must be >= 1, got {self.prefill_batch}")
+
+
+@dataclasses.dataclass
+class Request:
+    id: int
+    prompt: np.ndarray                 # [S] int32
+    max_new_tokens: int
+    submitted: float                   # perf_counter
+    tokens: list = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class RequestResult:
+    id: int
+    prompt: np.ndarray
+    tokens: list                       # generated ids (ints)
+    prompt_len: int
+    finished: bool                     # False = evicted mid-flight
+    submitted: float
+    completed: float
+
+    @property
+    def latency_s(self) -> float:
+        return self.completed - self.submitted
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+class Engine:
+    """``submit`` / ``step`` / ``drain`` — the whole public surface.
+
+    ``submit`` enqueues a request and returns its id; ``step`` runs one
+    scheduler iteration (admit waiting requests into free slots via
+    batched prefill, then one decode step over the full slot batch) and
+    returns the requests that finished during it; ``drain`` steps until
+    the engine is empty and returns every finished result. ``params``
+    must lie on ``device``.
+    """
+
+    def __init__(self, model, params, config: ServeConfig, *,
+                 device="cuda", tracer=None):
+        dev = _device.resolve(device)
+        pdev = params["embed"]["table"].device
+        if pdev.type != dev.type or (
+                dev.index is not None and pdev.index != dev.index):
+            raise ValueError(f"params lie on {pdev}, engine device is "
+                             f"{dev}")
+        if config.cache_dtype:
+            model = get_model(model.cfg.replace(
+                kv_cache_dtype=config.cache_dtype))
+        self.device = pdev
+        self.tracer = trace.NULL if tracer is None else tracer
+        self.model = model
+        self.params = params
+        self.config = config
+        # an admission batch can never exceed the free slots
+        self._prefill_cap = min(config.prefill_batch, config.slots)
+        self._kv = PagedKVCache(model, params, config)
+        self._pos = np.zeros(config.slots, np.int32)
+        self._tok = np.zeros(config.slots, np.int32)
+        self._active: list = [None] * config.slots
+        self._free = list(range(config.slots - 1, -1, -1))
+        self._waiting: collections.deque = collections.deque()
+        self._results: dict[int, RequestResult] = {}
+        self._next_id = 0
+        self._steps = 0
+        self._decode_steps = 0
+        self._kernel_launches = 0
+        self._tokens_generated = 0
+        self._gen = torch.Generator(device=pdev)
+        self._gen.manual_seed(config.sampling.seed)
+        self._sampler = sampling.make_sampler(config.sampling)
+
+    # -- public API -------------------------------------------------------
+
+    def submit(self, prompt: Union[Sequence[int], np.ndarray], *,
+               max_new_tokens: int = 16) -> int:
+        """Enqueue one request; returns its id (admission happens at
+        the next ``step``)."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError("prompt must hold at least one token")
+        if max_new_tokens < 1:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        if prompt.size + max_new_tokens > self.config.max_len:
+            raise ValueError(
+                f"prompt ({prompt.size}) + max_new_tokens "
+                f"({max_new_tokens}) exceeds max_len "
+                f"{self.config.max_len}")
+        rid = self._next_id
+        self._next_id += 1
+        self._waiting.append(Request(rid, prompt, max_new_tokens,
+                                     time.perf_counter()))
+        return rid
+
+    def step(self) -> list[RequestResult]:
+        """One scheduler iteration: admit -> decode -> finish.
+
+        Each phase records a trace-v1 span (``admit`` wraps the
+        scheduler move incl. the ``prefill`` device work inside it;
+        ``decode`` is the asynchronous dispatch, ``sample`` the device
+        sync that brings the sampled tokens to the host, ``finish`` the
+        host bookkeeping)."""
+        tr = self.tracer
+        with tr.span("admit", step=self._steps,
+                     waiting=len(self._waiting)):
+            finished = self._admit()
+        if any(r is not None for r in self._active):
+            tok = torch.tensor(self._tok[:, None], device=self.device)
+            pos = torch.tensor(self._pos, device=self.device)
+            with tr.span("decode", step=self._steps,
+                         active=self.active_count):
+                before = ops.launches["attention_decode"]
+                logits, self._kv.cache = self.model.decode_step(
+                    self.params, self._kv.cache, tok, pos)
+                nxt = self._sampler(logits[:, -1], self._gen)
+                self._kernel_launches += \
+                    ops.launches["attention_decode"] - before
+            with tr.span("sample", step=self._steps):
+                nxt = nxt.cpu().numpy()
+            self._decode_steps += 1
+            with tr.span("finish", step=self._steps):
+                for s, req in enumerate(self._active):
+                    if req is None:
+                        continue
+                    req.tokens.append(int(nxt[s]))
+                    self._tok[s] = nxt[s]
+                    self._pos[s] += 1
+                    self._tokens_generated += 1
+                    self._kv.table.ensure(s, int(self._pos[s]) + 1)
+                    if len(req.tokens) >= req.max_new_tokens:
+                        finished.append(self._finish(s, done=True))
+        self._steps += 1
+        return finished
+
+    def drain(self) -> list[RequestResult]:
+        """Step until no request is waiting or in flight; returns every
+        result that finished during the drain."""
+        budget = 64 + sum(r.max_new_tokens for r in self._waiting) \
+            + sum(r.max_new_tokens for r in self._active
+                  if r is not None)
+        out: list[RequestResult] = []
+        while self._waiting or any(r is not None for r in self._active):
+            out.extend(self.step())
+            budget -= 1
+            if budget < 0:
+                raise RuntimeError(
+                    "drain did not converge — scheduler bug (a step "
+                    "must either admit or generate)")
+        return out
+
+    def evict(self, request_id: int) -> RequestResult:
+        """Abort an in-flight (or waiting) request, freeing its slot
+        and pages; the partial result is marked unfinished."""
+        for s, req in enumerate(self._active):
+            if req is not None and req.id == request_id:
+                return self._finish(s, done=False)
+        for req in list(self._waiting):
+            if req.id == request_id:
+                self._waiting.remove(req)
+                res = RequestResult(req.id, req.prompt, req.tokens,
+                                    int(req.prompt.size), False,
+                                    req.submitted, time.perf_counter())
+                self._results[req.id] = res
+                return res
+        raise KeyError(f"no waiting or in-flight request {request_id}")
+
+    def result(self, request_id: int) -> RequestResult:
+        return self._results[request_id]
+
+    # -- scheduler internals ----------------------------------------------
+
+    def _admit(self) -> list[RequestResult]:
+        """Move waiting requests into free slots through ONE batched
+        prefill (padded to pow2 count/length buckets)."""
+        batch: list[tuple[Request, int]] = []
+        while self._waiting and self._free \
+                and len(batch) < self._prefill_cap:
+            batch.append((self._waiting.popleft(), self._free.pop()))
+        if not batch:
+            return []
+        nb = min(_next_pow2(len(batch)), self._prefill_cap)
+        nb = max(nb, len(batch))
+        max_prompt = max(r.prompt.size for r, _ in batch)
+        lb = min(max(_next_pow2(max_prompt), self.config.page_size),
+                 self.config.max_len)
+        lb = max(lb, max_prompt)
+        tokens = np.zeros((nb, lb), np.int64)
+        lens = np.ones(nb, np.int64)
+        for i, (req, _) in enumerate(batch):
+            tokens[i, :req.prompt.size] = req.prompt
+            lens[i] = req.prompt.size
+        with self.tracer.span("prefill", step=self._steps, batch=nb,
+                              length=lb):
+            lens_t = torch.tensor(lens, device=self.device)
+            logits, pf_cache = self.model.prefill(
+                self.params, torch.tensor(tokens, device=self.device),
+                self.config.max_len, lens_t, logits_at=lens_t - 1)
+            first = self._sampler(logits[:, 0], self._gen).cpu().numpy()
+        finished = []
+        for i, (req, slot) in enumerate(batch):
+            self._kv.insert(pf_cache, i, slot)
+            self._kv.table.ensure(slot, int(req.prompt.size) + 1)
+            self._pos[slot] = req.prompt.size
+            self._tok[slot] = first[i]
+            req.tokens.append(int(first[i]))
+            self._tokens_generated += 1
+            self._active[slot] = req
+            if len(req.tokens) >= req.max_new_tokens:
+                finished.append(self._finish(slot, done=True))
+        return finished
+
+    def _finish(self, slot: int, *, done: bool) -> RequestResult:
+        req = self._active[slot]
+        self._active[slot] = None
+        self._free.append(slot)
+        self._kv.table.release(slot)
+        self._pos[slot] = 0
+        self._tok[slot] = 0
+        res = RequestResult(req.id, req.prompt, req.tokens,
+                            int(req.prompt.size), done, req.submitted,
+                            time.perf_counter())
+        self._results[req.id] = res
+        return res
+
+    # -- introspection ----------------------------------------------------
+
+    @property
+    def active_count(self) -> int:
+        return sum(r is not None for r in self._active)
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self._waiting)
+
+    def stats(self) -> dict:
+        return {"steps": self._steps,
+                "decode_steps": self._decode_steps,
+                "tokens_generated": self._tokens_generated,
+                "active": self.active_count,
+                "waiting": self.queue_depth,
+                "kernel_launches": self._kernel_launches,
+                **self._kv.table.stats()}
