@@ -9,6 +9,8 @@ architecture:
     logits, cache = model.decode_step(params, cache, tokens, pos)
     logits, cache = model.prefill(params, tokens, max_len, lens,
                                   logits_at)
+    ce, aux = model.loss(params, batch)   # fused chunked CE head
+    segments = model.segments(params)     # the reference's leaves
 
 Only the dense family (including gemma3's local:global pattern) is
 ported; other families raise ``NotImplementedError``. ``decode_step``
@@ -22,7 +24,9 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import convert
 from repro_torch.models import transformer as T
+from repro_torch.training import losses
 
 
 class Model(NamedTuple):
@@ -33,6 +37,10 @@ class Model(NamedTuple):
     decode_step: Callable   # (params, cache, tokens, pos) -> (logits, cache)
     prefill: Callable       # (params, tokens, max_len, lens=None,
                             #  logits_at=None) -> (logits, cache)
+    loss: Callable          # (params, batch) -> (mean CE, aux): the
+                            #  chunked CE head, never whole logits
+    segments: Callable      # (params) -> [Segment]: the reference's
+                            #  stacked leaves, for the optimizer
 
 
 def get_model(cfg: ModelConfig) -> Model:
@@ -61,4 +69,15 @@ def get_model(cfg: ModelConfig) -> Model:
         return T.apply_lm_prefill(cfg, params, tokens, max_len, lens,
                                   logits_at)
 
-    return Model(cfg, init, apply, init_cache, decode_step, prefill)
+    def loss(params, batch: dict):
+        h, aux = T.apply_lm_hidden(cfg, params, batch["tokens"])
+        emb = params["embed"]
+        w = emb["table"].T if cfg.tie_embeddings else emb["head"]
+        ce = losses.fused_ce_from_hidden(h, w.to(h.dtype), batch["labels"])
+        return ce, aux
+
+    def segments(params):
+        return convert.segment_paths(cfg, params)
+
+    return Model(cfg, init, apply, init_cache, decode_step, prefill, loss,
+                 segments)

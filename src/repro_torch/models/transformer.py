@@ -13,9 +13,10 @@ for local layers); decode appends into it in place.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -98,6 +99,39 @@ def layer_apply(p: dict, cfg: ModelConfig, h: torch.Tensor,
 def _positions(tokens: torch.Tensor) -> torch.Tensor:
     b, s = tokens.shape
     return torch.arange(s, device=tokens.device)[None].expand(b, s)
+
+
+class LMAux(NamedTuple):
+    """MoE auxiliary losses; zero for the dense family (the reference's
+    ``zero_aux``)."""
+    load_balance_loss: torch.Tensor
+    router_z_loss: torch.Tensor
+
+
+def zero_aux(device) -> LMAux:
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return LMAux(z, z)
+
+
+def apply_lm_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor
+                    ) -> tuple[torch.Tensor, LMAux]:
+    """Backbone forward up to the final norm (no unembed): h [B,S,D]
+    and the (zero) MoE aux. With ``cfg.remat`` and gradients enabled,
+    each layer is checkpointed (its activations recomputed in the
+    backward), the counterpart of the reference's ``scan_layers``
+    remat; it changes no value."""
+    h = L.embed(params["embed"], cfg, tokens)
+    positions = _positions(tokens)
+    masks = _masks(cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for p, kind in zip(params["layers"], layer_kinds(cfg)):
+        if remat:
+            h = checkpoint(layer_apply, p, cfg, h, positions, masks[kind],
+                           use_reentrant=False)
+        else:
+            h = layer_apply(p, cfg, h, positions, masks[kind])
+    return L.rmsnorm(params["final_norm"], h, cfg.norm_eps), \
+        zero_aux(h.device)
 
 
 def apply_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor

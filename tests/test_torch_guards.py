@@ -152,3 +152,104 @@ def test_unported_archs_and_families_raise():
         get_config("no-such-arch")
     with pytest.raises(NotImplementedError):
         get_model(get_config("gemma3-12b").replace(family="moe"))
+
+
+# ---------------------------------------------------------------------------
+# the training slice
+# ---------------------------------------------------------------------------
+
+TRAINING_MODULES = [
+    "core/api.py", "core/base.py", "core/flatten.py",
+    "core/instrumentation.py", "core/labels.py", "core/lamb.py",
+    "core/lars.py", "core/layerwise.py", "core/schedules.py",
+    "core/sgd.py", "core/tvlars.py", "data/synthetic.py",
+    "kernels/ref.py", "kernels/segmented_update.py", "launch/train.py",
+    "obs/layerwise.py", "training/losses.py", "training/tasks.py",
+    "training/train_state.py", "training/trainer.py"]
+
+
+def test_import_scan_covers_training_modules():
+    scanned = {f.relative_to(PORT).as_posix() for f in PORT.rglob("*.py")}
+    assert set(TRAINING_MODULES) <= scanned
+    for rel in TRAINING_MODULES:
+        for name in _imported_modules(PORT / rel):
+            assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+                f"{rel} imports {name}"
+
+
+def test_train_launcher_refuses_cuda_without_it(no_cuda):
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.run(["--smoke", "--steps", "1"])          # default device
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.run(["--smoke", "--steps", "1", "--device", "cuda"])
+
+
+def test_fused_optimizer_refuses_cuda_without_it(no_cuda):
+    from repro_torch.core import build_optimizer
+    for name in ("tvlars", "lamb", "wa-lars"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build_optimizer(name, total_steps=4, use_kernel="fused")
+    # the tree path runs on the params' device and builds anywhere
+    build_optimizer("tvlars", total_steps=4)
+
+
+def test_per_tensor_raises_instead_of_falling_back():
+    from repro_torch.core import build_optimizer
+    with pytest.raises(NotImplementedError, match="lars_update.py"):
+        build_optimizer("wa-lars", total_steps=4, use_kernel="per_tensor",
+                        device="cpu")
+
+
+def _seg_operands(device="cpu"):
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn(16, 128, generator=g)
+    grad = torch.randn(16, 128, generator=g)
+    m = torch.zeros(16, 128)
+    ids = torch.tensor([0] * 5 + [1] * 11, dtype=torch.int32)
+    return [x.to(device) for x in (w, grad, m, ids)]
+
+
+def _seg_kwargs(ids, device="cpu"):
+    return dict(seg_ids=ids, adapt_mask=torch.tensor([True, False],
+                                                     device=device),
+                base_lr=0.5, mode="lars", eta=1e-3, weight_decay=5e-4,
+                momentum=0.9, b1=0.9, b2=0.999, eps=1e-9)
+
+
+def test_segmented_update_dispatch_counts_only_kernel_launches():
+    from repro_torch.kernels import segmented_update as su
+    before = dict(ops.launches)
+    w, g, m, ids = _seg_operands()
+    want = su.segmented_update_ref(w, g, (m.clone(),), **_seg_kwargs(ids))
+    bufs, delta = ops.segmented_update(w, g, (m,), **_seg_kwargs(ids))
+    assert torch.equal(delta, want[1]) and torch.equal(m, want[0][0])
+    assert ops.launches == before                 # plain path: no launch
+    w, g, m, ids = _seg_operands("meta")
+    with pytest.raises(RuntimeError, match="no implementation"):
+        ops.segmented_update(w, g, (m,), **_seg_kwargs(ids, "meta"))
+
+
+def test_segmented_cuda_wrappers_refuse_cpu_tensors_before_building(
+        monkeypatch):
+    from repro_torch.kernels import segmented_update as su
+
+    def no_build(name):
+        raise AssertionError("must not build for a refused call")
+    monkeypatch.setattr(_build, "load", no_build)
+    w, g, m, ids = _seg_operands()
+    with pytest.raises(ValueError, match="CUDA device"):
+        su.seg_norm_cuda(w, g, (m,), ids, 2, mode="lars",
+                         weight_decay=5e-4)
+    with pytest.raises(ValueError, match="CUDA device"):
+        su.seg_apply_cuda(w, g, (m,), ids, torch.ones(2, 2), mode="lars")
+    with pytest.raises(ValueError, match="CUDA device"):
+        su.segmented_update_cuda(w, g, (m,), **_seg_kwargs(ids))
+
+
+def test_segmented_library_is_keyed_on_source_hash(tmp_path, monkeypatch):
+    first = _build.library_path("segmented_update")
+    assert first != _build.library_path("attention_decode")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "segmented_update.cu").write_text("// edited\n")
+    assert _build.library_path("segmented_update").name != first.name
