@@ -28,6 +28,20 @@ script exits non-zero:
    version and bitwise equal over two launches; pass 2 fed the
    kernel's own table bitwise equal to the plain version. Times both
    passes, kernel and plain, beside their bounds;
+3c. the two per-tensor LARS kernels against their plain versions on
+   qwen2.5-3b's 14 kernel segments with the group axis cut to 4 layers,
+   on the CNN's 16 ADAPT leaves (init_cnn defaults) and on edge sizes
+   (9 elements, unaligned, 40 members of 35), bf16, f32 and bf16 w
+   with f32 g, heavy ball and nesterov: norms within ``LARS_NORM_RTOL`` and bitwise
+   repeatable, the apply fed the kernel's sums bitwise equal (momentum,
+   delta, telemetry). Times both beside their bounds;
+3d. RMSNorm against its plain version at gemma3-12b prefill (16,384 x
+   3840) and qwen2.5-3b (4,096 x 2048) shapes in bf16 and f32 and at
+   d 128-8192 (f16 too): within ``rmsnorm_tolerance``, bitwise
+   repeatable; its path is the public ``ops.rmsnorm`` (no model calls
+   it, as in the JAX package), driven once per main shape with counts
+   at 0; kernel, plain and one ``F.rms_norm`` call (a yardstick only)
+   timed beside the bound;
 4. serving at full width: gemma3-12b, all 48 layers, bf16, random
    weights from seed 0 on the card, ``ServeConfig(slots=8,
    max_len=2048, page_size=16)``; 12 requests (more than the slots)
@@ -52,9 +66,24 @@ script exits non-zero:
    table (bitwise). Prints the per-step loss+grad / optimizer split
    and peak memory, then times both kernels and their plain versions
    on the run's own buffers (the main path's shapes);
-8. the qwen2.5-3b smoke LM in f32: 3 fused TVLARS and 3 fused LAMB
-   steps on the card against the CPU's plain path, same weights and
-   batches.
+7c. the same model through ``launch.train.run`` with WA-LARS
+   ``--use-kernel per_tensor`` (f32 momentum, bf16 weights, global
+   batch 8 x 512, 3 steps): exactly 14 launches of each per-tensor
+   kernel per step; at the last step every segment's norms against
+   ``torch.linalg.vector_norm``, its telemetry against the plain ratio
+   and 4,096 elements of its momentum and delta against the plain
+   apply (bitwise); split, peak memory, both kernels timed on the run's
+   own tensors;
+8. the qwen2.5-3b smoke LM in f32: 3 fused TVLARS, 3 fused LAMB and
+   (8b) 3 per-tensor WA-LARS steps on the card against the CPU's plain
+   path, same weights and batches;
+9. the paper's loop on the card: ``launch.classify.run_classification``
+   (B=1024, 200 steps, γ_target 1.0) and ``run_ssl`` (B=512, 120 + 80
+   steps) for WA-LARS, NOWA-LARS, LAMB and TVLARS, with accuracies, LNR
+   summaries and whether the reference's ordering holds (reported);
+   the CNN at init_cnn defaults, 20 WA-LARS steps through the
+   per-tensor kernels (2 launches per ADAPT leaf per step), each
+   step's update against the tree path's from the same state.
 
 The last lines are the ``nvidia-smi`` line, one JSON object describing
 each kernel, and ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -65,6 +94,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -679,6 +709,299 @@ def time_seg(su, spec, w, g, bufs, ids, table, mode, sr,
     return out
 
 
+# --------------------------------------------------------------------------
+# the third slice: the per-tensor LARS kernels and RMSNorm
+# --------------------------------------------------------------------------
+
+LARS_KERNELS = {
+    "lars_norm2": "src/repro/kernels/lars_update.py:61",
+    "lars_apply": "src/repro/kernels/lars_update.py:76",
+}
+LARS_SOURCE = "src/repro_torch/kernels/csrc/lars_update.cu"
+RMS_REPLACES = "src/repro/kernels/rmsnorm.py:24"
+RMS_SOURCE = "src/repro_torch/kernels/csrc/rmsnorm.cu"
+LARS_HYPER = dict(eta=1e-3, weight_decay=5e-4, momentum_mu=0.9, eps=1e-9)
+# the per-tensor norm against its plain version: positive terms summed
+# in other orders (kernel: <= 32 per thread, a butterfly, 8 warps, then
+# <= ceil(chunks / 256) partials per thread, 8 warps; plain: PyTorch's
+# tree reduction), so the relative error is at most the depth times
+# 2^-24: about 2e-5 for the 311M-element embedding. Stated bound:
+LARS_NORM_RTOL = 1e-4
+LARS_FLOPS = {"norm": 4, "apply": 7}   # f32 operations per element
+
+
+def lars_bound(lu, which: str, ws, gs) -> dict:
+    """Least time of one launch over these members: the bytes it must
+    move against its f32 operations."""
+    n = sum(w.numel() for w in ws)
+    moved = lu.norm_bytes(ws, gs) if which == "norm" \
+        else lu.apply_bytes(ws, gs)
+    flops = LARS_FLOPS[which] * n
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOP_PER_S * 1e3
+    return {"bytes": moved, "flops": flops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def lars_case(lu, sref, ws, gs, ms, base_lr, nesterov: bool) -> dict:
+    """One segment, kernel against plain: the norm repeats bitwise and
+    lies within LARS_NORM_RTOL of the plain sums; the apply fed the
+    kernel's sums is bitwise equal to the plain apply (momentum, delta
+    and the telemetry triple)."""
+    s1 = lu.lars_norm2_cuda(ws, gs)
+    s2 = lu.lars_norm2_cuda(ws, gs)
+    sp = sref.lars_norm2(ws, gs)
+    torch.cuda.synchronize()
+    if not torch.equal(s1, s2):
+        raise AssertionError("per-tensor norm differs between two launches")
+    if not torch.isfinite(s1).all():
+        raise AssertionError("per-tensor norm is not finite")
+    rel = ((s1 - sp).abs() / sp.abs().clamp_min(1e-30)).max().item()
+    if rel > LARS_NORM_RTOL:
+        raise AssertionError(f"per-tensor norm {rel:.3e} relative from the "
+                             f"plain version (bound {LARS_NORM_RTOL})")
+    km = [m.clone() for m in ms]
+    kd, kstats = lu.lars_apply_cuda(ws, gs, km, s1, base_lr=base_lr,
+                                    nesterov=nesterov, stats=True,
+                                    **LARS_HYPER)
+    wn, gn, ratio, scale = sref.lars_ratio(
+        s1, base_lr, eta=LARS_HYPER["eta"],
+        weight_decay=LARS_HYPER["weight_decay"], eps=LARS_HYPER["eps"])
+    apply_abs = 0.0
+    same = torch.equal(kstats, torch.stack([wn, gn, ratio]))
+    for w, g, m, a, d in zip(ws, gs, ms, km, kd):
+        pm, pd = sref.lars_apply(w, g, m, scale,
+                                 weight_decay=LARS_HYPER["weight_decay"],
+                                 momentum_mu=LARS_HYPER["momentum_mu"],
+                                 nesterov=nesterov)
+        apply_abs = max(apply_abs, (pd - d).abs().max().item(),
+                        (pm - a).abs().max().item())
+        same = same and torch.equal(pm, a) and torch.equal(pd, d)
+    if not same:
+        raise AssertionError(f"per-tensor apply differs from the plain "
+                             f"version ({apply_abs:.3e})")
+    return {"norm_abs": (s1 - sp).abs().max().item(), "norm_rel": rel,
+            "apply_abs": apply_abs}
+
+
+# w / g dtypes of the per-tensor check: the bf16 weights and gradients
+# of the full-width run, f32, and bf16 weights with f32 gradients (the
+# accumulated gradients of a run with microbatches)
+LARS_DTYPES = {"bf16": (torch.bfloat16, torch.bfloat16),
+               "f32": (torch.float32, torch.float32),
+               "bf16-w f32-g": (torch.bfloat16, torch.float32)}
+
+
+def lars_members(shapes_counts, wdtype, gdtype, gen) -> list:
+    """[(ws, gs, ms)] random members on the card: w ~ 0.02 at
+    ``wdtype``, g ~ 1e-3 at ``gdtype``, f32 momentum ~ 1e-3."""
+    out = []
+    for shape, count in shapes_counts:
+        def rand(scale, dt):
+            return [(torch.randn(shape, generator=gen, device=DEV)
+                     * scale).to(dt) for _ in range(count)]
+        out.append((rand(0.02, wdtype), rand(1e-3, gdtype),
+                    rand(1e-3, torch.float32)))
+    return out
+
+
+def phase_lars_kernels(lu, sref, flatten, layerwise, convert, get_config,
+                       cnn, tree_leaves) -> dict:
+    """3c: the per-tensor kernels against their plain versions on
+    qwen2.5-3b's kernel segments with the group axis cut to
+    KERNEL_GROUPS layers, and on the CNN's leaves (init_cnn defaults)
+    plus edge sizes (9 elements, unaligned, 40 members of 35)."""
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    cfg = get_config("qwen2.5-3b").replace(num_layers=KERNEL_GROUPS)
+    tree = qwen_tree(cfg, KERNEL_GROUPS)
+    spec = flatten.build_spec(tree, segments=lambda p:
+                              convert.segment_paths(cfg, p))
+    names = set(layerwise.kernel_segments(spec))
+    qwen = [(tuple(spec.shapes[i][1:]) if len(paths) > 1
+             else tuple(spec.shapes[i]), len(paths))
+            for i, (name, paths) in enumerate(zip(spec.names, spec.paths))
+            if name in names]
+    cnn_leaves = [(tuple(x.shape), 1) for x in
+                  tree_leaves(cnn.init_cnn(0, device="cpu")) if x.dim() >= 2]
+    edges = [((9,), 1), ((3, 3), 1), ((8,), 1), ((13,), 3), ((129,), 2),
+             ((8193,), 2), ((5, 7), 40)]
+    base_lr = torch.tensor(0.35, device=DEV)
+    errs = {k: 0.0 for k in LARS_KERNELS}
+    norm_rel = 0.0
+    timing = {}
+    for label, cases in (("qwen2.5-3b x4", qwen), ("cnn", cnn_leaves),
+                         ("edges", edges)):
+        for dname, (wdtype, gdtype) in LARS_DTYPES.items():
+            segs = lars_members(cases, wdtype, gdtype, gen)
+            if label == "edges":      # an unaligned member: scalar path
+                buf = torch.randn(65, generator=gen, device=DEV)
+                segs.append(([buf[1:].to(wdtype)], [buf[:64] * 1e-3],
+                             [torch.randn(64, generator=gen, device=DEV)]))
+            for nesterov in (False, True):
+                for ws, gs, ms in segs:
+                    r = lars_case(lu, sref, ws, gs, ms, base_lr, nesterov)
+                    errs["lars_norm2"] = max(errs["lars_norm2"],
+                                             r["norm_abs"])
+                    errs["lars_apply"] = max(errs["lars_apply"],
+                                             r["apply_abs"])
+                    norm_rel = max(norm_rel, r["norm_rel"])
+            if label.startswith("qwen") and dname == "bf16":
+                timing = time_lars(lu, sref, [seg + (base_lr,)
+                                              for seg in segs])
+            print(f"kernel per-tensor {label} {dname}: "
+                  f"{len(segs)} segments of "
+                  f"{sum(len(s[0]) for s in segs)} members, heavy ball and "
+                  f"nesterov: norms repeat bitwise, apply bitwise equal "
+                  f"to plain", flush=True)
+            del segs
+            torch.cuda.empty_cache()
+    print(f"kernel per-tensor: norms within {norm_rel:.3e} relative of the "
+          f"plain version (bound {LARS_NORM_RTOL}); max abs err {errs}",
+          flush=True)
+    for which, t in timing.items():
+        print(f"  {which} bf16 at {KERNEL_GROUPS} layers, {t['launches']} "
+              f"segments: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}, {t['bytes']} B) per step", flush=True)
+    return {"max_abs_err": errs, "norm_rel": norm_rel, "timing": timing}
+
+
+def time_lars(lu, sref, segs, iters: int = 5, plain_iters: int = 1) -> dict:
+    """Kernel and plain times of both kernels on each segment ``(ws,
+    gs, ms, base_lr)`` beside its bound (the apply runs in place on the
+    segment's momentum: values no longer checked). Returns per kernel
+    the sums over the segments (one step's launches) and the rows."""
+    out = {}
+    for which in ("norm", "apply"):
+        rows = []
+        for ws, gs, ms, base_lr in segs:
+            sums = lu.lars_norm2_cuda(ws, gs)
+            if which == "norm":
+                kfn = (lambda ws=ws, gs=gs: lu.lars_norm2_cuda(ws, gs))
+                pfn = (lambda ws=ws, gs=gs: sref.lars_norm2(ws, gs))
+            else:
+                kfn = (lambda ws=ws, gs=gs, ms=ms, sums=sums, lr=base_lr:
+                       lu.lars_apply_cuda(ws, gs, ms, sums, base_lr=lr,
+                                          **LARS_HYPER))
+                pfn = (lambda ws=ws, gs=gs, ms=ms, sums=sums, lr=base_lr:
+                       plain_apply(sref, ws, gs, ms, sums, lr))
+            b = lars_bound(lu, which, ws, gs)
+            b.update(ms=time_ms(kfn, iters), plain_ms=time_ms(pfn,
+                                                               plain_iters),
+                     ops_ms=b["flops"] / F32_FLOP_PER_S * 1e3,
+                     elements=sum(w.numel() for w in ws))
+            rows.append(b)
+        tot = {k: sum(r[k] for r in rows)
+               for k in ("ms", "plain_ms", "bound_ms", "bytes", "ops_ms")}
+        tot.update(launches=len(rows), rows=rows,
+                   bound_by="bytes" if tot["bound_ms"] > tot["ops_ms"]
+                   else "operations")
+        out[which] = tot
+    return out
+
+
+def plain_apply(sref, ws, gs, ms, sums, base_lr, nesterov=False):
+    """The plain apply of one segment (ratio from the sums, then each
+    member), as the kernel computes it."""
+    _, _, _, scale = sref.lars_ratio(
+        sums, base_lr, eta=LARS_HYPER["eta"],
+        weight_decay=LARS_HYPER["weight_decay"], eps=LARS_HYPER["eps"])
+    return [sref.lars_apply(w, g, m, scale,
+                            weight_decay=LARS_HYPER["weight_decay"],
+                            momentum_mu=LARS_HYPER["momentum_mu"],
+                            nesterov=nesterov)
+            for w, g, m in zip(ws, gs, ms)]
+
+
+# RMSNorm at the shapes of the two configurations: gemma3-12b prefill
+# (8 x 2048 rows of 3840) and qwen2.5-3b training (8 x 512 rows of 2048)
+RMS_MAIN = [((8, 2048, 3840), torch.bfloat16), ((8, 2048, 3840),
+                                                torch.float32),
+            ((8, 512, 2048), torch.bfloat16), ((8, 512, 2048),
+                                               torch.float32)]
+RMS_EXTRA = [((5, 128), torch.bfloat16), ((3, 640), torch.float32),
+             ((4, 8192), torch.bfloat16), ((2, 3, 1024), torch.float16)]
+
+
+def ulp_gap(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in units of the last place between two tensors
+    of one float dtype (same-sign values; 0 for equal)."""
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.float16: torch.int16}[a.dtype]
+    ia = a.contiguous().view(bits).long()
+    ib = b.contiguous().view(bits).long()
+    return int((ia - ib).abs().max().item())
+
+
+def phase_rmsnorm(rms, sref, ops) -> dict:
+    """3d: RMSNorm against its plain version, repeated bitwise, at the
+    shapes of RMS_MAIN and RMS_EXTRA; then its path, the public
+    ``ops.rmsnorm`` driven once at each RMS_MAIN shape with the counts
+    at 0; kernel, plain and one ``F.rms_norm`` call (the yardstick: the
+    port never calls it) timed beside the bound."""
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    eps = 1e-6
+    inputs = []
+    max_err, worst_ulp = 0.0, {}
+    for shape, dtype in RMS_MAIN + RMS_EXTRA:
+        d = shape[-1]
+        x = (torch.randn(shape, generator=gen, device=DEV) * 3.0).to(dtype)
+        w = (torch.randn((d,), generator=gen, device=DEV) * 0.2).to(dtype)
+        y1 = rms.rmsnorm_cuda(x, w, eps=eps)
+        y2 = rms.rmsnorm_cuda(x, w, eps=eps)
+        yp = sref.rmsnorm_ref(x, w, eps=eps)
+        torch.cuda.synchronize()
+        if not torch.equal(y1, y2):
+            raise AssertionError(f"rmsnorm {shape} {dtype}: differs between "
+                                 f"two launches")
+        if not torch.isfinite(y1.float()).all():
+            raise AssertionError(f"rmsnorm {shape} {dtype}: not finite")
+        torch.testing.assert_close(y1.float(), yp.float(),
+                                   **rms.rmsnorm_tolerance(dtype))
+        max_err = max(max_err, (y1.float() - yp.float()).abs().max().item())
+        key = str(dtype).split(".")[-1]
+        worst_ulp[key] = max(worst_ulp.get(key, 0), ulp_gap(y1, yp))
+        if (shape, dtype) in RMS_MAIN:
+            inputs.append((x, w))
+    print(f"kernel rmsnorm: {len(RMS_MAIN) + len(RMS_EXTRA)} shapes "
+          f"(d 128-8192, f32 / bf16 / f16) repeat bitwise, within "
+          f"rmsnorm_tolerance of plain; max abs err {max_err:.3e}, worst "
+          f"ulp gap {worst_ulp}", flush=True)
+    ops.reset_launches()
+    for x, w in inputs:
+        ops.rmsnorm(x, w, eps=eps)
+    torch.cuda.synchronize()
+    launches = ops.launches["rmsnorm"]
+    if launches != len(inputs) or sum(ops.launches.values()) != launches:
+        raise AssertionError(f"ops.rmsnorm path: launches {ops.launches}")
+    rows = []
+    for (x, w), (shape, dtype) in zip(inputs, RMS_MAIN):
+        d = shape[-1]
+        w1 = (1.0 + w.float()).to(dtype)
+        moved = rms.rmsnorm_bytes(x, w)
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = 5 * x.numel() / F32_FLOP_PER_S * 1e3
+        row = {"ms": time_ms(lambda: rms.rmsnorm_cuda(x, w, eps=eps), 50),
+               "plain_ms": time_ms(lambda: sref.rmsnorm_ref(x, w, eps=eps),
+                                   10),
+               "library_ms": time_ms(
+                   lambda: torch.nn.functional.rms_norm(x, (d,), w1, eps),
+                   50),
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        rows.append(row)
+        print(f"  rmsnorm {tuple(shape)} {str(dtype).split('.')[-1]}: "
+              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"F.rms_norm {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}, {moved} B)",
+              flush=True)
+    mean = {k: sum(r[k] for r in rows) / len(rows)
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {"launches": launches, "max_abs_err": max_err, "rows": rows,
+            "mean": mean, "worst_ulp": worst_ulp}
+
+
 class LastStepCheck:
     """Stands in for ``ops.segmented_update`` during a training run and,
     at the run's last optimizer step, checks the kernels on the real
@@ -853,26 +1176,179 @@ def phase_train_full(run, ops, su, sref, tree_leaves, argv: list,
     return res
 
 
+class LarsLastStepCheck:
+    """Stands in for ``ops.lars_update`` during a per-tensor training run
+    and checks each kernel segment at the run's last optimizer step: a
+    norm launch of its own (a comparison launch, not counted) must give
+    the sums whose square roots lie within LARS_NORM_RTOL of
+    ``torch.linalg.vector_norm`` of the members, the telemetry triple of
+    the counted launches must equal the plain ratio from those sums, and
+    4,096 random elements of the new momentum and the delta must equal
+    the plain apply on the same sums (bitwise). Keeps the last step's
+    segments for timing."""
+
+    def __init__(self, real, lu, sref, steps: int, n_segments: int):
+        self.real, self.lu, self.sref = real, lu, sref
+        self.last_from = (steps - 1) * n_segments
+        self.calls = 0
+        self.segments: list = []
+        self.norm_rel = 0.0
+        self.elem_abs = 0.0
+        self.peak_before_last_step = None
+
+    def __call__(self, w, g, m, **kw):
+        self.calls += 1
+        if self.calls <= self.last_from:
+            return self.real(w, g, m, **kw)
+        if self.peak_before_last_step is None:
+            torch.cuda.synchronize()
+            self.peak_before_last_step = torch.cuda.max_memory_allocated()
+        ws, gs, ms = list(w), list(g), list(m)
+        sums = self.lu.lars_norm2_cuda(ws, gs)
+        n = ws[0].numel()
+        gen = torch.Generator(device=DEV).manual_seed(self.calls)
+        idx = torch.randint(0, n * len(ws), (4096,), generator=gen,
+                            device=DEV)
+        member, off = idx // n, idx % n
+
+        def pick(xs):
+            vals = torch.empty(4096, dtype=xs[0].dtype, device=DEV)
+            for k, x in enumerate(xs):
+                sel = member == k
+                vals[sel] = x.reshape(-1)[off[sel]]
+            return vals
+
+        snap = (pick(ws), pick(gs), pick(ms))
+        out = self.real(w, g, m, **kw)
+        torch.cuda.synchronize()
+        wn = torch.sqrt(sum(torch.linalg.vector_norm(x.float()) ** 2
+                            for x in ws))
+        gn = torch.sqrt(sum(torch.linalg.vector_norm(x.float()) ** 2
+                            for x in gs))
+        kw_ratio = dict(eta=kw["eta"], weight_decay=kw["weight_decay"],
+                        eps=kw["eps"])
+        pwn, pgn, pratio, scale = self.sref.lars_ratio(
+            sums, kw["base_lr"], **kw_ratio)
+        rel = max(((pwn - wn).abs() / wn).item(),
+                  ((pgn - gn).abs() / gn.clamp_min(1e-30)).item())
+        self.norm_rel = max(self.norm_rel, rel)
+        if not rel <= LARS_NORM_RTOL:
+            raise AssertionError(f"last step: per-tensor norms {rel:.3e} "
+                                 f"relative from vector_norm")
+        stats = out[2]
+        if not torch.equal(stats, torch.stack([pwn, pgn, pratio])):
+            raise AssertionError("last step: telemetry differs from the "
+                                 "plain ratio of the kernel's sums")
+        pm, pd = self.sref.lars_apply(
+            snap[0], snap[1], snap[2], scale,
+            weight_decay=kw["weight_decay"], momentum_mu=kw["momentum_mu"],
+            nesterov=kw["nesterov"])
+        km, kd = pick(out[0]), pick(out[1])
+        self.elem_abs = max(self.elem_abs, (pd - kd).abs().max().item(),
+                            (pm - km).abs().max().item())
+        if not (torch.equal(pm, km) and torch.equal(pd, kd)):
+            raise AssertionError(f"last step: 4096 elements differ from "
+                                 f"the plain apply ({self.elem_abs:.3e})")
+        self.segments.append((ws, gs, ms, kw["base_lr"]))
+        return out
+
+
+def phase_train_per_tensor(run, ops, lu, sref, layerwise, flatten,
+                           tree_leaves, argv: list, label: str,
+                           want_layers: int = 36) -> dict:
+    """7c: qwen2.5-3b at full width through ``launch.train.run`` with
+    the per-tensor path: exactly n_kernel_segments launches of each
+    kernel per step, the last step checked, then both kernels and their
+    plain versions timed on the last step's own tensors."""
+    steps = int(argv[argv.index("--steps") + 1])
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    model = get_model(get_config("qwen2.5-3b"))
+    meta = qwen_tree(model.cfg, model.cfg.num_layers)
+    names = layerwise.kernel_segments(
+        flatten.build_spec(meta, segments=model.segments))
+    check = LarsLastStepCheck(ops.lars_update, lu, sref, steps, len(names))
+    ops.reset_launches()
+    ops.lars_update = check
+    try:
+        out = run(argv + ["--device", DEV, "--layerwise-every", "1"],
+                  log_fn=lambda line: print(f"  {label}: {line}",
+                                            flush=True))
+    finally:
+        ops.lars_update = check.real
+    launches = dict(ops.launches)
+    want = {k: 0 for k in launches}
+    want.update({"lars_norm2": steps * len(names),
+                 "lars_apply": steps * len(names)})
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{want} ({len(names)} kernel segments x "
+                             f"{steps} steps)")
+    if not np.all(np.isfinite(out["losses"])):
+        raise AssertionError(f"{label}: losses {out['losses']}")
+    cfg = out["model"].cfg
+    n_params = sum(x.numel() for x in tree_leaves(out["state"].params))
+    if cfg.num_layers != want_layers or len(check.segments) != len(names):
+        raise AssertionError(f"{label}: {cfg.num_layers} layers, "
+                             f"{len(check.segments)} checked segments")
+    peak = out["peak_memory_bytes"] or 0
+    print(f"train {label}: qwen2.5-3b {cfg.num_layers} layers, {n_params} "
+          f"params ({cfg.param_dtype}); {len(names)} kernel segments; "
+          f"losses {[round(x, 4) for x in out['losses']]}; per step "
+          f"loss+grad "
+          f"{[round(x * 1e3, 1) for x in out['loss_grad_seconds']]} ms, "
+          f"optimizer {[round(x * 1e3, 1) for x in out['optimizer_seconds']]}"
+          f" ms; peak {peak / 2**30:.2f} GiB ({peak} B; before the checked "
+          f"step {check.peak_before_last_step} B); launches lars_norm2="
+          f"{launches['lars_norm2']} lars_apply={launches['lars_apply']}; "
+          f"last step: norms within {check.norm_rel:.3e} of vector_norm, "
+          f"telemetry equal to the plain ratio, 4096 elements per segment "
+          f"bitwise equal to the plain apply", flush=True)
+    timing = time_lars(lu, sref, check.segments)
+    res = {}
+    for which, name in (("norm", "lars_norm2"), ("apply", "lars_apply")):
+        t = timing[which]
+        k = t["launches"]
+        big = max(t["rows"], key=lambda r: r["elements"])
+        res[name] = {"launches": launches[name], "ms": t["ms"] / k,
+                     "plain_ms": t["plain_ms"] / k,
+                     "bound_ms": t["bound_ms"] / k, "bound_by": t["bound_by"],
+                     "max_abs_err": check.elem_abs if which == "apply"
+                     else 0.0}
+        print(f"  {name} at the main path's shapes ({k} segments, "
+              f"{sum(r['elements'] for r in t['rows'])} elements, bf16 w and "
+              f"g): per step kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bytes']} B); largest segment ({big['elements']} "
+              f"elements) kernel {big['ms']:.4f} ms, bound "
+              f"{big['bound_ms']:.4f} ms; smallest segment kernel "
+              f"{min(r['ms'] for r in t['rows']):.4f} ms", flush=True)
+    return res
+
+
 def phase_train_small_against_cpu(get_smoke_config, get_model,
                                   build_optimizer, training, lm_iterator,
-                                  tree_leaves, tree_map, ops, su):
-    """The qwen2.5-3b smoke LM in f32: 3 fused TVLARS and 3 fused LAMB
-    steps on the card (kernels) against the CPU (plain versions), same
-    weights and batches. Stated bounds, at each leaf's scale: TVLARS
-    1e-5 on losses and params (the CPU tests' bound against the JAX
-    package); LAMB 1e-4 on losses and 1e-3 on params, because its Adam
-    direction m/(sqrt(v) + eps) turns a last-bit gradient difference at
-    |g| ~ eps into a visible one (the port and the JAX package on the
-    CPU already differ by 9.6e-5 after 3 steps)."""
+                                  tree_leaves, tree_map, ops, su, layerwise,
+                                  flatten):
+    """The qwen2.5-3b smoke LM in f32: 3 fused TVLARS, 3 fused LAMB and
+    (8b) 3 per-tensor WA-LARS steps on the card (kernels) against the
+    CPU (plain versions), same weights and batches. Stated bounds, at
+    each leaf's scale: TVLARS and WA-LARS 1e-5 on losses and params
+    (the CPU tests' bound against the JAX package); LAMB 1e-4 on losses
+    and 1e-3 on params, because its Adam direction m/(sqrt(v) + eps)
+    turns a last-bit gradient difference at |g| ~ eps into a visible
+    one (the port and the JAX package on the CPU already differ by
+    9.6e-5 after 3 steps)."""
     model = get_model(get_smoke_config("qwen2.5-3b"))
-    for name in ("tvlars", "lamb"):
+    for name, use_kernel in (("tvlars", "fused"), ("lamb", "fused"),
+                             ("wa-lars", "per_tensor")):
         cpu = model.init(0, device="cpu")
         results = []
         for dev, params in (("cpu", cpu),
                             (DEV, tree_map(lambda t: t.to(DEV), cpu))):
             params = tree_map(lambda t: t.detach().clone(), params)
             opt = build_optimizer(name, total_steps=10, learning_rate=2.0,
-                                  batch_size=8, use_kernel="fused",
+                                  batch_size=8, use_kernel=use_kernel,
                                   segments=model.segments, device=dev)
             state = training.TrainState.create(params, opt)
             step = training.make_train_step(training.lm_task(model), opt)
@@ -885,10 +1361,18 @@ def phase_train_small_against_cpu(get_smoke_config, get_model,
                 losses.append(float(m["loss"]))
             results.append((losses, state.params, dict(ops.launches)))
         (lc, pc, kc), (lg, pg, kg) = results
-        norm_k, apply_k = su.KERNELS["lamb" if name == "lamb" else "lars"]
-        if kg[norm_k] != 3 or kg[apply_k] != 3 or any(kc.values()):
+        if use_kernel == "fused":
+            kernels = su.KERNELS["lamb" if name == "lamb" else "lars"]
+            per_step = 1
+        else:
+            kernels = ("lars_norm2", "lars_apply")
+            per_step = len(layerwise.kernel_segments(flatten.build_spec(
+                pc, segments=model.segments)))
+        want = {k: 0 for k in kg}
+        want.update({k: 3 * per_step for k in kernels})
+        if kg != want or any(kc.values()):
             raise AssertionError(f"small {name}: launches cpu {kc} card "
-                                 f"{kg}")
+                                 f"{kg}, expected {want}")
         loss_rtol, param_rtol = (1e-4, 1e-3) if name == "lamb" \
             else (1e-5, 1e-5)
         np.testing.assert_allclose(lg, lc, rtol=loss_rtol)
@@ -899,10 +1383,112 @@ def phase_train_small_against_cpu(get_smoke_config, get_model,
             worst = max(worst, float(np.abs(a - b).max()) / scale)
             np.testing.assert_allclose(a, b, rtol=param_rtol,
                                        atol=param_rtol * scale)
-        print(f"small train: qwen2.5-3b smoke f32 fused {name}, 3 steps: "
-              f"card (kernels) == cpu (plain) within {param_rtol} (losses "
+        print(f"small train: qwen2.5-3b smoke f32 {use_kernel} {name}, 3 "
+              f"steps ({want[kernels[0]]} launches of each kernel): card "
+              f"(kernels) == cpu (plain) within {param_rtol} (losses "
               f"{[round(x, 6) for x in lg]}, worst param gap "
               f"{worst:.3e} of its leaf's scale)", flush=True)
+
+
+# the paper's ordering at large B (benchmarks/paper_runs.py:22-24)
+PAPER_ORDER = ("tvlars", "wa-lars", "nowa-lars", "lamb")
+
+
+def phase_paper_loop(classify, cnn, core, training, synthetic, ops,
+                     layerwise, flatten, tree_leaves, tree_map) -> dict:
+    """9: the classifier and Barlow-Twins loops on the card at the
+    examples' settings, each optimizer's accuracy and LNR summary, and
+    whether the reference's ordering holds with the port's samples
+    (reported, not enforced); then the CNN at init_cnn defaults, 20
+    WA-LARS steps through the per-tensor kernels, each step's update
+    held against the tree path's from the same state."""
+    out = {"classification": {}, "ssl": {}}
+    t0 = time.perf_counter()
+    for name in classify.OPTIMIZERS:
+        acc, hist, rec = classify.run_classification(
+            name, 1024, 1.0, steps=200, record_norms=True, device=DEV)
+        s = rec.summary()
+        if not np.isfinite(hist[-1]["loss"]):
+            raise AssertionError(f"paper loop {name}: loss {hist[-1]}")
+        out["classification"][name] = acc
+        print(f"paper loop: {name:9s} B=1024 200 steps γ_target 1.0: eval "
+              f"acc {acc:.4f}, max_initial_lnr "
+              f"{s['max_initial_lnr']:.4f}, lnr_decline "
+              f"{s['lnr_decline']:.4f}, final loss {hist[-1]['loss']:.4f}",
+              flush=True)
+    for name in classify.OPTIMIZERS:
+        acc = classify.run_ssl(name, 512, 0.8, ssl_steps=120, clf_steps=80,
+                               device=DEV)
+        out["ssl"][name] = acc
+        print(f"paper loop: {name:9s} Barlow Twins B=512 120 steps, linear "
+              f"probe 80 steps: accuracy {acc:.4f}", flush=True)
+    for task in ("classification", "ssl"):
+        accs = out[task]
+        ranking = sorted(accs, key=lambda k: -accs[k])
+        holds = all(accs[a] > accs[b] for a, b in zip(PAPER_ORDER,
+                                                      PAPER_ORDER[1:]))
+        print(f"paper loop {task}: ranking "
+              f"{' > '.join(f'{k} {accs[k]:.4f}' for k in ranking)}; the "
+              f"reference's ordering {' > '.join(PAPER_ORDER)} "
+              f"{'holds' if holds else 'does NOT hold'}", flush=True)
+    print(f"paper loop: {time.perf_counter() - t0:.1f} s on the card",
+          flush=True)
+
+    # the CNN's many small leaves through the per-tensor kernels. Each
+    # step's per-tensor update is held against the tree path's update
+    # from the same params, gradients and state (a copy): the two round
+    # scale*(g + wd*w) and sg*g + sw*w differently and sum the norms in
+    # other orders, so the stated bound is the reference's per-tensor
+    # bound, 2e-5 of each leaf's update scale. Free-running trajectories
+    # are not compared: at this LR the 1-D leaves take raw steps of
+    # lr*g, and a last-bit difference grows from step to step.
+    data = synthetic.ClassificationData(seed=7)
+    hyper = dict(total_steps=20, learning_rate=1.0, batch_size=256,
+                 base_batch_size=64, device=DEV)
+    pt_opt = core.build_optimizer("wa-lars", use_kernel="per_tensor",
+                                  **hyper)
+    tree_opt = core.build_optimizer("wa-lars", **hyper)
+    gaps = []
+
+    def paired_update(grads, state, params):
+        copy = type(state)(state.step.clone(),
+                           tree_map(lambda t: t.clone(), state[1]))
+        tu, _ = tree_opt.update(grads, copy, params)
+        pu, new_state = pt_opt.update(grads, state, params)
+        gaps.append(max(float((a - b).abs().max())
+                        / max(float(b.abs().max()), 1e-30)
+                        for a, b in zip(tree_leaves(pu), tree_leaves(tu))))
+        return pu, new_state
+
+    opt = core.GradientTransform(pt_opt.init, paired_update)
+    params = cnn.init_cnn(0, device=DEV)
+    state = training.TrainState.create(params, opt)
+    step = training.make_classifier_step(cnn.apply_cnn, opt)
+    batches = synthetic.batch_iterator(data, 256, seed=3, device=DEV)
+    ops.reset_launches()
+    losses = []
+    for _ in range(20):
+        state, m = step(state, next(batches))
+        losses.append(float(m["loss"]))
+    launches = dict(ops.launches)
+    n_adapt = len(layerwise.kernel_segments(flatten.build_spec(params)))
+    want = {k: 0 for k in launches}
+    want.update({"lars_norm2": 20 * n_adapt, "lars_apply": 20 * n_adapt})
+    if launches != want:
+        raise AssertionError(f"cnn: launches {launches}, expected {want}")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"cnn: losses {losses}")
+    if max(gaps) > 2e-5:
+        raise AssertionError(f"cnn: per-tensor update {max(gaps):.3e} of "
+                             f"its scale from the tree path's")
+    print(f"paper loop: CNN (init_cnn defaults, {n_adapt} ADAPT leaves, "
+          f"{sum(x.numel() for x in tree_leaves(params))} params) 20 "
+          f"WA-LARS steps B=256 through the per-tensor kernels "
+          f"({launches['lars_norm2']} + {launches['lars_apply']} "
+          f"launches): losses {losses[0]:.4f} -> {losses[-1]:.4f}; each "
+          f"step's update within {max(gaps):.3e} of the tree path's from "
+          f"the same state (bound 2e-5)", flush=True)
+    return out
 
 
 def main() -> int:
@@ -917,10 +1503,16 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import attention_decode as tad
     from repro_torch.kernels import ref as sref
+    from repro_torch.kernels import lars_update as lu
+    from repro_torch.kernels import rmsnorm as rms
     from repro_torch.kernels import segmented_update as su
+    from repro_torch.core import layerwise
+    from repro_torch.data import synthetic
+    from repro_torch.launch import classify
     from repro_torch.launch.train import run as train_run
-    from repro_torch.models import convert, get_model
+    from repro_torch.models import cnn, convert, get_model
     from repro_torch.obs import Tracer, phase_summary
+    from repro_torch import core
 
     # full-f32 matmuls and convolutions wherever f32 is computed
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -932,16 +1524,26 @@ def main() -> int:
           f"cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    report = _build.build(["attention_decode", "segmented_update"])
+    report = _build.build(["attention_decode", "segmented_update",
+                           "lars_update", "rmsnorm"])
     for name, r in report.items():
-        print(f"build: {name} in {r['seconds']:.1f} s -> {r['path']}")
-        for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers",
+                                           r["log"])]
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
+                                             r["log"])]
+        print(f"build: {name} in {r['seconds']:.1f} s -> {r['path']}; "
+              f"ptxas: {len(regs)} kernels, {min(regs, default=0)}-"
+              f"{max(regs, default=0)} registers, spill stores at most "
+              f"{max(spills, default=0)} B")
     print(f"build: total {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernel = phase_kernel(tad, ops)
     seg = phase_seg_kernels(su, sref, flatten, convert, get_config)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lars = phase_lars_kernels(lu, sref, flatten, layerwise, convert,
+                              get_config, cnn, tree_leaves)
+    rmsn = phase_rmsnorm(rms, sref, ops)
     gc.collect()
     torch.cuda.empty_cache()
     main_path = phase_serving(ops, serving, get_config, get_model, Tracer,
@@ -970,9 +1572,20 @@ def main() -> int:
                                       tree_leaves, argv, label))
         gc.collect()
         torch.cuda.empty_cache()
+    # (c) the per-tensor path: WA-LARS, f32 momentum, bf16 weights
+    train.update(phase_train_per_tensor(
+        train_run, ops, lu, sref, layerwise, flatten, tree_leaves,
+        ["--optimizer", "wa-lars", "--use-kernel", "per_tensor",
+         "--precision", "f32", "--global-batch", "8", "--seq", "512",
+         "--steps", "3"], "wa-lars-per-tensor"))
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_train_small_against_cpu(get_smoke_config, get_model,
                                   build_optimizer, training, lm_iterator,
-                                  tree_leaves, tree_map, ops, su)
+                                  tree_leaves, tree_map, ops, su,
+                                  layerwise, flatten)
+    phase_paper_loop(classify, cnn, core, training, synthetic, ops,
+                     layerwise, flatten, tree_leaves, tree_map)
 
     # the serving path's mix: 40 local and 8 global launches per decode
     # step (bf16 pool); per-launch means weighted by that mix
@@ -1007,6 +1620,31 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
+    # the per-tensor kernels: per-launch means over the 14 segments of a
+    # step at the main path's shapes; no single PyTorch call computes a
+    # multi-tensor norm pair or the trust-scaled momentum apply, so
+    # library_ms is null
+    for name, replaces in LARS_KERNELS.items():
+        t = train[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": LARS_SOURCE,
+            "replaces": replaces, "launches": t["launches"],
+            "max_abs_err": max(lars["max_abs_err"][name],
+                               t["max_abs_err"]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None})
+    # RMSNorm: its path is the public ops.rmsnorm (no model calls it, as
+    # in the JAX package); means over the four shapes it was driven at
+    m = rmsn["mean"]
+    entries.append({
+        "name": "rmsnorm", "route": "cuda", "source": RMS_SOURCE,
+        "replaces": RMS_REPLACES, "launches": rmsn["launches"],
+        "max_abs_err": rmsn["max_abs_err"], "ms": m["ms"],
+        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                   for r in rmsn["rows"]) else "operations",
+        "library_ms": m["library_ms"]})
     print(smi_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,9 @@ chosen ``scaling_rule`` scales the target LR (§5.2.2) and TVLARS's
 γ_min defaults to (B/B_base)·1e-3 (§5.2.1), capped at 0.5.
 
 ``use_kernel="fused"`` runs the layer-wise update as two segmented
-kernel launches per step on the flat substrate, which lives on
+kernel launches per step on the flat substrate; ``"per_tensor"`` runs
+two per-tensor LARS kernel launches per ADAPT segment (lars, wa-lars,
+nowa-lars, tvlars with ``momentum_style="lars"``). Both run on
 ``device`` (default ``"cuda"``: asking for it on a host without CUDA
 raises at build time). ``segments`` groups an LM tree by the JAX
 package's stacked leaves (pass ``model.segments``). Unsupported

@@ -15,21 +15,26 @@ dispatch paths:
                              every mode: heavy ball, nesterov,
                              trust_clip, TVLARS "paper" momentum, LAMB.
                              ``True`` is an alias.
-  * ``use_kernel="per_tensor"`` raises ``NotImplementedError``: its
-    TPU kernels (``lars_update.py``) are not ported yet (ROADMAP §2,
-    item 7). Nothing falls back to another path.
+  * ``use_kernel="per_tensor"`` — the tree path, except that every
+                             ADAPT segment of 8 or more elements goes
+                             through the per-tensor LARS kernels
+                             (``kernels.ops.lars_update``): two
+                             launches per such segment, heavy ball or
+                             nesterov only (``_validate_use_kernel``
+                             refuses the rest, as the reference does).
 
-Both paths compute over the JAX package's SEGMENTS (``core.flatten``):
+Every path computes over the JAX package's SEGMENTS (``core.flatten``):
 on an LM tree one segment per stacked group leaf, so the trust ratios,
-adapt flags and updates equal the reference's. The tree path's norms
-sum the members' Σx² (the reference sums the stacked leaf: the same
-terms in another order).
+adapt flags and updates equal the reference's, and the per-tensor path
+sends the same leaves to its kernel. The tree path's norms sum the
+members' Σx² (the reference sums the stacked leaf: the same terms in
+another order).
 
-Fused-path memory: the state buffers are updated IN PLACE (the
-reference donates its state, so the values are the same), and the
-packed params, packed grads and the f32 delta live in work buffers
-kept across steps; the updates returned are views into the delta,
-valid until the next update. The step's scalars (``base_lr``,
+Every path updates the state buffers IN PLACE (the reference donates
+its state, so the values are the same): a run holds one momentum tree,
+not two. Fused-path memory besides: the packed params, packed grads
+and the f32 delta live in work buffers kept across steps; the updates
+returned are views into the delta, valid until the next update. The step's scalars (``base_lr``,
 ``bc1``, ``bc2`` and the stochastic-rounding seed = the step) are 0-d
 tensors on the state's device: a step reads nothing back.
 
@@ -58,11 +63,10 @@ KERNEL_CHOICES = (False, "per_tensor", "fused")
 
 PRECISIONS = ("f32", "bf16_master", "bf16_master_sr")
 
-PER_TENSOR_NOT_PORTED = (
-    "use_kernel='per_tensor' runs the TPU kernels of "
-    "src/repro/kernels/lars_update.py (_norm2_kernel, _apply_kernel), "
-    "which are not ported yet: ROADMAP.md §2 item 7. Use "
-    "use_kernel='fused' (it covers the same math) or False")
+# which modes the per-tensor kernel can express, and the smallest
+# segment it takes (the reference's ``w.size >= 8``)
+_PER_TENSOR_MODES = ("lars",)
+PER_TENSOR_MIN_SIZE = 8
 
 
 def storage_dtype(precision: str) -> torch.dtype:
@@ -99,6 +103,31 @@ def normalize_use_kernel(use_kernel: UseKernel) -> UseKernel:
     return use_kernel
 
 
+def _validate_use_kernel(use_kernel: UseKernel, *, mode: str,
+                         trust_clip, optimizer: str) -> None:
+    if use_kernel != "per_tensor":
+        return
+    if mode not in _PER_TENSOR_MODES:
+        raise ValueError(
+            f"{optimizer}: use_kernel='per_tensor' only supports "
+            f"heavy-ball LARS math (got mode={mode!r}); use "
+            f"use_kernel='fused' which covers it")
+    if trust_clip is not None:
+        raise ValueError(
+            f"{optimizer}: use_kernel='per_tensor' does not support "
+            f"trust_clip; use use_kernel='fused'")
+
+
+def kernel_segments(spec: flatten.FlatSpec) -> list:
+    """Names of the segments the per-tensor path sends to its kernels:
+    ADAPT and at least ``PER_TENSOR_MIN_SIZE`` elements (on an LM tree
+    the size of the whole stacked leaf). Each costs two launches per
+    step."""
+    return [name for name, adapt, size in zip(spec.names, spec.adapt,
+                                              spec.sizes)
+            if adapt and size >= PER_TENSOR_MIN_SIZE]
+
+
 def layerwise_transform(base_lr_fn: Callable, *,
                         mode: str,
                         state_cls: Any,
@@ -121,22 +150,21 @@ def layerwise_transform(base_lr_fn: Callable, *,
     the optimizer's state NamedTuple; buffers are f32 trees shaped like
     the params (tree path) or flat substrate buffers at the storage
     dtype (fused). ``segments`` groups the tree (default: each leaf;
-    LM trees need ``model.segments``). ``device`` is where the fused
-    substrate lives: resolved at build time, so asking for CUDA on a
-    host without it raises; the tree path runs on the params' device.
+    LM trees need ``model.segments``). ``device`` is where a kernel
+    path (fused substrate, per-tensor kernels) runs: resolved at build
+    time, so asking for CUDA on a host without it raises; the tree path
+    runs on the params' device.
     """
     if mode not in ref.MODES:
         raise ValueError(f"unknown mode {mode!r}; one of {ref.MODES}")
     use_kernel = normalize_use_kernel(use_kernel)
-    if use_kernel == "per_tensor":
-        raise NotImplementedError(f"{optimizer_name}: "
-                                  f"{PER_TENSOR_NOT_PORTED}")
+    _validate_use_kernel(use_kernel, mode=mode, trust_clip=trust_clip,
+                         optimizer=optimizer_name)
     _validate_precision(precision, use_kernel, optimizer_name)
     sdtype = storage_dtype(precision)
     stochastic = precision.endswith("_sr")
     n_bufs = 2 if mode == "lamb" else 1
-    fused_device = _device.resolve(device) if use_kernel == "fused" \
-        else None
+    kernel_device = _device.resolve(device) if use_kernel else None
     work: dict = {}     # fused work buffers: (spec, device) -> w, g, delta
 
     def _spec(params, dtype):
@@ -152,12 +180,12 @@ def layerwise_transform(base_lr_fn: Callable, *,
     def _check_device(params):
         spec = _spec(params, sdtype)
         dev = tree_get(params, spec.paths[0][0]).device
-        if dev != fused_device and not (
-                dev.type == fused_device.type == "cuda"
-                and fused_device.index is None
+        if dev != kernel_device and not (
+                dev.type == kernel_device.type == "cuda"
+                and kernel_device.index is None
                 and dev.index == torch.cuda.current_device()):
-            raise ValueError(f"{optimizer_name}: fused substrate built "
-                             f"for {fused_device}, params lie on {dev}")
+            raise ValueError(f"{optimizer_name}: {use_kernel} path built "
+                             f"for {kernel_device}, params lie on {dev}")
         return spec, dev
 
     def init(params):
@@ -172,7 +200,8 @@ def layerwise_transform(base_lr_fn: Callable, *,
                                     dtype=sdtype, device=dev)
                         for _ in range(n_bufs))
         else:
-            dev = tree_leaves(params)[0].device
+            dev = _check_device(params)[1] if use_kernel \
+                else tree_leaves(params)[0].device
             with torch.no_grad():
                 if mode == "paper":
                     bufs = (tree_map(lambda p: p.detach().float().clone(),
@@ -218,20 +247,33 @@ def layerwise_transform(base_lr_fn: Callable, *,
         updates = flatten.unpack(out[1], spec, params)
         return updates, state_cls(state.step + 1, *out[0])
 
-    # ---- tree path: per-segment PyTorch math ----
+    # ---- tree path: per-segment PyTorch math, optional per-tensor
+    # kernels; state buffers updated in place ----
 
     def _update_tree(grads, state, params):
-        spec = _spec(params, torch.float32)
+        spec = _check_device(params)[0] if use_kernel \
+            else _spec(params, torch.float32)
         base_lr, bc1, bc2 = _step_scalars(state.step)
         telemetry = obs_layerwise.active()
         rows = []
         updates = {}
-        new_bufs = [dict() for _ in range(n_bufs)]
-        for paths, adapt in zip(spec.paths, spec.adapt):
-            ws = [tree_get(params, p).float() for p in paths]
-            gs = [tree_get(grads, p).float() for p in paths]
+        for paths, adapt, size in zip(spec.paths, spec.adapt, spec.sizes):
             bs = [tuple(tree_get(state[1 + k], p) for k in range(n_bufs))
                   for p in paths]
+            if use_kernel == "per_tensor" and adapt \
+                    and size >= PER_TENSOR_MIN_SIZE:
+                out = kops.lars_update(
+                    [tree_get(params, p).contiguous() for p in paths],
+                    [tree_get(grads, p).contiguous() for p in paths],
+                    [b[0] for b in bs], base_lr=base_lr, eta=eta,
+                    weight_decay=weight_decay, momentum_mu=momentum,
+                    eps=eps, nesterov=nesterov, telemetry=telemetry)
+                updates.update(zip(paths, out[1]))
+                if telemetry:
+                    rows.append(tuple(out[2]))
+                continue
+            ws = [tree_get(params, p).float() for p in paths]
+            gs = [tree_get(grads, p).float() for p in paths]
             dirs = [ref.direction(mode, w, g, b, b1=b1, b2=b2, bc1=bc1,
                                   bc2=bc2, eps=eps)
                     for w, g, b in zip(ws, gs, bs)]
@@ -247,22 +289,21 @@ def layerwise_transform(base_lr_fn: Callable, *,
                 rows.append((wn, bn, ratio))
             table = ref.scales_from_ratio(ratio, adapt_t, base_lr,
                                           weight_decay)
-            for p, w, (d, bufs2) in zip(paths, ws, dirs):
+            for p, w, b, (d, bufs2) in zip(paths, ws, bs, dirs):
                 scaled = table[0] * d + table[1] * w
                 nb, delta = ref.integrate(mode, w, bufs2, scaled,
                                           momentum=momentum,
                                           nesterov=nesterov)
                 updates[p] = delta
-                for k in range(n_bufs):
-                    new_bufs[k][p] = nb[k]
+                for buf, new in zip(b, nb):
+                    buf.copy_(new)
         if telemetry and rows:
             obs_layerwise.deposit({
                 "w_norm": torch.stack([r[0] for r in rows]),
                 "g_norm": torch.stack([r[1] for r in rows]),
                 "trust_ratio": torch.stack([r[2] for r in rows])})
         return (tree_from_paths(params, updates),
-                state_cls(state.step + 1,
-                          *(tree_from_paths(params, m) for m in new_bufs)))
+                state_cls(state.step + 1, *state[1:]))
 
     def update(grads, state, params=None):
         if params is None:

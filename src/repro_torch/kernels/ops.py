@@ -2,7 +2,11 @@
 
 * :func:`attention_decode` — serving-decode attention (one launch);
 * :func:`segmented_update` — the fused optimizer step on the flat
-  substrate (two launches: segmented norms, then the apply).
+  substrate (two launches: segmented norms, then the apply);
+* :func:`lars_update` — the per-tensor LARS step of one segment (two
+  launches: its norms, then the apply);
+* :func:`rmsnorm` — RMSNorm with ``(1 + weight)`` scaling (one launch;
+  off the models' path, as in the JAX package).
 
 A CUDA tensor goes to the hand-written Hopper kernel; if the build or
 the launch fails, the call raises. A CPU tensor goes to the kernel's
@@ -20,10 +24,14 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import attention_decode as _ad
+from repro_torch.kernels import lars_update as _lu
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import segmented_update as _su
 
 launches = {"attention_decode": 0, "seg_norm_lars": 0, "seg_norm_lamb": 0,
-            "seg_apply_lars": 0, "seg_apply_lamb": 0}
+            "seg_apply_lars": 0, "seg_apply_lamb": 0, "lars_norm2": 0,
+            "lars_apply": 0, "rmsnorm": 0}
 
 
 def reset_launches() -> None:
@@ -80,3 +88,52 @@ def segmented_update(w2d, g2d, bufs, *, delta=None, **kw):
         return (tuple(bufs), delta) + tuple(out[2:])
     raise RuntimeError(f"segmented_update: no implementation for device "
                        f"{w2d.device}")
+
+
+def lars_update(w, g, m, *, base_lr, eta: float, weight_decay: float,
+                momentum_mu: float, eps: float = 1e-9, nesterov: bool = False,
+                telemetry: bool = False):
+    """Per-tensor LARS trust-ratio + momentum step -> ``(new_m, delta)``
+    (the port of ``repro.kernels.ops.lars_update``).
+
+    ``w``, ``g``, ``m`` are tensors, or equal-length lists of one
+    segment's member tensors (all of one shape), which then share one
+    trust ratio; the results follow the same form. w and g are read at
+    their dtype (f32 or bf16), ``m`` is the f32 momentum and is updated
+    IN PLACE (the returned ``new_m`` is ``m``); deltas are f32. With
+    ``telemetry=True`` a third value ``[w_norm, g_norm, ratio]`` (f32)
+    is returned, from the same sums, with no extra launch.
+
+    On CUDA: two launches, counted under ``lars_norm2`` and
+    ``lars_apply``. On the CPU: the plain version.
+    """
+    single = isinstance(w, torch.Tensor)
+    ws, gs, ms = ([w], [g], [m]) if single else (list(w), list(g), list(m))
+    kw = dict(base_lr=base_lr, eta=eta, weight_decay=weight_decay,
+              momentum_mu=momentum_mu, eps=eps, nesterov=nesterov)
+    dev = ws[0].device
+    if dev.type == "cuda":
+        ms, deltas, stats = _lu.lars_update_cuda(
+            ws, gs, ms, telemetry=telemetry, launches=launches, **kw)
+    elif dev.type == "cpu":
+        new_ms, deltas, stats = _ref.lars_update_ref(ws, gs, ms, **kw)
+        for buf, new in zip(ms, new_ms):
+            buf.copy_(new)
+    else:
+        raise RuntimeError(f"lars_update: no implementation for device "
+                           f"{dev}")
+    out = (ms[0], deltas[0]) if single else (ms, deltas)
+    return out + (stats,) if telemetry else out
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *,
+            eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm, gemma convention (scale = 1 + weight): the port of
+    ``repro.kernels.ops.rmsnorm``. x (..., d), weight (d,) -> x's shape
+    and dtype. On CUDA one launch, counted under ``rmsnorm``; on the
+    CPU the plain version. See ``rmsnorm.rmsnorm_tolerance``."""
+    if x.device.type == "cuda":
+        return _rms.rmsnorm_cuda(x, weight, eps=eps, launches=launches)
+    if x.device.type == "cpu":
+        return _ref.rmsnorm_ref(x, weight, eps=eps)
+    raise RuntimeError(f"rmsnorm: no implementation for device {x.device}")

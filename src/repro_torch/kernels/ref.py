@@ -1,5 +1,6 @@
 """Shared layer-wise update math: the port of the optimizer half of
-``repro.kernels.ref``.
+``repro.kernels.ref``, and the plain math of the per-tensor LARS and
+RMSNorm kernels (:func:`lars_update_ref`, :func:`rmsnorm_ref`).
 
 Every optimizer of the family runs the same three steps per segment:
 
@@ -195,3 +196,67 @@ def trust_scale_table(w2, b2, adapt_mask, base_lr, *, mode: str,
                               weight_decay=weight_decay, eps=eps,
                               trust_clip=trust_clip)
     return scales_from_ratio(ratio, adapt_mask, base_lr, weight_decay)
+
+
+# ---------------------------------------------------------------------------
+# per-tensor LARS (``repro/kernels/lars_update.py``) and RMSNorm
+# (``repro/kernels/rmsnorm.py``), written as those TPU kernels compute
+# ---------------------------------------------------------------------------
+
+def lars_norm2(ws, gs) -> torch.Tensor:
+    """``[Σw², Σg²]`` over a segment's member tensors, in f32 from the
+    storage dtype (``_norm2_kernel``)."""
+    w2 = sum(torch.sum(torch.square(w.float())) for w in ws)
+    g2 = sum(torch.sum(torch.square(g.float())) for g in gs)
+    return torch.stack([w2, g2]).to(torch.float32)
+
+
+def lars_ratio(sums: torch.Tensor, base_lr, *, eta: float,
+               weight_decay: float, eps: float):
+    """``(w_norm, g_norm, ratio, scale)`` from ``[Σw², Σg²]``:
+    ``ratio = η‖w‖ / (‖g‖ + wd·‖w‖ + eps)`` where both norms are
+    positive, else 1; ``scale = base_lr·ratio`` (``lars_update.py``
+    between its two launches)."""
+    wn = torch.sqrt(sums[0])
+    gn = torch.sqrt(sums[1])
+    ratio = torch.where((wn > 0.0) & (gn > 0.0),
+                        eta * wn / (gn + weight_decay * wn + eps), 1.0)
+    lr = torch.as_tensor(base_lr, dtype=torch.float32, device=wn.device)
+    return wn, gn, ratio, lr * ratio
+
+
+def lars_apply(w, g, m, scale, *, weight_decay: float, momentum_mu: float,
+               nesterov: bool = False):
+    """``_apply_kernel`` on one tensor: ``scaled = scale·(g + wd·w)``,
+    ``m' = μ·m + scaled``, ``Δ = −(scaled + μ·m')`` (nesterov) or
+    ``−m'``. Returns ``(m', Δ)`` in f32. This rounds otherwise than the
+    tree path's ``sg·g + sw·w`` (:func:`scales_from_ratio`)."""
+    scaled = scale * (g.float() + weight_decay * w.float())
+    new_m = momentum_mu * m.float() + scaled
+    delta = -(scaled + momentum_mu * new_m) if nesterov else -new_m
+    return new_m, delta
+
+
+def lars_update_ref(ws, gs, ms, *, base_lr, eta: float, weight_decay: float,
+                    momentum_mu: float, eps: float = 1e-9,
+                    nesterov: bool = False):
+    """The per-tensor LARS step over a segment's member tensors (one
+    trust ratio for all of them). Returns ``(new_ms, deltas, stats)``,
+    f32, with ``stats = [w_norm, g_norm, ratio]``; inputs unchanged."""
+    wn, gn, ratio, scale = lars_ratio(lars_norm2(ws, gs), base_lr, eta=eta,
+                                      weight_decay=weight_decay, eps=eps)
+    out = [lars_apply(w, g, m, scale, weight_decay=weight_decay,
+                      momentum_mu=momentum_mu, nesterov=nesterov)
+           for w, g, m in zip(ws, gs, ms)]
+    return [o[0] for o in out], [o[1] for o in out], \
+        torch.stack([wn, gn, ratio])
+
+
+def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    """``x·rsqrt(mean(x²) + eps)·(1 + w)`` in f32, cast to x's dtype
+    (``_rmsnorm_kernel``; its oracle divides by a sqrt instead)."""
+    x32 = x.float()
+    var = torch.sum(x32 * x32, dim=-1, keepdim=True) / x.shape[-1]
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * (1.0 + w.float())).to(x.dtype)

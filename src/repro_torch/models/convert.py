@@ -1,5 +1,9 @@
 """Carry a reference parameter tree across to the port.
 
+:func:`classifier_params_from_jax` does it for the classifiers of
+``models.cnn`` (MLP and CNN): the same tree, conv weights from the
+reference's HWIO to the port's OIHW, nothing else.
+
 The JAX package stacks each layer kind of a group on a leading group
 axis: ``{"embed", "groups": {"l{i}_{kind}": [G, ...]}, "final_norm"}``.
 :func:`params_from_jax` takes that tree as numpy arrays and unstacks
@@ -95,3 +99,23 @@ def jax_segments(cfg: ModelConfig, params: dict
     the reference's flatten order (see :func:`segment_paths`)."""
     return [(seg.name, [tree_get(params, p) for p in seg.paths])
             for seg in segment_paths(cfg, params)]
+
+
+def classifier_params_from_jax(tree, *, device="cuda"):
+    """A reference classifier tree (numpy leaves; dicts and lists) ->
+    the port's on ``device``: 4-D (HWIO conv) leaves transposed to
+    OIHW, every other leaf copied."""
+    dev = _device.resolve(device)
+
+    def leaf(x):
+        t = _tensor(x, dev)
+        return t.permute(3, 2, 0, 1).contiguous() if t.dim() == 4 else t
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return leaf(node)
+
+    return walk(tree)

@@ -1,4 +1,5 @@
-"""Losses: the port of ``repro.training.losses`` (the CE family).
+"""Losses: the port of ``repro.training.losses`` (the CE family and
+the Barlow-Twins loss).
 
 Every loss is MEAN-reduced over the batch; :class:`WeightedMean` folds
 K per-microbatch means into the global-batch mean, so K microbatches of
@@ -50,6 +51,22 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.mean((torch.argmax(logits, dim=-1) == labels)
                       .to(torch.float32))
+
+
+def barlow_twins_loss(z1: torch.Tensor, z2: torch.Tensor,
+                      lambda_offdiag: float = 5e-3) -> torch.Tensor:
+    """Redundancy-reduction loss on two embedding views [B, D]:
+    C = (z1_norm^T z2_norm)/B;  loss = Σ_i (1−C_ii)² + λ Σ_{i≠j} C_ij²
+    (per-feature standardisation with the population std, in f32)."""
+    z1, z2 = z1.float(), z2.float()
+    b = z1.shape[0]
+    z1 = (z1 - z1.mean(0)) / (z1.std(0, unbiased=False) + 1e-5)
+    z2 = (z2 - z2.mean(0)) / (z2.std(0, unbiased=False) + 1e-5)
+    c = (z1.T @ z2) / b
+    diag = torch.diagonal(c)
+    on = torch.sum(torch.square(1.0 - diag))
+    off = torch.sum(torch.square(c)) - torch.sum(torch.square(diag))
+    return on + lambda_offdiag * off
 
 
 CE_CHUNK = 256

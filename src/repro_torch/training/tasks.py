@@ -41,3 +41,16 @@ def classifier_task(apply_fn: Callable) -> Task:
             {"accuracy": losses.accuracy(logits, labels)}
 
     return Task("classifier", loss_fn)
+
+
+def ssl_task(embed_fn: Callable, *, lambda_offdiag: float = 5e-3) -> Task:
+    """Barlow Twins: ``embed_fn(params, images) -> [B, D]``. ``batch``:
+    (view1, view2)."""
+
+    def loss_fn(params, batch):
+        v1, v2 = batch
+        z1 = embed_fn(params, v1)
+        z2 = embed_fn(params, v2)
+        return losses.barlow_twins_loss(z1, z2, lambda_offdiag), {}
+
+    return Task("ssl", loss_fn)

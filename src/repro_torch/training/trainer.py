@@ -27,6 +27,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from repro_torch.core import instrumentation
 from repro_torch.core.base import (GradientTransform, global_norm,
                                    tree_flatten_with_path,
                                    tree_from_paths, tree_map)
@@ -86,6 +87,7 @@ def _accumulate(task: tasks.Task, params, batch, accum_steps: int):
 
 def make_train_step(task, optimizer: GradientTransform, *,
                     accum_steps: int = 1, layerwise: bool = False,
+                    record_norms: bool = False,
                     tracer: Optional[obs_trace.Tracer] = None
                     ) -> Callable:
     """The step factory: ``(state, batch) -> (state, metrics)``.
@@ -93,7 +95,10 @@ def make_train_step(task, optimizer: GradientTransform, *,
     ``task``: a :class:`~repro_torch.training.tasks.Task`, or a model
     (wrapped in ``tasks.lm_task``). ``layerwise=True`` adds the
     optimizer's per-segment ``(w_norm, g_norm, trust_ratio)`` under
-    ``layerwise/{metric}``. Metrics are 0-d (or per-segment) tensors on
+    ``layerwise/{metric}``. ``record_norms=True`` adds the per-leaf
+    ``LayerNorms`` (LWN / LGN / LNR) of the params before the update
+    and the accumulated gradients under ``layer_norms``, which ``fit``
+    hands to its recorder. Metrics are 0-d (or per-segment) tensors on
     the device; nothing is read back here."""
     if not isinstance(task, tasks.Task):
         task = tasks.lm_task(task)
@@ -114,7 +119,7 @@ def make_train_step(task, optimizer: GradientTransform, *,
                 loss, task_metrics, grads = _accumulate(
                     task, state.params, batch, accum_steps)
             _sync(loss.device)
-        clash = {"loss", "grad_norm"} & set(task_metrics)
+        clash = {"loss", "grad_norm", "layer_norms"} & set(task_metrics)
         if clash:
             raise ValueError(
                 f"task {task.name!r} metrics {sorted(clash)} collide with "
@@ -122,6 +127,10 @@ def make_train_step(task, optimizer: GradientTransform, *,
         with tracer.span("optimizer", step=state.step):
             with torch.no_grad():
                 grad_norm = global_norm(grads)
+                # on the accumulated grads, before the in-place update:
+                # the reference's layer_norms(state.params, grads)
+                norms = instrumentation.layer_norms(state.params, grads) \
+                    if record_norms else None
                 if layerwise:
                     with obs_layerwise.capture() as tap:
                         updates, opt_state = optimizer.update(
@@ -138,16 +147,38 @@ def make_train_step(task, optimizer: GradientTransform, *,
         metrics = {"loss": loss, **task_metrics, "grad_norm": grad_norm}
         for k, v in tap.items():
             metrics[f"{obs_layerwise.PREFIX}{k}"] = v
+        if norms is not None:
+            metrics["layer_norms"] = norms
         return TrainState(state.step + 1, state.params, opt_state), metrics
 
     return train_step
 
 
+def make_classifier_step(apply_fn: Callable, optimizer: GradientTransform,
+                         *, accum_steps: int = 1,
+                         record_norms: bool = False) -> Callable:
+    """``make_train_step(tasks.classifier_task(apply_fn), ...)``."""
+    return make_train_step(tasks.classifier_task(apply_fn), optimizer,
+                           accum_steps=accum_steps,
+                           record_norms=record_norms)
+
+
+def make_ssl_step(embed_fn: Callable, optimizer: GradientTransform, *,
+                  lambda_offdiag: float = 5e-3, accum_steps: int = 1,
+                  record_norms: bool = False) -> Callable:
+    """``make_train_step(tasks.ssl_task(embed_fn, ...), ...)``."""
+    return make_train_step(
+        tasks.ssl_task(embed_fn, lambda_offdiag=lambda_offdiag), optimizer,
+        accum_steps=accum_steps, record_norms=record_norms)
+
+
 @dataclasses.dataclass(frozen=True)
 class FitOptions:
-    """The ``fit`` knobs the launcher uses: logging (``log_every``,
-    ``log_fn``), the host-span ``tracer`` and the layer-wise stream's
-    decimation and names (``layerwise_every``, ``layerwise_names``)."""
+    """The ``fit`` knobs: the norm ``recorder`` (fed each step's
+    ``layer_norms`` metric), logging (``log_every``, ``log_fn``), the
+    host-span ``tracer`` and the layer-wise stream's decimation and
+    names (``layerwise_every``, ``layerwise_names``)."""
+    recorder: Optional[instrumentation.NormRecorder] = None
     log_every: int = 0
     log_fn: Callable = print
     tracer: Optional[obs_trace.Tracer] = None
@@ -185,6 +216,9 @@ def fit(train_step: Callable, state: TrainState, batches, num_steps: int,
             batch = next(batches)
         with tracer.span("dispatch", step=i):
             state, metrics = train_step(state, batch)
+        norms = metrics.pop("layer_norms", None)
+        if o.recorder is not None and norms is not None:
+            o.recorder.record(i, norms)
         with tracer.span("resolve", step=i):
             host = _to_host(metrics)
         rest, lw = obs_layerwise.split_record(host)

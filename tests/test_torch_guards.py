@@ -194,13 +194,6 @@ def test_fused_optimizer_refuses_cuda_without_it(no_cuda):
     build_optimizer("tvlars", total_steps=4)
 
 
-def test_per_tensor_raises_instead_of_falling_back():
-    from repro_torch.core import build_optimizer
-    with pytest.raises(NotImplementedError, match="lars_update.py"):
-        build_optimizer("wa-lars", total_steps=4, use_kernel="per_tensor",
-                        device="cpu")
-
-
 def _seg_operands(device="cpu"):
     g = torch.Generator().manual_seed(0)
     w = torch.randn(16, 128, generator=g)

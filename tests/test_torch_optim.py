@@ -14,9 +14,9 @@
   scale (TVLARS's Algorithm-1 delta: the params' scale), fused bf16
   state within one storage ulp (rtol = atol = 2^-7, the reference
   tests' bound).
-* The build-time errors, and the port's own: ``per_tensor`` raises
-  ``NotImplementedError``; the fused path refuses params on another
-  device than it was built for.
+* The build-time errors, and the port's own: the fused path refuses
+  params on another device than it was built for. (The per-tensor
+  path is held against the reference in ``test_torch_lars_update``.)
 """
 from __future__ import annotations
 
@@ -291,13 +291,6 @@ def test_build_time_errors_match_reference(case, kw, exc):
         jbuild(name, total_steps=10, **kw)
     with pytest.raises(exc):
         core.build_optimizer(name, total_steps=10, device="cpu", **kw)
-
-
-@pytest.mark.parametrize("name", ["lars", "tvlars", "lamb"])
-def test_per_tensor_is_not_ported_and_never_falls_back(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §2 item 7"):
-        core.build_optimizer(name, total_steps=10, use_kernel="per_tensor",
-                             device="cpu")
 
 
 def test_fused_substrate_refuses_params_on_another_device():
