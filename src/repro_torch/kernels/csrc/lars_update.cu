@@ -279,7 +279,8 @@ int repro_lars_max_members() { return kMaxMembers; }
 // as ceil(n / chunk) * count float2).
 long long repro_lars_chunk() { return kChunk; }
 
-// Norm. w_dtype / g_dtype: 0 = f32, 1 = bf16. w, g: `count` device
+// Norm. w_dtype / g_dtype: 0 = f32, 1 = bf16; f32 w with bf16 g is not
+// taken (returns -1: no path makes it). w, g: `count` device
 // pointers each (host arrays), every member n elements. vec: all members
 // 16-byte (f32) / 8-byte (bf16) aligned and n % 4 == 0. ticket: one
 // zeroed uint32; out: 2 f32 on the card. Returns the CUDA error of the
@@ -298,10 +299,10 @@ int repro_lars_norm2(int w_dtype, int g_dtype, int vec, int count,
                                              s);
   else if (w_dtype == 1)
     norm_typed<__nv_bfloat16, float>(vec, mem, n, count, part, tk, o, s);
-  else if (g_dtype == 1)
-    norm_typed<float, __nv_bfloat16>(vec, mem, n, count, part, tk, o, s);
-  else
+  else if (g_dtype == 0)
     norm_typed<float, float>(vec, mem, n, count, part, tk, o, s);
+  else
+    return -1;
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -328,12 +329,11 @@ int repro_lars_apply(int w_dtype, int g_dtype, int vec, int nesterov,
   else if (w_dtype == 1)
     apply_typed<__nv_bfloat16, float>(vec, nesterov, mem, n, count, sm, lr,
                                       eta, wd, eps, mu, st, s);
-  else if (g_dtype == 1)
-    apply_typed<float, __nv_bfloat16>(vec, nesterov, mem, n, count, sm, lr,
-                                      eta, wd, eps, mu, st, s);
-  else
+  else if (g_dtype == 0)
     apply_typed<float, float>(vec, nesterov, mem, n, count, sm, lr, eta, wd,
                               eps, mu, st, s);
+  else
+    return -1;
   return static_cast<int>(cudaGetLastError());
 }
 

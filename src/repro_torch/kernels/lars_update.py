@@ -94,6 +94,9 @@ def _check_members(ws: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
     if len(ws) > MAX_MEMBERS:
         raise ValueError(f"{len(ws)} members; one launch takes at most "
                          f"{MAX_MEMBERS}")
+    if ws[0].dtype == torch.float32 and gs[0].dtype == torch.bfloat16:
+        raise ValueError("f32 weights with bf16 gradients: no path makes "
+                         "them, and the kernels do not take them")
     dev = ws[0].device
     if dev.type != "cuda" or dev.index != torch.cuda.current_device():
         raise ValueError(f"members must lie on the current CUDA device, "
@@ -150,26 +153,17 @@ def lars_norm2_cuda(ws, gs) -> torch.Tensor:
 def lars_apply_cuda(ws, gs, ms, sums, *, base_lr, eta: float,
                     weight_decay: float, momentum_mu: float,
                     eps: float = 1e-9, nesterov: bool = False,
-                    deltas: Optional[Sequence[torch.Tensor]] = None,
                     stats: bool = False):
     """Launch the apply (one launch) on PyTorch's current stream: the
     f32 momentum members ``ms`` are updated IN PLACE and the f32 deltas
-    written to ``deltas`` (allocated when None, as views of one
-    buffer). Returns ``(deltas, stats)``: ``stats`` is ``[w_norm,
-    g_norm, ratio]`` on the card when asked for, else None. Bitwise
-    equal to ``ref.lars_ratio`` + ``ref.lars_apply`` given the same
-    sums."""
+    written to views of one new buffer. Returns ``(deltas, stats)``:
+    ``stats`` is ``[w_norm, g_norm, ratio]`` on the card when asked
+    for, else None. Bitwise equal to ``ref.lars_ratio`` +
+    ``ref.lars_apply`` given the same sums."""
     dev, n, vec = _check_members(ws, gs, ms)
-    if deltas is None:
-        flat = torch.empty(len(ws) * n, dtype=torch.float32, device=dev)
-        deltas = [flat[k * n:(k + 1) * n].view(w.shape)
-                  for k, w in enumerate(ws)]
-    if len(deltas) != len(ws) or any(
-            d.dtype != torch.float32 or d.device != dev or d.numel() != n
-            or not d.is_contiguous() for d in deltas):
-        raise ValueError("deltas must be contiguous float32 members on "
-                         "the members' device, one per member")
-    vec = vec and all(_aligned(d) for d in deltas)
+    flat = torch.empty(len(ws) * n, dtype=torch.float32, device=dev)
+    deltas = [flat[k * n:(k + 1) * n].view(w.shape)   # aligned as vec
+              for k, w in enumerate(ws)]                # needs: n % 4 == 0
     if sums.shape != (2,) or sums.dtype != torch.float32 \
             or sums.device != dev:
         raise ValueError(f"sums must be (2,) float32 on {dev}, got "
@@ -191,22 +185,19 @@ def lars_apply_cuda(ws, gs, ms, sums, *, base_lr, eta: float,
     return deltas, out_stats
 
 
-def lars_update_cuda(ws, gs, ms, *, base_lr, eta: float,
+def lars_update_cuda(ws, gs, ms, *, launches: dict, base_lr, eta: float,
                      weight_decay: float, momentum_mu: float,
                      eps: float = 1e-9, nesterov: bool = False,
-                     telemetry: bool = False,
-                     launches: Optional[dict] = None):
+                     telemetry: bool = False):
     """The two launches of one segment's step. ``ms`` are updated in
     place; returns ``(ms, deltas, stats)`` (``stats`` None unless
     ``telemetry``). ``launches["lars_norm2"]`` / ``["lars_apply"]`` are
-    incremented right after each launch when a dict is given."""
+    incremented right after each launch."""
     sums = lars_norm2_cuda(ws, gs)
-    if launches is not None:
-        launches["lars_norm2"] += 1
+    launches["lars_norm2"] += 1
     deltas, stats = lars_apply_cuda(
         ws, gs, ms, sums, base_lr=base_lr, eta=eta,
         weight_decay=weight_decay, momentum_mu=momentum_mu, eps=eps,
         nesterov=nesterov, stats=telemetry)
-    if launches is not None:
-        launches["lars_apply"] += 1
+    launches["lars_apply"] += 1
     return list(ms), deltas, stats

@@ -125,18 +125,19 @@ def parser() -> argparse.ArgumentParser:
 
 def run(argv: Optional[Sequence[str]] = None, *, log_fn=print) -> dict:
     """Run the comparison as the flags say; returns ``{"classification":
-    {name: {"accuracy", "summary"}}, "ssl": {name: accuracy},
-    "ranking": [names by accuracy]}``."""
+    {name: {"accuracy", "summary", "final_loss"}}, "ssl": {name:
+    accuracy}, "ranking": [names by accuracy]}``."""
     args = parser().parse_args(argv)
     dev = _device.resolve(args.device)
     names = [n for n in args.optimizers.split(",") if n]
     out: dict = {"classification": {}, "ssl": {}}
     for name in names:
-        acc, _, rec = run_classification(
+        acc, hist, rec = run_classification(
             name, args.batch, CLF_LR, steps=args.steps, record_norms=True,
             device=dev)
         s = rec.summary()
-        out["classification"][name] = {"accuracy": acc, "summary": s}
+        out["classification"][name] = {"accuracy": acc, "summary": s,
+                                       "final_loss": hist[-1]["loss"]}
         log_fn(f"{name:10s} B={args.batch} γ_target={CLF_LR}: eval "
                f"acc={acc:.4f}  max_init_LNR={s['max_initial_lnr']:.3f}  "
                f"LNR decline={s['lnr_decline']:.3f}")

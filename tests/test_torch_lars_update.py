@@ -212,8 +212,7 @@ def _smoke_lm():
     return cfg, get_model(cfg), tree, grads
 
 
-@pytest.mark.parametrize("name,kw", PER_TENSOR[1:3],
-                         ids=[n for n, _ in PER_TENSOR[1:3]])
+@pytest.mark.parametrize("name,kw", PER_TENSOR, ids=[n for n, _ in PER_TENSOR])
 def test_per_tensor_smoke_lm_matches_reference(name, kw):
     cfg, model, tree, grads = _smoke_lm()
     jp, tp, _, _ = _run_pair(
@@ -321,6 +320,10 @@ def test_lars_cuda_wrappers_refuse_cpu_tensors_before_building(
     with pytest.raises(ValueError, match="at most"):
         lu.lars_norm2_cuda([w] * (lu.MAX_MEMBERS + 1),
                            [g] * (lu.MAX_MEMBERS + 1))
+    with pytest.raises(ValueError, match="f32 weights with bf16"):
+        lu.lars_apply_cuda([w], [g.bfloat16()], [m], torch.ones(2),
+                           base_lr=0.1, eta=1e-3, weight_decay=0.0,
+                           momentum_mu=0.9)
     with pytest.raises(RuntimeError, match="no implementation"):
         ops.lars_update(w.to("meta"), g.to("meta"), m.to("meta"), **HYPER)
 
