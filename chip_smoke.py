@@ -14,11 +14,17 @@ script exits non-zero:
 3. decode attention against its plain version at gemma3-12b's
    full-width decode shapes (8 slots, 16 heads, 8 KV heads, head_dim
    256): a windowed ring of T=1024 with positions several laps past the
-   window and a global cache of T=2048, bf16 and f32 pools. Outputs
-   within ``decode_parity_tolerance``, updated caches bitwise equal.
-   Times the kernel, the plain version and one
+   window and a global cache of T=2048, bf16 and f32 pools. Prints the
+   split plan and grid of each shape (its shared memory held against
+   the kernel's own count). At the plan's edges (pos 0 with empty
+   splits, L - 1, L, L + 1, T - 1, rings several laps on) and at the
+   timed positions: outputs within ``decode_parity_tolerance``, updated
+   caches bitwise equal, and every row launched alone (B = 1) bitwise
+   equal to its row of the B = 8 launch. Times the kernel and one
    ``scaled_dot_product_attention`` call over the same cache (a
-   yardstick only: the port never calls it), beside the bound;
+   yardstick only: the port never calls it) on the card (a CUDA graph of
+   50 calls, replayed: ``device_ms``) and eagerly, host included, and
+   the plain version eagerly, beside the bound;
 3b. the four segmented optimizer kernels against their plain versions
    at qwen2.5-3b's widths with the group axis cut to 4 layers
    (0.93e9 elements) and on a tree of 309 tiny segments (smaller than
@@ -36,12 +42,14 @@ script exits non-zero:
    and bitwise repeatable, the apply fed the kernel's sums bitwise equal (momentum,
    delta, telemetry). Times both beside their bounds;
 3d. RMSNorm against its plain version at gemma3-12b prefill (16,384 x
-   3840) and qwen2.5-3b (4,096 x 2048) shapes in bf16 and f32 and at
-   d 128-8192 (f16 too): within ``rmsnorm_tolerance``, bitwise
-   repeatable; its path is the public ``ops.rmsnorm`` (no model calls
-   it, as in the JAX package), driven once per main shape with counts
-   at 0; kernel, plain and one ``F.rms_norm`` call (a yardstick only)
-   timed beside the bound;
+   3840, the block-per-row kernel) and qwen2.5-3b (4,096 x 2048, the
+   warp-per-row kernel) shapes in bf16 and f32, at d 128-8192 (f16
+   too) and on an x that is not 16-byte aligned: within
+   ``rmsnorm_tolerance``, bitwise repeatable; its path is the public
+   ``ops.rmsnorm`` (no model calls it, as in the JAX package), driven
+   once per main shape with counts at 0; kernel and one
+   ``F.rms_norm`` call (a yardstick only) timed on the card and
+   eagerly, the plain version eagerly, beside the bound;
 4. serving at full width: gemma3-12b, all 48 layers, bf16, random
    weights from seed 0 on the card, ``ServeConfig(slots=8,
    max_len=2048, page_size=16)``; 12 requests (more than the slots)
@@ -49,7 +57,10 @@ script exits non-zero:
    through the engine. Checks every request's token count, that the
    decode-attention kernel launched 48 times per decode step, and that
    two requests re-run alone through ``generate`` give the same greedy
-   tokens up to bf16 ties;
+   tokens up to bf16 ties. Prints the decode step's time (the decode
+   and sample spans) and, from a second run of the same traffic with
+   CUDA events around every decode-attention launch, the kernel's share
+   of a step;
 5. the same traffic through gemma3-12b at full width and depth in f32:
    engine and ``generate`` give exactly the same greedy tokens;
 6. the same engine at smoke size in f32 on the card against the CPU's
@@ -87,7 +98,8 @@ script exits non-zero:
    step's update against the tree path's from the same state.
 
 The last lines are the ``nvidia-smi`` line, one JSON object describing
-each kernel, and ``{"ok": true, "device": {...}}``. Without CUDA, or
+each kernel (decode attention and RMSNorm with a row per timed shape
+under ``shapes``), and ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the rest of the repository beside it, the script fails before
 printing any result.
 """
@@ -126,9 +138,39 @@ def smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def device_ms(fn, iters: int = 50, replays: int = 3) -> float:
+    """The card's time for one call of ``fn``: ``iters`` calls captured
+    in a CUDA graph, replayed ``replays`` times between CUDA events, so
+    the host's cost per call (Python, the launch) is out of the
+    reading. Warm-up on the capturing stream first, so buffers the call
+    keeps are allocated outside the capture."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls,
-    from CUDA events, after one warm-up call."""
+    """Mean time of ``fn`` over ``iters`` back-to-back calls, from CUDA
+    events, after one warm-up call: the card's time, or the host's cost
+    per call where that is longer (eager)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -141,10 +183,50 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def edge_positions(kind: str, keys: int, t: int) -> list:
+    """Positions at the split plan's edges: pos = 0 (every split but the
+    first empty), L - 1, L and L + 1 around the first split boundary,
+    T - 1, and on rings several laps past the window."""
+    if kind == "global":
+        return [0, keys - 1, keys, keys + 1, t - 1, 5, t // 2, t - 2]
+    return [0, keys - 1, keys, keys + 1, t - 1, t + keys, 3 * t + 5,
+            9 * t - 1]
+
+
+def decode_check(tad, ops, label, operands, window, tol) -> tuple:
+    """One launch against the plain version on copies of the caches:
+    output within ``tol``, caches bitwise equal, finite; then every row
+    launched alone (B = 1, same T) bitwise equal to its row of the full
+    launch. Returns (max abs error, kernel output, kernel's caches)."""
+    q, nk, nv, kc, vc, pos = operands
+    kk, vk, kp, vp = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    out_k = ops.attention_decode(q, nk, nv, kk, vk, pos, window=window)
+    out_p = tad.attention_decode_ref(q, nk, nv, kp, vp, pos, window=window)
+    torch.cuda.synchronize()
+    err = (out_k.float() - out_p.float()).abs().max().item()
+    torch.testing.assert_close(out_k.float(), out_p.float(), **tol)
+    if not (torch.equal(kk, kp) and torch.equal(vk, vp)):
+        raise AssertionError(f"{label}: updated caches differ between "
+                             f"kernel and plain")
+    if not torch.isfinite(out_k.float()).all():
+        raise AssertionError(f"{label}: non-finite output")
+    for b in range(q.shape[0]):
+        row = slice(b, b + 1)
+        alone = ops.attention_decode(q[row], nk[row], nv[row],
+                                     kc[row].clone(), vc[row].clone(),
+                                     pos[row], window=window)
+        if not torch.equal(alone, out_k[row]):
+            raise AssertionError(f"{label}: row {b} launched alone differs "
+                                 f"from its row of the B={q.shape[0]} "
+                                 f"launch")
+    return err, out_k, kk, vk
+
+
 def phase_kernel(tad, ops) -> dict:
     """Kernel vs plain version at full width; returns the timings."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
+    lib = tad._lib()
     rows = {}
     max_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
@@ -152,6 +234,18 @@ def phase_kernel(tad, ops) -> dict:
         for kind in ("local", "global"):
             t = WINDOW if kind == "local" else MAX_LEN
             window = WINDOW if kind == "local" else None
+            dname = str(dtype).split(".")[-1]
+            plan = tad.decode_plan(t, HEAD_DIM, dtype, HEADS // KV_HEADS)
+            smem_c = lib.repro_attention_decode_smem(
+                tad._DTYPE_CODES[dtype], HEAD_DIM, plan.heads)
+            if smem_c != plan.smem:
+                raise AssertionError(f"plan's shared memory {plan.smem} B, "
+                                     f"the kernel's {smem_c} B")
+            print(f"kernel attention_decode {kind} T={t} {dname} pool: plan "
+                  f"L={plan.keys} keys x {plan.splits} splits, "
+                  f"{plan.heads} query heads a block, grid "
+                  f"{plan.grid(SLOTS, KV_HEADS)} x {tad.WARPS * 32} "
+                  f"threads, {plan.smem} B shared memory", flush=True)
 
             def randn(*shape):
                 return torch.randn(shape, generator=gen, device=dev,
@@ -162,21 +256,23 @@ def phase_kernel(tad, ops) -> dict:
                 randn(SLOTS, 1, KV_HEADS, HEAD_DIM)
             kc, vc = randn(SLOTS, t, KV_HEADS, HEAD_DIM), \
                 randn(SLOTS, t, KV_HEADS, HEAD_DIM)
+            # the split plan's edges first, then the timed positions
+            edge = edge_positions(kind, plan.keys, t)
+            pos = torch.tensor(edge, dtype=torch.int32, device=dev)
+            edge_err, _, _, _ = decode_check(
+                tad, ops, f"{kind} {dname} edges", (q, nk, nv, kc, vc, pos),
+                window, tol)
             pos = torch.tensor(POS[kind], dtype=torch.int32, device=dev)
-            kk, vk, kp, vp = kc.clone(), vc.clone(), kc.clone(), vc.clone()
-            out_k = ops.attention_decode(q, nk, nv, kk, vk, pos,
-                                         window=window)
-            out_p = tad.attention_decode_ref(q, nk, nv, kp, vp, pos,
-                                             window=window)
-            torch.cuda.synchronize()
-            err = (out_k.float() - out_p.float()).abs().max().item()
+            err, _, kk, vk = decode_check(
+                tad, ops, f"{kind} {dname}", (q, nk, nv, kc, vc, pos),
+                window, tol)
+            err = max(err, edge_err)
             max_err = max(max_err, err)
-            torch.testing.assert_close(out_k.float(), out_p.float(), **tol)
-            if not (torch.equal(kk, kp) and torch.equal(vk, vp)):
-                raise AssertionError(f"{kind} {dtype}: updated caches "
-                                     f"differ between kernel and plain")
-            if not torch.isfinite(out_k.float()).all():
-                raise AssertionError(f"{kind} {dtype}: non-finite output")
+            print(f"  positions {edge} and {POS[kind]}: within "
+                  f"rtol=atol={tol['rtol']:.2e} of plain, caches bitwise "
+                  f"equal, each row alone (B=1) bitwise equal to its row "
+                  f"of the B={SLOTS} launch", flush=True)
+            kp, vp = kk.clone(), vk.clone()
 
             # the yardstick: one SDPA call over the same (already
             # appended) cache with a boolean validity mask
@@ -197,6 +293,8 @@ def phase_kernel(tad, ops) -> dict:
                 return torch.nn.functional.scaled_dot_product_attention(
                     qs, ks, vs, attn_mask=mask, enable_gqa=True)
 
+            out_p = tad.attention_decode_ref(q, nk, nv, kp.clone(),
+                                             vp.clone(), pos, window=window)
             sdpa_err = (sdpa().transpose(1, 2).float()
                         - out_p.float()).abs().max().item()
 
@@ -212,26 +310,35 @@ def phase_kernel(tad, ops) -> dict:
             flops = 4 * valid_keys * HEADS * HEAD_DIM
             bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / F32_FLOP_PER_S * 1e3
+            def kernel():
+                return ops.attention_decode(q, nk, nv, kk, vk, pos,
+                                            window=window)
+
             row = {
-                "ms": time_ms(lambda: ops.attention_decode(
-                    q, nk, nv, kk, vk, pos, window=window), 50),
+                "shape": f"{kind} T={t} {dname}",
+                "ms": device_ms(kernel), "eager_ms": time_ms(kernel, 50),
                 "plain_ms": time_ms(lambda: tad.attention_decode_ref(
                     q, nk, nv, kp, vp, pos, window=window), 10),
-                "library_ms": time_ms(sdpa, 50),
+                "library_ms": device_ms(sdpa),
+                "library_eager_ms": time_ms(sdpa, 50),
                 "bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
                 "ops_ms": ops_ms,
                 "bound_by": "bytes" if bytes_ms >= ops_ms
                 else "operations",
-                "max_abs_err": err}
+                "max_abs_err": err, "keys": plan.keys,
+                "splits": plan.splits,
+                "grid": list(plan.grid(SLOTS, KV_HEADS))}
             rows[(kind, dtype)] = row
-            print(f"kernel attention_decode {kind} T={t} "
-                  f"{str(dtype).split('.')[-1]} pool: max|err|={err:.3e} "
-                  f"(rtol=atol={tol['rtol']:.2e}); kernel "
-                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            print(f"  card time (CUDA graph): kernel {row['ms']:.4f} ms, "
                   f"sdpa {row['library_ms']:.4f} ms (max|err| "
-                  f"{sdpa_err:.3e}), bound "
+                  f"{sdpa_err:.3e}); eager, host included: kernel "
+                  f"{row['eager_ms']:.4f} ms, sdpa "
+                  f"{row['library_eager_ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms; bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
-                  f"{bytes_moved} B, {flops} flop)", flush=True)
+                  f"{bytes_moved} B, {flops} flop): "
+                  f"{row['bound_ms'] / row['ms']:.1%} of the bound; "
+                  f"max|err| {err:.3e}", flush=True)
     return {"rows": rows, "max_abs_err": max_err}
 
 
@@ -318,6 +425,53 @@ def tie_gaps(serving, model, params, prompt, tokens, tol) -> list:
     return rows
 
 
+def decode_step_ms(spans: dict, steps: int) -> float:
+    """Host time of a decode step: the ``decode`` span (dispatch) plus
+    the ``sample`` span (the wait for the card's tokens)."""
+    return (spans["decode"]["total_ms"] + spans["sample"]["total_ms"]) \
+        / steps
+
+
+class LaunchEvents:
+    """Stands in for the decode-attention library inside a ``with``
+    block and records a pair of CUDA events around every kernel launch
+    (the C call that enqueues it, after the wrapper's host work), so
+    the kernel's time on the serving path can be summed from the
+    card's clock."""
+
+    def __init__(self):
+        from repro_torch.kernels import attention_decode as tad
+        self.tad = tad
+        self.lib = tad._lib()
+        self.saved = None
+        self.pairs = []
+
+    def repro_attention_decode(self, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rc = self.lib.repro_attention_decode(*args)
+        end.record()
+        self.pairs.append((start, end))
+        return rc
+
+    def __enter__(self):
+        self.saved = self.tad._lib
+        self.tad._lib = lambda: self
+        return self
+
+    def __exit__(self, *exc):
+        self.tad._lib = self.saved
+
+    @property
+    def calls(self) -> int:
+        return len(self.pairs)
+
+    def total_ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
 def phase_serving(ops, serving, get_config, get_model, Tracer,
                   phase_summary, bf16_tol) -> dict:
     """The main path: bf16 gemma3-12b at full width and depth."""
@@ -349,6 +503,29 @@ def phase_serving(ops, serving, get_config, get_model, Tracer,
             print(f"  span {name}: n={row['count']} "
                   f"total={row['total_ms']:.1f} ms "
                   f"mean={row['mean_us']:.0f} us", flush=True)
+    step_ms = decode_step_ms(spans, stats["decode_steps"])
+    print(f"serving: decode span mean {spans['decode']['mean_us'] / 1e3:.3f} "
+          f"ms (dispatch) + sample span mean "
+          f"{spans['sample']['mean_us'] / 1e3:.3f} ms (the wait for the "
+          f"card) = {step_ms:.3f} ms per decode step", flush=True)
+
+    # the attention kernel's share of a decode step: the same traffic
+    # again, with a pair of CUDA events around every kernel launch
+    timer = LaunchEvents()
+    tracer2 = Tracer()
+    with timer:
+        _, stats2, _, _ = serve(serving, model, params, ops, tracer2)
+    att_ms = timer.total_ms() / stats2["decode_steps"]
+    step2_ms = decode_step_ms(phase_summary(tracer2.events()),
+                              stats2["decode_steps"])
+    if timer.calls != launches:
+        raise AssertionError(f"{timer.calls} launches timed, {launches} in "
+                             f"the first run of the same traffic")
+    print(f"serving: attention_decode {att_ms:.3f} ms of the card per "
+          f"decode step ({timer.calls} launches over "
+          f"{stats2['decode_steps']} steps, CUDA events around each "
+          f"launch) in a step of {step2_ms:.3f} ms in that run: "
+          f"{att_ms / step2_ms:.1%} of a step", flush=True)
 
     # engine == generate in bf16, up to bf16 ties: the engine pads and
     # batches (prefill [4, 2048], decode [8, 1]) where generate runs the
@@ -385,7 +562,8 @@ def phase_serving(ops, serving, get_config, get_model, Tracer,
                                  f"the alone path's argmax within bf16 "
                                  f"tolerance")
     return {"launches": launches, "elapsed": elapsed,
-            "generated": generated, "spans": spans}
+            "generated": generated, "spans": spans, "step_ms": step_ms,
+            "attention_ms_per_step": att_ms}
 
 
 def phase_f32_full_width(ops, serving, get_config, get_model):
@@ -928,7 +1106,8 @@ RMS_MAIN = [((8, 2048, 3840), torch.bfloat16), ((8, 2048, 3840),
             ((8, 512, 2048), torch.bfloat16), ((8, 512, 2048),
                                                torch.float32)]
 RMS_EXTRA = [((5, 128), torch.bfloat16), ((3, 640), torch.float32),
-             ((4, 8192), torch.bfloat16), ((2, 3, 1024), torch.float16)]
+             ((4, 8192), torch.bfloat16), ((2, 3, 1024), torch.float16),
+             ((7, 2048), torch.float16), ((6, 2176), torch.bfloat16)]
 
 
 def ulp_gap(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -971,10 +1150,27 @@ def phase_rmsnorm(rms, sref, ops) -> dict:
         worst_ulp[key] = max(worst_ulp.get(key, 0), ulp_gap(y1, yp))
         if (shape, dtype) in RMS_MAIN:
             inputs.append((x, w))
-    print(f"kernel rmsnorm: {len(RMS_MAIN) + len(RMS_EXTRA)} shapes "
-          f"(d 128-8192, f32 / bf16 / f16) repeat bitwise, within "
-          f"rmsnorm_tolerance of plain; max abs err {max_err:.3e}, worst "
-          f"ulp gap {worst_ulp}", flush=True)
+    # an x that is 8-byte but not 16-byte aligned: the narrow rows go to
+    # the block-per-row kernel
+    d = 2048
+    x = (torch.randn((4 * d + 4,), generator=gen, device=DEV) * 3.0).to(
+        torch.bfloat16)[4:].view(4, d)
+    w = (torch.randn((d,), generator=gen, device=DEV) * 0.2).to(
+        torch.bfloat16)
+    if x.data_ptr() % 16 == 0:
+        raise AssertionError("the unaligned case is aligned")
+    y1, y2 = rms.rmsnorm_cuda(x, w, eps=eps), rms.rmsnorm_cuda(x, w, eps=eps)
+    yp = sref.rmsnorm_ref(x, w, eps=eps)
+    torch.cuda.synchronize()
+    if not torch.equal(y1, y2):
+        raise AssertionError("rmsnorm unaligned: differs between launches")
+    torch.testing.assert_close(y1.float(), yp.float(),
+                               **rms.rmsnorm_tolerance(torch.bfloat16))
+    max_err = max(max_err, (y1.float() - yp.float()).abs().max().item())
+    print(f"kernel rmsnorm: {len(RMS_MAIN) + len(RMS_EXTRA) + 1} shapes "
+          f"(d 128-8192, f32 / bf16 / f16, one x not 16-byte aligned) "
+          f"repeat bitwise, within rmsnorm_tolerance of plain; max abs err "
+          f"{max_err:.3e}, worst ulp gap {worst_ulp}", flush=True)
     ops.reset_launches()
     for x, w in inputs:
         ops.rmsnorm(x, w, eps=eps)
@@ -989,20 +1185,37 @@ def phase_rmsnorm(rms, sref, ops) -> dict:
         moved = rms.rmsnorm_bytes(x, w)
         bytes_ms = moved / HBM_BYTES_PER_S * 1e3
         ops_ms = 5 * x.numel() / F32_FLOP_PER_S * 1e3
-        row = {"ms": time_ms(lambda: rms.rmsnorm_cuda(x, w, eps=eps), 50),
+        plan = rms.rmsnorm_launch(x.numel() // d, d, aligned=True)
+
+        def kernel():
+            return rms.rmsnorm_cuda(x, w, eps=eps)
+
+        def library():
+            return torch.nn.functional.rms_norm(x, (d,), w1, eps)
+
+        row = {"shape": f"{tuple(shape)} {str(dtype).split('.')[-1]}",
+               "kernel": "narrow" if plan["narrow"] else "wide",
+               "ms": device_ms(kernel),
+               "eager_ms": time_ms(kernel, 50),
                "plain_ms": time_ms(lambda: sref.rmsnorm_ref(x, w, eps=eps),
                                    10),
-               "library_ms": time_ms(
-                   lambda: torch.nn.functional.rms_norm(x, (d,), w1, eps),
-                   50),
+               "library_ms": device_ms(library),
+               "library_eager_ms": time_ms(library, 50),
                "bound_ms": max(bytes_ms, ops_ms),
-               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "max_abs_err": (rms.rmsnorm_cuda(x, w, eps=eps).float()
+                               - sref.rmsnorm_ref(x, w, eps=eps).float()
+                               ).abs().max().item()}
         rows.append(row)
-        print(f"  rmsnorm {tuple(shape)} {str(dtype).split('.')[-1]}: "
-              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-              f"F.rms_norm {row['library_ms']:.4f} ms, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']}, {moved} B)",
-              flush=True)
+        print(f"  rmsnorm {row['shape']} ({row['kernel']} kernel, "
+              f"{plan['blocks']} blocks of {plan['threads']}): "
+              f"card time (CUDA graph): kernel {row['ms']:.4f} ms, "
+              f"F.rms_norm {row['library_ms']:.4f} ms; eager, host "
+              f"included: kernel {row['eager_ms']:.4f} ms, F.rms_norm "
+              f"{row['library_eager_ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms; bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}, {moved} B): "
+              f"{row['bound_ms'] / row['ms']:.1%} of the bound", flush=True)
     mean = {k: sum(r[k] for r in rows) / len(rows)
             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return {"launches": launches, "max_abs_err": max_err, "rows": rows,
@@ -1613,7 +1826,11 @@ def main() -> int:
                 "bound_ms": mix("bound_ms"),
                 "bound_by": "bytes" if mix("bytes_ms") >= mix("ops_ms")
                 else "operations",
-                "library_ms": mix("library_ms")}]
+                "library_ms": mix("library_ms"),
+                "shapes": [dict(rows[(kind, dt)], layers_per_step=n_kind)
+                           for dt in (torch.bfloat16, torch.float32)
+                           for kind, n_kind in (("local", LOCAL_PER_STEP),
+                                                ("global", GLOBAL_PER_STEP))]}]
     # the segmented kernels: times at the main path's shapes (the
     # training runs' own buffers); no single PyTorch call computes
     # either pass, so library_ms is null
@@ -1651,7 +1868,7 @@ def main() -> int:
         "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
         "bound_by": "bytes" if all(r["bound_by"] == "bytes"
                                    for r in rmsn["rows"]) else "operations",
-        "library_ms": m["library_ms"]})
+        "library_ms": m["library_ms"], "shapes": rmsn["rows"]})
     print(smi_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

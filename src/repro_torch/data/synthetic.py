@@ -124,9 +124,11 @@ def two_view_iterator(data: ClassificationData, batch_size: int,
 
 
 def lm_batch(gen: torch.Generator, batch_size: int, seq_len: int,
-             vocab: int, *, device="cpu") -> tuple[torch.Tensor,
-                                                   torch.Tensor]:
-    """(tokens, labels), each [B, S] int64 on ``device``."""
+             vocab: int, *, device="cuda") -> tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """(tokens, labels), each [B, S] int64 on ``device``; the chain is
+    drawn from ``gen`` (a CPU generator) and then moved there."""
+    dev = _device.resolve(device)
     first = torch.randint(0, vocab, (batch_size, 1), generator=gen)
     noise = torch.randint(0, 3, (batch_size, seq_len), generator=gen)
     toks = torch.empty((batch_size, seq_len), dtype=torch.int64)
@@ -136,7 +138,7 @@ def lm_batch(gen: torch.Generator, batch_size: int, seq_len: int,
         toks[:, j] = tok
     tokens = torch.cat([first, toks], dim=1)[:, :seq_len]
     labels = torch.cat([toks, first], dim=1)[:, :seq_len]
-    return tokens.to(device), labels.to(device)
+    return tokens.to(dev), labels.to(dev)
 
 
 def stack_microbatches(batch, accum_steps: int):
@@ -159,13 +161,16 @@ def stack_microbatches(batch, accum_steps: int):
 
 
 def lm_iterator(batch_size: int, seq_len: int, vocab: int, seed: int = 0,
-                *, accum_steps: int = 1, device="cpu") -> Iterator[dict]:
-    """Infinite ``{"tokens", "labels"}`` stream: ``batch_size`` is the
-    GLOBAL batch per step, stacked ``[K, B/K, S]`` when
-    ``accum_steps`` K > 1."""
+                *, accum_steps: int = 1,
+                device="cuda") -> Iterator[dict]:
+    """Infinite ``{"tokens", "labels"}`` stream on ``device``:
+    ``batch_size`` is the GLOBAL batch per step, stacked ``[K, B/K, S]``
+    when ``accum_steps`` K > 1. The chain is drawn on the CPU, so the
+    tokens do not depend on the device."""
+    dev = _device.resolve(device)
     gen = torch.Generator().manual_seed(seed)
     while True:
         tokens, labels = lm_batch(gen, batch_size, seq_len, vocab,
-                                  device=device)
+                                  device=dev)
         yield stack_microbatches({"tokens": tokens, "labels": labels},
                                  accum_steps)

@@ -14,10 +14,18 @@ One call per layer per decode step does, for every slot row ``b``:
 ``repro.kernels.ref.ref_attention_decode``); ``attention_decode_cuda``
 launches ``csrc/attention_decode.cu``. ``kernels.ops.attention_decode``
 picks between them by the tensors' device.
+
+The kernel splits each row's keys across blocks: :func:`decode_plan`
+gives the split length L (from T, Dh and the cache dtype, never from
+the batch), the number of splits and the query heads per block. A split
+past the row's last needed key (:func:`last_key`) reads nothing; each
+split leaves an f32 partial (m, l, acc) and the last split to finish
+merges them in split order in the same launch.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from typing import Optional
@@ -31,6 +39,7 @@ NEG_INF = -2.0e38  # f32-safe mask value (matches models.layers)
 MAX_HEAD_DIM = 256
 SMEM_LIMIT = 232448   # bytes of shared memory one Hopper block may use
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
 
 
 def decode_parity_tolerance(cache_dtype: torch.dtype) -> dict:
@@ -87,35 +96,113 @@ def attention_decode_ref(q, new_k, new_v, k_cache, v_cache, pos, *,
     return out.reshape(b, 1, h, dh).to(q.dtype)
 
 
+# The kernel's fixed shape (csrc/attention_decode.cu: kWarps, kStages,
+# chunk_rows): each of WARPS warps keeps a ring of STAGES chunks of
+# ROWS[cache dtype] key rows (K and V) in shared memory.
+WARPS, STAGES = 8, 4
+ROWS = {torch.bfloat16: 2, torch.float32: 1}
+SPLIT_BYTES = 128 * 1024   # bytes of K rows one split reads at most
+HEADS_PER_BLOCK = (8, 4, 2, 1)   # G: the kernel's instantiations
+
+
+def split_keys(t: int, dh: int, cache_dtype: torch.dtype) -> int:
+    """L, the keys of one split: ``SPLIT_BYTES`` of K rows in whole
+    multiples of one pass of the block's warps (``WARPS * ROWS`` rows),
+    at most T. A function of (T, Dh, cache dtype) only, so a row's
+    result never depends on how many rows share the launch."""
+    row_bytes = dh * _ITEMSIZE[cache_dtype]
+    per_pass = WARPS * ROWS[cache_dtype]
+    keys = max(per_pass, SPLIT_BYTES // row_bytes // per_pass * per_pass)
+    return min(keys, t)
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """How one launch cuts its work: splits of ``keys`` keys
+    (``splits`` of them cover [0, T)), ``heads`` query heads of a KV
+    head per block (``head_groups`` blocks per KV head), ``smem`` bytes
+    of dynamic shared memory per block."""
+    t: int
+    keys: int
+    splits: int
+    heads: int
+    head_groups: int
+    smem: int
+
+    def grid(self, b: int, hkv: int) -> tuple[int, int]:
+        return b * hkv * self.head_groups, self.splits
+
+    def bounds(self) -> list[tuple[int, int]]:
+        """[start, end) of every split, in split order."""
+        return [(s * self.keys, min((s + 1) * self.keys, self.t))
+                for s in range(self.splits)]
+
+    def partial_floats(self, dh: int) -> int:
+        """f32 values of one split's partial (m, l, acc[G, Dh])."""
+        return 2 * self.heads + self.heads * dh
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(t: int, dh: int, cache_dtype: torch.dtype,
+                grp: int) -> DecodePlan:
+    """The launch plan for a cache of length ``t``, head dim ``dh`` and
+    ``grp`` query heads per KV head (no dependence on the batch)."""
+    keys = split_keys(t, dh, cache_dtype)
+    heads = next(g for g in HEADS_PER_BLOCK if grp % g == 0)
+    row_bytes = dh * _ITEMSIZE[cache_dtype]
+    ring = WARPS * STAGES * ROWS[cache_dtype] * 2 * row_bytes
+    merge = 4 * (2 * WARPS * heads + WARPS * heads * dh)
+    return DecodePlan(t=t, keys=keys, splits=-(-t // keys), heads=heads,
+                      head_groups=grp // heads, smem=max(ring, merge))
+
+
+def last_key(pos: int, t: int, window: Optional[int]) -> int:
+    """The last key row ``pos`` needs (negative: none). Global layers:
+    k <= pos; a ring before its first lap: k <= pos; else every key."""
+    if window is None:
+        return min(pos, t - 1)
+    return pos if pos < t else t - 1
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (once)."""
     lib = _build.load("attention_decode")
     fn = lib.repro_attention_decode
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     smem = lib.repro_attention_decode_smem
-    smem.argtypes = [ctypes.c_int] * 5
+    smem.argtypes = [ctypes.c_int] * 3
     smem.restype = ctypes.c_longlong
     return lib
 
 
-def attention_decode_cuda(q, new_k, new_v, k_cache, v_cache, pos, *,
-                          window: Optional[int] = None) -> torch.Tensor:
-    """Launch the Hopper kernel on PyTorch's current stream (no
-    synchronisation). Same operands and result as
-    :func:`attention_decode_ref`; raises on anything the kernel does
-    not take."""
-    dev = q.device
-    if dev.type != "cuda" or dev.index != torch.cuda.current_device():
-        raise ValueError(f"q must lie on the current CUDA device, got "
-                         f"{dev}")
-    for name, x in (("new_k", new_k), ("new_v", new_v),
-                    ("k_cache", k_cache), ("v_cache", v_cache),
-                    ("pos", pos)):
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, q on {dev}")
+# operand signature (shapes and dtypes) -> its checked plan
+_plans: dict = {}
+
+# per (device, stream): the self-resetting tickets (zeroed once; the
+# last block of every (row, KV head, head group) puts its ticket back
+# to 0) and the partials' workspace, grown on demand
+_scratch: dict = {}
+
+
+def _workspace(dev: torch.device, stream: int, n_tickets: int,
+               n_floats: int) -> tuple[torch.Tensor, torch.Tensor]:
+    key = (dev.index, stream)
+    tickets, ws = _scratch.get(key, (None, None))
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=dev)
+    if ws is None or ws.numel() < n_floats:
+        ws = torch.empty(n_floats, dtype=torch.float32, device=dev)
+    _scratch[key] = (tickets, ws)
+    return tickets, ws
+
+
+def check_operands(q, new_k, new_v, k_cache, v_cache,
+                   pos) -> DecodePlan:
+    """Raise ``ValueError`` for operands the kernel does not take (on
+    any device); return the launch plan otherwise."""
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"q must be [B,1,H,Dh], got {tuple(q.shape)}")
     b, _, h, dh = q.shape
@@ -131,40 +218,78 @@ def attention_decode_cuda(q, new_k, new_v, k_cache, v_cache, pos, *,
                          f"{tuple(new_k.shape)}, {tuple(new_v.shape)}")
     if tuple(pos.shape) != (b,):
         raise ValueError(f"pos must be [{b}], got {tuple(pos.shape)}")
-    if h % hkv:
+    if hkv < 1 or h % hkv:
         raise ValueError(f"H={h} is not a multiple of Hkv={hkv}")
     cdt = k_cache.dtype
     if q.dtype not in _DTYPE_CODES or cdt not in _DTYPE_CODES \
             or v_cache.dtype != cdt:
         raise ValueError(f"dtypes not supported: q {q.dtype}, caches "
                          f"{cdt}/{v_cache.dtype} (float32 or bfloat16)")
-    esize = k_cache.element_size()
-    if dh > MAX_HEAD_DIM or (dh * esize) % 16:
+    if dh > MAX_HEAD_DIM or (dh * _ITEMSIZE[cdt]) % 16:
         raise ValueError(f"head_dim {dh} unsupported: at most "
                          f"{MAX_HEAD_DIM}, rows a multiple of 16 bytes")
-    for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte "
-                             f"aligned (it is updated in place)")
     if t < 1:
         raise ValueError("cache length must be >= 1")
-    lib = _lib()
-    smem = lib.repro_attention_decode_smem(_DTYPE_CODES[cdt], t, h, hkv,
-                                           dh)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"H/Hkv={h // hkv} x Dh={dh} needs {smem} bytes "
-                         f"of shared memory, more than {SMEM_LIMIT}")
-    q = q.contiguous()
-    new_k = new_k.to(cdt).contiguous()
-    new_v = new_v.to(cdt).contiguous()
-    pos = pos.to(torch.int32).contiguous()
+    for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (it is updated "
+                             f"in place)")
+    plan = decode_plan(t, dh, cdt, h // hkv)
+    if plan.smem > SMEM_LIMIT:
+        raise ValueError(f"Dh={dh} needs {plan.smem} bytes of shared "
+                         f"memory, more than {SMEM_LIMIT}")
+    return plan
+
+
+def attention_decode_cuda(q, new_k, new_v, k_cache, v_cache, pos, *,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """Launch the Hopper kernel on PyTorch's current stream (no
+    synchronisation). Same operands and result as
+    :func:`attention_decode_ref`; raises on anything the kernel does
+    not take, before building it."""
+    key = (q.shape, q.dtype, new_k.shape, new_v.shape, k_cache.shape,
+           k_cache.dtype, v_cache.shape, v_cache.dtype, pos.shape)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = check_operands(q, new_k, new_v, k_cache, v_cache, pos)
+        _plans[key] = plan
+    elif not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+        raise ValueError("caches must be contiguous (they are updated in "
+                         "place)")
+    dev = q.device
+    if dev.type != "cuda" or dev.index != torch.cuda.current_device():
+        raise ValueError(f"q must lie on the current CUDA device, got "
+                         f"{dev}")
+    for name, x in (("new_k", new_k), ("new_v", new_v),
+                    ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("pos", pos)):
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, q on {dev}")
+    for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    b, _, h, dh = q.shape
+    t, hkv = k_cache.shape[1], k_cache.shape[2]
+    cdt = k_cache.dtype
+    if new_k.dtype != cdt:
+        new_k = new_k.to(cdt)
+    if new_v.dtype != cdt:
+        new_v = new_v.to(cdt)
+    if pos.dtype != torch.int32:
+        pos = pos.to(torch.int32)
+    q, new_k, new_v, pos = (x.contiguous() for x in (q, new_k, new_v, pos))
     out = torch.empty((b, 1, h, dh), dtype=q.dtype, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.repro_attention_decode(
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    blocks = plan.grid(b, hkv)[0]
+    tickets, ws = _workspace(dev, stream, blocks,
+                             blocks * plan.splits * plan.partial_floats(dh))
+    rc = _lib().repro_attention_decode(
         q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), _DTYPE_CODES[q.dtype], _DTYPE_CODES[cdt], b, t,
-        h, hkv, dh, -1 if window is None else int(window), stream)
+        out.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[cdt], b, t, h, hkv, dh,
+        -1 if window is None else int(window), plan.keys, plan.splits,
+        plan.heads, stream)
     if rc != 0:
         raise RuntimeError(f"attention_decode kernel launch failed: CUDA "
                            f"error {rc}")

@@ -9,24 +9,54 @@
 //       dynamic_update_slice clamps;
 //   (b) the validity predicate from pos[b] alone (no mask tensor);
 //   (c) grouped-query attention of the grp = H / Hkv query heads of one
-//       KV head over the T cached keys, with scores, online softmax and
+//       KV head over the cached keys, with scores, online softmax and
 //       the probs.V sum all in f32; the output is written in q's dtype.
 //
-// What bounds it on this card: bytes. Each decode launch must read the
-// K/V pool of its layer once (2 * B * T * Hkv * Dh elements) and does
-// only 4 * H * Dh flops per cached key row, far below the ~20 flop/byte
-// the f32 units need to be the limit. The design streams each K/V
-// element from device memory exactly once, as 16-byte vector loads of
-// whole rows into a shared-memory tile, and keeps scores, softmax state
-// and the accumulator in shared memory, never in device memory. The
-// appended row is written before the block reads its tile; the block is
-// the only reader of its (b, kv head) column, so a __syncthreads()
-// orders the write before the reads and the pool is updated in place.
+// What bounds it on this card: bytes. A launch must read the valid K/V
+// rows of its layer once and does only 4 * grp * Dh flops per key row
+// and KV head, far below what the f32 units need to be the limit. The
+// design is about how many bytes are in flight, how many are needed and
+// how many SMs ask for them:
 //
-// Simple on purpose: one block per (slot, kv head) and no overlap of a
-// tile's loads with the previous tile's arithmetic. At 8 slots x 8 KV
-// heads that fills 64 of 132 SMs; splitting T across blocks
-// (flash-decoding), cp.async/TMA double buffering are later work.
+// * Keys split across blocks (flash-decoding). The grid is
+//   (B * Hkv * head groups) x S splits of L keys. L depends on T, Dh and
+//   the cache dtype only (kernels/attention_decode.py::decode_plan), so
+//   a row's result does not depend on how many rows share the launch.
+// * Stop at the last valid key. Global layers need k <= pos, a ring with
+//   pos < T needs k <= pos, otherwise every key. A split wholly past that
+//   key writes an empty partial (m = NEG_INF, l = 0) and reads no K/V;
+//   inside a split the row loop ends there. The per-key predicate stays
+//   for windows shorter than the ring.
+// * Bytes in flight. Each warp owns key rows a chunk at a time (kRows
+//   rows, kChunkBytes of K and as many of V at Dh 256; the warp's chunks
+//   are interleaved over the split) and keeps a ring of kStages chunks
+//   in shared memory, filled by cp.async 16-byte copies
+//   (cp.async rather than TMA: a chunk is kRows rows of one KV head,
+//   strided by Hkv * Dh in the cache, which needs no tensor map, and
+//   every lane copies exactly the 16-byte pieces it later reads, so no
+//   barrier or mbarrier orders the ring). The next chunks load while the
+//   current one is computed.
+// * Few barriers. A lane holds its 16-byte pieces of q and of the f32
+//   accumulator for the G query heads of the block in registers, with
+//   the running m and l; a warp reduces a chunk's kRows * G scores
+//   together with shuffles only (warp_sums). The warps merge in fixed
+//   order at the end of the split (two barriers).
+// * Deterministic combine in the same launch. Each split writes its f32
+//   partial (m, l, acc[G, Dh]) to a workspace; the last block of a
+//   (b, kv head, head group) to arrive, on an integer ticket taken after
+//   __threadfence(), merges the partials in split order and resets the
+//   ticket to 0 for the next launch. No float atomics.
+// * The append. The head-group-0 block whose split holds the write slot
+//   writes the new row; no block reads that row from the cache: every
+//   reader of key `slot` copies it from new_k/new_v instead, so nothing
+//   has to order the write before the reads and the updated caches equal
+//   the plain version's bit for bit.
+//
+// What holds it back (H100 80GB HBM3 at 700 W, tools/decode_sweep.py):
+// the chunk ring alone, with the arithmetic taken out, moves the K/V
+// bytes at about 55% of the memory rate in bf16 and 65% in f32; the
+// kernel runs within about 10% of that, so a faster kernel needs more
+// bytes in flight per SM (TMA bulk copies, deeper rings), not less math.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -35,11 +65,13 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kStages = 4;           // ring depth of each warp's K/V chunks
+constexpr int kChunkBytes = 1024;    // K bytes of one chunk: 2 bf16 rows of
+                                     // 256, 1 f32 row
+constexpr int kMaxHeadDim = 256;
 constexpr float kNegInf = -2.0e38f;  // f32-safe mask value (= NEG_INF)
-constexpr int kTileBytes = 16384;    // per operand (K or V) per tile
-constexpr int kMaxTile = 64;
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) {
@@ -59,6 +91,36 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to()
 }
 
+// 16 bytes of a cache row as f32 values (4 f32 or 8 bf16).
+__device__ __forceinline__ void unpack16(const float* p, float* f) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  f[0] = u.x; f[1] = u.y; f[2] = u.z; f[3] = u.w;
+}
+__device__ __forceinline__ void unpack16(const __nv_bfloat16* p, float* f) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+
+// 16-byte global -> shared copy; fill == false writes 16 zero bytes.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool fill) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(fill ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Python-style floor modulo (pos is never negative in serving, but the
 // predicate must agree with the reference for any int32).
 __device__ __forceinline__ int py_mod(int a, int m) {
@@ -67,223 +129,437 @@ __device__ __forceinline__ int py_mod(int a, int m) {
 }
 
 // Key row k of a ring of length t holds absolute position k + wraps
-// (k <= slot) or k + wraps - t (not yet overwritten this lap); it is
-// valid iff that position lies in (pos - window, pos]. Global layers
-// (window <= 0): k <= pos.
-__device__ __forceinline__ bool key_valid(int k, int pos, int slot, int t,
-                                          int window) {
+// (k <= slot) or k + wraps - t (not yet overwritten this lap), with
+// wraps = pos - pos mod t; it is valid iff that position lies in
+// (pos - window, pos]. Global layers (window <= 0): k <= pos.
+__device__ __forceinline__ bool key_valid(int k, int pos, int slot,
+                                          int wraps, int t, int window) {
   if (window <= 0) return k <= pos;
-  int wraps = (pos - py_mod(pos, t));
   int a = k + (k <= slot ? wraps : wraps - t);
   return a >= 0 && a <= pos && a > pos - window;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// The warp sums of N per-lane values (N a power of two up to 32), in a
+// fixed order, returned to every lane in v. The values are halved
+// between lane pairs at offsets 16, 8, ... until each lane carries one
+// (N - 1 shuffles), summed over the remaining offsets, then each sum is
+// read from a lane that holds it (N shuffles): 2N + 4 - log2(N) shuffles
+// where N separate butterflies take 5N.
+template <int N>
+__device__ __forceinline__ void warp_sums(float (&v)[N], int lane) {
+  static_assert(N >= 1 && N <= 32 && (N & (N - 1)) == 0, "power of two");
+  int off = 16;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int n = N; n > 1; n >>= 1, off >>= 1) {
+    const bool upper = lane & off;
+#pragma unroll
+    for (int i = 0; i < n / 2; ++i) {
+      const float send = upper ? v[i] : v[i + n / 2];
+      const float keep = upper ? v[i + n / 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+  }
+  float sum = v[0];
+#pragma unroll
+  for (; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  // lane l holds the sum of value i where i's bits, most significant
+  // first, are l's bits at offsets 16, 8, ...
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    int src = 0;
+#pragma unroll
+    for (int b = N >> 1, o = 16; b > 0; b >>= 1, o >>= 1)
+      if (i & b) src |= o;
+    v[i] = __shfl_sync(0xffffffffu, sum, src);
+  }
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// key rows in one chunk
+template <typename CT> __host__ __device__ constexpr int chunk_rows() {
+  return kChunkBytes / (kMaxHeadDim * (int)sizeof(CT));
 }
 
-// grid: B * Hkv blocks, block (b, kvh) = blockIdx.x / Hkv, % Hkv.
-// q, out: [B, H, Dh]; new_k, new_v: [B, Hkv, Dh] (cache dtype);
-// k_cache, v_cache: [B, T, Hkv, Dh]; pos: [B] int32.
-template <typename QT, typename CT>
+size_t smem_bytes(int csize, int dh, int g) {
+  const int rows = csize == 2 ? chunk_rows<__nv_bfloat16>()
+                              : chunk_rows<float>();
+  const size_t ring = (size_t)kWarps * kStages * rows * 2 * dh * csize;
+  const size_t merge = ((size_t)2 * kWarps * g + (size_t)kWarps * g * dh) *
+                       sizeof(float);
+  return ring > merge ? ring : merge;
+}
+
+// grid: (B * Hkv * Hg, S); block x = (b * Hkv + kvh) * Hg + hg covers the
+// G query heads hg*G .. hg*G+G-1 of KV head kvh, block y = split.
+// q, out: [B, H, Dh]; new_k, new_v: [B, Hkv, Dh] (cache dtype); k_cache,
+// v_cache: [B, T, Hkv, Dh]; pos: [B] int32; ws: [B*Hkv*Hg, S, 2G + G*Dh]
+// f32; tickets: [B*Hkv*Hg] u32, 0 between launches.
+template <typename QT, typename CT, int G>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const QT* q, const CT* new_k, const CT* new_v, CT* k_cache,
-              CT* v_cache, const int32_t* pos_vec, QT* out, int t, int h,
-              int hkv, int dh, int window, int tile, float scale) {
+decode_kernel(const QT* __restrict__ q, const CT* __restrict__ new_k,
+              const CT* __restrict__ new_v, CT* k_cache, CT* v_cache,
+              const int32_t* __restrict__ pos_vec, QT* __restrict__ out,
+              float* __restrict__ ws, unsigned* __restrict__ tickets, int t,
+              int h, int hkv, int dh, int window, int keys, int splits,
+              float scale) {
+  constexpr int kVec = 16 / sizeof(CT);          // elements in 16 bytes
+  constexpr int kLane = kMaxHeadDim / kVec / 32;  // 16-byte pieces a lane
+  constexpr int kRows = chunk_rows<CT>();
   extern __shared__ __align__(16) unsigned char smem[];
-  const int grp = h / hkv;
-  // layout: ks, vs [tile * dh] CT | qs, acc [grp * dh] f32 |
-  //         sc [grp * tile] f32 | m, l, alpha [grp] f32
-  CT* ks = reinterpret_cast<CT*>(smem);
-  CT* vs = ks + (size_t)tile * dh;
-  float* qs = reinterpret_cast<float*>(vs + (size_t)tile * dh);
-  float* acc = qs + grp * dh;
-  float* sc = acc + grp * dh;
-  float* m_s = sc + grp * tile;
-  float* l_s = m_s + grp;
-  float* alpha_s = l_s + grp;
+  __shared__ bool is_last;
 
-  const int b = blockIdx.x / hkv;
-  const int kvh = blockIdx.x % hkv;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int grp = h / hkv;
+  const int hgroups = grp / G;
+  const int bkg = blockIdx.x;
+  const int hg = bkg % hgroups;
+  const int b = bkg / hgroups / hkv;
+  const int kvh = bkg / hgroups % hkv;
+  const int split = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
 
   const int pos = pos_vec[b];
   const int ring_slot = window > 0 ? py_mod(pos, t) : pos;
+  const int wraps = pos - ring_slot;   // ring layers: laps before this one
   const int slot = min(max(ring_slot, 0), t - 1);
+  // the last key this row needs
+  const int last = window > 0 ? (pos < t ? pos : t - 1) : min(pos, t - 1);
 
   const size_t row_stride = (size_t)hkv * dh;  // elements between keys
   CT* kcol = k_cache + ((size_t)b * t * hkv + kvh) * dh;
   CT* vcol = v_cache + ((size_t)b * t * hkv + kvh) * dh;
-
-  // (a) in-place ring append of this block's own (b, kvh) row.
   const CT* nk = new_k + ((size_t)b * hkv + kvh) * dh;
   const CT* nv = new_v + ((size_t)b * hkv + kvh) * dh;
-  for (int d = tid; d < dh; d += kThreads) {
-    kcol[(size_t)slot * row_stride + d] = nk[d];
-    vcol[(size_t)slot * row_stride + d] = nv[d];
-  }
-  // the grp query heads of this KV head are contiguous in [H, Dh]
-  const QT* qb = q + ((size_t)b * h + (size_t)kvh * grp) * dh;
-  for (int i = tid; i < grp * dh; i += kThreads) {
-    qs[i] = to_f32(qb[i]);
-    acc[i] = 0.f;
-  }
-  for (int g = tid; g < grp; g += kThreads) {
-    m_s[g] = kNegInf;
-    l_s[g] = 0.f;
-  }
-  __syncthreads();  // the append is visible to the tile loads below
 
-  constexpr int kVec = 16 / sizeof(CT);  // elements per 16-byte load
-  const int vec_per_row = dh / kVec;
-  for (int t0 = 0; t0 < t; t0 += tile) {
-    const int n = min(tile, t - t0);
-    // load the K and V tiles: n rows of dh contiguous elements each
-    for (int c = tid; c < n * vec_per_row; c += kThreads) {
-      const int r = c / vec_per_row;
-      const int j = (c - r * vec_per_row) * kVec;
-      const size_t src = (size_t)(t0 + r) * row_stride + j;
-      *reinterpret_cast<uint4*>(ks + (size_t)r * dh + j) =
-          *reinterpret_cast<const uint4*>(kcol + src);
-      *reinterpret_cast<uint4*>(vs + (size_t)r * dh + j) =
-          *reinterpret_cast<const uint4*>(vcol + src);
+  const int s0 = split * keys;
+  const int s1 = min(s0 + keys, t);
+  // (a) the append, by one block of the (b, kvh) column
+  if (hg == 0 && slot >= s0 && slot < s1) {
+    for (int d = threadIdx.x; d < dh; d += kThreads) {
+      kcol[(size_t)slot * row_stride + d] = nk[d];
+      vcol[(size_t)slot * row_stride + d] = nv[d];
     }
-    __syncthreads();
+  }
 
-    // scores: one warp per key row, lanes split the head dim
-    for (int r = warp; r < n; r += kWarps) {
-      const bool ok = key_valid(t0 + r, pos, ring_slot, t, window);
-      for (int g = 0; g < grp; ++g) {
-        float s = 0.f;
-        for (int d = lane; d < dh; d += 32)
-          s += qs[g * dh + d] * to_f32(ks[(size_t)r * dh + d]);
-        s = warp_sum(s);
-        if (lane == 0) sc[g * tile + r] = ok ? s * scale : kNegInf;
+  const int stride = 2 * G + G * dh;  // floats of one partial
+  float* part = ws + ((size_t)bkg * splits + split) * stride;
+  const int e = min(s1, last + 1);    // this split's keys: [s0, e)
+  if (e > s0) {
+    const int pieces = dh / kVec;     // 16-byte pieces of a row
+    const int row_bytes = dh * (int)sizeof(CT);
+    const QT* qb =
+        q + ((size_t)b * h + (size_t)kvh * grp + (size_t)hg * G) * dh;
+    float qr[G][kLane][kVec], acc[G][kLane][kVec], m[G], l[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      m[g] = kNegInf;
+      l[g] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kLane; ++j) {
+        const int c = lane + 32 * j;
+#pragma unroll
+        for (int x = 0; x < kVec; ++x) {
+          qr[g][j][x] = c < pieces ? to_f32(qb[g * dh + c * kVec + x]) : 0.f;
+          acc[g][j][x] = 0.f;
+        }
       }
     }
-    __syncthreads();
 
-    // online softmax: one warp per query head
-    for (int g = warp; g < grp; g += kWarps) {
-      float mx = kNegInf;
-      for (int r = lane; r < n; r += 32) mx = fmaxf(mx, sc[g * tile + r]);
-      mx = warp_max(mx);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int r = lane; r < n; r += 32) {
-        const bool ok = key_valid(t0 + r, pos, ring_slot, t, window);
-        const float p = ok ? expf(sc[g * tile + r] - m_new) : 0.f;
-        sc[g * tile + r] = p;
-        sum += p;
+    // this warp's ring: kStages x kRows x (K row, V row)
+    unsigned char* ring =
+        smem + (size_t)warp * kStages * kRows * 2 * row_bytes;
+    const int chunks = (e - s0 + kRows - 1) / kRows;
+    const int mine =
+        chunks > warp ? (chunks - warp + kWarps - 1) / kWarps : 0;
+    auto stage = [&](int i) {   // chunk i of this warp: K, V rows in turn
+      return ring + (size_t)(i % kStages) * kRows * 2 * row_bytes;
+    };
+
+    // the i-th chunk of this warp into its stage (an empty group past
+    // the end keeps the wait count uniform)
+    auto issue = [&](int i) {
+      if (i < mine) {
+        const int r0 = s0 + (warp + i * kWarps) * kRows;
+        unsigned char* st = stage(i);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const int k = r0 + r;
+          const bool ok = k < e;
+          const size_t off = (size_t)(ok ? k : s0) * row_stride;
+          const CT* ks = k == slot ? nk : kcol + off;
+          const CT* vs = k == slot ? nv : vcol + off;
+#pragma unroll
+          for (int j = 0; j < kLane; ++j) {
+            const int c = lane + 32 * j;
+            if (c < pieces) {
+              cp_async16(st + (size_t)(2 * r) * row_bytes + c * 16,
+                         ks + c * kVec, ok);
+              cp_async16(st + (size_t)(2 * r + 1) * row_bytes + c * 16,
+                         vs + c * kVec, ok);
+            }
+          }
+        }
       }
-      sum = warp_sum(sum);
+      cp_async_commit();
+    };
+
+#pragma unroll
+    for (int i = 0; i < kStages - 1; ++i) issue(i);
+    for (int i = 0; i < mine; ++i) {
+      issue(i + kStages - 1);
+      cp_async_wait<kStages - 1>();   // this lane's pieces of chunk i
+      const unsigned char* st = stage(i);
+      const int r0 = s0 + (warp + i * kWarps) * kRows;
+      float s[kRows * G];   // scores, row-major
+      bool valid[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        float kv[kLane][kVec];
+#pragma unroll
+        for (int j = 0; j < kLane; ++j) {
+          const int c = lane + 32 * j;
+          if (c < pieces) {
+            unpack16(reinterpret_cast<const CT*>(
+                         st + (size_t)(2 * r) * row_bytes + c * 16), kv[j]);
+          } else {
+#pragma unroll
+            for (int x = 0; x < kVec; ++x) kv[j][x] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float dot = 0.f;
+#pragma unroll
+          for (int j = 0; j < kLane; ++j)
+#pragma unroll
+            for (int x = 0; x < kVec; ++x) dot += qr[g][j][x] * kv[j][x];
+          s[r * G + g] = dot;
+        }
+        const int k = r0 + r;
+        valid[r] = k < e && key_valid(k, pos, ring_slot, wraps, t, window);
+      }
+      warp_sums<kRows * G>(s, lane);
+      // online softmax over the chunk's rows
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float mx = m[g];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          s[r * G + g] *= scale;
+          if (valid[r]) mx = fmaxf(mx, s[r * G + g]);
+        }
+        const float alpha = expf(m[g] - mx);
+        float sum = 0.f;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const float p = valid[r] ? expf(s[r * G + g] - mx) : 0.f;
+          s[r * G + g] = p;
+          sum += p;
+        }
+        l[g] = l[g] * alpha + sum;
+        m[g] = mx;
+#pragma unroll
+        for (int j = 0; j < kLane; ++j)
+#pragma unroll
+          for (int x = 0; x < kVec; ++x) acc[g][j][x] *= alpha;
+      }
+      // probs . V
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        float vv[kLane][kVec];
+#pragma unroll
+        for (int j = 0; j < kLane; ++j) {
+          const int c = lane + 32 * j;
+          if (c < pieces) {
+            unpack16(reinterpret_cast<const CT*>(
+                         st + (size_t)(2 * r + 1) * row_bytes + c * 16),
+                     vv[j]);
+          } else {
+#pragma unroll
+            for (int x = 0; x < kVec; ++x) vv[j][x] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int j = 0; j < kLane; ++j)
+#pragma unroll
+            for (int x = 0; x < kVec; ++x)
+              acc[g][j][x] += s[r * G + g] * vv[j][x];
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();   // every warp is done with its ring: the merge reuses it
+
+    // merge the warps in order 0..kWarps-1 into this split's partial
+    float* mw = reinterpret_cast<float*>(smem);
+    float* lw = mw + kWarps * G;
+    float* aw = lw + kWarps * G;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
       if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        alpha_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
+        mw[warp * G + g] = m[g];
+        lw[warp * G + g] = l[g];
+      }
+#pragma unroll
+      for (int j = 0; j < kLane; ++j) {
+        const int c = lane + 32 * j;
+        if (c < pieces) {
+#pragma unroll
+          for (int x = 0; x < kVec; ++x)
+            aw[(size_t)(warp * G + g) * dh + c * kVec + x] = acc[g][j][x];
+        }
       }
     }
     __syncthreads();
-
-    // probs . V into the f32 accumulator (each thread owns its entries)
-    for (int i = tid; i < grp * dh; i += kThreads) {
+    for (int i = threadIdx.x; i < G * dh; i += kThreads) {
       const int g = i / dh;
       const int d = i - g * dh;
-      float a = acc[i] * alpha_s[g];
-      const float* p = sc + g * tile;
-      for (int r = 0; r < n; ++r) a += p[r] * to_f32(vs[(size_t)r * dh + d]);
-      acc[i] = a;
+      float mm = kNegInf;
+      for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, mw[w * G + g]);
+      float ll = 0.f, a = 0.f;
+      for (int w = 0; w < kWarps; ++w) {
+        const float f = expf(mw[w * G + g] - mm);
+        ll += lw[w * G + g] * f;
+        a += aw[(size_t)(w * G + g) * dh + d] * f;
+      }
+      if (d == 0) {
+        part[g] = mm;
+        part[G + g] = ll;
+      }
+      part[2 * G + i] = a;
     }
-    __syncthreads();  // tiles, probs and alpha are rewritten next round
+  } else if (threadIdx.x < G) {
+    part[threadIdx.x] = kNegInf;   // an empty partial: no K/V read
+    part[G + threadIdx.x] = 0.f;
   }
 
-  QT* ob = out + ((size_t)b * h + (size_t)kvh * grp) * dh;
-  for (int i = tid; i < grp * dh; i += kThreads)
-    ob[i] = from_f32<QT>(acc[i] / l_s[i / dh]);
+  // the last split of this (b, kvh, hg) to arrive combines them all
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    is_last = atomicAdd(tickets + bkg, 1u) == (unsigned)splits - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  if (threadIdx.x == 0) tickets[bkg] = 0u;   // ready for the next launch
+  const float* base = ws + (size_t)bkg * splits * stride;
+  QT* ob = out + ((size_t)b * h + (size_t)kvh * grp + (size_t)hg * G) * dh;
+  for (int i = threadIdx.x; i < G * dh; i += kThreads) {
+    const int g = i / dh;
+    float mm = kNegInf;
+    for (int sp = 0; sp < splits; ++sp) {
+      const float* p = base + (size_t)sp * stride;
+      if (__ldcg(p + G + g) > 0.f) mm = fmaxf(mm, __ldcg(p + g));
+    }
+    float ll = 0.f, a = 0.f;
+    for (int sp = 0; sp < splits; ++sp) {   // in split order; empty skipped
+      const float* p = base + (size_t)sp * stride;
+      const float lp = __ldcg(p + G + g);
+      if (lp > 0.f) {
+        const float f = expf(__ldcg(p + g) - mm);
+        ll += lp * f;
+        a += __ldcg(p + 2 * G + i) * f;
+      }
+    }
+    ob[i] = from_f32<QT>(a / ll);
+  }
 }
 
-template <typename CT>
-int tile_rows(int t, int dh) {
-  int tile = kTileBytes / (dh * (int)sizeof(CT));
-  tile = tile < 1 ? 1 : (tile > kMaxTile ? kMaxTile : tile);
-  return tile < t ? tile : t;
-}
-
-template <typename QT, typename CT>
+template <typename QT, typename CT, int G>
 int launch(const void* q, const void* new_k, const void* new_v,
-           void* k_cache, void* v_cache, const void* pos, void* out, int b,
-           int t, int h, int hkv, int dh, int window, cudaStream_t stream) {
-  const int grp = h / hkv;
-  const int tile = tile_rows<CT>(t, dh);
-  const size_t smem = 2 * (size_t)tile * dh * sizeof(CT) +
-                      (2 * (size_t)grp * dh + (size_t)grp * tile +
-                       3 * (size_t)grp) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        decode_kernel<QT, CT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+           void* k_cache, void* v_cache, const void* pos, void* out,
+           void* ws, void* tickets, int b, int t, int h, int hkv, int dh,
+           int window, int keys, int splits, cudaStream_t stream) {
+  // the shared-memory opt-in, once per device and instantiation
+  static size_t granted[64] = {0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = smem_bytes((int)sizeof(CT), dh, G);
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (granted[dev] < smem) {
+    e = cudaFuncSetAttribute(decode_kernel<QT, CT, G>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
     if (e != cudaSuccess) return (int)e;
+    granted[dev] = smem;
   }
   const float scale = 1.0f / sqrtf((float)dh);
-  decode_kernel<QT, CT><<<b * hkv, kThreads, smem, stream>>>(
+  const dim3 grid((unsigned)(b * hkv * (h / hkv / G)), (unsigned)splits);
+  decode_kernel<QT, CT, G><<<grid, kThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const CT*>(new_k),
       static_cast<const CT*>(new_v), static_cast<CT*>(k_cache),
       static_cast<CT*>(v_cache), static_cast<const int32_t*>(pos),
-      static_cast<QT*>(out), t, h, hkv, dh, window, tile, scale);
+      static_cast<QT*>(out), static_cast<float*>(ws),
+      static_cast<unsigned*>(tickets), t, h, hkv, dh, window, keys, splits,
+      scale);
   return (int)cudaGetLastError();
+}
+
+template <typename QT, typename CT>
+int launch_g(int g, const void* q, const void* new_k, const void* new_v,
+             void* k_cache, void* v_cache, const void* pos, void* out,
+             void* ws, void* tickets, int b, int t, int h, int hkv, int dh,
+             int window, int keys, int splits, cudaStream_t s) {
+#define REPRO_DECODE_G(N)                                                   \
+  case N:                                                                   \
+    return launch<QT, CT, N>(q, new_k, new_v, k_cache, v_cache, pos, out,   \
+                             ws, tickets, b, t, h, hkv, dh, window, keys,   \
+                             splits, s);
+  switch (g) {
+    REPRO_DECODE_G(1)
+    REPRO_DECODE_G(2)
+    REPRO_DECODE_G(4)
+    REPRO_DECODE_G(8)
+  }
+#undef REPRO_DECODE_G
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. window <= 0 means a global
-// layer. Returns cudaGetLastError() after the launch (0 = success), or
-// cudaErrorInvalidValue for an unsupported dtype pair.
+// layer. keys / splits / heads are the plan of
+// kernels/attention_decode.py::decode_plan (L, S, G). Returns
+// cudaGetLastError() after the launch (0 = success), or
+// cudaErrorInvalidValue for operands or a plan the kernel does not take.
 extern "C" int repro_attention_decode(const void* q, const void* new_k,
                                       const void* new_v, void* k_cache,
                                       void* v_cache, const void* pos,
-                                      void* out, int q_dtype, int c_dtype,
-                                      int b, int t, int h, int hkv, int dh,
-                                      int window, void* stream) {
+                                      void* out, void* ws, void* tickets,
+                                      int q_dtype, int c_dtype, int b, int t,
+                                      int h, int hkv, int dh, int window,
+                                      int keys, int splits, int heads,
+                                      void* stream) {
+  const int csize = c_dtype == 1 ? 2 : 4;
+  if (b < 1 || t < 1 || hkv < 1 || h % hkv || heads < 1 ||
+      (h / hkv) % heads || dh < 1 || dh > kMaxHeadDim || (dh * csize) % 16 ||
+      keys < 1 || splits != (t + keys - 1) / keys)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 1 && c_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(
-        q, new_k, new_v, k_cache, v_cache, pos, out, b, t, h, hkv, dh,
-        window, s);
+    return launch_g<__nv_bfloat16, __nv_bfloat16>(
+        heads, q, new_k, new_v, k_cache, v_cache, pos, out, ws, tickets, b,
+        t, h, hkv, dh, window, keys, splits, s);
   if (q_dtype == 0 && c_dtype == 0)
-    return launch<float, float>(q, new_k, new_v, k_cache, v_cache, pos, out,
-                                b, t, h, hkv, dh, window, s);
+    return launch_g<float, float>(heads, q, new_k, new_v, k_cache, v_cache,
+                                  pos, out, ws, tickets, b, t, h, hkv, dh,
+                                  window, keys, splits, s);
   if (q_dtype == 1 && c_dtype == 0)
-    return launch<__nv_bfloat16, float>(q, new_k, new_v, k_cache, v_cache,
-                                        pos, out, b, t, h, hkv, dh, window,
-                                        s);
+    return launch_g<__nv_bfloat16, float>(
+        heads, q, new_k, new_v, k_cache, v_cache, pos, out, ws, tickets, b,
+        t, h, hkv, dh, window, keys, splits, s);
   if (q_dtype == 0 && c_dtype == 1)
-    return launch<float, __nv_bfloat16>(q, new_k, new_v, k_cache, v_cache,
-                                        pos, out, b, t, h, hkv, dh, window,
-                                        s);
+    return launch_g<float, __nv_bfloat16>(
+        heads, q, new_k, new_v, k_cache, v_cache, pos, out, ws, tickets, b,
+        t, h, hkv, dh, window, keys, splits, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// Shared memory one launch needs, so the wrapper can refuse shapes
-// beyond the 227 KB a block may use before launching.
-extern "C" long long repro_attention_decode_smem(int c_dtype, int t, int h,
-                                                 int hkv, int dh) {
-  const int grp = h / hkv;
-  const int csize = c_dtype == 1 ? 2 : 4;
-  const int tile = c_dtype == 1 ? tile_rows<__nv_bfloat16>(t, dh)
-                                : tile_rows<float>(t, dh);
-  return 2LL * tile * dh * csize +
-         (2LL * grp * dh + (long long)grp * tile + 3LL * grp) * 4;
+// Dynamic shared memory one block takes (the K/V rings, or the warps'
+// merge area when that is larger), so the wrapper's plan can be held
+// against the kernel's own count.
+extern "C" long long repro_attention_decode_smem(int c_dtype, int dh,
+                                                 int heads) {
+  return (long long)smem_bytes(c_dtype == 1 ? 2 : 4, dh, heads);
 }

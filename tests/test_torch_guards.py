@@ -185,6 +185,19 @@ def test_train_launcher_refuses_cuda_without_it(no_cuda):
         train.run(["--smoke", "--steps", "1", "--device", "cuda"])
 
 
+def test_lm_stream_refuses_cuda_without_it(no_cuda):
+    """The synthetic LM stream defaults to the card like every other
+    entry point, and raises without CUDA instead of staying on the CPU."""
+    from repro_torch.data import synthetic
+    with pytest.raises(RuntimeError, match="CUDA"):
+        next(synthetic.lm_iterator(8, 16, 97))          # default device
+    with pytest.raises(RuntimeError, match="CUDA"):
+        synthetic.lm_batch(torch.Generator().manual_seed(0), 4, 16, 97)
+    tokens, _ = synthetic.lm_batch(torch.Generator().manual_seed(0), 4, 16,
+                                   97, device="cpu")
+    assert tokens.device.type == "cpu"
+
+
 def test_fused_optimizer_refuses_cuda_without_it(no_cuda):
     from repro_torch.core import build_optimizer
     for name in ("tvlars", "lamb", "wa-lars"):

@@ -184,13 +184,14 @@ def test_accumulation_k_by_b_over_k_equals_one_by_b(use_kernel):
 
 def test_lm_stream_is_the_bigram_chain():
     gen = torch.Generator().manual_seed(3)
-    tokens, labels = synthetic.lm_batch(gen, 4, 16, 97)
+    tokens, labels = synthetic.lm_batch(gen, 4, 16, 97, device="cpu")
     assert torch.equal(labels[:, :-1], tokens[:, 1:])
     step = (labels - 5 * tokens - 1) % 97
     assert set(step[:, :-1].unique().tolist()) <= {0, 1, 2}
-    stacked = next(synthetic.lm_iterator(8, 16, 97, accum_steps=2))
+    stacked = next(synthetic.lm_iterator(8, 16, 97, accum_steps=2,
+                                         device="cpu"))
     assert stacked["tokens"].shape == (2, 4, 16)
-    first = next(synthetic.lm_iterator(8, 16, 97))
+    first = next(synthetic.lm_iterator(8, 16, 97, device="cpu"))
     assert torch.equal(stacked["tokens"].reshape(8, 16), first["tokens"])
     with pytest.raises(ValueError, match="divisible"):
         synthetic.stack_microbatches({"x": torch.zeros(5, 2)}, 2)
