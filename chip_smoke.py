@@ -95,7 +95,29 @@ script exits non-zero:
    and whether the reference's ordering holds (reported);
    the CNN at init_cnn defaults, 20 WA-LARS steps through the
    per-tensor kernels (2 launches per ADAPT leaf per step), each
-   step's update against the tree path's from the same state.
+   step's update against the tree path's from the same state;
+10. the sharpness diagnostics at full width through
+   ``launch.train.run``: qwen2.5-3b, all 36 layers, bf16 weights from
+   seed 0, per-tensor WA-LARS, global batch 8 in 8 microbatches of 1 x
+   512 tokens (microbatches of 2 leave no room for the probe's double
+   backward), 3 steps, a Lanczos lambda_max probe after every step (4
+   iterations, no reorthogonalization: no basis on the card, the
+   previous vector in host memory) on a held batch stacked K = 8,
+   streamed to JSONL. Exactly 14 launches of each per-tensor kernel per
+   step and none inside a probe; params and momentum bitwise unchanged
+   by every probe (checksums); lambda_max finite at steps 0-2, the file
+   valid, lambda_max >= alpha_1. Then a SAM (rho 0.05) and a
+   noise-scale probe (K = 8) on the final state, the HVP's symmetry for
+   two seeded directions, one matvec timed, the peak memory, and the
+   per-tensor kernels timed at this run's shapes;
+10b. the smoke LM in f32 on the card against the CPU's plain path, same
+   weights and batch: flat HVP, Lanczos alpha/beta from one v0,
+   sam_sharpness, gradient_noise_scale and a loss slice;
+10c. ``launch.sharpness.run`` at its defaults (the bench's MLP, WA-LARS
+   and TVLARS, 40 steps, probes every 5, SLQ at the end): files valid,
+   the early lambda_max of each optimizer and their ratio reported;
+10d. the probe smoke, ``repro_torch.diagnostics.smoke``, at its CLI
+   defaults (on the card).
 
 The last lines are the ``nvidia-smi`` line, one JSON object describing
 each kernel (decode attention and RMSNorm with a row per timed shape
@@ -110,6 +132,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1406,10 +1429,13 @@ class LarsLastStepCheck:
     the counted launches must equal the plain ratio from those sums, and
     4,096 random elements of the new momentum and the delta must equal
     the plain apply on the same sums (bitwise). Keeps the last step's
-    segments for timing."""
+    segments for timing (without their gradients when ``keep_grads`` is
+    False, so that they are freed with the step)."""
 
-    def __init__(self, real, lu, sref, steps: int, n_segments: int):
+    def __init__(self, real, lu, sref, steps: int, n_segments: int, *,
+                 keep_grads: bool = True):
         self.real, self.lu, self.sref = real, lu, sref
+        self.keep_grads = keep_grads
         self.last_from = (steps - 1) * n_segments
         self.calls = 0
         self.segments: list = []
@@ -1471,7 +1497,8 @@ class LarsLastStepCheck:
         if not (torch.equal(pm, km) and torch.equal(pd, kd)):
             raise AssertionError(f"last step: 4096 elements differ from "
                                  f"the plain apply ({self.elem_abs:.3e})")
-        self.segments.append((ws, gs, ms, kw["base_lr"]))
+        self.segments.append((ws, gs if self.keep_grads else None, ms,
+                              kw["base_lr"]))
         return out
 
 
@@ -1711,6 +1738,368 @@ def phase_paper_loop(classify, cnn, core, training, synthetic, ops,
     return out
 
 
+# phase 10: the sharpness diagnostics at full width. Stated bounds:
+# sam_sharpness >= -SAM_FLOOR_REL * loss on the bf16 model (the
+# perturbation's first-order term is >= 0 even after rounding each
+# perturbed weight to bf16; the rest is the bf16 loss's own rounding),
+# HVP asymmetry |u.Hv - v.Hu| / (|u| |Hv|) <= HVP_SYM_BF16 (one bf16
+# unit, 2^-8), lambda_max >= alpha_1 - LANCZOS_EIGH_TOL * max|T| (the
+# largest eigenvalue of T is at least its (1,1) entry; eigh in f32)
+SAM_FLOOR_REL = 1e-3
+HVP_SYM_BF16 = 2.0 ** -8
+LANCZOS_EIGH_TOL = 1e-5
+# phase 10b, the smoke LM in f32, card against the CPU's plain path: a
+# vector's (HVP, Lanczos alpha/beta, loss slice) largest gap relative to
+# its largest entry, a scalar's gap relative to itself. The CPU tests'
+# 1e-4 bound on LM gradients against the JAX package; SAM sharpness is a
+# difference of two losses and the noise scale a ratio of differences of
+# squared norms, so 1e-3 of their own size
+SMALL_F32_RTOL = {"hvp": 1e-4, "lanczos": 1e-4, "sam": 1e-3, "gns": 1e-3,
+                  "slice": 1e-5}
+
+
+def state_checksum(state, tree_leaves) -> list:
+    """Per tensor of the params and the optimizer state: the sum of its
+    bit patterns and of their squares (int64, wrapping), which any
+    change of a bit moves."""
+    out = []
+    for t in tree_leaves(state.params) + tree_leaves(state.opt_state):
+        if not isinstance(t, torch.Tensor):
+            out.append((repr(t),))
+            continue
+        bits = {8: torch.int64, 4: torch.int32, 2: torch.int16,
+                1: torch.int8}[t.element_size()]
+        b = t.detach().reshape(-1).view(bits).to(torch.int64)
+        out.append((int(b.sum()), int((b * b).sum())))
+        del b
+    return out
+
+
+class ProbeWatch:
+    """Wraps a probe class's ``__call__`` during a run: at each call the
+    launch counts, the state's checksum and the card's time around it,
+    and for a Lanczos probe the first Rayleigh quotient alpha_1 beside
+    the probe's top eigenvalue."""
+
+    def __init__(self, cls, ops, tree_leaves):
+        self.cls, self.ops, self.tree_leaves = cls, ops, tree_leaves
+        self.real = cls.__call__
+        self.calls: list = []
+        watch = self
+
+        def call(probe, step, state):
+            torch.cuda.synchronize()
+            before = dict(ops.launches)
+            csum = state_checksum(state, tree_leaves)
+            t0 = time.perf_counter()
+            raw = probe.dispatch(step, state)
+            out = probe.resolve(raw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            rec = {"step": step, "out": out, "seconds": seconds,
+                   "launches_before": before,
+                   "launches_after": dict(ops.launches),
+                   "unchanged": state_checksum(state, tree_leaves) == csum}
+            if hasattr(raw, "alphas"):
+                rec["alpha1"] = float(raw.alphas[0])
+                rec["t_max"] = float(max(raw.alphas.abs().max(),
+                                         raw.betas.abs().max()))
+            watch.calls.append(rec)
+            return out
+
+        cls.__call__ = call
+
+    def restore(self):
+        self.cls.__call__ = self.real
+
+
+def check_probe_calls(label: str, calls: list, per_step: dict) -> None:
+    """Every probe call: no launch inside it, the state bitwise unchanged
+    and, given ``per_step`` launches of each kernel, exactly (step + 1)
+    steps' launches before it (the probe runs after its step)."""
+    for c in calls:
+        if c["launches_after"] != c["launches_before"]:
+            raise AssertionError(f"{label}: probe at step {c['step']} "
+                                 f"launched kernels: {c['launches_before']}"
+                                 f" -> {c['launches_after']}")
+        if not c["unchanged"]:
+            raise AssertionError(f"{label}: probe at step {c['step']} "
+                                 f"changed the params or optimizer state")
+        if per_step is not None:
+            want = {k: per_step.get(k, 0) * (c["step"] + 1)
+                    for k in c["launches_before"]}
+            if c["launches_before"] != want:
+                raise AssertionError(f"{label}: launches before the probe "
+                                     f"at step {c['step']} "
+                                     f"{c['launches_before']}, expected "
+                                     f"{want}")
+
+
+def phase_sharpness_full(run, ops, lu, sref, layerwise, flatten,
+                         tree_leaves, diag, synthetic, training,
+                         argv: list, label: str) -> dict:
+    """10: qwen2.5-3b at full width (36 layers, bf16, seed 0) through
+    ``launch.train.run`` with per-tensor WA-LARS and a Lanczos lambda_max
+    probe after each of its steps (held batch stacked like the run, 4
+    iterations, no reorthogonalization): 14 launches of each per-tensor
+    kernel per step and none inside a probe; params and momentum
+    bitwise unchanged by every probe; a finite lambda_max at every step
+    in the JSONL, which the port's ``validate_jsonl`` accepts;
+    lambda_max >= alpha_1. Then, on the final state, a SAM and a
+    noise-scale probe (finite, same launch and checksum checks) and the
+    HVP's symmetry for two seeded directions. Prints the span times,
+    one matvec's time and the peak memory; times the per-tensor kernels
+    on the run's params and momentum (a random bf16 gradient of the
+    same shapes: the step's own gradients are freed before the probe)."""
+    steps = int(argv[argv.index("--steps") + 1])
+    k = int(argv[argv.index("--global-batch") + 1]) \
+        // int(argv[argv.index("--microbatch") + 1])
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    model = get_model(get_config("qwen2.5-3b"))
+    meta = qwen_tree(model.cfg, model.cfg.num_layers)
+    names = layerwise.kernel_segments(
+        flatten.build_spec(meta, segments=model.segments))
+    per_step = {"lars_norm2": len(names), "lars_apply": len(names)}
+    check = LarsLastStepCheck(ops.lars_update, lu, sref, steps, len(names),
+                              keep_grads=False)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    ops.lars_update = check
+    watch = ProbeWatch(diag.LanczosProbe, ops, tree_leaves)
+    tmp = tempfile.mkdtemp(prefix="phase10_")
+    metrics = f"{tmp}/metrics.jsonl"
+    try:
+        out = run(argv + ["--device", DEV, "--layerwise-every", "1",
+                          "--metrics-out", metrics],
+                  log_fn=lambda line: print(f"  {label}: {line}",
+                                            flush=True))
+    finally:
+        ops.lars_update = check.real
+        watch.restore()
+    launches = dict(ops.launches)
+    want = {k_: 0 for k_ in launches}
+    want.update({k_: steps * n for k_, n in per_step.items()})
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{want}")
+    if [c["step"] for c in watch.calls] != list(range(steps)):
+        raise AssertionError(f"{label}: probes ran at "
+                             f"{[c['step'] for c in watch.calls]}")
+    check_probe_calls(label, watch.calls, per_step)
+    n_records = diag.validate_jsonl(metrics)
+    with open(metrics) as f:
+        recs = [json.loads(line) for line in f]
+    lam = {r["step"]: r["lanczos/lambda_max"] for r in recs
+           if "lanczos/lambda_max" in r}
+    if sorted(lam) != list(range(steps)) or not all(
+            v is not None and np.isfinite(v) for v in lam.values()):
+        raise AssertionError(f"{label}: lambda_max records {lam}")
+    for c in watch.calls:
+        lm = c["out"]["lambda_max"]
+        if lm < c["alpha1"] - LANCZOS_EIGH_TOL * c["t_max"]:
+            raise AssertionError(f"{label}: step {c['step']} lambda_max "
+                                 f"{lm} < alpha_1 {c['alpha1']}")
+    if not np.all(np.isfinite(out["losses"])):
+        raise AssertionError(f"{label}: losses {out['losses']}")
+    cfg = out["model"].cfg
+    if cfg.num_layers != 36 or cfg.param_dtype != "bfloat16":
+        raise AssertionError(f"{label}: {cfg.num_layers} layers "
+                             f"{cfg.param_dtype}")
+    state = out["state"]
+    n_params = sum(x.numel() for x in tree_leaves(state.params))
+    print(f"sharpness {label}: qwen2.5-3b {cfg.num_layers} layers, "
+          f"{n_params} params ({cfg.param_dtype}), K={k}; losses "
+          f"{[round(x, 4) for x in out['losses']]}; lambda_max "
+          f"{[lam[i] for i in range(steps)]}, alpha_1 "
+          f"{[c['alpha1'] for c in watch.calls]}; per step "
+          f"loss+grad {[round(x * 1e3, 1) for x in out['loss_grad_seconds']]}"
+          f" ms, optimizer "
+          f"{[round(x * 1e3, 1) for x in out['optimizer_seconds']]} ms, "
+          f"probe {[round(x * 1e3, 1) for x in out['probe_seconds']]} ms; "
+          f"launches {launches['lars_norm2']} + {launches['lars_apply']} "
+          f"(none inside the probes); params and momentum bitwise "
+          f"unchanged by every probe; {n_records} JSONL records valid; "
+          f"peak through training and probes "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+
+    # SAM and noise-scale probes on the final state, the same checks
+    task = training.lm_task(out["model"])
+    ptoks, plabels = synthetic.lm_batch(torch.Generator().manual_seed(997),
+                                        8, 512, cfg.vocab_size, device=DEV)
+    pbatch = synthetic.stack_microbatches({"tokens": ptoks,
+                                           "labels": plabels}, k)
+    res = {}
+    for cls, probe in ((diag.SharpnessProbe,
+                        diag.SharpnessProbe(task, pbatch, every=1, rho=0.05,
+                                            accum_steps=k)),
+                       (diag.GradNoiseProbe,
+                        diag.GradNoiseProbe(task, pbatch, accum_steps=k,
+                                            every=1))):
+        w = ProbeWatch(cls, ops, tree_leaves)
+        try:
+            r = probe(steps - 1, state)
+        finally:
+            w.restore()
+        check_probe_calls(f"{label} {probe.name}", w.calls, None)
+        if not all(np.isfinite(v) for v in r.values()):
+            raise AssertionError(f"{label} {probe.name}: {r}")
+        res[probe.name] = (r, w.calls[0]["seconds"])
+    sam = res["sharpness"][0]
+    if sam["sam_sharpness"] < -SAM_FLOOR_REL * abs(sam["loss"]):
+        raise AssertionError(f"{label}: sam_sharpness "
+                             f"{sam['sam_sharpness']} below -"
+                             f"{SAM_FLOOR_REL} x loss")
+    print(f"sharpness {label}: SAM (rho 0.05) {sam} in "
+          f"{res['sharpness'][1]:.2f} s; noise scale {res['gns'][0]} in "
+          f"{res['gns'][1]:.2f} s; launches none, state unchanged",
+          flush=True)
+
+    # the HVP's symmetry for two seeded directions, and one matvec's time;
+    # one f32 direction lives beside its product at a time (each is
+    # drawn again from its seed when it is needed a second time)
+    from repro_torch.diagnostics.lanczos import vdot
+    gc.collect()
+    torch.cuda.empty_cache()
+    op = diag.make_flat_hvp(task, state.params, pbatch, accum_steps=k)
+    csum = state_checksum(state, tree_leaves)
+
+    def direction(seed):
+        return diag.probes.seed_vector(op.spec, seed, DEV).view(-1)
+
+    def dot(seed, x):
+        d = direction(seed)
+        return float(vdot(d, x.view(-1)))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hv = op.matvec(direction(2))
+    torch.cuda.synchronize()
+    matvec_s = time.perf_counter() - t0
+    hv_norm = float(torch.sqrt(vdot(hv.view(-1), hv.view(-1))))
+    u_hv = dot(1, hv)
+    del hv
+    hu = op.matvec(direction(1))
+    v_hu = dot(2, hu)
+    del hu
+    u = direction(1)
+    u_norm = float(torch.sqrt(vdot(u, u)))
+    del u
+    asym = abs(u_hv - v_hu) / (u_norm * hv_norm)
+    if not asym <= HVP_SYM_BF16:
+        raise AssertionError(f"{label}: HVP asymmetry {asym:.3e} > "
+                             f"{HVP_SYM_BF16:.3e}")
+    if state_checksum(state, tree_leaves) != csum:
+        raise AssertionError(f"{label}: the HVPs changed the state")
+    peak = torch.cuda.max_memory_allocated()
+    lg = out["loss_grad_seconds"]
+    print(f"sharpness {label}: HVP u.Hv {u_hv:.6e} v.Hu {v_hu:.6e}, "
+          f"asymmetry {asym:.3e} of |u||Hv| (bound {HVP_SYM_BF16:.3e}); "
+          f"one matvec {matvec_s * 1e3:.1f} ms ({matvec_s / lg[-1]:.2f}x "
+          f"the last loss+grad step); peak {peak / 2**30:.2f} GiB "
+          f"({peak} B)", flush=True)
+
+    # the per-tensor kernels on this run's params and momentum
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    segs = [(ws, [1e-3 * torch.randn(w.shape, generator=gen, device=DEV)
+                  .to(w.dtype) for w in ws], ms, lr)
+            for ws, _, ms, lr in check.segments]
+    timing = time_lars(lu, sref, segs)
+    kernels = {}
+    for which, name in (("norm", "lars_norm2"), ("apply", "lars_apply")):
+        t = timing[which]
+        n = t["launches"]
+        kernels[name] = {"launches": launches[name], "ms": t["ms"] / n,
+                         "plain_ms": t["plain_ms"] / n,
+                         "bound_ms": t["bound_ms"] / n}
+        print(f"  {name} at phase 10's shapes ({n} segments): per step "
+              f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.4f} ms; mean per launch "
+              f"{t['ms'] / n:.4f} ms", flush=True)
+    return {"lambda_max": [lam[i] for i in range(steps)], "peak": peak,
+            "matvec_s": matvec_s, "kernels": kernels,
+            "probe_seconds": out["probe_seconds"]}
+
+
+def phase_sharpness_small_against_cpu(get_smoke_config, get_model, diag,
+                                      synthetic, training, tree_map) -> None:
+    """10b: the qwen2.5-3b smoke LM in f32 on the card against the CPU's
+    plain path, same weights and batch (K = 4): the flat HVP, Lanczos
+    alpha/beta from the same v0 (8 iterations, reorthogonalized),
+    sam_sharpness, gradient_noise_scale and a 1-D loss slice along one
+    filter-normalized direction, each within SMALL_F32_RTOL of its own
+    scale."""
+    from repro_torch.diagnostics.lanczos import lanczos
+    model = get_model(get_smoke_config("qwen2.5-3b"))
+    task = training.lm_task(model)
+    cpu = model.init(0, device="cpu")
+    toks, labels = synthetic.lm_batch(torch.Generator().manual_seed(11), 8,
+                                      64, model.cfg.vocab_size, device="cpu")
+    batch = synthetic.stack_microbatches({"tokens": toks, "labels": labels},
+                                         4)
+    spec = diag.hvp.build_spec(task, cpu)
+    v0 = diag.probes.seed_vector(spec, 3, "cpu")
+    direction = diag.filter_normalized_direction(
+        torch.Generator().manual_seed(4), cpu)
+    alphas = [-0.5, -0.1, 0.0, 0.1, 0.5]
+    got = {}
+    for dev in ("cpu", DEV):
+        params = tree_map(lambda t: t.to(dev), cpu)
+        b = tree_map(lambda t: t.to(dev), batch)
+        op = diag.make_flat_hvp(task, params, b, accum_steps=4)
+        res = lanczos(op.matvec, v0.to(dev), 8)
+        sam = diag.sam_sharpness(task, params, b, accum_steps=4)
+        gns = diag.gradient_noise_scale(task, params, b, accum_steps=4)
+        got[dev] = {
+            "hvp": op.matvec(v0.to(dev)).cpu(),
+            "lanczos": torch.cat([res.alphas, res.betas]).cpu(),
+            "sam": torch.stack([sam["sam_sharpness"], sam["loss"]]).cpu(),
+            "gns": torch.stack([gns[k_] for k_ in sorted(gns)]).cpu(),
+            "slice": diag.loss_slice_1d(
+                task, params, tree_map(lambda t: t.to(dev), direction), b,
+                alphas, accum_steps=4).cpu()}
+    worst = {}
+    for key, rtol in SMALL_F32_RTOL.items():
+        a, c = got[DEV][key], got["cpu"][key]
+        if key in ("sam", "gns"):
+            worst[key] = float(((a - c).abs() / c.abs()).max())
+        else:
+            worst[key] = float((a - c).abs().max() / c.abs().max())
+        if not worst[key] <= rtol:
+            raise AssertionError(f"small sharpness {key}: card {a} cpu {c}: "
+                                 f"{worst[key]:.3e} of its scale > {rtol}")
+    print(f"sharpness small: qwen2.5-3b smoke f32 K=4, card == cpu within "
+          f"{ {k_: f'{v:.2e}' for k_, v in worst.items()} } of each "
+          f"quantity's scale (bounds {SMALL_F32_RTOL}); lambda_max via "
+          f"alpha/beta {float(diag.top_k_eigenvalues(got[DEV]['lanczos'][:8], got[DEV]['lanczos'][8:])[0]):.6f}",
+          flush=True)
+
+
+def phase_sharpness_bench(sharpness_launch, diag) -> dict:
+    """10c: ``launch.sharpness.run`` on the card at its defaults (the
+    bench's MLP, B = 256, LR 1.0, 40 steps, probes every 5, SLQ 4 x 16
+    x 64), both JSONL files of each optimizer validated; the early-phase
+    lambda_max of WA-LARS and TVLARS and their ratio are reported, not
+    gated (the JAX bench recorded about 1.25)."""
+    tmp = tempfile.mkdtemp(prefix="phase10c_")
+    t0 = time.perf_counter()
+    res = sharpness_launch.run(["--device", DEV, "--out", tmp],
+                               log_fn=lambda line: print(
+                                   f"sharpness bench: {line}", flush=True))
+    for opt, paths in res["paths"].items():
+        for path in paths:
+            diag.validate_jsonl(path)
+        if not all(np.isfinite(lam) for _, lam in res["trajectories"][opt]):
+            raise AssertionError(f"sharpness bench {opt}: "
+                                 f"{res['trajectories'][opt]}")
+    print(f"sharpness bench: early lambda_max WA-LARS "
+          f"{res['early']['wa-lars']:.4f}, TVLARS {res['early']['tvlars']:.4f},"
+          f" ratio {res['ratio']:.4f} (reported; the JAX bench: about "
+          f"1.25); {time.perf_counter() - t0:.1f} s on the card", flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1728,7 +2117,10 @@ def main() -> int:
     from repro_torch.kernels import segmented_update as su
     from repro_torch.core import layerwise
     from repro_torch.data import synthetic
+    from repro_torch import diagnostics as diag
+    from repro_torch.diagnostics import smoke as diag_smoke
     from repro_torch.launch import classify
+    from repro_torch.launch import sharpness as sharpness_launch
     from repro_torch.launch.train import run as train_run
     from repro_torch.models import cnn, convert, get_model
     from repro_torch.obs import Tracer, phase_summary
@@ -1806,6 +2198,24 @@ def main() -> int:
                                   layerwise, flatten)
     phase_paper_loop(classify, cnn, core, training, synthetic, ops,
                      layerwise, flatten, tree_leaves, tree_map)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 10: the sharpness diagnostics at full width, then against the CPU,
+    # the bench's port and the probe smoke's entry point
+    phase_sharpness_full(
+        train_run, ops, lu, sref, layerwise, flatten, tree_leaves, diag,
+        synthetic, training,
+        ["--arch", "qwen2.5-3b", "--optimizer", "wa-lars", "--use-kernel",
+         "per_tensor", "--global-batch", "8", "--microbatch", "1", "--seq",
+         "512", "--steps", "3", "--probe-every", "1", "--probe-iters", "4",
+         "--probe-no-reorth"], "wa-lars-probes")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_sharpness_small_against_cpu(get_smoke_config, get_model, diag,
+                                      synthetic, training, tree_map)
+    phase_sharpness_bench(sharpness_launch, diag)
+    diag_smoke.main([])
 
     # the serving path's mix: 40 local and 8 global launches per decode
     # step (bf16 pool); per-launch means weighted by that mix

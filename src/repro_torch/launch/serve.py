@@ -16,8 +16,6 @@ Runs on CUDA unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
-import json
-import os
 import time
 
 import numpy as np
@@ -26,18 +24,9 @@ import torch
 from repro_torch import device as _device
 from repro_torch import serving
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.diagnostics.sink import JsonlSink
 from repro_torch.models import get_model
 from repro_torch.obs import trace as obs_trace
-
-
-def _write_trace(path: str, records: list) -> None:
-    """trace-v1 JSONL: one ``{"step": int, ...}`` object per line."""
-    parent = os.path.dirname(os.path.abspath(path))
-    os.makedirs(parent, exist_ok=True)
-    with open(path, "w") as f:
-        for rec in records:
-            rec = dict(rec)
-            f.write(json.dumps({"step": rec.pop("step", 0), **rec}) + "\n")
 
 
 def main() -> None:
@@ -105,14 +94,14 @@ def main() -> None:
           f"reused")
     print("sample:", results[0].tokens[:16])
     if args.trace_out:
-        records = tracer.drain()
-        summary = obs_trace.phase_summary(records)
+        summary = obs_trace.phase_summary(tracer.events())
         for span, row in summary.items():
             print(f"  span {span}: n={row['count']} "
                   f"total={row['total_ms']:.1f}ms "
                   f"mean={row['mean_us']:.0f}us")
-        _write_trace(args.trace_out, records)
-        print(f"trace -> {args.trace_out} ({len(records)} records)")
+        with JsonlSink(args.trace_out) as sink:
+            n = tracer.export(sink)
+        print(f"trace -> {args.trace_out} ({n} records)")
 
 
 if __name__ == "__main__":

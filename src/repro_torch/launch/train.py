@@ -13,7 +13,16 @@ launches per step on the flat substrate, ``--precision bf16_master[_sr]``
 stores its buffers in bf16. ``--layerwise-every N`` streams the
 per-segment ``(w_norm, g_norm, trust_ratio)``; ``--trace-out PATH``
 writes the loop's spans (``loss_grad`` / ``optimizer`` synchronised on
-the card) as trace-v1 JSONL. Runs on CUDA unless ``--device cpu``.
+the card, ``probe``) as trace-v1 JSONL. ``--probe-every N`` runs a
+Lanczos λ_max probe (``--probe-iters`` steps, top ``--probe-topk``
+eigenvalues, ``--probe-no-reorth`` to keep no Krylov basis on the card,
+which a full-size model needs) after every N-th step on a held batch:
+the global batch drawn from a fixed seed, stacked like the run's. The
+probe reads the params and never writes them. ``--metrics-out PATH`` streams
+every step's metrics and the probe results to a JSONL file
+(``repro_torch.diagnostics.sink.JsonlSink``, with the arch, optimizer
+and global batch on every record). Runs on CUDA unless ``--device
+cpu``.
 
 :func:`run` is the entry point for programs (``chip_smoke.py``): it
 takes the argument list and returns the run's numbers and final state.
@@ -21,8 +30,6 @@ takes the argument list and returns the run's numbers and final state.
 from __future__ import annotations
 
 import argparse
-import json
-import os
 import time
 from typing import Optional, Sequence
 
@@ -33,7 +40,10 @@ from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core import build_optimizer
 from repro_torch.core import flatten
 from repro_torch.core.layerwise import PRECISIONS
-from repro_torch.data.synthetic import lm_iterator
+from repro_torch.data.synthetic import (lm_batch, lm_iterator,
+                                        stack_microbatches)
+from repro_torch.diagnostics import probes
+from repro_torch.diagnostics import sink as sinks
 from repro_torch.models import get_model
 from repro_torch.obs import trace as obs_trace
 from repro_torch.training import (FitOptions, TrainState, fit, lm_task,
@@ -60,18 +70,44 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--layerwise-every", type=int, default=0, metavar="N")
     ap.add_argument("--trace-out", default=None, metavar="PATH")
     ap.add_argument("--log-every", type=int, default=1)
+    ap.add_argument("--probe-every", type=int, default=0, metavar="N",
+                    help="run the Lanczos sharpness probe every N steps "
+                         "(0 = off) on a held batch; the train step is "
+                         "untouched")
+    ap.add_argument("--probe-topk", type=int, default=1,
+                    help="how many top Hessian eigenvalues to report")
+    ap.add_argument("--probe-iters", type=int, default=8,
+                    help="Lanczos iterations per probe")
+    ap.add_argument("--probe-no-reorth", action="store_true",
+                    help="skip full reorthogonalization: no Krylov basis "
+                         "(iters x params floats) on the device, and the "
+                         "previous Lanczos vector waits in host memory; "
+                         "for full-size (non --smoke) archs")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="stream per-step metrics + probe results to "
+                         "this JSONL file")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap
 
 
-def _write_trace(path: str, records: list) -> None:
-    parent = os.path.dirname(os.path.abspath(path))
-    os.makedirs(parent, exist_ok=True)
-    with open(path, "w") as f:
-        for rec in records:
-            rec = dict(rec)
-            f.write(json.dumps({"step": rec.pop("step", 0), **rec}) + "\n")
+class _Console(sinks.MetricsSink):
+    """The launcher's console: loss, CE and gradient norm of every
+    ``every``-th step and the last, and every probe result."""
+
+    def __init__(self, every: int, log_fn):
+        self.every = every
+        self.log_fn = log_fn
+
+    def write(self, step: int, metrics, *, last: bool = False) -> None:
+        if "loss" not in metrics:
+            self.log_fn(f"step {step:4d} probe " + " ".join(
+                f"{k}={v:.4f}" for k, v in metrics.items()
+                if isinstance(v, float)))
+        elif self.every and (step % self.every == 0 or last):
+            self.log_fn(f"step {step:4d} " + " ".join(
+                f"{k}={metrics[k]:.4f}" for k in ("loss", "ce", "grad_norm")
+                if k in metrics))
 
 
 def _span_seconds(records: list, name: str, steps: int) -> list:
@@ -86,9 +122,11 @@ def _span_seconds(records: list, name: str, steps: int) -> list:
 def run(argv: Optional[Sequence[str]] = None, *,
         log_fn=print) -> dict:
     """Train as the flags say; returns ``{"losses", "loss_grad_seconds",
-    "optimizer_seconds", "seconds", "peak_memory_bytes" (None off the
-    card), "segment_names", "history", "state", "model"}``. The step
-    spans synchronise the card, so their times are device times."""
+    "optimizer_seconds", "probe_seconds", "seconds", "peak_memory_bytes"
+    (None off the card), "segment_names", "history", "probes" (the
+    probe records, ``{"step", "lanczos/lambda_max", ...}``), "state",
+    "model"}``. The step spans synchronise the card and a probe reads
+    its result back, so their times are device times."""
     args = parser().parse_args(argv)
     if args.layerwise_every < 0:
         raise SystemExit(f"--layerwise-every {args.layerwise_every} "
@@ -104,6 +142,8 @@ def run(argv: Optional[Sequence[str]] = None, *,
     if args.precision != "f32" and use_kernel != "fused":
         raise SystemExit(f"--precision {args.precision} requires "
                          f"--use-kernel fused")
+    if args.probe_every < 0:
+        raise SystemExit(f"--probe-every {args.probe_every} must be >= 0")
 
     cfg = get_smoke_config(args.arch) if args.smoke \
         else get_config(args.arch)
@@ -124,6 +164,25 @@ def run(argv: Optional[Sequence[str]] = None, *,
     batches = lm_iterator(args.global_batch, args.seq, cfg.vocab_size,
                           seed=0, accum_steps=accum_steps, device=dev)
     names = list(flatten.build_spec(params, segments=model.segments).names)
+    callbacks = []
+    if args.probe_every > 0:
+        # held probe batch: a fixed seed, the run's [K, B/K, ...] stacking
+        # (and so the training step's activation memory per microbatch)
+        ptoks, plabels = lm_batch(torch.Generator().manual_seed(997),
+                                  args.global_batch, args.seq,
+                                  cfg.vocab_size, device=dev)
+        callbacks.append(probes.LanczosProbe(
+            lm_task(model), stack_microbatches(
+                {"tokens": ptoks, "labels": plabels}, accum_steps),
+            every=args.probe_every, num_iters=args.probe_iters,
+            top_k=args.probe_topk, accum_steps=accum_steps,
+            reorth=not args.probe_no_reorth))
+    memory = sinks.MemorySink()
+    sink_list = [_Console(args.log_every, log_fn), memory]
+    if args.metrics_out:
+        sink_list.append(sinks.JsonlSink(args.metrics_out, static={
+            "arch": args.arch, "optimizer": args.optimizer,
+            "global_batch": args.global_batch}))
     log_fn(f"{args.arch}{' (smoke)' if args.smoke else ''}: "
            f"{cfg.num_layers} layers, {cfg.param_dtype}; "
            f"optimizer={args.optimizer} use_kernel={args.use_kernel} "
@@ -133,7 +192,8 @@ def run(argv: Optional[Sequence[str]] = None, *,
     t0 = time.perf_counter()
     state, history = fit(step_fn, state, batches, args.steps,
                          options=FitOptions(
-                             log_every=args.log_every, log_fn=log_fn,
+                             sink=sinks.MultiSink(*sink_list),
+                             close_sink=True, callbacks=callbacks,
                              tracer=tracer,
                              layerwise_every=args.layerwise_every,
                              layerwise_names=names))
@@ -147,22 +207,30 @@ def run(argv: Optional[Sequence[str]] = None, *,
                                            args.steps),
         "optimizer_seconds": _span_seconds(records, "optimizer",
                                            args.steps),
+        "probe_seconds": _span_seconds(records, "probe", args.steps),
         "seconds": elapsed,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)
         if dev.type == "cuda" else None,
-        "segment_names": names, "history": history, "state": state,
-        "model": model,
+        "segment_names": names, "history": history,
+        "probes": [r for r in memory.records if "loss" not in r],
+        "state": state, "model": model,
     }
-    for i, (lg, op) in enumerate(zip(out["loss_grad_seconds"],
-                                     out["optimizer_seconds"])):
+    for i, (lg, op, pr) in enumerate(zip(out["loss_grad_seconds"],
+                                         out["optimizer_seconds"],
+                                         out["probe_seconds"])):
         log_fn(f"step {i:4d} time: loss+grad {lg * 1e3:.1f} ms, "
-               f"optimizer {op * 1e3:.1f} ms")
+               f"optimizer {op * 1e3:.1f} ms"
+               + (f", probe {pr * 1e3:.1f} ms" if callbacks else ""))
     if out["peak_memory_bytes"] is not None:
         log_fn(f"peak device memory {out['peak_memory_bytes'] / 2**30:.2f} "
                f"GiB")
+    if args.metrics_out:
+        log_fn(f"metrics -> {args.metrics_out} "
+               f"({len(memory.records)} records)")
     if args.trace_out:
-        _write_trace(args.trace_out, records)
-        log_fn(f"trace -> {args.trace_out} ({len(records)} records)")
+        with sinks.JsonlSink(args.trace_out) as trace_sink:
+            n = tracer.export(trace_sink)
+        log_fn(f"trace -> {args.trace_out} ({n} records)")
     if not all(torch.isfinite(torch.tensor(out["losses"]))):
         raise RuntimeError(f"non-finite loss: {out['losses']}")
     log_fn(f"done: {args.steps} steps in {elapsed:.1f} s, final loss "

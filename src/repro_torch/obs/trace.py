@@ -138,6 +138,17 @@ class Tracer:
             rec.update(attrs)
         return rec
 
+    def export(self, sink, *, drain: bool = True) -> int:
+        """Stream buffered events through a ``MetricsSink`` as trace-v1
+        records (the record's ``step`` defaults to 0 for step-less
+        events, keeping the JSONL contract's int-``step`` invariant).
+        Returns the number of records written."""
+        records = self.drain() if drain else self.events()
+        for i, rec in enumerate(records):
+            step = rec.pop("step", 0)
+            sink.write(step, rec, last=i == len(records) - 1)
+        return len(records)
+
 
 #: Shared disabled tracer — call sites default a ``tracer=None``
 #: argument to this and trace unconditionally; the null path costs one

@@ -2,19 +2,24 @@
 
 A :class:`Task` is a name plus ``loss_fn(params, batch) -> (loss,
 metrics)``; both are mean-reduced over the batch, which is what makes
-gradient accumulation exact.
+gradient accumulation exact. An LM task also carries its model's
+``segments`` (the JAX package's stacked leaves), so the diagnostics'
+flat vectors use the reference's layout on the port's per-layer tree.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 from repro_torch.training import losses
 
 
 class Task(NamedTuple):
-    """name + ``loss_fn(params, batch) -> (scalar loss, metrics dict)``."""
+    """name + ``loss_fn(params, batch) -> (scalar loss, metrics dict)``;
+    ``segments`` groups the params for the flat layout
+    (``core.flatten.build_spec``; None = one segment per leaf)."""
     name: str
     loss_fn: Callable
+    segments: Optional[Callable] = None
 
 
 def lm_task(model, *, lb_coef: float = 1e-2, z_coef: float = 1e-3) -> Task:
@@ -28,7 +33,7 @@ def lm_task(model, *, lb_coef: float = 1e-2, z_coef: float = 1e-3) -> Task:
             + z_coef * aux.router_z_loss
         return loss, {"ce": ce, "load_balance": aux.load_balance_loss}
 
-    return Task("lm", loss_fn)
+    return Task("lm", loss_fn, getattr(model, "segments", None))
 
 
 def classifier_task(apply_fn: Callable) -> Task:

@@ -31,6 +31,8 @@ from repro_torch.core import instrumentation
 from repro_torch.core.base import (GradientTransform, global_norm,
                                    tree_flatten_with_path,
                                    tree_from_paths, tree_map)
+from repro_torch.diagnostics import probes
+from repro_torch.diagnostics import sink as sinks
 from repro_torch.obs import layerwise as obs_layerwise
 from repro_torch.obs import trace as obs_trace
 from repro_torch.training import tasks
@@ -175,12 +177,16 @@ def make_ssl_step(embed_fn: Callable, optimizer: GradientTransform, *,
 @dataclasses.dataclass(frozen=True)
 class FitOptions:
     """The ``fit`` knobs: the norm ``recorder`` (fed each step's
-    ``layer_norms`` metric), logging (``log_every``, ``log_fn``), the
-    host-span ``tracer`` and the layer-wise stream's decimation and
-    names (``layerwise_every``, ``layerwise_names``)."""
+    ``layer_norms`` metric); logging (``log_every``, ``log_fn``, or a
+    metrics ``sink`` with ``close_sink``); probe ``callbacks``; the
+    host-span ``tracer``; the layer-wise stream's decimation and names
+    (``layerwise_every``, ``layerwise_names``)."""
     recorder: Optional[instrumentation.NormRecorder] = None
     log_every: int = 0
     log_fn: Callable = print
+    sink: Optional[sinks.MetricsSink] = None
+    close_sink: bool = False
+    callbacks: Sequence = ()
     tracer: Optional[obs_trace.Tracer] = None
     layerwise_every: int = 0
     layerwise_names: Optional[Sequence[str]] = None
@@ -207,29 +213,60 @@ def fit(train_step: Callable, state: TrainState, batches, num_steps: int,
     spans; each step's metrics are read back once (``resolve``), the
     layer-wise arrays kept every ``layerwise_every``-th step (0/1 =
     every step) and expanded to ``layerwise/{segment}/{metric}`` when
-    names are given. Returns ``(state, history)``."""
+    names are given.
+
+    Metrics stream through one
+    :class:`repro_torch.diagnostics.sink.MetricsSink`: pass ``sink=``
+    (written every step) or rely on ``log_every`` / ``log_fn``, which
+    build a :class:`ConsoleSink` (``step {i:5d} k=v.vvvv ...``).
+    ``callbacks`` are :class:`repro_torch.diagnostics.probes.Probe`
+    objects: each due probe (``probe_due``) runs after the step, inside
+    a ``probe`` span, and its metrics go to the sink as
+    ``{probe.name}/{key}`` with ``last=True``; they are not kept in
+    the returned history. ``close_sink=True`` closes ``sink`` after the
+    last write (the console sink built here is always closed). Returns
+    ``(state, history)``."""
     o = options if options is not None else FitOptions()
     tracer = obs_trace.NULL if o.tracer is None else o.tracer
+    sink, close_sink = o.sink, o.close_sink
+    if sink is None:
+        sink = sinks.ConsoleSink(every=o.log_every, log_fn=o.log_fn) \
+            if o.log_every else None
+        close_sink = close_sink or sink is not None
     history: list[dict] = []
-    for i in range(num_steps):
-        with tracer.span("data_wait", step=i):
-            batch = next(batches)
-        with tracer.span("dispatch", step=i):
-            state, metrics = train_step(state, batch)
-        norms = metrics.pop("layer_norms", None)
-        if o.recorder is not None and norms is not None:
-            o.recorder.record(i, norms)
-        with tracer.span("resolve", step=i):
-            host = _to_host(metrics)
-        rest, lw = obs_layerwise.split_record(host)
-        if lw and (o.layerwise_every <= 1 or i % o.layerwise_every == 0):
-            host = {**rest, **obs_layerwise.expand(lw, o.layerwise_names)}
-        else:
-            host = rest
-        history.append(host)
-        if o.log_every and (i % o.log_every == 0 or i == num_steps - 1):
-            line = " ".join(f"{k}={host[k]:.4f}"
-                            for k in ("loss", "ce", "grad_norm")
-                            if k in host)
-            o.log_fn(f"step {i:4d} {line}")
+    try:
+        for i in range(num_steps):
+            with tracer.span("data_wait", step=i):
+                batch = next(batches)
+            with tracer.span("dispatch", step=i):
+                state, metrics = train_step(state, batch)
+            norms = metrics.pop("layer_norms", None)
+            if o.recorder is not None and norms is not None:
+                o.recorder.record(i, norms)
+            with tracer.span("resolve", step=i):
+                host = _to_host(metrics)
+            rest, lw = obs_layerwise.split_record(host)
+            if lw and (o.layerwise_every <= 1
+                       or i % o.layerwise_every == 0):
+                host = {**rest, **obs_layerwise.expand(lw,
+                                                       o.layerwise_names)}
+            else:
+                host = rest
+            history.append(host)
+            if sink is not None:
+                sink.write(i, host, last=i == num_steps - 1)
+            for probe in o.callbacks:
+                if not probes.probe_due(probe, i):
+                    continue
+                with tracer.span("probe", step=i,
+                                 probe=getattr(probe, "name", "?")):
+                    out = probe(i, state)
+                if out and sink is not None:
+                    # probe lines always flush (last=True beats the
+                    # console sink's every-N gate)
+                    sink.write(i, {f"{probe.name}/{k}": v
+                                   for k, v in out.items()}, last=True)
+    finally:
+        if close_sink and sink is not None:
+            sink.close()
     return state, history
