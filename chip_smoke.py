@@ -117,11 +117,36 @@ script exits non-zero:
    and TVLARS, 40 steps, probes every 5, SLQ at the end): files valid,
    the early lambda_max of each optimizer and their ratio reported;
 10d. the probe smoke, ``repro_torch.diagnostics.smoke``, at its CLI
-   defaults (on the card).
+   defaults (on the card);
+11. the adaptive-batch controller at full width through
+   ``launch.train.run --adaptive-batch``: qwen2.5-3b, all 36 layers,
+   bf16 weights from seed 0, fused TVLARS in f32, microbatches of 1 x
+   512 tokens, the global batch starting at 2 and free in [1, 16], a
+   noise-scale probe (2 microbatches from seed 998) every 2 steps, 6
+   steps, batches drawn by ``--prefetch 2``. At least one switch, each
+   switch's ``controller/lr`` equal to ``batch_scaled_lr`` at its batch,
+   exactly one segmented norm and one apply launch per step at every
+   visited K and none inside the controller, one step built per visited
+   K, the prefetched batches equal by checksum to the plain stream's
+   retargeted at the same steps, the JSONL valid. Prints the step time
+   per K and the peak beside its prediction;
+11b. the smoke LM in f32 on the card: a scripted K switch (2 -> 8) after
+   3 steps against a fresh K = 8 run from the same state and stream
+   position (1e-6), and ``fit(controller=)`` with the noise probe on the
+   card against the CPU's plain path (losses and params 1e-5, noise
+   scale 1e-3, the same decisions);
+11c. the paper's experiment launchers on the card at their reference constants
+   (``launch.table1``, ``ssl``, ``fig2_lnr``, ``ablations``,
+   ``schedules``, ``adaptive_batch``), their CSV and JSONL files
+   checked, Table 1 again with ``--use-kernel per_tensor`` (2 launches
+   of each per-tensor kernel per ADAPT leaf per step); prints Table 1
+   and the adaptive bench's switches.
 
-The last lines are the ``nvidia-smi`` line, one JSON object describing
-each kernel (decode attention and RMSNorm with a row per timed shape
-under ``shapes``), and ``{"ok": true, "device": {...}}``. Without CUDA, or
+The last lines are the script's total time, the ``nvidia-smi`` line,
+one JSON object describing each kernel (decode attention and RMSNorm
+with a row per timed shape under ``shapes``; the optimizer kernels with
+their launches per phase under ``launches_by_phase``), and ``{"ok":
+true, "device": {...}}``. Without CUDA, or
 without the rest of the repository beside it, the script fails before
 printing any result.
 """
@@ -129,6 +154,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -136,12 +162,20 @@ import tempfile
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+# The phases share one process. With fixed segments the caching
+# allocator carves the 12.66 GiB buffers that one phase frees into the
+# smaller blocks of the next, and phase 11's fused update then found
+# 12.48 GiB free with 8.44 GiB reserved in split segments; expandable
+# segments map pages on demand instead. Set before CUDA starts.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 
@@ -2100,6 +2134,420 @@ def phase_sharpness_bench(sharpness_launch, diag) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# the sixth slice: the adaptive-batch controller, its streams and the
+# paper's experiment launchers
+# --------------------------------------------------------------------------
+
+# phase 11's memory, predicted before the first chip run (PERF.md §5):
+# bf16 params 6.33 + f32 momentum 12.66 + the f32 gradient accumulator
+# of K microbatches 12.66 + the fused update's packed params, packed
+# gradients and f32 delta (12.66 each, freed after each update) =
+# 69.63 GiB at the optimizer, beside one 1 x 512 microbatch
+PHASE11_PREDICTED_GIB = 69.63
+# 11b's bound on the noise scale card against CPU: phase 10b's
+# (SMALL_F32_RTOL["gns"]); losses and params as phase 8 (1e-5 at each
+# leaf's scale); a K switch against a fresh run at the new K: 1e-6
+# absolute (the reference's test_k_switch_parity_with_fresh_run)
+SWITCH_PARITY_ATOL = 1e-6
+
+
+def batch_checksum(batch) -> tuple:
+    """Per leaf of an LM batch: its shape, the sum of its values and the
+    sum of its values weighted by their positions (int64)."""
+    out = []
+    for key in sorted(batch):
+        t = batch[key].detach().reshape(-1).to(torch.int64)
+        w = torch.arange(1, t.numel() + 1, device=t.device)
+        out.append((key, tuple(batch[key].shape), int(t.sum()),
+                    int((t * w).sum())))
+    return tuple(out)
+
+
+class MethodWatch:
+    """Wraps ``cls.<name>`` during a run, calling ``record(self, args,
+    result, before, after)`` with the launch counts around each call."""
+
+    def __init__(self, cls, name: str, ops, record):
+        self.cls, self.name, self.real = cls, name, getattr(cls, name)
+        real = self.real
+
+        def call(obj, *args, **kw):
+            before = dict(ops.launches)
+            result = real(obj, *args, **kw)
+            record(obj, args, result, before, dict(ops.launches))
+            return result
+
+        setattr(cls, name, call)
+
+    def restore(self):
+        setattr(self.cls, self.name, self.real)
+
+
+def phase_adaptive_full(run, ops, su, pipeline, synthetic, schedules,
+                        training, diag, argv: list, label: str) -> dict:
+    """11: the adaptive-batch controller on qwen2.5-3b at full width (36
+    layers, bf16, seed 0) through ``launch.train.run`` with fused TVLARS
+    in f32, a noise-scale probe every 2 steps and the batch free in
+    [1, 16] x 512 tokens, streamed through a prefetching producer. At
+    least one controller switch; ``controller/lr`` on each switch equal
+    to ``batch_scaled_lr`` at its batch; exactly one segmented norm and
+    one apply launch per step at every visited K, none inside the
+    controller; one step built per visited K; the batches the run took
+    through ``--prefetch 2`` equal, by checksum, those of the plain
+    stream retargeted at the same steps. Prints the step time per K and
+    the peak beside its prediction."""
+    steps = int(argv[argv.index("--steps") + 1])
+    seq = int(argv[argv.index("--seq") + 1])
+    lr = 2.0
+    calls, boundaries = [], []
+    seg_watch = ops.segmented_update
+
+    def counting(*args, **kw):
+        before = dict(ops.launches)
+        out = seg_watch(*args, **kw)
+        calls.append((kw["mode"], before, dict(ops.launches)))
+        return out
+
+    ctrl_watch = MethodWatch(
+        training.AdaptiveBatchController, "__call__", ops,
+        lambda obj, args, result, before, after: boundaries.append(
+            (args[0], before, after, result)))
+    sums: list = []
+    next_watch = MethodWatch(
+        pipeline.PrefetchingStream, "__next__", ops,
+        lambda obj, args, result, before, after: sums.append(
+            batch_checksum(result)))
+    tmp = tempfile.mkdtemp(prefix="phase11_")
+    metrics = f"{tmp}/metrics.jsonl"
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    ops.segmented_update = counting
+    try:
+        out = run(argv + ["--device", DEV, "--metrics-out", metrics],
+                  log_fn=lambda line: print(f"  {label}: {line}",
+                                            flush=True))
+    finally:
+        ops.segmented_update = seg_watch
+        ctrl_watch.restore()
+        next_watch.restore()
+    launches = dict(ops.launches)
+    ctrl = out["controller"]
+    batches = [int(b) for b in out["global_batches"]]
+    if not np.all(np.isfinite(out["losses"])):
+        raise AssertionError(f"{label}: losses {out['losses']}")
+    cfg = out["model"].cfg
+    # launches: one norm and one apply per step at every K, none inside
+    # the controller's boundaries
+    if len(calls) != steps:
+        raise AssertionError(f"{label}: {len(calls)} optimizer updates in "
+                             f"{steps} steps")
+    norm_k, apply_k = su.KERNELS[calls[0][0]]
+    per_k: dict = {}
+    for i, (_, before, after) in enumerate(calls):
+        delta = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+        want = {k: 0 for k in after}
+        want.update({norm_k: 1, apply_k: 1})
+        if delta != want:
+            raise AssertionError(f"{label}: step {i} (global batch "
+                                 f"{batches[i]}) launched {delta}")
+        per_k.setdefault(batches[i], 0)
+        per_k[batches[i]] += 1
+    want = {k: 0 for k in launches}
+    want.update({norm_k: steps, apply_k: steps})
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{want}")
+    for step, before, after, _ in boundaries:
+        if before != after:
+            raise AssertionError(f"{label}: the controller at step {step} "
+                                 f"launched kernels: {before} -> {after}")
+    # the controller: switches, the LR of each, steps built once per K
+    recs = out["controller_records"]
+    if [r["step"] for r in recs] != [b[0] for b in boundaries]:
+        raise AssertionError(f"{label}: controller records at "
+                             f"{[r['step'] for r in recs]}")
+    switches = [r for r in recs if r["controller/changed"] == 1.0]
+    if not switches:
+        raise AssertionError(f"{label}: no controller switch; noise scale "
+                             f"{[r['controller/b_noise'] for r in recs]}")
+    for r in switches:
+        want_lr = schedules.batch_scaled_lr(
+            lr, int(r["controller/global_batch"]), 256)
+        if r["controller/lr"] != want_lr:
+            raise AssertionError(f"{label}: switch at step {r['step']} lr "
+                                 f"{r['controller/lr']} != batch_scaled_lr "
+                                 f"{want_lr}")
+    if ctrl.compiles != len(ctrl.visited_ks) \
+            or set(ctrl.visited_ks) != set(per_k):
+        raise AssertionError(f"{label}: {ctrl.compiles} steps built for "
+                             f"Ks {ctrl.visited_ks}, steps ran at {per_k}")
+    # prefetching changed no batch: the plain stream, retargeted at the
+    # same steps, gives the same checksums
+    plain = pipeline.MicrobatchedStream(
+        synthetic.lm_sample_source(seq, cfg.vocab_size, seed=0,
+                                   device=DEV), 1)
+    for i, b in enumerate(batches):
+        plain.set_accum_steps(b)
+        if batch_checksum(next(plain)) != sums[i]:
+            raise AssertionError(f"{label}: step {i}'s prefetched batch "
+                                 f"differs from the plain stream's")
+    n_records = diag.validate_jsonl(metrics)
+    if cfg.num_layers != 36 or cfg.param_dtype != "bfloat16":
+        raise AssertionError(f"{label}: {cfg.num_layers} layers "
+                             f"{cfg.param_dtype}")
+    peak = out["peak_memory_bytes"]
+    seconds = {}
+    for i, b in enumerate(batches):
+        seconds.setdefault(b, []).append(
+            round((out["loss_grad_seconds"][i]
+                   + out["optimizer_seconds"][i]) * 1e3, 1))
+    moves = [(r["step"], int(r["controller/global_batch"]),
+              r["controller/lr"]) for r in switches]
+    print(f"adaptive {label}: qwen2.5-3b {cfg.num_layers} layers "
+          f"({cfg.param_dtype}); global batch per step {batches}; "
+          f"switches (step, batch, lr) {moves} (each lr == "
+          f"batch_scaled_lr); noise scale "
+          f"{[round(r['controller/b_noise'], 2) for r in recs]}; visited K "
+          f"{list(ctrl.visited_ks)}, {ctrl.compiles} steps built; launches "
+          f"{norm_k}={launches[norm_k]} {apply_k}={launches[apply_k]} (1 + 1 "
+          f"per step at every K, none in the controller's "
+          f"{len(boundaries)} boundaries); {len(sums)} prefetched batches "
+          f"== the plain stream's; {n_records} JSONL records valid; losses "
+          f"{[round(x, 4) for x in out['losses']]}", flush=True)
+    print(f"adaptive {label}: step ms (loss+grad + optimizer) by global "
+          f"batch {seconds}; optimizer ms "
+          f"{[round(x * 1e3, 1) for x in out['optimizer_seconds']]}; "
+          f"controller ms "
+          f"{[round(x * 1e3, 1) for x in out['controller_seconds']]}; peak "
+          f"{peak / 2**30:.2f} GiB ({peak} B; predicted "
+          f"{PHASE11_PREDICTED_GIB} GiB)", flush=True)
+    return {"launches": {norm_k: launches[norm_k],
+                         apply_k: launches[apply_k]},
+            "peak": peak, "switches": switches}
+
+
+def adaptive_smoke_run(dev, model, cpu_params, *, pipeline, synthetic,
+                       training, diag, build_optimizer, tree_map,
+                       sinks, steps: int = 6):
+    """The smoke LM through ``fit(controller=)`` on ``dev``: fused
+    TVLARS f32, microbatch 2, batch in [2, 32], a noise-scale probe
+    (K = 4 microbatches of 2 x 64 from seed 998) every 2 steps."""
+    task = training.lm_task(model)
+    params = tree_map(lambda t: t.detach().clone().to(dev), cpu_params)
+    toks, labels = synthetic.lm_batch(torch.Generator().manual_seed(998),
+                                      8, 64, model.cfg.vocab_size,
+                                      device=dev)
+    ctrl = training.AdaptiveBatchController(
+        lambda opt, k: training.make_train_step(task, opt, accum_steps=k),
+        lambda b: build_optimizer("tvlars", total_steps=10,
+                                  learning_rate=2.0, batch_size=b,
+                                  use_kernel="fused",
+                                  segments=model.segments, device=dev),
+        diag.GradNoiseProbe(task, pipeline.stack_microbatches(
+            {"tokens": toks, "labels": labels}, 4), accum_steps=4,
+            every=2),
+        training.ControllerConfig(microbatch=2, batch_min=2, batch_max=32,
+                                  every=2), init_batch=4, base_lr=2.0)
+    stream = pipeline.MicrobatchedStream(
+        synthetic.lm_sample_source(64, model.cfg.vocab_size, seed=0,
+                                   device=dev), 2)
+    mem = sinks.MemorySink()
+    state = training.TrainState.create(params, ctrl.optimizer())
+    state, hist = training.fit(None, state, stream, steps,
+                               options=training.FitOptions(
+                                   sink=mem, controller=ctrl))
+    recs = [r for r in mem.records if "controller/changed" in r]
+    return hist, state, recs, ctrl
+
+
+def phase_adaptive_small(get_smoke_config, get_model, pipeline, synthetic,
+                         training, diag, build_optimizer, tree_leaves,
+                         tree_map, ops, su, sinks) -> None:
+    """11b: the smoke LM in f32 on the card. (1) A scripted retarget
+    after 3 steps (K 2 -> 8) against a fresh run at K = 8 from a copy of
+    the same state and the same stream position: params within
+    SWITCH_PARITY_ATOL. (2) ``fit(controller=)`` with the noise probe, 6
+    steps on the card against the CPU's plain path from the same
+    weights: losses and params within 1e-5 (phase 8's bound), each
+    boundary's noise scale within SMALL_F32_RTOL["gns"] (phase 10b's)
+    and the same decisions; one norm and one apply launch per step on
+    the card, none on the CPU."""
+    model = get_model(get_smoke_config("qwen2.5-3b"))
+    task = training.lm_task(model)
+    cpu = model.init(0, device="cpu")
+
+    def factory(b):
+        return build_optimizer("tvlars", total_steps=10, learning_rate=2.0,
+                               batch_size=b, use_kernel="fused",
+                               segments=model.segments, device=DEV)
+
+    def source():
+        return synthetic.lm_sample_source(64, model.cfg.vocab_size, seed=0,
+                                          device=DEV)
+
+    ctrl = training.AdaptiveBatchController(
+        lambda opt, k: training.make_train_step(task, opt, accum_steps=k),
+        factory, lambda step, state: {"grad_noise_scale": 1.0},
+        training.ControllerConfig(microbatch=2, batch_min=2, batch_max=32,
+                                  every=100), init_batch=4, base_lr=2.0)
+    stream = pipeline.MicrobatchedStream(source(), 2)
+    ctrl.attach(stream)
+    state = training.TrainState.create(
+        tree_map(lambda t: t.detach().clone().to(DEV), cpu),
+        ctrl.optimizer())
+    for _ in range(3):
+        state, _ = ctrl.step_fn()(state, next(stream))
+    copy = training.TrainState(
+        state.step, tree_map(lambda t: t.detach().clone(), state.params),
+        tree_map(lambda t: t.clone(), state.opt_state))
+    pos = stream.position
+    if not ctrl.retarget(16):
+        raise AssertionError("11b: retarget to 16 changed nothing")
+    for _ in range(3):
+        state, _ = ctrl.step_fn()(state, next(stream))
+    fresh_step = training.make_train_step(task, factory(16), accum_steps=8)
+    fresh_stream = pipeline.MicrobatchedStream(source(), 2, accum_steps=8,
+                                               position=pos)
+    fresh = copy
+    for _ in range(3):
+        fresh, _ = fresh_step(fresh, next(fresh_stream))
+    gap = max(float((a - b).detach().abs().max()) for a, b in zip(
+        tree_leaves(state.params), tree_leaves(fresh.params)))
+    if not gap <= SWITCH_PARITY_ATOL:
+        raise AssertionError(f"11b: K switch vs fresh run {gap:.3e}")
+
+    res = {}
+    for dev in ("cpu", DEV):
+        ops.reset_launches()
+        res[dev] = adaptive_smoke_run(
+            dev, model, cpu, pipeline=pipeline, synthetic=synthetic,
+            training=training, diag=diag, build_optimizer=build_optimizer,
+            tree_map=tree_map, sinks=sinks) + (dict(ops.launches),)
+    (hc, sc, rc, cc, kc), (hg, sg, rg, cg, kg) = res["cpu"], res[DEV]
+    norm_k, apply_k = su.KERNELS["paper"]
+    want = {k: 0 for k in kg}
+    want.update({norm_k: 6, apply_k: 6})
+    if kg != want or any(kc.values()):
+        raise AssertionError(f"11b: launches cpu {kc} card {kg}")
+    np.testing.assert_allclose([h["loss"] for h in hg],
+                               [h["loss"] for h in hc], rtol=1e-5)
+    worst = 0.0
+    for a, b in zip(tree_leaves(sg.params), tree_leaves(sc.params)):
+        a, b = a.detach().cpu().numpy(), b.detach().numpy()
+        scale = float(np.abs(b).max())
+        worst = max(worst, float(np.abs(a - b).max()) / scale)
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * scale)
+    gns = [abs(a["controller/b_noise"] - b["controller/b_noise"])
+           / abs(b["controller/b_noise"]) for a, b in zip(rg, rc)]
+    if [r["controller/global_batch"] for r in rg] != \
+            [r["controller/global_batch"] for r in rc] \
+            or not max(gns) <= SMALL_F32_RTOL["gns"]:
+        raise AssertionError(f"11b: controller card {rg} cpu {rc}")
+    print(f"adaptive small: smoke LM f32 fused TVLARS; K switch 2 -> 8 "
+          f"after 3 steps == a fresh K=8 run from the same state within "
+          f"{gap:.3e} (bound {SWITCH_PARITY_ATOL}); fit(controller=) 6 "
+          f"steps card == cpu: worst param gap {worst:.3e} of its leaf's "
+          f"scale, noise scale within {max(gns):.3e} (bound "
+          f"{SMALL_F32_RTOL['gns']}), batches "
+          f"{[int(h['global_batch']) for h in hg]} on both, visited K "
+          f"{list(cg.visited_ks)}; launches {kg[norm_k]} + {kg[apply_k]}",
+          flush=True)
+
+
+def read_csv_rows(path) -> tuple:
+    import csv
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return rows[0], rows[1:]
+
+
+def phase_paper_runs(launchers: dict, ops, layerwise, flatten, cnn,
+                     paper_io, diag) -> dict:
+    """11c: the paper's experiment launchers on the card at their
+    reference constants (Table 1's 30 runs, SSL's 6, Fig. 2's 3, the
+    ablations' 23, the schedules, the adaptive bench's 3), every CSV and
+    JSONL checked; Table 1 again with ``--use-kernel per_tensor`` for
+    the optimizers that accept it, with exactly 2 launches of each
+    per-tensor kernel per ADAPT leaf per step. Prints Table 1 and the
+    adaptive switches."""
+    tmp = tempfile.mkdtemp(prefix="phase11c_")
+    res, seconds = {}, {}
+
+    def drive(name, module, argv=()):
+        t0 = time.perf_counter()
+        res[name] = launchers[module].run(
+            ["--device", DEV, "--out-dir", f"{tmp}/{name}", *argv],
+            log_fn=lambda line: None)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+
+    for name in ("table1", "ssl", "fig2_lnr", "ablations", "schedules",
+                 "adaptive_batch"):
+        drive(name, name)
+    ops.reset_launches()
+    drive("table1_per_tensor", "table1", ["--use-kernel", "per_tensor"])
+    launches = dict(ops.launches)
+    t1 = launchers["table1"]
+    rows = res["table1"]["rows"]
+    if len(rows) != sum(len(v) for v in t1.GRID.values()) * len(t1.OPTS) \
+            or not all(np.isfinite(r[4]) and 0 <= r[3] <= 1 for r in rows):
+        raise AssertionError(f"11c table1: {rows}")
+    pt_rows = res["table1_per_tensor"]["rows"]
+    params = cnn.init_mlp_classifier(0, in_dim=8 * 8 * 3, num_classes=32,
+                                     hidden=128, device=DEV)
+    n_adapt = len(layerwise.kernel_segments(flatten.build_spec(params)))
+    want = {k: 0 for k in launches}
+    n = len(pt_rows) * t1.STEPS * n_adapt
+    want.update({"lars_norm2": n, "lars_apply": n})
+    if launches != want or [r[0] for r in pt_rows] != \
+            [o for o in t1.OPTS if o in paper_io.PER_TENSOR_OPTS] \
+            * (len(pt_rows) // len(paper_io.PER_TENSOR_OPTS)):
+        raise AssertionError(f"11c table1 per_tensor: launches {launches}, "
+                             f"expected {want}; rows {pt_rows}")
+    for name, files in (("table1", ["table1"]), ("ssl", ["table1_ssl"]),
+                        ("fig2_lnr", ["fig2_lnr_traces"]),
+                        ("ablations", ["fig5_lambda", "fig6_lr",
+                                       "fig7_init"]),
+                        ("schedules", ["schedules_fig1_fig4"])):
+        for stem in files:
+            header, body = read_csv_rows(f"{tmp}/{name}/{stem}.csv")
+            if not body:
+                raise AssertionError(f"11c {name}: {stem}.csv is empty")
+            print(f"paper runs: {name} -> {stem}.csv {header}, "
+                  f"{len(body)} rows", flush=True)
+    ab = res["adaptive_batch"]
+    for path in ab["paths"].values():
+        diag.validate_jsonl(path)
+    print("paper runs: Table 1 on the card (optimizer, batch, lr, "
+          "accuracy, final loss): " + "; ".join(
+              f"{o} B{b} lr{lr} {a:.4f} {fl:.4f}"
+              for o, b, lr, a, fl in rows), flush=True)
+    print("paper runs: Table 1 per-tensor: " + "; ".join(
+        f"{o} B{b} lr{lr} {a:.4f} {fl:.4f}" for o, b, lr, a, fl in pt_rows)
+        + f"; launches {launches['lars_norm2']} + {launches['lars_apply']} "
+        f"= {len(pt_rows)} runs x {t1.STEPS} steps x {n_adapt} ADAPT "
+        f"leaves", flush=True)
+    lnr = res["fig2_lnr"]["summaries"]
+    print(f"paper runs: Table 1 TVLARS >= WA-LARS - 0.005 in "
+          f"{res['table1']['wins']}/{res['table1']['cells']} cells; SSL "
+          f"{res['ssl']['rows']}; Fig. 2 max initial LNR "
+          f"{ {k: round(v['max_initial_lnr'], 4) for k, v in lnr.items()} }"
+          f", accuracy {res['fig2_lnr']['accuracy']}, warm-up caps LNR "
+          f"{res['fig2_lnr']['warmup_caps_lnr']}; ablations lambda "
+          f"{res['ablations']['lambda']} lr {res['ablations']['lr']} init "
+          f"{res['ablations']['init']}; schedules head LR warm-up "
+          f"{res['schedules']['warmup_head_lr']:.4f} TVLARS "
+          f"{res['schedules']['tvlars_head_lr']:.4f}", flush=True)
+    moves = [(s["step"], int(s["controller/global_batch"]),
+              s["controller/lr"]) for s in ab["switches"]]
+    print(f"paper runs: adaptive bench accuracy {ab['accuracy']}; "
+          f"switches (step, batch, lr) {moves}; visited K "
+          f"{list(ab['visited_ks'])}, {ab['compiles']} steps built; "
+          f"seconds on the card {seconds}", flush=True)
+    return {"results": res, "launches": launches, "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2119,7 +2567,12 @@ def main() -> int:
     from repro_torch.data import synthetic
     from repro_torch import diagnostics as diag
     from repro_torch.diagnostics import smoke as diag_smoke
-    from repro_torch.launch import classify
+    from repro_torch.core import schedules
+    from repro_torch.data import pipeline
+    from repro_torch.launch import (ablations, adaptive_batch, classify,
+                                    fig2_lnr, paper_io, table1)
+    from repro_torch.launch import schedules as schedules_launch
+    from repro_torch.launch import ssl as ssl_launch
     from repro_torch.launch import sharpness as sharpness_launch
     from repro_torch.launch.train import run as train_run
     from repro_torch.models import cnn, convert, get_model
@@ -2216,6 +2669,27 @@ def main() -> int:
                                       synthetic, training, tree_map)
     phase_sharpness_bench(sharpness_launch, diag)
     diag_smoke.main([])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 11: the adaptive-batch controller at full width, on the smoke LM
+    # against the CPU, and the paper's experiment launchers
+    adaptive = phase_adaptive_full(
+        train_run, ops, su, pipeline, synthetic, schedules, training, diag,
+        ["--arch", "qwen2.5-3b", "--optimizer", "tvlars", "--use-kernel",
+         "fused", "--global-batch", "2", "--microbatch", "1", "--seq",
+         "512", "--batch-max", "16", "--controller-every", "2", "--steps",
+         "6", "--prefetch", "2", "--adaptive-batch"], "tvlars-adaptive")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_adaptive_small(get_smoke_config, get_model, pipeline, synthetic,
+                         training, diag, build_optimizer, tree_leaves,
+                         tree_map, ops, su, diag.sink)
+    paper = phase_paper_runs(
+        {"table1": table1, "ssl": ssl_launch, "fig2_lnr": fig2_lnr,
+         "ablations": ablations, "schedules": schedules_launch,
+         "adaptive_batch": adaptive_batch}, ops, layerwise, flatten, cnn,
+        paper_io, diag)
 
     # the serving path's mix: 40 local and 8 global launches per decode
     # step (bf16 pool); per-launch means weighted by that mix
@@ -2253,7 +2727,10 @@ def main() -> int:
                                t.get("rows_abs_err", 0.0)),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None})
+            "library_ms": None,
+            "launches_by_phase": {
+                "7": t["launches"],
+                "11": adaptive["launches"].get(name, 0)}})
     # the per-tensor kernels: per-launch means over the 14 segments of a
     # step at the main path's shapes; no single PyTorch call computes a
     # multi-tensor norm pair or the trust-scaled momentum apply, so
@@ -2267,7 +2744,10 @@ def main() -> int:
                                t["max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None})
+            "library_ms": None,
+            "launches_by_phase": {
+                "7c": t["launches"],
+                "11c": paper["launches"].get(name, 0)}})
     # RMSNorm: its path is the public ops.rmsnorm (no model calls it, as
     # in the JAX package); means over the four shapes it was driven at
     m = rmsn["mean"]
@@ -2279,6 +2759,8 @@ def main() -> int:
         "bound_by": "bytes" if all(r["bound_by"] == "bytes"
                                    for r in rmsn["rows"]) else "operations",
         "library_ms": m["library_ms"], "shapes": rmsn["rows"]})
+    print(f"chip_smoke: total {time.perf_counter() - T_START:.1f} s",
+          flush=True)
     print(smi_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

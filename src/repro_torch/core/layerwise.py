@@ -165,7 +165,6 @@ def layerwise_transform(base_lr_fn: Callable, *,
     stochastic = precision.endswith("_sr")
     n_bufs = 2 if mode == "lamb" else 1
     kernel_device = _device.resolve(device) if use_kernel else None
-    work: dict = {}     # fused work buffers: (spec, device) -> w, g, delta
 
     def _spec(params, dtype):
         return flatten.build_spec(params, dtype=dtype, segments=segments)
@@ -216,22 +215,16 @@ def layerwise_transform(base_lr_fn: Callable, *,
 
     # ---- fused path: flat substrate, two kernel launches per step ----
 
-    def _work(spec, dev):
-        key = (spec, str(dev))
-        if key not in work:
-            work.clear()        # one tree at a time: free the old buffers
-            shape = (spec.num_rows, flatten.LANES)
-            work[key] = (torch.zeros(shape, dtype=sdtype, device=dev),
-                         torch.zeros(shape, dtype=sdtype, device=dev),
-                         torch.zeros(shape, dtype=torch.float32,
-                                     device=dev))
-        return work[key]
-
     def _update_fused(grads, state, params):
+        # the packed params and grads and the delta live for one update
+        # only (the returned updates are views into the delta): between
+        # steps the card holds the state alone, which leaves room for an
+        # accumulator of K microbatches' gradients and for the probes
         spec, dev = _check_device(params)
-        w2d, g2d, delta = _work(spec, dev)
-        flatten.pack(params, spec, out=w2d)
-        flatten.pack(grads, spec, out=g2d)
+        w2d = flatten.pack(params, spec)
+        g2d = flatten.pack(grads, spec)
+        delta = torch.zeros((spec.num_rows, flatten.LANES),
+                            dtype=torch.float32, device=dev)
         base_lr, bc1, bc2 = _step_scalars(state.step)
         telemetry = obs_layerwise.active()
         out = kops.segmented_update(

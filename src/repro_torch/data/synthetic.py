@@ -6,6 +6,10 @@
   views (a random shift, a channel scale, additive noise).
 * ``lm_batch`` — bigram-chain tokens, ``next = (5·tok + 1 + noise) %
   vocab`` with noise in {0, 1, 2}; labels are the next tokens.
+* ``classification_sample_source`` / ``lm_sample_source`` /
+  ``lm_varlen_sample_source`` — sample-level sources ``(start, count)
+  -> batch`` for the streams of ``repro_torch.data.pipeline``: sample
+  ``i`` comes from its own CPU generator seeded from ``(seed, i)``.
 
 The draws come from explicit ``torch.Generator``s seeded from the
 given seeds (the LM stream's on the CPU, then moved; the image data's
@@ -20,6 +24,7 @@ from typing import Iterator, Optional
 import torch
 
 from repro_torch import device as _device
+from repro_torch.data.pipeline import stack_microbatches
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +128,21 @@ def two_view_iterator(data: ClassificationData, batch_size: int,
                                                 means), accum_steps)
 
 
+def _bigram_chain(first: torch.Tensor, noise: torch.Tensor,
+                  vocab: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(tokens, labels) [B, S] of the chain from ``first`` [B, 1] and
+    ``noise`` [B, S] in {0, 1, 2}."""
+    batch_size, seq_len = noise.shape
+    toks = torch.empty((batch_size, seq_len), dtype=torch.int64)
+    tok = first[:, 0]
+    for j in range(seq_len):
+        tok = (5 * tok + 1 + noise[:, j]) % vocab
+        toks[:, j] = tok
+    tokens = torch.cat([first, toks], dim=1)[:, :seq_len]
+    labels = torch.cat([toks, first], dim=1)[:, :seq_len]
+    return tokens, labels
+
+
 def lm_batch(gen: torch.Generator, batch_size: int, seq_len: int,
              vocab: int, *, device="cuda") -> tuple[torch.Tensor,
                                                     torch.Tensor]:
@@ -131,33 +151,121 @@ def lm_batch(gen: torch.Generator, batch_size: int, seq_len: int,
     dev = _device.resolve(device)
     first = torch.randint(0, vocab, (batch_size, 1), generator=gen)
     noise = torch.randint(0, 3, (batch_size, seq_len), generator=gen)
-    toks = torch.empty((batch_size, seq_len), dtype=torch.int64)
-    tok = first[:, 0]
-    for j in range(seq_len):
-        tok = (5 * tok + 1 + noise[:, j]) % vocab
-        toks[:, j] = tok
-    tokens = torch.cat([first, toks], dim=1)[:, :seq_len]
-    labels = torch.cat([toks, first], dim=1)[:, :seq_len]
+    tokens, labels = _bigram_chain(first, noise, vocab)
     return tokens.to(dev), labels.to(dev)
 
 
-def stack_microbatches(batch, accum_steps: int):
-    """``[B, ...]`` leaves of a dict or tuple batch -> ``[K, B/K,
-    ...]`` (microbatch k holds samples k·B/K .. (k+1)·B/K − 1); K = 1
-    returns the batch as it is."""
-    if accum_steps == 1:
-        return batch
+_MASK64 = (1 << 64) - 1
 
-    def stack(x):
-        if x.shape[0] % accum_steps:
-            raise ValueError(f"batch {x.shape[0]} is not divisible by "
-                             f"accum_steps {accum_steps}")
-        return x.reshape((accum_steps, x.shape[0] // accum_steps)
-                         + tuple(x.shape[1:]))
 
-    if isinstance(batch, dict):
-        return {k: stack(x) for k, x in batch.items()}
-    return tuple(stack(x) for x in batch)
+def _sample_seed(seed: int, index: int) -> int:
+    """The 64-bit seed of sample ``index`` of a stream seeded ``seed``:
+    splitmix64 of the pair, so neighbouring indices and seeds give
+    unrelated generators."""
+    z = (seed * 0x9E3779B97F4A7C15 + index + 1) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def _sample_generators(seed: int, start: int, count: int):
+    """One CPU generator per absolute sample index in ``[start, start +
+    count)``: sample ``i`` depends only on ``(seed, i)``, never on how
+    the stream was batched around it (the reference's
+    ``fold_in(seed, i)``)."""
+    if start < 0 or count < 0:
+        raise ValueError(f"need start >= 0 and count >= 0, got {start}, "
+                         f"{count}")
+    return [torch.Generator().manual_seed(_sample_seed(seed, i))
+            for i in range(start, start + count)]
+
+
+def classification_sample_source(data: ClassificationData, seed: int = 0,
+                                 *, device="cuda"):
+    """Sample-level source ``(start, count) -> (images, labels)`` for
+    :class:`repro_torch.data.pipeline.MicrobatchedStream`.
+
+    Each sample's label, noise and label flip are drawn on the CPU from
+    its own generator (:func:`_sample_seed`), so any contiguous
+    ``[start, start + count)`` request returns the same samples however
+    the stream around it was partitioned; the batch moves to ``device``
+    once and takes the class means of that device
+    (:meth:`ClassificationData.class_means`), as the eval set does."""
+    dev = _device.resolve(device)
+    means = data.class_means(dev)
+    shape = (data.image_size, data.image_size, data.channels)
+
+    def source(start: int, count: int):
+        labels, noise = [], []
+        for gen in _sample_generators(seed, start, count):
+            label = torch.randint(0, data.num_classes, (1,), generator=gen)
+            noise.append(torch.randn(shape, generator=gen))
+            if data.label_noise > 0:
+                flip = torch.rand((1,), generator=gen) < data.label_noise
+                other = torch.randint(0, data.num_classes, (1,),
+                                      generator=gen)
+                label = torch.where(flip, other, label)
+            labels.append(label)
+        labels = torch.cat(labels).to(dev)
+        noise = torch.stack(noise).to(dev)
+        return means[labels] + data.noise_scale * noise, labels
+
+    return source
+
+
+def _chain_samples(seed: int, start: int, count: int, seq_len: int,
+                   vocab: int, min_seq: Optional[int] = None):
+    """The per-sample bigram chains (and, with ``min_seq``, lengths in
+    ``[min_seq, seq_len]``) of ``[start, start + count)``, on the CPU."""
+    firsts, noises, lengths = [], [], []
+    for gen in _sample_generators(seed, start, count):
+        firsts.append(torch.randint(0, vocab, (1, 1), generator=gen))
+        noises.append(torch.randint(0, 3, (1, seq_len), generator=gen))
+        if min_seq is not None:
+            lengths.append(torch.randint(min_seq, seq_len + 1, (1,),
+                                         generator=gen))
+    tokens, labels = _bigram_chain(torch.cat(firsts), torch.cat(noises),
+                                   vocab)
+    return tokens, labels, (torch.cat(lengths) if lengths else None)
+
+
+def lm_sample_source(seq_len: int, vocab: int, seed: int = 0, *,
+                     device="cuda"):
+    """Sample-level LM source ``(start, count) -> {"tokens", "labels"}``
+    with the per-absolute-index determinism of
+    :func:`classification_sample_source`; drawn on the CPU, moved to
+    ``device`` once."""
+    dev = _device.resolve(device)
+
+    def source(start: int, count: int):
+        tokens, labels, _ = _chain_samples(seed, start, count, seq_len,
+                                           vocab)
+        return {"tokens": tokens.to(dev), "labels": labels.to(dev)}
+
+    return source
+
+
+def lm_varlen_sample_source(max_seq: int, vocab: int, seed: int = 0, *,
+                            min_seq: int = 1, device="cuda"):
+    """Variable-length LM source for length bucketing: ``(start, count)
+    -> {"tokens", "labels", "length"}``, every sequence leaf padded to
+    ``max_seq`` with zeros past ``length``, and ``length`` uniform in
+    ``[min_seq, max_seq]``; tokens and length depend only on the
+    sample's absolute index."""
+    if not 1 <= min_seq <= max_seq:
+        raise ValueError(
+            f"need 1 <= min_seq <= max_seq, got {min_seq}, {max_seq}")
+    dev = _device.resolve(device)
+
+    def source(start: int, count: int):
+        tokens, labels, lengths = _chain_samples(seed, start, count,
+                                                 max_seq, vocab, min_seq)
+        mask = torch.arange(max_seq)[None, :] < lengths[:, None]
+        return {"tokens": torch.where(mask, tokens, 0).to(dev),
+                "labels": torch.where(mask, labels, 0).to(dev),
+                "length": lengths.to(dev)}
+
+    return source
 
 
 def lm_iterator(batch_size: int, seq_len: int, vocab: int, seed: int = 0,

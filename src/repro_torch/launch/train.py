@@ -21,8 +21,18 @@ the global batch drawn from a fixed seed, stacked like the run's. The
 probe reads the params and never writes them. ``--metrics-out PATH`` streams
 every step's metrics and the probe results to a JSONL file
 (``repro_torch.diagnostics.sink.JsonlSink``, with the arch, optimizer
-and global batch on every record). Runs on CUDA unless ``--device
-cpu``.
+and global batch on every record).
+
+``--adaptive-batch`` closes the loop: a gradient-noise-scale probe on
+a held batch (``max(2, global / micro)`` microbatches drawn from seed
+998) retargets the global batch (the accumulation
+depth K at a fixed ``--microbatch``, within ``--batch-min`` ..
+``--batch-max``) every ``--controller-every`` steps, with the LR
+re-scaled to the current batch; its stream draws each sample from its
+own index (``data.synthetic.lm_sample_source``), so a switch skips and
+re-reads nothing. ``--prefetch N`` draws the next N batches on a
+producer thread (``data.pipeline.PrefetchingStream``), for the fixed
+and the adaptive stream alike. Runs on CUDA unless ``--device cpu``.
 
 :func:`run` is the entry point for programs (``chip_smoke.py``): it
 takes the argument list and returns the run's numbers and final state.
@@ -40,14 +50,16 @@ from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core import build_optimizer
 from repro_torch.core import flatten
 from repro_torch.core.layerwise import PRECISIONS
+from repro_torch.data import pipeline
 from repro_torch.data.synthetic import (lm_batch, lm_iterator,
-                                        stack_microbatches)
+                                        lm_sample_source)
 from repro_torch.diagnostics import probes
 from repro_torch.diagnostics import sink as sinks
 from repro_torch.models import get_model
 from repro_torch.obs import trace as obs_trace
-from repro_torch.training import (FitOptions, TrainState, fit, lm_task,
-                                  make_train_step)
+from repro_torch.training import (AdaptiveBatchController,
+                                  ControllerConfig, FitOptions, TrainState,
+                                  fit, lm_task, make_train_step)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -86,6 +98,22 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="stream per-step metrics + probe results to "
                          "this JSONL file")
+    ap.add_argument("--adaptive-batch", action="store_true",
+                    help="retarget the global batch (K at a fixed "
+                         "--microbatch) from a gradient-noise-scale probe "
+                         "every --controller-every steps, the LR re-scaled "
+                         "to the current batch")
+    ap.add_argument("--batch-min", type=int, default=None,
+                    help="adaptive-batch lower clamp on the global batch "
+                         "(default: --microbatch)")
+    ap.add_argument("--batch-max", type=int, default=None,
+                    help="adaptive-batch upper clamp on the global batch "
+                         "(default: 4x --global-batch)")
+    ap.add_argument("--controller-every", type=int, default=5,
+                    help="adaptive-batch decision cadence in steps")
+    ap.add_argument("--prefetch", type=int, default=0, metavar="N",
+                    help="draw N batches ahead on a producer thread (0 = "
+                         "off); a retarget drains and refills them")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap
@@ -100,7 +128,15 @@ class _Console(sinks.MetricsSink):
         self.log_fn = log_fn
 
     def write(self, step: int, metrics, *, last: bool = False) -> None:
-        if "loss" not in metrics:
+        if "controller/global_batch" in metrics:
+            self.log_fn(
+                f"step {step:4d} controller "
+                f"B_noise={metrics['controller/b_noise']:.1f} "
+                f"global_batch={int(metrics['controller/global_batch'])} "
+                f"K={int(metrics['controller/accum_steps'])} "
+                f"lr={metrics['controller/lr']:.4f}"
+                + (" [switched]" if metrics["controller/changed"] else ""))
+        elif "loss" not in metrics:
             self.log_fn(f"step {step:4d} probe " + " ".join(
                 f"{k}={v:.4f}" for k, v in metrics.items()
                 if isinstance(v, float)))
@@ -144,6 +180,8 @@ def run(argv: Optional[Sequence[str]] = None, *,
                          f"--use-kernel fused")
     if args.probe_every < 0:
         raise SystemExit(f"--probe-every {args.probe_every} must be >= 0")
+    if args.prefetch < 0:
+        raise SystemExit(f"--prefetch {args.prefetch} must be >= 0")
 
     cfg = get_smoke_config(args.arch) if args.smoke \
         else get_config(args.arch)
@@ -151,18 +189,63 @@ def run(argv: Optional[Sequence[str]] = None, *,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     params = model.init(0, device=dev)
-    opt = build_optimizer(args.optimizer, total_steps=args.steps,
-                          learning_rate=args.learning_rate,
-                          batch_size=args.global_batch,
-                          use_kernel=use_kernel, precision=args.precision,
-                          segments=model.segments, device=dev)
-    state = TrainState.create(params, opt)
     tracer = obs_trace.Tracer()
     layerwise = args.layerwise_every > 0
-    step_fn = make_train_step(lm_task(model), opt, accum_steps=accum_steps,
-                              layerwise=layerwise, tracer=tracer)
-    batches = lm_iterator(args.global_batch, args.seq, cfg.vocab_size,
-                          seed=0, accum_steps=accum_steps, device=dev)
+
+    def optimizer_for(batch_size: int):
+        # the LR rule and TVLARS's γ_min see the GLOBAL batch
+        return build_optimizer(args.optimizer, total_steps=args.steps,
+                               learning_rate=args.learning_rate,
+                               batch_size=batch_size,
+                               use_kernel=use_kernel,
+                               precision=args.precision,
+                               segments=model.segments, device=dev)
+
+    def step_for(opt_, k: int):
+        return make_train_step(lm_task(model), opt_, accum_steps=k,
+                               layerwise=layerwise, tracer=tracer)
+
+    controller = None
+    if args.adaptive_batch:
+        batch_min = microbatch if args.batch_min is None \
+            else args.batch_min
+        batch_max = 4 * args.global_batch if args.batch_max is None \
+            else args.batch_max
+        # held noise-probe batch: stacked K >= 2 (the estimator contrasts
+        # per-microbatch and accumulated gradient norms)
+        k_probe = max(2, accum_steps)
+        ptoks, plabels = lm_batch(torch.Generator().manual_seed(998),
+                                  k_probe * microbatch, args.seq,
+                                  cfg.vocab_size, device=dev)
+        try:
+            controller = AdaptiveBatchController(
+                step_for, optimizer_for,
+                probes.GradNoiseProbe(
+                    lm_task(model), pipeline.stack_microbatches(
+                        {"tokens": ptoks, "labels": plabels}, k_probe),
+                    accum_steps=k_probe, every=args.controller_every),
+                ControllerConfig(microbatch=microbatch,
+                                 batch_min=batch_min, batch_max=batch_max,
+                                 every=args.controller_every),
+                init_batch=args.global_batch,
+                base_lr=args.learning_rate)
+        except ValueError as e:
+            raise SystemExit(f"--adaptive-batch: {e}") from e
+        opt = controller.optimizer()
+        step_fn = None
+        # sample-level stream: a K switch skips and re-reads nothing
+        batches = pipeline.MicrobatchedStream(
+            lm_sample_source(args.seq, cfg.vocab_size, seed=0, device=dev),
+            microbatch, accum_steps=accum_steps)
+    else:
+        opt = optimizer_for(args.global_batch)
+        step_fn = step_for(opt, accum_steps)
+        batches = lm_iterator(args.global_batch, args.seq, cfg.vocab_size,
+                              seed=0, accum_steps=accum_steps, device=dev)
+    if args.prefetch > 0:
+        batches = pipeline.PrefetchingStream(batches, size=args.prefetch,
+                                             tracer=tracer)
+    state = TrainState.create(params, opt)
     names = list(flatten.build_spec(params, segments=model.segments).names)
     callbacks = []
     if args.probe_every > 0:
@@ -172,7 +255,7 @@ def run(argv: Optional[Sequence[str]] = None, *,
                                   args.global_batch, args.seq,
                                   cfg.vocab_size, device=dev)
         callbacks.append(probes.LanczosProbe(
-            lm_task(model), stack_microbatches(
+            lm_task(model), pipeline.stack_microbatches(
                 {"tokens": ptoks, "labels": plabels}, accum_steps),
             every=args.probe_every, num_iters=args.probe_iters,
             top_k=args.probe_topk, accum_steps=accum_steps,
@@ -180,23 +263,34 @@ def run(argv: Optional[Sequence[str]] = None, *,
     memory = sinks.MemorySink()
     sink_list = [_Console(args.log_every, log_fn), memory]
     if args.metrics_out:
-        sink_list.append(sinks.JsonlSink(args.metrics_out, static={
-            "arch": args.arch, "optimizer": args.optimizer,
-            "global_batch": args.global_batch}))
+        static = {"arch": args.arch, "optimizer": args.optimizer}
+        if controller is None:
+            # an adaptive run's records carry the batch of their step
+            static["global_batch"] = args.global_batch
+        sink_list.append(sinks.JsonlSink(args.metrics_out, static=static))
     log_fn(f"{args.arch}{' (smoke)' if args.smoke else ''}: "
            f"{cfg.num_layers} layers, {cfg.param_dtype}; "
            f"optimizer={args.optimizer} use_kernel={args.use_kernel} "
            f"precision={args.precision} global_batch={args.global_batch} "
            f"microbatch={microbatch} accum_steps={accum_steps} "
-           f"seq={args.seq} device={dev}")
+           f"seq={args.seq} device={dev}"
+           + (f" adaptive batch {controller.config.batch_min}.."
+              f"{controller.config.batch_max} every "
+              f"{controller.every}" if controller is not None else "")
+           + (f" prefetch={args.prefetch}" if args.prefetch else ""))
     t0 = time.perf_counter()
-    state, history = fit(step_fn, state, batches, args.steps,
-                         options=FitOptions(
-                             sink=sinks.MultiSink(*sink_list),
-                             close_sink=True, callbacks=callbacks,
-                             tracer=tracer,
-                             layerwise_every=args.layerwise_every,
-                             layerwise_names=names))
+    try:
+        state, history = fit(step_fn, state, batches, args.steps,
+                             options=FitOptions(
+                                 sink=sinks.MultiSink(*sink_list),
+                                 close_sink=True, callbacks=callbacks,
+                                 tracer=tracer,
+                                 layerwise_every=args.layerwise_every,
+                                 layerwise_names=names,
+                                 controller=controller))
+    finally:
+        if isinstance(batches, pipeline.PrefetchingStream):
+            batches.close()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     elapsed = time.perf_counter() - t0
@@ -208,19 +302,29 @@ def run(argv: Optional[Sequence[str]] = None, *,
         "optimizer_seconds": _span_seconds(records, "optimizer",
                                            args.steps),
         "probe_seconds": _span_seconds(records, "probe", args.steps),
+        "controller_seconds": _span_seconds(records, "controller",
+                                            args.steps),
         "seconds": elapsed,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)
         if dev.type == "cuda" else None,
         "segment_names": names, "history": history,
-        "probes": [r for r in memory.records if "loss" not in r],
+        "probes": [r for r in memory.records if "loss" not in r
+                   and "controller/changed" not in r],
+        "controller_records": [r for r in memory.records
+                               if "controller/changed" in r],
+        "controller": controller, "global_batches": [
+            h.get("global_batch", args.global_batch) for h in history],
         "state": state, "model": model,
     }
-    for i, (lg, op, pr) in enumerate(zip(out["loss_grad_seconds"],
-                                         out["optimizer_seconds"],
-                                         out["probe_seconds"])):
+    for i, (lg, op, pr, ct) in enumerate(zip(
+            out["loss_grad_seconds"], out["optimizer_seconds"],
+            out["probe_seconds"], out["controller_seconds"])):
         log_fn(f"step {i:4d} time: loss+grad {lg * 1e3:.1f} ms, "
                f"optimizer {op * 1e3:.1f} ms"
-               + (f", probe {pr * 1e3:.1f} ms" if callbacks else ""))
+               + (f", probe {pr * 1e3:.1f} ms" if callbacks else "")
+               + (f", controller {ct * 1e3:.1f} ms (global batch "
+                  f"{int(out['global_batches'][i])})"
+                  if controller is not None else ""))
     if out["peak_memory_bytes"] is not None:
         log_fn(f"peak device memory {out['peak_memory_bytes'] / 2**30:.2f} "
                f"GiB")

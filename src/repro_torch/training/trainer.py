@@ -23,7 +23,7 @@ card, so the spans time the device's work rather than its enqueueing.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 
@@ -180,7 +180,9 @@ class FitOptions:
     ``layer_norms`` metric); logging (``log_every``, ``log_fn``, or a
     metrics ``sink`` with ``close_sink``); probe ``callbacks``; the
     host-span ``tracer``; the layer-wise stream's decimation and names
-    (``layerwise_every``, ``layerwise_names``)."""
+    (``layerwise_every``, ``layerwise_names``); the adaptive-batch
+    ``controller`` (a
+    :class:`repro_torch.training.controller.AdaptiveBatchController`)."""
     recorder: Optional[instrumentation.NormRecorder] = None
     log_every: int = 0
     log_fn: Callable = print
@@ -190,6 +192,7 @@ class FitOptions:
     tracer: Optional[obs_trace.Tracer] = None
     layerwise_every: int = 0
     layerwise_names: Optional[Sequence[str]] = None
+    controller: Optional[Any] = None
 
 
 def _to_host(metrics: dict) -> dict:
@@ -205,8 +208,8 @@ def _to_host(metrics: dict) -> dict:
     return host
 
 
-def fit(train_step: Callable, state: TrainState, batches, num_steps: int,
-        *, options: Optional[FitOptions] = None
+def fit(train_step: Optional[Callable], state: TrainState, batches,
+        num_steps: int, *, options: Optional[FitOptions] = None
         ) -> tuple[TrainState, list[dict]]:
     """Host loop: ``num_steps`` steps over ``batches`` (one batch per
     global step). Records ``data_wait`` / ``dispatch`` / ``resolve``
@@ -220,14 +223,34 @@ def fit(train_step: Callable, state: TrainState, batches, num_steps: int,
     (written every step) or rely on ``log_every`` / ``log_fn``, which
     build a :class:`ConsoleSink` (``step {i:5d} k=v.vvvv ...``).
     ``callbacks`` are :class:`repro_torch.diagnostics.probes.Probe`
-    objects: each due probe (``probe_due``) runs after the step, inside
-    a ``probe`` span, and its metrics go to the sink as
+    objects: each step, every callback's ``prepare(step, state)`` hook
+    (where it has one) runs, then each due probe (``probe_due``) runs
+    inside a ``probe`` span, and its metrics go to the sink as
     ``{probe.name}/{key}`` with ``last=True``; they are not kept in
     the returned history. ``close_sink=True`` closes ``sink`` after the
-    last write (the console sink built here is always closed). Returns
-    ``(state, history)``."""
+    last write (the console sink built here is always closed).
+
+    ``controller``: pass ``train_step=None`` and a ``batches`` stream
+    with ``set_accum_steps`` (a
+    :class:`repro_torch.data.pipeline.MicrobatchedStream`, maybe inside
+    a ``PrefetchingStream``). The controller builds and caches the step
+    of each K it visits, runs as the last callback inside a
+    ``controller`` span (its metrics as ``controller/*``), and its
+    switches take effect at the next pull; every step's record carries
+    the ``global_batch`` it trained at. Returns ``(state, history)``."""
     o = options if options is not None else FitOptions()
     tracer = obs_trace.NULL if o.tracer is None else o.tracer
+    controller = o.controller
+    callbacks = tuple(o.callbacks)
+    if controller is not None:
+        if train_step is not None:
+            raise ValueError(
+                "pass train_step=None with controller=: the controller "
+                "builds (and caches) the per-K train steps itself")
+        controller.attach(batches)
+        callbacks = (*callbacks, controller)
+    elif train_step is None:
+        raise ValueError("fit needs a train_step or a controller")
     sink, close_sink = o.sink, o.close_sink
     if sink is None:
         sink = sinks.ConsoleSink(every=o.log_every, log_fn=o.log_fn) \
@@ -236,15 +259,23 @@ def fit(train_step: Callable, state: TrainState, batches, num_steps: int,
     history: list[dict] = []
     try:
         for i in range(num_steps):
+            # the batch this step trains at: a switch lands at the pull
+            # after the boundary that decides it
+            step_batch = controller.global_batch \
+                if controller is not None else None
             with tracer.span("data_wait", step=i):
                 batch = next(batches)
+            fn = controller.step_fn() if controller is not None \
+                else train_step
             with tracer.span("dispatch", step=i):
-                state, metrics = train_step(state, batch)
+                state, metrics = fn(state, batch)
             norms = metrics.pop("layer_norms", None)
             if o.recorder is not None and norms is not None:
                 o.recorder.record(i, norms)
             with tracer.span("resolve", step=i):
                 host = _to_host(metrics)
+            if step_batch is not None:
+                host["global_batch"] = float(step_batch)
             rest, lw = obs_layerwise.split_record(host)
             if lw and (o.layerwise_every <= 1
                        or i % o.layerwise_every == 0):
@@ -255,10 +286,14 @@ def fit(train_step: Callable, state: TrainState, batches, num_steps: int,
             history.append(host)
             if sink is not None:
                 sink.write(i, host, last=i == num_steps - 1)
-            for probe in o.callbacks:
+            for probe in callbacks:
+                prepare = getattr(probe, "prepare", None)
+                if prepare is not None:
+                    prepare(i, state)
                 if not probes.probe_due(probe, i):
                     continue
-                with tracer.span("probe", step=i,
+                span = "controller" if probe is controller else "probe"
+                with tracer.span(span, step=i,
                                  probe=getattr(probe, "name", "?")):
                     out = probe(i, state)
                 if out and sink is not None:

@@ -8,7 +8,9 @@ Tolerances (f32 throughout):
   the qwen2.5-3b smoke LM 1e-4 of it (two libraries summing the same
   products in other orders through two layers, the bound
   ``test_torch_train`` holds LM gradients to); port K=4 ≡ K=1 and
-  flat ≡ tree within 1e-6 (the reference's own bounds);
+  flat ≡ tree within 1e-6 (the reference's own bounds); the smoke LM in
+  bf16 at K = 4 and K = 1: 4·2^-8 of the product's norm
+  (``HVP_BF16_RTOL``);
 * ``padding_mask`` bit for bit;
 * Lanczos α/β from the same v0: 1e-4 of their largest entry with
   reorthogonalization (10 steps), 1e-3 without (6 steps: plain Lanczos
@@ -178,6 +180,53 @@ def test_flat_hvp_matches_reference_lm(remat):
     assert op.spec.sizes == lm["jop"].spec.sizes
     got = op.matvec(torch.from_numpy(lm["v"])).numpy()
     _close(got, lm["jhv"], 1e-4, f"lm hvp remat={remat}")
+
+
+# a bf16 model's HVP: both packages take each microbatch's product in
+# bf16 (the reference through the f32-packed buffer cast to bf16 leaves,
+# the port at the leaves' dtype), and sum the K products in f32 (the
+# reference's scan carry) or in the leaves' bf16 ``.grad`` (the port).
+# Stated bound: the products' difference within 4 * 2^-8 of the
+# reference's product in norm (four bf16 roundings, the bf16 rule of
+# ``ref.parity_tolerance``); K = 1, which has no sum, is held to the
+# same bound, and the port's own K = 4 against K = 1 (the bf16 sum's
+# rounding) to 2^-8. Measured on this input: 0.72% (K = 4), 0.71%
+# (K = 1) and 0.30% (the reference's own K = 4 against K = 1: 0.27%),
+# so what separates the packages is the bf16 arithmetic of each
+# product, not the sum.
+HVP_BF16_RTOL = 4 * 2.0 ** -8
+
+
+def test_flat_hvp_bf16_lm_matches_reference():
+    edit = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+    jcfg = jax_smoke_config("qwen2.5-3b").replace(**edit)
+    cfg = get_smoke_config("qwen2.5-3b").replace(**edit)
+    jmodel = jax_get_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    model = get_model(cfg)
+    params = params_from_jax(cfg, _np_tree(jparams), device="cpu")
+    assert {p.dtype for p in tree_leaves(params)} == {torch.bfloat16}
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, 512, (8, 32)),
+             "labels": rng.integers(0, 512, (8, 32))}
+    jb = {k: jnp.asarray(v, jnp.int32) for k, v in batch.items()}
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    got, want = {}, {}
+    for k in (1, 4):
+        jop = jhvp.make_flat_hvp(jlm_task(jmodel), jparams,
+                                 jstack(jb, k) if k > 1 else jb,
+                                 accum_steps=k)
+        v = _masked_normal(jop.spec, 2)
+        want[k] = np.asarray(jop.matvec(jnp.asarray(v)), np.float64)
+        op = hvp.make_flat_hvp(lm_task(model), params,
+                               synthetic.stack_microbatches(tb, k),
+                               accum_steps=k)
+        assert op.spec.sizes == jop.spec.sizes
+        got[k] = op.matvec(torch.from_numpy(v)).double().numpy()
+        rel = np.linalg.norm(got[k] - want[k]) / np.linalg.norm(want[k])
+        assert rel <= HVP_BF16_RTOL, (k, rel)
+    rel = np.linalg.norm(got[4] - got[1]) / np.linalg.norm(got[1])
+    assert rel <= 2.0 ** -8, rel
 
 
 def test_flat_hvp_matches_tree_hvp():

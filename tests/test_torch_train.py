@@ -228,3 +228,53 @@ def test_launch_train_refuses_bad_flags():
     with pytest.raises(SystemExit):
         launch_train.run(["--smoke", "--device", "cpu", "--global-batch",
                           "6", "--microbatch", "4"])
+
+
+def test_launch_train_adaptive_batch_with_and_without_prefetch(tmp_path):
+    """``--adaptive-batch`` on the smoke LM: the controller switches K,
+    its records carry the re-scaled LR, the JSONL validates, and
+    ``--prefetch 2`` changes no loss by a bit."""
+    from repro.diagnostics.sink import validate_jsonl as jvalidate
+    from repro_torch.core import schedules
+    from repro_torch.diagnostics.sink import validate_jsonl
+    runs = {}
+    for prefetch in ("0", "2"):
+        path = tmp_path / f"m{prefetch}.jsonl"
+        runs[prefetch] = launch_train.run(
+            ["--smoke", "--device", "cpu", "--steps", "5", "--seq", "16",
+             "--global-batch", "2", "--microbatch", "1", "--batch-max",
+             "16", "--controller-every", "2", "--adaptive-batch",
+             "--use-kernel", "fused", "--prefetch", prefetch,
+             "--metrics-out", str(path)], log_fn=lambda *_: None)
+        assert validate_jsonl(str(path)) == jvalidate(str(path)) > 5
+        text = path.read_text()
+        assert text.count('"controller/changed"') == 3
+    a, b = runs["0"], runs["2"]
+    assert a["losses"] == b["losses"]
+    assert a["global_batches"] == b["global_batches"]
+    recs = a["controller_records"]
+    assert [r["step"] for r in recs] == [0, 2, 4]
+    switches = [r for r in recs if r["controller/changed"] == 1.0]
+    assert switches, recs
+    for r in switches:
+        assert r["controller/lr"] == schedules.batch_scaled_lr(
+            2.0, int(r["controller/global_batch"]), 256)
+    ctrl = a["controller"]
+    assert ctrl.compiles == len(ctrl.visited_ks) >= 2
+    assert a["global_batches"][0] == 2.0
+    assert a["global_batches"][-1] == recs[-1]["controller/global_batch"]
+
+
+def test_launch_train_prefetch_fixed_stream_changes_nothing():
+    out = [launch_train.run(["--smoke", "--device", "cpu", "--steps", "3",
+                             "--seq", "16", "--global-batch", "4",
+                             "--microbatch", "2", "--prefetch", p],
+                            log_fn=lambda *_: None)["losses"]
+           for p in ("0", "3")]
+    assert out[0] == out[1]
+    with pytest.raises(SystemExit):
+        launch_train.run(["--smoke", "--device", "cpu", "--prefetch", "-1"])
+    with pytest.raises(SystemExit, match="adaptive"):
+        launch_train.run(["--smoke", "--device", "cpu", "--adaptive-batch",
+                          "--global-batch", "4", "--microbatch", "2",
+                          "--batch-min", "3"])
