@@ -1,0 +1,269 @@
+"""Tree checkpoints in the JAX package's format: the single-device port
+of ``repro.checkpoint.checkpoint``.
+
+A checkpoint is a directory holding
+
+* ``arrays.npz``: member ``leaf_{i}`` is the i-th leaf in the flatten
+  order of :func:`repro_torch.core.base.tree_flatten_with_path` (sorted
+  dict keys, then sequence index: JAX's order). A ``bfloat16`` leaf is
+  stored as its bytes, ``uint8`` and flattened, since ``.npz`` has no
+  bfloat16; every other leaf as its numpy array;
+* ``meta.json``: ``num_leaves``, ``treedef`` (a description; neither
+  package checks it), ``step``, and per leaf ``dtypes`` and ``shapes``,
+  plus ``shardings`` (``{}`` from one device).
+
+Both files are written to a temporary name and moved into place with
+``os.replace``. The layout is the reference's byte for byte, so a
+checkpoint of the same tree restores in either package. An LM's params
+cross packages in the reference's stacked tree
+(:func:`repro_torch.models.convert.params_to_jax` /
+``params_from_jax``); a port :class:`TrainState` in the reference's
+``(step, params, opt_state)`` order with ``step`` a 0-d int32 leaf
+(:func:`train_state_tree`).
+
+:func:`restore` checks every leaf against the metadata and the template
+(count, shape, dtype, and the byte count of a byte-viewed leaf) and
+raises ``ValueError`` naming the leaf before it reinterprets any bytes.
+bfloat16 bytes are decoded as ``uint8`` viewed as ``torch.bfloat16``,
+which needs no ``ml_dtypes``.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import tempfile
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import device as _device
+from repro_torch.core.base import path_name, tree_flatten_with_path
+from repro_torch.models.convert import params_from_jax, params_to_jax
+from repro_torch.training.train_state import TrainState
+
+ARRAYS = "arrays.npz"
+META = "meta.json"
+
+
+def _dtype_name(x) -> Optional[str]:
+    """A leaf's dtype as the reference writes it (``"float32"``,
+    ``"bfloat16"``, ...), or None for a leaf without one."""
+    if isinstance(x, torch.Tensor):
+        return str(x.dtype).removeprefix("torch.")
+    dt = getattr(x, "dtype", None)
+    return None if dt is None else str(dt)
+
+
+def _payload(x) -> tuple[np.ndarray, str, list]:
+    """``(array stored in the npz, dtype name, shape)`` of one leaf."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach().cpu().contiguous()
+        shape = list(t.shape)
+        if t.dtype == torch.bfloat16:
+            return t.reshape(-1).view(torch.uint8).numpy(), "bfloat16", \
+                shape
+        arr = t.numpy()
+    else:
+        arr = np.asarray(x)
+    shape = list(arr.shape)
+    if arr.dtype.kind not in "fiub" or str(arr.dtype) == "bfloat16":
+        # npz cannot hold ml_dtypes (numpy bfloat16 etc.): byte-view
+        return np.ascontiguousarray(arr).reshape(-1).view(np.uint8), \
+            str(arr.dtype), shape
+    return arr, str(arr.dtype), shape
+
+
+def _atomic_write(path: str, name: str, write) -> None:
+    fd, tmp = tempfile.mkstemp(dir=path, suffix=f".{name}.tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            write(f)
+        os.replace(tmp, os.path.join(path, name))
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise
+
+
+def save(path: str, tree: Any, *, step: Optional[int] = None) -> None:
+    """Write ``tree`` (tensors on any device, numpy arrays or numbers)
+    as a checkpoint directory at ``path``."""
+    pairs = list(tree_flatten_with_path(tree))
+    arrays, dtypes, shapes = {}, {}, {}
+    for i, (_, leaf) in enumerate(pairs):
+        arr, dtype, shape = _payload(leaf)
+        arrays[f"leaf_{i}"] = arr
+        dtypes[f"leaf_{i}"] = dtype
+        shapes[f"leaf_{i}"] = shape
+    meta = {"num_leaves": len(pairs),
+            "treedef": "repro_torch tree: " + ", ".join(
+                path_name(p) for p, _ in pairs),
+            "step": step, "dtypes": dtypes, "shapes": shapes,
+            "shardings": {}}
+    os.makedirs(path, exist_ok=True)
+    _atomic_write(path, ARRAYS, lambda f: np.savez(f, **arrays))
+    _atomic_write(path, META,
+                  lambda f: f.write(json.dumps(meta).encode()))
+
+
+def _torch_dtype(name: str, leaf: int) -> torch.dtype:
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"leaf {leaf}: checkpoint dtype {name!r} has no "
+                         f"torch counterpart")
+    return dt
+
+
+def restore(path: str, like: Any, *, device="cuda", mesh=None,
+            shardings=None) -> Any:
+    """Restore into the structure of ``like`` (tensors, meta tensors or
+    numpy arrays; only their shapes and dtypes are read), every leaf a
+    tensor on ``device``.
+
+    Raises ``ValueError`` naming the leaf when the leaf count, a shape,
+    a dtype or a byte-viewed leaf's byte count disagrees with the
+    metadata or the template. ``mesh=`` / ``shardings=`` (the
+    reference's placements) are not ported yet."""
+    if mesh is not None or shardings is not None:
+        raise NotImplementedError(
+            "restore(mesh=, shardings=): multi-device placement is not "
+            "ported yet (single device only), see ROADMAP")
+    dev = _device.resolve(device)
+    with open(os.path.join(path, META)) as f:
+        meta = json.load(f)
+    pairs = list(tree_flatten_with_path(like))
+    if meta["num_leaves"] != len(pairs):
+        raise ValueError(
+            f"checkpoint has {meta['num_leaves']} leaves, template has "
+            f"{len(pairs)}: restoring across optimizer layouts (e.g. "
+            f"per-leaf momentum trees vs the fused flat substrate) needs "
+            f"a template built with the same use_kernel mode")
+    dtypes = meta.get("dtypes", {})
+    shapes = meta.get("shapes", {})
+    # metadata against the template first: nothing is read or
+    # reinterpreted while any leaf disagrees
+    for i, (_, template) in enumerate(pairs):
+        key = f"leaf_{i}"
+        want_shape, want_dtype = shapes.get(key), dtypes.get(key)
+        t_shape = getattr(template, "shape", None)
+        if want_shape is not None and t_shape is not None \
+                and tuple(want_shape) != tuple(t_shape):
+            raise ValueError(
+                f"leaf {i}: checkpoint shape {tuple(want_shape)} != "
+                f"template {tuple(t_shape)}")
+        t_dtype = _dtype_name(template)
+        if want_dtype is not None and t_dtype is not None \
+                and want_dtype != t_dtype:
+            raise ValueError(
+                f"leaf {i}: checkpoint dtype {want_dtype} != template "
+                f"{t_dtype}: refusing to silently reinterpret; cast the "
+                f"template (or re-save) explicitly")
+    values = {}
+    with np.load(os.path.join(path, ARRAYS)) as data:
+        for i, (leaf_path, template) in enumerate(pairs):
+            key = f"leaf_{i}"
+            arr = data[key]
+            want_dtype, want_shape = dtypes.get(key), shapes.get(key)
+            if want_dtype and str(arr.dtype) != want_dtype:
+                # byte-viewed payload: check the byte count against the
+                # recorded shape and dtype before viewing
+                tdt = _torch_dtype(want_dtype, i)
+                if want_shape is None:
+                    raise ValueError(
+                        f"leaf {i}: checkpoint stores {want_dtype} bytes "
+                        f"but records no shape: cannot safely "
+                        f"reinterpret")
+                itemsize = torch.empty((), dtype=tdt).element_size()
+                expected = math.prod(want_shape) * itemsize
+                if arr.dtype != np.uint8 or arr.nbytes != expected:
+                    raise ValueError(
+                        f"leaf {i}: byte payload is {arr.nbytes}B "
+                        f"({arr.dtype}) but meta says shape {want_shape} "
+                        f"dtype {want_dtype} = {expected}B: checkpoint "
+                        f"and metadata disagree")
+                t = torch.from_numpy(np.asarray(arr, order="C")).view(
+                    tdt).reshape(want_shape)
+            else:
+                t = torch.from_numpy(np.asarray(arr, order="C"))
+            if want_shape is not None \
+                    and tuple(t.shape) != tuple(want_shape):
+                raise ValueError(
+                    f"leaf {i}: payload shape {tuple(t.shape)} != "
+                    f"recorded shape {tuple(want_shape)}: corrupt "
+                    f"checkpoint")
+            t_shape = getattr(template, "shape", None)
+            if t_shape is not None and tuple(t.shape) != tuple(t_shape):
+                raise ValueError(
+                    f"leaf {i}: checkpoint shape {tuple(t.shape)} != "
+                    f"template {tuple(t_shape)}")
+            t_dtype = _dtype_name(template)
+            if t_dtype is not None and _dtype_name(t) != t_dtype:
+                raise ValueError(
+                    f"leaf {i}: checkpoint dtype {_dtype_name(t)} != "
+                    f"template {t_dtype}")
+            values[leaf_path] = t.to(dev)
+    return _rebuild(like, values)
+
+
+def _rebuild(tree: Any, values: dict, path: tuple = ()) -> Any:
+    """``tree``'s structure with the leaf at each path from ``values``
+    (by path, not identity: a template may repeat one leaf object)."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, values, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [_rebuild(v, values, path + (i,))
+               for i, v in enumerate(tree)]
+        if isinstance(tree, list):
+            return out
+        return type(tree)(*out) if hasattr(tree, "_fields") \
+            else tuple(out)
+    if tree is None:
+        return None
+    return values[path]
+
+
+def saved_shardings(path: str) -> dict:
+    """The per-leaf source-sharding provenance in ``meta.json``
+    (``{"leaf_i": {"spec": str, "mesh": {axis: size}}}``; ``{}`` for a
+    checkpoint written from one device)."""
+    with open(os.path.join(path, META)) as f:
+        return json.load(f).get("shardings", {})
+
+
+def latest_step(path: str) -> Optional[int]:
+    """The ``step`` recorded by :func:`save`, or None when ``path``
+    holds no checkpoint."""
+    try:
+        with open(os.path.join(path, META)) as f:
+            return json.load(f).get("step")
+    except FileNotFoundError:
+        return None
+
+
+def train_state_tree(state: TrainState, *, cfg=None) -> TrainState:
+    """A port :class:`TrainState` in the reference's layout: ``step`` a
+    0-d int32 array ahead of ``params`` and ``opt_state``; with ``cfg``
+    (an LM's config) the params in the reference's stacked tree."""
+    params = state.params if cfg is None \
+        else params_to_jax(cfg, state.params)
+    return TrainState(np.asarray(int(state.step), np.int32), params,
+                      state.opt_state)
+
+
+def restore_train_state(path: str, like: TrainState, *, cfg=None,
+                        device="cuda") -> TrainState:
+    """Restore a checkpoint of :func:`train_state_tree`'s layout (written
+    by either package) into a port :class:`TrainState` shaped like
+    ``like``."""
+    template = TrainState(
+        np.zeros((), np.int32),
+        like.params if cfg is None
+        else params_to_jax(cfg, like.params, device="meta"),
+        like.opt_state)
+    tree = restore(path, template, device=device)
+    params = tree.params if cfg is None \
+        else params_from_jax(cfg, tree.params, device=device)
+    return TrainState(int(tree.step), params, tree.opt_state)

@@ -13,12 +13,13 @@ from repro_torch.configs.base import ModelConfig
 ARCH_MODULES = {
     "gemma3-12b": "repro_torch.configs.gemma3_12b",
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+    "codeqwen1.5-7b": "repro_torch.configs.codeqwen1_5_7b",
+    "qwen2-72b": "repro_torch.configs.qwen2_72b",
 }
 
 NOT_PORTED = (
     "llama-3.2-vision-11b", "zamba2-1.2b", "mamba2-1.3b",
-    "whisper-large-v3", "codeqwen1.5-7b", "qwen2-72b",
-    "qwen3-moe-30b-a3b", "olmoe-1b-7b",
+    "whisper-large-v3", "qwen3-moe-30b-a3b", "olmoe-1b-7b",
 )
 
 ARCH_IDS = tuple(ARCH_MODULES)

@@ -143,6 +143,18 @@ def _bigram_chain(first: torch.Tensor, noise: torch.Tensor,
     return tokens, labels
 
 
+def _to_device(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``x`` on ``dev``; to the card through a contiguous pinned block
+    without blocking, so drawing a batch does not wait for the card's
+    queue (the pinned block is kept until the copy has run). ``x`` may
+    be a strided view: pinning it as it is would leave the copy to
+    stage a contiguous pageable temporary."""
+    if dev.type != "cuda":
+        return x.to(dev)
+    pinned = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    return pinned.copy_(x).to(dev, non_blocking=True)
+
+
 def lm_batch(gen: torch.Generator, batch_size: int, seq_len: int,
              vocab: int, *, device="cuda") -> tuple[torch.Tensor,
                                                     torch.Tensor]:
@@ -152,7 +164,7 @@ def lm_batch(gen: torch.Generator, batch_size: int, seq_len: int,
     first = torch.randint(0, vocab, (batch_size, 1), generator=gen)
     noise = torch.randint(0, 3, (batch_size, seq_len), generator=gen)
     tokens, labels = _bigram_chain(first, noise, vocab)
-    return tokens.to(dev), labels.to(dev)
+    return _to_device(tokens, dev), _to_device(labels, dev)
 
 
 _MASK64 = (1 << 64) - 1

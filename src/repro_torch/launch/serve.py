@@ -11,7 +11,9 @@ plus the engine's kernel-launch and page accounting. ``--smoke`` takes
 the architecture's reduced test config; ``--cache-dtype bfloat16``
 stores the KV pool in bf16; ``--trace-out PATH`` writes the engine's
 phase spans (admit/prefill/decode/sample/finish) as trace-v1 JSONL.
-Runs on CUDA unless ``--device cpu`` is given.
+``--restore DIR`` serves the params of a checkpoint in the JAX
+package's LM layout (written by either package's ``checkpoint.save``;
+``Engine.from_checkpoint``) instead of random ones. Runs on CUDA unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from repro_torch.models import get_model
 from repro_torch.obs import trace as obs_trace
 
 
-def main() -> None:
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="qwen2.5-3b", choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
@@ -44,9 +46,11 @@ def main() -> None:
                     help="KV pool storage dtype (default: compute dtype)")
     ap.add_argument("--trace-out", default=None,
                     help="write engine phase spans (trace-v1 JSONL)")
+    ap.add_argument("--restore", default=None, metavar="DIR",
+                    help="checkpoint dir to restore params from")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     dev = _device.resolve(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -60,8 +64,12 @@ def main() -> None:
         cache_dtype=args.cache_dtype)
     tracer = obs_trace.Tracer() if args.trace_out else obs_trace.NULL
 
-    params = model.init(0, device=dev)
-    eng = serving.Engine(model, params, sc, device=dev, tracer=tracer)
+    if args.restore:
+        eng = serving.Engine.from_checkpoint(args.restore, model, sc,
+                                             device=dev, tracer=tracer)
+    else:
+        params = model.init(0, device=dev)
+        eng = serving.Engine(model, params, sc, device=dev, tracer=tracer)
 
     rng = np.random.RandomState(0)
     prompts = [rng.randint(1, cfg.vocab_size, size=args.prompt_len)

@@ -32,7 +32,16 @@ re-scaled to the current batch; its stream draws each sample from its
 own index (``data.synthetic.lm_sample_source``), so a switch skips and
 re-reads nothing. ``--prefetch N`` draws the next N batches on a
 producer thread (``data.pipeline.PrefetchingStream``), for the fixed
-and the adaptive stream alike. Runs on CUDA unless ``--device cpu``.
+and the adaptive stream alike. ``--async-metrics W`` reads each step's
+metrics W steps late through a :class:`repro_torch.training.MetricRing`
+(the same numbers; the ``loss_grad`` / ``optimizer`` spans then time
+the host's dispatch, since a synchronised span would stall the loop)
+and writes the JSONL file from a writer thread
+(``diagnostics.sink.BufferedSink``). ``--profile-dir DIR`` captures a
+``torch.profiler`` Chrome trace of the steps ``[--profile-start,
+--profile-start + --profile-steps)`` into DIR. ``--batch`` is the
+reference launcher's alias of ``--global-batch``. Runs on CUDA unless
+``--device cpu``.
 
 :func:`run` is the entry point for programs (``chip_smoke.py``): it
 takes the argument list and returns the run's numbers and final state.
@@ -56,6 +65,7 @@ from repro_torch.data.synthetic import (lm_batch, lm_iterator,
 from repro_torch.diagnostics import probes
 from repro_torch.diagnostics import sink as sinks
 from repro_torch.models import get_model
+from repro_torch.obs import profiler as obs_profiler
 from repro_torch.obs import trace as obs_trace
 from repro_torch.training import (AdaptiveBatchController,
                                   ControllerConfig, FitOptions, TrainState,
@@ -70,8 +80,12 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--optimizer", default="tvlars")
     ap.add_argument("--learning-rate", type=float, default=2.0)
     ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--global-batch", type=int, default=8,
-                    help="total samples per optimizer step")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="alias of --global-batch (the reference "
+                         "launcher's flag)")
+    ap.add_argument("--global-batch", type=int, default=None,
+                    help="total samples per optimizer step (default: "
+                         "--batch)")
     ap.add_argument("--microbatch", type=int, default=None,
                     help="samples per pass; K = global / micro grads are "
                          "accumulated (default: --global-batch)")
@@ -114,6 +128,20 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefetch", type=int, default=0, metavar="N",
                     help="draw N batches ahead on a producer thread (0 = "
                          "off); a retarget drains and refills them")
+    ap.add_argument("--async-metrics", type=int, default=0, metavar="W",
+                    help="read each step's metrics W steps late through "
+                         "a bounded ring instead of waiting on every "
+                         "step (0 = off; the same numbers), and write "
+                         "the JSONL file from a writer thread")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="capture a torch.profiler Chrome trace into DIR "
+                         "over the [--profile-start, +--profile-steps) "
+                         "step window")
+    ap.add_argument("--profile-start", type=int, default=1,
+                    help="first step of the profiler window (default 1: "
+                         "skips the cold first step)")
+    ap.add_argument("--profile-steps", type=int, default=3,
+                    help="length of the profiler window in steps")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap
@@ -158,12 +186,19 @@ def _span_seconds(records: list, name: str, steps: int) -> list:
 def run(argv: Optional[Sequence[str]] = None, *,
         log_fn=print) -> dict:
     """Train as the flags say; returns ``{"losses", "loss_grad_seconds",
-    "optimizer_seconds", "probe_seconds", "seconds", "peak_memory_bytes"
-    (None off the card), "segment_names", "history", "probes" (the
-    probe records, ``{"step", "lanczos/lambda_max", ...}``), "state",
-    "model"}``. The step spans synchronise the card and a probe reads
-    its result back, so their times are device times."""
+    "optimizer_seconds", "probe_seconds", "dispatch_seconds",
+    "resolve_seconds", "seconds", "peak_memory_bytes" (None off the
+    card), "segment_names", "history", "probes" (the probe records,
+    ``{"step", "lanczos/lambda_max", ...}``), "state", "model"}``.
+    Without ``--async-metrics`` the step spans synchronise the card and
+    a probe reads its result back, so their times are device times;
+    with it they are the host's."""
     args = parser().parse_args(argv)
+    if args.global_batch is None:
+        args.global_batch = args.batch
+    if args.async_metrics < 0:
+        raise SystemExit(f"--async-metrics {args.async_metrics} must be "
+                         f">= 0")
     if args.layerwise_every < 0:
         raise SystemExit(f"--layerwise-every {args.layerwise_every} "
                          f"must be >= 0")
@@ -203,7 +238,8 @@ def run(argv: Optional[Sequence[str]] = None, *,
 
     def step_for(opt_, k: int):
         return make_train_step(lm_task(model), opt_, accum_steps=k,
-                               layerwise=layerwise, tracer=tracer)
+                               layerwise=layerwise, tracer=tracer,
+                               sync_spans=args.async_metrics == 0)
 
     controller = None
     if args.adaptive_batch:
@@ -267,7 +303,13 @@ def run(argv: Optional[Sequence[str]] = None, *,
         if controller is None:
             # an adaptive run's records carry the batch of their step
             static["global_batch"] = args.global_batch
-        sink_list.append(sinks.JsonlSink(args.metrics_out, static=static))
+        jsonl = sinks.JsonlSink(args.metrics_out, static=static)
+        # with the ring, formatting and writing leave the step loop too
+        sink_list.append(sinks.BufferedSink(jsonl)
+                         if args.async_metrics > 0 else jsonl)
+    profiler = obs_profiler.StepProfiler(
+        args.profile_dir, start=args.profile_start,
+        steps=args.profile_steps) if args.profile_dir else None
     log_fn(f"{args.arch}{' (smoke)' if args.smoke else ''}: "
            f"{cfg.num_layers} layers, {cfg.param_dtype}; "
            f"optimizer={args.optimizer} use_kernel={args.use_kernel} "
@@ -277,7 +319,9 @@ def run(argv: Optional[Sequence[str]] = None, *,
            + (f" adaptive batch {controller.config.batch_min}.."
               f"{controller.config.batch_max} every "
               f"{controller.every}" if controller is not None else "")
-           + (f" prefetch={args.prefetch}" if args.prefetch else ""))
+           + (f" prefetch={args.prefetch}" if args.prefetch else "")
+           + (f" async_metrics={args.async_metrics}"
+              if args.async_metrics else ""))
     t0 = time.perf_counter()
     try:
         state, history = fit(step_fn, state, batches, args.steps,
@@ -287,7 +331,9 @@ def run(argv: Optional[Sequence[str]] = None, *,
                                  tracer=tracer,
                                  layerwise_every=args.layerwise_every,
                                  layerwise_names=names,
-                                 controller=controller))
+                                 controller=controller,
+                                 async_metrics=args.async_metrics,
+                                 profiler=profiler))
     finally:
         if isinstance(batches, pipeline.PrefetchingStream):
             batches.close()
@@ -304,6 +350,9 @@ def run(argv: Optional[Sequence[str]] = None, *,
         "probe_seconds": _span_seconds(records, "probe", args.steps),
         "controller_seconds": _span_seconds(records, "controller",
                                             args.steps),
+        "dispatch_seconds": _span_seconds(records, "dispatch",
+                                          args.steps),
+        "resolve_seconds": _span_seconds(records, "resolve", args.steps),
         "seconds": elapsed,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)
         if dev.type == "cuda" else None,
@@ -328,6 +377,8 @@ def run(argv: Optional[Sequence[str]] = None, *,
     if out["peak_memory_bytes"] is not None:
         log_fn(f"peak device memory {out['peak_memory_bytes'] / 2**30:.2f} "
                f"GiB")
+    if profiler is not None:
+        log_fn(f"profile -> {args.profile_dir}")
     if args.metrics_out:
         log_fn(f"metrics -> {args.metrics_out} "
                f"({len(memory.records)} records)")

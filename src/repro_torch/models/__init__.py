@@ -1,4 +1,6 @@
-from repro_torch.models.convert import params_from_jax
+from repro_torch.models.convert import (jax_template, params_from_jax,
+                                        params_to_jax)
 from repro_torch.models.registry import Model, get_model
 
-__all__ = ["Model", "get_model", "params_from_jax"]
+__all__ = ["Model", "get_model", "jax_template", "params_from_jax",
+           "params_to_jax"]

@@ -10,6 +10,11 @@ axis: ``{"embed", "groups": {"l{i}_{kind}": [G, ...]}, "final_norm"}``.
 the group axis into the port's per-layer list (layer ``g * n + i`` is
 ``groups["l{i}_{kind}"][g]``), so both packages compute the same
 function. Leaf layouts are shared, so every leaf is a copy.
+:func:`params_to_jax` is its inverse (restack ``layers[g * n + i]``
+into ``groups["l{i}_{kind}"][g]``), which is how an LM's params cross
+packages in a checkpoint; :func:`jax_template` is that tree's shapes
+and dtypes on the meta device, a restore template that allocates
+nothing.
 
 :func:`segment_paths` is the same mapping for the optimizer: the
 reference's leaves in its flatten order, each naming the port tensors
@@ -25,12 +30,14 @@ import torch
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.base import (path_name, tree_flatten_with_path,
-                                   tree_get)
+                                   tree_from_paths, tree_get)
 from repro_torch.core.flatten import Segment
-from repro_torch.models.transformer import _group_spec
+from repro_torch.models.transformer import _group_spec, init_lm
 
 
 def _tensor(x, dev: torch.device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
     a = np.asarray(x)
     if a.dtype.name == "bfloat16":     # ml_dtypes bf16: reinterpret bits
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
@@ -61,6 +68,45 @@ def params_from_jax(cfg: ModelConfig, tree: dict, *,
             "layers": layers,
             "final_norm": _map(tree["final_norm"],
                                lambda x: _tensor(x, dev))}
+
+
+def params_to_jax(cfg: ModelConfig, params: dict, *,
+                  device="cpu") -> dict:
+    """The port's params -> the reference's tree (``embed``, ``groups``
+    stacked on a leading group axis, ``final_norm``), each leaf a
+    tensor on ``device`` (numpy has no bfloat16 without ``ml_dtypes``,
+    so the leaves stay tensors; ``checkpoint.save`` byte-views them as
+    the reference does). The inverse of :func:`params_from_jax`."""
+    dev = device if str(device) == "meta" else _device.resolve(device)
+    groups, kinds = _group_spec(cfg)
+    n = len(kinds)
+    layers = params["layers"]
+    if len(layers) != groups * n:
+        raise ValueError(f"{len(layers)} layers, config says "
+                         f"{groups * n}")
+
+    def stack(i, path):
+        return torch.stack([tree_get(layers[g * n + i], path).detach()
+                            .to(dev) for g in range(groups)])
+
+    stacked = {}
+    for i, kind in enumerate(kinds):
+        paths = [p for p, _ in tree_flatten_with_path(layers[i])]
+        stacked[f"l{i}_{kind}"] = tree_from_paths(
+            layers[i], {p: stack(i, p) for p in paths})
+    return {"embed": _map(params["embed"], lambda x: x.detach().to(dev)),
+            "groups": stacked,
+            "final_norm": _map(params["final_norm"],
+                               lambda x: x.detach().to(dev))}
+
+
+def jax_template(cfg: ModelConfig) -> dict:
+    """The reference's param tree for ``cfg`` as meta tensors (shapes
+    and dtypes, no storage): the template ``checkpoint.restore`` checks
+    an LM checkpoint against."""
+    meta = torch.device("meta")
+    return params_to_jax(cfg, init_lm(cfg, torch.Generator(), meta),
+                         device=meta)
 
 
 def segment_paths(cfg: ModelConfig, params: dict) -> list[Segment]:

@@ -2,6 +2,9 @@
 ``repro.obs.layerwise`` (``capture`` / ``deposit`` / ``active``, the
 record shaping ``split_record`` / ``expand``).
 
+:class:`LayerwiseHistory` keeps a bounded, decimated history of the
+expanded snapshots for long runs (``FitOptions.layerwise_history``).
+
 The fused step already computes the per-segment ``(w_norm, g_norm,
 trust_ratio)`` triple between its two launches; the tree path computes
 it per segment. ``make_train_step(..., layerwise=True)`` wraps the
@@ -80,3 +83,41 @@ def expand(layerwise: dict, names: Optional[Sequence[str]]) -> dict:
         for name, v in zip(names, vals):
             out[f"{PREFIX}{name}/{metric}"] = v
     return out
+
+
+class LayerwiseHistory:
+    """Bounded decimating snapshot history for long runs.
+
+    ``add`` keeps every ``stride``-th offered snapshot; when the store
+    exceeds ``capacity`` the stride doubles and existing snapshots are
+    thinned to the new stride, so an arbitrarily long run retains at
+    most ``capacity`` snapshots, spread over its whole duration with a
+    power-of-two step. ``steps`` / ``snapshots`` expose what survived.
+    """
+
+    def __init__(self, capacity: int = 256):
+        if capacity < 2:
+            raise ValueError(f"capacity must be >= 2, got {capacity}")
+        self.capacity = int(capacity)
+        self.stride = 1
+        self._n = 0                      # offers seen
+        self.steps: list[int] = []
+        self.snapshots: list[dict] = []
+
+    def add(self, step: int, layerwise: dict) -> bool:
+        """Offer a snapshot; returns True when it was retained."""
+        offer, self._n = self._n, self._n + 1
+        if offer % self.stride:
+            return False
+        self.steps.append(int(step))
+        self.snapshots.append(dict(layerwise))
+        if len(self.steps) > self.capacity:
+            # offer indices are stride-spaced, so keeping every other
+            # retained snapshot is exactly the doubled stride's schedule
+            self.steps = self.steps[::2]
+            self.snapshots = self.snapshots[::2]
+            self.stride *= 2
+        return True
+
+    def __len__(self) -> int:
+        return len(self.steps)

@@ -31,9 +31,11 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch import checkpoint
 from repro_torch import device as _device
 from repro_torch.configs.base import torch_dtype
 from repro_torch.kernels import ops
+from repro_torch.models import convert
 from repro_torch.models.registry import get_model
 from repro_torch.obs import trace
 from repro_torch.serving import sampling
@@ -153,6 +155,20 @@ class Engine:
         self._sampler = sampling.make_sampler(config.sampling)
 
     # -- public API -------------------------------------------------------
+
+    @classmethod
+    def from_checkpoint(cls, path: str, model, config: ServeConfig, *,
+                        device="cuda", tracer=None) -> "Engine":
+        """Build an engine on the params of a checkpoint in the JAX
+        package's LM layout (``embed`` / stacked ``groups`` /
+        ``final_norm``), written by either package: restored onto
+        ``device`` against the config's template, then unstacked into
+        the port's per-layer list."""
+        dev = _device.resolve(device)
+        stacked = checkpoint.restore(path, convert.jax_template(model.cfg),
+                                     device=dev)
+        params = convert.params_from_jax(model.cfg, stacked, device=dev)
+        return cls(model, params, config, device=dev, tracer=tracer)
 
     def submit(self, prompt: Union[Sequence[int], np.ndarray], *,
                max_new_tokens: int = 16) -> int:

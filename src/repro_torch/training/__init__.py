@@ -8,12 +8,12 @@ from repro_torch.training.controller import (AdaptiveBatchController,
 from repro_torch.training.tasks import (Task, classifier_task, lm_task,
                                         ssl_task)
 from repro_torch.training.train_state import TrainState
-from repro_torch.training.trainer import (FitOptions, fit,
+from repro_torch.training.trainer import (FitOptions, MetricRing, fit,
                                           make_classifier_step,
                                           make_ssl_step, make_train_step)
 
 __all__ = ["AdaptiveBatchController", "ControllerConfig", "FitOptions",
-           "Task", "TrainState", "classifier_task", "decide_global_batch",
+           "MetricRing", "Task", "TrainState", "classifier_task", "decide_global_batch",
            "decide_targets", "fit", "lm_task", "make_classifier_step",
            "make_ssl_step", "make_train_step", "snap_accum_steps",
            "snap_targets", "ssl_task"]

@@ -26,7 +26,12 @@ class WeightedMean(NamedTuple):
 
     def add(self, value, weight=1.0) -> "WeightedMean":
         v = torch.as_tensor(value).to(torch.float32)
-        w = torch.as_tensor(weight, dtype=torch.float32, device=v.device)
+        # a Python weight is filled on the value's device, not copied
+        # there from the host (a copy would synchronise the card)
+        w = weight.to(device=v.device, dtype=torch.float32) \
+            if isinstance(weight, torch.Tensor) \
+            else torch.full((), weight, dtype=torch.float32,
+                            device=v.device)
         return WeightedMean(self.total.to(v.device) + w * v,
                             self.weight.to(v.device) + w)
 

@@ -18,12 +18,19 @@ update, which is what lets qwen2.5-3b train at full width on one card.
 
 ``tracer=`` records a ``loss_grad`` and an ``optimizer`` span per step;
 an enabled tracer ends each span with a device synchronisation on the
-card, so the spans time the device's work rather than its enqueueing.
+card (``sync_spans=True``), so the spans time the device's work rather
+than its enqueueing. ``sync_spans=False`` leaves the card alone: the
+spans then time the host's dispatch, and a step makes no host
+synchronisation, which ``fit(async_metrics=)`` needs to run ahead.
+
+:class:`MetricRing` and ``fit(options=FitOptions(async_metrics=W))``
+resolve each step's device metrics W steps late, with the same values.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence, Union
 
 import torch
 
@@ -90,8 +97,8 @@ def _accumulate(task: tasks.Task, params, batch, accum_steps: int):
 def make_train_step(task, optimizer: GradientTransform, *,
                     accum_steps: int = 1, layerwise: bool = False,
                     record_norms: bool = False,
-                    tracer: Optional[obs_trace.Tracer] = None
-                    ) -> Callable:
+                    tracer: Optional[obs_trace.Tracer] = None,
+                    sync_spans: bool = True) -> Callable:
     """The step factory: ``(state, batch) -> (state, metrics)``.
 
     ``task``: a :class:`~repro_torch.training.tasks.Task`, or a model
@@ -101,7 +108,8 @@ def make_train_step(task, optimizer: GradientTransform, *,
     ``LayerNorms`` (LWN / LGN / LNR) of the params before the update
     and the accumulated gradients under ``layer_norms``, which ``fit``
     hands to its recorder. Metrics are 0-d (or per-segment) tensors on
-    the device; nothing is read back here."""
+    the device; nothing is read back here. ``sync_spans=False`` ends
+    the tracer's spans without a device synchronisation."""
     if not isinstance(task, tasks.Task):
         task = tasks.lm_task(task)
     if accum_steps < 1:
@@ -109,7 +117,7 @@ def make_train_step(task, optimizer: GradientTransform, *,
     tracer = obs_trace.NULL if tracer is None else tracer
 
     def _sync(device):
-        if tracer.enabled and device.type == "cuda":
+        if sync_spans and tracer.enabled and device.type == "cuda":
             torch.cuda.synchronize(device)
 
     def train_step(state: TrainState, batch):
@@ -174,15 +182,85 @@ def make_ssl_step(embed_fn: Callable, optimizer: GradientTransform, *,
         accum_steps=accum_steps, record_norms=record_norms)
 
 
+def fetch(tree: Any) -> Any:
+    """``tree`` with every tensor leaf copied to the host, exactly (no
+    arithmetic), with one synchronisation: the card's leaves are copied
+    without blocking, then the stream is waited on once."""
+    waits = set()
+
+    def one(x):
+        if isinstance(x, torch.Tensor) and x.device.type == "cuda":
+            waits.add(x.device)
+            return x.detach().to("cpu", non_blocking=True)
+        return x
+
+    out = tree_map(one, tree)
+    for dev in waits:
+        torch.cuda.current_stream(dev).synchronize()
+    return out
+
+
+class MetricRing:
+    """Bounded ring of in-flight device metrics: the port of the
+    reference's ``MetricRing``.
+
+    The loop ``append``s each step's device tensors without reading
+    them; once more than ``window`` entries are in flight the oldest is
+    resolved, one device-to-host read (:func:`fetch`) inside a
+    ``resolve`` span, the single point where the host waits on the
+    card, and handed to its ``emit(step, host, last)`` callback. The
+    loop therefore runs up to ``window`` steps ahead of the card.
+
+    Values are exact: the same tensors the synchronous path reads, read
+    later (no metric may be a view of a buffer that a later step writes
+    in place). Emission order is append order. ``drain`` resolves
+    everything still in flight (the end of a run)."""
+
+    def __init__(self, window: int, *,
+                 tracer: Optional[obs_trace.Tracer] = None):
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        self.window = int(window)
+        self._tracer = obs_trace.NULL if tracer is None else tracer
+        self._ring: collections.deque = collections.deque()
+
+    def __len__(self) -> int:
+        return len(self._ring)
+
+    def append(self, step: int, values, emit: Callable, *,
+               last: bool = False) -> None:
+        """Enqueue device ``values``; resolves the oldest entries down
+        to ``window`` in flight (FIFO, so order is preserved)."""
+        self._ring.append((step, values, emit, last))
+        while len(self._ring) > self.window:
+            self._pop()
+
+    def _pop(self) -> None:
+        step, values, emit, last = self._ring.popleft()
+        with self._tracer.span("resolve", step=step,
+                               in_flight=len(self._ring) + 1):
+            host = fetch(values)
+        emit(step, host, last)
+
+    def drain(self) -> None:
+        """Resolve every in-flight entry (the end-of-run barrier)."""
+        while self._ring:
+            self._pop()
+
+
 @dataclasses.dataclass(frozen=True)
 class FitOptions:
     """The ``fit`` knobs: the norm ``recorder`` (fed each step's
     ``layer_norms`` metric); logging (``log_every``, ``log_fn``, or a
     metrics ``sink`` with ``close_sink``); probe ``callbacks``; the
     host-span ``tracer``; the layer-wise stream's decimation and names
-    (``layerwise_every``, ``layerwise_names``); the adaptive-batch
-    ``controller`` (a
-    :class:`repro_torch.training.controller.AdaptiveBatchController`)."""
+    (``layerwise_every``, ``layerwise_names``) and its decimating
+    ``layerwise_history`` (a :class:`repro_torch.obs.LayerwiseHistory`);
+    the adaptive-batch ``controller`` (a
+    :class:`repro_torch.training.controller.AdaptiveBatchController`);
+    ``async_metrics`` (the :class:`MetricRing`'s window: 0/False off,
+    True ``max(log_every, 1)`` or 8); the ``profiler`` window (a
+    :class:`repro_torch.obs.StepProfiler`)."""
     recorder: Optional[instrumentation.NormRecorder] = None
     log_every: int = 0
     log_fn: Callable = print
@@ -192,7 +270,10 @@ class FitOptions:
     tracer: Optional[obs_trace.Tracer] = None
     layerwise_every: int = 0
     layerwise_names: Optional[Sequence[str]] = None
+    layerwise_history: Optional[obs_layerwise.LayerwiseHistory] = None
     controller: Optional[Any] = None
+    async_metrics: Union[bool, int] = False
+    profiler: Optional[Any] = None
 
 
 def _to_host(metrics: dict) -> dict:
@@ -230,6 +311,16 @@ def fit(train_step: Optional[Callable], state: TrainState, batches,
     the returned history. ``close_sink=True`` closes ``sink`` after the
     last write (the console sink built here is always closed).
 
+    ``async_metrics`` (W, or True for ``max(log_every, 1)`` / 8): each
+    step's device metrics enter a :class:`MetricRing` and are read W
+    steps late, the same values in the same order; probes with a
+    ``dispatch`` / ``resolve`` split are dispatched at their step and
+    resolved through the ring (their records keep the dispatch step).
+    The controller stays synchronous: its decision changes the next
+    pull. ``profiler.step(i)`` runs before each step and
+    ``profiler.close()`` in the ``finally``; each kept layer-wise
+    snapshot is offered to ``layerwise_history``.
+
     ``controller``: pass ``train_step=None`` and a ``batches`` stream
     with ``set_accum_steps`` (a
     :class:`repro_torch.data.pipeline.MicrobatchedStream`, maybe inside
@@ -256,9 +347,40 @@ def fit(train_step: Optional[Callable], state: TrainState, batches,
         sink = sinks.ConsoleSink(every=o.log_every, log_fn=o.log_fn) \
             if o.log_every else None
         close_sink = close_sink or sink is not None
+    window = o.async_metrics
+    if window is True:
+        window = max(o.log_every, 1) if o.log_every else 8
+    ring = MetricRing(int(window), tracer=tracer) if window else None
+    profiler = o.profiler
     history: list[dict] = []
+
+    def emit_train(step, host, last, step_batch):
+        if step_batch is not None:
+            host["global_batch"] = float(step_batch)
+        rest, lw = obs_layerwise.split_record(host)
+        if lw and (o.layerwise_every <= 1
+                   or step % o.layerwise_every == 0):
+            expanded = obs_layerwise.expand(lw, o.layerwise_names)
+            host = {**rest, **expanded}
+            if o.layerwise_history is not None:
+                o.layerwise_history.add(step, expanded)
+        else:
+            host = rest
+        history.append(host)
+        if sink is not None:
+            sink.write(step, host, last=last)
+
+    def emit_probe(step, out, probe):
+        if out and sink is not None:
+            # probe lines always flush (last=True beats the console
+            # sink's every-N gate)
+            sink.write(step, {f"{probe.name}/{k}": v
+                              for k, v in out.items()}, last=True)
+
     try:
         for i in range(num_steps):
+            if profiler is not None:
+                profiler.step(i)
             # the batch this step trains at: a switch lands at the pull
             # after the boundary that decides it
             step_batch = controller.global_batch \
@@ -270,22 +392,23 @@ def fit(train_step: Optional[Callable], state: TrainState, batches,
             with tracer.span("dispatch", step=i):
                 state, metrics = fn(state, batch)
             norms = metrics.pop("layer_norms", None)
-            if o.recorder is not None and norms is not None:
-                o.recorder.record(i, norms)
-            with tracer.span("resolve", step=i):
-                host = _to_host(metrics)
-            if step_batch is not None:
-                host["global_batch"] = float(step_batch)
-            rest, lw = obs_layerwise.split_record(host)
-            if lw and (o.layerwise_every <= 1
-                       or i % o.layerwise_every == 0):
-                host = {**rest, **obs_layerwise.expand(lw,
-                                                       o.layerwise_names)}
+            last = i == num_steps - 1
+            if ring is None:
+                if o.recorder is not None and norms is not None:
+                    o.recorder.record(i, norms)
+                with tracer.span("resolve", step=i):
+                    host = _to_host(metrics)
+                emit_train(i, host, last, step_batch)
             else:
-                host = rest
-            history.append(host)
-            if sink is not None:
-                sink.write(i, host, last=i == num_steps - 1)
+                # the values stay on the card; the ring reads them
+                # `window` steps later (the same numbers)
+                if o.recorder is not None and norms is not None:
+                    ring.append(i, norms,
+                                lambda s, v, _l: o.recorder.record(s, v))
+                ring.append(i, metrics,
+                            lambda s, v, l, _b=step_batch:
+                                emit_train(s, _to_host(v), l, _b),
+                            last=last)
             for probe in callbacks:
                 prepare = getattr(probe, "prepare", None)
                 if prepare is not None:
@@ -293,15 +416,32 @@ def fit(train_step: Optional[Callable], state: TrainState, batches,
                 if not probes.probe_due(probe, i):
                     continue
                 span = "controller" if probe is controller else "probe"
-                with tracer.span(span, step=i,
-                                 probe=getattr(probe, "name", "?")):
+                name = getattr(probe, "name", "?")
+                if ring is not None and probe is not controller \
+                        and hasattr(probe, "dispatch") \
+                        and hasattr(probe, "resolve"):
+                    with tracer.span(span, step=i, probe=name,
+                                     mode="dispatch"):
+                        raw = probe.dispatch(i, state)
+                    ring.append(i, raw,
+                                lambda s, v, _l, _p=probe:
+                                    emit_probe(s, _p.resolve(v), _p))
+                    continue
+                # the controller decides the next pull, so it stays
+                # synchronous; its record rides the ring for order
+                with tracer.span(span, step=i, probe=name):
                     out = probe(i, state)
-                if out and sink is not None:
-                    # probe lines always flush (last=True beats the
-                    # console sink's every-N gate)
-                    sink.write(i, {f"{probe.name}/{k}": v
-                                   for k, v in out.items()}, last=True)
+                if ring is None:
+                    emit_probe(i, out, probe)
+                else:
+                    ring.append(i, out,
+                                lambda s, v, _l, _p=probe:
+                                    emit_probe(s, v, _p))
+        if ring is not None:
+            ring.drain()
     finally:
+        if profiler is not None:
+            profiler.close()
         if close_sink and sink is not None:
             sink.close()
     return state, history

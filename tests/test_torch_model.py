@@ -2,8 +2,9 @@
 reference's own weights (``get_model(cfg).init(PRNGKey(0))``, carried
 across with ``params_from_jax``), smoke configs in f32 on the CPU.
 
-Covered for gemma3-12b (5:1 -> 1:1 local:global at smoke size, window 8)
-and qwen2.5-3b (QKV bias, SwiGLU, all-global): ``apply_lm`` logits,
+Covered for gemma3-12b (5:1 -> 1:1 local:global at smoke size, window 8),
+qwen2.5-3b (QKV bias, SwiGLU, all-global), codeqwen1.5-7b (full MHA:
+one query head per KV head) and qwen2-72b (GQA 4:1 at smoke size): ``apply_lm`` logits,
 ``apply_lm_prefill`` logits and KV cache with ragged ``lens`` including
 prompts longer than the window, and a chain of ``decode_lm`` steps.
 Tolerance: rtol = atol = 1e-4 in f32 (two libraries summing in
@@ -24,7 +25,7 @@ from repro_torch.models import get_model, params_from_jax
 from repro_torch.models.transformer import _group_spec
 
 TOL = {"rtol": 1e-4, "atol": 1e-4}
-ARCHS = ["gemma3-12b", "qwen2.5-3b"]
+ARCHS = ["gemma3-12b", "qwen2.5-3b", "codeqwen1.5-7b", "qwen2-72b"]
 
 
 def _pair(arch):
@@ -116,3 +117,27 @@ def test_param_count_and_layouts_match_reference():
     n_jax = sum(x.size for x in jax.tree_util.tree_leaves(jparams))
     n_port = sum(p.numel() for p in jax.tree_util.tree_leaves(params))
     assert n_port == n_jax == get_smoke_config("gemma3-12b").param_count()
+
+
+@pytest.mark.parametrize("arch,count", [("codeqwen1.5-7b", 8_189_644_800),
+                                        ("qwen2-72b", 72_705_384_448)])
+def test_dense_configs_match_reference(arch, count):
+    """Every field of the full and smoke configs equals the
+    reference's (the port has no ``use_decode_kernel``: it picks the
+    kernel by the tensors' device); the full parameter counts are the
+    published ones."""
+    import dataclasses
+
+    from repro.configs import get_config as jax_get_config
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import NOT_PORTED
+    for ours, theirs in ((get_config(arch), jax_get_config(arch)),
+                         (get_smoke_config(arch), jax_smoke_config(arch))):
+        names = {f.name for f in dataclasses.fields(ours)}
+        assert {f.name for f in dataclasses.fields(theirs)} - names == {
+            "use_decode_kernel"}
+        for name in names:
+            assert getattr(ours, name) == getattr(theirs, name), name
+        assert ours.param_count() == theirs.param_count()
+    assert get_config(arch).param_count() == count
+    assert arch not in NOT_PORTED and len(NOT_PORTED) == 6

@@ -68,7 +68,8 @@ def test_engine_matches_generate_staggered(arch):
     assert eng.stats()["kernel_launches"] == 0      # plain path on CPU
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma3-12b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma3-12b",
+                                  "codeqwen1.5-7b", "qwen2-72b"])
 def test_engine_matches_jax_engine(arch):
     jmodel = jax_get_model(jax_smoke_config(arch))
     jparams = jmodel.init(jax.random.PRNGKey(0))
