@@ -183,7 +183,41 @@ script exits non-zero:
 12e. ``launch.landscape`` at the bench's constants: both checkpoints
    restored, the 9 x 7 grid finite, its CSV written;
 12f. ``launch.train --smoke --profile-dir`` on the card: the Chrome
-   trace names both segmented kernels.
+   trace names both segmented kernels;
+13. olmoe-1b-7b (MoE, 64 experts top-8) served at full width and depth
+   (16 layers, bf16, random weights from seed 0) on phase 4's slots,
+   request count and new-token counts, every prompt 1024 tokens long
+   (capacity drops depend on the padded length, so the engine and
+   ``generate`` route alike only at bucket-aligned prompts): the
+   prediction, decode attention against its plain version at (8
+   slots, 16 / 16 heads, Dh 128, T 2048), 16 launches per decode step,
+   requests 0 and 7 alone through ``generate`` up to bf16 ties,
+   tok/s, the decode step beside its weight-read bound, the kernel's
+   card time per step and the peak;
+13b. qwen3-moe-30b-a3b (128 experts) at full width and, where the
+   prediction fits under 60 GiB, full depth (48 layers; else the cut is
+   printed), 4 slots x 1024, 4 requests: the kernel at (4 slots, 32 / 4
+   heads, G = 8, Dh 128, T 1024) beside SDPA and its bound; 48 launches
+   per decode step; the decode step beside the all-experts weight read;
+13c. olmoe-1b-7b trained through ``launch.train.run`` at full width cut
+   in depth to the most layers predicted under 70 GiB (20 B a
+   parameter + 6 GiB; printed), fused TVLARS f32, 8 x 512, 3 steps: 1 +
+   1 segmented launches per step, the last step checked as in phase 7,
+   the load-balance and router z losses finite and non-zero;
+13d. mamba2-1.3b trained at full width and depth (48 blocks, 8 x 512,
+   two SSD chunks a row): fused TVLARS f32 (then ``generate`` on its
+   params: 4 prompts of 32 tokens through the token-by-token prefill
+   plus 16 new tokens, 0 decode-attention launches) and per-tensor
+   WA-LARS (2 launches per kernel segment per step, the last step
+   checked as in 7c);
+13e. zamba2-1.2b: the kernel at (4 slots, 32 / 32 heads, Dh 64, T 48,
+   ``generate``'s cache), then trained at full width and depth (38
+   blocks, the shared block at 6 call sites; fused TVLARS f32, 8 x 512,
+   3 steps) and ``generate`` as in 13d with 6 decode launches per step;
+13f. the four families' smoke configs in f32 on the card against the
+   CPU's plain path on the same weights: logits, every MoE layer's
+   routing decisions (equal, with and without drops), ``generate``'s
+   tokens and one fused TVLARS step.
 
 The last lines are the script's total time, the ``nvidia-smi`` line,
 one JSON object describing each kernel (decode attention and RMSNorm
@@ -386,7 +420,8 @@ def kernel_row(tad, ops, gen, kind, t, window, dtype, slots, heads,
 
     # the split plan's edges first, then the timed positions; the last
     # launch's positions are the ones timed
-    edge = edge_positions(kind, plan.keys, t)
+    edge = [p for p in edge_positions(kind, plan.keys, t)
+            if window is not None or p < t]
     launches = chunks(edge) + chunks(list(timed))
     err = 0.0
     for rows_pos in launches:
@@ -545,13 +580,14 @@ def init_checked(model):
     return params
 
 
-def tie_gaps(serving, model, params, prompt, tokens, tol) -> list:
+def tie_gaps(serving, model, params, prompt, tokens, tol,
+             max_len: int = MAX_LEN) -> list:
     """Feed the engine's tokens through the request-alone path (what
     ``generate`` runs: prefill of the bare prompt, then one-row decode
     steps) and return per position (best logit - logit of the engine's
     token, allowed gap rtol * |best| + atol)."""
     x = torch.tensor(prompt[None], dtype=torch.int64, device="cuda")
-    logits, cache = serving.prefill(model, params, x, MAX_LEN)
+    logits, cache = serving.prefill(model, params, x, max_len)
     rows = []
     for j, tok in enumerate(tokens):
         lg = logits[0, -1].float()
@@ -612,6 +648,46 @@ class LaunchEvents:
         return sum(a.elapsed_time(b) for a, b in self.pairs)
 
 
+def engine_vs_generate(label, serving, model, params, prompts, new,
+                       results, picked, max_len, tol) -> None:
+    """Engine == generate in bf16, up to bf16 ties, for the requests
+    ``picked``: the engine pads and batches (prefill [4, S_bucket],
+    decode [slots, 1]) where generate runs the bare request ([1, S],
+    [1, 1]), so the matrix products round differently and a near-tie
+    in the argmax may go either way. Where the tokens differ, the
+    engine's tokens are fed through the alone path and each must be its
+    argmax within ``tol``."""
+    for i in picked:
+        alone = serving.generate(model, params, prompts[i][None],
+                                 num_tokens=int(new[i]), max_len=max_len,
+                                 device="cuda")[0].tolist()
+        eng_tokens = results[i].tokens
+        if alone == eng_tokens:
+            print(f"{label}: request {i} (prompt {len(prompts[i])}) alone "
+                  f"through generate: same {len(alone)} greedy tokens",
+                  flush=True)
+            continue
+        first = next(j for j, (a, b) in enumerate(zip(alone, eng_tokens))
+                     if a != b)
+        rows = tie_gaps(serving, model, params, prompts[i], eng_tokens,
+                        tol, max_len)
+        ties = [(j, g, lim) for j, (g, lim) in enumerate(rows) if g > 0]
+        worst = max(ties, key=lambda r: r[1] / r[2],
+                    default=(first, 0.0, rows[first][1]))
+        print(f"{label}: request {i} (prompt {len(prompts[i])}) alone "
+              f"through generate: tokens differ from token {first}; the "
+              f"engine's tokens fed through the alone path are its argmax "
+              f"at {len(rows) - len(ties)} of {len(rows)} positions, and "
+              f"within {worst[1]:.4f} of the best logit at token "
+              f"{worst[0]} (allowed {worst[2]:.4f}, rtol=atol="
+              f"{tol['rtol']:.4f}); gaps at the first ties: "
+              f"{[round(g, 4) for _, g, _ in ties[:5]]}", flush=True)
+        if any(g > lim for _, g, lim in ties):
+            raise AssertionError(f"{label} request {i}: an engine token is "
+                                 f"not the alone path's argmax within bf16 "
+                                 f"tolerance")
+
+
 def phase_serving(ops, serving, get_config, get_model, Tracer,
                   phase_summary, bf16_tol) -> dict:
     """The main path: bf16 gemma3-12b at full width and depth."""
@@ -668,40 +744,8 @@ def phase_serving(ops, serving, get_config, get_model, Tracer,
           f"launch) in a step of {step2_ms:.3f} ms in that run: "
           f"{att_ms / step2_ms:.1%} of a step", flush=True)
 
-    # engine == generate in bf16, up to bf16 ties: the engine pads and
-    # batches (prefill [4, 2048], decode [8, 1]) where generate runs the
-    # bare request ([1, S], [1, 1]), so the matrix products round
-    # differently and a near-tie in the argmax may go either way. Where
-    # the tokens differ, the engine's tokens are fed through the alone
-    # path and each must be its argmax within bf16 tolerance.
-    for i in picks(lens):
-        alone = serving.generate(model, params, prompts[i][None],
-                                 num_tokens=int(new[i]), max_len=MAX_LEN,
-                                 device="cuda")[0].tolist()
-        eng_tokens = results[i].tokens
-        if alone == eng_tokens:
-            print(f"serving: request {i} (prompt {lens[i]}) alone through "
-                  f"generate: same {len(alone)} greedy tokens", flush=True)
-            continue
-        first = next(j for j, (a, b) in enumerate(zip(alone, eng_tokens))
-                     if a != b)
-        rows = tie_gaps(serving, model, params, prompts[i], eng_tokens,
-                        bf16_tol)
-        ties = [(j, g, lim) for j, (g, lim) in enumerate(rows) if g > 0]
-        worst = max(ties, key=lambda r: r[1] / r[2],
-                    default=(first, 0.0, rows[first][1]))
-        print(f"serving: request {i} (prompt {lens[i]}) alone through "
-              f"generate: tokens differ from token {first}; the engine's "
-              f"tokens fed through the alone path are its argmax at "
-              f"{len(rows) - len(ties)} of {len(rows)} positions, and "
-              f"within {worst[1]:.4f} of the best logit at token "
-              f"{worst[0]} (allowed {worst[2]:.4f}, rtol=atol="
-              f"{bf16_tol['rtol']:.4f}); gaps at the first ties: "
-              f"{[round(g, 4) for _, g, _ in ties[:5]]}", flush=True)
-        if any(g > lim for _, g, lim in ties):
-            raise AssertionError(f"request {i}: an engine token is not "
-                                 f"the alone path's argmax within bf16 "
-                                 f"tolerance")
+    engine_vs_generate("serving", serving, model, params, prompts, new,
+                       results, picks(lens), MAX_LEN, bf16_tol)
     return {"launches": launches, "elapsed": elapsed,
             "generated": generated, "spans": spans, "step_ms": step_ms,
             "attention_ms_per_step": att_ms}
@@ -1451,10 +1495,23 @@ class LastStepCheck:
         return out
 
 
+def tree_params(cfg) -> int:
+    """The model's tensor elements, counted on the reference layout's
+    template: ``param_count()`` leaves out the QKV biases and
+    undercounts the ssm and hybrid trees (F8)."""
+    from repro_torch.core.base import tree_leaves
+    from repro_torch.models import jax_template
+    return sum(t.numel() for t in tree_leaves(jax_template(cfg)))
+
+
 def phase_train_full(run, ops, su, sref, tree_leaves, argv: list,
-                     label: str, want_layers: int = 36) -> dict:
-    """One full-width qwen2.5-3b run through ``launch.train.run`` with
-    the last step checked, then both kernels timed on its buffers."""
+                     label: str, want_layers: int = 36,
+                     inspect=None) -> dict:
+    """One full-width run (qwen2.5-3b unless ``argv`` names an
+    ``--arch``) through ``launch.train.run`` with the last step
+    checked, then both kernels timed on its buffers. ``inspect(out)``
+    sees the run's result before its state is freed; what it returns
+    is kept under ``"inspect"``."""
     steps = int(argv[argv.index("--steps") + 1])
     check = LastStepCheck(ops.segmented_update, su, sref, steps)
     ops.reset_launches()
@@ -1477,15 +1534,13 @@ def phase_train_full(run, ops, su, sref, tree_leaves, argv: list,
         raise AssertionError(f"{label}: losses {out['losses']}")
     cfg = out["model"].cfg
     n_params = sum(x.numel() for x in tree_leaves(out["state"].params))
-    # ModelConfig.param_count leaves out the QKV biases
-    bias = cfg.num_layers * (cfg.num_heads + 2 * cfg.num_kv_heads) \
-        * cfg.head_dim_ if cfg.qkv_bias else 0
-    if cfg.num_layers != want_layers \
-            or n_params != cfg.param_count() + bias:
+    if cfg.num_layers != want_layers or n_params != tree_params(cfg):
         raise AssertionError(f"{label}: {cfg.num_layers} layers, "
                              f"{n_params} params")
     peak = out["peak_memory_bytes"] or 0
-    print(f"train {label}: qwen2.5-3b {cfg.num_layers} layers, {n_params} "
+    seen = inspect(out) if inspect else None
+    print(f"train {label}: {cfg.arch_id} {cfg.num_layers} layers, "
+          f"{n_params} "
           f"params ({cfg.param_dtype}); losses "
           f"{[round(x, 4) for x in out['losses']]}; per step loss+grad "
           f"{[round(x * 1e3, 1) for x in out['loss_grad_seconds']]} ms, "
@@ -1495,7 +1550,9 @@ def phase_train_full(run, ops, su, sref, tree_leaves, argv: list,
           f"launches {norm_k}={launches[norm_k]} "
           f"{apply_k}={launches[apply_k]}; last step: telemetry norms "
           f"within {check.report['norm_rel']:.3e} of vector_norm, 4096 "
-          f"rows bitwise equal to the plain apply", flush=True)
+          f"rows bitwise equal to the plain apply; {smi_line()}",
+          flush=True)
+    del out
 
     # the two kernels at the main path's shapes, on its buffers (the
     # run is over: pass 2 may overwrite the state)
@@ -1534,6 +1591,8 @@ def phase_train_full(run, ops, su, sref, tree_leaves, argv: list,
               f"{b['plain_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms "
               f"({b['bound_by']}, {b['bytes']} B)", flush=True)
     res[apply_k]["rows_abs_err"] = check.report["rows_abs_err"]
+    res["inspect"] = seen
+    res["peak_gib"] = peak / GIB
     return res
 
 
@@ -1620,20 +1679,30 @@ class LarsLastStepCheck:
         return out
 
 
+def meta_params(cfg) -> dict:
+    """The port's parameter tree for ``cfg`` as meta tensors (shapes
+    only), from the family's own init."""
+    from repro_torch.models.registry import FAMILIES
+    return FAMILIES[cfg.family][0](cfg, torch.Generator(),
+                                   torch.device("meta"))
+
+
 def phase_train_per_tensor(run, ops, lu, sref, layerwise, flatten,
                            tree_leaves, argv: list, label: str,
                            want_layers: int = 36) -> dict:
-    """7c: qwen2.5-3b at full width through ``launch.train.run`` with
-    the per-tensor path: exactly n_kernel_segments launches of each
-    kernel per step, the last step checked, then both kernels and their
-    plain versions timed on the last step's own tensors."""
+    """7c: a full-width run (qwen2.5-3b unless ``argv`` names an
+    ``--arch``) through ``launch.train.run`` with the per-tensor path:
+    exactly n_kernel_segments launches of each kernel per step, the
+    last step checked, then both kernels and their plain versions timed
+    on the last step's own tensors."""
     steps = int(argv[argv.index("--steps") + 1])
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
-    model = get_model(get_config("qwen2.5-3b"))
-    meta = qwen_tree(model.cfg, model.cfg.num_layers)
+    arch = argv[argv.index("--arch") + 1] if "--arch" in argv \
+        else "qwen2.5-3b"
+    model = get_model(get_config(arch))
     names = layerwise.kernel_segments(
-        flatten.build_spec(meta, segments=model.segments))
+        flatten.build_spec(meta_params(model.cfg), segments=model.segments))
     check = LarsLastStepCheck(ops.lars_update, lu, sref, steps, len(names))
     ops.reset_launches()
     ops.lars_update = check
@@ -1659,8 +1728,9 @@ def phase_train_per_tensor(run, ops, lu, sref, layerwise, flatten,
         raise AssertionError(f"{label}: {cfg.num_layers} layers, "
                              f"{len(check.segments)} checked segments")
     peak = out["peak_memory_bytes"] or 0
-    print(f"train {label}: qwen2.5-3b {cfg.num_layers} layers, {n_params} "
-          f"params ({cfg.param_dtype}); {len(names)} kernel segments; "
+    print(f"train {label}: {cfg.arch_id} {cfg.num_layers} layers, "
+          f"{n_params} params ({cfg.param_dtype}); {len(names)} kernel "
+          f"segments; "
           f"losses {[round(x, 4) for x in out['losses']]}; per step "
           f"loss+grad "
           f"{[round(x * 1e3, 1) for x in out['loss_grad_seconds']]} ms, "
@@ -1670,7 +1740,8 @@ def phase_train_per_tensor(run, ops, lu, sref, layerwise, flatten,
           f"{launches['lars_norm2']} lars_apply={launches['lars_apply']}; "
           f"last step: norms within {check.norm_rel:.3e} of vector_norm, "
           f"telemetry equal to the plain ratio, 4096 elements per segment "
-          f"bitwise equal to the plain apply", flush=True)
+          f"bitwise equal to the plain apply; {smi_line()}", flush=True)
+    del out
     timing = time_lars(lu, sref, check.segments)
     res = {}
     for which, name in (("norm", "lars_norm2"), ("apply", "lars_apply")):
@@ -2655,17 +2726,13 @@ LAUNCH_CALL = re.compile(r"^cu(da)?LaunchKernel")
 RESOLVE_MARK = "chip_smoke.resolve"
 
 
-def exact_params(cfg) -> int:
-    """The model's tensor elements: ``param_count()`` (which leaves out
-    the QKV biases) plus the biases."""
-    bias = cfg.num_layers * (cfg.num_heads + 2 * cfg.num_kv_heads) \
-        * cfg.head_dim_ if cfg.qkv_bias else 0
-    return cfg.param_count() + bias
-
-
 def weight_bytes(cfg) -> int:
-    return exact_params(cfg) * torch.empty(
-        (), dtype=cfg.pdtype).element_size()
+    """The model's weight bytes, from the reference layout's template
+    (f32 leaves such as the MoE router at 4 B)."""
+    from repro_torch.core.base import tree_leaves
+    from repro_torch.models import jax_template
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(jax_template(cfg)))
 
 
 def kv_pool_bytes(cfg, slots: int, max_len: int) -> int:
@@ -2685,18 +2752,19 @@ def requests_of(vocab: int, seed: int, n: int, prompt: tuple,
 
 def phase_dense_serving(label, cfg, requests, slots, max_len, ops,
                         serving, tad, get_model, Tracer, phase_summary,
-                        tree_leaves) -> dict:
+                        tree_leaves, alone=(), tol=None) -> dict:
     """Serve ``requests`` through the engine on ``cfg`` at full width
     (random bf16 weights from seed 0), after holding the decode kernel
     against its plain version at the serving shape; prints the
     prediction first, then tok/s, the decode step, the kernel's card
     time per step (CUDA events around each launch, a second run) and
-    the peak."""
+    the peak. The requests ``alone`` are re-run through ``generate``
+    and held against the engine's tokens up to bf16 ties (``tol``)."""
     weights = weight_bytes(cfg)
     pool = kv_pool_bytes(cfg, slots, max_len)
     print(f"{label}: {cfg.arch_id} {cfg.num_layers} layers, "
-          f"{cfg.param_count()} params ({exact_params(cfg)} with the QKV "
-          f"biases): predicted weights "
+          f"{cfg.param_count()} params by param_count(), "
+          f"{tree_params(cfg)} in the tree: predicted weights "
           f"{weights / 1e9:.2f} GB + bf16 KV pool {pool / 1e9:.2f} GB "
           f"({slots} x {max_len} x {cfg.num_layers} layers x 2 x "
           f"{cfg.num_kv_heads} x {cfg.head_dim_} x 2 B) = "
@@ -2716,9 +2784,9 @@ def phase_dense_serving(label, cfg, requests, slots, max_len, ops,
     params = model.init(0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(x.numel() for x in tree_leaves(params))
-    if n_params != exact_params(cfg):
-        raise AssertionError(f"{n_params} params, config says "
-                             f"{exact_params(cfg)} with the QKV biases")
+    if n_params != tree_params(cfg):
+        raise AssertionError(f"{n_params} params, the template has "
+                             f"{tree_params(cfg)}")
     print(f"{label}: {n_params} params initialised on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     tracer = Tracer()
@@ -2734,6 +2802,8 @@ def phase_dense_serving(label, cfg, requests, slots, max_len, ops,
     spans = phase_summary(tracer.events())
     step_ms = decode_step_ms(spans, stats["decode_steps"])
     generated = stats["tokens_generated"]
+    engine_vs_generate(label, serving, model, params, requests[0],
+                       requests[1], results, alone, max_len, tol)
     timer = LaunchEvents()
     with timer:
         _, stats2, _, _ = serve(
@@ -2749,8 +2819,8 @@ def phase_dense_serving(label, cfg, requests, slots, max_len, ops,
           f"launches; decode step {step_ms:.3f} ms (decode + sample "
           f"spans); attention_decode {att_ms:.3f} ms of the card per "
           f"step ({timer.calls} launches timed); peak {peak:.2f} GiB "
-          f"(predicted {(weights + pool) / GIB:.2f} before activations)",
-          flush=True)
+          f"(predicted {(weights + pool) / GIB:.2f} before activations); "
+          f"{smi_line()}", flush=True)
     del params, results
     return {"launches": launches, "row": row, "tok_s": generated / elapsed,
             "step_ms": step_ms, "attention_ms_per_step": att_ms,
@@ -2760,8 +2830,9 @@ def phase_dense_serving(label, cfg, requests, slots, max_len, ops,
 def cut_depth(cfg, slots: int, max_len: int) -> int:
     """The deepest layer count whose weights, KV pool and one prefill
     batch's activations are predicted under ``PEAK_CEILING_GIB``."""
-    fixed = weight_bytes(cfg.replace(num_layers=0))
-    layer = weight_bytes(cfg.replace(num_layers=1)) - fixed \
+    one, two = (weight_bytes(cfg.replace(num_layers=n)) for n in (1, 2))
+    fixed = 2 * one - two
+    layer = two - one \
         + kv_pool_bytes(cfg.replace(num_layers=1), slots, max_len)
     room = (PEAK_CEILING_GIB - PREFILL_MARGIN_GIB) * GIB - fixed
     return min(cfg.num_layers, int(room // layer))
@@ -3173,6 +3244,307 @@ def phase_profile(train_run, ops) -> dict:
                                          for k in SEG_LARS}}
 
 
+# --------------------------------------------------------------------------
+# 13-13f: the MoE, Mamba2 and Zamba2 families
+# --------------------------------------------------------------------------
+
+MOE_PROMPT = 1024             # 13: every prompt on a pow2 / page bucket
+TRAIN_CEILING_GIB = 70.0      # 13c: the deepest olmoe cut predicted under
+TRAIN_MARGIN_GIB = 6.0        # 13c: activations, CE head, allocator slack
+# fused TVLARS f32 per parameter: bf16 weight and gradient (2 + 2 B), f32
+# momentum (4), the update's packed weights, gradients and delta (3 x 4)
+TRAIN_BYTES_PER_PARAM = 20
+GEN_SHAPE = (4, 32, 16)       # 13d / 13e: prompts, prompt length, new
+FAMILY_ARGV = ["--optimizer", "tvlars", "--use-kernel", "fused",
+               "--precision", "f32", "--global-batch", "8", "--seq", "512",
+               "--steps", "3"]
+FAMILY_SMOKE = ("olmoe-1b-7b", "qwen3-moe-30b-a3b", "mamba2-1.3b",
+                "zamba2-1.2b")
+
+
+def moe_traffic(vocab: int) -> tuple:
+    """Phase 4's request count and new-token counts, every prompt 1024
+    tokens long: capacity drops depend on the padded length, and the
+    engine pads prompts to pow2 buckets where ``generate`` does not, so
+    the two route alike only at bucket-aligned prompts (as the
+    reference's MoE parity test holds them)."""
+    _, _, new = traffic(vocab)
+    rng = np.random.RandomState(13)
+    return [rng.randint(1, vocab, size=MOE_PROMPT).astype(np.int32)
+            for _ in new], new
+
+
+def train_depth(cfg) -> tuple:
+    """(layers, predicted GiB): the deepest cut of ``cfg`` whose fused
+    TVLARS f32 step is predicted under ``TRAIN_CEILING_GIB`` at
+    ``TRAIN_BYTES_PER_PARAM`` plus ``TRAIN_MARGIN_GIB``."""
+    one, two = (tree_params(cfg.replace(num_layers=n)) for n in (1, 2))
+    per, fixed = two - one, 2 * one - two
+
+    def gib(n):
+        return (fixed + n * per) * TRAIN_BYTES_PER_PARAM / GIB \
+            + TRAIN_MARGIN_GIB
+
+    n = max(k for k in range(1, cfg.num_layers + 1)
+            if gib(k) <= TRAIN_CEILING_GIB)
+    return n, gib(n)
+
+
+@contextlib.contextmanager
+def depth_cut(launcher, arch: str, layers: int):
+    """Inside the block ``launcher.get_config(arch)`` is cut to
+    ``layers`` layers, its widths as published: how a phase trains a
+    model too deep for one card through the launcher's own path."""
+    real = launcher.get_config
+    launcher.get_config = lambda a: real(a).replace(num_layers=layers) \
+        if a == arch else real(a)
+    try:
+        yield
+    finally:
+        launcher.get_config = real
+
+
+def moe_aux_check(out) -> dict:
+    """The trained MoE's load-balance loss at every step (its metric)
+    and both aux losses of one more forward: finite and non-zero."""
+    from repro_torch.data.synthetic import lm_batch
+    model, params = out["model"], out["state"].params
+    lbs = [float(h["load_balance"]) for h in out["history"]]
+    toks, labels = lm_batch(torch.Generator().manual_seed(5), 8, 512,
+                            model.cfg.vocab_size, device=DEV)
+    with torch.no_grad():
+        _, aux = model.loss(params, {"tokens": toks, "labels": labels})
+    lb, z = float(aux.load_balance_loss), float(aux.router_z_loss)
+    if not all(np.isfinite(x) and x > 0 for x in lbs + [lb, z]):
+        raise AssertionError(f"MoE aux losses {lbs}, {lb}, {z}")
+    print(f"  aux: load balance per step {[round(x, 4) for x in lbs]} "
+          f"(summed over {model.cfg.num_layers} layers); after training "
+          f"lb {lb:.4f}, router z {z:.4f}", flush=True)
+    return {"load_balance": lbs, "lb": lb, "z": z}
+
+
+def family_generate(label, serving, ops, out, per_step: int) -> dict:
+    """``serving.generate`` on the trained params: ``GEN_SHAPE``'s
+    prompts through the token-by-token prefill (the family has no
+    batched one), then the new tokens; exactly ``per_step``
+    decode-attention launches per decode step. Prints the prompt's
+    last-position logits through the recurrence against the
+    full-sequence forward (recorded, not asserted: bf16 through every
+    layer in two summation orders)."""
+    model, params = out["model"], out["state"].params
+    b, s, new = GEN_SHAPE
+    if model.prefill is not None:
+        raise AssertionError(f"{label}: the family has a batched prefill")
+    prompts = np.random.RandomState(14).randint(1, model.cfg.vocab_size,
+                                                size=(b, s))
+    x = torch.as_tensor(prompts, device=DEV)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        toks = serving.generate(model, params, prompts, num_tokens=new,
+                                device=DEV)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = ops.launches["attention_decode"]
+        last, _ = serving.prefill(model, params, x, s + new)
+        full = model.apply(params, x)[:, -1].float()
+    last = last[:, -1].float()
+    want = per_step * (s + new)
+    if launches != want:
+        raise AssertionError(f"{label}: {launches} attention_decode "
+                             f"launches, expected {want} = {per_step} x "
+                             f"{s + new} decode steps")
+    if tuple(toks.shape) != (b, new) or not bool(
+            ((toks >= 0) & (toks < model.cfg.vocab_size)).all()) \
+            or not bool(torch.isfinite(last).all()):
+        raise AssertionError(f"{label}: tokens {tuple(toks.shape)} or "
+                             f"logits out of range")
+    rel = ((last - full).abs().max() / full.abs().max()).item()
+    agree = (last.argmax(-1) == full.argmax(-1)).sum().item()
+    print(f"{label}: generate {b} prompts x {s} tokens + {new} new "
+          f"through the token-by-token prefill in {elapsed:.3f} s "
+          f"({b * new / elapsed:.2f} new tok/s, {s + new} decode steps); "
+          f"attention_decode launches {launches} ({per_step} per step); "
+          f"the prompt's last logits, recurrence vs full-sequence "
+          f"forward: max |diff| {rel:.3e} of max |logit|, argmax equal in "
+          f"{agree} of {b} rows; {smi_line()}", flush=True)
+    return {"launches": launches, "seconds": elapsed, "rel": rel}
+
+
+def phase_families_small(get_smoke_config, get_model, serving,
+                         build_optimizer, training, lm_iterator,
+                         tree_leaves, tree_map, ops, su, moe) -> None:
+    """13f: the four smoke configs in f32, the card (kernels) against
+    the CPU (plain versions) on the same weights: logits within 1e-4
+    (the CPU tests' bound against the JAX package), every MoE layer's
+    routing decisions (top-k, keep, slots; at the smoke capacity and at
+    1.0, where tokens drop) equal, ``generate``'s greedy tokens equal,
+    and one fused TVLARS step at phase 8's bounds (loss and params 1e-5
+    at each leaf's scale, 1 + 1 segmented launches)."""
+    for arch in FAMILY_SMOKE:
+        model = get_model(get_smoke_config(arch))
+        cpu = model.init(0, device="cpu")
+        gpu = tree_map(lambda t: t.to(DEV), cpu)
+        rng = np.random.RandomState(6)
+        toks = rng.randint(1, 512, size=(2, 16))
+        with torch.no_grad():
+            lc = model.apply(cpu, torch.as_tensor(toks))
+            lg = model.apply(gpu, torch.as_tensor(toks, device=DEV)).cpu()
+        err = (lg - lc).abs().max().item()
+        torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
+        routed = 0
+        if model.cfg.num_experts:
+            x = torch.as_tensor(rng.normal(size=(3, 16, model.cfg.d_model)),
+                                dtype=torch.float32)
+            for layer_c, layer_g in zip(cpu["layers"], gpu["layers"]):
+                for cf in (model.cfg.capacity_factor, 1.0):
+                    c = model.cfg.replace(capacity_factor=cf)
+                    rc = moe.route(layer_c["moe"], c, x)
+                    rg = moe.route(layer_g["moe"], c, x.to(DEV))
+                    for name in ("topk_idx", "keep", "slot"):
+                        if not torch.equal(getattr(rg, name).cpu(),
+                                           getattr(rc, name)):
+                            raise AssertionError(f"13f {arch}: routing "
+                                                 f"{name} differs")
+                    routed += int((~rc.keep).sum())
+        gen = [serving.generate(model, p, toks[:, :6], num_tokens=8,
+                                device=d).cpu()
+               for p, d in ((cpu, "cpu"), (gpu, DEV))]
+        if not torch.equal(*gen):
+            raise AssertionError(f"13f {arch}: generate card {gen[1]} "
+                                 f"!= cpu {gen[0]}")
+        out = []
+        for dev, params in (("cpu", cpu), (DEV, gpu)):
+            opt = build_optimizer("tvlars", total_steps=10,
+                                  learning_rate=2.0, batch_size=8,
+                                  use_kernel="fused",
+                                  segments=model.segments, device=dev)
+            state = training.TrainState.create(
+                tree_map(lambda t: t.detach().clone(), params), opt)
+            step = training.make_train_step(training.lm_task(model), opt)
+            ops.reset_launches()
+            state, m = step(state, next(lm_iterator(8, 64,
+                                                    model.cfg.vocab_size,
+                                                    seed=1, device=dev)))
+            out.append((float(m["loss"]), state.params,
+                        dict(ops.launches)))
+        (lossc, pc, kc), (lossg, pg, kg) = out
+        want = {k: 0 for k in kg}
+        want.update({k: 1 for k in su.KERNELS["lars"]})
+        if kg != want or any(kc.values()):
+            raise AssertionError(f"13f {arch}: launches cpu {kc} card {kg}")
+        np.testing.assert_allclose(lossg, lossc, rtol=1e-5)
+        worst = 0.0
+        for a, b in zip(tree_leaves(pg), tree_leaves(pc)):
+            a, b = a.detach().cpu().numpy(), b.detach().numpy()
+            scale = float(np.abs(b).max())
+            worst = max(worst, float(np.abs(a - b).max()) / scale)
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * scale)
+        print(f"13f {arch}: smoke f32, card == cpu: logits within {err:.3e}"
+              f", generate's 8 tokens x 2 rows equal"
+              + (f", routing equal in every layer ({routed} dropped "
+                 f"entries at capacity 1.0)" if model.cfg.num_experts
+                 else "")
+              + f", one fused TVLARS step (1 + 1 launches) loss "
+              f"{lossg:.6f}, worst param gap {worst:.3e} of its leaf's "
+              f"scale; {smi_line()}", flush=True)
+
+
+def phase_families(train_module, ops, su, sref, lu, layerwise, flatten,
+                   serving, tad, get_config, get_model, Tracer,
+                   phase_summary, tree_leaves) -> dict:
+    """13-13e: MoE serving at full width (olmoe-1b-7b full depth,
+    qwen3-moe-30b-a3b at the deepest cut predicted to fit), olmoe
+    trained cut in depth, mamba2-1.3b and zamba2-1.2b trained at full
+    width and depth and then generating."""
+    bf16_tol = tad.decode_parity_tolerance(torch.bfloat16)
+    run = train_module.run
+    out = {}
+
+    def clear():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    clear()
+    olmoe = get_config("olmoe-1b-7b")
+    out["13"] = phase_dense_serving(
+        "13 olmoe-1b-7b", olmoe, moe_traffic(olmoe.vocab_size), SLOTS,
+        MAX_LEN, ops, serving, tad, get_model, Tracer, phase_summary,
+        tree_leaves, alone=(0, 7), tol=bf16_tol)
+    clear()
+    q3 = get_config("qwen3-moe-30b-a3b")
+    depth = cut_depth(q3, 4, 1024)
+    print(f"13b qwen3-moe-30b-a3b: "
+          + ("full depth, " if depth == q3.num_layers else
+             f"reduced: num_layers {q3.num_layers} -> {depth}, ")
+          + f"the deepest whose weights, KV pool and {PREFILL_MARGIN_GIB} "
+          f"GiB of prefill activations are predicted under "
+          f"{PEAK_CEILING_GIB} GiB", flush=True)
+    out["13b"] = phase_dense_serving(
+        "13b qwen3-moe-30b-a3b", q3.replace(num_layers=depth),
+        requests_of(q3.vocab_size, 1, 4, (128, 512), (16, 32)), 4, 1024,
+        ops, serving, tad, get_model, Tracer, phase_summary, tree_leaves)
+    clear()
+
+    layers, gib = train_depth(olmoe)
+    print(f"13c olmoe-1b-7b: reduced: num_layers {olmoe.num_layers} -> "
+          f"{layers}, the deepest predicted under {TRAIN_CEILING_GIB} GiB "
+          f"({gib:.2f} GiB: {TRAIN_BYTES_PER_PARAM} B a parameter + "
+          f"{TRAIN_MARGIN_GIB} GiB)", flush=True)
+    with depth_cut(train_module, "olmoe-1b-7b", layers):
+        out["13c"] = phase_train_full(
+            run, ops, su, sref, tree_leaves,
+            ["--arch", "olmoe-1b-7b"] + FAMILY_ARGV, "13c olmoe-tvlars-f32",
+            want_layers=layers, inspect=moe_aux_check)
+    out["13c"]["predicted_gib"] = gib
+    clear()
+
+    mamba = get_config("mamba2-1.3b")
+    print(f"13d mamba2-1.3b: full width and depth, {tree_params(mamba)} "
+          f"params (param_count() says {mamba.param_count()}, F8): "
+          f"predicted fused peak "
+          f"{tree_params(mamba) * TRAIN_BYTES_PER_PARAM / GIB:.2f} GiB "
+          f"before activations", flush=True)
+    out["13d"] = phase_train_full(
+        run, ops, su, sref, tree_leaves,
+        ["--arch", "mamba2-1.3b"] + FAMILY_ARGV, "13d mamba2-tvlars-f32",
+        want_layers=mamba.num_layers,
+        inspect=lambda o: family_generate("13d mamba2-1.3b", serving, ops,
+                                          o, 0))
+    clear()
+    out["13d-pt"] = phase_train_per_tensor(
+        run, ops, lu, sref, layerwise, flatten, tree_leaves,
+        ["--arch", "mamba2-1.3b", "--optimizer", "wa-lars", "--use-kernel",
+         "per_tensor", "--precision", "f32", "--global-batch", "8",
+         "--seq", "512", "--steps", "3"], "13d mamba2-wa-lars-per-tensor",
+        want_layers=mamba.num_layers)
+    clear()
+
+    zamba = get_config("zamba2-1.2b")
+    sites = zamba.num_layers // zamba.attn_every
+    b, s, new = GEN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    t = s + new
+    row = kernel_row(tad, ops, gen, "global", t, None, zamba.cdtype, b,
+                     zamba.num_heads, zamba.num_kv_heads, zamba.head_dim_,
+                     [p * t // MAX_LEN for p in POS["global"]])
+    print(f"13e zamba2-1.2b: full width and depth, {tree_params(zamba)} "
+          f"params (param_count() says {zamba.param_count()}, F8), the "
+          f"shared attention block at {sites} call sites; the kernel row "
+          f"above on {smi_line()}", flush=True)
+    clear()
+    out["13e"] = phase_train_full(
+        run, ops, su, sref, tree_leaves,
+        ["--arch", "zamba2-1.2b"] + FAMILY_ARGV, "13e zamba2-tvlars-f32",
+        want_layers=zamba.num_layers,
+        inspect=lambda o: family_generate("13e zamba2-1.2b", serving, ops,
+                                          o, sites))
+    out["13e"]["row"] = row
+    clear()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3199,8 +3571,9 @@ def main() -> int:
     from repro_torch.launch import schedules as schedules_launch
     from repro_torch.launch import ssl as ssl_launch
     from repro_torch.launch import sharpness as sharpness_launch
+    from repro_torch.launch import train as train_launch
     from repro_torch.launch.train import run as train_run
-    from repro_torch.models import cnn, convert, get_model
+    from repro_torch.models import cnn, convert, get_model, moe
     from repro_torch.obs import Tracer, phase_summary
     from repro_torch import checkpoint, core
     from repro_torch.launch import landscape as landscape_launch
@@ -3351,6 +3724,14 @@ def main() -> int:
     phase_landscape_bench(landscape_launch)
     prof = phase_profile(train_run, ops)
 
+    # 13-13f: the MoE, Mamba2 and Zamba2 families
+    fam = phase_families(train_launch, ops, su, sref, lu, layerwise,
+                         flatten, serving, tad, get_config, get_model,
+                         Tracer, phase_summary, tree_leaves)
+    phase_families_small(get_smoke_config, get_model, serving,
+                         build_optimizer, training, lm_iterator,
+                         tree_leaves, tree_map, ops, su, moe)
+
     # the serving path's mix: 40 local and 8 global launches per decode
     # step (bf16 pool); per-launch means weighted by that mix
     rows = kernel["rows"]
@@ -3361,11 +3742,11 @@ def main() -> int:
                 + GLOBAL_PER_STEP * rows[("global", torch.bfloat16)][key]) \
             / n
 
-    # max |err| over every shape held: gemma3-12b's four and the three
-    # dense configs' serving shapes
+    # max |err| over every shape held: gemma3-12b's four, the three
+    # dense configs' serving shapes and the three of 13 / 13b / 13e
+    served = (codeqwen, qwen72, main12, fam["13"], fam["13b"], fam["13e"])
     kernel["max_abs_err"] = max(
-        [kernel["max_abs_err"]] + [r["row"]["max_abs_err"]
-                                   for r in (codeqwen, qwen72, main12)])
+        [kernel["max_abs_err"]] + [r["row"]["max_abs_err"] for r in served])
     entries = [{"name": "attention_decode", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/attention_decode.cu",
                 "replaces": "src/repro/kernels/attention_decode.py:63",
@@ -3381,11 +3762,17 @@ def main() -> int:
                            for kind, n_kind in (("local", LOCAL_PER_STEP),
                                                 ("global", GLOBAL_PER_STEP))]
                 + [dict(r["row"], layers_per_step=r["layers"])
-                   for r in (codeqwen, qwen72, main12)],
+                   for r in (codeqwen, qwen72, main12, fam["13"],
+                             fam["13b"])]
+                + [dict(fam["13e"]["row"], layers_per_step=6)],
                 "launches_by_phase": {
                     "4": main_path["launches"], "12": codeqwen["launches"],
                     "12b": qwen72["launches"],
-                    "12c": main12["decode_launches"]}}]
+                    "12c": main12["decode_launches"],
+                    "13": fam["13"]["launches"],
+                    "13b": fam["13b"]["launches"],
+                    "13d": fam["13d"]["inspect"]["launches"],
+                    "13e": fam["13e"]["inspect"]["launches"]}}]
     # the segmented kernels: times at the main path's shapes (the
     # training runs' own buffers); no single PyTorch call computes
     # either pass, so library_ms is null
@@ -3404,7 +3791,9 @@ def main() -> int:
                 "11": adaptive["launches"].get(name, 0),
                 "12c": main12["seg_launches"].get(name, 0),
                 "12d": pipe["launches"].get(name, 0),
-                "12f": prof["launches"].get(name, 0)}})
+                "12f": prof["launches"].get(name, 0),
+                **{k: fam[k][name]["launches"] if name in fam[k] else 0
+                   for k in ("13c", "13d", "13e")}}})
     # the per-tensor kernels: per-launch means over the 14 segments of a
     # step at the main path's shapes; no single PyTorch call computes a
     # multi-tensor norm pair or the trust-scaled momentum apply, so
@@ -3421,7 +3810,8 @@ def main() -> int:
             "library_ms": None,
             "launches_by_phase": {
                 "7c": t["launches"],
-                "11c": paper["launches"].get(name, 0)}})
+                "11c": paper["launches"].get(name, 0),
+                "13d": fam["13d-pt"][name]["launches"]}})
     # RMSNorm: its path is the public ops.rmsnorm (no model calls it, as
     # in the JAX package); means over the four shapes it was driven at
     m = rmsn["mean"]

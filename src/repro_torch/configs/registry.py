@@ -15,12 +15,13 @@ ARCH_MODULES = {
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
     "codeqwen1.5-7b": "repro_torch.configs.codeqwen1_5_7b",
     "qwen2-72b": "repro_torch.configs.qwen2_72b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
 }
 
-NOT_PORTED = (
-    "llama-3.2-vision-11b", "zamba2-1.2b", "mamba2-1.3b",
-    "whisper-large-v3", "qwen3-moe-30b-a3b", "olmoe-1b-7b",
-)
+NOT_PORTED = ("llama-3.2-vision-11b", "whisper-large-v3")
 
 ARCH_IDS = tuple(ARCH_MODULES)
 

@@ -73,11 +73,14 @@ Segmenter = Callable[[PyTree], Sequence[Segment]]
 
 def tree_segments(params: PyTree) -> list[Segment]:
     """Each leaf one segment, in flatten order (sorted dict keys, then
-    sequence index). Refuses an LM tree (a ``"layers"`` list)."""
-    if isinstance(params, dict) and isinstance(params.get("layers"), list):
+    sequence index). Refuses an LM tree (a ``"layers"`` or
+    ``"blocks"`` list)."""
+    if isinstance(params, dict) and any(
+            isinstance(params.get(k), list) for k in ("layers", "blocks")):
         raise ValueError(
-            "an LM parameter tree (a 'layers' list) packs by the JAX "
-            "package's stacked group leaves; pass segments=model.segments")
+            "an LM parameter tree (a 'layers' or 'blocks' list) packs by "
+            "the JAX package's stacked leaves; pass "
+            "segments=model.segments")
     return [Segment(path_name(p), (p,), False)
             for p, _ in tree_flatten_with_path(params)]
 

@@ -14,6 +14,9 @@ phase spans (admit/prefill/decode/sample/finish) as trace-v1 JSONL.
 ``--restore DIR`` serves the params of a checkpoint in the JAX
 package's LM layout (written by either package's ``checkpoint.save``;
 ``Engine.from_checkpoint``) instead of random ones. Runs on CUDA unless ``--device cpu`` is given.
+Dense and MoE archs serve; ssm and hybrid archs (mamba2-1.3b,
+zamba2-1.2b) have no batched prefill and the engine refuses them with
+the reference's ``ValueError``.
 """
 from __future__ import annotations
 

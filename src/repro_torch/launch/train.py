@@ -220,6 +220,9 @@ def run(argv: Optional[Sequence[str]] = None, *,
 
     cfg = get_smoke_config(args.arch) if args.smoke \
         else get_config(args.arch)
+    if cfg.family in ("ssm", "hybrid") and args.seq % cfg.ssm_chunk:
+        raise SystemExit(f"--seq {args.seq} must be a multiple of "
+                         f"ssm_chunk={cfg.ssm_chunk} for {args.arch}")
     model = get_model(cfg)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)

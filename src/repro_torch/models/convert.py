@@ -4,14 +4,18 @@
 ``models.cnn`` (MLP and CNN): the same tree, conv weights from the
 reference's HWIO to the port's OIHW, nothing else.
 
-The JAX package stacks each layer kind of a group on a leading group
-axis: ``{"embed", "groups": {"l{i}_{kind}": [G, ...]}, "final_norm"}``.
-:func:`params_from_jax` takes that tree as numpy arrays and unstacks
-the group axis into the port's per-layer list (layer ``g * n + i`` is
-``groups["l{i}_{kind}"][g]``), so both packages compute the same
-function. Leaf layouts are shared, so every leaf is a copy.
-:func:`params_to_jax` is its inverse (restack ``layers[g * n + i]``
-into ``groups["l{i}_{kind}"][g]``), which is how an LM's params cross
+The JAX package stacks layers on leading axes. Dense and MoE LMs:
+``{"embed", "groups": {"l{i}_{kind}": [G, ...]}, "final_norm"}`` (MoE
+experts inside a layer are stacked too: ``moe/wi`` is [G, E, d, F]);
+ssm: ``{"blocks": [L, ...], "embed", "final_norm"}``; hybrid:
+``{"embed", "final_norm", "groups": [G, attn_every, ...],
+"shared_attn", "trailing": [L % attn_every, ...]}``.
+:func:`params_from_jax` takes such a tree as numpy arrays and unstacks
+it into the port's lists (layer ``g * n + i`` is
+``groups["l{i}_{kind}"][g]``; hybrid block ``g * attn_every + i`` is
+``groups[g, i]``, then the trailing blocks), so both packages compute
+the same function. Leaf layouts are shared, so every leaf is a copy.
+:func:`params_to_jax` is its inverse, which is how an LM's params cross
 packages in a checkpoint; :func:`jax_template` is that tree's shapes
 and dtypes on the meta device, a restore template that allocates
 nothing.
@@ -32,7 +36,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.base import (path_name, tree_flatten_with_path,
                                    tree_from_paths, tree_get)
 from repro_torch.core.flatten import Segment
-from repro_torch.models.transformer import _group_spec, init_lm
+from repro_torch.models.hybrid import hybrid_layout
+from repro_torch.models.transformer import _group_spec
 
 
 def _tensor(x, dev: torch.device) -> torch.Tensor:
@@ -51,91 +56,169 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _unstack(tree: dict, index, dev: torch.device) -> dict:
+    """One member of a stacked subtree: every leaf indexed by
+    ``index`` (an int or a tuple) and copied onto ``dev``."""
+    return _map(tree, lambda x: _tensor(x[index], dev))
+
+
+def _stack(members: list, dev, lead: tuple) -> dict:
+    """The stacked subtree of ``members`` (equal trees), each leaf
+    ``torch.stack``-ed on ``dev`` and shaped ``lead + member shape``."""
+    paths = [p for p, _ in tree_flatten_with_path(members[0])]
+    return tree_from_paths(members[0], {
+        p: torch.stack([tree_get(m, p).detach().to(dev) for m in members])
+        .reshape(lead + tuple(tree_get(members[0], p).shape))
+        for p in paths})
+
+
+def _top(params: dict, key: str, dev) -> dict:
+    return _map(params[key], lambda x: x.detach().to(dev))
+
+
 def params_from_jax(cfg: ModelConfig, tree: dict, *,
                     device="cuda") -> dict:
     """Reference params (numpy leaves) -> the port's params on
-    ``device``."""
+    ``device``: the stacked layer / block axes unstacked into the
+    port's lists (``layers``, or ``blocks`` for ssm and hybrid)."""
     dev = _device.resolve(device)
+    out = {"embed": _map(tree["embed"], lambda x: _tensor(x, dev)),
+           "final_norm": _map(tree["final_norm"],
+                              lambda x: _tensor(x, dev))}
+    if cfg.family == "ssm":
+        out["blocks"] = [_unstack(tree["blocks"], j, dev)
+                         for j in range(cfg.num_layers)]
+        return out
+    if cfg.family == "hybrid":
+        groups, rem = hybrid_layout(cfg)
+        out["blocks"] = [_unstack(tree["groups"], (g, i), dev)
+                         for g in range(groups)
+                         for i in range(cfg.attn_every)] \
+            + [_unstack(tree["trailing"], r, dev) for r in range(rem)]
+        out["shared_attn"] = _map(tree["shared_attn"],
+                                  lambda x: _tensor(x, dev))
+        return out
     groups, kinds = _group_spec(cfg)
     stacked = tree["groups"]
     names = [f"l{i}_{kind}" for i, kind in enumerate(kinds)]
     if set(stacked) != set(names):
         raise ValueError(f"group layer names {sorted(stacked)} do not "
                          f"match this config's {names}")
-    layers = [_map(stacked[name], lambda x, g=g: _tensor(x[g], dev))
-              for g in range(groups) for name in names]
-    return {"embed": _map(tree["embed"], lambda x: _tensor(x, dev)),
-            "layers": layers,
-            "final_norm": _map(tree["final_norm"],
-                               lambda x: _tensor(x, dev))}
+    out["layers"] = [_unstack(stacked[name], g, dev)
+                     for g in range(groups) for name in names]
+    return out
 
 
 def params_to_jax(cfg: ModelConfig, params: dict, *,
                   device="cpu") -> dict:
-    """The port's params -> the reference's tree (``embed``, ``groups``
-    stacked on a leading group axis, ``final_norm``), each leaf a
-    tensor on ``device`` (numpy has no bfloat16 without ``ml_dtypes``,
-    so the leaves stay tensors; ``checkpoint.save`` byte-views them as
-    the reference does). The inverse of :func:`params_from_jax`."""
+    """The port's params -> the reference's tree, each leaf a tensor on
+    ``device`` (numpy has no bfloat16 without ``ml_dtypes``, so the
+    leaves stay tensors; ``checkpoint.save`` byte-views them as the
+    reference does). The inverse of :func:`params_from_jax`: dense and
+    moe restack ``layers[g * n + i]`` into ``groups["l{i}_{kind}"][g]``;
+    ssm stacks ``blocks`` [L, ...]; hybrid stacks its groups' blocks
+    [G, attn_every, ...] and its trailing ones [L % attn_every, ...]."""
     dev = device if str(device) == "meta" else _device.resolve(device)
+    out = {"embed": _top(params, "embed", dev),
+           "final_norm": _top(params, "final_norm", dev)}
+    if cfg.family in ("ssm", "hybrid"):
+        blocks = params["blocks"]
+        if len(blocks) != cfg.num_layers:
+            raise ValueError(f"{len(blocks)} blocks, config says "
+                             f"{cfg.num_layers}")
+        if cfg.family == "ssm":
+            out["blocks"] = _stack(blocks, dev, (cfg.num_layers,))
+            return out
+        groups, rem = hybrid_layout(cfg)
+        n = cfg.attn_every
+        out["groups"] = _stack(blocks[:groups * n], dev, (groups, n))
+        out["shared_attn"] = _top(params, "shared_attn", dev)
+        if rem:
+            out["trailing"] = _stack(blocks[groups * n:], dev, (rem,))
+        return out
     groups, kinds = _group_spec(cfg)
     n = len(kinds)
     layers = params["layers"]
     if len(layers) != groups * n:
         raise ValueError(f"{len(layers)} layers, config says "
                          f"{groups * n}")
-
-    def stack(i, path):
-        return torch.stack([tree_get(layers[g * n + i], path).detach()
-                            .to(dev) for g in range(groups)])
-
-    stacked = {}
-    for i, kind in enumerate(kinds):
-        paths = [p for p, _ in tree_flatten_with_path(layers[i])]
-        stacked[f"l{i}_{kind}"] = tree_from_paths(
-            layers[i], {p: stack(i, p) for p in paths})
-    return {"embed": _map(params["embed"], lambda x: x.detach().to(dev)),
-            "groups": stacked,
-            "final_norm": _map(params["final_norm"],
-                               lambda x: x.detach().to(dev))}
+    out["groups"] = {
+        f"l{i}_{kind}": _stack([layers[g * n + i] for g in range(groups)],
+                               dev, (groups,))
+        for i, kind in enumerate(kinds)}
+    return out
 
 
 def jax_template(cfg: ModelConfig) -> dict:
     """The reference's param tree for ``cfg`` as meta tensors (shapes
     and dtypes, no storage): the template ``checkpoint.restore`` checks
     an LM checkpoint against."""
+    # imported here: the registry imports this module
+    from repro_torch.models.registry import FAMILIES
     meta = torch.device("meta")
-    return params_to_jax(cfg, init_lm(cfg, torch.Generator(), meta),
+    init = FAMILIES[cfg.family][0]
+    return params_to_jax(cfg, init(cfg, torch.Generator(), meta),
                          device=meta)
+
+
+def _leaf_segments(params: dict, top: str) -> list[Segment]:
+    """One unstacked segment per leaf of ``params[top]``."""
+    return [Segment(path_name(path), (path,), False)
+            for path, _ in tree_flatten_with_path(params[top], (top,))]
 
 
 def segment_paths(cfg: ModelConfig, params: dict) -> list[Segment]:
     """The reference LM tree's leaves, in its flatten order (sorted dict
-    keys: ``embed`` < ``final_norm`` < ``groups``), as segments of the
-    port's tree: a group leaf ``groups/l{i}_{kind}/<path>`` stacks
-    ``params["layers"][g * n + i]<path>`` for g = 0..G-1."""
+    keys), as segments of the port's tree. A stacked leaf is one
+    segment over all its layers or blocks (F3):
+
+    * dense / moe: ``embed``, ``final_norm``, then
+      ``groups/l{i}_{kind}/<path>`` stacking ``layers[g * n + i]<path>``
+      for g = 0..G-1;
+    * ssm: ``blocks/<path>`` stacking all L blocks, then ``embed`` and
+      ``final_norm``;
+    * hybrid: ``embed``, ``final_norm``, ``groups/<path>`` stacking
+      blocks 0..G·n-1 (the reference's [G, n, ...] raveled g-major),
+      ``shared_attn`` unstacked, ``trailing/<path>`` stacking the rest.
+
+    Inside a block, keys sort as the reference's: ``mamba/D`` before
+    ``mamba/a_log``."""
+    def stacked(name: tuple, top: str, index: range) -> list[Segment]:
+        # one segment per leaf path of a member: that path of
+        # params[top][j] for every j of the stack, in order
+        return [Segment(path_name(name + path),
+                        tuple((top, j) + path for j in index), True)
+                for path, _ in tree_flatten_with_path(params[top][index[0]])]
+
+    if cfg.family in ("ssm", "hybrid"):
+        if len(params["blocks"]) != cfg.num_layers:
+            raise ValueError(f"{len(params['blocks'])} blocks, config "
+                             f"says {cfg.num_layers}")
+        if cfg.family == "ssm":
+            return stacked(("blocks",), "blocks", range(cfg.num_layers)) \
+                + _leaf_segments(params, "embed") \
+                + _leaf_segments(params, "final_norm")
+        groups, rem = hybrid_layout(cfg)
+        split = groups * cfg.attn_every
+        out = _leaf_segments(params, "embed") \
+            + _leaf_segments(params, "final_norm") \
+            + stacked(("groups",), "blocks", range(split)) \
+            + _leaf_segments(params, "shared_attn")
+        if rem:
+            out += stacked(("trailing",), "blocks",
+                           range(split, cfg.num_layers))
+        return out
     groups, kinds = _group_spec(cfg)
     n = len(kinds)
     if len(params["layers"]) != groups * n:
         raise ValueError(f"{len(params['layers'])} layers, config says "
                          f"{groups * n}")
-    virtual = {"embed": {}, "final_norm": {}, "groups": {}}
-    for top in ("embed", "final_norm"):
-        for path, _ in tree_flatten_with_path(params[top], (top,)):
-            virtual[top][path] = Segment(path_name(path), (path,), False)
-    for i, kind in enumerate(kinds):
-        layer = {}
-        for path, _ in tree_flatten_with_path(params["layers"][i]):
-            members = tuple(("layers", g * n + i) + path
-                            for g in range(groups))
-            name = path_name(("groups", f"l{i}_{kind}") + path)
-            layer[path] = Segment(name, members, True)
-        virtual["groups"][f"l{i}_{kind}"] = layer
-    out = []
-    for top in ("embed", "final_norm"):
-        out.extend(virtual[top].values())
-    for key in sorted(virtual["groups"]):
-        out.extend(virtual["groups"][key].values())
+    out = _leaf_segments(params, "embed") \
+        + _leaf_segments(params, "final_norm")
+    for name, i in sorted((f"l{i}_{kind}", i)
+                          for i, kind in enumerate(kinds)):
+        out += stacked(("groups", name), "layers",
+                       range(i, groups * n, n))
     return out
 
 

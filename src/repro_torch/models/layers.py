@@ -90,6 +90,28 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6
     return y * (1.0 + params["scale"]).to(x.dtype)
 
 
+def layernorm(params: dict, x: torch.Tensor, eps: float = 1e-6
+              ) -> torch.Tensor:
+    raise NotImplementedError("layernorm: not ported yet, see ROADMAP")
+
+
+def init_norm(cfg: ModelConfig, d: int, device) -> dict:
+    """The config's norm: RMSNorm's ``{"scale"}``; LayerNorm (whisper)
+    is not ported yet."""
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(f"norm {cfg.norm!r}: not ported yet, "
+                                  f"see ROADMAP")
+    return init_rmsnorm(d, cfg.pdtype, device)
+
+
+def norm(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """The reference's dispatch: LayerNorm when the params carry a
+    ``bias``, else RMSNorm."""
+    if "bias" in params:
+        return layernorm(params, x, cfg.norm_eps)
+    return rmsnorm(params, x, cfg.norm_eps)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float = 10000.0) -> torch.Tensor:
     """x: [B, S, H, Dh]; positions: [B, S] (int). f32 math, x-dtype out.

@@ -1,0 +1,204 @@
+"""Mamba2, the State Space Duality (SSD) block (Dao & Gu,
+arXiv:2405.21060): the port of ``repro.models.ssm``.
+
+A full sequence runs the chunked dual form: the sequence splits into
+chunks of Q tokens; inside a chunk the terms are attention-like batched
+products, across chunks a recurrence over per-chunk states. Decode is
+the O(1)-state recurrence. All decays are <= 1 (A < 0, dt > 0 through
+softplus), so the chunked exponentials are safe in f32.
+
+Shapes: heads H = (expand·d) / head_dim, state N = ``cfg.ssm_state``,
+head dim P = ``cfg.ssm_head_dim``, one B/C group shared by the heads.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+
+class SSMCache(NamedTuple):
+    state: torch.Tensor     # [B, H, P, N] f32
+    conv: torch.Tensor      # [B, W-1, di + 2N]  (the last conv inputs)
+
+
+def init_mamba(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
+    d, di, n = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state
+    h, w = cfg.ssm_num_heads, cfg.ssm_conv_width
+    out_scale = 0.02 / math.sqrt(2 * cfg.num_layers)
+    # dt bias such that softplus(dt_bias) spans [1e-3, 1e-1] (mamba2)
+    u = torch.rand((h,), generator=gen, device=device)
+    dt0 = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))   # inverse softplus
+    return {
+        "in_proj": L.normal_init(gen, (d, 2 * di + 2 * n + h), cfg.pdtype,
+                                 device),
+        "conv_w": L.normal_init(gen, (w, di + 2 * n), cfg.pdtype, device,
+                                0.1),
+        "conv_b": torch.zeros((di + 2 * n,), dtype=cfg.pdtype,
+                              device=device),
+        "a_log": torch.zeros((h,), dtype=torch.float32, device=device),
+        "dt_bias": dt_bias.float(),
+        "D": torch.ones((h,), dtype=torch.float32, device=device),
+        "norm": L.init_rmsnorm(di, cfg.pdtype, device),
+        "out_proj": L.normal_init(gen, (di, d), cfg.pdtype, device,
+                                  out_scale),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                 ) -> torch.Tensor:
+    """Depthwise causal conv by tap shifts, added one tap at a time in
+    x's dtype as the reference does (``F.conv1d`` would accumulate in
+    f32 and round bf16 otherwise). x: [B,S,C], w: [W,C]."""
+    taps = w.shape[0]
+    out = torch.zeros_like(x)
+    for i in range(taps):
+        shift = taps - 1 - i
+        xi = F.pad(x, (0, 0, shift, 0))[:, :x.shape[1]]
+        out = out + xi * w[i].to(x.dtype)
+    return out + b.to(x.dtype)
+
+
+def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
+    """in_proj's output -> (z [.., di], xBC [.., di + 2N], dt [.., H])."""
+    di, n, h = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_num_heads
+    return torch.split(proj, [di, di + 2 * n, h], dim=-1)
+
+
+def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 bmat: torch.Tensor, cmat: torch.Tensor, chunk: int
+                 ) -> torch.Tensor:
+    """Chunked SSD. xh: [B,S,H,P]; dt: [B,S,H] f32; a: [H] (negative);
+    bmat/cmat: [B,S,N]. Returns y: [B,S,H,P] in xh's dtype.
+
+    The reference's three-operand einsums are written as the two
+    products its contraction path (opt_einsum, at mamba2-1.3b's and
+    zamba2-1.2b's widths) takes; torch has no path optimiser here and
+    would contract left to right. Bytes of each f32 intermediate per
+    block at mamba2-1.3b, batch 8 x 512 (b 8, c 2 chunks, i = j = 256,
+    h 64, p 64, n 128): ``diff`` / ``exp`` / ``decay`` / ``m`` [b,c,i,j,h]
+    268 MB each; ``y_diag``, ``y_off`` [b,c,i,h,p] 67 MB; ``s_c``
+    [b,c,h,p,n] 34 MB. A product over all of (i, j, h, p) at once
+    would be [b,c,i,j,h,p]: 17.2 GB."""
+    b, s, h, p = xh.shape
+    n = bmat.shape[-1]
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"seq {s} not divisible by chunk {q}")
+    nc = s // q
+
+    xc = xh.reshape(b, nc, q, h, p).float()
+    dtc = dt.reshape(b, nc, q, h)
+    bc = bmat.reshape(b, nc, q, n).float()
+    cc = cmat.reshape(b, nc, q, n).float()
+
+    da = dtc * a                                    # [b,c,q,h] (<= 0)
+    cum = torch.cumsum(da, dim=2)                   # [b,c,q,h]
+    xdt = xc * dtc[..., None]                       # dt·x
+
+    # intra-chunk (attention-like): L[i,j] = exp(cum_i - cum_j), i >= j;
+    # masked after the exp, as the reference does
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # [b,c,i,j,h]
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                device=xh.device))
+    decay = torch.where(tri[None, None, :, :, None], torch.exp(diff),
+                        torch.zeros((), device=xh.device))
+    scores = torch.einsum("bcin,bcjn->bcij", cc, bc)       # [b,c,i,j]
+    # "bcij,bcijh,bcjhp->bcihp": (scores · decay), then contract j
+    m = scores[..., None] * decay                          # [b,c,i,j,h]
+    y_diag = torch.einsum("bcijh,bcjhp->bcihp", m, xdt)
+
+    # per-chunk end states S_c = Σ_j B_j ⊗ (exp(cum_last - cum_j)·dt_j·x_j)
+    # "bcjn,bcjh,bcjhp->bchpn": (dte · x), then contract j with B
+    dte = torch.exp(cum[:, :, -1:, :] - cum) * dtc         # [b,c,q,h]
+    s_c = torch.einsum("bcjhp,bcjn->bchpn", dte[..., None] * xc, bc)
+
+    # inter-chunk recurrence: the state entering each chunk
+    chunk_decay = torch.exp(cum[:, :, -1, :])              # [b,c,h]
+    state = torch.zeros((b, h, p, n), dtype=torch.float32,
+                        device=xh.device)
+    s_in = []
+    for c in range(nc):
+        s_in.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + s_c[:, c]
+    s_in = torch.stack(s_in, dim=1)                        # [b,c,h,p,n]
+
+    # "bcin,bchpn,bcih->bcihp": contract n, then scale by exp(cum)
+    y_off = torch.einsum("bcin,bchpn->bcihp", cc, s_in) \
+        * torch.exp(cum)[..., None]
+    y = (y_diag + y_off).reshape(b, s, h, p)
+    return y.to(xh.dtype)
+
+
+def mamba_apply(params: dict, cfg: ModelConfig, x: torch.Tensor
+                ) -> torch.Tensor:
+    """Full-sequence Mamba2 block. x: [B,S,d] -> [B,S,d]."""
+    di, n, h, p = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_num_heads,
+                   cfg.ssm_head_dim)
+    proj = x @ params["in_proj"].to(x.dtype)
+    z, xbc, dt = _split_proj(cfg, proj)
+    xbc = F.silu(_causal_conv(xbc, params["conv_w"], params["conv_b"]))
+    xin, bmat, cmat = torch.split(xbc, [di, n, n], dim=-1)
+    bsz, s = x.shape[0], x.shape[1]
+    xh = xin.reshape(bsz, s, h, p)
+    dt32 = F.softplus(dt.float() + params["dt_bias"])
+    a = -torch.exp(params["a_log"])
+    y = _ssd_chunked(xh, dt32, a, bmat, cmat, cfg.ssm_chunk)
+    y = y + params["D"].to(y.dtype)[None, None, :, None] * xh
+    y = y.reshape(bsz, s, di)
+    y = y * F.silu(z)
+    y = L.rmsnorm(params["norm"], y, cfg.norm_eps)
+    return y @ params["out_proj"].to(x.dtype)
+
+
+def mamba_init_cache(cfg: ModelConfig, batch: int, dtype, device
+                     ) -> SSMCache:
+    di, n = cfg.ssm_d_inner, cfg.ssm_state
+    return SSMCache(
+        state=torch.zeros((batch, cfg.ssm_num_heads, cfg.ssm_head_dim, n),
+                          dtype=torch.float32, device=device),
+        conv=torch.zeros((batch, cfg.ssm_conv_width - 1, di + 2 * n),
+                         dtype=dtype, device=device))
+
+
+def mamba_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                 cache: SSMCache) -> tuple[torch.Tensor, SSMCache]:
+    """One-token recurrent step. x: [B,1,d]. The cache's state and conv
+    window are updated in place and returned."""
+    di, n, h, p = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_num_heads,
+                   cfg.ssm_head_dim)
+    bsz = x.shape[0]
+    proj = x @ params["in_proj"].to(x.dtype)
+    z, xbc, dt = _split_proj(cfg, proj)
+
+    # conv over (the cached W-1 inputs, the current one)
+    conv_in = torch.cat([cache.conv, xbc], dim=1)          # [B, W, C]
+    w = params["conv_w"].to(x.dtype)
+    out = torch.einsum("bwc,wc->bc", conv_in, w) \
+        + params["conv_b"].to(x.dtype)
+    xbc1 = F.silu(out)[:, None, :]
+
+    xin, bmat, cmat = torch.split(xbc1, [di, n, n], dim=-1)
+    xh = xin.reshape(bsz, h, p).float()
+    bvec = bmat[:, 0].float()                              # [B, N]
+    cvec = cmat[:, 0].float()
+    dt32 = F.softplus(dt[:, 0].float() + params["dt_bias"])
+    a = -torch.exp(params["a_log"])
+    da = torch.exp(dt32 * a)                               # [B, H]
+    # "bh,bhp,bn->bhpn": (dt · x), then the outer product with B
+    state = cache.state * da[:, :, None, None] \
+        + (dt32[:, :, None] * xh)[..., None] * bvec[:, None, None, :]
+    y = torch.einsum("bhpn,bn->bhp", state, cvec) \
+        + params["D"][None, :, None] * xh
+    y = y.reshape(bsz, 1, di).to(x.dtype)
+    y = y * F.silu(z)
+    y = L.rmsnorm(params["norm"], y, cfg.norm_eps)
+    cache.state.copy_(state)
+    cache.conv.copy_(conv_in[:, 1:, :])
+    return y @ params["out_proj"].to(x.dtype), cache

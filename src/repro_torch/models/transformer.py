@@ -1,11 +1,13 @@
-"""Decoder-only transformer LM: the dense family and the gemma3
-local:global pattern.
+"""Decoder-only transformer LM: the dense and MoE families and the
+gemma3 local:global pattern.
 
-The port of ``repro.models.transformer`` without MoE and VLM cross
-layers. The reference scans over groups of stacked layers; here the
-layers are a Python list of ``G × len(kinds)`` per-layer parameter
-dicts, layer ``g * len(kinds) + i`` being kind ``kinds[i]`` of group
-``g``. Each layer is pre-norm: h += attn(norm(h)); h += mlp(norm(h)).
+The port of ``repro.models.transformer`` without the VLM cross layers.
+The reference scans over groups of stacked layers; here the layers are
+a Python list of ``G × len(kinds)`` per-layer parameter dicts, layer
+``g * len(kinds) + i`` being kind ``kinds[i]`` of group ``g``. Each
+layer is pre-norm: h += attn(norm(h)); h += mlp|moe(norm(h)). An MoE
+layer (``cfg.num_experts``) returns its aux losses, which
+``apply_lm_hidden`` sums over the layers; prefill and decode drop them.
 
 The KV cache is a list with one ``{"k", "v"}`` pair of
 ``[B, T, Hkv, Dh]`` tensors per layer (``T = min(window, max_len)``
@@ -20,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 
 def _group_spec(cfg: ModelConfig) -> tuple[int, list[str]]:
@@ -60,10 +63,14 @@ def _masks(cfg: ModelConfig) -> dict:
 # --------------------------------------------------------------------------
 
 def init_layer(cfg: ModelConfig, gen, device) -> dict:
-    return {"norm1": L.init_rmsnorm(cfg.d_model, cfg.pdtype, device),
-            "attn": L.init_attention(cfg, gen, device),
-            "norm2": L.init_rmsnorm(cfg.d_model, cfg.pdtype, device),
-            "mlp": L.init_mlp(cfg, gen, device)}
+    p = {"norm1": L.init_norm(cfg, cfg.d_model, device),
+         "attn": L.init_attention(cfg, gen, device),
+         "norm2": L.init_norm(cfg, cfg.d_model, device)}
+    if cfg.num_experts:
+        p["moe"] = M.init_moe(cfg, gen, device)
+    else:
+        p["mlp"] = L.init_mlp(cfg, gen, device)
+    return p
 
 
 def init_lm(cfg: ModelConfig, gen: torch.Generator,
@@ -73,8 +80,7 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator,
     return {"embed": L.init_embedding(cfg, gen, device),
             "layers": [init_layer(cfg, gen, device)
                        for _ in layer_kinds(cfg)],
-            "final_norm": L.init_rmsnorm(cfg.d_model, cfg.pdtype,
-                                         device)}
+            "final_norm": L.init_norm(cfg, cfg.d_model, device)}
 
 
 def _device(params: dict) -> torch.device:
@@ -85,15 +91,25 @@ def _device(params: dict) -> torch.device:
 # full-sequence forward
 # --------------------------------------------------------------------------
 
+def _ffn(p: dict, cfg: ModelConfig, x: torch.Tensor):
+    """The layer's MLP or MoE on x: (y, MoE aux or None)."""
+    if "moe" in p:
+        return M.moe_apply(p["moe"], cfg, x)
+    return L.mlp(p["mlp"], cfg, x), None
+
+
 def layer_apply(p: dict, cfg: ModelConfig, h: torch.Tensor,
                 positions: torch.Tensor, mask, return_kv: bool = False):
-    out = L.attention(p["attn"], cfg, L.rmsnorm(p["norm1"], h,
-                                                cfg.norm_eps),
+    """One layer over a full sequence: (h, aux), aux the MoE losses
+    (None for an MLP layer); with ``return_kv``, (h, (k, v)) and the
+    aux dropped, as the reference's prefill forward does."""
+    out = L.attention(p["attn"], cfg, L.norm(cfg, p["norm1"], h),
                       positions, mask, return_kv=return_kv)
     a, kv = out if return_kv else (out, None)
     h = h + a
-    h = h + L.mlp(p["mlp"], cfg, L.rmsnorm(p["norm2"], h, cfg.norm_eps))
-    return (h, kv) if return_kv else h
+    y, aux = _ffn(p, cfg, L.norm(cfg, p["norm2"], h))
+    h = h + y
+    return (h, kv) if return_kv else (h, aux)
 
 
 def _positions(tokens: torch.Tensor) -> torch.Tensor:
@@ -102,8 +118,8 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
 
 
 class LMAux(NamedTuple):
-    """MoE auxiliary losses; zero for the dense family (the reference's
-    ``zero_aux``)."""
+    """MoE auxiliary losses summed over the layers; zero for the dense,
+    ssm and hybrid families (the reference's ``zero_aux``)."""
     load_balance_loss: torch.Tensor
     router_z_loss: torch.Tensor
 
@@ -116,22 +132,26 @@ def zero_aux(device) -> LMAux:
 def apply_lm_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor
                     ) -> tuple[torch.Tensor, LMAux]:
     """Backbone forward up to the final norm (no unembed): h [B,S,D]
-    and the (zero) MoE aux. With ``cfg.remat`` and gradients enabled,
-    each layer is checkpointed (its activations recomputed in the
-    backward), the counterpart of the reference's ``scan_layers``
-    remat; it changes no value."""
+    and the MoE aux, each loss SUMMED over the layers (zero without
+    experts). With ``cfg.remat`` and gradients enabled, each layer is
+    checkpointed (its activations recomputed in the backward), the
+    counterpart of the reference's ``scan_layers`` remat; it changes
+    no value."""
     h = L.embed(params["embed"], cfg, tokens)
     positions = _positions(tokens)
     masks = _masks(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = zero_aux(h.device)
     for p, kind in zip(params["layers"], layer_kinds(cfg)):
         if remat:
-            h = checkpoint(layer_apply, p, cfg, h, positions, masks[kind],
-                           use_reentrant=False)
+            h, a = checkpoint(layer_apply, p, cfg, h, positions,
+                              masks[kind], use_reentrant=False)
         else:
-            h = layer_apply(p, cfg, h, positions, masks[kind])
-    return L.rmsnorm(params["final_norm"], h, cfg.norm_eps), \
-        zero_aux(h.device)
+            h, a = layer_apply(p, cfg, h, positions, masks[kind])
+        if a is not None:
+            aux = LMAux(aux.load_balance_loss + a.load_balance_loss,
+                        aux.router_z_loss + a.router_z_loss)
+    return L.norm(cfg, params["final_norm"], h), aux
 
 
 def apply_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor
@@ -141,8 +161,8 @@ def apply_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor
     positions = _positions(tokens)
     masks = _masks(cfg)
     for p, kind in zip(params["layers"], layer_kinds(cfg)):
-        h = layer_apply(p, cfg, h, positions, masks[kind])
-    h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+        h, _ = layer_apply(p, cfg, h, positions, masks[kind])
+    h = L.norm(cfg, params["final_norm"], h)
     return L.unembed(params["embed"], cfg, h)
 
 
@@ -233,19 +253,20 @@ def apply_lm_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         rows = torch.arange(b, device=h.device)
         h = h[rows, logits_at.to(device=h.device,
                                  dtype=torch.int64)][:, None]
-    h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    h = L.norm(cfg, params["final_norm"], h)
     return L.unembed(params["embed"], cfg, h), cache
 
 
 def layer_decode(p: dict, cfg: ModelConfig, h: torch.Tensor,
                  k_cache: torch.Tensor, v_cache: torch.Tensor, pos, *,
                  window: Optional[int] = None) -> torch.Tensor:
-    """One-token layer step; appends to the caches in place."""
-    x = L.rmsnorm(p["norm1"], h, cfg.norm_eps)
+    """One-token layer step; appends to the caches in place. An MoE
+    layer routes the step's one token per row (capacity >= 1) and drops
+    its aux."""
+    x = L.norm(cfg, p["norm1"], h)
     h = h + L.attention_decode(p["attn"], cfg, x, k_cache, v_cache, pos,
                                window=window)
-    return h + L.mlp(p["mlp"], cfg, L.rmsnorm(p["norm2"], h,
-                                              cfg.norm_eps))
+    return h + _ffn(p, cfg, L.norm(cfg, p["norm2"], h))[0]
 
 
 def decode_lm(cfg: ModelConfig, params: dict, cache: list,
@@ -257,5 +278,5 @@ def decode_lm(cfg: ModelConfig, params: dict, cache: list,
     for p, c, kind in zip(params["layers"], cache, layer_kinds(cfg)):
         h = layer_decode(p, cfg, h, c["k"], c["v"], pos,
                          window=_window(cfg, kind))
-    h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    h = L.norm(cfg, params["final_norm"], h)
     return L.unembed(params["embed"], cfg, h), cache

@@ -1,9 +1,12 @@
 """Serving: batched prefill + autoregressive decode with KV caches.
 
 ``prefill`` is single-shot: ONE full-sequence ``model.prefill`` forward
-that emits the last-position logits and the populated KV cache.
-``prefill_reference`` streams the prompt token by token through
-``decode_step``: the oracle the tests hold the batched path against.
+that emits the last-position logits and the populated KV cache; for a
+family without a batched prefill (``model.prefill is None``: ssm,
+hybrid) it streams the prompt through ``prefill_reference``, as the
+reference does. ``prefill_reference`` streams the prompt token by
+token through ``decode_step``: the oracle the tests hold the batched
+path against.
 ``generate`` is the per-request host loop; the continuous-batching
 scheduler lives in :mod:`repro_torch.serving.engine`.
 """
@@ -43,7 +46,10 @@ def prefill_reference(model: Model, params, tokens: torch.Tensor,
 
 
 def prefill(model: Model, params, tokens: torch.Tensor, max_len: int):
-    """Batched prefill: (last-position logits [B,1,V], cache)."""
+    """Batched prefill: (last-position logits [B,1,V], cache); the
+    token-by-token loop where the family has no batched prefill."""
+    if model.prefill is None:
+        return prefill_reference(model, params, tokens, max_len)
     b, s = tokens.shape
     last = torch.full((b,), s - 1, dtype=torch.int64,
                       device=tokens.device)

@@ -19,7 +19,9 @@ device shape:
 
 ``stats()["kernel_launches"]`` counts the decode-attention kernel
 launches this engine's decode steps made (``kernels.ops.launches``);
-it stays 0 on the CPU, where the plain version runs.
+it stays 0 on the CPU, where the plain version runs. A family without
+a batched prefill (ssm, hybrid) is refused, as the reference's engine
+refuses it; serve those through ``serving.generate``.
 """
 from __future__ import annotations
 
@@ -122,6 +124,11 @@ class Engine:
 
     def __init__(self, model, params, config: ServeConfig, *,
                  device="cuda", tracer=None):
+        if model.prefill is None:
+            raise ValueError(
+                f"family {model.cfg.family!r} has no batched-prefill "
+                f"lowering; the serving engine requires model.prefill "
+                f"(supported: dense / moe / gemma3-style windowed)")
         dev = _device.resolve(device)
         pdev = params["embed"]["table"].device
         if pdev.type != dev.type or (
@@ -160,10 +167,9 @@ class Engine:
     def from_checkpoint(cls, path: str, model, config: ServeConfig, *,
                         device="cuda", tracer=None) -> "Engine":
         """Build an engine on the params of a checkpoint in the JAX
-        package's LM layout (``embed`` / stacked ``groups`` /
-        ``final_norm``), written by either package: restored onto
-        ``device`` against the config's template, then unstacked into
-        the port's per-layer list."""
+        package's stacked LM layout (``convert.jax_template``), written
+        by either package: restored onto ``device`` against the
+        config's template, then unstacked into the port's lists."""
         dev = _device.resolve(device)
         stacked = checkpoint.restore(path, convert.jax_template(model.cfg),
                                      device=dev)

@@ -147,11 +147,12 @@ def test_library_is_keyed_on_source_hash(tmp_path, monkeypatch):
 
 def test_unported_archs_and_families_raise():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("olmoe-1b-7b")
+        get_config("whisper-large-v3")
     with pytest.raises(ValueError):
         get_config("no-such-arch")
-    with pytest.raises(NotImplementedError):
-        get_model(get_config("gemma3-12b").replace(family="moe"))
+    for family in ("encdec", "vlm"):
+        with pytest.raises(NotImplementedError):
+            get_model(get_config("gemma3-12b").replace(family=family))
 
 
 # ---------------------------------------------------------------------------
