@@ -218,6 +218,36 @@ script exits non-zero:
    CPU's plain path on the same weights: logits, every MoE layer's
    routing decisions (equal, with and without drops), ``generate``'s
    tokens and one fused TVLARS step.
+14. llama-3.2-vision-11b (40 self + 8 gated cross layers) served at
+   full width and depth (bf16, random weights from seed 0, every gate
+   opened to 0.5 in the phase, one image block [8, 1600, 4096] of
+   seeded normal draws) on phase 4's engine and traffic: the
+   prediction, 40 decode launches per step (the cross layers none),
+   tok/s, the decode step beside its weight read, the peak; three
+   requests, one per image row the engine gave them (row i of its
+   admission batch), held against ``generate`` on that row up to bf16
+   ties, and one request on another image must change tokens;
+14b. whisper-large-v3 (32 + 32 layers) ``generate`` at full width and
+   depth: 4 prompts of 64 tokens, 32 new, random frames [4, 1500,
+   1280]; 32 decode launches per step, the tokens against the argmax
+   of a teacher-forced ``apply`` up to bf16 ties, other frames must
+   change tokens;
+14c. whisper-large-v3 trained at full width and depth through
+   ``launch.train.run`` with random frames in place of the launcher's
+   zero stub (``live_frontend``): fused TVLARS f32 8 x 512 (1 + 1
+   launches per step) and per-tensor WA-LARS (28 + 28), last steps
+   checked as in 7 / 7c; then one step of the launcher on its zero
+   stub (the gradient overflows there, in both packages: F11);
+14d. llama-3.2-vision-11b trained cut in depth to whole groups (the
+   deepest predicted under 70 GiB: printed), gates opened, random
+   images, fused TVLARS f32 8 x 512, 3 steps: the cross layers'
+   attention weights and gate get non-zero gradients;
+14e. (inside 14 and 14b) decode attention against its plain version
+   at G = 4 / Dh 128 (8 slots, 32 / 8 heads, T 2048) and G = 1 / Dh 64
+   (4 slots, 20 / 20 heads, T 96), timed beside SDPA and the bound;
+14f. both smoke configs in f32 (gates opened, random extra embeddings)
+   on the card against the CPU: logits, ``generate``, one fused
+   TVLARS step and (vlm) the engine's tokens on distinct image rows.
 
 The last lines are the script's total time, the ``nvidia-smi`` line,
 one JSON object describing each kernel (decode attention and RMSNorm
@@ -581,13 +611,14 @@ def init_checked(model):
 
 
 def tie_gaps(serving, model, params, prompt, tokens, tol,
-             max_len: int = MAX_LEN) -> list:
+             max_len: int = MAX_LEN, extra=None) -> list:
     """Feed the engine's tokens through the request-alone path (what
     ``generate`` runs: prefill of the bare prompt, then one-row decode
-    steps) and return per position (best logit - logit of the engine's
-    token, allowed gap rtol * |best| + atol)."""
+    steps; ``extra`` [1, ...] the request's image row) and return per
+    position (best logit - logit of the engine's token, allowed gap
+    rtol * |best| + atol)."""
     x = torch.tensor(prompt[None], dtype=torch.int64, device="cuda")
-    logits, cache = serving.prefill(model, params, x, max_len)
+    logits, cache = serving.prefill(model, params, x, max_len, extra)
     rows = []
     for j, tok in enumerate(tokens):
         lg = logits[0, -1].float()
@@ -649,18 +680,23 @@ class LaunchEvents:
 
 
 def engine_vs_generate(label, serving, model, params, prompts, new,
-                       results, picked, max_len, tol) -> None:
+                       results, picked, max_len, tol, extras=None) -> dict:
     """Engine == generate in bf16, up to bf16 ties, for the requests
     ``picked``: the engine pads and batches (prefill [4, S_bucket],
     decode [slots, 1]) where generate runs the bare request ([1, S],
     [1, 1]), so the matrix products round differently and a near-tie
     in the argmax may go either way. Where the tokens differ, the
     engine's tokens are fed through the alone path and each must be its
-    argmax within ``tol``."""
+    argmax within ``tol``. ``extras`` maps a request to the extra row
+    [1, ...] the engine gave it. Returns each request's tokens alone."""
+    out = {}
     for i in picked:
+        extra = None if extras is None else extras[i]
         alone = serving.generate(model, params, prompts[i][None],
                                  num_tokens=int(new[i]), max_len=max_len,
+                                 extra_embeds=extra,
                                  device="cuda")[0].tolist()
+        out[i] = alone
         eng_tokens = results[i].tokens
         if alone == eng_tokens:
             print(f"{label}: request {i} (prompt {len(prompts[i])}) alone "
@@ -670,7 +706,7 @@ def engine_vs_generate(label, serving, model, params, prompts, new,
         first = next(j for j, (a, b) in enumerate(zip(alone, eng_tokens))
                      if a != b)
         rows = tie_gaps(serving, model, params, prompts[i], eng_tokens,
-                        tol, max_len)
+                        tol, max_len, extra)
         ties = [(j, g, lim) for j, (g, lim) in enumerate(rows) if g > 0]
         worst = max(ties, key=lambda r: r[1] / r[2],
                     default=(first, 0.0, rows[first][1]))
@@ -686,6 +722,7 @@ def engine_vs_generate(label, serving, model, params, prompts, new,
             raise AssertionError(f"{label} request {i}: an engine token is "
                                  f"not the alone path's argmax within bf16 "
                                  f"tolerance")
+    return out
 
 
 def phase_serving(ops, serving, get_config, get_model, Tracer,
@@ -3545,6 +3582,484 @@ def phase_families(train_module, ops, su, sref, lu, layerwise, flatten,
     return out
 
 
+# --------------------------------------------------------------------------
+# 14-14f: the encoder-decoder and vision families
+# --------------------------------------------------------------------------
+
+GATE_OPEN = 0.5               # 14 / 14d / 14f: every vlm cross gate
+WHISPER_GEN = (4, 64, 32)     # 14b: prompts, prompt length, new tokens
+VLM_PICKS = 3                 # 14: requests re-run alone, one per row
+CROSS_SMOKE = ("whisper-large-v3", "llama-3.2-vision-11b")
+
+
+def extra_draw(cfg, batch: int, seed: int, device=None) -> torch.Tensor:
+    """``batch`` rows of the stubbed frontend's output for ``cfg`` on
+    ``device`` (the card by default): seeded normal draws in the compute
+    dtype, never zeros (zero frames leave whisper's cross path idle)."""
+    from repro_torch.models import extra_embed_shape
+    device = device or DEV
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(extra_embed_shape(cfg, batch), generator=gen,
+                       device=device, dtype=torch.float32).to(cfg.cdtype)
+
+
+def open_gates(params, value: float = GATE_OPEN) -> int:
+    """Every vlm cross gate of the port's ``params`` set to ``value``
+    (init leaves them at 0, where the image is ignored); returns how
+    many."""
+    gates = [layer["gate"] for layer in params["layers"] if "gate" in layer]
+    with torch.no_grad():
+        for g in gates:
+            g.fill_(value)
+    return len(gates)
+
+
+@contextlib.contextmanager
+def live_frontend(launcher, draw_seed: int, gates=None):
+    """Inside the block ``launcher`` (``launch.train``) feeds every
+    batch seeded normal extra embeddings in place of its stub's zeros
+    and, with ``gates``, the model it builds starts with its cross
+    gates at ``gates``: the launcher's own path with the cross path
+    live."""
+    real_stub, real_get_model = launcher._stub_frontend, launcher.get_model
+    gen = torch.Generator(device=DEV).manual_seed(draw_seed)
+
+    def stub(cfg, batch):
+        out = real_stub(cfg, batch)
+        e = out.get("extra_embeds")
+        if e is not None:
+            out["extra_embeds"] = torch.randn(
+                e.shape, generator=gen, device=e.device,
+                dtype=torch.float32).to(e.dtype)
+        return out
+
+    def get_model(cfg):
+        model = real_get_model(cfg)
+
+        def init(seed=0, *, device="cuda"):
+            params = model.init(seed, device=device)
+            open_gates(params, gates)
+            return params
+        return model._replace(init=init)
+
+    launcher._stub_frontend = stub
+    if gates is not None:
+        launcher.get_model = get_model
+    try:
+        yield
+    finally:
+        launcher._stub_frontend = real_stub
+        launcher.get_model = real_get_model
+
+
+class PrefillRows:
+    """Wraps an engine's ``model.prefill`` and records, for every
+    request prompt it prefills, the row of its admission batch: the
+    engine reads row i of its extra block for the i-th request of a
+    batch, whatever its slot (F10)."""
+
+    def __init__(self, eng):
+        self.real = eng.model.prefill
+        self.rows: dict = {}
+        eng.model = eng.model._replace(prefill=self)
+
+    def __call__(self, params, tokens, max_len, lens=None, logits_at=None,
+                 extra=None):
+        for i, n in enumerate(lens.tolist()):
+            self.rows[tokens[i, :n].cpu().numpy().tobytes()] = i
+        return self.real(params, tokens, max_len, lens, logits_at, extra)
+
+    def row(self, prompt: np.ndarray) -> int:
+        return self.rows[prompt.astype(np.int64).tobytes()]
+
+
+def logit_gaps(logits: torch.Tensor, tokens: torch.Tensor, tol) -> tuple:
+    """Per position, the best logit minus the logit of ``tokens`` and
+    the allowed gap rtol * |best| + atol (``tol``): (gaps, allowed)."""
+    lg = logits.float()
+    best = lg.max(dim=-1).values
+    got = lg.gather(-1, tokens.long()[..., None])[..., 0]
+    return best - got, tol["rtol"] * best.abs() + tol["atol"]
+
+
+def phase_vlm_serving(ops, serving, tad, get_config, get_model, Tracer,
+                      phase_summary, tree_leaves, tol) -> dict:
+    """14: llama-3.2-vision-11b served at full width and depth (40 self
+    layers + 8 gated cross layers, bf16, random weights from seed 0,
+    every gate opened to ``GATE_OPEN``) through the engine on phase 4's
+    traffic with one image block [8, 1600, 4096] of seeded normal
+    draws; the decode kernel at its shape first (14e)."""
+    label = "14 llama-3.2-vision-11b"
+    cfg = get_config("llama-3.2-vision-11b")
+    prompts, lens, new = traffic(cfg.vocab_size)
+    n_cross = cfg.num_layers // cfg.cross_attn_every
+    weights = weight_bytes(cfg)
+    pool = kv_pool_bytes(cfg, SLOTS, MAX_LEN)
+    cross = (SLOTS * cfg.num_image_tokens * n_cross * 2 * cfg.num_kv_heads
+             * cfg.head_dim_ * 2)
+    print(f"{label}: {cfg.num_layers} self + {n_cross} cross layers, "
+          f"{tree_params(cfg)} params in the tree ({cfg.param_count()} by "
+          f"param_count(), F9): predicted weights {weights / GIB:.2f} GiB "
+          f"+ bf16 KV pool {pool / GIB:.2f} GiB + cross K/V "
+          f"{cross / GIB:.2f} GiB = {(weights + pool + cross) / GIB:.2f} "
+          f"GiB, peak 25-28 GiB with prefill; a decode step's weight read "
+          f"{weights / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s",
+          flush=True)
+    gen = torch.Generator(device=DEV).manual_seed(14)
+    print("14e: decode attention at llama-3.2-vision-11b's serving shape "
+          "(G = 4, Dh 128)", flush=True)
+    row = kernel_row(tad, ops, gen, "global", MAX_LEN, None, cfg.kv_dtype,
+                     SLOTS, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_,
+                     POS["global"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device=DEV)
+    gates = open_gates(params)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    if n_params != tree_params(cfg) or gates != n_cross:
+        raise AssertionError(f"{label}: {n_params} params, {gates} gates")
+    print(f"{label}: {n_params} params initialised on the card in "
+          f"{time.perf_counter() - t0:.1f} s, {gates} cross gates opened "
+          f"to {GATE_OPEN}", flush=True)
+    image = extra_draw(cfg, SLOTS, 14)
+    tracer = Tracer()
+    eng = serving.Engine(
+        model, params, serving.ServeConfig(slots=SLOTS, max_len=MAX_LEN,
+                                           page_size=16),
+        device=DEV, tracer=tracer, extra=image)
+    rows = PrefillRows(eng)
+    results, stats, elapsed, launches = serve(eng, ops, (prompts, new))
+    want = cfg.num_layers * stats["decode_steps"]
+    if launches != want or stats["kernel_launches"] != launches:
+        raise AssertionError(f"{label}: attention_decode launched "
+                             f"{launches} times, expected {want} = "
+                             f"{cfg.num_layers} self layers x "
+                             f"{stats['decode_steps']} decode steps")
+    spans = phase_summary(tracer.events())
+    step_ms = decode_step_ms(spans, stats["decode_steps"])
+    generated = stats["tokens_generated"]
+    peak = torch.cuda.max_memory_allocated() / GIB
+    used = [rows.row(p) for p in prompts]
+    print(f"{label}: {len(results)} requests (prompts {lens.min()}-"
+          f"{lens.max()}), {generated} tokens in {elapsed:.3f} s = "
+          f"{generated / elapsed:.2f} tok/s; {stats['decode_steps']} decode "
+          f"steps x {cfg.num_layers} = {launches} attention_decode launches "
+          f"(the {n_cross} cross layers launch none); decode step "
+          f"{step_ms:.3f} ms against a weight read of "
+          f"{weights / HBM_BYTES_PER_S * 1e3:.2f} ms; image rows of the "
+          f"admission batches {used}; peak {peak:.2f} GiB (predicted "
+          f"25-28); {smi_line()}", flush=True)
+    # one request per image row, each held alone on the row it was given
+    picked = [used.index(r) for r in sorted(set(used))][:VLM_PICKS]
+    extras = {i: image[used[i]:used[i] + 1] for i in picked}
+    alone = engine_vs_generate(label, serving, model, params, prompts, new,
+                               results, picked, MAX_LEN, tol, extras)
+    same = sum(alone[i] == results[i].tokens for i in picked)
+    # the cross path is live: the same request on another image block
+    other = extra_draw(cfg, 1, 15)
+    i = picked[0]
+    moved = serving.generate(model, params, prompts[i][None],
+                             num_tokens=int(new[i]), max_len=MAX_LEN,
+                             extra_embeds=other, device=DEV)[0].tolist()
+    differ = sum(a != b for a, b in zip(moved, alone[i]))
+    print(f"{label}: requests {picked} on image rows "
+          f"{[used[i] for i in picked]}: {same} equal to generate on the "
+          f"same row token for token, the rest up to bf16 ties; request "
+          f"{i} on another image: {differ} of {len(moved)} tokens differ",
+          flush=True)
+    if len(picked) < 2 or differ == 0:
+        raise AssertionError(f"{label}: {len(picked)} rows held, the image "
+                             f"changed {differ} tokens")
+    del params, results, eng
+    return {"launches": launches, "row": row, "tok_s": generated / elapsed,
+            "step_ms": step_ms, "peak_gib": peak, "layers": cfg.num_layers,
+            "rows": used, "differ": differ}
+
+
+def phase_whisper_generate(ops, serving, tad, get_config, get_model,
+                           tree_leaves) -> dict:
+    """14b: whisper-large-v3 ``generate`` at full width and depth (32 +
+    32 layers, bf16, random weights from seed 0): 4 prompts of 64
+    tokens and 32 new tokens on random frames [4, 1500, 1280]; the
+    decode kernel at its shape first (14e)."""
+    label = "14b whisper-large-v3"
+    cfg = get_config("whisper-large-v3")
+    b, s, new = WHISPER_GEN
+    t = s + new
+    gen = torch.Generator(device=DEV).manual_seed(16)
+    print("14e: decode attention at whisper-large-v3's generate shape "
+          "(G = 1, Dh 64, Hkv 20)", flush=True)
+    row = kernel_row(tad, ops, gen, "global", t, None, cfg.cdtype, b,
+                     cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_,
+                     [p * t // MAX_LEN for p in POS["global"]])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model(cfg)
+    params = model.init(0, device=DEV)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    if n_params != tree_params(cfg) or model.prefill is not None:
+        raise AssertionError(f"{label}: {n_params} params")
+    prompts = np.random.RandomState(14).randint(1, cfg.vocab_size,
+                                                size=(b, s))
+    frames = extra_draw(cfg, b, 16)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        toks = serving.generate(model, params, prompts, num_tokens=new,
+                                extra_embeds=frames, device=DEV)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = ops.launches["attention_decode"]
+        peak = torch.cuda.max_memory_allocated() / GIB
+        # teacher-forced: the full-sequence forward over prompt +
+        # generated tokens must pick each generated token (bf16 ties)
+        x = torch.cat([torch.as_tensor(prompts, device=DEV),
+                       toks.long()], dim=1)[:, :-1]
+        logits = model.apply(params, x, frames)[:, s - 1:]
+        other = serving.generate(model, params, prompts, num_tokens=new,
+                                 extra_embeds=extra_draw(cfg, b, 17),
+                                 device=DEV)
+    want = cfg.num_layers * t
+    if launches != want:
+        raise AssertionError(f"{label}: {launches} attention_decode "
+                             f"launches, expected {want} = "
+                             f"{cfg.num_layers} x {t} decode steps")
+    gaps, allowed = logit_gaps(logits, toks,
+                               tad.decode_parity_tolerance(torch.bfloat16))
+    equal = int((gaps == 0).sum())
+    worst = float((gaps / allowed).max())
+    differ = int((other != toks).sum())
+    print(f"{label}: generate {b} prompts x {s} tokens + {new} new on "
+          f"random frames {tuple(frames.shape)} in {elapsed:.3f} s "
+          f"({b * new / elapsed:.2f} new tok/s, {t} decode steps x "
+          f"{cfg.num_layers} = {launches} attention_decode launches); "
+          f"teacher-forced apply picks the generated token at {equal} of "
+          f"{toks.numel()} positions, the rest within {worst:.3f} of the "
+          f"allowed bf16 gap; other frames change {differ} of "
+          f"{toks.numel()} tokens; peak {peak:.2f} GiB; {smi_line()}",
+          flush=True)
+    if worst > 1.0 or differ == 0:
+        raise AssertionError(f"{label}: worst gap {worst:.3f} of allowed, "
+                             f"{differ} tokens moved by the frames")
+    del params
+    return {"launches": launches, "row": row, "seconds": elapsed,
+            "tok_s": b * new / elapsed, "peak_gib": peak,
+            "layers": cfg.num_layers}
+
+
+def cross_grads(out) -> dict:
+    """The last step's gradient norms of the cross layers' attention
+    weights and gates (``--layerwise-every 1``): finite and non-zero, so
+    the opened gates put the image on the path."""
+    last = out["history"][-1]
+    norms = {k[len("layerwise/"):-len("/g_norm")]: float(v)
+             for k, v in last.items()
+             if k.startswith("layerwise/") and "_cross/" in k
+             and k.endswith("/g_norm")}
+    attn = {k: v for k, v in norms.items()
+            if "/attn/" in k or k.endswith("/gate")}
+    if len(attn) != 5 or not all(np.isfinite(v) and v > 0
+                                 for v in attn.values()):
+        raise AssertionError(f"cross layers' gradient norms {attn}")
+    print(f"  cross layers' gradient norms at the last step: "
+          f"{ {k: round(v, 6) for k, v in attn.items()} }", flush=True)
+    return attn
+
+
+def phase_cross_families(train_module, ops, su, sref, lu, layerwise,
+                         flatten, serving, tad, get_config, get_model,
+                         Tracer, phase_summary, tree_leaves) -> dict:
+    """14-14e: llama-3.2-vision-11b served at full width and depth,
+    whisper-large-v3 generating and trained at full width and depth,
+    llama-3.2-vision-11b trained cut in depth to whole groups; the
+    decode kernel at both new shapes (14e)."""
+    run = train_module.run
+    out = {}
+
+    def clear():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    clear()
+    out["14"] = phase_vlm_serving(ops, serving, tad, get_config, get_model,
+                                  Tracer, phase_summary, tree_leaves,
+                                  tad.decode_parity_tolerance(torch.bfloat16))
+    clear()
+    out["14b"] = phase_whisper_generate(ops, serving, tad, get_config,
+                                        get_model, tree_leaves)
+    clear()
+
+    whisper = get_config("whisper-large-v3")
+    n = tree_params(whisper)
+    print(f"14c whisper-large-v3: full width and depth, {n} params "
+          f"({whisper.param_count()} by param_count(), F9): predicted "
+          f"fused peak {n * TRAIN_BYTES_PER_PARAM / GIB:.2f} GiB + "
+          f"activations (one encoder layer's [8, 20, 1500, 1500] f32 "
+          f"scores {8 * 20 * 1500 * 1500 * 4 / GIB:.2f} GiB under remat): "
+          f"32-38 GiB; batches carry random frames [8, 1500, 1280]",
+          flush=True)
+    with live_frontend(train_module, 17):
+        out["14c"] = phase_train_full(
+            run, ops, su, sref, tree_leaves,
+            ["--arch", "whisper-large-v3"] + FAMILY_ARGV,
+            "14c whisper-tvlars-f32", want_layers=whisper.num_layers)
+        clear()
+        out["14c-pt"] = phase_train_per_tensor(
+            run, ops, lu, sref, layerwise, flatten, tree_leaves,
+            ["--arch", "whisper-large-v3", "--optimizer", "wa-lars",
+             "--use-kernel", "per_tensor", "--precision", "f32",
+             "--global-batch", "8", "--seq", "512", "--steps", "3"],
+            "14c whisper-wa-lars-per-tensor",
+            want_layers=whisper.num_layers)
+    clear()
+    # the launcher's own stub (zero frames), one step: zero frames give
+    # the encoder zero-variance rows, whose LayerNorm backward scales by
+    # rsqrt(eps) in every layer, so the gradient overflows at full depth
+    # and step 1 would be NaN, as in the reference (F11)
+    ops.reset_launches()
+    stub = run(["--arch", "whisper-large-v3", "--optimizer", "tvlars",
+                "--use-kernel", "fused", "--global-batch", "8", "--seq",
+                "512", "--steps", "1", "--device", DEV],
+               log_fn=lambda line: print(f"  14c launch.train stub: {line}",
+                                         flush=True))
+    want = {k: 0 for k in ops.launches}
+    want.update({k: 1 for k in su.KERNELS["lars"]})
+    if dict(ops.launches) != want or not np.all(np.isfinite(
+            stub["losses"])):
+        raise AssertionError(f"14c stub: launches {dict(ops.launches)}, "
+                             f"losses {stub['losses']}")
+    print(f"14c launch.train --arch whisper-large-v3 on its zero-frame "
+          f"stub: 1 step, loss {stub['losses'][0]:.4f}, grad_norm "
+          f"{float(stub['history'][0]['grad_norm'])} (F11: zero-variance "
+          f"encoder rows), 1 + 1 segmented launches, peak "
+          f"{(stub['peak_memory_bytes'] or 0) / GIB:.2f} GiB", flush=True)
+    out["14c-stub"] = {k: 1 for k in su.KERNELS["lars"]}
+    del stub
+    clear()
+
+    vlm = get_config("llama-3.2-vision-11b")
+    every = vlm.cross_attn_every
+
+    def gib(layers):
+        return tree_params(vlm.replace(num_layers=layers)) \
+            * TRAIN_BYTES_PER_PARAM / GIB + TRAIN_MARGIN_GIB
+
+    cuts = {k: gib(k) for k in range(every, vlm.num_layers + 1, every)}
+    layers = max(k for k, g in cuts.items() if g <= TRAIN_CEILING_GIB)
+    print(f"14d llama-3.2-vision-11b: reduced: num_layers {vlm.num_layers} "
+          f"-> {layers} ({layers // every} group(s) of {every} self + 1 "
+          f"cross layer, "
+          f"{tree_params(vlm.replace(num_layers=layers))} params), the "
+          f"deepest whole-group cut predicted under {TRAIN_CEILING_GIB} GiB "
+          f"({', '.join(f'{k} layers {g:.2f} GiB' for k, g in cuts.items() if k <= 2 * every)}: "
+          f"{TRAIN_BYTES_PER_PARAM} B a parameter + {TRAIN_MARGIN_GIB} GiB); "
+          f"gates opened to {GATE_OPEN}, random image embeddings",
+          flush=True)
+    with depth_cut(train_module, "llama-3.2-vision-11b", layers), \
+            live_frontend(train_module, 18, GATE_OPEN):
+        out["14d"] = phase_train_full(
+            run, ops, su, sref, tree_leaves,
+            ["--arch", "llama-3.2-vision-11b"] + FAMILY_ARGV,
+            "14d llama-vision-tvlars-f32", want_layers=layers,
+            inspect=cross_grads)
+    out["14d"]["predicted_gib"] = cuts[layers]
+    clear()
+    return out
+
+
+def phase_cross_families_small(get_smoke_config, get_model, serving,
+                               build_optimizer, training, lm_iterator,
+                               tree_leaves, tree_map, ops, su) -> None:
+    """14f: the whisper and llama-vision smoke configs in f32 (gates
+    opened, random extra embeddings), the card (kernels) against the
+    CPU (plain versions) on the same weights: logits within 1e-4,
+    ``generate``'s greedy tokens equal, one fused TVLARS step at phase
+    8's bounds with 1 + 1 segmented launches, and (vlm) the engine's
+    tokens with distinct image rows per slot equal."""
+    for arch in CROSS_SMOKE:
+        model = get_model(get_smoke_config(arch))
+        cfg = model.cfg
+        cpu = model.init(0, device="cpu")
+        if cfg.family == "vlm":
+            open_gates(cpu)
+        gpu = tree_map(lambda t: t.to(DEV), cpu)
+        rng = np.random.RandomState(6)
+        toks = rng.randint(1, 512, size=(2, 16))
+        extra = extra_draw(cfg, 2, 19, device="cpu")
+        with torch.no_grad():
+            lc = model.apply(cpu, torch.as_tensor(toks), extra)
+            lg = model.apply(gpu, torch.as_tensor(toks, device=DEV),
+                             extra.to(DEV)).cpu()
+        err = (lg - lc).abs().max().item()
+        torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
+        gen = [serving.generate(model, p, toks[:, :6], num_tokens=8,
+                                extra_embeds=extra, device=d).cpu()
+               for p, d in ((cpu, "cpu"), (gpu, DEV))]
+        if not torch.equal(*gen):
+            raise AssertionError(f"14f {arch}: generate card {gen[1]} "
+                                 f"!= cpu {gen[0]}")
+        out = []
+        for dev, params in (("cpu", cpu), (DEV, gpu)):
+            opt = build_optimizer("tvlars", total_steps=10,
+                                  learning_rate=2.0, batch_size=8,
+                                  use_kernel="fused",
+                                  segments=model.segments, device=dev)
+            state = training.TrainState.create(
+                tree_map(lambda t: t.detach().clone(), params), opt)
+            step = training.make_train_step(training.lm_task(model), opt)
+            bt = next(lm_iterator(8, 64, cfg.vocab_size, seed=1,
+                                  device=dev))
+            bt["extra_embeds"] = extra_draw(cfg, 8, 20, device="cpu").to(dev)
+            ops.reset_launches()
+            state, m = step(state, bt)
+            out.append((float(m["loss"]), state.params,
+                        dict(ops.launches)))
+        (lossc, pc, kc), (lossg, pg, kg) = out
+        want = {k: 0 for k in kg}
+        want.update({k: 1 for k in su.KERNELS["lars"]})
+        if kg != want or any(kc.values()):
+            raise AssertionError(f"14f {arch}: launches cpu {kc} card {kg}")
+        np.testing.assert_allclose(lossg, lossc, rtol=1e-5)
+        worst = 0.0
+        for a, b in zip(tree_leaves(pg), tree_leaves(pc)):
+            a, b = a.detach().cpu().numpy(), b.detach().numpy()
+            scale = float(np.abs(b).max())
+            worst = max(worst, float(np.abs(a - b).max()) / scale)
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * scale)
+        engine_note = ""
+        if cfg.family == "vlm":
+            slots = 3
+            block = extra_draw(cfg, slots, 21, device="cpu")
+            prompts = [rng.randint(1, 512, size=n).astype(np.int32)
+                       for n in (5, 9, 7)]
+            got = []
+            for dev, params in (("cpu", cpu), (DEV, gpu)):
+                eng = serving.Engine(
+                    model, params, serving.ServeConfig(
+                        slots=slots, max_len=32, page_size=8,
+                        prefill_batch=slots),
+                    device=dev, extra=block.to(dev))
+                ids = [eng.submit(p, max_new_tokens=6) for p in prompts]
+                eng.drain()
+                got.append([eng.result(i).tokens for i in ids])
+            if got[0] != got[1]:
+                raise AssertionError(f"14f {arch}: engine card {got[1]} "
+                                     f"!= cpu {got[0]}")
+            engine_note = (f", the engine's tokens on {slots} distinct "
+                           f"image rows equal")
+        print(f"14f {arch}: smoke f32, card == cpu: logits within "
+              f"{err:.3e}, generate's 8 tokens x 2 rows equal, one fused "
+              f"TVLARS step (1 + 1 launches) loss {lossg:.6f}, worst param "
+              f"gap {worst:.3e} of its leaf's scale{engine_note}; "
+              f"{smi_line()}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3732,6 +4247,15 @@ def main() -> int:
                          build_optimizer, training, lm_iterator,
                          tree_leaves, tree_map, ops, su, moe)
 
+    # 14-14f: the encoder-decoder and vision families
+    cross = phase_cross_families(train_launch, ops, su, sref, lu, layerwise,
+                                 flatten, serving, tad, get_config,
+                                 get_model, Tracer, phase_summary,
+                                 tree_leaves)
+    phase_cross_families_small(get_smoke_config, get_model, serving,
+                               build_optimizer, training, lm_iterator,
+                               tree_leaves, tree_map, ops, su)
+
     # the serving path's mix: 40 local and 8 global launches per decode
     # step (bf16 pool); per-launch means weighted by that mix
     rows = kernel["rows"]
@@ -3743,8 +4267,10 @@ def main() -> int:
             / n
 
     # max |err| over every shape held: gemma3-12b's four, the three
-    # dense configs' serving shapes and the three of 13 / 13b / 13e
-    served = (codeqwen, qwen72, main12, fam["13"], fam["13b"], fam["13e"])
+    # dense configs' serving shapes, the three of 13 / 13b / 13e and the
+    # two of 14e
+    served = (codeqwen, qwen72, main12, fam["13"], fam["13b"], fam["13e"],
+              cross["14"], cross["14b"])
     kernel["max_abs_err"] = max(
         [kernel["max_abs_err"]] + [r["row"]["max_abs_err"] for r in served])
     entries = [{"name": "attention_decode", "route": "cuda",
@@ -3764,7 +4290,9 @@ def main() -> int:
                 + [dict(r["row"], layers_per_step=r["layers"])
                    for r in (codeqwen, qwen72, main12, fam["13"],
                              fam["13b"])]
-                + [dict(fam["13e"]["row"], layers_per_step=6)],
+                + [dict(fam["13e"]["row"], layers_per_step=6)]
+                + [dict(cross[k]["row"], layers_per_step=cross[k]["layers"])
+                   for k in ("14", "14b")],
                 "launches_by_phase": {
                     "4": main_path["launches"], "12": codeqwen["launches"],
                     "12b": qwen72["launches"],
@@ -3772,7 +4300,9 @@ def main() -> int:
                     "13": fam["13"]["launches"],
                     "13b": fam["13b"]["launches"],
                     "13d": fam["13d"]["inspect"]["launches"],
-                    "13e": fam["13e"]["inspect"]["launches"]}}]
+                    "13e": fam["13e"]["inspect"]["launches"],
+                    "14": cross["14"]["launches"],
+                    "14b": cross["14b"]["launches"]}}]
     # the segmented kernels: times at the main path's shapes (the
     # training runs' own buffers); no single PyTorch call computes
     # either pass, so library_ms is null
@@ -3793,7 +4323,10 @@ def main() -> int:
                 "12d": pipe["launches"].get(name, 0),
                 "12f": prof["launches"].get(name, 0),
                 **{k: fam[k][name]["launches"] if name in fam[k] else 0
-                   for k in ("13c", "13d", "13e")}}})
+                   for k in ("13c", "13d", "13e")},
+                **{k: cross[k][name]["launches"] if name in cross[k] else 0
+                   for k in ("14c", "14d")},
+                "14c-stub": cross["14c-stub"].get(name, 0)}})
     # the per-tensor kernels: per-launch means over the 14 segments of a
     # step at the main path's shapes; no single PyTorch call computes a
     # multi-tensor norm pair or the trust-scaled momentum apply, so
@@ -3811,7 +4344,8 @@ def main() -> int:
             "launches_by_phase": {
                 "7c": t["launches"],
                 "11c": paper["launches"].get(name, 0),
-                "13d": fam["13d-pt"][name]["launches"]}})
+                "13d": fam["13d-pt"][name]["launches"],
+                "14c": cross["14c-pt"][name]["launches"]}})
     # RMSNorm: its path is the public ops.rmsnorm (no model calls it, as
     # in the JAX package); means over the four shapes it was driven at
     m = rmsn["mean"]

@@ -1,8 +1,7 @@
 """Architecture registry of the port.
 
 ``get_config(arch_id)`` / ``get_smoke_config(arch_id)`` resolve the
-ported architectures. The reference lists ten ids; the ones whose
-family is not ported yet raise ``NotImplementedError``.
+reference's ten architecture ids; an unknown id raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -19,20 +18,16 @@ ARCH_MODULES = {
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
     "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
+    "whisper-large-v3": "repro_torch.configs.whisper_large_v3",
+    "llama-3.2-vision-11b": "repro_torch.configs.llama_3_2_vision_11b",
 }
-
-NOT_PORTED = ("llama-3.2-vision-11b", "whisper-large-v3")
 
 ARCH_IDS = tuple(ARCH_MODULES)
 
 
 def _module(arch_id: str):
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch_id!r}: not ported yet, see ROADMAP")
     if arch_id not in ARCH_MODULES:
-        raise ValueError(f"unknown arch {arch_id!r}; one of "
-                         f"{ARCH_IDS + NOT_PORTED}")
+        raise ValueError(f"unknown arch {arch_id!r}; one of {ARCH_IDS}")
     return importlib.import_module(ARCH_MODULES[arch_id])
 
 

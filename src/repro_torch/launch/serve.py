@@ -14,9 +14,11 @@ phase spans (admit/prefill/decode/sample/finish) as trace-v1 JSONL.
 ``--restore DIR`` serves the params of a checkpoint in the JAX
 package's LM layout (written by either package's ``checkpoint.save``;
 ``Engine.from_checkpoint``) instead of random ones. Runs on CUDA unless ``--device cpu`` is given.
-Dense and MoE archs serve; ssm and hybrid archs (mamba2-1.3b,
-zamba2-1.2b) have no batched prefill and the engine refuses them with
-the reference's ``ValueError``.
+Dense, MoE and vlm archs serve (llama-3.2-vision-11b on the stubbed
+frontend: zeros of ``extra_embed_shape`` in the compute dtype, as the
+reference launcher feeds it); ssm, hybrid and encdec archs
+(mamba2-1.3b, zamba2-1.2b, whisper-large-v3) have no batched prefill
+and the engine refuses them with the reference's ``ValueError``.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from repro_torch import device as _device
 from repro_torch import serving
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.diagnostics.sink import JsonlSink
-from repro_torch.models import get_model
+from repro_torch.models import extra_embed_shape, get_model
 from repro_torch.obs import trace as obs_trace
 
 
@@ -67,12 +69,19 @@ def main(argv=None) -> None:
         cache_dtype=args.cache_dtype)
     tracer = obs_trace.Tracer() if args.trace_out else obs_trace.NULL
 
+    extra = None
+    es = extra_embed_shape(cfg, sc.slots)
+    if es is not None:                    # stubbed modality frontend
+        extra = torch.zeros(es, dtype=cfg.cdtype, device=dev)
+
     if args.restore:
         eng = serving.Engine.from_checkpoint(args.restore, model, sc,
-                                             device=dev, tracer=tracer)
+                                             device=dev, tracer=tracer,
+                                             extra=extra)
     else:
         params = model.init(0, device=dev)
-        eng = serving.Engine(model, params, sc, device=dev, tracer=tracer)
+        eng = serving.Engine(model, params, sc, device=dev, tracer=tracer,
+                             extra=extra)
 
     rng = np.random.RandomState(0)
     prompts = [rng.randint(1, cfg.vocab_size, size=args.prompt_len)

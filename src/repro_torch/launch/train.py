@@ -41,7 +41,11 @@ and writes the JSONL file from a writer thread
 ``torch.profiler`` Chrome trace of the steps ``[--profile-start,
 --profile-start + --profile-steps)`` into DIR. ``--batch`` is the
 reference launcher's alias of ``--global-batch``. Runs on CUDA unless
-``--device cpu``.
+``--device cpu``. The vlm and encdec archs (llama-3.2-vision-11b,
+whisper-large-v3) train on the stubbed modality frontend, as the
+reference launcher does: every batch, the held probe batches included,
+carries ``extra_embeds``, zeros of ``extra_embed_shape`` in the compute
+dtype.
 
 :func:`run` is the entry point for programs (``chip_smoke.py``): it
 takes the argument list and returns the run's numbers and final state.
@@ -64,7 +68,7 @@ from repro_torch.data.synthetic import (lm_batch, lm_iterator,
                                         lm_sample_source)
 from repro_torch.diagnostics import probes
 from repro_torch.diagnostics import sink as sinks
-from repro_torch.models import get_model
+from repro_torch.models import extra_embed_shape, get_model
 from repro_torch.obs import profiler as obs_profiler
 from repro_torch.obs import trace as obs_trace
 from repro_torch.training import (AdaptiveBatchController,
@@ -174,6 +178,20 @@ class _Console(sinks.MetricsSink):
                 if k in metrics))
 
 
+def _stub_frontend(cfg, batch: dict) -> dict:
+    """``batch`` with the stubbed modality frontend's output beside its
+    tokens: zeros of ``extra_embed_shape`` in the compute dtype, one row
+    per sequence (stacked ``[K, B/K, ...]`` like the tokens); the batch
+    itself for a text-only family."""
+    es = extra_embed_shape(cfg, 1)
+    if es is None:
+        return batch
+    tokens = batch["tokens"]
+    return dict(batch, extra_embeds=torch.zeros(
+        tuple(tokens.shape[:-1]) + es[1:], dtype=cfg.cdtype,
+        device=tokens.device))
+
+
 def _span_seconds(records: list, name: str, steps: int) -> list:
     out = [0.0] * steps
     for rec in records:
@@ -260,8 +278,10 @@ def run(argv: Optional[Sequence[str]] = None, *,
             controller = AdaptiveBatchController(
                 step_for, optimizer_for,
                 probes.GradNoiseProbe(
-                    lm_task(model), pipeline.stack_microbatches(
-                        {"tokens": ptoks, "labels": plabels}, k_probe),
+                    lm_task(model), _stub_frontend(
+                        cfg, pipeline.stack_microbatches(
+                            {"tokens": ptoks, "labels": plabels},
+                            k_probe)),
                     accum_steps=k_probe, every=args.controller_every),
                 ControllerConfig(microbatch=microbatch,
                                  batch_min=batch_min, batch_max=batch_max,
@@ -273,14 +293,17 @@ def run(argv: Optional[Sequence[str]] = None, *,
         opt = controller.optimizer()
         step_fn = None
         # sample-level stream: a K switch skips and re-reads nothing
+        source = lm_sample_source(args.seq, cfg.vocab_size, seed=0,
+                                  device=dev)
         batches = pipeline.MicrobatchedStream(
-            lm_sample_source(args.seq, cfg.vocab_size, seed=0, device=dev),
+            lambda start, count: _stub_frontend(cfg, source(start, count)),
             microbatch, accum_steps=accum_steps)
     else:
         opt = optimizer_for(args.global_batch)
         step_fn = step_for(opt, accum_steps)
-        batches = lm_iterator(args.global_batch, args.seq, cfg.vocab_size,
-                              seed=0, accum_steps=accum_steps, device=dev)
+        batches = (_stub_frontend(cfg, b) for b in lm_iterator(
+            args.global_batch, args.seq, cfg.vocab_size, seed=0,
+            accum_steps=accum_steps, device=dev))
     if args.prefetch > 0:
         batches = pipeline.PrefetchingStream(batches, size=args.prefetch,
                                              tracer=tracer)
@@ -294,8 +317,8 @@ def run(argv: Optional[Sequence[str]] = None, *,
                                   args.global_batch, args.seq,
                                   cfg.vocab_size, device=dev)
         callbacks.append(probes.LanczosProbe(
-            lm_task(model), pipeline.stack_microbatches(
-                {"tokens": ptoks, "labels": plabels}, accum_steps),
+            lm_task(model), _stub_frontend(cfg, pipeline.stack_microbatches(
+                {"tokens": ptoks, "labels": plabels}, accum_steps)),
             every=args.probe_every, num_iters=args.probe_iters,
             top_k=args.probe_topk, accum_steps=accum_steps,
             reorth=not args.probe_no_reorth))

@@ -4,16 +4,19 @@
 ``models.cnn`` (MLP and CNN): the same tree, conv weights from the
 reference's HWIO to the port's OIHW, nothing else.
 
-The JAX package stacks layers on leading axes. Dense and MoE LMs:
+The JAX package stacks layers on leading axes. Dense, MoE and vlm LMs:
 ``{"embed", "groups": {"l{i}_{kind}": [G, ...]}, "final_norm"}`` (MoE
-experts inside a layer are stacked too: ``moe/wi`` is [G, E, d, F]);
-ssm: ``{"blocks": [L, ...], "embed", "final_norm"}``; hybrid:
-``{"embed", "final_norm", "groups": [G, attn_every, ...],
-"shared_attn", "trailing": [L % attn_every, ...]}``.
-:func:`params_from_jax` takes such a tree as numpy arrays and unstacks
-it into the port's lists (layer ``g * n + i`` is
+experts inside a layer are stacked too: ``moe/wi`` is [G, E, d, F]; a
+vlm group's last layer is ``l{n}_cross``, whose ``gate`` stacks to a
+[G] f32 leaf); ssm: ``{"blocks": [L, ...], "embed", "final_norm"}``;
+hybrid: ``{"embed", "final_norm", "groups": [G, attn_every, ...],
+"shared_attn", "trailing": [L % attn_every, ...]}``; encdec:
+``{"decoder": [L, ...], "embed", "enc_norm", "encoder": [L_enc, ...],
+"final_norm"}``. :func:`params_from_jax` takes such a tree as numpy
+arrays and unstacks it into the port's lists (layer ``g * n + i`` is
 ``groups["l{i}_{kind}"][g]``; hybrid block ``g * attn_every + i`` is
-``groups[g, i]``, then the trailing blocks), so both packages compute
+``groups[g, i]``, then the trailing blocks; encdec's ``encoder`` and
+``decoder`` lists are their stacks' members), so both packages compute
 the same function. Leaf layouts are shared, so every leaf is a copy.
 :func:`params_to_jax` is its inverse, which is how an LM's params cross
 packages in a checkpoint; :func:`jax_template` is that tree's shapes
@@ -76,6 +79,10 @@ def _top(params: dict, key: str, dev) -> dict:
     return _map(params[key], lambda x: x.detach().to(dev))
 
 
+# encdec: stacked list -> the config field holding its length
+_ENCDEC_STACKS = {"decoder": "num_layers", "encoder": "encoder_layers"}
+
+
 def params_from_jax(cfg: ModelConfig, tree: dict, *,
                     device="cuda") -> dict:
     """Reference params (numpy leaves) -> the port's params on
@@ -88,6 +95,12 @@ def params_from_jax(cfg: ModelConfig, tree: dict, *,
     if cfg.family == "ssm":
         out["blocks"] = [_unstack(tree["blocks"], j, dev)
                          for j in range(cfg.num_layers)]
+        return out
+    if cfg.family == "encdec":
+        for key, n in _ENCDEC_STACKS.items():
+            out[key] = [_unstack(tree[key], j, dev)
+                        for j in range(getattr(cfg, n))]
+        out["enc_norm"] = _map(tree["enc_norm"], lambda x: _tensor(x, dev))
         return out
     if cfg.family == "hybrid":
         groups, rem = hybrid_layout(cfg)
@@ -117,10 +130,20 @@ def params_to_jax(cfg: ModelConfig, params: dict, *,
     reference does). The inverse of :func:`params_from_jax`: dense and
     moe restack ``layers[g * n + i]`` into ``groups["l{i}_{kind}"][g]``;
     ssm stacks ``blocks`` [L, ...]; hybrid stacks its groups' blocks
-    [G, attn_every, ...] and its trailing ones [L % attn_every, ...]."""
+    [G, attn_every, ...] and its trailing ones [L % attn_every, ...];
+    encdec stacks ``encoder`` and ``decoder``."""
     dev = device if str(device) == "meta" else _device.resolve(device)
     out = {"embed": _top(params, "embed", dev),
            "final_norm": _top(params, "final_norm", dev)}
+    if cfg.family == "encdec":
+        for key, n in _ENCDEC_STACKS.items():
+            count = getattr(cfg, n)
+            if len(params[key]) != count:
+                raise ValueError(f"{len(params[key])} {key} layers, "
+                                 f"config says {count}")
+            out[key] = _stack(params[key], dev, (count,))
+        out["enc_norm"] = _top(params, "enc_norm", dev)
+        return out
     if cfg.family in ("ssm", "hybrid"):
         blocks = params["blocks"]
         if len(blocks) != cfg.num_layers:
@@ -179,7 +202,10 @@ def segment_paths(cfg: ModelConfig, params: dict) -> list[Segment]:
       ``final_norm``;
     * hybrid: ``embed``, ``final_norm``, ``groups/<path>`` stacking
       blocks 0..G·n-1 (the reference's [G, n, ...] raveled g-major),
-      ``shared_attn`` unstacked, ``trailing/<path>`` stacking the rest.
+      ``shared_attn`` unstacked, ``trailing/<path>`` stacking the rest;
+    * encdec: ``decoder/<path>`` stacking the decoder layers, ``embed``,
+      ``enc_norm``, ``encoder/<path>`` stacking the encoder layers,
+      ``final_norm``.
 
     Inside a block, keys sort as the reference's: ``mamba/D`` before
     ``mamba/a_log``."""
@@ -190,6 +216,16 @@ def segment_paths(cfg: ModelConfig, params: dict) -> list[Segment]:
                         tuple((top, j) + path for j in index), True)
                 for path, _ in tree_flatten_with_path(params[top][index[0]])]
 
+    if cfg.family == "encdec":
+        for key, n in _ENCDEC_STACKS.items():
+            if len(params[key]) != getattr(cfg, n):
+                raise ValueError(f"{len(params[key])} {key} layers, "
+                                 f"config says {getattr(cfg, n)}")
+        return stacked(("decoder",), "decoder", range(cfg.num_layers)) \
+            + _leaf_segments(params, "embed") \
+            + _leaf_segments(params, "enc_norm") \
+            + stacked(("encoder",), "encoder", range(cfg.encoder_layers)) \
+            + _leaf_segments(params, "final_norm")
     if cfg.family in ("ssm", "hybrid"):
         if len(params["blocks"]) != cfg.num_layers:
             raise ValueError(f"{len(params['blocks'])} blocks, config "

@@ -1,0 +1,155 @@
+"""Whisper-style encoder–decoder (whisper-large-v3, arXiv:2212.04356).
+
+The port of ``repro.models.encdec``. The mel-spectrogram + conv
+frontend is a stub: ``extra_embeds`` carries precomputed frame
+embeddings [B, encoder_seq, d_model]. The transformer backbone is real:
+
+  encoder: L_enc × (bidirectional self-attention + MLP), LayerNorm, GELU
+  decoder: L_dec × (causal self-attention + cross-attention to the
+           encoder's output + MLP)
+
+Both stacks use RoPE (the reference's adaptation; the encoder over
+positions 0..S_enc-1). Params: ``{"embed", "encoder": [layer dicts],
+"enc_norm", "decoder": [layer dicts], "final_norm"}``, an encoder
+layer being ``transformer.init_layer``'s and a decoder layer ``{"norm1",
+"self_attn", "norm_x", "cross_attn", "norm2", "mlp"}``.
+
+The decode cache is a list with one dict per decoder layer: ``{"k",
+"v"}`` [B, T, Hkv, Dh] at the compute dtype, which decode appends into
+in place (the decode kernel on CUDA), and ``{"ck", "cv"}`` [B, S_enc,
+Hkv, Dh], the encoder output's K/V, computed once by
+:func:`init_encdec_cache` and only read.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+
+def _init_dec_layer(cfg: ModelConfig, gen, device) -> dict:
+    return {"norm1": L.init_norm(cfg, cfg.d_model, device),
+            "self_attn": L.init_attention(cfg, gen, device),
+            "norm_x": L.init_norm(cfg, cfg.d_model, device),
+            "cross_attn": L.init_attention(cfg, gen, device),
+            "norm2": L.init_norm(cfg, cfg.d_model, device),
+            "mlp": L.init_mlp(cfg, gen, device)}
+
+
+def init_encdec(cfg: ModelConfig, gen: torch.Generator,
+                device: torch.device) -> dict:
+    """Random weights drawn from ``gen`` on ``device``, initialised as
+    the LM's (normal(0.02), LayerNorm scale 1 and bias 0)."""
+    return {"embed": L.init_embedding(cfg, gen, device),
+            "encoder": [T.init_layer(cfg, gen, device)
+                        for _ in range(cfg.encoder_layers)],
+            "enc_norm": L.init_norm(cfg, cfg.d_model, device),
+            "decoder": [_init_dec_layer(cfg, gen, device)
+                        for _ in range(cfg.num_layers)],
+            "final_norm": L.init_norm(cfg, cfg.d_model, device)}
+
+
+def _frames(extra: Optional[torch.Tensor]) -> torch.Tensor:
+    if extra is None:
+        raise ValueError("encdec needs frame embeddings: pass extra "
+                         "[B, encoder_seq, d_model]")
+    return extra
+
+
+def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor
+           ) -> torch.Tensor:
+    """frames [B, S_enc, D] (the stub frontend's output) -> the encoder
+    states after ``enc_norm``, in the compute dtype: bidirectional
+    self-attention with RoPE over positions 0..S_enc-1."""
+    b, s, _ = frames.shape
+    h = frames.to(cfg.cdtype)
+    positions = torch.arange(s, device=h.device)[None].expand(b, s)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for p in params["encoder"]:
+        if remat:
+            h, _ = checkpoint(T.layer_apply, p, cfg, h, positions, None,
+                              use_reentrant=False)
+        else:
+            h, _ = T.layer_apply(p, cfg, h, positions, None)
+    return L.norm(cfg, params["enc_norm"], h)
+
+
+def _dec_layer_apply(p: dict, cfg: ModelConfig, h: torch.Tensor,
+                     positions: torch.Tensor, enc: torch.Tensor
+                     ) -> torch.Tensor:
+    h = h + L.attention(p["self_attn"], cfg, L.norm(cfg, p["norm1"], h),
+                        positions, ("causal", None))
+    h = h + L.attention(p["cross_attn"], cfg, L.norm(cfg, p["norm_x"], h),
+                        positions, None, kv_src=enc, use_rope=False)
+    return h + L.mlp(p["mlp"], cfg, L.norm(cfg, p["norm2"], h))
+
+
+def apply_encdec_hidden(cfg: ModelConfig, params: dict,
+                        tokens: torch.Tensor,
+                        extra: Optional[torch.Tensor] = None):
+    """tokens [B, S_dec], extra [B, S_enc, D] -> (h after the final
+    norm [B, S_dec, D], zero aux). With ``cfg.remat`` and gradients
+    enabled every encoder and decoder layer is checkpointed."""
+    enc = encode(cfg, params, _frames(extra))
+    h = L.embed(params["embed"], cfg, tokens)
+    positions = T._positions(tokens)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for p in params["decoder"]:
+        if remat:
+            h = checkpoint(_dec_layer_apply, p, cfg, h, positions, enc,
+                           use_reentrant=False)
+        else:
+            h = _dec_layer_apply(p, cfg, h, positions, enc)
+    return L.norm(cfg, params["final_norm"], h), T.zero_aux(h.device)
+
+
+def apply_encdec(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                 extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence forward: logits [B, S_dec, V]."""
+    h, _ = apply_encdec_hidden(cfg, params, tokens, extra)
+    return L.unembed(params["embed"], cfg, h)
+
+
+def init_encdec_cache(cfg: ModelConfig, params: dict, batch: int,
+                      max_len: int, extra: Optional[torch.Tensor] = None
+                      ) -> list:
+    """Runs the encoder once over ``extra`` [batch, S_enc, D] and
+    precomputes every decoder layer's cross K/V; zeroed self-attention
+    caches at the compute dtype, as the reference's."""
+    enc = encode(cfg, params, _frames(extra))
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim_
+    cache = []
+    for p in params["decoder"]:
+        ck, cv = T.cross_kv_from_embeds({"attn": p["cross_attn"]}, cfg,
+                                        enc)
+        cache.append({
+            "k": torch.zeros((batch, max_len, hkv, hd), dtype=cfg.cdtype,
+                             device=enc.device),
+            "v": torch.zeros((batch, max_len, hkv, hd), dtype=cfg.cdtype,
+                             device=enc.device),
+            "ck": ck, "cv": cv})
+    return cache
+
+
+def decode_encdec(cfg: ModelConfig, params: dict, cache: list,
+                  tokens: torch.Tensor, pos) -> tuple[torch.Tensor, list]:
+    """One-token decoder step: self-attention through
+    ``layers.attention_decode`` (the Hopper kernel on CUDA, appending
+    to the cache in place), cross-attention in plain PyTorch. Returns
+    (logits [B,1,V], cache)."""
+    h = L.embed(params["embed"], cfg, tokens)
+    for p, c in zip(params["decoder"], cache):
+        h = h + L.attention_decode(p["self_attn"], cfg,
+                                   L.norm(cfg, p["norm1"], h), c["k"],
+                                   c["v"], pos)
+        h = h + L.cross_attention_decode(p["cross_attn"],
+                                         L.norm(cfg, p["norm_x"], h),
+                                         c["ck"], c["cv"], cfg)
+        h = h + L.mlp(p["mlp"], cfg, L.norm(cfg, p["norm2"], h))
+    h = L.norm(cfg, params["final_norm"], h)
+    return L.unembed(params["embed"], cfg, h), cache

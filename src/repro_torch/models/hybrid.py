@@ -194,6 +194,6 @@ def decode_hybrid_lm(cfg: ModelConfig, params: dict, cache: dict,
         site = _shared_after(cfg, i)
         if site >= 0:
             kv = cache["kv"][site]
-            h = T.layer_decode(shared, cfg, h, kv["k"], kv["v"], pos)
+            h = T.layer_decode(shared, cfg, h, kv, pos)
     h = L.norm(cfg, params["final_norm"], h)
     return L.unembed(params["embed"], cfg, h), cache

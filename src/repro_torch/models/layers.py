@@ -90,17 +90,34 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6
     return y * (1.0 + params["scale"]).to(x.dtype)
 
 
+def init_layernorm(d: int, dtype, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
 def layernorm(params: dict, x: torch.Tensor, eps: float = 1e-6
               ) -> torch.Tensor:
-    raise NotImplementedError("layernorm: not ported yet, see ROADMAP")
+    """(x - mean) / std * scale + bias with the reference's rounding:
+    the mean and E[x²] accumulated in f32, the one-pass variance
+    max(E[x²] - mean², 0), the mean and rsqrt(var + eps) cast to x's
+    dtype BEFORE (x - mean) * inv, then the affine in x's dtype.
+    ``F.layer_norm`` (a two-pass variance, one rounding at the end)
+    differs from it in bf16."""
+    d = x.shape[-1]
+    x32 = x.float()
+    mu = x32.sum(dim=-1, keepdim=True) / d
+    ss = x32.square().sum(dim=-1, keepdim=True) / d
+    var = torch.clamp_min(ss - mu.square(), 0.0)
+    inv = torch.rsqrt(var + eps)
+    y = (x - mu.to(x.dtype)) * inv.to(x.dtype)
+    return y * params["scale"].to(x.dtype) + params["bias"].to(x.dtype)
 
 
 def init_norm(cfg: ModelConfig, d: int, device) -> dict:
-    """The config's norm: RMSNorm's ``{"scale"}``; LayerNorm (whisper)
-    is not ported yet."""
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r}: not ported yet, "
-                                  f"see ROADMAP")
+    """The config's norm: LayerNorm's ``{"scale", "bias"}`` (whisper)
+    or RMSNorm's ``{"scale"}``."""
+    if cfg.norm == "layernorm":
+        return init_layernorm(d, cfg.pdtype, device)
     return init_rmsnorm(d, cfg.pdtype, device)
 
 
@@ -134,11 +151,15 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 # attention
 # --------------------------------------------------------------------------
 
-def _qkv(params: dict, x: torch.Tensor, cfg: ModelConfig):
+def _qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
+         kv_src: Optional[torch.Tensor] = None):
+    """Q from x, K and V from ``kv_src`` (x itself for self-attention),
+    the weights cast to x's dtype."""
     dt = x.dtype
+    kv_in = x if kv_src is None else kv_src
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
-    k = torch.einsum("btd,dhk->bthk", x, params["wk"].to(dt))
-    v = torch.einsum("btd,dhk->bthk", x, params["wv"].to(dt))
+    k = torch.einsum("btd,dhk->bthk", kv_in, params["wk"].to(dt))
+    v = torch.einsum("btd,dhk->bthk", kv_in, params["wv"].to(dt))
     if cfg.qkv_bias:
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
@@ -210,14 +231,18 @@ def gqa_scores_apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention(params: dict, cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor, mask, return_kv: bool = False):
-    """Self-attention over a full sequence. ``return_kv=True`` also
-    returns the rope'd K and V [B,T,Hkv,Dh]: exactly what decode writes
-    into its cache, so a prefill forward can dump a decode-ready
-    cache."""
-    q, k, v = _qkv(params, x, cfg)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+              positions: torch.Tensor, mask, return_kv: bool = False, *,
+              kv_src: Optional[torch.Tensor] = None,
+              use_rope: bool = True):
+    """Self-attention over a full sequence, or cross-attention to
+    ``kv_src`` [B,T,D] (no RoPE; pass ``mask=None``). ``return_kv=True``
+    also returns K and V [B,T,Hkv,Dh] (rope'd for self-attention):
+    exactly what decode writes into its cache, so a prefill forward can
+    dump a decode-ready cache."""
+    q, k, v = _qkv(params, x, cfg, kv_src)
+    if use_rope and kv_src is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     out = gqa_scores_apply(q, k, v, mask)
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
     if return_kv:
@@ -254,6 +279,19 @@ def attention_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
 # --------------------------------------------------------------------------
 # MLP / embeddings
 # --------------------------------------------------------------------------
+
+def cross_attention_decode(params: dict, x: torch.Tensor, ck: torch.Tensor,
+                           cv: torch.Tensor, cfg: ModelConfig
+                           ) -> torch.Tensor:
+    """One query token against precomputed cross K/V [B,T,Hkv,Dh]: no
+    RoPE, no mask, plain PyTorch (f32 scores and softmax), as the
+    reference computes it outside any kernel. x: [B,1,D] -> [B,1,D]."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(x.dtype)
+    out = gqa_scores_apply(q, ck.to(q.dtype), cv.to(q.dtype), None)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+
 
 def mlp(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     h = x @ params["wi"].to(x.dtype)

@@ -1,17 +1,25 @@
-"""Decoder-only transformer LM: the dense and MoE families and the
-gemma3 local:global pattern.
+"""Decoder-only transformer LM: the dense, MoE and vlm families and
+the gemma3 local:global pattern.
 
-The port of ``repro.models.transformer`` without the VLM cross layers.
-The reference scans over groups of stacked layers; here the layers are
-a Python list of ``G × len(kinds)`` per-layer parameter dicts, layer
-``g * len(kinds) + i`` being kind ``kinds[i]`` of group ``g``. Each
-layer is pre-norm: h += attn(norm(h)); h += mlp|moe(norm(h)). An MoE
-layer (``cfg.num_experts``) returns its aux losses, which
-``apply_lm_hidden`` sums over the layers; prefill and decode drop them.
+The port of ``repro.models.transformer``. The reference scans over
+groups of stacked layers; here the layers are a Python list of
+``G × len(kinds)`` per-layer parameter dicts, layer ``g * len(kinds) +
+i`` being kind ``kinds[i]`` of group ``g``. Each layer is pre-norm:
+h += attn(norm(h)); h += mlp|moe(norm(h)). An MoE layer
+(``cfg.num_experts``) returns its aux losses, which ``apply_lm_hidden``
+sums over the layers; prefill and decode drop them.
 
-The KV cache is a list with one ``{"k", "v"}`` pair of
-``[B, T, Hkv, Dh]`` tensors per layer (``T = min(window, max_len)``
-for local layers); decode appends into it in place.
+vlm (``cross_attn_every`` = N): a group is N self-attention layers and
+one gated cross layer, a full attention + MLP block whose attention
+reads the image embeddings (``extra_embeds`` [B, T_img, D], no RoPE,
+no mask) and is scaled by tanh(gate), a 0-d f32 leaf that starts at 0
+(closed: the image is ignored until training opens it).
+
+The KV cache is a list with one dict per layer: ``{"k", "v"}`` of
+``[B, T, Hkv, Dh]`` (``T = min(window, max_len)`` for local layers),
+which decode appends into in place, or for a cross layer ``{"ck",
+"cv"}`` of ``[B, T_img, Hkv, Dh]``, the image's K/V, which decode only
+reads.
 """
 from __future__ import annotations
 
@@ -27,6 +35,12 @@ from repro_torch.models import moe as M
 
 def _group_spec(cfg: ModelConfig) -> tuple[int, list[str]]:
     """Returns (num_groups, [kind per layer-in-group])."""
+    if cfg.family == "vlm" and cfg.cross_attn_every:
+        n = cfg.cross_attn_every
+        if cfg.num_layers % n:
+            raise ValueError(f"num_layers {cfg.num_layers} is not a "
+                             f"multiple of cross_attn_every {n}")
+        return cfg.num_layers // n, ["attn"] * n + ["cross"]
     if cfg.global_every and cfg.sliding_window:
         n = cfg.global_every
         if cfg.num_layers % n:
@@ -37,7 +51,8 @@ def _group_spec(cfg: ModelConfig) -> tuple[int, list[str]]:
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
-    """The kind ("local" | "attn") of every layer, in order."""
+    """The kind ("local" | "attn" | "cross") of every layer, in
+    order."""
     groups, kinds = _group_spec(cfg)
     return kinds * groups
 
@@ -55,21 +70,26 @@ def _cache_len(cfg: ModelConfig, kind: str, max_len: int) -> int:
 def _masks(cfg: ModelConfig) -> dict:
     return {"attn": ("causal", None),
             "local": ("causal", cfg.sliding_window)
-            if cfg.sliding_window else None}
+            if cfg.sliding_window else None,
+            "cross": None}
 
 
 # --------------------------------------------------------------------------
 # params
 # --------------------------------------------------------------------------
 
-def init_layer(cfg: ModelConfig, gen, device) -> dict:
+def init_layer(cfg: ModelConfig, gen, device, kind: str = "attn") -> dict:
+    """kind: attn | local | cross, all attention + FFN blocks; a cross
+    layer has an MLP (never experts) and a closed ``gate``."""
     p = {"norm1": L.init_norm(cfg, cfg.d_model, device),
          "attn": L.init_attention(cfg, gen, device),
          "norm2": L.init_norm(cfg, cfg.d_model, device)}
-    if cfg.num_experts:
+    if cfg.num_experts and kind != "cross":
         p["moe"] = M.init_moe(cfg, gen, device)
     else:
         p["mlp"] = L.init_mlp(cfg, gen, device)
+    if kind == "cross":
+        p["gate"] = torch.zeros((), dtype=torch.float32, device=device)
     return p
 
 
@@ -78,8 +98,8 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator,
     """Random weights drawn from ``gen`` on ``device``: normal(0.02),
     out-projections normal(0.02 / sqrt(2L)), zero norm scales."""
     return {"embed": L.init_embedding(cfg, gen, device),
-            "layers": [init_layer(cfg, gen, device)
-                       for _ in layer_kinds(cfg)],
+            "layers": [init_layer(cfg, gen, device, kind)
+                       for kind in layer_kinds(cfg)],
             "final_norm": L.init_norm(cfg, cfg.d_model, device)}
 
 
@@ -98,14 +118,25 @@ def _ffn(p: dict, cfg: ModelConfig, x: torch.Tensor):
     return L.mlp(p["mlp"], cfg, x), None
 
 
+def _gated(p: dict, a: torch.Tensor) -> torch.Tensor:
+    """A cross layer's attention output scaled by tanh(gate)."""
+    return torch.tanh(p["gate"]).to(a.dtype) * a
+
+
 def layer_apply(p: dict, cfg: ModelConfig, h: torch.Tensor,
-                positions: torch.Tensor, mask, return_kv: bool = False):
+                positions: torch.Tensor, mask, return_kv: bool = False,
+                kind: str = "attn",
+                kv_src: Optional[torch.Tensor] = None):
     """One layer over a full sequence: (h, aux), aux the MoE losses
     (None for an MLP layer); with ``return_kv``, (h, (k, v)) and the
-    aux dropped, as the reference's prefill forward does."""
+    aux dropped, as the reference's prefill forward does. A cross layer
+    attends to ``kv_src`` through its gate."""
     out = L.attention(p["attn"], cfg, L.norm(cfg, p["norm1"], h),
-                      positions, mask, return_kv=return_kv)
+                      positions, mask, return_kv=return_kv,
+                      kv_src=kv_src, use_rope=kind != "cross")
     a, kv = out if return_kv else (out, None)
+    if kind == "cross":
+        a = _gated(p, a)
     h = h + a
     y, aux = _ffn(p, cfg, L.norm(cfg, p["norm2"], h))
     h = h + y
@@ -129,39 +160,59 @@ def zero_aux(device) -> LMAux:
     return LMAux(z, z)
 
 
-def apply_lm_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor
+def _kv_src(cfg: ModelConfig, extra: Optional[torch.Tensor],
+            dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """The cross layers' source: ``extra`` in the activations' dtype;
+    a vlm without it raises."""
+    if extra is None:
+        if "cross" in _group_spec(cfg)[1]:
+            raise ValueError("vlm needs image embeddings: pass extra "
+                             "[B, num_image_tokens, d_model]")
+        return None
+    return extra.to(dtype)
+
+
+def apply_lm_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                    extra: Optional[torch.Tensor] = None
                     ) -> tuple[torch.Tensor, LMAux]:
     """Backbone forward up to the final norm (no unembed): h [B,S,D]
     and the MoE aux, each loss SUMMED over the layers (zero without
-    experts). With ``cfg.remat`` and gradients enabled, each layer is
-    checkpointed (its activations recomputed in the backward), the
-    counterpart of the reference's ``scan_layers`` remat; it changes
-    no value."""
+    experts). ``extra`` [B,T,D] is the vlm's image embeddings. With
+    ``cfg.remat`` and gradients enabled, each layer (cross layers
+    included) is checkpointed (its activations recomputed in the
+    backward), the counterpart of the reference's ``scan_layers``
+    remat; it changes no value."""
     h = L.embed(params["embed"], cfg, tokens)
     positions = _positions(tokens)
     masks = _masks(cfg)
+    src = _kv_src(cfg, extra, h.dtype)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = zero_aux(h.device)
     for p, kind in zip(params["layers"], layer_kinds(cfg)):
+        kv = src if kind == "cross" else None
         if remat:
             h, a = checkpoint(layer_apply, p, cfg, h, positions,
-                              masks[kind], use_reentrant=False)
+                              masks[kind], False, kind, kv,
+                              use_reentrant=False)
         else:
-            h, a = layer_apply(p, cfg, h, positions, masks[kind])
+            h, a = layer_apply(p, cfg, h, positions, masks[kind],
+                               kind=kind, kv_src=kv)
         if a is not None:
             aux = LMAux(aux.load_balance_loss + a.load_balance_loss,
                         aux.router_z_loss + a.router_z_loss)
     return L.norm(cfg, params["final_norm"], h), aux
 
 
-def apply_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor
-             ) -> torch.Tensor:
+def apply_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+             extra: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence forward. tokens: [B,S] -> logits [B,S,V]."""
     h = L.embed(params["embed"], cfg, tokens)
     positions = _positions(tokens)
     masks = _masks(cfg)
+    src = _kv_src(cfg, extra, h.dtype)
     for p, kind in zip(params["layers"], layer_kinds(cfg)):
-        h, _ = layer_apply(p, cfg, h, positions, masks[kind])
+        h, _ = layer_apply(p, cfg, h, positions, masks[kind], kind=kind,
+                           kv_src=src if kind == "cross" else None)
     h = L.norm(cfg, params["final_norm"], h)
     return L.unembed(params["embed"], cfg, h)
 
@@ -170,13 +221,34 @@ def apply_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor
 # KV cache, prefill, decode
 # --------------------------------------------------------------------------
 
+def cross_kv_from_embeds(p: dict, cfg: ModelConfig,
+                         embeds: torch.Tensor):
+    """A cross layer's K/V [B,T,Hkv,Dh] from (image or encoder)
+    embeddings [B,T,D], in the embeddings' dtype."""
+    dt = embeds.dtype
+    k = torch.einsum("btd,dhk->bthk", embeds, p["attn"]["wk"].to(dt))
+    v = torch.einsum("btd,dhk->bthk", embeds, p["attn"]["wv"].to(dt))
+    if cfg.qkv_bias:
+        k = k + p["attn"]["bk"].to(dt)
+        v = v + p["attn"]["bv"].to(dt)
+    return k, v
+
+
 def init_lm_cache(cfg: ModelConfig, params: dict, batch: int,
-                  max_len: int) -> list:
+                  max_len: int, extra: Optional[torch.Tensor] = None
+                  ) -> list:
     """Zeroed pool at ``cfg.kv_dtype`` on the params' device (decode
-    accumulates in f32 whatever the storage dtype)."""
+    accumulates in f32 whatever the storage dtype); a vlm's cross
+    layers hold the K/V of ``extra`` [batch, T_img, D], computed from
+    it at ``cfg.kv_dtype`` as the reference does."""
     hkv, hd, dev = cfg.num_kv_heads, cfg.head_dim_, _device(params)
+    src = _kv_src(cfg, extra, cfg.kv_dtype)
     cache = []
-    for kind in layer_kinds(cfg):
+    for p, kind in zip(params["layers"], layer_kinds(cfg)):
+        if kind == "cross":
+            ck, cv = cross_kv_from_embeds(p, cfg, src)
+            cache.append({"ck": ck, "cv": cv})
+            continue
         t = _cache_len(cfg, kind, max_len)
         cache.append({
             "k": torch.zeros((batch, t, hkv, hd), dtype=cfg.kv_dtype,
@@ -223,7 +295,8 @@ def _prefill_cache_layout(cfg: ModelConfig, kind: str, k: torch.Tensor,
 
 def apply_lm_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                      max_len: int, lens: Optional[torch.Tensor] = None,
-                     logits_at: Optional[torch.Tensor] = None):
+                     logits_at: Optional[torch.Tensor] = None,
+                     extra: Optional[torch.Tensor] = None):
     """Single-shot batched prefill: ONE full-sequence forward that also
     dumps a decode-ready KV cache. tokens: [B,S]. Returns (logits,
     cache) where ``cache`` matches ``init_lm_cache(..., max_len)`` after
@@ -235,6 +308,9 @@ def apply_lm_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     [B,1,V]); the serving paths sample one token per row, and at
     gemma3-12b's 262144-word vocabulary the full [B,S,V] logits of a
     long prompt batch are gigabytes. None gives all positions [B,S,V].
+    A vlm's cross layers dump the K/V of ``extra`` computed in the
+    compute dtype, as the reference's prefill does (the engine's pool
+    stores them at its own dtype).
     """
     b, s = tokens.shape
     if s > max_len:
@@ -243,12 +319,15 @@ def apply_lm_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     h = L.embed(params["embed"], cfg, tokens)
     positions = _positions(tokens)
     masks = _masks(cfg)
+    src = _kv_src(cfg, extra, h.dtype)
     cache = []
     for p, kind in zip(params["layers"], layer_kinds(cfg)):
+        cross = kind == "cross"
         h, (k, v) = layer_apply(p, cfg, h, positions, masks[kind],
-                                return_kv=True)
-        cache.append(_prefill_cache_layout(cfg, kind, k, v, max_len,
-                                           lens))
+                                return_kv=True, kind=kind,
+                                kv_src=src if cross else None)
+        cache.append({"ck": k, "cv": v} if cross else
+                     _prefill_cache_layout(cfg, kind, k, v, max_len, lens))
     if logits_at is not None:
         rows = torch.arange(b, device=h.device)
         h = h[rows, logits_at.to(device=h.device,
@@ -257,15 +336,23 @@ def apply_lm_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     return L.unembed(params["embed"], cfg, h), cache
 
 
-def layer_decode(p: dict, cfg: ModelConfig, h: torch.Tensor,
-                 k_cache: torch.Tensor, v_cache: torch.Tensor, pos, *,
-                 window: Optional[int] = None) -> torch.Tensor:
-    """One-token layer step; appends to the caches in place. An MoE
+def layer_decode(p: dict, cfg: ModelConfig, h: torch.Tensor, c: dict,
+                 pos, *, window: Optional[int] = None,
+                 kind: str = "attn") -> torch.Tensor:
+    """One-token layer step on the layer's cache ``c``: a self-attention
+    layer appends to ``c["k"]`` / ``c["v"]`` in place (the decode
+    kernel on CUDA); a cross layer attends to ``c["ck"]`` / ``c["cv"]``
+    in plain PyTorch through its gate and leaves them alone. An MoE
     layer routes the step's one token per row (capacity >= 1) and drops
     its aux."""
     x = L.norm(cfg, p["norm1"], h)
-    h = h + L.attention_decode(p["attn"], cfg, x, k_cache, v_cache, pos,
+    if kind == "cross":
+        a = _gated(p, L.cross_attention_decode(p["attn"], x, c["ck"],
+                                               c["cv"], cfg))
+    else:
+        a = L.attention_decode(p["attn"], cfg, x, c["k"], c["v"], pos,
                                window=window)
+    h = h + a
     return h + _ffn(p, cfg, L.norm(cfg, p["norm2"], h))[0]
 
 
@@ -276,7 +363,7 @@ def decode_lm(cfg: ModelConfig, params: dict, cache: list,
     place and returned. Returns (logits [B,1,V], cache)."""
     h = L.embed(params["embed"], cfg, tokens)
     for p, c, kind in zip(params["layers"], cache, layer_kinds(cfg)):
-        h = layer_decode(p, cfg, h, c["k"], c["v"], pos,
-                         window=_window(cfg, kind))
+        h = layer_decode(p, cfg, h, c, pos, window=_window(cfg, kind),
+                         kind=kind)
     h = L.norm(cfg, params["final_norm"], h)
     return L.unembed(params["embed"], cfg, h), cache

@@ -3,8 +3,9 @@
 ``prefill`` is single-shot: ONE full-sequence ``model.prefill`` forward
 that emits the last-position logits and the populated KV cache; for a
 family without a batched prefill (``model.prefill is None``: ssm,
-hybrid) it streams the prompt through ``prefill_reference``, as the
-reference does. ``prefill_reference`` streams the prompt token by
+hybrid, encdec) it streams the prompt through ``prefill_reference``,
+as the reference does. ``extra_embeds`` is the vlm's image embeddings
+or the encdec's audio frames, one row per prompt. ``prefill_reference`` streams the prompt token by
 token through ``decode_step``: the oracle the tests hold the batched
 path against.
 ``generate`` is the per-request host loop; the continuous-batching
@@ -33,11 +34,12 @@ def make_serve_step(model: Model) -> Callable:
 
 
 def prefill_reference(model: Model, params, tokens: torch.Tensor,
-                      max_len: int):
+                      max_len: int, extra_embeds=None):
     """Token-by-token prefill through decode_step: O(seq_len) steps,
-    kept ONLY as the parity oracle of the batched ``prefill``."""
+    the parity oracle of the batched ``prefill`` and the prefill of the
+    families without one."""
     b, s = tokens.shape
-    cache = model.init_cache(params, b, max_len)
+    cache = model.init_cache(params, b, max_len, extra_embeds)
     last = None
     for t in range(s):
         last, cache = model.decode_step(params, cache,
@@ -45,29 +47,36 @@ def prefill_reference(model: Model, params, tokens: torch.Tensor,
     return last, cache
 
 
-def prefill(model: Model, params, tokens: torch.Tensor, max_len: int):
+def prefill(model: Model, params, tokens: torch.Tensor, max_len: int,
+            extra_embeds=None):
     """Batched prefill: (last-position logits [B,1,V], cache); the
     token-by-token loop where the family has no batched prefill."""
     if model.prefill is None:
-        return prefill_reference(model, params, tokens, max_len)
+        return prefill_reference(model, params, tokens, max_len,
+                                 extra_embeds)
     b, s = tokens.shape
     last = torch.full((b,), s - 1, dtype=torch.int64,
                       device=tokens.device)
-    return model.prefill(params, tokens, max_len, logits_at=last)
+    return model.prefill(params, tokens, max_len, logits_at=last,
+                         extra=extra_embeds)
 
 
 def generate(model: Model, params, prompt, *, num_tokens: int,
-             max_len: Optional[int] = None, temperature: float = 0.0,
+             max_len: Optional[int] = None, extra_embeds=None,
+             temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
              device="cuda") -> torch.Tensor:
     """Greedy/temperature generation on ``device`` (where ``params``
-    must lie). prompt: [B, S] ints -> [B, num_tokens] int32."""
+    must lie). prompt: [B, S] ints -> [B, num_tokens] int32;
+    ``extra_embeds`` [B, ...] where the family needs it."""
     dev = _device.resolve(device)
     prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int64,
                              device=dev)
     b, s = prompt.shape
     max_len = max_len or (s + num_tokens)
-    logits, cache = prefill(model, params, prompt, max_len)
+    if extra_embeds is not None:
+        extra_embeds = extra_embeds.to(dev)
+    logits, cache = prefill(model, params, prompt, max_len, extra_embeds)
     out = []
     tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
     for i in range(num_tokens):

@@ -20,8 +20,12 @@ device shape:
 ``stats()["kernel_launches"]`` counts the decode-attention kernel
 launches this engine's decode steps made (``kernels.ops.launches``);
 it stays 0 on the CPU, where the plain version runs. A family without
-a batched prefill (ssm, hybrid) is refused, as the reference's engine
-refuses it; serve those through ``serving.generate``.
+a batched prefill (ssm, hybrid, encdec) is refused, as the reference's
+engine refuses it; serve those through ``serving.generate``. A vlm
+needs ``extra``, one block of image embeddings ``[slots, T_img, D]``:
+the pool's cross K/V start from it, and an admission batch of ``nb``
+requests is prefilled on its rows ``extra[:nb]``, so the i-th request
+of a batch reads row i whatever its slot, as in the reference.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ from repro_torch import device as _device
 from repro_torch.configs.base import torch_dtype
 from repro_torch.kernels import ops
 from repro_torch.models import convert
-from repro_torch.models.registry import get_model
+from repro_torch.models.registry import NEEDS_EXTRA, get_model
 from repro_torch.obs import trace
 from repro_torch.serving import sampling
 from repro_torch.serving.kv_cache import PagedKVCache
@@ -123,12 +127,17 @@ class Engine:
     """
 
     def __init__(self, model, params, config: ServeConfig, *,
-                 device="cuda", tracer=None):
+                 device="cuda", tracer=None, extra=None):
         if model.prefill is None:
             raise ValueError(
                 f"family {model.cfg.family!r} has no batched-prefill "
                 f"lowering; the serving engine requires model.prefill "
                 f"(supported: dense / moe / gemma3-style windowed)")
+        if model.cfg.family in NEEDS_EXTRA and extra is None:
+            raise ValueError(
+                f"family {model.cfg.family!r} needs an extra-embeddings "
+                f"frontend; pass extra= (one [slots, ...] block) or "
+                f"serve a text-only family")
         dev = _device.resolve(device)
         pdev = params["embed"]["table"].device
         if pdev.type != dev.type or (
@@ -145,7 +154,8 @@ class Engine:
         self.config = config
         # an admission batch can never exceed the free slots
         self._prefill_cap = min(config.prefill_batch, config.slots)
-        self._kv = PagedKVCache(model, params, config)
+        self._extra = None if extra is None else extra.to(pdev)
+        self._kv = PagedKVCache(model, params, config, self._extra)
         self._pos = np.zeros(config.slots, np.int32)
         self._tok = np.zeros(config.slots, np.int32)
         self._active: list = [None] * config.slots
@@ -165,7 +175,7 @@ class Engine:
 
     @classmethod
     def from_checkpoint(cls, path: str, model, config: ServeConfig, *,
-                        device="cuda", tracer=None) -> "Engine":
+                        device="cuda", tracer=None, extra=None) -> "Engine":
         """Build an engine on the params of a checkpoint in the JAX
         package's stacked LM layout (``convert.jax_template``), written
         by either package: restored onto ``device`` against the
@@ -174,7 +184,8 @@ class Engine:
         stacked = checkpoint.restore(path, convert.jax_template(model.cfg),
                                      device=dev)
         params = convert.params_from_jax(model.cfg, stacked, device=dev)
-        return cls(model, params, config, device=dev, tracer=tracer)
+        return cls(model, params, config, device=dev, tracer=tracer,
+                   extra=extra)
 
     def submit(self, prompt: Union[Sequence[int], np.ndarray], *,
                max_new_tokens: int = 16) -> int:
@@ -299,7 +310,8 @@ class Engine:
             lens_t = torch.tensor(lens, device=self.device)
             logits, pf_cache = self.model.prefill(
                 self.params, torch.tensor(tokens, device=self.device),
-                self.config.max_len, lens_t, logits_at=lens_t - 1)
+                self.config.max_len, lens_t, logits_at=lens_t - 1,
+                extra=None if self._extra is None else self._extra[:nb])
             first = self._sampler(logits[:, 0], self._gen).cpu().numpy()
         finished = []
         for i, (req, slot) in enumerate(batch):

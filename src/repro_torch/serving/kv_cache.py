@@ -97,16 +97,18 @@ class PageTable:
 class PagedKVCache:
     """The device cache pool + its page table + the slot-insert op."""
 
-    def __init__(self, model, params, config):
+    def __init__(self, model, params, config, extra=None):
         self.table = PageTable(config.slots,
                                config.max_len // config.page_size,
                                config.page_size)
         self.cache = model.init_cache(params, config.slots,
-                                      config.max_len)
+                                      config.max_len, extra)
 
     def insert(self, prefill_cache: list, src: int, dst: int) -> None:
         """Copy batch row ``src`` of ``prefill_cache`` into slot ``dst``
-        of the pool, in place."""
+        of the pool, in place: every tensor of every layer (``k``/``v``,
+        and a vlm cross layer's ``ck``/``cv``), cast to the pool's
+        dtype."""
         for big, small in zip(self.cache, prefill_cache):
-            for name in ("k", "v"):
-                big[name][dst].copy_(small[name][src])
+            for name, pool in big.items():
+                pool[dst].copy_(small[name][src])

@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from repro_torch import serving
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.kernels import _build
 from repro_torch.kernels import attention_decode as tad
 from repro_torch.kernels import ops
@@ -146,13 +146,21 @@ def test_library_is_keyed_on_source_hash(tmp_path, monkeypatch):
 
 
 def test_unported_archs_and_families_raise():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("whisper-large-v3")
-    with pytest.raises(ValueError):
+    """Every reference arch id resolves in the port, full and smoke, to
+    a family ``get_model`` builds; an unknown arch id or family raises
+    ``ValueError``."""
+    from repro.configs.registry import ARCH_IDS as JAX_ARCH_IDS
+    assert sorted(ARCH_IDS) == sorted(JAX_ARCH_IDS)
+    for arch in JAX_ARCH_IDS:
+        for cfg in (get_config(arch), get_smoke_config(arch)):
+            assert cfg.arch_id == arch
+            assert get_model(cfg).cfg is cfg
+    with pytest.raises(ValueError, match="unknown arch"):
         get_config("no-such-arch")
-    for family in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError):
-            get_model(get_config("gemma3-12b").replace(family=family))
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_smoke_config("no-such-arch")
+    with pytest.raises(ValueError, match="unknown family"):
+        get_model(get_config("gemma3-12b").replace(family="no-such"))
 
 
 # ---------------------------------------------------------------------------

@@ -130,7 +130,7 @@ def test_dense_configs_match_reference(arch, count):
 
     from repro.configs import get_config as jax_get_config
     from repro_torch.configs import get_config
-    from repro_torch.configs.registry import NOT_PORTED
+    from repro_torch.configs.registry import ARCH_IDS
     for ours, theirs in ((get_config(arch), jax_get_config(arch)),
                          (get_smoke_config(arch), jax_smoke_config(arch))):
         names = {f.name for f in dataclasses.fields(ours)}
@@ -140,4 +140,4 @@ def test_dense_configs_match_reference(arch, count):
             assert getattr(ours, name) == getattr(theirs, name), name
         assert ours.param_count() == theirs.param_count()
     assert get_config(arch).param_count() == count
-    assert arch not in NOT_PORTED and len(NOT_PORTED) == 2
+    assert arch in ARCH_IDS and len(ARCH_IDS) == 10

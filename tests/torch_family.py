@@ -1,8 +1,13 @@
-"""Shared checks of ``test_torch_moe.py``, ``test_torch_ssm.py`` and
-``test_torch_hybrid.py``: a model family of the port held against the
-JAX package on the reference's own smoke weights (``init(PRNGKey(0))``
+"""Shared checks of ``test_torch_moe.py``, ``test_torch_ssm.py``,
+``test_torch_hybrid.py``, ``test_torch_encdec.py`` and
+``test_torch_vlm.py``: a model family of the port held against the JAX
+package on the reference's own smoke weights (``init(PRNGKey(0))``
 carried across with ``params_from_jax``) and the same numpy batches,
-in f32 on the CPU.
+in f32 on the CPU. With ``extra=True`` the batches and caches also
+carry the stubbed frontend's output (``extra_embeds``: audio frames
+for encdec, image embeddings for vlm), normal draws from a seed, never
+zeros; ``gate=`` opens a vlm's cross gates in both packages (init
+leaves them closed, where the image changes nothing).
 
 Tolerances: rtol = atol = 1e-4 on logits, caches and gradients (two
 libraries summing in other orders through a few layers, as
@@ -29,8 +34,8 @@ from repro_torch import checkpoint as ck
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import build_optimizer
 from repro_torch.core.base import tree_get, tree_leaves
-from repro_torch.models import (get_model, jax_template, params_from_jax,
-                                params_to_jax)
+from repro_torch.models import (extra_embed_shape, get_model, jax_template,
+                                params_from_jax, params_to_jax)
 from repro_torch.training import TrainState, lm_task, make_train_step
 
 TOL = {"rtol": 1e-4, "atol": 1e-4}
@@ -45,10 +50,21 @@ def _reference(arch: str, edit: tuple):
     return jmodel, jmodel.init(jax.random.PRNGKey(0))
 
 
-def pair(arch: str, **edit):
+def open_gates(jparams: dict, value: float) -> dict:
+    """A copy of a vlm reference tree with every stacked cross ``gate``
+    at ``value`` (the cached tree is left alone)."""
+    groups = {name: dict(layer, gate=jnp.full_like(layer["gate"], value))
+              if "gate" in layer else layer
+              for name, layer in jparams["groups"].items()}
+    return dict(jparams, groups=groups)
+
+
+def pair(arch: str, gate=None, **edit):
     """(JAX model, JAX params, port model, port params) on the
-    reference's smoke weights."""
+    reference's smoke weights; ``gate`` opens a vlm's cross gates."""
     jmodel, jparams = _reference(arch, tuple(sorted(edit.items())))
+    if gate is not None:
+        jparams = open_gates(jparams, gate)
     cfg = get_smoke_config(arch).replace(**edit)
     tree = jax.tree_util.tree_map(np.asarray, jparams)
     return jmodel, jparams, get_model(cfg), \
@@ -62,14 +78,28 @@ def close(got, want, what, tol=None):
     np.testing.assert_allclose(got, want, err_msg=what, **(tol or TOL))
 
 
-def batch(seed: int = 0, b: int = B, s: int = S, vocab: int = 512):
+def extra_embeds(cfg, b: int, seed: int) -> np.ndarray:
+    """``b`` rows of the stubbed frontend's output for ``cfg``: f32
+    normal draws (the smoke configs compute in f32)."""
+    return np.random.default_rng(seed).normal(
+        size=extra_embed_shape(cfg, b)).astype(np.float32)
+
+
+def batch(seed: int = 0, b: int = B, s: int = S, vocab: int = 512,
+          cfg=None):
+    """Tokens and labels; with ``cfg`` of a family that needs them,
+    ``extra_embeds`` too."""
     rng = np.random.default_rng(seed)
-    return {"tokens": rng.integers(1, vocab, (b, s)),
-            "labels": rng.integers(1, vocab, (b, s))}
+    out = {"tokens": rng.integers(1, vocab, (b, s)),
+           "labels": rng.integers(1, vocab, (b, s))}
+    if cfg is not None and extra_embed_shape(cfg, b) is not None:
+        out["extra_embeds"] = extra_embeds(cfg, b, seed + 100)
+    return out
 
 
 def jax_batch(bt):
-    return {k: jnp.asarray(v, jnp.int32) for k, v in bt.items()}
+    return {k: jnp.asarray(v) if v.dtype.kind == "f"
+            else jnp.asarray(v, jnp.int32) for k, v in bt.items()}
 
 
 def torch_batch(bt):
@@ -151,11 +181,11 @@ def check_checkpoint_both_ways(arch: str, tmp_path):
         np.testing.assert_array_equal(_bits(a), _bits(b))
 
 
-def check_loss_and_grads(arch: str):
+def check_loss_and_grads(arch: str, extra: bool = False, gate=None):
     """``Model.loss`` (CE and aux) and its gradients, each gathered onto
     the reference's leaves."""
-    jmodel, jparams, model, params = pair(arch)
-    bt = batch(0)
+    jmodel, jparams, model, params = pair(arch, gate)
+    bt = batch(0, cfg=model.cfg if extra else None)
     (jloss, jaux), jgrads = jax.value_and_grad(
         jmodel.loss, has_aux=True)(jparams, jax_batch(bt))
     leaves = tree_leaves(params)
@@ -179,11 +209,12 @@ def check_loss_and_grads(arch: str):
     return aux
 
 
-def check_train_step(arch: str, name: str, use_kernel):
+def check_train_step(arch: str, name: str, use_kernel, extra: bool = False,
+                     gate=None):
     """One ``make_train_step`` against the reference's jitted step from
     the same params and batch: loss, ce and grad_norm 1e-5 relative,
     params 1e-5 at each leaf's scale."""
-    jmodel, jparams, model, params = pair(arch)
+    jmodel, jparams, model, params = pair(arch, gate)
     hyper = dict(total_steps=10, learning_rate=2.0, batch_size=B,
                  use_kernel=use_kernel)
     jopt = jbuild(name, **hyper)
@@ -191,7 +222,7 @@ def check_train_step(arch: str, name: str, use_kernel):
                           **hyper)
     jstate = JTrainState.create(jparams, jopt)
     state = TrainState.create(params, opt)
-    bt = batch(1)
+    bt = batch(1, cfg=model.cfg if extra else None)
     jstate, jm = jax.jit(jmake_train_step(jmodel, jopt))(jstate,
                                                          jax_batch(bt))
     state, m = make_train_step(lm_task(model), opt)(state, torch_batch(bt))
@@ -206,22 +237,27 @@ def check_train_step(arch: str, name: str, use_kernel):
                                    rtol=1e-5, atol=1e-5 * scale)
 
 
-def check_decode_through_prefill_reference(arch: str, steps: int = 4):
+def check_decode_through_prefill_reference(arch: str, steps: int = 4,
+                                           extra: bool = False, gate=None):
     """``serving.decode.prefill`` (the token-by-token loop where the
     family has no batched prefill) and ``steps`` decode steps against
     the JAX package's ``serving.prefill`` and ``decode_step``; then
-    ``generate``'s greedy tokens. Returns the final port cache."""
+    ``generate``'s greedy tokens. Returns the final (JAX, port)
+    caches."""
     from repro import serving as jserving
     from repro_torch import serving
-    jmodel, jparams, model, params = pair(arch)
+    jmodel, jparams, model, params = pair(arch, gate)
     jmodel = jmodel._replace(decode_step=jax.jit(jmodel.decode_step))
     rng = np.random.default_rng(2)
     max_len = 16
     tokens = rng.integers(1, 512, (2, 6))
-    want, jcache = jserving.prefill(jmodel, jparams, jnp.asarray(tokens),
-                                    max_len)
-    got, cache = serving.prefill(model, params, torch.from_numpy(tokens),
-                                 max_len)
+    ex = extra_embeds(model.cfg, 2, 3) if extra else None
+    want, jcache = jserving.prefill(
+        jmodel, jparams, jnp.asarray(tokens), max_len,
+        None if ex is None else jnp.asarray(ex))
+    got, cache = serving.prefill(
+        model, params, torch.from_numpy(tokens), max_len,
+        None if ex is None else torch.from_numpy(ex))
     close(got, want, f"{arch} prefill logits")
     pos = tokens.shape[1]
     for step in range(steps):
@@ -232,10 +268,12 @@ def check_decode_through_prefill_reference(arch: str, steps: int = 4):
                                        pos)
         close(got, want, f"{arch} decode step {step} logits")
         pos += 1
-    jtok = np.asarray(jserving.generate(jmodel, jparams,
-                                        jnp.asarray(tokens[:1]),
-                                        num_tokens=5))
-    ptok = serving.generate(model, params, tokens[:1], num_tokens=5,
-                            device="cpu")
+    jtok = np.asarray(jserving.generate(
+        jmodel, jparams, jnp.asarray(tokens[:1]), num_tokens=5,
+        extra_embeds=None if ex is None else jnp.asarray(ex[:1])))
+    ptok = serving.generate(
+        model, params, tokens[:1], num_tokens=5,
+        extra_embeds=None if ex is None else torch.from_numpy(ex[:1]),
+        device="cpu")
     np.testing.assert_array_equal(ptok.numpy(), jtok)
     return jcache, cache
