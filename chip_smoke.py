@@ -248,6 +248,37 @@ script exits non-zero:
 14f. both smoke configs in f32 (gates opened, random extra embeddings)
    on the card against the CPU: logits, ``generate``, one fused
    TVLARS step and (vlm) the engine's tokens on distinct image rows.
+15. data parallelism over ``torch.distributed``: two ranks (spawned,
+   gloo: NCCL refuses two ranks on one card) share the card, each
+   training qwen2.5-3b at full width cut in depth (``reduced:
+   num_layers 36 -> L`` is printed: the deepest L whose rank is
+   predicted under half the free card less a context) through
+   ``launch.train.run --mesh-data 2``: fused TVLARS f32, 8 x 512 (4 x
+   512 a rank), 3 steps, after a D = 1 run on the same samples in this
+   process. 1 + 1 segmented launches per rank per step, the ranks'
+   state fingerprints equal after every step, loss, grad_norm and every
+   segment's (w_norm, g_norm, trust_ratio) within a bound of its own
+   of D = 1 (``DP_BOUNDS``); a D = 1 run on batches whose second shard
+   repeats the first (what two ranks that both read shard 0 compute)
+   must fail those bounds; per rank the step split into loss+grad, the
+   host-staged all-reduce and the optimizer, and the peak beside its
+   prediction;
+15b. the adaptive-batch controller on 4 ranks (the smoke LM, scripted
+   noise readings): the (1, 1) -> (4, 2) schedule, its batches and LR,
+   steps built for two (D, K) pairs, 1 + 1 launches per rank per step,
+   ranks bitwise equal after every step;
+15c. NCCL at world size 1: the bucketed all-reduce over f32 buffers of
+   qwen2.5-3b's leaf shapes (a sum of one: values unchanged), timed,
+   and one
+   ``--mesh-data 1`` step through the launcher in that world;
+15d. rank 0's checkpoint of phase 15's params restored here (D = 1) by
+   ``Engine.from_checkpoint(mesh=make_data_mesh(1))`` onto the card,
+   bitwise the ranks' params, serving 4
+   requests. The kernels are built before any rank is spawned, and a
+   rank that fails or a world that hangs past its timeout fails the
+   phase.
+
+Every phase prints its seconds (``phase {label}: {s} s``).
 
 The last lines are the script's total time, the ``nvidia-smi`` line,
 one JSON object describing each kernel (decode attention and RMSNorm
@@ -262,8 +293,10 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -297,6 +330,17 @@ WINDOW, MAX_LEN = 1024, 2048
 LOCAL_PER_STEP, GLOBAL_PER_STEP = 40, 8        # launches per decode step
 POS = {"local": [0, 5, 1023, 1024, 2500, 3071, 4100, 6143],
        "global": [0, 300, 700, 1023, 1024, 1400, 1536, 2047]}
+
+
+@contextlib.contextmanager
+def phase_clock(label: str):
+    """Prints the block's seconds as ``phase {label}: {s} s``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        print(f"phase {label}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
 
 def smi_line() -> str:
@@ -4060,6 +4104,435 @@ def phase_cross_families_small(get_smoke_config, get_model, serving,
               f"{smi_line()}", flush=True)
 
 
+# ------------------------------------------------ 15-15d: data parallel
+DP_ARCH = "qwen2.5-3b"
+DP_RANKS = 2
+DP_STEPS = 3
+DP_ARGV = ["--arch", DP_ARCH, "--optimizer", "tvlars", "--use-kernel",
+           "fused", "--precision", "f32", "--global-batch", "8", "--seq",
+           "512", "--steps", str(DP_STEPS), "--layerwise-every", "1",
+           "--device", DEV]
+# per parameter on a rank: phase 7's measured 65.87 GiB over qwen2.5-3b's
+# 3,397,103,616 params (bf16 weight and gradient, f32 momentum, the fused
+# update's packed weights, gradients and delta, activations), plus 2 B
+# for the gradients held in f32 for the all-reduce instead of bf16
+DP_BYTES_PER_PARAM = 65.87 * 2 ** 30 / 3_397_103_616 + 2
+DP_CONTEXT_GIB = 0.75          # a rank's CUDA context, outside its peak
+# 15b: the controller scenario of the CPU tests, on the card
+DP_MB = 2
+DP_READINGS = {0: float(DP_MB), 2: 8.0 * DP_MB, 4: 8.0 * DP_MB,
+               6: float(DP_MB), 8: 8.0 * DP_MB}
+DP_BATCHES = [2, 2, 2, 16, 16, 16, 16, 2, 2, 16]
+DP_NCCL_REPEATS = 3
+
+
+# D = 2 against D = 1 on the same samples, relative, per metric (the
+# worst over 3 steps and every segment): each rank's bf16 gradients
+# round apart from one backward over all 8 rows. About ten times the
+# readings on the H100 (loss 4.6e-6, grad_norm 7.0e-5, w_norm 4.7e-4,
+# g_norm 8.4e-4, trust_ratio 1.1e-3), and the duplicate-shard control
+# below must exceed them
+DP_BOUNDS = {"loss": 5e-5, "grad_norm": 7e-4, "w_norm": 5e-3,
+             "g_norm": 1e-2, "trust_ratio": 1e-2}
+
+
+def dp_gaps(got: list, want: list) -> dict:
+    """The worst relative gap of every ``DP_BOUNDS`` metric between two
+    runs' histories, over steps and segments."""
+    worst = {}
+    for a, b in zip(got, want):
+        for key in b:
+            metric = key.split("/")[-1]
+            if metric in DP_BOUNDS:
+                rel = abs(a[key] - b[key]) / max(abs(b[key]), 1e-30)
+                worst[metric] = max(worst.get(metric, 0.0), rel)
+    return worst
+
+
+@contextlib.contextmanager
+def duplicated_shards(launcher, d: int):
+    """Inside the block every batch of the launcher's ``lm_iterator``
+    repeats its first of ``d`` shards ``d`` times: a D = 1 run then
+    computes what ``d`` ranks that all read shard 0 compute (the
+    duplicate-shard fault the phase's bounds must catch)."""
+    real = launcher.lm_iterator
+
+    def repeat_first(x):
+        b = x.shape[0] // d
+        return x[:b].repeat(d, *([1] * (x.dim() - 1)))
+
+    def faulty(*a, **kw):
+        for batch in real(*a, **kw):
+            yield {k: repeat_first(v) for k, v in batch.items()}
+
+    launcher.lm_iterator = faulty
+    try:
+        yield
+    finally:
+        launcher.lm_iterator = real
+
+
+def dp_depth(cfg, budget_gib: float) -> tuple:
+    """(layers, predicted GiB per rank): the deepest cut of ``cfg``
+    whose rank is predicted under ``budget_gib``."""
+    one, two = (tree_params(cfg.replace(num_layers=n)) for n in (1, 2))
+    per, fixed = two - one, 2 * one - two
+
+    def gib(n):
+        return (fixed + n * per) * DP_BYTES_PER_PARAM / GIB
+
+    n = max(k for k in range(1, cfg.num_layers + 1) if gib(k) <= budget_gib)
+    return n, gib(n)
+
+
+class StepWatch:
+    """A callback of every step: this rank's state fingerprint and the
+    kernel launches of the step."""
+    name, every = "watch", 1
+
+    def __init__(self, ops):
+        from repro_torch.training.train_state import fingerprint
+        self.ops, self.fingerprint = ops, fingerprint
+        self.prints, self.launches = [], []
+        self._seen = dict(ops.launches)
+
+    def __call__(self, step, state):
+        now = dict(self.ops.launches)
+        self.launches.append({k: now[k] - self._seen.get(k, 0)
+                              for k in now if now[k] != self._seen.get(k, 0)})
+        self._seen = now
+        self.prints.append(self.fingerprint(state))
+        return {}
+
+
+@contextlib.contextmanager
+def watched_fit(launcher, watch):
+    """Inside the block the launcher's ``fit`` also calls ``watch`` after
+    every step (first among its callbacks)."""
+    real = launcher.fit
+
+    def fit(step_fn, state, batches, n, *, options):
+        options = dataclasses.replace(
+            options, callbacks=(watch, *options.callbacks))
+        return real(step_fn, state, batches, n, options=options)
+
+    launcher.fit = fit
+    try:
+        yield
+    finally:
+        launcher.fit = real
+
+
+def dp_rank(layers: int, ckpt_dir: str) -> dict:
+    """Phase 15 on one rank: ``launch.train.run --mesh-data 2`` on
+    qwen2.5-3b cut to ``layers`` layers; then rank 0 saves the params
+    (15d) and every rank waits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch import checkpoint
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import convert
+    from repro_torch.training.train_state import fingerprint
+    mesh = mesh_lib.make_data_mesh(DP_RANKS)
+    ops.reset_launches()
+    watch = StepWatch(ops)
+    with depth_cut(train_launch, DP_ARCH, layers), \
+            watched_fit(train_launch, watch):
+        out = train_launch.run(
+            DP_ARGV + ["--mesh-data", str(DP_RANKS), "--microbatch",
+                       str(8 // DP_RANKS)],
+            log_fn=lambda line: print(f"  15 rank {mesh.rank}: {line}",
+                                      flush=True))
+    state, cfg = out["state"], out["model"].cfg
+    params_print = fingerprint(state.params)
+    tree = convert.params_to_jax(cfg, state.params) if mesh.rank == 0 \
+        else None
+    del state
+    t0 = time.perf_counter()
+    checkpoint.save(ckpt_dir, tree, step=DP_STEPS, mesh=mesh)
+    save_s = time.perf_counter() - t0
+    del tree
+    return {"rank": mesh.rank, "device": str(mesh.device),
+            "backend": mesh.backend, "history": out["history"],
+            "loss_grad": out["loss_grad_seconds"],
+            "all_reduce": out["all_reduce_seconds"],
+            "optimizer": out["optimizer_seconds"],
+            "peak": out["peak_memory_bytes"], "launches": watch.launches,
+            "equal": mesh_lib.all_equal(mesh, watch.prints),
+            "params_print": params_print, "save_s": save_s}
+
+
+def dp_controller_rank() -> dict:
+    """15b on one of 4 ranks: the smoke LM under the controller's (D, K)
+    schedule (1, 1) -> (4, 2), scripted noise readings as the CPU
+    tests', fused TVLARS on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import build_optimizer, schedules
+    from repro_torch.data import pipeline
+    from repro_torch.data.synthetic import lm_sample_source
+    from repro_torch.diagnostics import sink as sinks
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import get_model
+    from repro_torch.training import (AdaptiveBatchController,
+                                      ControllerConfig, FitOptions,
+                                      TrainState, fit, lm_task,
+                                      make_train_step)
+    from repro_torch.training.train_state import replicate
+    model = get_model(get_smoke_config(DP_ARCH))
+    dev = mesh_lib.world().device
+    cfg = ControllerConfig(microbatch=DP_MB, batch_min=DP_MB,
+                           batch_max=64 * DP_MB, every=2, deadband=0.0,
+                           ema=0.0, data_max=4)
+
+    def opt_for(b):
+        return build_optimizer("tvlars", total_steps=20, learning_rate=1.0,
+                               batch_size=b, base_batch_size=64,
+                               use_kernel="fused", segments=model.segments,
+                               device=dev)
+
+    ctl = AdaptiveBatchController(
+        lambda opt, k, mesh: make_train_step(lm_task(model), opt,
+                                             accum_steps=k, mesh=mesh),
+        opt_for, lambda step, state: {
+            "grad_noise_scale": DP_READINGS.get(step, float("nan"))},
+        cfg, init_batch=DP_MB, base_lr=1.0, base_batch_size=64)
+    state = replicate(TrainState.create(model.init(0, device=dev),
+                                        ctl.optimizer()), ctl.mesh_for(4))
+    stream = pipeline.MicrobatchedStream(
+        lm_sample_source(64, model.cfg.vocab_size, seed=0, device=dev),
+        DP_MB)
+    ops.reset_launches()
+    watch = StepWatch(ops)
+    sink = sinks.MemorySink()
+    t0 = time.perf_counter()
+    _, history = fit(None, state, stream, len(DP_BATCHES),
+                     options=FitOptions(sink=sink, callbacks=[watch],
+                                        controller=ctl,
+                                        rank=ctl.mesh_for(4).rank))
+    seconds = time.perf_counter() - t0
+    # every rank keeps the history; rank 0 alone writes the sink
+    records = [r for r in sink.records if "controller/changed" in r]
+    return {"batches": [h["global_batch"] for h in history],
+            "records": len(records),
+            "launches": watch.launches, "compiles": ctl.compiles,
+            "visited": [list(t) for t in ctl.visited_targets],
+            "lr_ok": all(math.isclose(r["controller/lr"],
+                                      schedules.batch_scaled_lr(
+                                          1.0, int(r["controller/"
+                                                     "global_batch"]),
+                                          64, "sqrt"), rel_tol=1e-12)
+                         for r in records),
+            "switches": ctl.switches, "seconds": seconds,
+            "equal": mesh_lib.all_equal(ctl.mesh_for(4), watch.prints)}
+
+
+def dp_nccl_rank() -> dict:
+    """15c on a world of one rank over NCCL: the bucketed all-reduce over
+    f32 buffers of qwen2.5-3b's leaf shapes (a sum of one: the values
+    must not move), timed; then one ``--mesh-data 1``
+    step of the launcher on the smoke LM in that world."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.base import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import jax_template
+    from repro_torch.training.train_state import fingerprint
+    mesh = mesh_lib.make_data_mesh(1)
+    gen = torch.Generator(device=mesh.device).manual_seed(15)
+    bufs = [torch.rand(t.shape, generator=gen, device=mesh.device)
+            for t in tree_leaves(jax_template(get_config(DP_ARCH)))]
+    before = fingerprint(bufs)
+    times = []
+    for _ in range(DP_NCCL_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh.mean_(bufs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    nbytes = sum(b.numel() * 4 for b in bufs)
+    same = fingerprint(bufs) == before
+    del bufs
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    out = train_launch.run(
+        ["--smoke", "--mesh-data", "1", "--steps", "1", "--seq", "64",
+         "--use-kernel", "fused", "--device", DEV, "--dist-backend",
+         "nccl"], log_fn=lambda line: print(f"  15c: {line}", flush=True))
+    return {"backend": mesh.backend, "world": mesh.world, "bytes": nbytes,
+            "seconds": times, "unchanged": same,
+            "launches": dict(ops.launches), "loss": out["losses"][0]}
+
+
+def phase_data_parallel(train_launch, ops, serving, mesh_lib, get_config,
+                        get_model, tree_leaves) -> dict:
+    """15-15d: data parallelism on the card (see the module docstring)."""
+    from repro_torch.training.train_state import fingerprint
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    budget = free / DP_RANKS / GIB - DP_CONTEXT_GIB
+    cfg_full = get_config(DP_ARCH)
+    layers, pred = dp_depth(cfg_full, budget)
+    print(f"15 {DP_ARCH}: reduced: num_layers {cfg_full.num_layers} -> "
+          f"{layers} (the deepest cut whose rank is predicted under "
+          f"{budget:.2f} GiB: half of the {free / GIB:.2f} GiB free less "
+          f"a {DP_CONTEXT_GIB} GiB context; {DP_BYTES_PER_PARAM:.2f} B a "
+          f"parameter); predicted peak per rank {pred:.2f} GiB; width as "
+          f"published", flush=True)
+
+    # the D = 1 run on the same samples from the same state, kept as its
+    # small tables only
+    ops.reset_launches()
+    with depth_cut(train_launch, DP_ARCH, layers):
+        one = train_launch.run(DP_ARGV, log_fn=lambda line: print(
+            f"  15 D=1: {line}", flush=True))
+    single = one["history"]
+    single_peak = one["peak_memory_bytes"]
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the control: a D = 1 run whose second shard repeats the first
+    with depth_cut(train_launch, DP_ARCH, layers), \
+            duplicated_shards(train_launch, DP_RANKS):
+        fault = dp_gaps(train_launch.run(DP_ARGV, log_fn=lambda line: None)[
+            "history"], single)
+    gc.collect()
+    torch.cuda.empty_cache()
+    caught = sorted(k for k, v in fault.items() if v > DP_BOUNDS[k])
+    print("15 control: rank 1 reading shard 0 (a D = 1 run on the "
+          "duplicated shards) against D=1, worst relative "
+          + ", ".join(f"{k} {v:.3e}" for k, v in sorted(fault.items()))
+          + f"; over its bound: {caught}", flush=True)
+    if not caught:
+        raise AssertionError("15: the bounds do not catch a duplicated "
+                             "shard")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        need = weight_bytes(cfg_full.replace(num_layers=layers)) + GIB
+        free_disk = shutil.disk_usage(tmp).free
+        if free_disk < need:
+            raise RuntimeError(f"15d: {free_disk / 1e9:.1f} GB free under "
+                               f"{tmp}, the checkpoint needs "
+                               f"{need / 1e9:.1f} GB")
+        t0 = time.perf_counter()
+        ranks = mesh_lib.spawn(dp_rank, DP_RANKS, "gloo", DEV,
+                               args=(layers, tmp), timeout=600)
+        spawn_s = time.perf_counter() - t0
+        want = {"seg_norm_lars": 1, "seg_apply_lars": 1}
+        for r in ranks:
+            if r["launches"] != [want] * DP_STEPS:
+                raise AssertionError(f"15 rank {r['rank']}: launches per "
+                                     f"step {r['launches']}, expected "
+                                     f"{want}")
+            if not r["equal"]:
+                raise AssertionError("15: the ranks' states differ after a "
+                                     "step")
+        worst = dp_gaps(ranks[0]["history"], single)
+        over = {k: v for k, v in worst.items() if not v <= DP_BOUNDS[k]}
+        if over or set(worst) != set(DP_BOUNDS):
+            raise AssertionError(f"15: D=2 against D=1 worst relative "
+                                 f"{worst}, bounds {DP_BOUNDS}")
+        for r in ranks:
+            compute = [lg - ar for lg, ar in zip(r["loss_grad"],
+                                                 r["all_reduce"])]
+            print(f"15 rank {r['rank']} ({r['backend']}, {r['device']}): "
+                  f"per step loss+grad {[round(x * 1e3, 1) for x in compute]}"
+                  f" ms, all-reduce (host-staged gloo over one card) "
+                  f"{[round(x * 1e3, 1) for x in r['all_reduce']]} ms, "
+                  f"optimizer {[round(x * 1e3, 1) for x in r['optimizer']]}"
+                  f" ms; peak {r['peak'] / GIB:.2f} GiB (predicted "
+                  f"{pred:.2f}); launches per step {r['launches'][0]}",
+                  flush=True)
+        print(f"15: {DP_RANKS} ranks of {layers} layers on one card, "
+              f"{DP_STEPS} steps of 8 x 512 (4 x 512 a rank) in "
+              f"{spawn_s:.1f} s with the spawn; ranks bitwise equal after "
+              f"every step (fingerprints); against D=1 on the same samples "
+              f"(peak {single_peak / GIB:.2f} GiB) worst relative "
+              + ", ".join(f"{k} {v:.3e}" for k, v in sorted(worst.items()))
+              + f" (bounds {DP_BOUNDS}); {smi_line()}", flush=True)
+
+        # 15d: rank 0's checkpoint restored here (D = 1) and served
+        cfg = cfg_full.replace(num_layers=layers)
+        model = get_model(cfg)
+        sc = serving.ServeConfig(slots=4, max_len=1024, page_size=16)
+        t0 = time.perf_counter()
+        eng = serving.Engine.from_checkpoint(
+            tmp, model, sc, device=DEV, mesh=mesh_lib.make_data_mesh(1))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        placed = {str(t.device) for t in tree_leaves(eng.params)}
+        if placed != {str(torch.device(DEV, 0))}:
+            raise AssertionError(f"15d: restored onto {placed}, asked for "
+                                 f"{DEV}")
+        if fingerprint(eng.params) != ranks[0]["params_print"]:
+            raise AssertionError("15d: the restored params differ from the "
+                                 "ranks' trained params")
+        results, stats, elapsed, launches = serve(
+            eng, ops, requests_of(cfg.vocab_size, 15, 4, (64, 256),
+                                  (16, 32)))
+        if launches != layers * stats["decode_steps"]:
+            raise AssertionError(f"15d: {launches} decode launches for "
+                                 f"{stats['decode_steps']} steps")
+        print(f"15d: rank 0 saved the params in {ranks[0]['save_s']:.2f} s; "
+              f"restored here (D=1) by Engine.from_checkpoint in "
+              f"{restore_s:.2f} s, bitwise the ranks' (fingerprints); "
+              f"{len(results)} requests, {stats['tokens_generated']} tokens "
+              f"in {elapsed:.3f} s, {launches} attention_decode launches",
+              flush=True)
+        del eng, results
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 15b: the controller's D knob, 4 ranks on the smoke LM
+    ctl = mesh_lib.spawn(dp_controller_rank, 4, "gloo", DEV, timeout=300)
+    for i, r in enumerate(ctl):
+        ok = (r["batches"] == [float(b) for b in DP_BATCHES]
+              and r["records"] == (len(DP_BATCHES) // 2 if i == 0 else 0)
+              and r["launches"] == [{"seg_norm_lars": 1,
+                                     "seg_apply_lars": 1}] * len(DP_BATCHES)
+              and r["compiles"] == 2 and r["visited"] == [[1, 1], [4, 2]]
+              and r["switches"] == 3 and r["lr_ok"] and r["equal"])
+        if not ok:
+            raise AssertionError(f"15b rank {i}: {r}")
+    print(f"15b: the controller on 4 ranks (gloo, one card), smoke "
+          f"{DP_ARCH}: global batches {ctl[0]['batches']}, (D, K) built "
+          f"{ctl[0]['visited']} ({ctl[0]['compiles']} steps, "
+          f"{ctl[0]['switches']} switches), controller/lr = "
+          f"batch_scaled_lr at every boundary, 1 + 1 segmented launches "
+          f"per rank per step, ranks bitwise equal after every step; "
+          f"{ctl[0]['seconds']:.1f} s", flush=True)
+
+    # 15c: the NCCL route at world size 1
+    nccl = mesh_lib.spawn(dp_nccl_rank, 1, "nccl", DEV, timeout=300)[0]
+    if not (nccl["unchanged"] and nccl["backend"] == "nccl"
+            and nccl["launches"].get("seg_norm_lars") == 1
+            and nccl["launches"].get("seg_apply_lars") == 1
+            and math.isfinite(nccl["loss"])):
+        raise AssertionError(f"15c: {nccl}")
+    best = min(nccl["seconds"])
+    print(f"15c: NCCL, world of 1: the bucketed all-reduce over "
+          f"{nccl['bytes']} B of f32 (qwen2.5-3b's leaves) in "
+          f"{[round(s * 1e3, 2) for s in nccl['seconds']]} ms "
+          f"({nccl['bytes'] / best / 1e9:.1f} GB/s of buffer, a sum of "
+          f"one), values unchanged; one --mesh-data 1 step through the "
+          f"launcher: loss {nccl['loss']:.4f}, 1 + 1 segmented launches; "
+          f"{smi_line()}", flush=True)
+    return {"layers": layers, "predicted_gib": pred, "ranks": ranks,
+            "controller": ctl, "nccl": nccl,
+            "launches": {k: sum(s.get(k, 0) for s in ranks[0]["launches"])
+                         for k in SEG_LARS},
+            "controller_launches": {
+                k: sum(s.get(k, 0) for s in ctl[0]["launches"])
+                for k in SEG_LARS}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4093,6 +4566,7 @@ def main() -> int:
     from repro_torch import checkpoint, core
     from repro_torch.launch import landscape as landscape_launch
     from repro_torch.launch import pipeline as pipeline_launch
+    from repro_torch.launch import mesh as mesh_lib
 
     # full-f32 matmuls and convolutions wherever f32 is computed
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4117,105 +4591,126 @@ def main() -> int:
               f"{max(spills, default=0)} B")
     print(f"build: total {time.perf_counter() - t0:.1f} s", flush=True)
 
-    kernel = phase_kernel(tad, ops)
-    seg = phase_seg_kernels(su, sref, flatten, convert, get_config)
+    with phase_clock("3"):
+        kernel = phase_kernel(tad, ops)
+    with phase_clock("3b"):
+        seg = phase_seg_kernels(su, sref, flatten, convert, get_config)
     gc.collect()
     torch.cuda.empty_cache()
-    lars = phase_lars_kernels(lu, sref, flatten, layerwise, convert,
-                              get_config, cnn, tree_leaves)
-    rmsn = phase_rmsnorm(rms, sref, ops)
+    with phase_clock("3c"):
+        lars = phase_lars_kernels(lu, sref, flatten, layerwise, convert,
+                                  get_config, cnn, tree_leaves)
+    with phase_clock("3d"):
+        rmsn = phase_rmsnorm(rms, sref, ops)
     gc.collect()
     torch.cuda.empty_cache()
-    main_path = phase_serving(ops, serving, get_config, get_model, Tracer,
-                              phase_summary,
-                              tad.decode_parity_tolerance(torch.bfloat16))
+    with phase_clock("4"):
+        main_path = phase_serving(
+            ops, serving, get_config, get_model, Tracer, phase_summary,
+            tad.decode_parity_tolerance(torch.bfloat16))
     gc.collect()
     torch.cuda.empty_cache()
-    phase_f32_full_width(ops, serving, get_config, get_model)
+    with phase_clock("5"):
+        phase_f32_full_width(ops, serving, get_config, get_model)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_small_against_cpu(serving, get_smoke_config, get_model)
+    with phase_clock("6"):
+        phase_small_against_cpu(serving, get_smoke_config, get_model)
 
     # the training path at full width: (a) fused TVLARS in f32, (b) fused
     # LAMB with bf16 stochastic-rounded state and 2 microbatches
     train = {}
-    for label, argv in (
-            ("tvlars-f32", ["--optimizer", "tvlars", "--use-kernel",
+    for phase, label, argv in (
+            ("7", "tvlars-f32", ["--optimizer", "tvlars", "--use-kernel",
                             "fused", "--precision", "f32",
                             "--global-batch", "8", "--seq", "512",
                             "--steps", "3"]),
-            ("lamb-bf16sr-K2", ["--optimizer", "lamb", "--use-kernel",
+            ("7b", "lamb-bf16sr-K2", ["--optimizer", "lamb", "--use-kernel",
                                 "fused", "--precision", "bf16_master_sr",
                                 "--global-batch", "8", "--microbatch",
                                 "4", "--seq", "512", "--steps", "3"])):
-        train.update(phase_train_full(train_run, ops, su, sref,
-                                      tree_leaves, argv, label))
+        with phase_clock(phase):
+            train.update(phase_train_full(train_run, ops, su, sref,
+                                          tree_leaves, argv, label))
         gc.collect()
         torch.cuda.empty_cache()
     # (c) the per-tensor path: WA-LARS, f32 momentum, bf16 weights
-    train.update(phase_train_per_tensor(
-        train_run, ops, lu, sref, layerwise, flatten, tree_leaves,
-        ["--optimizer", "wa-lars", "--use-kernel", "per_tensor",
-         "--precision", "f32", "--global-batch", "8", "--seq", "512",
-         "--steps", "3"], "wa-lars-per-tensor"))
+    with phase_clock("7c"):
+        train.update(phase_train_per_tensor(
+            train_run, ops, lu, sref, layerwise, flatten, tree_leaves,
+            ["--optimizer", "wa-lars", "--use-kernel", "per_tensor",
+             "--precision", "f32", "--global-batch", "8", "--seq", "512",
+             "--steps", "3"], "wa-lars-per-tensor"))
     gc.collect()
     torch.cuda.empty_cache()
-    phase_train_small_against_cpu(get_smoke_config, get_model,
-                                  build_optimizer, training, lm_iterator,
-                                  tree_leaves, tree_map, ops, su,
-                                  layerwise, flatten)
-    phase_paper_loop(classify, cnn, core, training, synthetic, ops,
-                     layerwise, flatten, tree_leaves, tree_map)
+    with phase_clock("8"):
+        phase_train_small_against_cpu(get_smoke_config, get_model,
+                                      build_optimizer, training,
+                                      lm_iterator, tree_leaves, tree_map,
+                                      ops, su, layerwise, flatten)
+    with phase_clock("9"):
+        phase_paper_loop(classify, cnn, core, training, synthetic, ops,
+                         layerwise, flatten, tree_leaves, tree_map)
     gc.collect()
     torch.cuda.empty_cache()
 
     # 10: the sharpness diagnostics at full width, then against the CPU,
     # the bench's port and the probe smoke's entry point
-    phase_sharpness_full(
-        train_run, ops, lu, sref, layerwise, flatten, tree_leaves, diag,
-        synthetic, training,
-        ["--arch", "qwen2.5-3b", "--optimizer", "wa-lars", "--use-kernel",
-         "per_tensor", "--global-batch", "8", "--microbatch", "1", "--seq",
-         "512", "--steps", "3", "--probe-every", "1", "--probe-iters", "4",
-         "--probe-no-reorth"], "wa-lars-probes")
+    with phase_clock("10"):
+        phase_sharpness_full(
+            train_run, ops, lu, sref, layerwise, flatten, tree_leaves, diag,
+            synthetic, training,
+            ["--arch", "qwen2.5-3b", "--optimizer", "wa-lars",
+             "--use-kernel", "per_tensor", "--global-batch", "8",
+             "--microbatch", "1", "--seq", "512", "--steps", "3",
+             "--probe-every", "1", "--probe-iters", "4",
+             "--probe-no-reorth"], "wa-lars-probes")
     gc.collect()
     torch.cuda.empty_cache()
-    phase_sharpness_small_against_cpu(get_smoke_config, get_model, diag,
-                                      synthetic, training, tree_map)
-    phase_sharpness_bench(sharpness_launch, diag)
-    diag_smoke.main([])
+    with phase_clock("10b-10d"):
+        phase_sharpness_small_against_cpu(get_smoke_config, get_model,
+                                          diag, synthetic, training,
+                                          tree_map)
+        phase_sharpness_bench(sharpness_launch, diag)
+        diag_smoke.main([])
     gc.collect()
     torch.cuda.empty_cache()
 
     # 11: the adaptive-batch controller at full width, on the smoke LM
     # against the CPU, and the paper's experiment launchers
-    adaptive = phase_adaptive_full(
-        train_run, ops, su, pipeline, synthetic, schedules, training, diag,
-        ["--arch", "qwen2.5-3b", "--optimizer", "tvlars", "--use-kernel",
-         "fused", "--global-batch", "2", "--microbatch", "1", "--seq",
-         "512", "--batch-max", "16", "--controller-every", "2", "--steps",
-         "6", "--prefetch", "2", "--adaptive-batch"], "tvlars-adaptive")
+    with phase_clock("11"):
+        adaptive = phase_adaptive_full(
+            train_run, ops, su, pipeline, synthetic, schedules, training,
+            diag,
+            ["--arch", "qwen2.5-3b", "--optimizer", "tvlars",
+             "--use-kernel", "fused", "--global-batch", "2", "--microbatch",
+             "1", "--seq", "512", "--batch-max", "16", "--controller-every",
+             "2", "--steps", "6", "--prefetch", "2", "--adaptive-batch"],
+            "tvlars-adaptive")
     gc.collect()
     torch.cuda.empty_cache()
-    phase_adaptive_small(get_smoke_config, get_model, pipeline, synthetic,
-                         training, diag, build_optimizer, tree_leaves,
-                         tree_map, ops, su, diag.sink)
-    paper = phase_paper_runs(
-        {"table1": table1, "ssl": ssl_launch, "fig2_lnr": fig2_lnr,
-         "ablations": ablations, "schedules": schedules_launch,
-         "adaptive_batch": adaptive_batch}, ops, layerwise, flatten, cnn,
-        paper_io, diag)
+    with phase_clock("11b"):
+        phase_adaptive_small(get_smoke_config, get_model, pipeline,
+                             synthetic, training, diag, build_optimizer,
+                             tree_leaves, tree_map, ops, su, diag.sink)
+    with phase_clock("11c"):
+        paper = phase_paper_runs(
+            {"table1": table1, "ssl": ssl_launch, "fig2_lnr": fig2_lnr,
+             "ablations": ablations, "schedules": schedules_launch,
+             "adaptive_batch": adaptive_batch}, ops, layerwise, flatten,
+            cnn, paper_io, diag)
 
     # 12-12f: codeqwen1.5-7b at full width and depth, qwen2-72b at full
     # width cut in depth, then the main path (train -> checkpoint ->
     # serve), the pipeline and landscape benches and the profiler
     gc.collect()
     torch.cuda.empty_cache()
-    codeqwen = phase_dense_serving(
-        "12 codeqwen1.5-7b", get_config("codeqwen1.5-7b"),
-        traffic(get_config("codeqwen1.5-7b").vocab_size)[::2], SLOTS,
-        MAX_LEN, ops, serving, tad, get_model, Tracer, phase_summary,
-        tree_leaves)
+    with phase_clock("12"):
+        codeqwen = phase_dense_serving(
+            "12 codeqwen1.5-7b", get_config("codeqwen1.5-7b"),
+            traffic(get_config("codeqwen1.5-7b").vocab_size)[::2], SLOTS,
+            MAX_LEN, ops, serving, tad, get_model, Tracer, phase_summary,
+            tree_leaves)
     gc.collect()
     torch.cuda.empty_cache()
     full72 = get_config("qwen2-72b")
@@ -4225,36 +4720,52 @@ def main() -> int:
           f"{depth72} (the deepest cut whose weights, KV pool and "
           f"{PREFILL_MARGIN_GIB} GiB of prefill activations are predicted "
           f"under {PEAK_CEILING_GIB} GiB; width as published)", flush=True)
-    qwen72 = phase_dense_serving(
-        "12b qwen2-72b (cut in depth)", cfg72,
-        requests_of(cfg72.vocab_size, 1, 4, (128, 512), (16, 32)), 4, 1024,
-        ops, serving, tad, get_model, Tracer, phase_summary, tree_leaves)
+    with phase_clock("12b"):
+        qwen72 = phase_dense_serving(
+            "12b qwen2-72b (cut in depth)", cfg72,
+            requests_of(cfg72.vocab_size, 1, 4, (128, 512), (16, 32)), 4,
+            1024, ops, serving, tad, get_model, Tracer, phase_summary,
+            tree_leaves)
     gc.collect()
     torch.cuda.empty_cache()
-    main12 = phase_main_path(train_run, ops, checkpoint, convert, serving,
-                             tad, training.trainer, tree_leaves)
+    with phase_clock("12c"):
+        main12 = phase_main_path(train_run, ops, checkpoint, convert,
+                                 serving, tad, training.trainer,
+                                 tree_leaves)
     gc.collect()
     torch.cuda.empty_cache()
-    pipe = phase_pipeline_bench(pipeline_launch, ops)
-    phase_landscape_bench(landscape_launch)
-    prof = phase_profile(train_run, ops)
+    with phase_clock("12d-12f"):
+        pipe = phase_pipeline_bench(pipeline_launch, ops)
+        phase_landscape_bench(landscape_launch)
+        prof = phase_profile(train_run, ops)
 
     # 13-13f: the MoE, Mamba2 and Zamba2 families
-    fam = phase_families(train_launch, ops, su, sref, lu, layerwise,
-                         flatten, serving, tad, get_config, get_model,
-                         Tracer, phase_summary, tree_leaves)
-    phase_families_small(get_smoke_config, get_model, serving,
-                         build_optimizer, training, lm_iterator,
-                         tree_leaves, tree_map, ops, su, moe)
+    with phase_clock("13-13e"):
+        fam = phase_families(train_launch, ops, su, sref, lu, layerwise,
+                             flatten, serving, tad, get_config, get_model,
+                             Tracer, phase_summary, tree_leaves)
+    with phase_clock("13f"):
+        phase_families_small(get_smoke_config, get_model, serving,
+                             build_optimizer, training, lm_iterator,
+                             tree_leaves, tree_map, ops, su, moe)
 
     # 14-14f: the encoder-decoder and vision families
-    cross = phase_cross_families(train_launch, ops, su, sref, lu, layerwise,
-                                 flatten, serving, tad, get_config,
-                                 get_model, Tracer, phase_summary,
-                                 tree_leaves)
-    phase_cross_families_small(get_smoke_config, get_model, serving,
-                               build_optimizer, training, lm_iterator,
-                               tree_leaves, tree_map, ops, su)
+    with phase_clock("14-14e"):
+        cross = phase_cross_families(train_launch, ops, su, sref, lu,
+                                     layerwise, flatten, serving, tad,
+                                     get_config, get_model, Tracer,
+                                     phase_summary, tree_leaves)
+    with phase_clock("14f"):
+        phase_cross_families_small(get_smoke_config, get_model, serving,
+                                   build_optimizer, training, lm_iterator,
+                                   tree_leaves, tree_map, ops, su)
+
+    # 15-15d: data parallelism over torch.distributed
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase_clock("15-15d"):
+        dp = phase_data_parallel(train_launch, ops, serving, mesh_lib,
+                                 get_config, get_model, tree_leaves)
 
     # the serving path's mix: 40 local and 8 global launches per decode
     # step (bf16 pool); per-launch means weighted by that mix
@@ -4326,7 +4837,10 @@ def main() -> int:
                    for k in ("13c", "13d", "13e")},
                 **{k: cross[k][name]["launches"] if name in cross[k] else 0
                    for k in ("14c", "14d")},
-                "14c-stub": cross["14c-stub"].get(name, 0)}})
+                "14c-stub": cross["14c-stub"].get(name, 0),
+                # per rank: every rank of 15 and 15b launches as many
+                "15": dp["launches"].get(name, 0),
+                "15b": dp["controller_launches"].get(name, 0)}})
     # the per-tensor kernels: per-launch means over the 14 segments of a
     # step at the main path's shapes; no single PyTorch call computes a
     # multi-tensor norm pair or the trust-scaled momentum apply, so

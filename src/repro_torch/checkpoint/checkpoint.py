@@ -1,5 +1,5 @@
-"""Tree checkpoints in the JAX package's format: the single-device port
-of ``repro.checkpoint.checkpoint``.
+"""Tree checkpoints in the JAX package's format: the port of
+``repro.checkpoint.checkpoint``.
 
 A checkpoint is a directory holding
 
@@ -10,7 +10,11 @@ A checkpoint is a directory holding
   bfloat16; every other leaf as its numpy array;
 * ``meta.json``: ``num_leaves``, ``treedef`` (a description; neither
   package checks it), ``step``, and per leaf ``dtypes`` and ``shapes``,
-  plus ``shardings`` (``{}`` from one device).
+  plus ``shardings``: per leaf the placement it was saved from, ``{}``
+  from one device, and from a data-parallel world (``save(mesh=)``)
+  ``{"spec": "PartitionSpec()", "mesh": {"data": D, "model": 1}}``,
+  the provenance the reference writes for a state replicated on a
+  ``(D, 1)`` mesh.
 
 Both files are written to a temporary name and moved into place with
 ``os.replace``. The layout is the reference's byte for byte, so a
@@ -26,6 +30,16 @@ cross packages in the reference's stacked tree
 raises ``ValueError`` naming the leaf before it reinterprets any bytes.
 bfloat16 bytes are decoded as ``uint8`` viewed as ``torch.bfloat16``,
 which needs no ``ml_dtypes``.
+
+Across worlds: the payload does not depend on the mesh. ``save(mesh=)``
+is called on every rank; rank 0 writes and every rank waits at a
+barrier. ``restore(mesh=)`` places every leaf whole on each rank's
+device; ``restore(shardings=)`` accepts that replicated placement
+(``distributed.NamedSharding(mesh, PartitionSpec())``, one for all
+leaves or a tree of them). A spec that splits a leaf raises:
+``ValueError`` naming the leaf when it cannot tile the leaf's shape,
+``NotImplementedError`` otherwise (split leaves are the model axis's
+item in ROADMAP).
 """
 from __future__ import annotations
 
@@ -38,8 +52,10 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch import device as _device
-from repro_torch.core.base import path_name, tree_flatten_with_path
+from repro_torch.core.base import (path_name, tree_flatten_with_path,
+                                   tree_leaves)
+from repro_torch.distributed import (MODEL_AXIS_PENDING, NamedSharding,
+                                     placement_device, replicated)
 from repro_torch.models.convert import params_from_jax, params_to_jax
 from repro_torch.training.train_state import TrainState
 
@@ -87,9 +103,24 @@ def _atomic_write(path: str, name: str, write) -> None:
         raise
 
 
-def save(path: str, tree: Any, *, step: Optional[int] = None) -> None:
+def _leaf_sharding_meta(mesh) -> Optional[dict]:
+    """The provenance of a leaf replicated on ``mesh`` (None without)."""
+    if mesh is None:
+        return None
+    return {"spec": str(replicated(mesh).spec),
+            "mesh": {str(k): int(v) for k, v in mesh.shape.items()}}
+
+
+def save(path: str, tree: Any, *, step: Optional[int] = None,
+         mesh=None) -> None:
     """Write ``tree`` (tensors on any device, numpy arrays or numbers)
-    as a checkpoint directory at ``path``."""
+    as a checkpoint directory at ``path``. ``mesh=``: called on every
+    rank of a data-parallel world, whose state is equal on every rank;
+    rank 0 writes, records every leaf as replicated on the mesh, and the
+    ranks meet at a barrier before returning."""
+    if mesh is not None and mesh.rank != 0:
+        mesh.barrier()
+        return
     pairs = list(tree_flatten_with_path(tree))
     arrays, dtypes, shapes = {}, {}, {}
     for i, (_, leaf) in enumerate(pairs):
@@ -97,15 +128,19 @@ def save(path: str, tree: Any, *, step: Optional[int] = None) -> None:
         arrays[f"leaf_{i}"] = arr
         dtypes[f"leaf_{i}"] = dtype
         shapes[f"leaf_{i}"] = shape
+    prov = _leaf_sharding_meta(mesh)
     meta = {"num_leaves": len(pairs),
             "treedef": "repro_torch tree: " + ", ".join(
                 path_name(p) for p, _ in pairs),
             "step": step, "dtypes": dtypes, "shapes": shapes,
-            "shardings": {}}
+            "shardings": {} if prov is None else
+            {f"leaf_{i}": prov for i in range(len(pairs))}}
     os.makedirs(path, exist_ok=True)
     _atomic_write(path, ARRAYS, lambda f: np.savez(f, **arrays))
     _atomic_write(path, META,
                   lambda f: f.write(json.dumps(meta).encode()))
+    if mesh is not None:
+        mesh.barrier()
 
 
 def _torch_dtype(name: str, leaf: int) -> torch.dtype:
@@ -116,6 +151,47 @@ def _torch_dtype(name: str, leaf: int) -> torch.dtype:
     return dt
 
 
+def _resolve_shardings(shardings: Any, mesh, n: int) -> Optional[list]:
+    """Per-leaf placement list (None: the ``device`` argument's)."""
+    if shardings is None and mesh is None:
+        return None
+    if shardings is None:
+        return [replicated(mesh)] * n
+    if isinstance(shardings, NamedSharding):
+        return [shardings] * n
+    sh_leaves = tree_leaves(shardings)
+    if len(sh_leaves) != n:
+        raise ValueError(
+            f"shardings pytree has {len(sh_leaves)} leaves, template has "
+            f"{n}: pass one NamedSharding, or a tree matching the "
+            f"template structure")
+    return sh_leaves
+
+
+def _check_placeable(i: int, shape: tuple, sh) -> None:
+    """Refuse a placement that cannot tile the leaf (the reference's
+    ``ValueError``), then any that splits it (not ported)."""
+    if not isinstance(sh, NamedSharding):
+        raise ValueError(
+            f"leaf {i}: sharding entry is {type(sh).__name__}, expected "
+            f"a distributed.NamedSharding")
+    spec = sh.spec
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        parts = math.prod(int(sh.mesh.shape[a]) for a in axes)
+        if d >= len(shape) or shape[d] % parts:
+            raise ValueError(
+                f"leaf {i}: shape {tuple(shape)} cannot be placed with "
+                f"spec {spec} on mesh {sh.mesh.shape}: sharding mismatch "
+                f"between checkpoint and restore target")
+    if spec.axes():
+        raise NotImplementedError(
+            f"leaf {i}: spec {spec} splits the leaf; the port places "
+            f"leaves whole on every rank ({MODEL_AXIS_PENDING})")
+
+
 def restore(path: str, like: Any, *, device="cuda", mesh=None,
             shardings=None) -> Any:
     """Restore into the structure of ``like`` (tensors, meta tensors or
@@ -124,16 +200,24 @@ def restore(path: str, like: Any, *, device="cuda", mesh=None,
 
     Raises ``ValueError`` naming the leaf when the leaf count, a shape,
     a dtype or a byte-viewed leaf's byte count disagrees with the
-    metadata or the template. ``mesh=`` / ``shardings=`` (the
-    reference's placements) are not ported yet."""
-    if mesh is not None or shardings is not None:
-        raise NotImplementedError(
-            "restore(mesh=, shardings=): multi-device placement is not "
-            "ported yet (single device only), see ROADMAP")
-    dev = _device.resolve(device)
+    metadata or the template. ``mesh=`` places every leaf whole on this
+    rank's device (``mesh.device`` in a joined world, which must be of
+    ``device``'s type; ``device`` outside one); ``shardings=`` takes
+    placements (one ``NamedSharding`` or a tree of them): replicated
+    ones only, and every one is checked before any leaf is read."""
     with open(os.path.join(path, META)) as f:
         meta = json.load(f)
     pairs = list(tree_flatten_with_path(like))
+    placements = _resolve_shardings(shardings, mesh, len(pairs))
+    if placements is not None:
+        shapes = meta.get("shapes", {})
+        for i, (_, template) in enumerate(pairs):
+            shape = shapes.get(f"leaf_{i}", getattr(template, "shape",
+                                                    None))
+            if shape is not None:
+                _check_placeable(i, tuple(shape), placements[i])
+    dev = placement_device(
+        None if placements is None else placements[0].mesh, device)
     if meta["num_leaves"] != len(pairs):
         raise ValueError(
             f"checkpoint has {meta['num_leaves']} leaves, template has "
@@ -254,16 +338,17 @@ def train_state_tree(state: TrainState, *, cfg=None) -> TrainState:
 
 
 def restore_train_state(path: str, like: TrainState, *, cfg=None,
-                        device="cuda") -> TrainState:
+                        device="cuda", mesh=None) -> TrainState:
     """Restore a checkpoint of :func:`train_state_tree`'s layout (written
     by either package) into a port :class:`TrainState` shaped like
-    ``like``."""
+    ``like``; ``mesh=`` places it whole on every rank's device."""
     template = TrainState(
         np.zeros((), np.int32),
         like.params if cfg is None
         else params_to_jax(cfg, like.params, device="meta"),
         like.opt_state)
-    tree = restore(path, template, device=device)
+    tree = restore(path, template, device=device, mesh=mesh)
+    device = placement_device(mesh, device)
     params = tree.params if cfg is None \
         else params_from_jax(cfg, tree.params, device=device)
     return TrainState(int(tree.step), params, tree.opt_state)

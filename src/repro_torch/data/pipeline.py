@@ -1,19 +1,27 @@
-"""Microbatch streams: the single-device port of ``repro.data.pipeline``.
+"""Microbatch streams and the data-axis helpers: the port of
+``repro.data.pipeline``.
 
 An accumulating train step consumes ``[K, B/K, ...]`` leaves
 (:func:`stack_microbatches`). :class:`MicrobatchedStream` pulls
 contiguous samples from a sample-level source (``data.synthetic.*
-_sample_source``) and stacks them at an accumulation depth K that the
-adaptive-batch controller may change between steps without skipping or
-re-reading a sample. :class:`PrefetchingStream` runs any stream a few
-batches ahead on a producer thread; :class:`LengthBucketedStream`
-groups variable-length LM samples by length.
+_sample_source``) and stacks them at an accumulation depth K and a data
+width D that the adaptive-batch controller may change between steps
+without skipping or re-reading a sample. :class:`PrefetchingStream`
+runs any stream a few batches ahead on a producer thread;
+:class:`LengthBucketedStream` groups variable-length LM samples by
+length.
 
-The mesh helpers of the reference (``data_axes``, ``shard_over_data``,
-``batch_pspec``, ``shard_batch``, ``sharded_iterator``) wait for data
-parallelism (ROADMAP queue 1, item 8). The D knob
-(``set_data_parallel``) is kept: it only sets how many microbatches of
-samples one pull stacks side by side.
+The data axis (a :class:`repro_torch.distributed.Mesh` of D ranks):
+every rank holds the GLOBAL batch, as the reference's step is handed
+the global array, and :func:`shard_batch` is the placement: rank r
+computes rows ``[r·b, (r+1)·b)`` of the microbatch dim (dim 1 of
+stacked ``[K, D·b, ...]`` leaves, dim 0 otherwise), the order in which
+the reference's ``make_data_mesh`` devices take shards. The global
+batch is ``K × D × microbatch``. :func:`shard_over_data` runs a
+function on this rank's shard (the reference's ``shard_map``); the
+function averages its own outputs over the axis (``Mesh.mean_``). The
+``PartitionSpec`` helpers keep the reference's descriptor of which dim
+is split over which axes.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from typing import Any, Callable, Iterator, Optional
 import torch
 
 from repro_torch import device as _device
+from repro_torch.distributed import Mesh, PartitionSpec as P
 from repro_torch.obs import trace as obs_trace
 
 PyTree = Any
@@ -56,6 +65,110 @@ def stack_microbatches(batch: PyTree, accum_steps: int) -> PyTree:
                          + tuple(x.shape[1:]))
 
     return _tree_map(stack, batch)
+
+
+def data_axes(mesh: Mesh) -> tuple[str, ...]:
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def resolve_data_axes(mesh: Mesh, axes=None) -> tuple[str, ...]:
+    """The data-axis resolver every ``mesh=`` entry point (train step
+    and probes alike) goes through: the ``("pod", "data")`` subset
+    present in ``mesh``, or explicit ``axes`` validated against it."""
+    if axes is None:
+        return data_axes(mesh)
+    axes = tuple(axes)
+    missing = [a for a in axes if a not in mesh.shape]
+    if missing:
+        raise ValueError(f"data_axes {axes} not in mesh axes "
+                         f"{tuple(mesh.axis_names)}")
+    return axes
+
+
+def resolve_dp_size(mesh: Optional[Mesh], axes=None) -> int:
+    """Data-parallel width of ``mesh`` (1 for ``mesh=None``)."""
+    if mesh is None:
+        return 1
+    return dp_size(mesh, resolve_data_axes(mesh, axes))
+
+
+def dp_size(mesh: Mesh, axes: Optional[tuple] = None) -> int:
+    """Total data-parallel width: the product of the data axes."""
+    out = 1
+    for a in (data_axes(mesh) if axes is None else axes):
+        out *= int(mesh.shape[a])
+    return out
+
+
+def batch_axes_pspec(axes, accum_steps: int = 1) -> P:
+    """The batch layout: the microbatch dim split over ``axes``, the K
+    dim of stacked leaves whole."""
+    axes = tuple(axes)
+    return P(None, axes) if accum_steps > 1 else P(axes)
+
+
+def batch_pspec(mesh: Mesh) -> P:
+    return batch_axes_pspec(data_axes(mesh))
+
+
+def microbatch_pspec(mesh: Mesh) -> P:
+    """Spec of stacked ``[K, B/K, ...]`` leaves: K whole, B/K split over
+    the data axes."""
+    return batch_axes_pspec(data_axes(mesh), 2)
+
+
+def shard_batch(mesh: Mesh, batch: PyTree, *, batch_dim: int = 0
+                ) -> PyTree:
+    """This rank's shard of a global batch: rows ``[s·b, (s+1)·b)`` of
+    ``batch_dim`` (1 for stacked microbatch leaves), ``b`` the dim over
+    the data width and ``s`` the rank's shard (``mesh.shard``). A dim
+    that does not split over the data width raises the reference's
+    ``ValueError`` with the offending sizes."""
+    axes = data_axes(mesh)
+    dp = dp_size(mesh)
+
+    def place(x):
+        if x.dim() <= batch_dim:
+            raise ValueError(
+                f"shard_batch(batch_dim={batch_dim}): leaf of shape "
+                f"{tuple(x.shape)} has no dim {batch_dim} to shard over "
+                f"{axes}")
+        if dp > 1 and x.shape[batch_dim] % dp:
+            raise ValueError(
+                f"batch dim {batch_dim} of size {x.shape[batch_dim]} "
+                f"(leaf shape {tuple(x.shape)}) is not divisible by the "
+                f"data-parallel width {dp} (mesh axes "
+                f"{ {a: int(mesh.shape[a]) for a in axes} }); pick a "
+                f"microbatch that is a multiple of the data width")
+        if dp == 1:
+            return x
+        b = x.shape[batch_dim] // dp
+        return x.narrow(batch_dim, mesh.shard * b, b)
+
+    return _tree_map(place, batch)
+
+
+def sharded_iterator(mesh: Mesh, host_iter: Iterator, *,
+                     batch_dim: int = 0) -> Iterator:
+    for batch in host_iter:
+        yield shard_batch(mesh, batch, batch_dim=batch_dim)
+
+
+def shard_over_data(fn: Callable, mesh: Mesh, axes: tuple,
+                    accum_steps: int) -> Callable:
+    """Run a ``(replicated..., batch) -> replicated`` computation on this
+    rank's shard (the reference's ``shard_map`` over the data axes):
+    every positional argument but the LAST is whole on every rank, the
+    last is the global batch, of which ``fn`` sees :func:`shard_batch`'s
+    shard (the :func:`batch_axes_pspec` layout). ``fn`` makes its
+    outputs equal on every rank itself (``mesh.mean_``)."""
+    batch_dim = 1 if accum_steps > 1 else 0
+
+    def wrapped(*args):
+        local = shard_batch(mesh, args[-1], batch_dim=batch_dim)
+        return fn(*args[:-1], local)
+
+    return wrapped
 
 
 class MicrobatchedStream:
@@ -240,9 +353,12 @@ class PrefetchingStream:
                         self._err = e
                         self._cv.notify_all()
                     return
-            with self._cv:
-                self._buf.append(item)
-                self._cv.notify_all()
+                # appended before the pull lock is released: a retarget
+                # between the pull and the append would rewind past
+                # the buffer without this batch and keep its old shape
+                with self._cv:
+                    self._buf.append(item)
+                    self._cv.notify_all()
 
     def __iter__(self) -> "PrefetchingStream":
         return self

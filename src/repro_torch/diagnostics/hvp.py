@@ -27,6 +27,15 @@ product is packed into a zeroed buffer, so the flat operator is the
 tree Hessian embedded in the padded space with an exact null space on
 the pad coordinates. Seed Lanczos with a :func:`padding_mask`-projected
 vector and every Krylov vector stays in the real-parameter subspace.
+
+Data-parallel probing: every entry point takes ``mesh=`` /
+``data_axes=`` (a :class:`repro_torch.distributed.Mesh`). Each rank is
+handed the global probe batch, computes on its shard of the microbatch
+dim (``pipeline.shard_over_data``) and the per-shard results (f32) are
+averaged over the ranks (``Mesh.mean_``), so every rank holds the same
+global-batch loss, gradients or Hessian product. Probe vectors are
+whole on every rank: Lanczos on top runs unchanged, its Krylov basis
+replicated.
 """
 from __future__ import annotations
 
@@ -35,10 +44,20 @@ from typing import Any, Callable, Iterator, Optional
 import torch
 
 from repro_torch.core import flatten
+from repro_torch.data import pipeline
 from repro_torch.core.base import (tree_flatten_with_path, tree_from_paths,
                                    tree_leaves, tree_map)
 
 PyTree = Any
+
+mesh_data_axes = pipeline.resolve_data_axes
+mesh_dp_size = pipeline.resolve_dp_size
+
+
+def _on_mesh(mesh) -> bool:
+    """True when a probe runs over ranks (a mesh over a world of more
+    than one process); a mesh of one rank is the single-device path."""
+    return mesh is not None and mesh.world > 1
 
 
 def check_stacked(batch: PyTree, accum_steps: int) -> None:
@@ -82,17 +101,35 @@ def _f32_loss(task, params: PyTree, batch: PyTree) -> torch.Tensor:
     return loss.float()
 
 
-def scanned_loss(task, params: PyTree, batch: PyTree,
-                 accum_steps: int = 1) -> torch.Tensor:
-    """Mean task loss over K stacked microbatches (forward only, no
-    graph): the accumulated training objective, an f32 0-d tensor."""
-    check_stacked(batch, accum_steps)
+def _local_loss(task, params: PyTree, batch: PyTree,
+                accum_steps: int) -> torch.Tensor:
     total = None
     with torch.no_grad():
         for mb in microbatches(batch, accum_steps):
             loss = _f32_loss(task, params, mb)
             total = loss if total is None else total + loss
     return total if accum_steps == 1 else total / accum_steps
+
+
+def scanned_loss(task, params: PyTree, batch: PyTree,
+                 accum_steps: int = 1, *, mesh=None,
+                 data_axes=None) -> torch.Tensor:
+    """Mean task loss over K stacked microbatches (forward only, no
+    graph): the accumulated training objective, an f32 0-d tensor.
+    ``mesh=``: the microbatch dim is split over the data axes and the
+    per-shard means are averaged."""
+    check_stacked(batch, accum_steps)
+    if not _on_mesh(mesh):
+        return _local_loss(task, params, batch, accum_steps)
+    axes = mesh_data_axes(mesh, data_axes)
+
+    def local(params, batch):
+        loss = _local_loss(task, params, batch, accum_steps)
+        mesh.mean_([loss])
+        return loss
+
+    return pipeline.shard_over_data(local, mesh, axes,
+                                    accum_steps)(params, batch)
 
 
 def microbatch_grads(task, params: PyTree, batch: PyTree,
@@ -121,12 +158,8 @@ def accumulate_f32(acc: Optional[list], grads: list) -> list:
     return acc
 
 
-def scanned_grads(task, params: PyTree, batch: PyTree,
-                  accum_steps: int = 1) -> tuple[torch.Tensor, PyTree]:
-    """(mean loss, f32 mean grads tree) over K stacked microbatches;
-    peak memory is one microbatch of activations, one microbatch's
-    gradients and the f32 accumulator."""
-    check_stacked(batch, accum_steps)
+def _local_grads(task, params: PyTree, batch: PyTree,
+                 accum_steps: int) -> tuple[torch.Tensor, list]:
     loss_acc, grad_acc = None, None
     for loss, grads in microbatch_grads(task, params, batch, accum_steps):
         grad_acc = accumulate_f32(grad_acc, grads)
@@ -136,9 +169,33 @@ def scanned_grads(task, params: PyTree, batch: PyTree,
         loss_acc = loss_acc / accum_steps
         for a in grad_acc:
             a.div_(accum_steps)
-    return loss_acc, tree_from_paths(
+    return loss_acc, grad_acc
+
+
+def scanned_grads(task, params: PyTree, batch: PyTree,
+                  accum_steps: int = 1, *, mesh=None,
+                  data_axes=None) -> tuple[torch.Tensor, PyTree]:
+    """(mean loss, f32 mean grads tree) over K stacked microbatches;
+    peak memory is one microbatch of activations, one microbatch's
+    gradients and the f32 accumulator. ``mesh=``: per-shard results
+    averaged over the data axes (global-batch loss and gradients on
+    every rank)."""
+    check_stacked(batch, accum_steps)
+    if not _on_mesh(mesh):
+        loss, grads = _local_grads(task, params, batch, accum_steps)
+    else:
+        axes = mesh_data_axes(mesh, data_axes)
+
+        def local(params, batch):
+            loss, grads = _local_grads(task, params, batch, accum_steps)
+            mesh.mean_([loss, *grads])
+            return loss, grads
+
+        loss, grads = pipeline.shard_over_data(local, mesh, axes,
+                                               accum_steps)(params, batch)
+    return loss, tree_from_paths(
         params, {p: g for (p, _), g in zip(tree_flatten_with_path(params),
-                                           grad_acc)})
+                                           grads)})
 
 
 def build_spec(task, params: PyTree) -> flatten.FlatSpec:
@@ -149,8 +206,8 @@ def build_spec(task, params: PyTree) -> flatten.FlatSpec:
 
 
 def flat_loss_fn(task, spec: flatten.FlatSpec, batch: PyTree,
-                 accum_steps: int = 1, *, template: PyTree
-                 ) -> Callable[[torch.Tensor], torch.Tensor]:
+                 accum_steps: int = 1, *, template: PyTree, mesh=None,
+                 data_axes=None) -> Callable[[torch.Tensor], torch.Tensor]:
     """``loss(w2d)`` on the flat buffer: unpacked to a tree shaped like
     ``template``, each leaf at its template leaf's dtype (f32 leaves
     are views), then scanned."""
@@ -158,7 +215,8 @@ def flat_loss_fn(task, spec: flatten.FlatSpec, batch: PyTree,
     def loss_of(w2d: torch.Tensor) -> torch.Tensor:
         params = tree_map(lambda v, t: v.to(t.dtype),
                           flatten.unpack(w2d, spec, template), template)
-        return scanned_loss(task, params, batch, accum_steps)
+        return scanned_loss(task, params, batch, accum_steps, mesh=mesh,
+                            data_axes=data_axes)
 
     return loss_of
 
@@ -227,27 +285,48 @@ class FlatHVP:
 
 
 def make_flat_hvp(task, params: PyTree, batch: PyTree, *,
-                  accum_steps: int = 1) -> FlatHVP:
+                  accum_steps: int = 1, mesh=None,
+                  data_axes=None) -> FlatHVP:
     """Build ``v2d -> H(loss) @ v2d`` on the flat buffer.
 
     The Hessian is of the *accumulated* mean loss; K > 1 runs one
     per-microbatch product at a time (linearity of the HVP), so peak
     memory stays one microbatch of activations whatever K. The tangent
     is read from ``v2d`` as f32 views and cast to each leaf's dtype;
-    the product is packed into a fresh f32 buffer."""
+    the product is packed into a fresh f32 buffer. ``mesh=``: each rank
+    takes the product on its shard of the probe batch and the flat
+    products are averaged over the data axes; the probe vectors stay
+    whole on every rank."""
     check_stacked(batch, accum_steps)
     spec = build_spec(task, params)
     template = tree_leaves(params)
 
-    def matvec(v2d: torch.Tensor) -> torch.Tensor:
+    def local_hvp(v2d: torch.Tensor, batch_: PyTree) -> torch.Tensor:
         views = tree_leaves(flatten.unpack(v2d.float(), spec, params))
         tangent = [v.to(p.dtype) for v, p in zip(views, template)]
         del views
-        hv = _hvp_leaves(task, params, batch, accum_steps, tangent)
+        hv = _hvp_leaves(task, params, batch_, accum_steps, tangent)
         del tangent
         pairs = tree_flatten_with_path(params)
         return flatten.pack(tree_from_paths(
             params, {p: h for (p, _), h in zip(pairs, hv)}), spec)
+
+    if not _on_mesh(mesh):
+        def matvec(v2d: torch.Tensor) -> torch.Tensor:
+            return local_hvp(v2d, batch)
+    else:
+        axes = mesh_data_axes(mesh, data_axes)
+
+        def sharded(v2d, batch_):
+            hv = local_hvp(v2d, batch_)
+            mesh.mean_([hv])
+            return hv
+
+        smapped = pipeline.shard_over_data(sharded, mesh, axes,
+                                           accum_steps)
+
+        def matvec(v2d: torch.Tensor) -> torch.Tensor:
+            return smapped(v2d, batch)
 
     return FlatHVP(spec, params, matvec)
 

@@ -29,6 +29,12 @@ microbatch by microbatch, as training does.
   via flat-layout HVPs + m-step Lanczos;
 * :class:`SharpnessProbe` — SAM ε-ball sharpness;
 * :class:`GradNoiseProbe` — McCandlish simple gradient noise scale.
+
+Each takes ``mesh=`` / ``data_axes=`` (the data-parallel path of
+``hvp`` and ``sharpness``): every rank calls the probe with the same
+held batch, computes on its shard and holds the averaged result; the
+random draws (the Lanczos seed) come from generators seeded alike on
+every rank, so they are the same everywhere.
 """
 from __future__ import annotations
 
@@ -105,6 +111,8 @@ class LanczosProbe:
     accum_steps: int = 1
     reorth: bool = True
     seed: int = 0
+    mesh: Any = None
+    data_axes: Any = None
     name: str = "lanczos"
 
     def __post_init__(self):
@@ -117,7 +125,8 @@ class LanczosProbe:
         """Run Lanczos on the device; returns the device ``(alphas,
         betas)`` without reading them back."""
         op = hvp.make_flat_hvp(self.task, state.params, self.batch,
-                               accum_steps=self.accum_steps)
+                               accum_steps=self.accum_steps,
+                               mesh=self.mesh, data_axes=self.data_axes)
         device = tree_leaves(state.params)[0].device
         # the seed is handed over, not kept: Lanczos frees it once it
         # has its normalized copy, so without reorthogonalization the
@@ -145,12 +154,16 @@ class SharpnessProbe:
     every: int = 10
     rho: float = 0.05
     accum_steps: int = 1
+    mesh: Any = None
+    data_axes: Any = None
     name: str = "sharpness"
 
     def dispatch(self, step: int, state) -> dict[str, torch.Tensor]:
         return sharpness.sam_sharpness(self.task, state.params, self.batch,
                                        rho=self.rho,
-                                       accum_steps=self.accum_steps)
+                                       accum_steps=self.accum_steps,
+                                       mesh=self.mesh,
+                                       data_axes=self.data_axes)
 
     def resolve(self, raw) -> dict[str, float]:
         return _host_floats(raw)
@@ -162,24 +175,31 @@ class SharpnessProbe:
 @dataclasses.dataclass
 class GradNoiseProbe:
     """Simple gradient noise scale from the stacked probe batch's
-    per-microbatch gradients; needs ``accum_steps >= 2`` (two batch
-    sizes to contrast)."""
+    per-microbatch gradients. Needs two batch sizes to contrast:
+    ``accum_steps >= 2`` on one device, or ``mesh=`` with a data width
+    >= 2 (the per-rank gradients are the small-batch samples, at any
+    ``accum_steps``)."""
     task: Any
     batch: PyTree
     accum_steps: int
     every: int = 10
+    mesh: Any = None
+    data_axes: Any = None
     name: str = "gns"
 
     def __post_init__(self):
-        if self.accum_steps < 2:
+        dp = hvp.mesh_dp_size(self.mesh, self.data_axes)
+        if self.accum_steps * dp < 2:
             raise ValueError(
                 "GradNoiseProbe needs accum_steps >= 2 (stacked "
-                f"microbatches); got accum_steps={self.accum_steps}")
+                "microbatches) or a mesh with data width >= 2; got "
+                f"accum_steps={self.accum_steps}, data_parallel={dp}")
 
     def dispatch(self, step: int, state) -> dict[str, torch.Tensor]:
         return sharpness.gradient_noise_scale(
             self.task, state.params, self.batch,
-            accum_steps=self.accum_steps)
+            accum_steps=self.accum_steps, mesh=self.mesh,
+            data_axes=self.data_axes)
 
     def resolve(self, raw) -> dict[str, float]:
         return _host_floats(raw)

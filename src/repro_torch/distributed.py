@@ -1,0 +1,350 @@
+"""The data axis over ``torch.distributed`` process groups: the world a
+process joined, :class:`Mesh` and its collectives.
+
+One process (a *rank*) holds one data shard. A :class:`Mesh` is a
+``("data", "model")`` mesh of ``data × 1`` ranks over the world: it
+answers what the reference's ``jax.sharding.Mesh`` answers (axis names,
+axis sizes) and adds what a process needs to take part (its rank, its
+device, the group and the backend). The model axis is 1: fsdp and
+tensor parallelism are not ported (:data:`MODEL_AXIS_PENDING`).
+
+The mesh's ranks are the first ``data`` ranks of the world, the
+reference's ``make_data_mesh`` prefix, so meshes of different widths
+share ranks: the adaptive-batch controller builds one per visited data
+width D over a world of ``data_max`` ranks. A rank at or past D takes
+part in every collective of a narrower mesh but contributes nothing to
+it (:meth:`Mesh.mean_`), and so ends every step with the same state.
+
+Collectives:
+
+* :meth:`Mesh.mean_` averages a list of f32 tensors over the data axis
+  in place: flat f32 buckets of at most :data:`BUCKET_BYTES`, in a
+  fixed leaf order, each summed by one ``all_reduce`` and divided by D.
+  The backend hands every rank the same bits of each sum; a rank past
+  D contributes ``-0.0``, the exact additive identity, so a step at
+  D < world sums what a world of D ranks sums. At D = 1 it hands rank
+  0's tensors, in their own dtype, to the other ranks.
+* :meth:`Mesh.broadcast_` copies rank 0's tensors to every rank in
+  place, byte for byte (``train_state.replicate``).
+
+Backends: ``nccl`` when every rank has a card of its own, ``gloo`` on
+the CPU or when ranks share one card. ``gloo`` collectives run on host
+copies of the buckets (host-staged); ``nccl`` on the card's tensors.
+NCCL refuses two ranks on one device, so that pairing raises
+(:func:`check_backend`); nothing tries one backend and falls back to
+the other. Every process group is made with a timeout
+(:data:`TIMEOUT_S`), so a collective that hangs fails.
+
+Outside a joined world a mesh is one rank with no device of its own:
+whoever places tensors on it says where (:func:`placement_device`).
+Worlds are joined and started by :mod:`repro_torch.launch.mesh`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+from typing import Any, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import device as _device
+
+AXES = ("data", "model")
+BUCKET_BYTES = 256 << 20
+TIMEOUT_S = 300.0
+BACKENDS = ("gloo", "nccl")
+MODEL_AXIS_PENDING = (
+    "the model axis (fsdp + tensor parallelism, the reference's GSPMD "
+    "path) is not ported: ROADMAP queue 1, item 11")
+
+
+class PartitionSpec(tuple):
+    """Which dims of a leaf are split over which mesh axes (the
+    reference's ``jax.sharding.PartitionSpec``; the port places whole
+    leaves only, so this is a descriptor the helpers pass around)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        inner = ", ".join(repr(e[0] if isinstance(e, tuple) and len(e) == 1
+                               else e) for e in self)
+        if len(self) == 1:
+            inner += ","
+        return f"PartitionSpec({inner})"
+
+    def axes(self) -> set:
+        out = set()
+        for e in self:
+            if e is None:
+                continue
+            out.update(e if isinstance(e, tuple) else (e,))
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A placement of a leaf over a mesh (``jax.sharding.NamedSharding``):
+    ``spec`` empty means replicated on every rank's device."""
+    mesh: "Mesh"
+    spec: PartitionSpec = PartitionSpec()
+
+
+@dataclasses.dataclass(frozen=True)
+class World:
+    """The world this process joined: its rank, size, backend and the
+    device its rank computes on (None outside a joined world)."""
+    rank: int
+    size: int
+    backend: str
+    device: Optional[torch.device]
+
+
+_world: Optional[World] = None
+
+
+def world() -> World:
+    """The joined world, or a world of one with no device of its own
+    when none was joined."""
+    if _world is None:
+        return World(0, 1, "gloo", None)
+    return _world
+
+
+def joined() -> bool:
+    """True when this process has joined a world (of any size)."""
+    return _world is not None
+
+
+def rank_device(device, rank: int) -> torch.device:
+    """The device rank ``rank`` computes on: the CPU, or card ``rank``
+    modulo the cards present (ranks share a card when there are more
+    ranks than cards)."""
+    dev = _device.resolve(device)
+    if dev.type == "cpu":
+        return dev
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def default_backend(device, world_size: int) -> str:
+    """``nccl`` when every rank has a card of its own, else ``gloo``."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and world_size <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+def check_backend(backend: str, device, world_size: int) -> None:
+    """Refuse a backend / device pairing that cannot work."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}; one of {BACKENDS}")
+    dev = torch.device(device)
+    if backend != "nccl":
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"backend nccl needs CUDA devices, got device "
+                         f"{str(dev)!r}; use gloo on the CPU")
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if world_size > cards:
+        raise ValueError(
+            f"backend nccl needs one card per rank: {world_size} ranks on "
+            f"{cards} card(s) (NCCL refuses two ranks on one device); use "
+            f"gloo for ranks that share a card")
+
+
+def init_world(backend: str, device, rank: int, size: int,
+               init_method: str, timeout: float = TIMEOUT_S) -> World:
+    """Join the process group of ``size`` ranks as ``rank`` and compute
+    on :func:`rank_device`; collectives time out after ``timeout`` s."""
+    global _world
+    check_backend(backend, device, size)
+    dev = rank_device(device, rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, init_method=init_method, rank=rank, world_size=size,
+        timeout=datetime.timedelta(seconds=timeout))
+    _world = World(rank, size, backend, dev)
+    return _world
+
+
+def leave() -> None:
+    """Destroy the process group this process joined."""
+    global _world
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _world = None
+
+
+def _check_devices(shape: tuple, axes: tuple) -> None:
+    need = 1
+    for ax, n in zip(axes, shape):
+        if n < 1:
+            raise ValueError(f"mesh axis {ax!r} must be >= 1, got {n}")
+        need *= n
+    have = world().size
+    if need > have:
+        raise ValueError(
+            f"mesh {dict(zip(axes, shape))} needs {need} ranks but only "
+            f"{have} are in the world; start {need} ranks (torchrun "
+            f"--nproc-per-node {need}, or mesh.spawn(fn, {need}, ...)) or "
+            f"shrink the mesh")
+
+
+class Mesh:
+    """A ``("data", "model")`` mesh of ``data × 1`` ranks: the first
+    ``data`` ranks of the joined world. ``rank`` is this process's
+    rank, ``shard`` the data shard it computes (its rank for the mesh's
+    ranks; ``rank % data`` for a rank past the mesh, whose results
+    :meth:`mean_` ignores); ``device`` its rank's device, None outside
+    a joined world."""
+
+    axis_names = AXES
+
+    def __init__(self, data: int, model: int = 1):
+        if model != 1:
+            raise NotImplementedError(MODEL_AXIS_PENDING)
+        _check_devices((data, model), AXES)
+        w = world()
+        self.data = int(data)
+        self.rank = w.rank
+        self.world = w.size
+        self.backend = w.backend
+        self.device = w.device
+        self.shard = w.rank % self.data
+
+    @property
+    def shape(self) -> dict:
+        return {"data": self.data, "model": 1}
+
+    def __repr__(self) -> str:
+        return (f"Mesh(data={self.data}, model=1, rank={self.rank}, "
+                f"world={self.world}, backend={self.backend!r}, "
+                f"device={str(self.device)!r})")
+
+    # -------------------------------------------------------- collectives
+    def _staged(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` where the backend reads it: a host copy for gloo."""
+        if self.backend == "gloo" and t.device.type != "cpu":
+            return t.detach().to("cpu")
+        return t
+
+    def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
+        """Copy rank 0's ``tensors`` into every rank's, in place, byte
+        for byte, in chunks of at most :data:`BUCKET_BYTES`."""
+        if self.world == 1:
+            return
+        for t in tensors:
+            if not t.is_contiguous():
+                raise ValueError("broadcast_: contiguous tensors only")
+            flat = t.detach().reshape(-1).view(torch.uint8)
+            for start in range(0, flat.numel(), BUCKET_BYTES):
+                part = flat[start:start + BUCKET_BYTES]
+                staged = self._staged(part).contiguous()
+                dist.broadcast(staged, src=0)
+                if staged.data_ptr() != part.data_ptr():
+                    part.copy_(staged)
+
+    def mean_(self, tensors: Sequence[torch.Tensor]) -> None:
+        """Average ``tensors`` over the data axis, in place: each is f32
+        and contiguous, and every rank ends with the sum of the mesh
+        ranks' values divided by D; at D = 1 over several ranks every
+        rank ends with rank 0's values (their own dtype). A joined world
+        of one rank still runs the collectives (a sum of one); outside
+        any world this is a no-op."""
+        for t in tensors:
+            if not t.is_contiguous():
+                raise ValueError("mean_: contiguous tensors only (a "
+                                 "reshaped copy would not be written)")
+        if self.world == 1 and not dist.is_initialized():
+            return
+        if self.data == 1 and self.world > 1:
+            self.broadcast_(tensors)
+            return
+        for t in tensors:
+            if t.dtype != torch.float32:
+                raise TypeError(f"mean_: f32 tensors only, got {t.dtype}")
+        flats = [t.detach().view(-1) for t in tensors]
+        limit = BUCKET_BYTES // 4
+        bucket: list = []
+        used = 0
+        for i, f in enumerate(flats):
+            start = 0
+            while start < f.numel():
+                take = min(f.numel() - start, limit - used)
+                bucket.append((i, start, start + take))
+                used += take
+                start += take
+                if used == limit:
+                    self._mean_bucket(flats, bucket, used)
+                    bucket, used = [], 0
+        if bucket:
+            self._mean_bucket(flats, bucket, used)
+
+    def _mean_bucket(self, flats, pieces, n: int) -> None:
+        dev = flats[pieces[0][0]].device
+        stage = torch.device("cpu") if self.backend == "gloo" else dev
+        buf = torch.empty(n, dtype=torch.float32, device=stage)
+        if self.rank < self.data:
+            o = 0
+            for i, a, b in pieces:
+                buf[o:o + b - a].copy_(flats[i][a:b])
+                o += b - a
+        else:
+            buf.fill_(-0.0)
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+        buf.div_(self.data)
+        o = 0
+        for i, a, b in pieces:
+            flats[i][a:b].copy_(buf[o:o + b - a])
+            o += b - a
+
+    def barrier(self) -> None:
+        if self.world > 1:
+            dist.barrier()
+
+
+def make_host_mesh(data: int = 1, model: int = 1) -> Mesh:
+    """A mesh over the world's first ``data × model`` ranks (tests / CPU
+    runs); ``model > 1`` raises ``NotImplementedError``."""
+    if model != 1:
+        raise NotImplementedError(MODEL_AXIS_PENDING)
+    return Mesh(data, model)
+
+
+def make_data_mesh(data: int, model: int = 1) -> Mesh:
+    """A ``("data", "model")`` mesh over the FIRST ``data × model``
+    ranks of the world, so meshes of different data widths share ranks
+    (the adaptive controller's per-D meshes)."""
+    return make_host_mesh(data, model)
+
+
+def replicated(mesh: Mesh) -> NamedSharding:
+    """The placement of a leaf whole on every rank of ``mesh``."""
+    return NamedSharding(mesh, PartitionSpec())
+
+
+def placement_device(mesh: Optional[Mesh], device) -> torch.device:
+    """The device a leaf placed on ``mesh`` lives on: this rank's device
+    in a joined world, ``device`` otherwise. Asking for another device
+    type than the rank computes on raises ``ValueError``."""
+    want = torch.device(device)
+    got = None if mesh is None else mesh.device
+    if got is None:
+        return _device.resolve(want)
+    if got.type != want.type:
+        raise ValueError(
+            f"device {str(want)!r} requested, but rank {mesh.rank} of the "
+            f"mesh computes on {str(got)!r}; pass device={got.type!r}")
+    return got
+
+
+def all_equal(mesh: Optional[Mesh], values: Any) -> bool:
+    """True when ``values`` (any picklable object) is equal on every rank
+    of the world (one ``all_gather_object``)."""
+    if mesh is None or mesh.world == 1:
+        return True
+    got = [None] * mesh.world
+    dist.all_gather_object(got, values)
+    return all(g == got[0] for g in got)

@@ -1,4 +1,4 @@
-"""Serving launcher: the port's continuous-batching engine on one device.
+"""Serving launcher: the port's continuous-batching engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \
         --requests 8 --prompt-len 512 --num-tokens 64 --slots 8
@@ -19,6 +19,16 @@ frontend: zeros of ``extra_embed_shape`` in the compute dtype, as the
 reference launcher feeds it); ssm, hybrid and encdec archs
 (mamba2-1.3b, zamba2-1.2b, whisper-large-v3) have no batched prefill
 and the engine refuses them with the reference's ``ValueError``.
+
+``--data-parallel D`` (with ``--model-parallel 1``) serves replicated:
+D ranks each hold the whole params (restored through the placement-aware
+reader, or drawn on rank 0 and broadcast) and serve the same requests;
+rank 0 prints, and the run fails unless every rank produced the same
+tokens. Without a ``torchrun`` world the launcher spawns the D ranks
+itself; ``--dist-backend`` picks ``gloo`` or ``nccl`` (default: ``nccl``
+when every rank has a card of its own, else ``gloo``; printed).
+``--model-parallel > 1`` raises ``NotImplementedError``: tensor-parallel
+serving is the model axis's item in ROADMAP.
 """
 from __future__ import annotations
 
@@ -28,12 +38,13 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import device as _device
 from repro_torch import serving
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.diagnostics.sink import JsonlSink
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import extra_embed_shape, get_model
 from repro_torch.obs import trace as obs_trace
+from repro_torch.training.train_state import replicate
 
 
 def main(argv=None) -> None:
@@ -53,11 +64,48 @@ def main(argv=None) -> None:
                     help="write engine phase spans (trace-v1 JSONL)")
     ap.add_argument("--restore", default=None, metavar="DIR",
                     help="checkpoint dir to restore params from")
+    ap.add_argument("--data-parallel", type=int, default=1,
+                    help="serve replicated on D ranks (the same requests "
+                         "on each)")
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--dist-backend", default=None,
+                    choices=mesh_lib.BACKENDS,
+                    help="collective backend of the D ranks (default: "
+                         "nccl with a card per rank, else gloo)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.model_parallel != 1:
+        raise NotImplementedError(
+            f"--model-parallel {args.model_parallel}: "
+            f"{mesh_lib.MODEL_AXIS_PENDING}")
+    if args.data_parallel < 1:
+        raise SystemExit(f"--data-parallel {args.data_parallel} must be "
+                         f">= 1")
+    d = args.data_parallel
+    if d > 1 and not mesh_lib.joined():
+        backend = args.dist_backend or mesh_lib.default_backend(
+            args.device, d)
+        if not mesh_lib.in_torchrun():
+            print(f"data_parallel={d} backend={backend}: spawning {d} "
+                  f"ranks", flush=True)
+            mesh_lib.spawn(_serve, d, backend, args.device, args=(args,))
+            return
+        mesh_lib.join(backend, args.device)
+        try:
+            _serve(args)
+        finally:
+            mesh_lib.leave()
+        return
+    _serve(args)
 
-    dev = _device.resolve(args.device)
+
+def _serve(args) -> list:
+    """Serve the launcher's requests on this rank; returns the tokens."""
+    mesh = mesh_lib.make_host_mesh(args.data_parallel) \
+        if args.data_parallel > 1 else None
+    dev = mesh_lib.placement_device(mesh, args.device)
+    log = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = get_model(cfg)
     max_len = args.prompt_len + args.num_tokens
@@ -76,10 +124,10 @@ def main(argv=None) -> None:
 
     if args.restore:
         eng = serving.Engine.from_checkpoint(args.restore, model, sc,
-                                             device=dev, tracer=tracer,
-                                             extra=extra)
+                                             device=dev, mesh=mesh,
+                                             tracer=tracer, extra=extra)
     else:
-        params = model.init(0, device=dev)
+        params = replicate(model.init(0, device=dev), mesh)
         eng = serving.Engine(model, params, sc, device=dev, tracer=tracer,
                              extra=extra)
 
@@ -104,24 +152,33 @@ def main(argv=None) -> None:
     toks = sum(len(r.tokens) for r in results)
     stats = eng.stats()
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"{args.arch}: {len(results)} requests, {toks} tokens in "
-          f"{elapsed:.2f}s ({toks / elapsed:.1f} tok/s) on {name} — "
-          f"slots={sc.slots} max_len={sc.max_len} "
-          f"page_size={sc.page_size}")
-    print(f"decode steps {stats['decode_steps']}, attention_decode kernel "
-          f"launches {stats['kernel_launches']}; pages: "
-          f"{stats['allocations']} allocs, {stats['reused_pages']} "
-          f"reused")
-    print("sample:", results[0].tokens[:16])
-    if args.trace_out:
+    log(f"{args.arch}: {len(results)} requests, {toks} tokens in "
+        f"{elapsed:.2f}s ({toks / elapsed:.1f} tok/s) on {name} — "
+        f"slots={sc.slots} max_len={sc.max_len} "
+        f"page_size={sc.page_size}")
+    log(f"decode steps {stats['decode_steps']}, attention_decode kernel "
+        f"launches {stats['kernel_launches']}; pages: "
+        f"{stats['allocations']} allocs, {stats['reused_pages']} "
+        f"reused")
+    log("sample:", results[0].tokens[:16])
+    tokens = [list(map(int, r.tokens)) for r in
+              sorted(results, key=lambda r: r.id)]
+    if mesh is not None:
+        if not mesh_lib.all_equal(mesh, tokens):
+            raise RuntimeError(f"data_parallel={mesh.data}: the ranks "
+                               f"served different tokens")
+        log(f"data_parallel={mesh.data} backend={mesh.backend}: tokens "
+            f"equal on {mesh.world} ranks")
+    if args.trace_out and (mesh is None or mesh.rank == 0):
         summary = obs_trace.phase_summary(tracer.events())
         for span, row in summary.items():
-            print(f"  span {span}: n={row['count']} "
-                  f"total={row['total_ms']:.1f}ms "
-                  f"mean={row['mean_us']:.0f}us")
+            log(f"  span {span}: n={row['count']} "
+                f"total={row['total_ms']:.1f}ms "
+                f"mean={row['mean_us']:.0f}us")
         with JsonlSink(args.trace_out) as sink:
             n = tracer.export(sink)
-        print(f"trace -> {args.trace_out} ({n} records)")
+        log(f"trace -> {args.trace_out} ({n} records)")
+    return tokens
 
 
 if __name__ == "__main__":

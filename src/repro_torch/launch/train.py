@@ -1,4 +1,4 @@
-"""Training launcher: the single-device port of ``repro.launch.train``.
+"""Training launcher: the port of ``repro.launch.train``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
         --optimizer tvlars --use-kernel fused --global-batch 8 --seq 512 \\
@@ -47,18 +47,36 @@ reference launcher does: every batch, the held probe batches included,
 carries ``extra_embeds``, zeros of ``extra_embed_shape`` in the compute
 dtype.
 
+Data parallelism (``--mesh-data D`` with ``--mesh-model 1``, D > 1):
+the reference's mesh-native path, one rank per data shard over
+``torch.distributed``. Params and optimizer state are replicated
+(broadcast from rank 0), every rank draws the same global batch and
+trains on its shard of the microbatch dim, and the gradients are
+averaged in f32 (``make_train_step(mesh=)``); ``--microbatch`` is then
+PER RANK and the global batch is K × D × microbatch. Without a
+``torchrun`` world the launcher spawns the D ranks itself (their
+results come back from rank 0, without the state); under ``torchrun``
+it joins the world given. ``--dist-backend`` picks ``gloo`` or ``nccl``
+(default: ``nccl`` when every rank has a card of its own, else
+``gloo``; printed). Rank 0 alone prints and writes the metrics, trace
+and profile. ``--adaptive-batch`` then moves D too (``data_max`` =
+``--mesh-data``, a power of two). ``--mesh-model > 1`` and the
+reference's GSPMD ``--data-parallel D > 1`` raise
+``NotImplementedError``: fsdp and tensor parallelism are the model
+axis's item in ROADMAP.
+
 :func:`run` is the entry point for programs (``chip_smoke.py``): it
 takes the argument list and returns the run's numbers and final state.
 """
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 from typing import Optional, Sequence
 
 import torch
 
-from repro_torch import device as _device
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core import build_optimizer
 from repro_torch.core import flatten
@@ -68,12 +86,14 @@ from repro_torch.data.synthetic import (lm_batch, lm_iterator,
                                         lm_sample_source)
 from repro_torch.diagnostics import probes
 from repro_torch.diagnostics import sink as sinks
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import extra_embed_shape, get_model
 from repro_torch.obs import profiler as obs_profiler
 from repro_torch.obs import trace as obs_trace
 from repro_torch.training import (AdaptiveBatchController,
                                   ControllerConfig, FitOptions, TrainState,
                                   fit, lm_task, make_train_step)
+from repro_torch.training.train_state import fingerprint, replicate
 
 
 def parser() -> argparse.ArgumentParser:
@@ -146,6 +166,21 @@ def parser() -> argparse.ArgumentParser:
                          "skips the cold first step)")
     ap.add_argument("--profile-steps", type=int, default=3,
                     help="length of the profiler window in steps")
+    ap.add_argument("--data-parallel", type=int, default=1,
+                    help="the reference's GSPMD data axis (fsdp + TP "
+                         "rules): not ported past 1, use --mesh-data")
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--mesh-data", type=int, default=None,
+                    help="data axis of the mesh: D > 1 with --mesh-model "
+                         "1 trains on D ranks, the batch split over them "
+                         "(--microbatch is PER RANK)")
+    ap.add_argument("--mesh-model", type=int, default=None,
+                    help="model axis of the mesh (alias of "
+                         "--model-parallel); only 1 is ported")
+    ap.add_argument("--dist-backend", default=None,
+                    choices=mesh_lib.BACKENDS,
+                    help="collective backend of the ranks (default: nccl "
+                         "with a card per rank, else gloo)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap
@@ -165,6 +200,7 @@ class _Console(sinks.MetricsSink):
                 f"step {step:4d} controller "
                 f"B_noise={metrics['controller/b_noise']:.1f} "
                 f"global_batch={int(metrics['controller/global_batch'])} "
+                f"D={int(metrics['controller/data_parallel'])} "
                 f"K={int(metrics['controller/accum_steps'])} "
                 f"lr={metrics['controller/lr']:.4f}"
                 + (" [switched]" if metrics["controller/changed"] else ""))
@@ -211,6 +247,7 @@ def run(argv: Optional[Sequence[str]] = None, *,
     Without ``--async-metrics`` the step spans synchronise the card and
     a probe reads its result back, so their times are device times;
     with it they are the host's."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser().parse_args(argv)
     if args.global_batch is None:
         args.global_batch = args.batch
@@ -220,13 +257,57 @@ def run(argv: Optional[Sequence[str]] = None, *,
     if args.layerwise_every < 0:
         raise SystemExit(f"--layerwise-every {args.layerwise_every} "
                          f"must be >= 0")
-    dev = _device.resolve(args.device)
-    microbatch = args.microbatch or args.global_batch
-    if args.global_batch < 1 or microbatch < 1 \
-            or args.global_batch % microbatch:
-        raise SystemExit(f"--global-batch {args.global_batch} must be a "
-                         f"positive multiple of --microbatch {microbatch}")
-    accum_steps = args.global_batch // microbatch
+    mesh_data = args.mesh_data if args.mesh_data is not None \
+        else args.data_parallel
+    mesh_model = args.mesh_model if args.mesh_model is not None \
+        else args.model_parallel
+    if mesh_data < 1 or mesh_model < 1:
+        raise SystemExit(f"--mesh-data {mesh_data} and --mesh-model "
+                         f"{mesh_model} must be >= 1")
+    if mesh_model > 1:
+        raise NotImplementedError(f"--mesh-model {mesh_model}: "
+                                  f"{mesh_lib.MODEL_AXIS_PENDING}")
+    if args.mesh_data is None and args.data_parallel > 1:
+        raise NotImplementedError(
+            f"--data-parallel {args.data_parallel} selects the reference's "
+            f"GSPMD path: {mesh_lib.MODEL_AXIS_PENDING}; use --mesh-data")
+    # the mesh-native path (batch over ranks, params replicated) is
+    # opted into by the explicit --mesh-data flag
+    mesh_native = args.mesh_data is not None and mesh_data > 1
+    if mesh_native and not mesh_lib.joined():
+        backend = args.dist_backend or mesh_lib.default_backend(
+            args.device, mesh_data)
+        if not mesh_lib.in_torchrun():
+            log_fn(f"data_parallel={mesh_data} backend={backend}: spawning "
+                   f"{mesh_data} ranks")
+            return mesh_lib.spawn(_rank_run, mesh_data, backend,
+                                  args.device, args=(argv,))[0]
+        mesh_lib.join(backend, args.device)
+        try:
+            return run(argv, log_fn=log_fn)
+        finally:
+            mesh_lib.leave()
+    microbatch = args.microbatch if args.microbatch is not None \
+        else args.global_batch
+    if args.global_batch < 1 or microbatch < 1:
+        raise SystemExit(f"--global-batch {args.global_batch} and "
+                         f"--microbatch {microbatch} must be >= 1")
+    # adaptive runs start where the controller puts them, so only the
+    # fixed mesh-native path divides the pull by the data width up front
+    per_pull = microbatch * (
+        mesh_data if mesh_native and not args.adaptive_batch else 1)
+    if args.global_batch % per_pull:
+        raise SystemExit(
+            f"--global-batch {args.global_batch} must be divisible by "
+            f"--microbatch x data width = {microbatch} x "
+            f"{per_pull // microbatch} = {per_pull} (global batch is "
+            f"K x D x per-device microbatch)")
+    accum_steps = args.global_batch // per_pull
+    mesh = mesh_lib.make_host_mesh(mesh_data) if mesh_lib.joined() \
+        else None
+    if mesh is not None and mesh.rank != 0:
+        log_fn = _quiet
+    dev = mesh_lib.placement_device(mesh, args.device)
     use_kernel = False if args.use_kernel == "off" else args.use_kernel
     if args.precision != "f32" and use_kernel != "fused":
         raise SystemExit(f"--precision {args.precision} requires "
@@ -257,13 +338,19 @@ def run(argv: Optional[Sequence[str]] = None, *,
                                precision=args.precision,
                                segments=model.segments, device=dev)
 
-    def step_for(opt_, k: int):
+    def step_for(opt_, k: int, mesh_=mesh):
         return make_train_step(lm_task(model), opt_, accum_steps=k,
-                               layerwise=layerwise, tracer=tracer,
+                               mesh=mesh_, layerwise=layerwise,
+                               tracer=tracer,
                                sync_spans=args.async_metrics == 0)
 
     controller = None
     if args.adaptive_batch:
+        if mesh_data & (mesh_data - 1):
+            raise SystemExit(
+                f"--adaptive-batch: --mesh-data {mesh_data} must be a "
+                f"power of two (the controller snaps D to powers of "
+                f"two)")
         batch_min = microbatch if args.batch_min is None \
             else args.batch_min
         batch_max = 4 * args.global_batch if args.batch_max is None \
@@ -285,7 +372,8 @@ def run(argv: Optional[Sequence[str]] = None, *,
                     accum_steps=k_probe, every=args.controller_every),
                 ControllerConfig(microbatch=microbatch,
                                  batch_min=batch_min, batch_max=batch_max,
-                                 every=args.controller_every),
+                                 every=args.controller_every,
+                                 data_max=mesh_data),
                 init_batch=args.global_batch,
                 base_lr=args.learning_rate)
         except ValueError as e:
@@ -307,7 +395,7 @@ def run(argv: Optional[Sequence[str]] = None, *,
     if args.prefetch > 0:
         batches = pipeline.PrefetchingStream(batches, size=args.prefetch,
                                              tracer=tracer)
-    state = TrainState.create(params, opt)
+    state = replicate(TrainState.create(params, opt), mesh)
     names = list(flatten.build_spec(params, segments=model.segments).names)
     callbacks = []
     if args.probe_every > 0:
@@ -321,10 +409,14 @@ def run(argv: Optional[Sequence[str]] = None, *,
                 {"tokens": ptoks, "labels": plabels}, accum_steps)),
             every=args.probe_every, num_iters=args.probe_iters,
             top_k=args.probe_topk, accum_steps=accum_steps,
+            # mesh-native runs probe data-parallel too: per-shard HVPs,
+            # averaged products, a replicated Krylov basis
+            mesh=mesh if mesh_native and controller is None else None,
             reorth=not args.probe_no_reorth))
+    rank0 = mesh is None or mesh.rank == 0
     memory = sinks.MemorySink()
     sink_list = [_Console(args.log_every, log_fn), memory]
-    if args.metrics_out:
+    if args.metrics_out and rank0:
         static = {"arch": args.arch, "optimizer": args.optimizer}
         if controller is None:
             # an adaptive run's records carry the batch of their step
@@ -335,7 +427,7 @@ def run(argv: Optional[Sequence[str]] = None, *,
                          if args.async_metrics > 0 else jsonl)
     profiler = obs_profiler.StepProfiler(
         args.profile_dir, start=args.profile_start,
-        steps=args.profile_steps) if args.profile_dir else None
+        steps=args.profile_steps) if args.profile_dir and rank0 else None
     log_fn(f"{args.arch}{' (smoke)' if args.smoke else ''}: "
            f"{cfg.num_layers} layers, {cfg.param_dtype}; "
            f"optimizer={args.optimizer} use_kernel={args.use_kernel} "
@@ -348,6 +440,15 @@ def run(argv: Optional[Sequence[str]] = None, *,
            + (f" prefetch={args.prefetch}" if args.prefetch else "")
            + (f" async_metrics={args.async_metrics}"
               if args.async_metrics else ""))
+    shape = mesh.shape if mesh is not None else {"data": 1, "model": 1}
+    log_fn(f"global_batch={args.global_batch} microbatch={microbatch} "
+           f"accum_steps={accum_steps} "
+           f"data_parallel={mesh_data if mesh_native else 1} "
+           f"mesh={tuple(shape.items())} "
+           f"use_kernel={args.use_kernel} precision={args.precision}")
+    if mesh is not None:
+        log_fn(f"world={mesh.world} backend={mesh.backend} "
+               f"device={mesh.device}")
     t0 = time.perf_counter()
     try:
         state, history = fit(step_fn, state, batches, args.steps,
@@ -359,7 +460,8 @@ def run(argv: Optional[Sequence[str]] = None, *,
                                  layerwise_names=names,
                                  controller=controller,
                                  async_metrics=args.async_metrics,
-                                 profiler=profiler))
+                                 profiler=profiler,
+                                 rank=0 if mesh is None else mesh.rank))
     finally:
         if isinstance(batches, pipeline.PrefetchingStream):
             batches.close()
@@ -379,6 +481,8 @@ def run(argv: Optional[Sequence[str]] = None, *,
         "dispatch_seconds": _span_seconds(records, "dispatch",
                                           args.steps),
         "resolve_seconds": _span_seconds(records, "resolve", args.steps),
+        "all_reduce_seconds": _span_seconds(records, "all_reduce",
+                                            args.steps),
         "seconds": elapsed,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)
         if dev.type == "cuda" else None,
@@ -390,12 +494,21 @@ def run(argv: Optional[Sequence[str]] = None, *,
         "controller": controller, "global_batches": [
             h.get("global_batch", args.global_batch) for h in history],
         "state": state, "model": model,
+        "rank": 0 if mesh is None else mesh.rank,
+        "world": 1 if mesh is None else mesh.world,
+        "fingerprint": fingerprint(state),
     }
-    for i, (lg, op, pr, ct) in enumerate(zip(
+    if mesh is not None and not mesh_lib.all_equal(mesh,
+                                                   out["fingerprint"]):
+        raise RuntimeError("the ranks' states differ after the run")
+    for i, (lg, op, pr, ct, ar) in enumerate(zip(
             out["loss_grad_seconds"], out["optimizer_seconds"],
-            out["probe_seconds"], out["controller_seconds"])):
-        log_fn(f"step {i:4d} time: loss+grad {lg * 1e3:.1f} ms, "
-               f"optimizer {op * 1e3:.1f} ms"
+            out["probe_seconds"], out["controller_seconds"],
+            out["all_reduce_seconds"])):
+        log_fn(f"step {i:4d} time: loss+grad {lg * 1e3:.1f} ms"
+               + (f" (all-reduce {ar * 1e3:.1f} ms)"
+                  if mesh is not None else "")
+               + f", optimizer {op * 1e3:.1f} ms"
                + (f", probe {pr * 1e3:.1f} ms" if callbacks else "")
                + (f", controller {ct * 1e3:.1f} ms (global batch "
                   f"{int(out['global_batches'][i])})"
@@ -408,7 +521,10 @@ def run(argv: Optional[Sequence[str]] = None, *,
     if args.metrics_out:
         log_fn(f"metrics -> {args.metrics_out} "
                f"({len(memory.records)} records)")
-    if args.trace_out:
+    if mesh is not None:
+        log_fn(f"ranks bitwise equal: {mesh.world} ranks, state "
+               f"fingerprint {out['fingerprint'][:2]}")
+    if args.trace_out and rank0:
         with sinks.JsonlSink(args.trace_out) as trace_sink:
             n = tracer.export(trace_sink)
         log_fn(f"trace -> {args.trace_out} ({n} records)")
@@ -417,6 +533,18 @@ def run(argv: Optional[Sequence[str]] = None, *,
     log_fn(f"done: {args.steps} steps in {elapsed:.1f} s, final loss "
            f"{out['losses'][-1]:.4f}")
     return out
+
+
+def _quiet(*_args, **_kw) -> None:
+    """The console of a rank other than 0."""
+
+
+def _rank_run(argv: list) -> dict:
+    """One spawned rank of ``run(argv)``: its numbers, without the
+    state, model and controller (rank 0's go back to the caller)."""
+    out = run(argv)
+    return {k: v for k, v in out.items()
+            if k not in ("state", "model", "controller")}
 
 
 def main() -> None:

@@ -40,6 +40,7 @@ import torch
 from repro_torch import checkpoint
 from repro_torch import device as _device
 from repro_torch.configs.base import torch_dtype
+from repro_torch.core.base import tree_leaves
 from repro_torch.kernels import ops
 from repro_torch.models import convert
 from repro_torch.models.registry import NEEDS_EXTRA, get_model
@@ -175,14 +176,19 @@ class Engine:
 
     @classmethod
     def from_checkpoint(cls, path: str, model, config: ServeConfig, *,
-                        device="cuda", tracer=None, extra=None) -> "Engine":
+                        device="cuda", mesh=None, shardings=None,
+                        tracer=None, extra=None) -> "Engine":
         """Build an engine on the params of a checkpoint in the JAX
         package's stacked LM layout (``convert.jax_template``), written
         by either package: restored onto ``device`` against the
-        config's template, then unstacked into the port's lists."""
-        dev = _device.resolve(device)
+        config's template, then unstacked into the port's lists.
+        ``mesh=`` / ``shardings=`` restore through the placement-aware
+        reader: every leaf whole on this rank's device (one engine per
+        rank of a data-parallel world, replicated serving)."""
         stacked = checkpoint.restore(path, convert.jax_template(model.cfg),
-                                     device=dev)
+                                     device=device, mesh=mesh,
+                                     shardings=shardings)
+        dev = tree_leaves(stacked)[0].device
         params = convert.params_from_jax(model.cfg, stacked, device=dev)
         return cls(model, params, config, device=dev, tracer=tracer,
                    extra=extra)

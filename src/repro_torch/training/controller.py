@@ -1,5 +1,5 @@
-"""Noise-scale-driven adaptive batch-size controller: the single-device
-port of ``repro.training.controller``.
+"""Noise-scale-driven adaptive batch-size controller: the port of
+``repro.training.controller``.
 
 McCandlish et al.'s simple gradient noise scale ``B_noise =
 tr(Σ)/‖G‖²`` estimates the batch size where a larger batch stops
@@ -9,15 +9,25 @@ smooths it, snaps it to a representable global batch and retargets the
 run, which reproduces the McCandlish schedule: small batches early,
 large ones late.
 
-The knob is the accumulation depth K at a fixed microbatch (``global
-batch = K × microbatch``): changing K only changes how many
-microbatches a step sums, so the peak memory (one microbatch of
-activations and one f32 gradient accumulator) does not move, and under
-``use_kernel="fused"`` every step is one norm and one apply launch at
-every K. The reference's second knob, the data-parallel width D,
-needs data parallelism (ROADMAP queue 1, item 8): ``ControllerConfig``
-and the pure snap / decide functions take any ``data_max``, but the
-controller refuses ``data_max > 1`` and a ``mesh_factory``.
+The knobs are the data-parallel width D (how many ranks the
+microbatch spreads over, at most ``config.data_max``) and the
+accumulation depth K, at a fixed per-rank microbatch: ``global batch =
+D × K × microbatch``. The snap policy fills the data axis first.
+Changing K only changes how many microbatches a step sums and changing
+D how many shards are averaged, so the peak memory per rank (one
+microbatch of activations and one f32 gradient accumulator) does not
+move, and under ``use_kernel="fused"`` every step is one norm and one
+apply launch per rank at every (D, K).
+
+The world holds ``data_max`` ranks, each running the same controller on
+the same readings. A step at D < ``data_max`` runs on the mesh of the
+first D ranks (``mesh_for``, ``distributed.make_data_mesh``); the ranks
+past D compute a shard too, but add ``-0.0`` to the average in its
+place (``Mesh.mean_``), so every rank ends the step with the same bits
+as a world of D ranks would. At D = 1 over a world of several ranks the
+single-device step runs and rank 0's gradients are handed to the
+others. Every decision uses rank 0's reading and rank 0's clock
+(broadcast at each boundary), so the ranks switch together.
 
 LR co-scaling: each visited K builds its own train step around an
 optimizer made by ``optimizer_factory(global_batch)``, so the LR (and
@@ -40,16 +50,15 @@ import math
 import time
 from typing import Any, Callable, Optional
 
+import torch
+
 from repro_torch.core import schedules
 from repro_torch.core.base import GradientTransform
 from repro_torch.diagnostics.probes import should_run
+from repro_torch import distributed
 
 SNAP_MODES = ("pow2", "linear")
 CADENCE_MODES = ("static", "adaptive")
-DATA_PARALLEL_PENDING = (
-    "the data-parallel knob (data_max > 1, mesh_factory) needs data "
-    "parallelism, which the port does not have yet (ROADMAP queue 1, "
-    "item 8)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,7 +88,8 @@ class ControllerConfig:
     ``snap``         "pow2" snaps K to powers of two; "linear" allows any
                      integer K.
     ``data_max``     maximum data-parallel width D (a power of two; 1 =
-                     the K-only controller, the only one the port runs).
+                     the K-only controller); the world holds this many
+                     ranks.
     """
     microbatch: int
     batch_min: int
@@ -211,10 +221,15 @@ def decide_global_batch(b_noise: float, current_batch: int,
 
 
 class AdaptiveBatchController:
-    """Closed-loop batch-size controller: B_noise probe → K retarget →
-    LR re-scale, as a ``fit`` callback (see the module docstring).
+    """Closed-loop batch-size controller: B_noise probe → (D, K)
+    retarget → LR re-scale, as a ``fit`` callback (see the module
+    docstring).
 
-    ``make_step``: ``(optimizer, accum_steps) -> train_step``.
+    ``make_step``: ``(optimizer, accum_steps) -> train_step`` when
+    ``config.data_max == 1``; ``(optimizer, accum_steps, mesh) ->
+    train_step`` when ``data_max > 1``, ``mesh`` from :meth:`mesh_for`
+    (``None`` at D = 1 in a world of one rank; pass it to
+    ``trainer.make_train_step(mesh=...)``).
     ``optimizer_factory``: ``(global_batch) -> GradientTransform``; must
     scale the LR from the batch and keep a state that does not depend
     on it. ``noise_probe``: ``(step, state) -> {"grad_noise_scale":
@@ -224,8 +239,11 @@ class AdaptiveBatchController:
     ``config.batch_min``. ``lr_fn`` reports the LR of the current
     batch; by default the stateful ``schedules.batch_scaled_lr(base_lr,
     base_batch_size=..., rule=scaling_rule, batch_size_fn=<current
-    batch>)``. ``mesh_factory`` belongs to the data-parallel knob,
-    which the port does not run yet.
+    batch>)``. ``init_data_parallel`` is the starting D: ``None`` fills
+    the data axis from step 0 (the widest power of two ≤ ``data_max``
+    that keeps ``init_batch`` exactly representable). ``mesh_factory``:
+    ``(d) -> Mesh`` (default ``distributed.make_data_mesh``); meshes are
+    cached per D.
     """
 
     name = "controller"
@@ -235,13 +253,12 @@ class AdaptiveBatchController:
                  noise_probe: Callable[[int, Any], dict],
                  config: ControllerConfig, *,
                  init_batch: Optional[int] = None,
+                 init_data_parallel: Optional[int] = None,
                  mesh_factory: Optional[Callable[[int], Any]] = None,
                  base_lr: float = 1.0, base_batch_size: int = 256,
                  scaling_rule: str = "sqrt",
                  lr_fn: Optional[Callable[[], float]] = None,
                  probe_lead: int = 0):
-        if config.data_max > 1 or mesh_factory is not None:
-            raise ValueError(DATA_PARALLEL_PENDING)
         if probe_lead < 0:
             raise ValueError(f"probe_lead must be >= 0, got {probe_lead}")
         self.config = config
@@ -257,17 +274,34 @@ class AdaptiveBatchController:
         self._next_due = 0
         self._last_boundary: Optional[tuple[int, float]] = None
         self._probe_seconds: Optional[float] = None
+        # default: the first d ranks, so per-D meshes share ranks
+        self._mesh_factory = mesh_factory or distributed.make_data_mesh
         init_batch = config.batch_min if init_batch is None else init_batch
-        if init_batch % config.microbatch:
+        if init_data_parallel is None:
+            # fill the data axis from step 0: the widest power-of-two D
+            # that keeps init_batch exactly representable
+            init_data_parallel = 1
+            if init_batch % config.microbatch == 0:
+                f = init_batch // config.microbatch
+                while init_data_parallel * 2 <= config.data_max \
+                        and f % (init_data_parallel * 2) == 0:
+                    init_data_parallel *= 2
+        if init_data_parallel < 1 or \
+                init_data_parallel > config.data_max:
+            raise ValueError(
+                f"init_data_parallel={init_data_parallel} outside "
+                f"[1, data_max={config.data_max}]")
+        per_pull = init_data_parallel * config.microbatch
+        if init_batch % per_pull:
             raise ValueError(
                 f"init_batch={init_batch} must be a multiple of "
-                f"microbatch={config.microbatch}")
+                f"init_data_parallel*microbatch={per_pull}")
         if not config.batch_min <= init_batch <= config.batch_max:
             raise ValueError(
                 f"init_batch={init_batch} outside "
                 f"[{config.batch_min}, {config.batch_max}]")
-        self._dp = 1
-        self._k = int(init_batch // config.microbatch)
+        self._dp = int(init_data_parallel)
+        self._k = int(init_batch // per_pull)
         self._lr_fn = lr_fn if lr_fn is not None else \
             schedules.batch_scaled_lr(
                 base_lr, base_batch_size=base_batch_size,
@@ -275,7 +309,9 @@ class AdaptiveBatchController:
                 batch_size_fn=lambda: self.global_batch)
         self._b_ema: Optional[float] = None
         self._optimizers: dict[int, GradientTransform] = {}
-        self._steps: dict[tuple[int, int], Any] = {}
+        self._meshes: dict[int, Any] = {}
+        self._raw_steps: dict[tuple[int, int], Any] = {}
+        self._run_steps: set = set()
         self._streams: list = []
         self.compiles = 0
         self.switches = 0
@@ -290,16 +326,34 @@ class AdaptiveBatchController:
         return self._k
 
     @property
+    def data_parallel(self) -> int:
+        return self._dp
+
+    @property
+    def targets(self) -> tuple[int, int]:
+        return self._dp, self._k
+
+    @property
     def lr(self) -> float:
         return float(self._lr_fn())
 
     @property
     def visited_ks(self) -> tuple[int, ...]:
-        return tuple(sorted({k for _, k in self._steps}))
+        return tuple(sorted({k for _, k in self._raw_steps}))
 
     @property
     def visited_targets(self) -> tuple[tuple[int, int], ...]:
-        return tuple(sorted(self._steps))
+        return tuple(sorted(self._raw_steps))
+
+    def mesh_for(self, data_parallel: Optional[int] = None):
+        """The (cached) mesh for a data width: ``None`` for D = 1 in a
+        world of one rank, else ``mesh_factory(d)`` over the world."""
+        d = self._dp if data_parallel is None else data_parallel
+        if d not in self._meshes:
+            alone = distributed.world().size == 1
+            self._meshes[d] = None if d == 1 and alone \
+                else self._mesh_factory(d)
+        return self._meshes[d]
 
     def optimizer(self, global_batch: Optional[int] = None
                   ) -> GradientTransform:
@@ -311,25 +365,52 @@ class AdaptiveBatchController:
             self._optimizers[b] = self._optimizer_factory(b)
         return self._optimizers[b]
 
-    def step_fn(self, accum_steps: Optional[int] = None):
-        """The train step for K (default: the current K), built on the
-        first visit and cached; a revisit is a lookup."""
-        key = (self._dp, self._k if accum_steps is None else accum_steps)
-        if key not in self._steps:
-            d, k = key
-            self._steps[key] = self._make_step(
-                self.optimizer(d * k * self.config.microbatch), k)
+    def _key(self, accum_steps: Optional[int],
+             data_parallel: Optional[int]) -> tuple[int, int]:
+        return (self._dp if data_parallel is None else data_parallel,
+                self._k if accum_steps is None else accum_steps)
+
+    def raw_step(self, accum_steps: Optional[int] = None,
+                 data_parallel: Optional[int] = None):
+        """The step for (D, K) (cached), built by ``make_step``."""
+        d, k = self._key(accum_steps, data_parallel)
+        if (d, k) not in self._raw_steps:
+            opt = self.optimizer(d * k * self.config.microbatch)
+            if self.config.data_max > 1:
+                step = self._make_step(opt, k, self.mesh_for(d))
+            else:
+                step = self._make_step(opt, k)
+            self._raw_steps[(d, k)] = step
+        return self._raw_steps[(d, k)]
+
+    def step_fn(self, accum_steps: Optional[int] = None,
+                data_parallel: Optional[int] = None):
+        """The train step for (D, K) (default: the current pair), built on
+        the first visit (``compiles`` counts them) and cached; a revisit
+        is a lookup. It takes the global batch the stream yields; each
+        rank computes its shard (``pipeline.shard_batch``)."""
+        key = self._key(accum_steps, data_parallel)
+        if key not in self._run_steps:
+            self._run_steps.add(key)
             self.compiles += 1
-        return self._steps[key]
+        return self.raw_step(key[1], key[0])
 
     def attach(self, stream) -> None:
-        """Register a stream to retarget on K switches (anything with
-        ``set_accum_steps`` and a matching ``microbatch``);
+        """Register a stream to retarget on (D, K) switches (anything with
+        ``set_accum_steps`` and a matching ``microbatch``, plus
+        ``set_data_parallel`` when ``data_max > 1``);
         ``fit(controller=...)`` attaches its batch stream."""
         if not hasattr(stream, "set_accum_steps"):
             raise TypeError(
                 f"controller stream must expose set_accum_steps(k) "
                 f"(e.g. data.pipeline.MicrobatchedStream); got "
+                f"{type(stream).__name__}")
+        if self.config.data_max > 1 and \
+                not hasattr(stream, "set_data_parallel"):
+            raise TypeError(
+                f"data_max={self.config.data_max} > 1 needs a stream "
+                f"with set_data_parallel(d) (e.g. "
+                f"data.pipeline.MicrobatchedStream); got "
                 f"{type(stream).__name__}")
         if stream.microbatch != self.config.microbatch:
             raise ValueError(
@@ -337,7 +418,12 @@ class AdaptiveBatchController:
                 f"microbatch {self.config.microbatch}")
         if stream not in self._streams:
             self._streams.append(stream)
+        self._sync_stream(stream)
+
+    def _sync_stream(self, stream) -> None:
         stream.set_accum_steps(self._k)
+        if hasattr(stream, "set_data_parallel"):
+            stream.set_data_parallel(self._dp)
 
     # ------------------------------------------------------- scheduling
     @property
@@ -373,6 +459,16 @@ class AdaptiveBatchController:
             self._pending = (step, self.noise_probe.dispatch(step, state),
                              time.perf_counter())
 
+    def _rank0(self, *values: float) -> tuple:
+        """``values`` as rank 0 has them, on every rank of a world of
+        several (one broadcast), so that every rank decides alike."""
+        if distributed.world().size == 1:
+            return values
+        mesh = self.mesh_for(self.config.data_max)
+        t = torch.tensor(values, dtype=torch.float64, device=mesh.device)
+        mesh.broadcast_([t])
+        return tuple(t.tolist())
+
     def _measure(self, step: int, state) -> tuple[float, float]:
         """(B_noise, probe seconds) at a boundary: resolve the probe
         dispatched ahead (reading it back waits for the card) or run it
@@ -399,7 +495,7 @@ class AdaptiveBatchController:
             else 0.5 * self._probe_seconds + 0.5 * probe_seconds
         if cfg.cadence != "adaptive":
             return
-        now = time.perf_counter()
+        now, = self._rank0(time.perf_counter())
         floor = cfg.min_every
         if self._last_boundary is not None:
             lb_step, lb_t = self._last_boundary
@@ -423,12 +519,14 @@ class AdaptiveBatchController:
     def retarget(self, global_batch: int,
                  data_parallel: Optional[int] = None) -> bool:
         """Set the global batch directly (the decision's apply path, and
-        scripted schedules). Returns True if K changed; takes effect at
-        the next ``next(stream)`` / ``step_fn()``."""
+        scripted schedules); ``data_parallel=None`` keeps the current D.
+        Returns True if (D, K) changed; takes effect at the next
+        ``next(stream)`` / ``step_fn()``."""
         cfg = self.config
         d = self._dp if data_parallel is None else int(data_parallel)
-        if d != 1:
-            raise ValueError(DATA_PARALLEL_PENDING)
+        if d < 1 or d > cfg.data_max:
+            raise ValueError(
+                f"data_parallel={d} outside [1, data_max={cfg.data_max}]")
         if global_batch % (d * cfg.microbatch):
             raise ValueError(
                 f"global_batch={global_batch} not a multiple of "
@@ -438,19 +536,19 @@ class AdaptiveBatchController:
                 f"global_batch={global_batch} outside "
                 f"[{cfg.batch_min}, {cfg.batch_max}]")
         k = global_batch // (d * cfg.microbatch)
-        if k == self._k:
+        if (d, k) == (self._dp, self._k):
             return False
-        self._k = k
+        self._dp, self._k = d, k
         self.switches += 1
         for stream in self._streams:
-            stream.set_accum_steps(k)
+            self._sync_stream(stream)
         return True
 
     def __call__(self, step: int, state) -> dict[str, float]:
         """A boundary: measure B_noise, decide, apply; returns the
         ``controller/*`` metrics for the sink."""
         prev_ema = self._b_ema
-        measured, probe_seconds = self._measure(step, state)
+        measured, probe_seconds = self._rank0(*self._measure(step, state))
         # an invalid reading (a noise-dominated ‖G‖² estimate) carries no
         # information: it stays out of the EMA and the controller holds
         valid = math.isfinite(measured) and measured > 0.0
@@ -462,11 +560,11 @@ class AdaptiveBatchController:
         decided = decide_targets(smoothed, self.global_batch,
                                  self.config) if valid else None
         if decided is None:
-            cached = (self._dp, self._k) in self._steps
+            cached = (self._dp, self._k) in self._run_steps
             changed = False
         else:
             d, k = decided
-            cached = (d, k) in self._steps
+            cached = (d, k) in self._run_steps
             changed = self.retarget(d * k * self.config.microbatch,
                                     data_parallel=d)
         self._update_cadence(step, prev_ema, probe_seconds)

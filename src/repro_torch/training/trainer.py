@@ -1,5 +1,5 @@
 """Training step with gradient accumulation, and the host loop: the
-single-device port of ``repro.training.trainer``.
+port of ``repro.training.trainer``.
 
 ``make_train_step(task, optimizer, accum_steps=K)`` returns ``step(state,
 batch) -> (state, metrics)``. With K > 1 every batch leaf carries a
@@ -25,6 +25,26 @@ synchronisation, which ``fit(async_metrics=)`` needs to run ahead.
 
 :class:`MetricRing` and ``fit(options=FitOptions(async_metrics=W))``
 resolve each step's device metrics W steps late, with the same values.
+
+``make_train_step(..., mesh=mesh)`` is the data-parallel path (the
+reference's ``shard_map`` step) over a
+:class:`repro_torch.distributed.Mesh` of D ranks, one process each:
+every rank is handed the global batch and computes the loss and
+gradients (the K loop inside) on its shard of the microbatch dim
+(``pipeline.shard_over_data``); at D > 1 the local loss, metrics and
+gradients are cast to f32 (at K = 1 too, where the single-device step
+keeps the params' dtype) and averaged over the ranks in place
+(``Mesh.mean_``: flat f32 buckets, one ``all_reduce`` each, so every
+rank holds the same bits). Everything after the average (the optimizer,
+``grad_norm``, the layer-wise tap, LWN / LGN / LNR) sees the
+global-batch gradients on every rank, so the params and optimizer state
+(replicated by ``train_state.replicate``) stay bitwise equal, and the
+fused optimizer still launches 1 + 1 kernels per rank per step at any
+(D, K). A mesh whose data width is 1 runs the single-device body; over
+a world of several ranks rank 0's gradients are then handed to the
+others. Under a mesh, ``fit`` is called on every rank (probes and the
+controller take part in collectives); only rank 0 writes to its sink
+and steps its profiler (``FitOptions(rank=mesh.rank)``).
 """
 from __future__ import annotations
 
@@ -37,7 +57,8 @@ import torch
 from repro_torch.core import instrumentation
 from repro_torch.core.base import (GradientTransform, global_norm,
                                    tree_flatten_with_path,
-                                   tree_from_paths, tree_map)
+                                   tree_from_paths, tree_leaves, tree_map)
+from repro_torch.data import pipeline
 from repro_torch.diagnostics import probes
 from repro_torch.diagnostics import sink as sinks
 from repro_torch.obs import layerwise as obs_layerwise
@@ -94,8 +115,57 @@ def _accumulate(task: tasks.Task, params, batch, accum_steps: int):
         {k: a.result() for k, a in metric_acc.items()}, grad_acc
 
 
+def _check_divisible(batch, accum_steps: int, dp: int, axes) -> None:
+    """Every microbatch dim must split over the data axes; raises
+    naming the offending sizes (the reference's message)."""
+    dim = 1 if accum_steps > 1 else 0
+    for leaf in tree_leaves(batch):
+        if leaf.dim() <= dim or leaf.shape[dim] % dp:
+            raise ValueError(
+                f"mesh train step: batch leaf {tuple(leaf.shape)} has "
+                f"microbatch dim {dim} of size "
+                f"{leaf.shape[dim] if leaf.dim() > dim else '<missing>'} "
+                f"which does not split over the data-parallel width "
+                f"{dp} (axes {axes}); global batch must be "
+                f"K x D x per-device-microbatch")
+
+
+def _sharded_grad_fn(task: tasks.Task, mesh, axes, accum_steps: int,
+                     tracer, sync: Callable):
+    """``(params, step, batch) -> (loss, metrics, grads)`` on this rank's
+    shard of the global batch, averaged over the data axis: at D > 1 in
+    f32 (the reference's ``pmean`` of f32 values), at D = 1 rank 0's, in
+    their own dtype. The average runs inside an ``all_reduce`` span,
+    synchronised on the card at both ends when the tracer is on."""
+    dp = pipeline.dp_size(mesh, axes)
+
+    def local(params, step, batch):
+        if accum_steps == 1:
+            loss, metrics, grads = _grads(task, params, batch)
+        else:
+            loss, metrics, grads = _accumulate(task, params, batch,
+                                               accum_steps)
+        paths = [p for p, _ in tree_flatten_with_path(grads)]
+        leaves = [g for _, g in tree_flatten_with_path(grads)]
+        del grads
+        if dp > 1:
+            loss = loss.float()
+            metrics = {k: v.float() for k, v in metrics.items()}
+            for i in range(len(leaves)):
+                leaves[i] = leaves[i].float()
+        sync(loss.device)
+        with tracer.span("all_reduce", step=step):
+            mesh.mean_([loss, *metrics.values(), *leaves])
+            sync(loss.device)
+        return loss, metrics, tree_from_paths(params,
+                                              dict(zip(paths, leaves)))
+
+    return pipeline.shard_over_data(local, mesh, axes, accum_steps)
+
+
 def make_train_step(task, optimizer: GradientTransform, *,
-                    accum_steps: int = 1, layerwise: bool = False,
+                    accum_steps: int = 1, mesh=None, data_axes=None,
+                    layerwise: bool = False,
                     record_norms: bool = False,
                     tracer: Optional[obs_trace.Tracer] = None,
                     sync_spans: bool = True) -> Callable:
@@ -109,7 +179,13 @@ def make_train_step(task, optimizer: GradientTransform, *,
     and the accumulated gradients under ``layer_norms``, which ``fit``
     hands to its recorder. Metrics are 0-d (or per-segment) tensors on
     the device; nothing is read back here. ``sync_spans=False`` ends
-    the tracer's spans without a device synchronisation."""
+    the tracer's spans without a device synchronisation.
+
+    ``mesh=``: the data-parallel step over the mesh's data axes
+    (default ``data_axes``: the ``("pod", "data")`` subset present):
+    ``batch`` is the GLOBAL batch, its microbatch dim split over the
+    ranks; params and optimizer state must be equal on every rank
+    (``train_state.replicate``). See the module docstring."""
     if not isinstance(task, tasks.Task):
         task = tasks.lm_task(task)
     if accum_steps < 1:
@@ -120,9 +196,21 @@ def make_train_step(task, optimizer: GradientTransform, *,
         if sync_spans and tracer.enabled and device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    dp = pipeline.resolve_dp_size(mesh, data_axes)
+    sharded = None
+    if mesh is not None and mesh.world > 1:
+        data_axes = pipeline.resolve_data_axes(mesh, data_axes)
+        sharded = _sharded_grad_fn(task, mesh, data_axes, accum_steps,
+                                   tracer, _sync)
+
     def train_step(state: TrainState, batch):
         with tracer.span("loss_grad", step=state.step):
-            if accum_steps == 1:
+            if sharded is not None:
+                if dp > 1:
+                    _check_divisible(batch, accum_steps, dp, data_axes)
+                loss, task_metrics, grads = sharded(state.params,
+                                                    state.step, batch)
+            elif accum_steps == 1:
                 loss, task_metrics, grads = _grads(task, state.params,
                                                    batch)
             else:
@@ -165,21 +253,21 @@ def make_train_step(task, optimizer: GradientTransform, *,
 
 
 def make_classifier_step(apply_fn: Callable, optimizer: GradientTransform,
-                         *, accum_steps: int = 1,
+                         *, accum_steps: int = 1, mesh=None,
                          record_norms: bool = False) -> Callable:
     """``make_train_step(tasks.classifier_task(apply_fn), ...)``."""
     return make_train_step(tasks.classifier_task(apply_fn), optimizer,
-                           accum_steps=accum_steps,
+                           accum_steps=accum_steps, mesh=mesh,
                            record_norms=record_norms)
 
 
 def make_ssl_step(embed_fn: Callable, optimizer: GradientTransform, *,
                   lambda_offdiag: float = 5e-3, accum_steps: int = 1,
-                  record_norms: bool = False) -> Callable:
+                  mesh=None, record_norms: bool = False) -> Callable:
     """``make_train_step(tasks.ssl_task(embed_fn, ...), ...)``."""
     return make_train_step(
         tasks.ssl_task(embed_fn, lambda_offdiag=lambda_offdiag), optimizer,
-        accum_steps=accum_steps, record_norms=record_norms)
+        accum_steps=accum_steps, mesh=mesh, record_norms=record_norms)
 
 
 def fetch(tree: Any) -> Any:
@@ -260,7 +348,9 @@ class FitOptions:
     :class:`repro_torch.training.controller.AdaptiveBatchController`);
     ``async_metrics`` (the :class:`MetricRing`'s window: 0/False off,
     True ``max(log_every, 1)`` or 8); the ``profiler`` window (a
-    :class:`repro_torch.obs.StepProfiler`)."""
+    :class:`repro_torch.obs.StepProfiler`); ``rank``, this process's
+    rank in a data-parallel world (its mesh's ``rank``): only rank 0
+    writes to the sink and steps the profiler."""
     recorder: Optional[instrumentation.NormRecorder] = None
     log_every: int = 0
     log_fn: Callable = print
@@ -274,6 +364,7 @@ class FitOptions:
     controller: Optional[Any] = None
     async_metrics: Union[bool, int] = False
     profiler: Optional[Any] = None
+    rank: int = 0
 
 
 def _to_host(metrics: dict) -> dict:
@@ -328,7 +419,12 @@ def fit(train_step: Optional[Callable], state: TrainState, batches,
     of each K it visits, runs as the last callback inside a
     ``controller`` span (its metrics as ``controller/*``), and its
     switches take effect at the next pull; every step's record carries
-    the ``global_batch`` it trained at. Returns ``(state, history)``."""
+    the ``global_batch`` it trained at. Returns ``(state, history)``.
+
+    In a data-parallel world every rank calls ``fit`` (the steps,
+    probes and controller take part in collectives) with its ``rank``
+    and keeps the same history, but only rank 0 writes to the sink,
+    console included, and steps the profiler."""
     o = options if options is not None else FitOptions()
     tracer = obs_trace.NULL if o.tracer is None else o.tracer
     controller = o.controller
@@ -351,7 +447,8 @@ def fit(train_step: Optional[Callable], state: TrainState, batches,
     if window is True:
         window = max(o.log_every, 1) if o.log_every else 8
     ring = MetricRing(int(window), tracer=tracer) if window else None
-    profiler = o.profiler
+    writes = o.rank == 0
+    profiler = o.profiler if writes else None
     history: list[dict] = []
 
     def emit_train(step, host, last, step_batch):
@@ -367,11 +464,11 @@ def fit(train_step: Optional[Callable], state: TrainState, batches,
         else:
             host = rest
         history.append(host)
-        if sink is not None:
+        if sink is not None and writes:
             sink.write(step, host, last=last)
 
     def emit_probe(step, out, probe):
-        if out and sink is not None:
+        if out and sink is not None and writes:
             # probe lines always flush (last=True beats the console
             # sink's every-N gate)
             sink.write(step, {f"{probe.name}/{k}": v

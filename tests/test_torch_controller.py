@@ -170,19 +170,43 @@ def test_config_rejects_what_the_reference_rejects(kw):
 
 
 def test_data_parallel_knob_waits_for_data_parallelism():
-    cfg = ControllerConfig(microbatch=4, batch_min=4, batch_max=64,
-                           data_max=2)
-    with pytest.raises(ValueError, match="item 8"):
-        AdaptiveBatchController(lambda o, k: None, _factory(),
-                                _stub_probe(1.0), cfg)
-    cfg1 = ControllerConfig(microbatch=4, batch_min=4, batch_max=64)
-    with pytest.raises(ValueError, match="item 8"):
-        AdaptiveBatchController(lambda o, k: None, _factory(),
-                                _stub_probe(1.0), cfg1,
-                                mesh_factory=lambda d: None)
-    ctrl = _controller(_stub_probe(1.0))
-    with pytest.raises(ValueError, match="item 8"):
-        ctrl.retarget(8, data_parallel=2)
+    """The D knob, now ported: ``data_max > 1`` and a ``mesh_factory``
+    are accepted as by the reference, (D, K) retargets move both
+    controllers alike and refuse the same widths with the same message,
+    the step of a (D, K) pair is built on its mesh, and in a world of
+    one rank a mesh of two raises the mesh-size error naming both
+    numbers."""
+    from repro_torch.distributed import make_data_mesh
+    cfg = dict(microbatch=4, batch_min=4, batch_max=64, data_max=2)
+    made = []
+
+    def make_step(opt, k, mesh):
+        made.append((k, mesh))
+        return lambda state, batch: (state, {})
+
+    ctrl = AdaptiveBatchController(make_step, _factory(), _stub_probe(1.0),
+                                   ControllerConfig(**cfg),
+                                   mesh_factory=lambda d: f"mesh{d}")
+    jctrl = jcontroller.AdaptiveBatchController(
+        lambda opt, k, mesh: None, lambda b: None, _stub_probe(1.0),
+        jcontroller.ControllerConfig(**cfg),
+        mesh_factory=lambda d: f"mesh{d}")
+    assert ctrl.targets == jctrl.targets == (1, 1)
+    for target, d in ((16, 2), (8, None), (32, 1)):
+        assert ctrl.retarget(target, data_parallel=d) == \
+            jctrl.retarget(target, data_parallel=d)
+        assert ctrl.targets == jctrl.targets
+        ctrl.step_fn()
+    assert made == [(2, "mesh2"), (1, "mesh2"), (8, None)]
+    for bad in ((8, 4), (12, 2)):
+        msgs = []
+        for c in (ctrl, jctrl):
+            with pytest.raises(ValueError) as e:
+                c.retarget(bad[0], data_parallel=bad[1])
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1]
+    with pytest.raises(ValueError, match="needs 2 ranks but only 1"):
+        make_data_mesh(2)
 
 
 class _Clock:

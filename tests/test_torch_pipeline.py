@@ -18,6 +18,7 @@ CPU.
 from __future__ import annotations
 
 import sys
+import threading
 import time
 
 import numpy as np
@@ -248,6 +249,46 @@ def test_prefetch_retarget_stress():
         assert not pre._thread.is_alive()
     finally:
         sys.setswitchinterval(old)
+
+
+def test_prefetch_retarget_waits_for_a_pull_in_flight():
+    """A batch the producer has pulled reaches the buffer before a
+    retarget can drain it: the pull lock is held until the append (the
+    reference releases it first, so a retarget landing in between keeps
+    a batch of the old shape, ROADMAP F12)."""
+    gate = threading.Semaphore(0)
+
+    def gated(start, count):
+        gate.acquire()
+        return _arange_source(start, count)
+
+    plain = pipeline.MicrobatchedStream(_arange_source, microbatch=3)
+    pre = pipeline.PrefetchingStream(
+        pipeline.MicrobatchedStream(gated, microbatch=3), size=2)
+    try:
+        gate.release()
+        assert torch.equal(next(plain), next(pre))
+        with pre._cv:                   # the next pull cannot be appended
+            gate.release()
+            deadline = time.monotonic() + 10.0
+            while pre.position < 6 and time.monotonic() < deadline:
+                time.sleep(0.001)
+            assert pre.position == 6    # pulled, waiting to append
+            free = pre._plock.acquire(timeout=0.2)
+            if free:
+                pre._plock.release()
+        assert not free
+        for _ in range(8):
+            gate.release()
+        plain.set_accum_steps(4)
+        pre.set_accum_steps(4)
+        for _ in range(3):
+            assert torch.equal(next(plain), next(pre))
+    finally:
+        for _ in range(8):
+            gate.release()
+        pre.close()
+    assert not pre._thread.is_alive()
 
 
 def _indexed_varlen(max_seq, seed=0):
