@@ -97,8 +97,9 @@ script exits non-zero:
    per-tensor kernels (2 launches per ADAPT leaf per step), each
    step's update against the tree path's from the same state;
 10. the sharpness diagnostics at full width through
-   ``launch.train.run``: qwen2.5-3b, all 36 layers, bf16 weights from
-   seed 0, per-tensor WA-LARS, global batch 8 in 8 microbatches of 1 x
+   ``launch.train.run``: qwen2.5-3b cut to ``PHASE10_LAYERS`` (18) of its
+   36 layers (``depth_cut``), bf16 weights from seed 0, per-tensor
+   WA-LARS, global batch 8 in 8 microbatches of 1 x
    512 tokens (microbatches of 2 leave no room for the probe's double
    backward), 3 steps, a Lanczos lambda_max probe after every step (4
    iterations, no reorthogonalization: no basis on the card, the
@@ -277,6 +278,34 @@ script exits non-zero:
    requests. The kernels are built before any rank is spawned, and a
    rank that fails or a world that hangs past its timeout fails the
    phase.
+16. the model axis, tensor-parallel serving: gemma3-12b at full width
+   and depth (48 layers, bf16) on a (1, 2) mesh, two gloo ranks sharing
+   the card, each holding its blocks of the seed-0 draw
+   (``Model.init(0, mesh=)``: 8 of 16 heads, 4 of 8 KV heads, half of
+   d_ff and of the vocabulary) and running the decode kernel on its
+   share of the heads. First the decode kernel at a rank's shape (4
+   slots, 8 / 4 heads, Dh 256, T 288, bf16) against its plain version,
+   timed beside SDPA and its bound; then, in this process, the M = 1
+   engine on the same weights serves 4 requests (prompts of 64-256
+   tokens, 16-32 new, 4 slots, greedy), the requests as one padded
+   batch (and request 0 alone) are teacher-forced along its tokens
+   (the logits kept), and the weights are freed. On the ranks: the
+   engine on the same requests (48 decode launches per rank per step,
+   every rank's tokens equal, equal to M = 1's up to each request's
+   first difference, which must be a bf16 near-tie in both logit
+   sets), the same teacher-forced batches (the max and mean |logit
+   gap| to M = 1 under
+   ``TP_LOGIT_BOUND`` / ``TP_LOGIT_MEAN_BOUND``, which the fault, every
+   wo partial left unsummed, must exceed), the peak a rank against
+   ``weight_bytes / 2 + 2 * kv_pool_bytes / 2`` and a context, and a
+   decode step at 4 slots split on the host clock into compute, the
+   row's ``model_sum_`` calls and the logits gather;
+16b. the gemma3 and qwen2 smoke configs in f32 on a (2, 2) mesh of four
+   gloo ranks on the card (the windowed ring past T, QKV biases set to
+   draws, both axes' groups), on weights drawn on the CPU: every rank's
+   tokens equal M = 1's on the CPU, prefill logits within
+   ``TP_SMALL_LOGIT_BOUND``, which the QKV biases' rows of the other
+   rank must exceed.
 
 Every phase prints its seconds (``phase {label}: {s} s``).
 
@@ -2016,6 +2045,9 @@ def phase_paper_loop(classify, cnn, core, training, synthetic, ops,
 # unit, 2^-8), lambda_max >= alpha_1 - LANCZOS_EIGH_TOL * max|T| (the
 # largest eigenvalue of T is at least its (1,1) entry; eigh in f32)
 SAM_FLOOR_REL = 1e-3
+# phase 10's depth: cut from 36 when phase 16 pushed the script past its
+# time aim (the first phase to cut, ROADMAP "Time budgets")
+PHASE10_LAYERS = 18
 HVP_SYM_BF16 = 2.0 ** -8
 LANCZOS_EIGH_TOL = 1e-5
 # phase 10b, the smoke LM in f32, card against the CPU's plain path: a
@@ -2107,9 +2139,12 @@ def check_probe_calls(label: str, calls: list, per_step: dict) -> None:
 
 def phase_sharpness_full(run, ops, lu, sref, layerwise, flatten,
                          tree_leaves, diag, synthetic, training,
-                         argv: list, label: str) -> dict:
-    """10: qwen2.5-3b at full width (36 layers, bf16, seed 0) through
-    ``launch.train.run`` with per-tensor WA-LARS and a Lanczos lambda_max
+                         argv: list, label: str,
+                         layers: int = 36) -> dict:
+    """10: qwen2.5-3b at full width (``layers`` of its 36 layers: the
+    caller cuts the launcher's config with ``depth_cut``; bf16, seed 0)
+    through ``launch.train.run`` with per-tensor WA-LARS and a Lanczos
+    lambda_max
     probe after each of its steps (held batch stacked like the run, 4
     iterations, no reorthogonalization): 14 launches of each per-tensor
     kernel per step and none inside a probe; params and momentum
@@ -2173,7 +2208,7 @@ def phase_sharpness_full(run, ops, lu, sref, layerwise, flatten,
     if not np.all(np.isfinite(out["losses"])):
         raise AssertionError(f"{label}: losses {out['losses']}")
     cfg = out["model"].cfg
-    if cfg.num_layers != 36 or cfg.param_dtype != "bfloat16":
+    if cfg.num_layers != layers or cfg.param_dtype != "bfloat16":
         raise AssertionError(f"{label}: {cfg.num_layers} layers "
                              f"{cfg.param_dtype}")
     state = out["state"]
@@ -4533,6 +4568,441 @@ def phase_data_parallel(train_launch, ops, serving, mesh_lib, get_config,
                 for k in SEG_LARS}}
 
 
+# ------------------------------------------------ 16-16b: the model axis
+TP_ARCH = "gemma3-12b"
+TP_MESH = (1, 2)               # (data, model): two gloo ranks, one card
+TP_SLOTS, TP_MAX_LEN = 4, 288  # prompts 64-256 + 16-32 new tokens
+TP_SPLIT_STEPS = 8             # decode steps of the timed split
+TP_CONTEXT_GIB = 0.5           # activations, logits, the CUDA allocator
+TP_PEAK_MARGIN_GIB = 1.0       # |peak - prediction| allowed per rank
+# the largest and the mean |logit gap| to M = 1 over the prefill and
+# teacher-forced decode logits (bf16, 262,144 words, logits of std
+# ~1.24): each rank's wo partial is rounded to bf16 before the f32 sum,
+# so bits differ from M = 1's. An emulation of that rounding on the CPU
+# at full width cut to 6 / 12 layers (vocabulary 16,384) gave max 0.063
+# / 0.070, mean 0.0084 / 0.0109; half of every wo partial dropped gave
+# max 4.0, mean 0.65. The fault (every wo left unsummed) must exceed both
+TP_LOGIT_BOUND = 0.5
+TP_LOGIT_MEAN_BOUND = 0.08
+TP_SMALL = ("gemma3-12b", "qwen2-72b")
+TP_SMALL_MESH = (2, 2)
+TP_SMALL_SERVE = dict(slots=4, max_len=48, page_size=8, prefill_batch=4)
+TP_SMALL_PROMPTS = [(0, 5, 12), (1, 19, 9), (2, 3, 16), (3, 11, 7),
+                    (4, 26, 10), (5, 8, 14)]
+# 16b, f32 smoke configs: prefill logits of the (2, 2) ranks on the card
+# against M = 1 on the CPU; a bias with the other rank's rows must
+# exceed it
+TP_SMALL_LOGIT_BOUND = 1e-3
+
+
+def tp_requests(vocab: int) -> tuple:
+    return requests_of(vocab, 16, 4, (64, 256), (16, 32))
+
+
+def teacher_forced(L, model, params, prompts, tokens, mesh=None) -> list:
+    """The requests as one right-padded batch, teacher-forced: the
+    prefill's logits at each prompt's last position, then decode steps
+    fed each request's ``tokens`` (the M = 1 engine's), on ``mesh``'s
+    blocks; [len(tokens[i]), V] logits per request on the host (row j
+    is the distribution token j was chosen from). A request past its
+    tokens decodes a 0 that is never read."""
+    lens = [int(p.size) for p in prompts]
+    x = torch.zeros((len(prompts), max(lens)), dtype=torch.int64)
+    for i, p in enumerate(prompts):
+        x[i, :p.size] = torch.from_numpy(p.astype(np.int64))
+    lens_t = torch.tensor(lens, device="cuda")
+    with L.batch_sharding(mesh):
+        logits, cache = model.prefill(params, x.to("cuda"), TP_MAX_LEN,
+                                      lens_t, logits_at=lens_t - 1)
+        rows = [[logits[i, 0]] for i in range(len(prompts))]
+        for j in range(max(len(t) for t in tokens) - 1):
+            tok = torch.tensor([[t[j] if j < len(t) else 0] for t in tokens],
+                               dtype=torch.int32, device="cuda")
+            logits, cache = model.decode_step(params, cache, tok,
+                                              (lens_t + j).int())
+            for i, t in enumerate(tokens):
+                if j + 1 < len(t):
+                    rows[i].append(logits[i, -1])
+    del cache
+    return [torch.stack(r).cpu() for r in rows]
+
+
+@contextlib.contextmanager
+def unsummed_wo(L):
+    """Inside the block no row-parallel wo partial (attention's or the
+    MLP's) is summed over the model row: the fault phase 16's bounds
+    must catch."""
+    real = L._row_sum
+
+    def faulty(y, local, full, what):
+        return y if what.endswith(" wo") else real(y, local, full, what)
+
+    L._row_sum = faulty
+    try:
+        yield
+    finally:
+        L._row_sum = real
+
+
+def decode_split(model, params, mesh, ops, L) -> dict:
+    """Host time of a decode step at the engine's shape (4 slots) on
+    ``mesh``'s blocks, split into the model row's sums, its logit
+    gather and the rest (compute dispatch and its wait); the card's
+    queue drains before each collective's clock starts."""
+    cache = model.init_cache(params, TP_SLOTS, TP_MAX_LEN)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    tok = torch.randint(1, model.cfg.vocab_size, (TP_SLOTS, 1),
+                        generator=gen, device="cuda", dtype=torch.int32)
+    pos = torch.tensor([64, 128, 200, 255], dtype=torch.int32,
+                       device="cuda")
+    with L.batch_sharding(mesh):
+        for i in range(2):
+            model.decode_step(params, cache, tok, pos + i)
+        torch.cuda.synchronize()
+        mesh.collectives.clear()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        for i in range(TP_SPLIT_STEPS):
+            model.decode_step(params, cache, tok, pos + 2 + i)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3 / TP_SPLIT_STEPS
+    coll = {k: dict(v) for k, v in mesh.collectives.items()}
+    per = {k: coll[k]["seconds"] * 1e3 / TP_SPLIT_STEPS
+           for k in ("model_sum", "model_gather")}
+    del cache
+    return {"step_ms": total, "sum_ms": per["model_sum"],
+            "gather_ms": per["model_gather"],
+            "compute_ms": total - per["model_sum"] - per["model_gather"],
+            "sums": coll["model_sum"]["calls"] // TP_SPLIT_STEPS,
+            "sum_bytes": coll["model_sum"]["bytes"] // TP_SPLIT_STEPS,
+            "gathers": coll["model_gather"]["calls"] // TP_SPLIT_STEPS,
+            "launches": ops.launches["attention_decode"] / TP_SPLIT_STEPS}
+
+
+def bits(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as numpy, bf16 as its int16 bits (``unbits``
+    inverts it)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy()
+    return t.numpy()
+
+
+def unbits(a: np.ndarray) -> torch.Tensor:
+    t = torch.from_numpy(a)
+    return t.view(torch.bfloat16) if t.dtype == torch.int16 else t
+
+
+def tp_rank(requests, tokens1) -> dict:
+    """Phase 16 on one rank of the (1, 2) mesh: this rank's blocks of
+    gemma3-12b's seed-0 draw (``Model.init(0, mesh=)``), the engine on
+    phase 16's requests, the requests teacher-forced along M = 1's
+    tokens, the decode step's split, and the fault."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch import serving
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+    from repro_torch.obs import Tracer, phase_summary
+    mesh = mesh_lib.make_host_mesh(*TP_MESH)
+    model = get_model(get_config(TP_ARCH))
+    t0 = time.perf_counter()
+    params = model.init(0, device=mesh.device, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    shapes = {"wq": tuple(params["layers"][0]["attn"]["wq"].shape),
+              "wk": tuple(params["layers"][0]["attn"]["wk"].shape),
+              "wi": tuple(params["layers"][0]["mlp"]["wi"].shape),
+              "table": tuple(params["embed"]["table"].shape),
+              "head": tuple(params["embed"]["head"].shape)}
+    torch.cuda.reset_peak_memory_stats()
+    tracer = Tracer()
+    eng = serving.Engine(model, params, serving.ServeConfig(
+        slots=TP_SLOTS, max_len=TP_MAX_LEN, page_size=16),
+        device=mesh.device, tracer=tracer, mesh=mesh)
+    mesh.collectives.clear()
+    results, stats, elapsed, launches = serve(eng, ops, requests)
+    engine_coll = {k: dict(v) for k, v in mesh.collectives.items()}
+    spans = phase_summary(tracer.events())
+    pool = tuple(eng._kv.cache[0]["k"].shape)
+    tokens2 = [list(r.tokens) for r in results]
+    del eng, results
+    tf = teacher_forced(L, model, params, requests[0], tokens1,
+                        mesh)
+    with unsummed_wo(L):
+        fault = teacher_forced(L, model, params, requests[0][:1],
+                               tokens1[:1], mesh)
+    split = decode_split(model, params, mesh, ops, L)
+    peak = torch.cuda.max_memory_allocated()
+    first = mesh.rank == 0
+    # as numpy bf16 bits: a tensor would cross to the parent as a
+    # shared-memory handle that dies with this process
+    tf, fault = ([bits(t) for t in x] for x in (tf, fault))
+    return {"rank": mesh.rank, "coords": dict(mesh.coords),
+            "device": str(mesh.device), "backend": mesh.backend,
+            "init_s": init_s, "init_peak": init_peak, "shapes": shapes,
+            "pool": pool, "tokens": tokens2, "stats": stats,
+            "elapsed": elapsed, "launches": launches, "spans": spans,
+            "collectives": engine_coll, "split": split, "peak": peak,
+            "equal": mesh_lib.all_equal(mesh, tokens2),
+            "tf": tf if first else None, "fault": fault if first else None}
+
+
+def tp_small_rank(arch: str, params, prompts) -> dict:
+    """16b on one rank of the (2, 2) mesh: the smoke config's CPU-drawn
+    weights (QKV biases set to draws), its blocks by ``shard_params`` on
+    the card, the engine's tokens and the prompts' prefill logits, then
+    the prefill logits again with each QKV bias's rows taken from the
+    other model rank (the fault)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch import serving
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.base import tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import convert, get_model
+    from repro_torch.models import layers as L
+    mesh = mesh_lib.make_host_mesh(*TP_SMALL_MESH)
+    cfg = get_smoke_config(arch)
+    model = get_model(cfg)
+    local = convert.shard_params(
+        cfg, tree_map(lambda t: t.to(mesh.device), params), mesh)
+    eng = serving.Engine(model, local,
+                         serving.ServeConfig(**TP_SMALL_SERVE),
+                         device=mesh.device, mesh=mesh)
+    ops.reset_launches()
+    ids = [eng.submit(p, max_new_tokens=n) for p, n in prompts]
+    got = {r.id: r.tokens for r in eng.drain()}
+    decode_steps = eng.stats()["decode_steps"]
+    launches = ops.launches["attention_decode"]
+    last = [serving.prefill(model, local, torch.tensor(
+        p[None], dtype=torch.int64, device=mesh.device), TP_SMALL_SERVE[
+            "max_len"], mesh=mesh)[0][0, -1].cpu() for p, _ in prompts]
+    real = L._head_rows
+
+    def other_rows(b, heads):
+        if b.shape[0] == heads:
+            return b
+        j = (mesh.coords["model"] + 1) % mesh.shape["model"]
+        return b[j * heads:(j + 1) * heads]
+
+    fault = None
+    if cfg.qkv_bias:
+        L._head_rows = other_rows
+        try:
+            fault = [serving.prefill(model, local, torch.tensor(
+                p[None], dtype=torch.int64, device=mesh.device),
+                TP_SMALL_SERVE["max_len"], mesh=mesh)[0][0, -1].cpu()
+                for p, _ in prompts]
+        finally:
+            L._head_rows = real
+    tokens = [got[i] for i in ids]
+    return {"rank": mesh.rank, "coords": dict(mesh.coords),
+            "tokens": tokens, "last": torch.stack(last).numpy(),
+            "fault": None if fault is None else torch.stack(fault).numpy(),
+            "launches": launches, "decode_steps": decode_steps,
+            "equal": mesh_lib.all_equal(mesh, tokens)}
+
+
+def phase_model_axis(ops, serving, tad, mesh_lib, get_config,
+                     get_smoke_config, get_model, Tracer, phase_summary,
+                     tree_leaves) -> dict:
+    """16-16b: tensor-parallel serving (see the module docstring)."""
+    from repro_torch.models import layers as L
+    cfg = get_config(TP_ARCH)
+    m = TP_MESH[1]
+    weights = weight_bytes(cfg)
+    pool = kv_pool_bytes(cfg, TP_SLOTS, TP_MAX_LEN)
+    # a rank: its half of the weights, its half of the pool, the
+    # admission's prefill dump (as large as the pool at 4 of 4 slots)
+    pred = (weights / m + 2 * pool / m) / GIB + TP_CONTEXT_GIB
+    print(f"16 {TP_ARCH}: full width and depth ({cfg.num_layers} layers, "
+          f"bf16) on a {TP_MESH} mesh, {m} gloo ranks on one card: "
+          f"{cfg.num_heads // m} of {cfg.num_heads} heads, "
+          f"{cfg.num_kv_heads // m} of {cfg.num_kv_heads} KV heads, "
+          f"{cfg.d_ff // m} of {cfg.d_ff} d_ff, {cfg.vocab_size // m} of "
+          f"{cfg.vocab_size} words a rank; predicted peak a rank "
+          f"{pred:.2f} GiB (weights {weights / GIB:.2f} / {m} + pool "
+          f"{pool / GIB:.3f} / {m} + prefill dump {pool / GIB:.3f} / {m} "
+          f"+ {TP_CONTEXT_GIB} context)", flush=True)
+    # the decode kernel at a rank's shape, against its plain version
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    row = kernel_row(tad, ops, gen, "global", TP_MAX_LEN, None,
+                     torch.bfloat16, TP_SLOTS, cfg.num_heads // m,
+                     cfg.num_kv_heads // m, cfg.head_dim_,
+                     [64, 128, 200, 287])
+
+    # M = 1 in this process on the same seed-0 weights, freed after
+    model = get_model(cfg)
+    requests = tp_requests(cfg.vocab_size)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model.init(0, device="cuda")
+    results, stats1, elapsed1, _ = serve(engine(
+        serving, model, params, None, TP_SLOTS, TP_MAX_LEN), ops, requests)
+    tokens1 = [list(r.tokens) for r in results]
+    tf1 = teacher_forced(L, model, params, requests[0], tokens1)
+    fault1 = teacher_forced(L, model, params, requests[0][:1],
+                            tokens1[:1])
+    del params, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"16 M=1: {len(tokens1)} requests (prompts "
+          f"{[len(p) for p in requests[0]]}, new "
+          f"{[int(n) for n in requests[1]]}), "
+          f"{stats1['tokens_generated']} tokens in {elapsed1:.3f} s; "
+          f"teacher-forced logits kept", flush=True)
+
+    t0 = time.perf_counter()
+    ranks = mesh_lib.spawn(tp_rank, m, "gloo", DEV,
+                           args=(requests, tokens1), timeout=600)
+    spawn_s = time.perf_counter() - t0
+    tol = tad.decode_parity_tolerance(torch.bfloat16)
+    for r in ranks:
+        if not r["equal"] or r["tokens"] != ranks[0]["tokens"]:
+            raise AssertionError("16: the ranks served different tokens")
+        want = cfg.num_layers * r["stats"]["decode_steps"]
+        if r["launches"] != want or r["split"]["launches"] != \
+                cfg.num_layers:
+            raise AssertionError(f"16 rank {r['rank']}: {r['launches']} "
+                                 f"decode launches for "
+                                 f"{r['stats']['decode_steps']} steps "
+                                 f"(expected {want}); split "
+                                 f"{r['split']['launches']} a step")
+        if r["pool"][2] != cfg.num_kv_heads // m:
+            raise AssertionError(f"16: pool {r['pool']}")
+        if abs(r["peak"] / GIB - pred) > TP_PEAK_MARGIN_GIB:
+            raise AssertionError(f"16 rank {r['rank']}: peak "
+                                 f"{r['peak'] / GIB:.2f} GiB, predicted "
+                                 f"{pred:.2f} +- {TP_PEAK_MARGIN_GIB}")
+    # logits to M = 1, along M = 1's tokens: (max, mean) |gap| per
+    # request, and the fault's on request 0
+    def gap(a, b):
+        d = (a.float() - b.float()).abs()
+        return d.max().item(), d.mean().item()
+
+    tf2 = [unbits(a) for a in ranks[0]["tf"]]
+    gaps = [gap(a, b) for a, b in zip(tf2, tf1)]
+    fault_gap = gap(unbits(ranks[0]["fault"][0]), fault1[0])
+    worst = (max(g[0] for g in gaps), max(g[1] for g in gaps))
+    if not (worst[0] <= TP_LOGIT_BOUND and worst[1] <= TP_LOGIT_MEAN_BOUND):
+        raise AssertionError(f"16: logit gaps to M=1 (max, mean) {gaps}, "
+                             f"bounds {TP_LOGIT_BOUND}, "
+                             f"{TP_LOGIT_MEAN_BOUND}")
+    if not (fault_gap[0] > TP_LOGIT_BOUND
+            and fault_gap[1] > TP_LOGIT_MEAN_BOUND):
+        raise AssertionError(f"16: the unsummed-wo fault's gaps "
+                             f"{fault_gap} do not exceed the bounds")
+    # tokens: equal to M = 1 up to each request's first difference,
+    # which must be a near-tie in both M = 1's and M = 2's logits
+    ties = []
+    for i, (a, b) in enumerate(zip(tokens1, ranks[0]["tokens"])):
+        if a == b:
+            continue
+        j = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
+        g1, lim1 = logit_gaps(tf1[i][j], torch.tensor(b[j]), tol)
+        g2, lim2 = logit_gaps(tf2[i][j], torch.tensor(a[j]), tol)
+        ties.append((i, j, round(g1.item(), 4), round(g2.item(), 4)))
+        if g1 > lim1 or g2 > lim2:
+            raise AssertionError(f"16 request {i}: token {j} differs from "
+                                 f"M=1 ({a[j]} vs {b[j]}) beyond a bf16 "
+                                 f"tie: gaps {g1.item()} / {g2.item()}, "
+                                 f"allowed {lim1.item()} / {lim2.item()}")
+    r0 = ranks[0]
+    sp = r0["split"]
+    spans = r0["spans"]
+    step_ms = decode_step_ms(spans, r0["stats"]["decode_steps"])
+    generated = r0["stats"]["tokens_generated"]
+    coll = {k: (v["calls"], round(v["seconds"], 3))
+            for k, v in r0["collectives"].items()}
+    for r in ranks:
+        print(f"16 rank {r['rank']} {r['coords']} ({r['backend']}, "
+              f"{r['device']}): blocks {r['shapes']}, KV pool {r['pool']}; "
+              f"init {r['init_s']:.1f} s (peak {r['init_peak'] / GIB:.2f} "
+              f"GiB: the blocks and the largest leaf drawn whole); serving "
+              f"peak {r['peak'] / GIB:.2f} GiB (predicted {pred:.2f}); "
+              f"{r['launches']} decode launches over "
+              f"{r['stats']['decode_steps']} steps "
+              f"({r['launches'] // r['stats']['decode_steps']} a step)",
+              flush=True)
+    print(f"16: {len(r0['tokens'])} requests, {generated} tokens in "
+          f"{r0['elapsed']:.3f} s = {generated / r0['elapsed']:.2f} tok/s "
+          f"(M=1 {stats1['tokens_generated'] / elapsed1:.2f}); decode step "
+          f"{step_ms:.3f} ms (decode + sample spans); engine collectives "
+          f"{coll} (calls, s); tokens equal on {m} ranks; to M=1: "
+          f"{sum(a == b for a, b in zip(tokens1, r0['tokens']))} of "
+          f"{len(tokens1)} requests equal, first differences (request, "
+          f"token, gap in M=1's logits, in M=2's) {ties}; |logit gap| "
+          f"along M=1's tokens (max, mean) a request "
+          f"{[(round(a, 4), round(b, 5)) for a, b in gaps]} (bounds "
+          f"{TP_LOGIT_BOUND}, {TP_LOGIT_MEAN_BOUND}); every wo unsummed "
+          f"(the fault) ({fault_gap[0]:.4f}, {fault_gap[1]:.5f}); "
+          f"{spawn_s:.1f} s with the spawn; {smi_line()}", flush=True)
+    print(f"16 decode step split (rank 0, {TP_SLOTS} slots, "
+          f"{TP_SPLIT_STEPS} steps, host clock): {sp['step_ms']:.3f} ms = "
+          f"compute {sp['compute_ms']:.3f} + model_sum_ {sp['sum_ms']:.3f} "
+          f"({sp['sums']} calls, {sp['sum_bytes']} B) + logits gather "
+          f"{sp['gather_ms']:.3f} ({sp['gathers']} call); "
+          f"{sp['launches']:.0f} decode launches a step", flush=True)
+
+    # 16b: the smoke configs on a (2, 2) mesh against the CPU
+    small = {}
+    for arch in TP_SMALL:
+        scfg = get_smoke_config(arch)
+        smodel = get_model(scfg)
+        cpu = smodel.init(0, device="cpu")
+        g = torch.Generator().manual_seed(7)
+        for layer in cpu["layers"]:
+            for k in ("bq", "bk", "bv"):
+                if k in layer["attn"]:
+                    layer["attn"][k] = 0.05 * torch.randn(
+                        layer["attn"][k].shape, generator=g)
+        prompts = [(np.random.RandomState(s).randint(1, scfg.vocab_size,
+                                                     size=n), new)
+                   for s, n, new in TP_SMALL_PROMPTS]
+        eng = serving.Engine(smodel, cpu,
+                             serving.ServeConfig(**TP_SMALL_SERVE),
+                             device="cpu")
+        ids = [eng.submit(p, max_new_tokens=n) for p, n in prompts]
+        got = {r.id: r.tokens for r in eng.drain()}
+        want = [got[i] for i in ids]
+        last = torch.stack([serving.prefill(smodel, cpu, torch.tensor(
+            p[None], dtype=torch.int64), TP_SMALL_SERVE["max_len"])[0][0, -1]
+            for p, _ in prompts])
+        rs = mesh_lib.spawn(tp_small_rank, 4, "gloo", DEV,
+                            args=(arch, cpu, prompts), timeout=300)
+        for r in rs:
+            if not r["equal"] or r["tokens"] != want:
+                raise AssertionError(f"16b {arch} rank {r['rank']}: tokens "
+                                     f"differ from the CPU's M=1")
+            if r["launches"] != scfg.num_layers * r["decode_steps"]:
+                raise AssertionError(f"16b {arch}: {r['launches']} launches")
+        gap = (torch.from_numpy(rs[0]["last"]) - last).abs().max().item()
+        fault = None if rs[0]["fault"] is None else \
+            (torch.from_numpy(rs[0]["fault"]) - last).abs().max().item()
+        if not gap <= TP_SMALL_LOGIT_BOUND or (
+                fault is not None and not fault > TP_SMALL_LOGIT_BOUND):
+            raise AssertionError(f"16b {arch}: prefill logit gap {gap}, "
+                                 f"the other rank's bias rows {fault}, "
+                                 f"bound {TP_SMALL_LOGIT_BOUND}")
+        small[arch] = {"launches": rs[0]["launches"], "gap": gap,
+                       "fault": fault}
+        print(f"16b {arch}: smoke f32 on a {TP_SMALL_MESH} mesh (4 gloo "
+              f"ranks, one card) == M=1 on the CPU: {len(want)} requests' "
+              f"tokens equal on every rank, {rs[0]['launches']} decode "
+              f"launches ({scfg.num_layers} a step); prefill logits within "
+              f"{gap:.3e} (bound {TP_SMALL_LOGIT_BOUND})"
+              + ("" if fault is None else
+                 f"; each QKV bias with the other rank's rows: {fault:.3e}")
+              + f"; {smi_line()}", flush=True)
+    return {"row": row, "launches": r0["launches"], "gaps": gaps,
+            "fault_gap": fault_gap, "split": sp, "peak_gib": [
+                r["peak"] / GIB for r in ranks], "predicted_gib": pred,
+            "small": small}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4656,7 +5126,11 @@ def main() -> int:
 
     # 10: the sharpness diagnostics at full width, then against the CPU,
     # the bench's port and the probe smoke's entry point
-    with phase_clock("10"):
+    print(f"10 qwen2.5-3b: reduced: num_layers 36 -> {PHASE10_LAYERS} "
+          f"(the script's time budget: phase 16 came in; width as "
+          f"published)", flush=True)
+    with phase_clock("10"), depth_cut(train_launch, "qwen2.5-3b",
+                                      PHASE10_LAYERS):
         phase_sharpness_full(
             train_run, ops, lu, sref, layerwise, flatten, tree_leaves, diag,
             synthetic, training,
@@ -4664,7 +5138,7 @@ def main() -> int:
              "--use-kernel", "per_tensor", "--global-batch", "8",
              "--microbatch", "1", "--seq", "512", "--steps", "3",
              "--probe-every", "1", "--probe-iters", "4",
-             "--probe-no-reorth"], "wa-lars-probes")
+             "--probe-no-reorth"], "wa-lars-probes", PHASE10_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     with phase_clock("10b-10d"):
@@ -4767,6 +5241,14 @@ def main() -> int:
         dp = phase_data_parallel(train_launch, ops, serving, mesh_lib,
                                  get_config, get_model, tree_leaves)
 
+    # 16-16b: the model axis, tensor-parallel serving
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase_clock("16-16b"):
+        tp = phase_model_axis(ops, serving, tad, mesh_lib, get_config,
+                              get_smoke_config, get_model, Tracer,
+                              phase_summary, tree_leaves)
+
     # the serving path's mix: 40 local and 8 global launches per decode
     # step (bf16 pool); per-launch means weighted by that mix
     rows = kernel["rows"]
@@ -4778,10 +5260,10 @@ def main() -> int:
             / n
 
     # max |err| over every shape held: gemma3-12b's four, the three
-    # dense configs' serving shapes, the three of 13 / 13b / 13e and the
-    # two of 14e
+    # dense configs' serving shapes, the three of 13 / 13b / 13e, the
+    # two of 14e and a rank's shape in 16
     served = (codeqwen, qwen72, main12, fam["13"], fam["13b"], fam["13e"],
-              cross["14"], cross["14b"])
+              cross["14"], cross["14b"], tp)
     kernel["max_abs_err"] = max(
         [kernel["max_abs_err"]] + [r["row"]["max_abs_err"] for r in served])
     entries = [{"name": "attention_decode", "route": "cuda",
@@ -4803,7 +5285,8 @@ def main() -> int:
                              fam["13b"])]
                 + [dict(fam["13e"]["row"], layers_per_step=6)]
                 + [dict(cross[k]["row"], layers_per_step=cross[k]["layers"])
-                   for k in ("14", "14b")],
+                   for k in ("14", "14b")]
+                + [dict(tp["row"], layers_per_step=48)],
                 "launches_by_phase": {
                     "4": main_path["launches"], "12": codeqwen["launches"],
                     "12b": qwen72["launches"],
@@ -4813,7 +5296,11 @@ def main() -> int:
                     "13d": fam["13d"]["inspect"]["launches"],
                     "13e": fam["13e"]["inspect"]["launches"],
                     "14": cross["14"]["launches"],
-                    "14b": cross["14b"]["launches"]}}]
+                    "14b": cross["14b"]["launches"],
+                    # per rank: each rank of the mesh launches as many
+                    "16": tp["launches"],
+                    **{f"16b-{a}": r["launches"]
+                       for a, r in tp["small"].items()}}}]
     # the segmented kernels: times at the main path's shapes (the
     # training runs' own buffers); no single PyTorch call computes
     # either pass, so library_ms is null

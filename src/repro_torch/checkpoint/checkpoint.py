@@ -33,13 +33,16 @@ which needs no ``ml_dtypes``.
 
 Across worlds: the payload does not depend on the mesh. ``save(mesh=)``
 is called on every rank; rank 0 writes and every rank waits at a
-barrier. ``restore(mesh=)`` places every leaf whole on each rank's
-device; ``restore(shardings=)`` accepts that replicated placement
-(``distributed.NamedSharding(mesh, PartitionSpec())``, one for all
-leaves or a tree of them). A spec that splits a leaf raises:
-``ValueError`` naming the leaf when it cannot tile the leaf's shape,
-``NotImplementedError`` otherwise (split leaves are the model axis's
-item in ROADMAP).
+barrier; over a mesh with a model axis it raises (each rank holds its
+own blocks: saving split leaves is ROADMAP item 11c).
+``restore(mesh=)`` places every leaf whole on each rank's device;
+``restore(shardings=)`` takes placements
+(``distributed.NamedSharding``, one for all leaves or a tree of them,
+e.g. ``launch.sharding.named(mesh, state_pspecs(mesh, like))``): a
+replicated one places the leaf whole, one that splits it reads the
+member and keeps this rank's block (``launch.sharding.local_block``).
+A spec that cannot tile a leaf's shape raises ``ValueError`` naming
+the leaf before any leaf is read.
 """
 from __future__ import annotations
 
@@ -54,8 +57,9 @@ import torch
 
 from repro_torch.core.base import (path_name, tree_flatten_with_path,
                                    tree_leaves)
-from repro_torch.distributed import (MODEL_AXIS_PENDING, NamedSharding,
+from repro_torch.distributed import (FSDP_PENDING, NamedSharding,
                                      placement_device, replicated)
+from repro_torch.launch.sharding import local_block
 from repro_torch.models.convert import params_from_jax, params_to_jax
 from repro_torch.training.train_state import TrainState
 
@@ -118,6 +122,9 @@ def save(path: str, tree: Any, *, step: Optional[int] = None,
     rank of a data-parallel world, whose state is equal on every rank;
     rank 0 writes, records every leaf as replicated on the mesh, and the
     ranks meet at a barrier before returning."""
+    if mesh is not None and mesh.shape["model"] > 1:
+        raise NotImplementedError(f"save over a mesh with a model axis "
+                                  f"(split leaves): {FSDP_PENDING}")
     if mesh is not None and mesh.rank != 0:
         mesh.barrier()
         return
@@ -170,7 +177,7 @@ def _resolve_shardings(shardings: Any, mesh, n: int) -> Optional[list]:
 
 def _check_placeable(i: int, shape: tuple, sh) -> None:
     """Refuse a placement that cannot tile the leaf (the reference's
-    ``ValueError``), then any that splits it (not ported)."""
+    ``ValueError``)."""
     if not isinstance(sh, NamedSharding):
         raise ValueError(
             f"leaf {i}: sharding entry is {type(sh).__name__}, expected "
@@ -186,10 +193,6 @@ def _check_placeable(i: int, shape: tuple, sh) -> None:
                 f"leaf {i}: shape {tuple(shape)} cannot be placed with "
                 f"spec {spec} on mesh {sh.mesh.shape}: sharding mismatch "
                 f"between checkpoint and restore target")
-    if spec.axes():
-        raise NotImplementedError(
-            f"leaf {i}: spec {spec} splits the leaf; the port places "
-            f"leaves whole on every rank ({MODEL_AXIS_PENDING})")
 
 
 def restore(path: str, like: Any, *, device="cuda", mesh=None,
@@ -203,8 +206,9 @@ def restore(path: str, like: Any, *, device="cuda", mesh=None,
     metadata or the template. ``mesh=`` places every leaf whole on this
     rank's device (``mesh.device`` in a joined world, which must be of
     ``device``'s type; ``device`` outside one); ``shardings=`` takes
-    placements (one ``NamedSharding`` or a tree of them): replicated
-    ones only, and every one is checked before any leaf is read."""
+    placements (one ``NamedSharding`` or a tree of them), every one
+    checked before any leaf is read: a leaf whose spec splits it comes
+    back as this rank's block."""
     with open(os.path.join(path, META)) as f:
         meta = json.load(f)
     pairs = list(tree_flatten_with_path(like))
@@ -287,6 +291,9 @@ def restore(path: str, like: Any, *, device="cuda", mesh=None,
                 raise ValueError(
                     f"leaf {i}: checkpoint dtype {_dtype_name(t)} != "
                     f"template {t_dtype}")
+            if placements is not None and placements[i].spec.axes():
+                sh = placements[i]
+                t = t[local_block(sh.spec, sh.mesh, t.shape)].clone()
             values[leaf_path] = t.to(dev)
     return _rebuild(like, values)
 

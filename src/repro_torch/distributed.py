@@ -1,19 +1,24 @@
-"""The data axis over ``torch.distributed`` process groups: the world a
-process joined, :class:`Mesh` and its collectives.
+"""The data and model axes over ``torch.distributed`` process groups:
+the world a process joined, :class:`Mesh` and its collectives.
 
-One process (a *rank*) holds one data shard. A :class:`Mesh` is a
-``("data", "model")`` mesh of ``data × 1`` ranks over the world: it
-answers what the reference's ``jax.sharding.Mesh`` answers (axis names,
-axis sizes) and adds what a process needs to take part (its rank, its
-device, the group and the backend). The model axis is 1: fsdp and
-tensor parallelism are not ported (:data:`MODEL_AXIS_PENDING`).
+A :class:`Mesh` is a ``("data", "model")`` mesh of ``data × model``
+ranks over the world: it answers what the reference's
+``jax.sharding.Mesh`` answers (axis names, axis sizes) and adds what a
+process needs to take part (its rank, its coordinates, its device, the
+groups and the backend). Rank ``r`` of the mesh sits at ``(data_index,
+model_index) = divmod(r, model)``: the reference's ``reshape(data,
+model)`` of ``make_data_mesh``. A model row (the ``model`` ranks of one
+data index) holds one copy of the params, split as
+:mod:`repro_torch.launch.sharding` says; a data column holds one model
+rank of every row.
 
-The mesh's ranks are the first ``data`` ranks of the world, the
+The mesh's ranks are the first ``data × model`` ranks of the world, the
 reference's ``make_data_mesh`` prefix, so meshes of different widths
 share ranks: the adaptive-batch controller builds one per visited data
-width D over a world of ``data_max`` ranks. A rank at or past D takes
-part in every collective of a narrower mesh but contributes nothing to
-it (:meth:`Mesh.mean_`), and so ends every step with the same state.
+width D over a world of ``data_max`` ranks. At ``model = 1`` a rank at
+or past D takes part in every collective of a narrower mesh but
+contributes nothing to it (:meth:`Mesh.mean_`), and so ends every step
+with the same state.
 
 Collectives:
 
@@ -23,9 +28,17 @@ Collectives:
   The backend hands every rank the same bits of each sum; a rank past
   D contributes ``-0.0``, the exact additive identity, so a step at
   D < world sums what a world of D ranks sums. At D = 1 it hands rank
-  0's tensors, in their own dtype, to the other ranks.
+  0's tensors, in their own dtype, to the other ranks. Over a mesh with
+  a model axis it raises (training over that axis is
+  :data:`FSDP_PENDING`).
 * :meth:`Mesh.broadcast_` copies rank 0's tensors to every rank in
   place, byte for byte (``train_state.replicate``).
+* :meth:`Mesh.model_sum_` sums a row-parallel partial over the model
+  row in place, in f32 (a bf16 partial is widened, summed, rounded
+  back); :meth:`Mesh.model_gather` concatenates the row's blocks of a
+  column-parallel output in model-rank order. Each call is counted and
+  timed on the host in :attr:`Mesh.collectives` (host-staged: after the
+  card's queue has drained, so the time is the collective's own).
 
 Backends: ``nccl`` when every rank has a card of its own, ``gloo`` on
 the CPU or when ranks share one card. ``gloo`` collectives run on host
@@ -41,8 +54,10 @@ Worlds are joined and started by :mod:`repro_torch.launch.mesh`.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import datetime
+import time
 from typing import Any, Optional, Sequence
 
 import torch
@@ -54,9 +69,22 @@ AXES = ("data", "model")
 BUCKET_BYTES = 256 << 20
 TIMEOUT_S = 300.0
 BACKENDS = ("gloo", "nccl")
-MODEL_AXIS_PENDING = (
-    "the model axis (fsdp + tensor parallelism, the reference's GSPMD "
-    "path) is not ported: ROADMAP queue 1, item 11")
+# what the model axis does not do yet, each with its ROADMAP item
+FSDP_PENDING = (
+    "training over the model axis (fsdp, the reference's GSPMD "
+    "--data-parallel, sequence parallelism, saving split leaves) is not "
+    "ported: ROADMAP queue 1, item 11c")
+EXPERT_PARALLEL_PENDING = (
+    "expert parallelism (the MoE family at model > 1) is not ported: "
+    "ROADMAP queue 1, item 11d")
+CACHE_FALLBACK_PENDING = (
+    "a KV cache split over T or Dh (the model axis does not divide the "
+    "KV heads) needs a cross-rank softmax merge, not ported: ROADMAP "
+    "queue 1, item 11b-1")
+FAMILY_PENDING = (
+    "tensor-parallel serving covers the dense family; the vlm cross "
+    "layers (and ssm, hybrid and encdec, which the engine refuses at any "
+    "width) at model > 1 are not ported: ROADMAP queue 1, item 11b-3")
 
 
 class PartitionSpec(tuple):
@@ -193,35 +221,66 @@ def _check_devices(shape: tuple, axes: tuple) -> None:
 
 
 class Mesh:
-    """A ``("data", "model")`` mesh of ``data × 1`` ranks: the first
-    ``data`` ranks of the joined world. ``rank`` is this process's
-    rank, ``shard`` the data shard it computes (its rank for the mesh's
-    ranks; ``rank % data`` for a rank past the mesh, whose results
-    :meth:`mean_` ignores); ``device`` its rank's device, None outside
-    a joined world."""
+    """A ``("data", "model")`` mesh of ``data × model`` ranks: the first
+    ``data × model`` ranks of the joined world, rank ``r`` at
+    ``coords == {"data": r // model, "model": r % model}``. ``rank`` is
+    this process's rank, ``shard`` the data shard it computes (its data
+    index; at ``model = 1`` ``rank % data`` for a rank past the mesh,
+    whose results :meth:`mean_` ignores); ``device`` its rank's device,
+    None outside a joined world. At ``model > 1`` every rank of the
+    world makes one process group per model row and one per data
+    column, in the same order; a rank past the mesh belongs to
+    neither. Serving uses the rows; the columns are for what splits
+    over data next (the engine's slots, training: ROADMAP item 11)."""
 
     axis_names = AXES
 
     def __init__(self, data: int, model: int = 1):
-        if model != 1:
-            raise NotImplementedError(MODEL_AXIS_PENDING)
         _check_devices((data, model), AXES)
         w = world()
         self.data = int(data)
+        self.model = int(model)
         self.rank = w.rank
         self.world = w.size
         self.backend = w.backend
         self.device = w.device
-        self.shard = w.rank % self.data
+        self.member = w.rank < self.data * self.model
+        data_index, model_index = divmod(w.rank, self.model)
+        self.coords = {"data": data_index % self.data, "model": model_index}
+        self.shard = self.coords["data"]
+        self.collectives: dict = collections.defaultdict(
+            lambda: {"calls": 0, "seconds": 0.0, "bytes": 0})
+        self._row = self._column = None
+        if self.model > 1 and dist.is_initialized():
+            self._row, self._column = self._make_groups()
+
+    def _make_groups(self):
+        """Every rank makes every row's and every column's group, in
+        the same order (``new_group`` is collective over the world)."""
+        timeout = datetime.timedelta(seconds=TIMEOUT_S)
+        row = column = None
+        for d in range(self.data):
+            g = dist.new_group([d * self.model + m
+                                for m in range(self.model)],
+                               timeout=timeout, backend=self.backend)
+            if self.member and d == self.coords["data"]:
+                row = g
+        for m in range(self.model):
+            g = dist.new_group([d * self.model + m
+                                for d in range(self.data)],
+                               timeout=timeout, backend=self.backend)
+            if self.member and m == self.coords["model"]:
+                column = g
+        return row, column
 
     @property
     def shape(self) -> dict:
-        return {"data": self.data, "model": 1}
+        return {"data": self.data, "model": self.model}
 
     def __repr__(self) -> str:
-        return (f"Mesh(data={self.data}, model=1, rank={self.rank}, "
-                f"world={self.world}, backend={self.backend!r}, "
-                f"device={str(self.device)!r})")
+        return (f"Mesh(data={self.data}, model={self.model}, "
+                f"rank={self.rank}, world={self.world}, "
+                f"backend={self.backend!r}, device={str(self.device)!r})")
 
     # -------------------------------------------------------- collectives
     def _staged(self, t: torch.Tensor) -> torch.Tensor:
@@ -233,6 +292,10 @@ class Mesh:
     def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
         """Copy rank 0's ``tensors`` into every rank's, in place, byte
         for byte, in chunks of at most :data:`BUCKET_BYTES`."""
+        if self.model > 1:
+            raise NotImplementedError(f"broadcast_ over a mesh with a "
+                                      f"model axis (each rank holds its "
+                                      f"own block): {FSDP_PENDING}")
         if self.world == 1:
             return
         for t in tensors:
@@ -253,6 +316,9 @@ class Mesh:
         rank ends with rank 0's values (their own dtype). A joined world
         of one rank still runs the collectives (a sum of one); outside
         any world this is a no-op."""
+        if self.model > 1:
+            raise NotImplementedError(f"mean_ over a mesh with a model "
+                                      f"axis: {FSDP_PENDING}")
         for t in tensors:
             if not t.is_contiguous():
                 raise ValueError("mean_: contiguous tensors only (a "
@@ -300,6 +366,69 @@ class Mesh:
             flats[i][a:b].copy_(buf[o:o + b - a])
             o += b - a
 
+    def _row_group(self, what: str):
+        if not self.member:
+            raise RuntimeError(f"{what}: rank {self.rank} lies past the "
+                               f"{self.data} x {self.model} mesh")
+        return self._row
+
+    def _start(self, t: torch.Tensor) -> float:
+        """The clock of a model-row collective on ``t``. A host-staged
+        one waits for the card's queue when it copies ``t`` to the host
+        anyway; that wait is taken first, so the reading is the
+        collective's own time (copies and the host-side reduction)."""
+        if self.backend == "gloo" and t.device.type == "cuda":
+            torch.cuda.synchronize(t.device)
+        return time.perf_counter()
+
+    def _record(self, name: str, t0: float, nbytes: int) -> None:
+        c = self.collectives[name]
+        c["calls"] += 1
+        c["seconds"] += time.perf_counter() - t0
+        c["bytes"] += nbytes
+
+    def model_sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over this rank's model row, in place, in f32: a
+        bf16 partial is widened, summed and rounded back once. Every
+        rank of the row ends with the same bits. Returns ``t``; at
+        ``model = 1`` it is left alone."""
+        if self.model == 1:
+            return t
+        group = self._row_group("model_sum_")
+        t0 = self._start(t)
+        buf = t.detach()
+        if buf.dtype != torch.float32 or not buf.is_contiguous():
+            buf = buf.float().contiguous()
+        staged = self._staged(buf)
+        dist.all_reduce(staged, op=dist.ReduceOp.SUM, group=group)
+        if staged.data_ptr() != t.data_ptr():
+            t.copy_(staged)
+        self._record("model_sum", t0, staged.numel() * 4)
+        return t
+
+    def model_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The model row's blocks of ``t`` concatenated along ``dim`` in
+        model-rank order, on ``t``'s device. Under gloo a bf16 block
+        travels as its bytes (a uint8 view: gloo refuses int16, and
+        bf16 only in some versions); the gather moves bits, so the
+        result is the blocks' bits."""
+        if self.model == 1:
+            return t
+        group = self._row_group("model_gather")
+        t0 = self._start(t)
+        wire = t.detach().contiguous()
+        bits = wire.dtype == torch.bfloat16 and self.backend == "gloo"
+        if bits:
+            wire = wire.view(torch.uint8)
+        wire = self._staged(wire)
+        parts = [torch.empty_like(wire) for _ in range(self.model)]
+        dist.all_gather(parts, wire, group=group)
+        out = torch.cat(parts, dim=dim)
+        if bits:
+            out = out.view(torch.bfloat16)
+        self._record("model_gather", t0, out.numel() * out.element_size())
+        return out.to(t.device)
+
     def barrier(self) -> None:
         if self.world > 1:
             dist.barrier()
@@ -307,9 +436,7 @@ class Mesh:
 
 def make_host_mesh(data: int = 1, model: int = 1) -> Mesh:
     """A mesh over the world's first ``data × model`` ranks (tests / CPU
-    runs); ``model > 1`` raises ``NotImplementedError``."""
-    if model != 1:
-        raise NotImplementedError(MODEL_AXIS_PENDING)
+    runs)."""
     return Mesh(data, model)
 
 

@@ -20,15 +20,21 @@ reference launcher feeds it); ssm, hybrid and encdec archs
 (mamba2-1.3b, zamba2-1.2b, whisper-large-v3) have no batched prefill
 and the engine refuses them with the reference's ``ValueError``.
 
-``--data-parallel D`` (with ``--model-parallel 1``) serves replicated:
-D ranks each hold the whole params (restored through the placement-aware
-reader, or drawn on rank 0 and broadcast) and serve the same requests;
-rank 0 prints, and the run fails unless every rank produced the same
-tokens. Without a ``torchrun`` world the launcher spawns the D ranks
-itself; ``--dist-backend`` picks ``gloo`` or ``nccl`` (default: ``nccl``
-when every rank has a card of its own, else ``gloo``; printed).
-``--model-parallel > 1`` raises ``NotImplementedError``: tensor-parallel
-serving is the model axis's item in ROADMAP.
+``--data-parallel D --model-parallel M`` serves on a ``(D, M)`` mesh of
+D × M ranks (``make_host_mesh(D, M)``, as the reference launcher does):
+each data row of M ranks serves the same requests, tensor-parallel over
+its model row (dense archs: the heads, d_ff and vocabulary split by
+``launch.sharding``, the decode kernel on each rank's share of the
+heads). Without ``--restore`` each rank draws its blocks of the seed-0
+weights (``Model.init(0, mesh=)``; at M = 1 rank 0's draw is broadcast);
+with it every rank restores the whole params through
+``Engine.from_checkpoint(mesh=)``, replicated, as the reference
+launcher does. Rank 0 prints, and the run fails unless every rank
+produced the same tokens. Without a ``torchrun`` world the launcher
+spawns the D × M ranks itself; ``--dist-backend`` picks ``gloo`` or
+``nccl`` (default: ``nccl`` when every rank has a card of its own, else
+``gloo``; printed). Families other than dense are refused at M > 1
+with the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -75,19 +81,17 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        raise NotImplementedError(
-            f"--model-parallel {args.model_parallel}: "
-            f"{mesh_lib.MODEL_AXIS_PENDING}")
-    if args.data_parallel < 1:
-        raise SystemExit(f"--data-parallel {args.data_parallel} must be "
+    if args.data_parallel < 1 or args.model_parallel < 1:
+        raise SystemExit(f"--data-parallel {args.data_parallel} and "
+                         f"--model-parallel {args.model_parallel} must be "
                          f">= 1")
-    d = args.data_parallel
+    d = args.data_parallel * args.model_parallel
     if d > 1 and not mesh_lib.joined():
         backend = args.dist_backend or mesh_lib.default_backend(
             args.device, d)
         if not mesh_lib.in_torchrun():
-            print(f"data_parallel={d} backend={backend}: spawning {d} "
+            print(f"data_parallel={args.data_parallel} model_parallel="
+                  f"{args.model_parallel} backend={backend}: spawning {d} "
                   f"ranks", flush=True)
             mesh_lib.spawn(_serve, d, backend, args.device, args=(args,))
             return
@@ -102,8 +106,8 @@ def main(argv=None) -> None:
 
 def _serve(args) -> list:
     """Serve the launcher's requests on this rank; returns the tokens."""
-    mesh = mesh_lib.make_host_mesh(args.data_parallel) \
-        if args.data_parallel > 1 else None
+    mesh = mesh_lib.make_host_mesh(args.data_parallel, args.model_parallel) \
+        if args.data_parallel * args.model_parallel > 1 else None
     dev = mesh_lib.placement_device(mesh, args.device)
     log = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -126,10 +130,14 @@ def _serve(args) -> list:
         eng = serving.Engine.from_checkpoint(args.restore, model, sc,
                                              device=dev, mesh=mesh,
                                              tracer=tracer, extra=extra)
+    elif args.model_parallel > 1:
+        eng = serving.Engine(model, model.init(0, device=dev, mesh=mesh),
+                             sc, device=dev, tracer=tracer, extra=extra,
+                             mesh=mesh)
     else:
         params = replicate(model.init(0, device=dev), mesh)
         eng = serving.Engine(model, params, sc, device=dev, tracer=tracer,
-                             extra=extra)
+                             extra=extra, mesh=mesh)
 
     rng = np.random.RandomState(0)
     prompts = [rng.randint(1, cfg.vocab_size, size=args.prompt_len)
@@ -152,8 +160,10 @@ def _serve(args) -> list:
     toks = sum(len(r.tokens) for r in results)
     stats = eng.stats()
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    peak = f", peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} " \
+        f"GiB" if dev.type == "cuda" else ""
     log(f"{args.arch}: {len(results)} requests, {toks} tokens in "
-        f"{elapsed:.2f}s ({toks / elapsed:.1f} tok/s) on {name} — "
+        f"{elapsed:.2f}s ({toks / elapsed:.1f} tok/s) on {name}{peak} — "
         f"slots={sc.slots} max_len={sc.max_len} "
         f"page_size={sc.page_size}")
     log(f"decode steps {stats['decode_steps']}, attention_decode kernel "
@@ -165,10 +175,11 @@ def _serve(args) -> list:
               sorted(results, key=lambda r: r.id)]
     if mesh is not None:
         if not mesh_lib.all_equal(mesh, tokens):
-            raise RuntimeError(f"data_parallel={mesh.data}: the ranks "
-                               f"served different tokens")
-        log(f"data_parallel={mesh.data} backend={mesh.backend}: tokens "
-            f"equal on {mesh.world} ranks")
+            raise RuntimeError(f"data_parallel={mesh.data} model_parallel="
+                               f"{mesh.model}: the ranks served different "
+                               f"tokens")
+        log(f"data_parallel={mesh.data} model_parallel={mesh.model} "
+            f"backend={mesh.backend}: tokens equal on {mesh.world} ranks")
     if args.trace_out and (mesh is None or mesh.rank == 0):
         summary = obs_trace.phase_summary(tracer.events())
         for span, row in summary.items():

@@ -62,8 +62,9 @@ it joins the world given. ``--dist-backend`` picks ``gloo`` or ``nccl``
 and profile. ``--adaptive-batch`` then moves D too (``data_max`` =
 ``--mesh-data``, a power of two). ``--mesh-model > 1`` and the
 reference's GSPMD ``--data-parallel D > 1`` raise
-``NotImplementedError``: fsdp and tensor parallelism are the model
-axis's item in ROADMAP.
+``NotImplementedError``: training over the model axis (fsdp and tensor
+parallelism) is ROADMAP item 11c; the model axis serves
+(``launch.serve --model-parallel``).
 
 :func:`run` is the entry point for programs (``chip_smoke.py``): it
 takes the argument list and returns the run's numbers and final state.
@@ -266,11 +267,11 @@ def run(argv: Optional[Sequence[str]] = None, *,
                          f"{mesh_model} must be >= 1")
     if mesh_model > 1:
         raise NotImplementedError(f"--mesh-model {mesh_model}: "
-                                  f"{mesh_lib.MODEL_AXIS_PENDING}")
+                                  f"{mesh_lib.FSDP_PENDING}")
     if args.mesh_data is None and args.data_parallel > 1:
         raise NotImplementedError(
             f"--data-parallel {args.data_parallel} selects the reference's "
-            f"GSPMD path: {mesh_lib.MODEL_AXIS_PENDING}; use --mesh-data")
+            f"GSPMD path: {mesh_lib.FSDP_PENDING}; use --mesh-data")
     # the mesh-native path (batch over ranks, params replicated) is
     # opted into by the explicit --mesh-data flag
     mesh_native = args.mesh_data is not None and mesh_data > 1

@@ -38,9 +38,12 @@ from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.base import (path_name, tree_flatten_with_path,
                                    tree_from_paths, tree_get)
+from repro_torch.core.base import tree_map
 from repro_torch.core.flatten import Segment
+from repro_torch.launch import sharding
+from repro_torch.models import layers as L
 from repro_torch.models.hybrid import hybrid_layout
-from repro_torch.models.transformer import _group_spec
+from repro_torch.models.transformer import _group_spec, check_model_axis
 
 
 def _tensor(x, dev: torch.device) -> torch.Tensor:
@@ -182,6 +185,58 @@ def jax_template(cfg: ModelConfig) -> dict:
     init = FAMILIES[cfg.family][0]
     return params_to_jax(cfg, init(cfg, torch.Generator(), meta),
                          device=meta)
+
+
+def _block(leaf: torch.Tensor, path, mesh) -> torch.Tensor:
+    """This rank's block of ``leaf`` under its rule: a copy when the
+    rule splits it (so the whole leaf can be freed), else ``leaf``."""
+    spec = sharding.leaf_pspec(path, leaf, mesh)
+    if not spec.axes():
+        return leaf
+    return leaf[sharding.local_block(spec, mesh, leaf.shape)].clone()
+
+
+def _local_meta(params: dict, mesh) -> dict:
+    """Meta tensors of the shapes this rank's blocks of ``params``
+    have."""
+    return tree_from_paths(params, {
+        path: torch.empty(leaf[sharding.local_block(
+            sharding.leaf_pspec(path, leaf, mesh), mesh, leaf.shape)].shape,
+            device="meta")
+        for path, leaf in tree_flatten_with_path(params)})
+
+
+def shard_params(cfg: ModelConfig, params: dict, mesh) -> dict:
+    """This rank's blocks of the port's whole ``params`` under
+    ``launch.sharding.state_pspecs(mesh, params, fsdp=False)``, the
+    reference's placement: a leaf the rules split keeps the block at
+    the rank's model coordinate (a copy), every other leaf stays whole.
+    ``params_from_jax`` then ``shard_params`` gives each rank the
+    reference's params as the reference places them. Refuses what
+    ``transformer.check_model_axis`` refuses."""
+    check_model_axis(cfg, _local_meta(params, mesh), mesh)
+    return tree_from_paths(params, {
+        path: _block(leaf, path, mesh)
+        for path, leaf in tree_flatten_with_path(params)})
+
+
+def init_sharded(cfg: ModelConfig, init, gen: torch.Generator,
+                 dev: torch.device, mesh) -> dict:
+    """``init(cfg, gen, dev)`` keeping this rank's block of each leaf as
+    it is drawn: every leaf is drawn whole from ``gen`` in ``init``'s
+    order (so a rank's weights are the whole draw's blocks) and its
+    block copied out before the next draw, so the peak is the rank's
+    blocks plus the largest leaf. A first pass on the meta device
+    (which draws nothing) names each draw's path."""
+    drawn: list = []
+    with L.on_draw(lambda x: drawn.append(x) or x):
+        meta = init(cfg, torch.Generator(), torch.device("meta"))
+    check_model_axis(cfg, _local_meta(meta, mesh), mesh)
+    where = {id(leaf): path for path, leaf in tree_flatten_with_path(meta)}
+    paths = iter([where[id(x)] for x in drawn])
+    del meta, drawn, where
+    with L.on_draw(lambda x: _block(x, next(paths), mesh)):
+        return init(cfg, gen, dev)
 
 
 def _leaf_segments(params: dict, top: str) -> list[Segment]:

@@ -1,13 +1,30 @@
 """Transformer building blocks on plain dicts of tensors.
 
-The port of ``repro.models.layers`` without the sharding helpers.
-Parameter layouts are the reference's (``wq [D,H,Dh]``, ``wo
-[H,Dh,D]``, ``wi [D,F]``, ...), so carrying weights across is a copy.
-Activations flow in ``cfg.cdtype``; norms, softmax and RoPE compute in
-f32 and round where the reference rounds. Attention is grouped-query.
+The port of ``repro.models.layers``. Parameter layouts are the
+reference's (``wq [D,H,Dh]``, ``wo [H,Dh,D]``, ``wi [D,F]``, ...), so
+carrying weights across is a copy. Activations flow in ``cfg.cdtype``;
+norms, softmax and RoPE compute in f32 and round where the reference
+rounds. Attention is grouped-query.
+
+The model axis (tensor parallelism, Megatron-style): a rank may hold a
+block of a leaf, as ``launch.sharding`` splits it. Head counts and
+widths come from the local weights' shapes, and whether a leaf is split
+is read from its own shape against the config's full size, never from
+the mesh: ``wq`` / ``wk`` / ``wv`` / ``wo`` over the heads, ``wi`` /
+``wg`` / MLP ``wo`` over d_ff, ``table`` and ``head`` over the
+vocabulary. A row-parallel product (``wo`` over split heads or d_ff) is
+a partial that :meth:`Mesh.model_sum_` sums over the model row; a
+replicated leaf is computed whole and never summed. The QKV biases are
+replicated (no rule splits them): each rank adds its heads' rows. A
+split table embeds through :func:`_vocab_parallel_embed`, and split
+logits are gathered over the row. The mesh is the one a serving entry
+point declared with :func:`set_batch_sharding` (or
+:func:`batch_sharding`); unset, none of this runs and the code path is
+the single-rank one.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -25,14 +42,101 @@ Q_CHUNK = 512
 
 
 # --------------------------------------------------------------------------
+# the model axis
+# --------------------------------------------------------------------------
+
+_MESH = None                          # the declared mesh (None: unset)
+
+
+def set_batch_sharding(batch_axes: Optional[tuple],
+                       seq_axis: Optional[str] = None,
+                       model_size: int = 1, mesh=None) -> None:
+    """Declare the mesh whose model rows sum the row-parallel partials,
+    embed a split table and gather split logits (the reference's
+    signature). Every data row holds the whole batch, so ``batch_axes``
+    places nothing; sequence parallelism (``seq_axis``) is training's
+    (ROADMAP item 11c). ``set_batch_sharding(None)`` clears it."""
+    global _MESH
+    if seq_axis is not None:
+        from repro_torch.distributed import FSDP_PENDING
+        raise NotImplementedError(f"seq_axis={seq_axis!r}: {FSDP_PENDING}")
+    if mesh is not None and int(mesh.shape["model"]) != model_size:
+        raise ValueError(f"model_size {model_size} but the mesh's model "
+                         f"axis is {mesh.shape['model']}")
+    _MESH = mesh if batch_axes is not None and model_size > 1 else None
+
+
+@contextlib.contextmanager
+def batch_sharding(mesh):
+    """:func:`set_batch_sharding` for ``mesh`` inside the block (nothing
+    for ``None`` or a mesh without a model axis), the previous state
+    after."""
+    global _MESH
+    saved = _MESH
+    if mesh is not None:
+        set_batch_sharding(("data",), model_size=mesh.shape["model"],
+                           mesh=mesh)
+    try:
+        yield
+    finally:
+        _MESH = saved
+
+
+def _row_mesh(local: int, full: int, what: str):
+    """The declared mesh, for a leaf dim of ``local`` rows that is a
+    block of ``full``; raises unless it is this mesh's model block."""
+    mesh = _MESH
+    if mesh is None or local * mesh.shape["model"] != full:
+        raise ValueError(
+            f"{what} holds {local} of {full} rows: not a block of the "
+            f"declared mesh's model axis ({None if mesh is None else mesh})"
+            f"; serve a split model through a mesh (set_batch_sharding)")
+    return mesh
+
+
+def _row_sum(y: torch.Tensor, local: int, full: int, what: str
+             ) -> torch.Tensor:
+    """``y`` when the contracted dim was whole; else its sum over the
+    model row (a row-parallel partial)."""
+    if local == full:
+        return y
+    return _row_mesh(local, full, what).model_sum_(y)
+
+
+def _head_rows(b: torch.Tensor, heads: int) -> torch.Tensor:
+    """A replicated [H, Dh] bias's rows of this rank's ``heads``."""
+    if b.shape[0] == heads:
+        return b
+    i = _row_mesh(heads, b.shape[0], "a QKV bias's heads").coords["model"]
+    return b[i * heads:(i + 1) * heads]
+
+
+# --------------------------------------------------------------------------
 # initialisers
 # --------------------------------------------------------------------------
+
+_ON_DRAW = None                       # see on_draw
+
 
 def normal_init(gen: torch.Generator, shape, dtype, device,
                 scale: float = 0.02) -> torch.Tensor:
     x = torch.randn(shape, generator=gen, device=device,
                     dtype=torch.float32)
-    return (x * scale).to(dtype)
+    x = (x * scale).to(dtype)
+    return x if _ON_DRAW is None else _ON_DRAW(x)
+
+
+@contextlib.contextmanager
+def on_draw(hook):
+    """Inside the block every :func:`normal_init` draw is passed through
+    ``hook`` and the init keeps what it returns (``Model.init(mesh=)``
+    keeps a rank's block of each leaf as it is drawn)."""
+    global _ON_DRAW
+    saved, _ON_DRAW = _ON_DRAW, hook
+    try:
+        yield
+    finally:
+        _ON_DRAW = saved
 
 
 def init_rmsnorm(d: int, dtype, device) -> dict:
@@ -161,10 +265,19 @@ def _qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
     k = torch.einsum("btd,dhk->bthk", kv_in, params["wk"].to(dt))
     v = torch.einsum("btd,dhk->bthk", kv_in, params["wv"].to(dt))
     if cfg.qkv_bias:
-        q = q + params["bq"].to(dt)
-        k = k + params["bk"].to(dt)
-        v = v + params["bv"].to(dt)
+        q = q + _head_rows(params["bq"], q.shape[2]).to(dt)
+        k = k + _head_rows(params["bk"], k.shape[2]).to(dt)
+        v = v + _head_rows(params["bv"], v.shape[2]).to(dt)
     return q, k, v
+
+
+def _out_proj(params: dict, cfg: ModelConfig, out: torch.Tensor,
+              dt) -> torch.Tensor:
+    """Attention's output projection over this rank's heads, summed
+    over the model row when the heads are split."""
+    wo = params["wo"]
+    y = torch.einsum("bshk,hkd->bsd", out, wo.to(dt))
+    return _row_sum(y, wo.shape[0], cfg.num_heads, "attention wo")
 
 
 def gqa_scores_apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -243,8 +356,7 @@ def attention(params: dict, cfg: ModelConfig, x: torch.Tensor,
     if use_rope and kv_src is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    out = gqa_scores_apply(q, k, v, mask)
-    out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    out = _out_proj(params, cfg, gqa_scores_apply(q, k, v, mask), x.dtype)
     if return_kv:
         return out, (k, v)
     return out
@@ -273,7 +385,7 @@ def attention_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
     k = rope(k, posb, cfg.rope_theta)
     out = ops.attention_decode(q, k, v, k_cache, v_cache, posv,
                                window=window)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    return _out_proj(params, cfg, out, x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -288,12 +400,14 @@ def cross_attention_decode(params: dict, x: torch.Tensor, ck: torch.Tensor,
     reference computes it outside any kernel. x: [B,1,D] -> [B,1,D]."""
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
     if cfg.qkv_bias:
-        q = q + params["bq"].to(x.dtype)
+        q = q + _head_rows(params["bq"], q.shape[2]).to(x.dtype)
     out = gqa_scores_apply(q, ck.to(q.dtype), cv.to(q.dtype), None)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    return _out_proj(params, cfg, out, x.dtype)
 
 
 def mlp(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Column-parallel ``wi`` / ``wg``, row-parallel ``wo`` over this
+    rank's d_ff block, summed over the model row when split."""
     h = x @ params["wi"].to(x.dtype)
     if cfg.act == "silu":
         g = x @ params["wg"].to(x.dtype)
@@ -301,19 +415,48 @@ def mlp(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(h, approximate="tanh")
-    return h @ params["wo"].to(x.dtype)
+    wo = params["wo"]
+    return _row_sum(h @ wo.to(x.dtype), wo.shape[0], cfg.d_ff, "mlp wo")
+
+
+def _vocab_parallel_embed(table: torch.Tensor, tokens: torch.Tensor,
+                          vocab: int) -> torch.Tensor:
+    """Megatron-style vocab-parallel embedding: this rank gathers the
+    tokens in its row range of the table, puts -0.0 (the exact additive
+    identity) everywhere else, and the model row sums. Tokens are
+    replicated over the row (every rank embeds the same positions), so
+    the sum holds one row and -0.0s: the M = 1 embedding bit for bit."""
+    rows = table.shape[0]
+    mesh = _row_mesh(rows, vocab, "embed table")
+    loc = tokens - mesh.coords["model"] * rows
+    ok = (loc >= 0) & (loc < rows)
+    x = table[torch.where(ok, loc, torch.zeros_like(loc))]
+    x = torch.where(ok[..., None], x,
+                    torch.full((), -0.0, dtype=x.dtype, device=x.device))
+    return mesh.model_sum_(x)
 
 
 def embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor
           ) -> torch.Tensor:
-    x = params["table"][tokens].to(cfg.cdtype)
+    table = params["table"]
+    if table.shape[0] == cfg.vocab_size:
+        x = table[tokens]
+    else:
+        x = _vocab_parallel_embed(table, tokens, cfg.vocab_size)
+    x = x.to(cfg.cdtype)
     return x * math.sqrt(cfg.d_model)
 
 
 def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor
             ) -> torch.Tensor:
+    """Logits [..., V]; over a split vocabulary this rank's [..., V/M]
+    block is gathered over the model row in rank order."""
     if cfg.tie_embeddings:
         w = params["table"].to(x.dtype).T
     else:
         w = params["head"].to(x.dtype)
-    return x @ w
+    logits = x @ w
+    if w.shape[1] == cfg.vocab_size:
+        return logits
+    return _row_mesh(w.shape[1], cfg.vocab_size,
+                     "unembed").model_gather(logits, -1)

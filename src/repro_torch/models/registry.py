@@ -4,6 +4,8 @@ architecture:
 
     model = get_model(cfg)
     params = model.init(seed, device="cuda")
+    params = model.init(seed, device="cuda", mesh=mesh)  # this rank's
+                                                         # blocks
     logits = model.apply(params, tokens, extra)          # [B,S,V]
     cache = model.init_cache(params, batch, max_len, extra)
     logits, cache = model.decode_step(params, cache, tokens, pos)
@@ -40,7 +42,9 @@ from repro_torch.training import losses
 
 class Model(NamedTuple):
     cfg: ModelConfig
-    init: Callable          # (seed=0, *, device="cuda") -> params
+    init: Callable          # (seed=0, *, device="cuda", mesh=None) ->
+                            #  params; on a mesh with a model axis, this
+                            #  rank's blocks of the whole draw
     apply: Callable         # (params, tokens, extra=None) -> logits
     init_cache: Callable    # (params, batch, max_len, extra=None) -> cache
     decode_step: Callable   # (params, cache, tokens, pos) -> (logits, cache)
@@ -102,11 +106,13 @@ def get_model(cfg: ModelConfig) -> Model:
             return ()
         return (extra,)
 
-    def init(seed: int = 0, *, device="cuda") -> dict:
+    def init(seed: int = 0, *, device="cuda", mesh=None) -> dict:
         dev = _device.resolve(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        return init_fn(cfg, gen, dev)
+        if mesh is None or mesh.shape["model"] == 1:
+            return init_fn(cfg, gen, dev)
+        return convert.init_sharded(cfg, init_fn, gen, dev, mesh)
 
     def apply(params, tokens, extra=None):
         return apply_fn(cfg, params, tokens, *with_extra(extra))

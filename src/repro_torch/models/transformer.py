@@ -238,10 +238,11 @@ def init_lm_cache(cfg: ModelConfig, params: dict, batch: int,
                   max_len: int, extra: Optional[torch.Tensor] = None
                   ) -> list:
     """Zeroed pool at ``cfg.kv_dtype`` on the params' device (decode
-    accumulates in f32 whatever the storage dtype); a vlm's cross
-    layers hold the K/V of ``extra`` [batch, T_img, D], computed from
-    it at ``cfg.kv_dtype`` as the reference does."""
-    hkv, hd, dev = cfg.num_kv_heads, cfg.head_dim_, _device(params)
+    accumulates in f32 whatever the storage dtype) with each layer's
+    KV heads as its ``wk`` holds them (a rank's block on the model
+    axis); a vlm's cross layers hold the K/V of ``extra`` [batch, T_img,
+    D], computed from it at ``cfg.kv_dtype`` as the reference does."""
+    hd, dev = cfg.head_dim_, _device(params)
     src = _kv_src(cfg, extra, cfg.kv_dtype)
     cache = []
     for p, kind in zip(params["layers"], layer_kinds(cfg)):
@@ -249,6 +250,7 @@ def init_lm_cache(cfg: ModelConfig, params: dict, batch: int,
             ck, cv = cross_kv_from_embeds(p, cfg, src)
             cache.append({"ck": ck, "cv": cv})
             continue
+        hkv = p["attn"]["wk"].shape[1]
         t = _cache_len(cfg, kind, max_len)
         cache.append({
             "k": torch.zeros((batch, t, hkv, hd), dtype=cfg.kv_dtype,
@@ -334,6 +336,48 @@ def apply_lm_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                                  dtype=torch.int64)][:, None]
     h = L.norm(cfg, params["final_norm"], h)
     return L.unembed(params["embed"], cfg, h), cache
+
+
+def check_model_axis(cfg: ModelConfig, params: dict, mesh) -> None:
+    """Refuse, before any step, what tensor-parallel serving does not do
+    on ``mesh`` with this rank's ``params`` (its blocks of the leaves,
+    or meta tensors of their shapes): a family other than dense, a
+    layer whose heads are split while its KV heads stay whole (the KV
+    cache would have to split over T or Dh), and an attention or MLP
+    leaf left whole while a partner is split."""
+    from repro_torch import distributed as dist_lib
+    if mesh is None or mesh.shape["model"] == 1:
+        return
+    if cfg.family == "moe":
+        raise NotImplementedError(dist_lib.EXPERT_PARALLEL_PENDING)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"the {cfg.family} family at model {mesh.shape['model']}: "
+            f"{dist_lib.FAMILY_PENDING}")
+    for i, p in enumerate(params["layers"]):
+        a, f = p["attn"], p["mlp"]
+        blocks = {
+            "attention": {"wq": a["wq"].shape[1] != cfg.num_heads,
+                          "wk": a["wk"].shape[1] != cfg.num_kv_heads,
+                          "wv": a["wv"].shape[1] != cfg.num_kv_heads,
+                          "wo": a["wo"].shape[0] != cfg.num_heads},
+            "mlp": {name: f[name].shape[dim] != cfg.d_ff
+                    for name, dim in (("wi", 1), ("wg", 1), ("wo", 0))
+                    if name in f}}
+        att = blocks["attention"]
+        if att["wq"] and not att["wk"]:
+            raise NotImplementedError(
+                f"layer {i}: {cfg.num_heads} heads split over "
+                f"{mesh.shape['model']} model ranks but its "
+                f"{cfg.num_kv_heads} KV heads do not divide: "
+                f"{dist_lib.CACHE_FALLBACK_PENDING}")
+        for block, split in blocks.items():
+            if len(set(split.values())) > 1:
+                on = sorted(k for k, v in split.items() if v)
+                off = sorted(k for k, v in split.items() if not v)
+                raise ValueError(f"layer {i} {block}: {on} split but {off} "
+                                 f"whole; a row-parallel product needs its "
+                                 f"partners split alike")
 
 
 def layer_decode(p: dict, cfg: ModelConfig, h: torch.Tensor, c: dict,

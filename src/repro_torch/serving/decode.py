@@ -10,6 +10,13 @@ token through ``decode_step``: the oracle the tests hold the batched
 path against.
 ``generate`` is the per-request host loop; the continuous-batching
 scheduler lives in :mod:`repro_torch.serving.engine`.
+
+``mesh=`` (a mesh with a model axis) runs a step on this rank's blocks
+of the params (``Model.init(mesh=)`` or ``convert.shard_params``): the
+heads, d_ff and vocabulary split as ``launch.sharding`` says, the
+row-parallel partials summed and the logits gathered over the model
+row (``layers.batch_sharding``), so every rank of a row returns the
+same logits and tokens. Every data row computes the whole batch.
 """
 from __future__ import annotations
 
@@ -19,14 +26,19 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch.models import layers as L
 from repro_torch.models.registry import Model
+from repro_torch.models.transformer import check_model_axis
 
 
-def make_serve_step(model: Model) -> Callable:
-    """(params, cache, tokens [B,1], pos) -> (next_tokens [B,1], cache)."""
+def make_serve_step(model: Model, mesh=None) -> Callable:
+    """(params, cache, tokens [B,1], pos) -> (next_tokens [B,1], cache);
+    on ``mesh``, over this rank's blocks of the params and cache."""
 
     def serve_step(params, cache, tokens, pos):
-        logits, cache = model.decode_step(params, cache, tokens, pos)
+        check_model_axis(model.cfg, params, mesh)
+        with L.batch_sharding(mesh):
+            logits, cache = model.decode_step(params, cache, tokens, pos)
         nxt = torch.argmax(logits[:, -1:], dim=-1)
         return nxt.to(torch.int32), cache
 
@@ -48,17 +60,20 @@ def prefill_reference(model: Model, params, tokens: torch.Tensor,
 
 
 def prefill(model: Model, params, tokens: torch.Tensor, max_len: int,
-            extra_embeds=None):
+            extra_embeds=None, mesh=None):
     """Batched prefill: (last-position logits [B,1,V], cache); the
-    token-by-token loop where the family has no batched prefill."""
-    if model.prefill is None:
-        return prefill_reference(model, params, tokens, max_len,
-                                 extra_embeds)
-    b, s = tokens.shape
-    last = torch.full((b,), s - 1, dtype=torch.int64,
-                      device=tokens.device)
-    return model.prefill(params, tokens, max_len, logits_at=last,
-                         extra=extra_embeds)
+    token-by-token loop where the family has no batched prefill. On
+    ``mesh``, over this rank's blocks (the logits gathered)."""
+    check_model_axis(model.cfg, params, mesh)
+    with L.batch_sharding(mesh):
+        if model.prefill is None:
+            return prefill_reference(model, params, tokens, max_len,
+                                     extra_embeds)
+        b, s = tokens.shape
+        last = torch.full((b,), s - 1, dtype=torch.int64,
+                          device=tokens.device)
+        return model.prefill(params, tokens, max_len, logits_at=last,
+                             extra=extra_embeds)
 
 
 def generate(model: Model, params, prompt, *, num_tokens: int,

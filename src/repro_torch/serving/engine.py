@@ -26,6 +26,18 @@ needs ``extra``, one block of image embeddings ``[slots, T_img, D]``:
 the pool's cross K/V start from it, and an admission batch of ``nb``
 requests is prefilled on its rows ``extra[:nb]``, so the i-th request
 of a batch reads row i whatever its slot, as in the reference.
+
+``mesh=`` serves on a ``(D, M)`` mesh, one engine per rank: each rank
+holds its blocks of the params (``Model.init(mesh=)``,
+``convert.shard_params`` or ``from_checkpoint(shardings=)``) and a KV
+pool of its own KV heads, and every prefill and decode step runs under
+``layers.batch_sharding(mesh)``: the row-parallel partials are summed
+and the logits gathered over the model row, so every rank samples the
+same tokens from the same logits with the same generator and takes the
+same scheduler decisions. Each data row of M ranks serves the same
+requests (replicated serving, at M = 1 too); ``drain`` fails
+unless every rank of the world holds the same tokens. The decode
+kernel runs on each rank's share of the heads.
 """
 from __future__ import annotations
 
@@ -41,9 +53,12 @@ from repro_torch import checkpoint
 from repro_torch import device as _device
 from repro_torch.configs.base import torch_dtype
 from repro_torch.core.base import tree_leaves
+from repro_torch.distributed import all_equal
 from repro_torch.kernels import ops
 from repro_torch.models import convert
+from repro_torch.models import layers as L
 from repro_torch.models.registry import NEEDS_EXTRA, get_model
+from repro_torch.models.transformer import check_model_axis
 from repro_torch.obs import trace
 from repro_torch.serving import sampling
 from repro_torch.serving.kv_cache import PagedKVCache
@@ -128,7 +143,7 @@ class Engine:
     """
 
     def __init__(self, model, params, config: ServeConfig, *,
-                 device="cuda", tracer=None, extra=None):
+                 device="cuda", tracer=None, extra=None, mesh=None):
         if model.prefill is None:
             raise ValueError(
                 f"family {model.cfg.family!r} has no batched-prefill "
@@ -145,10 +160,12 @@ class Engine:
                 dev.index is not None and pdev.index != dev.index):
             raise ValueError(f"params lie on {pdev}, engine device is "
                              f"{dev}")
+        check_model_axis(model.cfg, params, mesh)
         if config.cache_dtype:
             model = get_model(model.cfg.replace(
                 kv_cache_dtype=config.cache_dtype))
         self.device = pdev
+        self.mesh = mesh
         self.tracer = trace.NULL if tracer is None else tracer
         self.model = model
         self.params = params
@@ -166,6 +183,7 @@ class Engine:
         self._next_id = 0
         self._steps = 0
         self._decode_steps = 0
+        self._prefills = 0
         self._kernel_launches = 0
         self._tokens_generated = 0
         self._gen = torch.Generator(device=pdev)
@@ -183,15 +201,21 @@ class Engine:
         by either package: restored onto ``device`` against the
         config's template, then unstacked into the port's lists.
         ``mesh=`` / ``shardings=`` restore through the placement-aware
-        reader: every leaf whole on this rank's device (one engine per
-        rank of a data-parallel world, replicated serving)."""
+        reader onto this rank's device and serve on ``mesh`` (or on the
+        shardings' mesh): ``mesh=`` alone replicates every leaf, as the
+        reference's does; ``shardings=`` (placements over the stacked
+        template, e.g. ``launch.sharding.named(mesh, state_pspecs(mesh,
+        jax_template(cfg)))``) keeps this rank's block of each split
+        leaf."""
         stacked = checkpoint.restore(path, convert.jax_template(model.cfg),
                                      device=device, mesh=mesh,
                                      shardings=shardings)
         dev = tree_leaves(stacked)[0].device
         params = convert.params_from_jax(model.cfg, stacked, device=dev)
+        if mesh is None and shardings is not None:
+            mesh = tree_leaves(shardings)[0].mesh
         return cls(model, params, config, device=dev, tracer=tracer,
-                   extra=extra)
+                   extra=extra, mesh=mesh)
 
     def submit(self, prompt: Union[Sequence[int], np.ndarray], *,
                max_new_tokens: int = 16) -> int:
@@ -224,13 +248,15 @@ class Engine:
         host bookkeeping)."""
         tr = self.tracer
         with tr.span("admit", step=self._steps,
-                     waiting=len(self._waiting)):
+                     waiting=len(self._waiting)), \
+                L.batch_sharding(self.mesh):
             finished = self._admit()
         if any(r is not None for r in self._active):
             tok = torch.tensor(self._tok[:, None], device=self.device)
             pos = torch.tensor(self._pos, device=self.device)
             with tr.span("decode", step=self._steps,
-                         active=self.active_count):
+                         active=self.active_count), \
+                    L.batch_sharding(self.mesh):
                 before = ops.launches["attention_decode"]
                 logits, self._kv.cache = self.model.decode_step(
                     self.params, self._kv.cache, tok, pos)
@@ -256,7 +282,8 @@ class Engine:
 
     def drain(self) -> list[RequestResult]:
         """Step until no request is waiting or in flight; returns every
-        result that finished during the drain."""
+        result that finished during the drain. On a mesh of several
+        ranks it raises unless every rank holds the same results."""
         budget = 64 + sum(r.max_new_tokens for r in self._waiting) \
             + sum(r.max_new_tokens for r in self._active
                   if r is not None)
@@ -268,6 +295,9 @@ class Engine:
                 raise RuntimeError(
                     "drain did not converge — scheduler bug (a step "
                     "must either admit or generate)")
+        if not all_equal(self.mesh, sorted((r.id, r.tokens) for r in out)):
+            raise RuntimeError(f"drain: the ranks of {self.mesh} hold "
+                               f"different tokens")
         return out
 
     def evict(self, request_id: int) -> RequestResult:
@@ -319,6 +349,7 @@ class Engine:
                 self.config.max_len, lens_t, logits_at=lens_t - 1,
                 extra=None if self._extra is None else self._extra[:nb])
             first = self._sampler(logits[:, 0], self._gen).cpu().numpy()
+        self._prefills += 1
         finished = []
         for i, (req, slot) in enumerate(batch):
             self._kv.insert(pf_cache, i, slot)
@@ -358,6 +389,7 @@ class Engine:
     def stats(self) -> dict:
         return {"steps": self._steps,
                 "decode_steps": self._decode_steps,
+                "prefills": self._prefills,
                 "tokens_generated": self._tokens_generated,
                 "active": self.active_count,
                 "waiting": self.queue_depth,

@@ -152,11 +152,12 @@ def test_restore_refuses_mismatch(tmp_path, fault):
         like["b"] = torch.zeros(4, 3, dtype=torch.bfloat16)
         match = "leaf 1: byte payload is 16B"
     else:
-        # a leaf split over the model axis: that axis is not ported
-        match, exc = "ROADMAP queue 1, item 11", NotImplementedError
+        # a placement naming more dims than the leaf has cannot tile it
+        match = "sharding mismatch between checkpoint and restore target"
     from repro_torch.distributed import (NamedSharding, PartitionSpec,
                                          make_data_mesh)
-    split = NamedSharding(make_data_mesh(1), PartitionSpec("model")) \
+    split = NamedSharding(make_data_mesh(1),
+                          PartitionSpec(None, None, "model")) \
         if fault == "mesh" else None
     with pytest.raises(exc, match=match):
         ck.restore(path, like, device="cpu", shardings=split)

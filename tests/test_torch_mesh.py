@@ -328,7 +328,7 @@ def test_shard_batch_takes_the_rank_rows_in_mesh_order():
 def test_mesh_needs_the_ranks_it_names():
     with pytest.raises(ValueError, match="needs 4 ranks but only 1"):
         mesh_lib.make_data_mesh(4)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="needs 2 ranks but only 1"):
         mesh_lib.make_host_mesh(1, 2)
     mesh = mesh_lib.make_data_mesh(1)
     assert (mesh.shape, mesh.world, mesh.rank) == (
@@ -444,10 +444,10 @@ def test_launch_serve_data_parallel_gives_equal_tokens():
 
 
 def test_model_axis_raises_naming_the_roadmap_item():
-    from repro_torch.launch import serve, train
+    """Training over the model axis is ROADMAP item 11c (serving over
+    it is ported: ``test_torch_tp_serving.py``)."""
+    from repro_torch.launch import train
     for argv in (["--mesh-model", "2"], ["--data-parallel", "2"],
                  ["--model-parallel", "2"]):
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(NotImplementedError, match="item 11c"):
             train.run(["--smoke", "--device", "cpu", *argv])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        serve.main(["--smoke", "--device", "cpu", "--model-parallel", "2"])

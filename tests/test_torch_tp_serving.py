@@ -1,0 +1,327 @@
+"""Tensor-parallel serving in the port (the model axis of a ``(D, M)``
+mesh over ``torch.distributed``) against the JAX package and the port's
+own single-rank path, on the CPU.
+
+The reference side runs once, in a subprocess that fabricates 8 host
+devices before jax is imported (``torch_tp_ref.main``), while the port's
+side runs in gloo worlds of 2, 4 and 8 ranks, spawned once each
+(``torch_tp_ranks``). Inputs are the reference's own params, made here
+and in the subprocess from the same keys.
+
+* The reference test's ``DECODE_SCRIPT`` step on a ``(2, 4)`` mesh of 8
+  ranks (params placed by ``convert.shard_params``, the reference's
+  ``state_pspecs``) gives the reference's own ``(2, 4)`` tokens
+  (``make_data_mesh(2, 4)``) at every one of 4 steps, and logits within
+  ``decode_parity_tolerance("float32")``.
+* The engine on ``(1, 2)`` and ``(2, 2)`` meshes, for the gemma3 and
+  qwen2 smoke configs (the windowed ring past T, QKV biases, both
+  axes): on ``Model.init(0, mesh=)``, on the reference's params, and
+  restored from a checkpoint replicated (``mesh=``) and split
+  (``shardings=``), the tokens of the port's M = 1 engine on the same
+  weights, and on the reference's params the reference engine's. A
+  rank's blocks are the whole draw's; its KV pool holds its KV heads;
+  the row-parallel sums and logit gathers happen once per layer and
+  step (none on replicated params); the vocab-parallel embedding is
+  M = 1's bit for bit; every rank holds the same tokens.
+* ``launch.serve --model-parallel 2`` prints M = 1's sample line.
+* The refusals name their ROADMAP item.
+"""
+from __future__ import annotations
+
+import contextlib
+import io
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import torch_tp_ranks as ranks
+import torch_tp_ref as ref_side
+from repro.kernels.ref import decode_parity_tolerance
+from repro_torch.checkpoint import checkpoint as ck
+from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import convert, get_model
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import check_model_axis
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TIMEOUT_S = 180
+ARCHS = ref_side.ENGINE_ARCHS
+WORLDS = {(1, 2): 2, (2, 2): 4}
+SOURCES = ("init", "ref", "restored", "split")
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _step_params():
+    from repro.configs.base import ModelConfig as JConfig
+    from repro.models import get_model as jget
+    return _np(jget(JConfig(**ref_side.DECODE_LM)).init(
+        jax.random.PRNGKey(0)))
+
+
+def _start_reference(out: str) -> subprocess.Popen:
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=(
+        os.environ.get("XLA_FLAGS", "")
+        + " --xla_force_host_platform_device_count=8"
+        + " --xla_cpu_multi_thread_eigen=false").strip(),
+        OMP_NUM_THREADS="1",
+        PYTHONPATH=os.pathsep.join([os.path.join(ROOT, "src"),
+                                    os.path.join(ROOT, "tests")]))
+    return subprocess.Popen(
+        [sys.executable, "-c", f"import torch_tp_ref as r; r.main({out!r})"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+
+def _drain_m1(model, params) -> list:
+    return ranks.drain(model, params)["tokens"]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("tp")
+    out = str(tmp / "ref.npz")
+    proc = _start_reference(out)
+    try:
+        ref_params = {a: ref_side.engine_params(a) for a in ARCHS}
+        step_params = _step_params()
+        single = {}
+        for arch in ARCHS:
+            cfg = get_smoke_config(arch)
+            model = get_model(cfg)
+            params = model.init(0, device="cpu")
+            ck.save(str(tmp / arch), convert.params_to_jax(cfg, params))
+            single[arch] = {
+                "init": _drain_m1(model, params),
+                "ref": _drain_m1(model, convert.params_from_jax(
+                    cfg, ref_params[arch], device="cpu")),
+                "params": params}
+        worlds = {mesh: mesh_lib.spawn(
+            ranks.engine_world, n, "gloo", "cpu",
+            args=(*mesh, ref_params, str(tmp)), timeout=TIMEOUT_S)
+            for mesh, n in WORLDS.items()}
+        step = mesh_lib.spawn(ranks.step_world, 8, "gloo", "cpu",
+                              args=(step_params,), timeout=TIMEOUT_S)
+        log, _ = proc.communicate(timeout=TIMEOUT_S)
+        assert proc.returncode == 0, log.decode()[-4000:]
+        with np.load(out) as z:
+            reference = {k: z[k] for k in z.files}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    return {"ref": reference, "worlds": worlds, "step": step,
+            "single": single, "ref_params": ref_params,
+            "step_params": step_params}
+
+
+def _leaves(res: dict, key: str) -> list:
+    n = sum(1 for k in res if k.startswith(key + "/")
+            and k[len(key) + 1:].isdigit())
+    return [res[f"{key}/{i}"] for i in range(n)]
+
+
+def test_reference_inputs_are_the_tests(runs):
+    """The subprocess and the test process made the same params."""
+    pairs = [("step/params", runs["step_params"])] + [
+        (f"engine/{a}/params", runs["ref_params"][a]) for a in ARCHS]
+    for key, tree in pairs:
+        got = _leaves(runs["ref"], key)
+        want = jax.tree_util.tree_leaves(tree)
+        assert len(got) == len(want) > 0
+        for a, b in zip(got, want):
+            b = np.asarray(b)
+            assert np.array_equal(a, b.view(np.uint16)
+                                  if str(b.dtype) == "bfloat16" else b)
+
+
+@pytest.mark.parametrize("start", ["", "-varied"])
+def test_step_on_2x4_gives_the_reference_2x4_tokens(runs, start):
+    ref = runs["ref"]
+    # the reference's own (2, 4) step agrees with its single device
+    np.testing.assert_array_equal(ref[f"step/mesh{start}/tokens"],
+                                  ref[f"step/single{start}/tokens"])
+    tol = decode_parity_tolerance("float32")
+    for r in runs["step"]:
+        np.testing.assert_array_equal(r[f"tokens{start}"],
+                                      ref[f"step/mesh{start}/tokens"])
+        np.testing.assert_allclose(r[f"logits{start}"],
+                                   ref[f"step/mesh{start}/logits"],
+                                   rtol=tol["rtol"], atol=tol["atol"])
+        assert r["equal"]
+    # each rank held one of the 4 heads and 32 of the 128 vocab rows
+    assert {r["wq"] for r in runs["step"]} == {(64, 1, 16)}
+    assert {r["table"] for r in runs["step"]} == {(32, 64)}
+    assert sorted((r["coords"]["data"], r["coords"]["model"])
+                  for r in runs["step"]) == [(d, m) for d in range(2)
+                                             for m in range(4)]
+
+
+@pytest.mark.parametrize("source", SOURCES)
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("mesh", list(WORLDS), ids=["1x2", "2x2"])
+def test_engine_tokens_equal_the_single_rank_engine(runs, mesh, arch,
+                                                    source):
+    want = runs["single"][arch]["ref" if source == "ref" else "init"]
+    for r in runs["worlds"][mesh]:
+        assert r[arch][source]["tokens"] == want
+        assert r["equal"]
+    if source == "ref":
+        got = [list(runs["ref"][f"engine/{arch}/tokens/{j}"])
+               for j in range(len(ref_side.PROMPTS))]
+        assert want == got
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("mesh", list(WORLDS), ids=["1x2", "2x2"])
+def test_rank_blocks_are_the_whole_draws_blocks(runs, mesh, arch):
+    cfg = get_smoke_config(arch)
+    whole = runs["single"][arch]["params"]
+    m = mesh[1]
+    h, f, v = cfg.num_heads // m, cfg.d_ff // m, cfg.vocab_size // m
+    for r in runs["worlds"][mesh]:
+        i = r["coords"]["model"]
+        got = r[arch]
+        assert got["init_shapes"] == {
+            "wq": (cfg.d_model, h, cfg.head_dim_), "wi": (cfg.d_model, f),
+            "table": (v, cfg.d_model)}
+        wq, table = got["init_leaves"]
+        assert np.array_equal(wq, whole["layers"][0]["attn"]["wq"][
+            :, i * h:(i + 1) * h].numpy())
+        assert np.array_equal(table, whole["embed"]["table"][
+            i * v:(i + 1) * v].numpy())
+        assert got["split_table"] == (v, cfg.d_model)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("mesh", list(WORLDS), ids=["1x2", "2x2"])
+def test_pool_and_collectives_follow_the_split(runs, mesh, arch):
+    """A rank's KV pool holds its KV heads; a split model sums twice a
+    layer plus once for the embedding, and gathers the logits once,
+    per prefill and per decode step; replicated params do neither."""
+    cfg = get_smoke_config(arch)
+    sc = ref_side.SERVE
+    t_first = min(cfg.sliding_window or sc["max_len"], sc["max_len"])
+    for r in runs["worlds"][mesh]:
+        for source in SOURCES:
+            got = r[arch][source]
+            split = source != "restored"
+            hkv = cfg.num_kv_heads // (mesh[1] if split else 1)
+            assert got["pool"] == (sc["slots"], t_first, hkv,
+                                   cfg.head_dim_)
+            stats = got["stats"]
+            calls = {k: v["calls"] for k, v in got["collectives"].items()}
+            if not split:
+                assert calls == {}
+                continue
+            passes = stats["decode_steps"] + stats["prefills"]
+            assert calls == {"model_sum": (2 * cfg.num_layers + 1) * passes,
+                             "model_gather": passes}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_vocab_parallel_embedding_is_the_single_rank_one_bit_for_bit(
+        runs, arch):
+    cfg = get_smoke_config(arch)
+    want = L.embed(runs["single"][arch]["params"]["embed"], cfg,
+                   torch.from_numpy(ranks.EMBED_TOKENS)).numpy()
+    for mesh in WORLDS:
+        for r in runs["worlds"][mesh]:
+            assert r[arch]["embed"].tobytes() == want.tobytes()
+
+
+def _sample(argv) -> list:
+    from repro_torch.launch import serve
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.main(argv)
+    return [ln for ln in out.getvalue().splitlines()
+            if ln.startswith("sample:")]
+
+
+def test_launch_serve_model_parallel_prints_the_single_rank_sample():
+    args = ["--smoke", "--device", "cpu", "--requests", "4",
+            "--prompt-len", "12", "--num-tokens", "8", "--slots", "2",
+            "--page-size", "8"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *args,
+         "--model-parallel", "2"], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=TIMEOUT_S)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "model_parallel=2 backend=gloo: tokens equal on 2 ranks" \
+        in out.stdout
+    sample = _sample(args)
+    assert sample and sample[0] in out.stdout.splitlines()
+
+
+@pytest.mark.parametrize("mesh", list(WORLDS), ids=["1x2", "2x2"])
+def test_training_collectives_and_split_saves_name_11c(runs, mesh):
+    for r in runs["worlds"][mesh]:
+        for name in ("mean_", "broadcast_", "save"):
+            assert r["refused"][name].endswith("item 11c"), name
+
+
+class StandIn:
+    """The axis sizes and coordinates of one rank of a mesh, for the
+    checks made before any collective."""
+
+    def __init__(self, data: int, model: int):
+        self.shape = {"data": data, "model": model}
+        self.coords = {"data": 0, "model": 0}
+
+
+@pytest.mark.parametrize("arch,model,item", [
+    ("gemma3-12b", 4, "11b-1"), ("qwen2.5-3b", 4, "11b-1"),
+    ("olmoe-1b-7b", 2, "11d"), ("qwen3-moe-30b-a3b", 2, "11d"),
+    ("llama-3.2-vision-11b", 2, "11b-3"), ("mamba2-1.3b", 2, "11b-3"),
+    ("zamba2-1.2b", 2, "11b-3"), ("whisper-large-v3", 2, "11b-3")])
+def test_refusals_name_their_roadmap_item(arch, model, item):
+    """Model.init(mesh=) refuses before it draws, and shard_params before
+    it slices, naming the item that ports the case."""
+    m = get_model(get_smoke_config(arch))
+    mesh = StandIn(1, model)
+    with pytest.raises(NotImplementedError, match=f"item {item}$"):
+        m.init(0, device="cpu", mesh=mesh)
+    with pytest.raises(NotImplementedError, match=f"item {item}$"):
+        convert.shard_params(m.cfg, m.init(0, device="cpu"), mesh)
+
+
+@pytest.mark.parametrize("leaf", ["wo", "wk", "mlp-wg"])
+def test_a_whole_leaf_beside_a_split_partner_is_refused(leaf):
+    """A placement that splits one of a row-parallel group and leaves
+    a partner whole (as a hand-made ``shardings=`` could) is refused
+    before a step."""
+    cfg = get_smoke_config("qwen2-72b")
+    mesh = StandIn(1, 2)
+    params = convert.shard_params(
+        cfg, get_model(cfg).init(0, device="cpu"), mesh)
+    whole = get_model(cfg).init(0, device="cpu")["layers"][1]
+    if leaf == "mlp-wg":
+        params["layers"][1]["mlp"]["wg"] = whole["mlp"]["wg"]
+        match = r"layer 1 mlp: \['wi', 'wo'\] split but \['wg'\] whole"
+    else:
+        params["layers"][1]["attn"][leaf] = whole["attn"][leaf]
+        match = "layer 1 attention" if leaf == "wo" else "item 11b-1"
+    with pytest.raises((ValueError, NotImplementedError), match=match):
+        check_model_axis(cfg, params, mesh)
+
+
+def test_training_and_sequence_parallelism_over_the_model_axis_name_11c():
+    with pytest.raises(NotImplementedError, match="item 11c"):
+        L.set_batch_sharding(("data",), "model", model_size=2)
+    with pytest.raises(ValueError, match="needs 2 ranks but only 1"):
+        mesh_lib.make_host_mesh(1, 2)
+    cfg = ModelConfig(**ranks.DECODE_LM)
+    with pytest.raises(ValueError, match="not a block of the declared"):
+        L.embed({"table": torch.zeros(32, 64)}, cfg,
+                torch.zeros(1, 1, dtype=torch.int64))

@@ -1,0 +1,164 @@
+"""The port's side of the tensor-parallel serving tests: functions that
+run on every rank of a gloo world on the CPU (``launch.mesh.spawn``).
+
+Not collected, and imports torch, numpy and ``repro_torch`` only (a
+spawned rank imports this module afresh). Inputs arrive as numpy trees
+(the reference's own params) or as a checkpoint directory; every
+function returns, from every rank, its tokens and logits as numpy
+arrays, what it saw of its blocks and collectives, and whether every
+rank of the world held the same results (``all_equal``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import checkpoint, serving
+from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import sharding
+from repro_torch.models import convert, get_model
+from repro_torch.models import layers as L
+
+# the reference side's constants (torch_tp_ref), repeated here: a rank
+# must not import jax
+DECODE_LM = dict(family="dense", num_layers=2, d_model=64, num_heads=4,
+                 num_kv_heads=4, d_ff=128, vocab_size=128, remat=False)
+STEP_BATCH, STEP_LEN, STEPS = 8, 16, 4
+ENGINE_ARCHS = ("gemma3-12b", "qwen2-72b")
+SERVE = dict(slots=4, max_len=48, page_size=8, prefill_batch=4)
+PROMPTS = [(0, 5, 12), (1, 19, 9), (2, 3, 16), (3, 11, 7), (4, 26, 10),
+           (5, 8, 14)]
+EMBED_TOKENS = np.random.RandomState(5).randint(0, 512, size=(3, 7))
+
+
+def prompts(vocab: int) -> list:
+    return [(np.random.RandomState(s).randint(1, vocab, size=n), new)
+            for s, n, new in PROMPTS]
+
+
+def varied_tokens() -> np.ndarray:
+    return np.random.RandomState(11).randint(
+        1, DECODE_LM["vocab_size"], size=(STEP_BATCH, 1)).astype(np.int32)
+
+
+def drain(model, params, mesh=None, eng=None) -> dict:
+    """Serve :data:`PROMPTS` through an engine (``eng``, or one on
+    ``params`` and ``mesh``); its tokens per request, its stats, its KV
+    pool's shape and the mesh's collective counts."""
+    if eng is None:
+        eng = serving.Engine(model, params, serving.ServeConfig(**SERVE),
+                             device="cpu", mesh=mesh)
+    if mesh is not None:
+        mesh.collectives.clear()
+    ids = [eng.submit(p, max_new_tokens=n)
+           for p, n in prompts(model.cfg.vocab_size)]
+    got = {r.id: r.tokens for r in eng.drain()}
+    return {"tokens": [got[i] for i in ids], "stats": eng.stats(),
+            "pool": tuple(eng._kv.cache[0]["k"].shape),
+            "collectives": {k: dict(v) for k, v in
+                            (mesh.collectives.items() if mesh else ())}}
+
+
+def _serve_step_run(model, params, mesh, start) -> tuple:
+    """``STEPS`` steps of ``make_serve_step(model, mesh)`` from
+    ``start``, each step's logits read first by ``decode_step`` on a
+    copy of the cache."""
+    step = serving.make_serve_step(model, mesh)
+    cache = model.init_cache(params, STEP_BATCH, STEP_LEN)
+    tok = torch.from_numpy(start)
+    toks, logits = [], []
+    for i in range(STEPS):
+        copy = [{k: v.clone() for k, v in c.items()} for c in cache]
+        with L.batch_sharding(mesh):
+            logits.append(model.decode_step(params, copy, tok, i)[0]
+                          .numpy())
+        tok, cache = step(params, cache, tok, i)
+        toks.append(tok.numpy())
+    return np.stack(toks), np.stack(logits)
+
+
+def step_world(ref_params) -> dict:
+    """The reference's ``DECODE_SCRIPT`` step on a (2, 4) mesh of this
+    world's 8 ranks, on the reference's params placed by
+    ``shard_params``."""
+    torch.set_num_threads(1)
+    mesh = mesh_lib.make_host_mesh(2, 4)
+    cfg = ModelConfig(**DECODE_LM)
+    model = get_model(cfg)
+    params = convert.shard_params(
+        cfg, convert.params_from_jax(cfg, ref_params, device="cpu"), mesh)
+    out = {"coords": dict(mesh.coords),
+           "wq": tuple(params["layers"][0]["attn"]["wq"].shape),
+           "table": tuple(params["embed"]["table"].shape)}
+    for tag, start in (("", np.ones((STEP_BATCH, 1), np.int32)),
+                       ("-varied", varied_tokens())):
+        out[f"tokens{tag}"], out[f"logits{tag}"] = _serve_step_run(
+            model, params, mesh, start)
+    out["equal"] = mesh_lib.all_equal(
+        mesh, [out[k].tobytes() for k in ("tokens", "logits",
+                                          "tokens-varied",
+                                          "logits-varied")])
+    return out
+
+
+def engine_world(data: int, model_axis: int, ref_params: dict,
+                 ckpt: str) -> dict:
+    """The engine on a (data, model) mesh of this world, for each arch
+    of :data:`ENGINE_ARCHS`: on its blocks of the seed-0 draw
+    (``Model.init(0, mesh=)``), on the reference's params
+    (``params_from_jax`` then ``shard_params``), and restored from the
+    seed-0 draw's checkpoint replicated (``mesh=``) and split
+    (``shardings=``); then the vocab-parallel embedding of
+    :data:`EMBED_TOKENS`."""
+    torch.set_num_threads(1)
+    mesh = mesh_lib.make_host_mesh(data, model_axis)
+    out = {"coords": dict(mesh.coords)}
+    for arch in ENGINE_ARCHS:
+        cfg = get_smoke_config(arch)
+        model = get_model(cfg)
+        params = model.init(0, device="cpu", mesh=mesh)
+        res = {"init": drain(model, params, mesh),
+               "init_shapes": {
+                   "wq": tuple(params["layers"][0]["attn"]["wq"].shape),
+                   "wi": tuple(params["layers"][0]["mlp"]["wi"].shape),
+                   "table": tuple(params["embed"]["table"].shape)},
+               "init_leaves": [t.numpy().copy() for t in
+                               (params["layers"][0]["attn"]["wq"],
+                                params["embed"]["table"])]}
+        res["ref"] = drain(model, convert.shard_params(
+            cfg, convert.params_from_jax(cfg, ref_params[arch],
+                                         device="cpu"), mesh), mesh)
+        path = f"{ckpt}/{arch}"
+        sc = serving.ServeConfig(**SERVE)
+        res["restored"] = drain(model, None, mesh, serving.Engine
+                                .from_checkpoint(path, model, sc,
+                                                 device="cpu", mesh=mesh))
+        split = sharding.named(mesh, sharding.state_pspecs(
+            mesh, convert.jax_template(cfg)))
+        eng = serving.Engine.from_checkpoint(path, model, sc, device="cpu",
+                                             shardings=split)
+        res["split"] = drain(model, None, mesh, eng)
+        res["split_table"] = tuple(eng.params["embed"]["table"].shape)
+        with L.batch_sharding(mesh):
+            res["embed"] = L.embed(params["embed"], cfg, torch.from_numpy(
+                EMBED_TOKENS)).numpy()
+        out[arch] = res
+    out["equal"] = mesh_lib.all_equal(mesh, [
+        [out[a][k]["tokens"] for k in ("init", "ref", "restored", "split")]
+        for a in ENGINE_ARCHS])
+    refused = {}
+    for name, call in (
+            ("mean_", lambda: mesh.mean_([torch.zeros(4)])),
+            ("broadcast_", lambda: mesh.broadcast_([torch.zeros(4)])),
+            ("save", lambda: checkpoint.save(f"{ckpt}/refused-{mesh.rank}",
+                                             {"a": torch.zeros(2)},
+                                             mesh=mesh))):
+        try:
+            call()
+            refused[name] = None
+        except NotImplementedError as e:
+            refused[name] = str(e)
+    out["refused"] = refused
+    return out
