@@ -97,7 +97,7 @@ script exits non-zero:
    per-tensor kernels (2 launches per ADAPT leaf per step), each
    step's update against the tree path's from the same state;
 10. the sharpness diagnostics at full width through
-   ``launch.train.run``: qwen2.5-3b cut to ``PHASE10_LAYERS`` (18) of its
+   ``launch.train.run``: qwen2.5-3b cut to ``PHASE10_LAYERS`` (9) of its
    36 layers (``depth_cut``), bf16 weights from seed 0, per-tensor
    WA-LARS, global batch 8 in 8 microbatches of 1 x
    512 tokens (microbatches of 2 leave no room for the probe's double
@@ -278,8 +278,9 @@ script exits non-zero:
    requests. The kernels are built before any rank is spawned, and a
    rank that fails or a world that hangs past its timeout fails the
    phase.
-16. the model axis, tensor-parallel serving: gemma3-12b at full width
-   and depth (48 layers, bf16) on a (1, 2) mesh, two gloo ranks sharing
+16. the model axis, tensor-parallel serving: gemma3-12b at full width,
+   cut to ``TP_LAYERS`` (24) of 48 layers (the script's time budget),
+   bf16, on a (1, 2) mesh, two gloo ranks sharing
    the card, each holding its blocks of the seed-0 draw
    (``Model.init(0, mesh=)``: 8 of 16 heads, 4 of 8 KV heads, half of
    d_ff and of the vocabulary) and running the decode kernel on its
@@ -290,7 +291,7 @@ script exits non-zero:
    tokens, 16-32 new, 4 slots, greedy), the requests as one padded
    batch (and request 0 alone) are teacher-forced along its tokens
    (the logits kept), and the weights are freed. On the ranks: the
-   engine on the same requests (48 decode launches per rank per step,
+   engine on the same requests (24 decode launches per rank per step,
    every rank's tokens equal, equal to M = 1's up to each request's
    first difference, which must be a bf16 near-tie in both logit
    sets), the same teacher-forced batches (the max and mean |logit
@@ -306,6 +307,38 @@ script exits non-zero:
    tokens equal M = 1's on the CPU, prefill logits within
    ``TP_SMALL_LOGIT_BOUND``, which the QKV biases' rows of the other
    rank must exceed.
+17. the decode kernel's partial mode (a KV cache split over T): at
+   17a's rank shape (4 slots, 16 / 2 heads, Dh 128, T 288 in four
+   blocks of 72, bf16) and at a synthetic ring (Dh 256, window 1024 in
+   four blocks, positions several laps past T), every block launched
+   with its offset against the plain version (out, lse, the appended
+   block bitwise; rows with no needed key in a block out 0, lse -inf,
+   no NaN), the four blocks merged against the unsplit launch within
+   ``decode_parity_tolerance``; each block's card time beside SDPA over
+   the same block and its bound;
+17a. qwen2.5-3b at full width and depth (36 layers, bf16) on a (1, 4)
+   mesh of four gloo ranks sharing the card: 4 of 16 heads and both KV
+   heads a rank, so the KV pool holds block r of T (72 of 288 keys) and
+   every decode launch is in the partial mode (q gathered over the row,
+   the (out, lse) partials gathered and merged). As phase 16: M = 1
+   first on the same weights, the engine's 4 requests (36 launches per
+   rank per step, ranks' tokens equal, differences to M = 1 only at
+   bf16 near-ties), teacher-forced logit gaps under ``TF_LOGIT_BOUND``
+   / ``TF_LOGIT_MEAN_BOUND``, which merging without the lse weights
+   must exceed, the peak a rank against its prediction, and a decode
+   step split into compute, the sums and each gather;
+17b. the same weights on a (2, 2) mesh: each data row's pool holds 2 of
+   the 4 slots and decodes them (36 launches per rank per step on the
+   half batch), the sampled tokens gathered over the data column; the
+   tokens equal M = 1's up to bf16 near-ties;
+17c. llama-3.2-vision-11b through the engine (40 decode launches a
+   step, the cross layers none), whisper-large-v3, mamba2-1.3b and
+   zamba2-1.2b through ``generate(mesh=)``, at full width on a (1, 2)
+   mesh of two gloo ranks (depth cuts in ``FAM_TP_LAYERS``): ranks'
+   tokens equal, launches per step, the last prompt logits against M =
+   1 on the same weights under the 17a bounds;
+17d. every family's smoke config in f32 at (1, 4) (inside 17a's world)
+   and (2, 2) (inside 17b's): tokens equal the CPU's M = 1.
 
 Every phase prints its seconds (``phase {label}: {s} s``).
 
@@ -2045,9 +2078,10 @@ def phase_paper_loop(classify, cnn, core, training, synthetic, ops,
 # unit, 2^-8), lambda_max >= alpha_1 - LANCZOS_EIGH_TOL * max|T| (the
 # largest eigenvalue of T is at least its (1,1) entry; eigh in f32)
 SAM_FLOOR_REL = 1e-3
-# phase 10's depth: cut from 36 when phase 16 pushed the script past its
-# time aim (the first phase to cut, ROADMAP "Time budgets")
-PHASE10_LAYERS = 18
+# phase 10's depth: cut from 36 to 18 when phase 16 pushed the script
+# past its time aim, to 9 when phases 17-17d came in (ROADMAP "Time
+# budgets")
+PHASE10_LAYERS = 9
 HVP_SYM_BF16 = 2.0 ** -8
 LANCZOS_EIGH_TOL = 1e-5
 # phase 10b, the smoke LM in f32, card against the CPU's plain path: a
@@ -4570,6 +4604,9 @@ def phase_data_parallel(train_launch, ops, serving, mesh_lib, get_config,
 
 # ------------------------------------------------ 16-16b: the model axis
 TP_ARCH = "gemma3-12b"
+# phase 16's depth: cut from 48 (4 of its local:global groups of 6)
+# when phases 17-17d came in (the script's time aim)
+TP_LAYERS = 24
 TP_MESH = (1, 2)               # (data, model): two gloo ranks, one card
 TP_SLOTS, TP_MAX_LEN = 4, 288  # prompts 64-256 + 16-32 new tokens
 TP_SPLIT_STEPS = 8             # decode steps of the timed split
@@ -4599,7 +4636,8 @@ def tp_requests(vocab: int) -> tuple:
     return requests_of(vocab, 16, 4, (64, 256), (16, 32))
 
 
-def teacher_forced(L, model, params, prompts, tokens, mesh=None) -> list:
+def teacher_forced(L, model, params, prompts, tokens, mesh=None,
+                   max_len: int = TP_MAX_LEN) -> list:
     """The requests as one right-padded batch, teacher-forced: the
     prefill's logits at each prompt's last position, then decode steps
     fed each request's ``tokens`` (the M = 1 engine's), on ``mesh``'s
@@ -4612,7 +4650,7 @@ def teacher_forced(L, model, params, prompts, tokens, mesh=None) -> list:
         x[i, :p.size] = torch.from_numpy(p.astype(np.int64))
     lens_t = torch.tensor(lens, device="cuda")
     with L.batch_sharding(mesh):
-        logits, cache = model.prefill(params, x.to("cuda"), TP_MAX_LEN,
+        logits, cache = model.prefill(params, x.to("cuda"), max_len,
                                       lens_t, logits_at=lens_t - 1)
         rows = [[logits[i, 0]] for i in range(len(prompts))]
         for j in range(max(len(t) for t in tokens) - 1):
@@ -4644,18 +4682,20 @@ def unsummed_wo(L):
         L._row_sum = real
 
 
-def decode_split(model, params, mesh, ops, L) -> dict:
-    """Host time of a decode step at the engine's shape (4 slots) on
-    ``mesh``'s blocks, split into the model row's sums, its logit
-    gather and the rest (compute dispatch and its wait); the card's
+def decode_split(model, params, mesh, ops, L, slots: int = TP_SLOTS,
+                 max_len: int = TP_MAX_LEN) -> dict:
+    """Host time of a decode step at the engine's shape (``slots``
+    slots) on ``mesh``'s blocks, split into the model row's sums, its
+    gathers (by name: the logits', and under the T fallback q's and the
+    partials') and the rest (compute dispatch and its wait); the card's
     queue drains before each collective's clock starts."""
-    cache = model.init_cache(params, TP_SLOTS, TP_MAX_LEN)
     gen = torch.Generator(device="cuda").manual_seed(16)
-    tok = torch.randint(1, model.cfg.vocab_size, (TP_SLOTS, 1),
+    tok = torch.randint(1, model.cfg.vocab_size, (slots, 1),
                         generator=gen, device="cuda", dtype=torch.int32)
-    pos = torch.tensor([64, 128, 200, 255], dtype=torch.int32,
+    pos = torch.tensor([64, 128, 200, 255][:slots], dtype=torch.int32,
                        device="cuda")
     with L.batch_sharding(mesh):
+        cache = model.init_cache(params, slots, max_len)
         for i in range(2):
             model.decode_step(params, cache, tok, pos + i)
         torch.cuda.synchronize()
@@ -4667,15 +4707,16 @@ def decode_split(model, params, mesh, ops, L) -> dict:
         torch.cuda.synchronize()
         total = (time.perf_counter() - t0) * 1e3 / TP_SPLIT_STEPS
     coll = {k: dict(v) for k, v in mesh.collectives.items()}
-    per = {k: coll[k]["seconds"] * 1e3 / TP_SPLIT_STEPS
-           for k in ("model_sum", "model_gather")}
+    per = {k: v["seconds"] * 1e3 / TP_SPLIT_STEPS for k, v in coll.items()}
     del cache
     return {"step_ms": total, "sum_ms": per["model_sum"],
             "gather_ms": per["model_gather"],
-            "compute_ms": total - per["model_sum"] - per["model_gather"],
+            "compute_ms": total - sum(per.values()),
             "sums": coll["model_sum"]["calls"] // TP_SPLIT_STEPS,
             "sum_bytes": coll["model_sum"]["bytes"] // TP_SPLIT_STEPS,
             "gathers": coll["model_gather"]["calls"] // TP_SPLIT_STEPS,
+            "ms": per, "calls": {k: v["calls"] // TP_SPLIT_STEPS
+                                 for k, v in coll.items()},
             "launches": ops.launches["attention_decode"] / TP_SPLIT_STEPS}
 
 
@@ -4706,7 +4747,7 @@ def tp_rank(requests, tokens1) -> dict:
     from repro_torch.models import layers as L
     from repro_torch.obs import Tracer, phase_summary
     mesh = mesh_lib.make_host_mesh(*TP_MESH)
-    model = get_model(get_config(TP_ARCH))
+    model = get_model(get_config(TP_ARCH).replace(num_layers=TP_LAYERS))
     t0 = time.perf_counter()
     params = model.init(0, device=mesh.device, mesh=mesh)
     torch.cuda.synchronize()
@@ -4811,14 +4852,18 @@ def phase_model_axis(ops, serving, tad, mesh_lib, get_config,
                      tree_leaves) -> dict:
     """16-16b: tensor-parallel serving (see the module docstring)."""
     from repro_torch.models import layers as L
-    cfg = get_config(TP_ARCH)
+    cfg = get_config(TP_ARCH).replace(num_layers=TP_LAYERS)
+    print(f"16 {TP_ARCH}: reduced: num_layers "
+          f"{get_config(TP_ARCH).num_layers} -> {TP_LAYERS} (the script's "
+          f"time budget: phases 17-17d came in; width as published)",
+          flush=True)
     m = TP_MESH[1]
     weights = weight_bytes(cfg)
     pool = kv_pool_bytes(cfg, TP_SLOTS, TP_MAX_LEN)
     # a rank: its half of the weights, its half of the pool, the
     # admission's prefill dump (as large as the pool at 4 of 4 slots)
     pred = (weights / m + 2 * pool / m) / GIB + TP_CONTEXT_GIB
-    print(f"16 {TP_ARCH}: full width and depth ({cfg.num_layers} layers, "
+    print(f"16 {TP_ARCH}: full width ({cfg.num_layers} layers, "
           f"bf16) on a {TP_MESH} mesh, {m} gloo ranks on one card: "
           f"{cfg.num_heads // m} of {cfg.num_heads} heads, "
           f"{cfg.num_kv_heads // m} of {cfg.num_kv_heads} KV heads, "
@@ -5003,6 +5048,865 @@ def phase_model_axis(ops, serving, tad, mesh_lib, get_config,
             "small": small}
 
 
+# -------------------------------- 17-17d: the rest of the model axis
+TF_ARCH = "qwen2.5-3b"
+TF_MESH = (1, 4)               # 4 of 16 heads a rank; 2 KV heads: over T
+TF_DATA_MESH = (2, 2)          # 2 of 4 slots a data row; 8 / 1 heads
+TF_SLOTS, TF_MAX_LEN = 4, 288  # 72 keys of T a rank at M = 4
+TF_NEW = (8, 16)               # new tokens a request (prompts 64-256)
+TF_FAULT_TOKENS = 4            # the unweighted merge's teacher-forced run
+TF_CONTEXT_GIB = 0.5           # activations, logits, the CUDA allocator
+TF_PEAK_MARGIN_GIB = 1.0       # |peak - prediction| allowed per rank
+# the largest and the mean |logit gap| to M = 1 along M = 1's tokens:
+# each rank's partial output rounds to bf16 before the f32 merge, and
+# the wo / MLP partials before their f32 sum, as in phase 16 (bounds
+# 0.5 / 0.08; read 0.114 / 0.017 there at gemma3-12b M = 2)
+TF_LOGIT_BOUND = 0.5
+TF_LOGIT_MEAN_BOUND = 0.08
+# the merge's own check: layer 0's attention decode (wo summed) on
+# seeded bf16 caches of unit scale, at 17a's positions, max |diff| to
+# M = 1 over max |M = 1|. At the random init q and k are small, so the
+# model's own attention is near uniform and a block averaged without
+# its lse weight barely moves the logits (on the H100 the unweighted
+# merge's logit gaps read 0.19-0.20 / 0.024-0.026, under the bounds
+# above); unit-scale caches make the scores peaked. Each partial rounds
+# to bf16 once more than at M = 1 (2^-8 relative); the two faults, the
+# blocks averaged without their lse weights and rank 1's partial left
+# out, must exceed the bound
+TF_ATTN_REL_BOUND = 0.05
+TF_ATTN_POS = [64, 128, 200, 287]
+TF_SPLIT = 4                   # blocks of T in phase 17
+# 17: (kind, T, window, slots, heads, KV heads, Dh, positions): 17a's
+# rank shape, then a ring at Dh 256 whose window is split four ways.
+# The ring is synthetic: no registered config splits a ring's T at
+# M <= 4 (gemma3-12b's 8 KV heads divide 4)
+TF_KERNEL = [("global", TF_MAX_LEN, None, TF_SLOTS, 16, 2, 128,
+              [0, 5, 71, 72, 73, 143, 287, 3, 64, 128, 200, 255]),
+             ("local", 1024, 1024, 4, 8, 2, 256,
+              [0, 255, 256, 1023, 1024, 2500, 4100, 6143])]
+# 17c: the families at (1, 2), full width; generate's prompts, prompt
+# length and new tokens, the engine's slots and cache, depth cuts
+FAM_TP_ARCHS = ("llama-3.2-vision-11b", "whisper-large-v3", "mamba2-1.3b",
+                "zamba2-1.2b")
+FAM_TP_MESH = (1, 2)
+FAM_TP_GEN = (2, 16, 8)
+FAM_TP_SLOTS, FAM_TP_MAX_LEN = 4, 64
+# arch -> num_layers: each cut to about half its depth (the script's
+# time budget; whisper's 32 encoder layers stay)
+FAM_TP_LAYERS = {"llama-3.2-vision-11b": 20, "whisper-large-v3": 16,
+                 "mamba2-1.3b": 24, "zamba2-1.2b": 20}
+# 17d: every family's smoke config at (1, 4) and (2, 2), f32, card
+# against the CPU
+TF_SMALL = ("qwen2.5-3b", "gemma3-12b", "llama-3.2-vision-11b",
+            "whisper-large-v3", "mamba2-1.3b", "zamba2-1.2b")
+TF_SMALL_GEN = (4, 8, 6)
+
+
+def partial_row(tad, ops, gen, kind, t, window, slots, heads, kv_heads,
+                dh, positions, m: int = TF_SPLIT,
+                dtype=torch.bfloat16) -> dict:
+    """The decode kernel's partial mode against its plain version: the
+    cache cut into ``m`` blocks of T, each launched with its offset on
+    the positions (``slots`` at a time): out within the parity bound,
+    lse within 1e-5 (f32 either way) and -inf on the same rows, caches
+    bitwise equal, a block with no needed key out 0 / lse -inf and no
+    NaN; the blocks merged (``merge_partials``) within the bound of the
+    unsplit launch. Then each block's launch timed on the card beside
+    the plain version, SDPA over the same block (output only) and its
+    bound. Returns the shape's row."""
+    dev = torch.device("cuda")
+    tol = tad.decode_parity_tolerance(dtype)
+    n = t // m
+    plan = tad.decode_plan(n, dh, dtype, heads // kv_heads)
+    dname = str(dtype).split(".")[-1]
+    print(f"17 kernel partial mode {kind} T={t} in {m} blocks of {n}, "
+          f"{dname}, {slots} slots x {heads} / {kv_heads} heads x {dh}: "
+          f"plan L={plan.keys} x {plan.splits} splits, grid "
+          f"{plan.grid(slots, kv_heads)}", flush=True)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(dtype)
+
+    q = randn(slots, 1, heads, dh)
+    nk, nv = randn(slots, 1, kv_heads, dh), randn(slots, 1, kv_heads, dh)
+    kc, vc = randn(slots, t, kv_heads, dh), randn(slots, t, kv_heads, dh)
+    err = merged_err = 0.0
+    empty = 0
+    for i in range(0, len(positions), slots):
+        rows_pos = positions[i:i + slots]
+        pos = torch.tensor(rows_pos, dtype=torch.int32, device=dev)
+        whole = ops.attention_decode(q, nk, nv, kc.clone(), vc.clone(), pos,
+                                     window=window)
+        outs, lses, blocks = [], [], []
+        for r in range(m):
+            part = slice(r * n, (r + 1) * n)
+            kb, vb = kc[:, part].clone(), vc[:, part].clone()
+            kp, vp = kb.clone(), vb.clone()
+            kw = dict(window=window, t0=r * n, t_total=t, return_lse=True)
+            o, lse = ops.attention_decode(q, nk, nv, kb, vb, pos, **kw)
+            op, lp = tad.attention_decode_ref(q, nk, nv, kp, vp, pos, **kw)
+            torch.cuda.synchronize()
+            label = f"17 {kind} block {r} positions {rows_pos}"
+            torch.testing.assert_close(o.float(), op.float(), **tol)
+            if not torch.equal(torch.isneginf(lse), torch.isneginf(lp)):
+                raise AssertionError(f"{label}: lse -inf rows differ")
+            fin = torch.isfinite(lp)
+            torch.testing.assert_close(lse[fin], lp[fin], rtol=1e-5,
+                                       atol=1e-5)
+            if torch.isnan(o.float()).any() or torch.isnan(lse).any():
+                raise AssertionError(f"{label}: NaN")
+            gone = torch.isneginf(lse).all(dim=-1)
+            if o[gone].abs().max().item() if gone.any() else 0.0:
+                raise AssertionError(f"{label}: an empty row's out is "
+                                     f"not 0")
+            empty += int(gone.sum())
+            if not (torch.equal(kb, kp) and torch.equal(vb, vp)):
+                raise AssertionError(f"{label}: appended blocks differ "
+                                     f"from plain")
+            err = max(err, (o.float() - op.float()).abs().max().item())
+            outs.append(o)
+            lses.append(lse)
+            blocks.append((kb, vb))
+        merged = tad.merge_partials(outs, lses)
+        torch.testing.assert_close(merged.float(), whole.float(), **tol)
+        merged_err = max(merged_err,
+                         (merged.float() - whole.float()).abs().max().item())
+    if empty == 0:
+        raise AssertionError(f"17 {kind}: no row with an empty block")
+    # timing at the last launch's positions, every block
+    csize = kc.element_size()
+    posl = pos.long()[:, None]
+    ms, plain, lib, bounds, bytes_ms_all, ops_ms_all = [], [], [], [], [], []
+    for r, (kb, vb) in enumerate(blocks):
+        kw = dict(window=window, t0=r * n, t_total=t, return_lse=True)
+        kpos = r * n + torch.arange(n, device=dev)[None, :]
+        if window is None:
+            ok = kpos <= posl
+        else:
+            slot = posl % t
+            wraps = (posl // t) * t
+            a = kpos + torch.where(kpos <= slot, wraps, wraps - t)
+            ok = (a >= 0) & (a <= posl) & (a > posl - window)
+        valid = int(ok.sum().item())
+        bytes_moved = (2 * valid * kv_heads * dh * csize
+                       + 2 * q.numel() * q.element_size()
+                       + 4 * slots * heads
+                       + 4 * nk.numel() * csize + 4 * slots)
+        b_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        o_ms = 4 * valid * heads * dh / F32_FLOP_PER_S * 1e3
+        bytes_ms_all.append(b_ms)
+        ops_ms_all.append(o_ms)
+        bounds.append(max(b_ms, o_ms))
+        ms.append(device_ms(lambda: ops.attention_decode(
+            q, nk, nv, kb, vb, pos, **kw)))
+        plain.append(time_ms(lambda: tad.attention_decode_ref(
+            q, nk, nv, kb, vb, pos, **kw), 10))
+        qs, ks, vs = q.transpose(1, 2), kb.transpose(1, 2), \
+            vb.transpose(1, 2)
+        mask = ok[:, None, None, :]
+        lib.append(device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, enable_gqa=True)))
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    row = {"shape": f"{kind} T={t} over {m} blocks of {n} {dname} "
+                    f"B={slots} H={heads} Hkv={kv_heads} Dh={dh} (partial)",
+           "ms": mean(ms), "ms_blocks": ms, "plain_ms": mean(plain),
+           "library_ms": mean(lib), "library_blocks": lib,
+           "bound_ms": mean(bounds), "bytes_ms": mean(bytes_ms_all),
+           "ops_ms": mean(ops_ms_all),
+           "bound_by": "bytes" if mean(bytes_ms_all) >= mean(ops_ms_all)
+           else "operations",
+           "max_abs_err": max(err, merged_err), "merged_err": merged_err,
+           "empty_rows": empty, "keys": plan.keys, "splits": plan.splits,
+           "grid": list(plan.grid(slots, kv_heads))}
+    print(f"  positions {positions}: each block within rtol=atol="
+          f"{tol['rtol']:.2e} of plain (max|err| {err:.3e}), lse within "
+          f"1e-5, {empty} (row, block) pairs with no needed key gave out 0 "
+          f"and lse -inf, appended blocks bitwise equal; the {m} blocks "
+          f"merged within {merged_err:.3e} of the unsplit launch. Card "
+          f"ms per block (CUDA graph) {[round(x, 4) for x in ms]}, SDPA "
+          f"over the same block {[round(x, 4) for x in lib]}, plain "
+          f"(eager) {mean(plain):.4f}; bound {[round(x, 5) for x in bounds]}"
+          f" ({row['bound_by']}): {row['bound_ms'] / row['ms']:.1%} of it "
+          f"on average", flush=True)
+    return row
+
+
+@contextlib.contextmanager
+def faulty_merge(L, fault: str):
+    """Inside the block the model row's partials are merged wrongly:
+    ``"unweighted"`` averages the outputs without their lse weights,
+    ``"drop"`` leaves rank 1's partial out. The faults phase 17a's
+    attention check must catch."""
+    real = L.merge_partials
+
+    def unweighted(outs, lses):
+        return (sum(o.float() for o in outs) / len(outs)).to(outs[0].dtype)
+
+    def drop(outs, lses):
+        return real(outs[:1] + outs[2:], lses[:1] + lses[2:])
+
+    L.merge_partials = unweighted if fault == "unweighted" else drop
+    try:
+        yield
+    finally:
+        L.merge_partials = real
+
+
+def attn_probe_inputs(cfg) -> tuple:
+    """17a's attention check: a seeded [B,1,D] input and unit-scale
+    [B,T,Hkv,Dh] bf16 caches on the card, at ``TF_ATTN_POS``."""
+    gen = torch.Generator(device="cuda").manual_seed(171)
+    b = len(TF_ATTN_POS)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    shape = (b, TF_MAX_LEN, cfg.num_kv_heads, cfg.head_dim_)
+    return (randn(b, 1, cfg.d_model), randn(*shape), randn(*shape),
+            torch.tensor(TF_ATTN_POS, dtype=torch.int32, device="cuda"))
+
+
+def attn_probe(L, cfg, attn, inputs, mesh=None) -> torch.Tensor:
+    """Layer 0's attention decode on ``inputs`` (the caches copied; on
+    ``mesh`` this rank's block of T), on the host."""
+    x, kc, vc, pos = inputs
+    if mesh is not None:
+        m, r = mesh.shape["model"], mesh.coords["model"]
+        n = kc.shape[1] // m
+        kc, vc = kc[:, r * n:(r + 1) * n], vc[:, r * n:(r + 1) * n]
+    with L.batch_sharding(mesh):
+        out = L.attention_decode(attn, cfg, x, kc.clone(), vc.clone(), pos)
+    return out.float().cpu()
+
+
+def small_cases(get_smoke_config, get_model, serving, extra_embed_shape):
+    """17d's cases: every family's smoke config, its seed-0 draw on the
+    CPU (vlm gates opened), its inputs and its tokens at M = 1 on the
+    CPU (the engine for dense and vlm, ``generate`` for the rest)."""
+    cases = []
+    for arch in TF_SMALL:
+        cfg = get_smoke_config(arch)
+        model = get_model(cfg)
+        params = model.init(0, device="cpu")
+        for layer in params.get("layers", ()):
+            if "gate" in layer:
+                layer["gate"].fill_(GATE_OPEN)
+        if model.prefill is not None:
+            es = extra_embed_shape(cfg, TP_SMALL_SERVE["slots"])
+            extra = None if es is None else torch.randn(
+                es, generator=torch.Generator().manual_seed(17))
+            prompts = [(np.random.RandomState(s).randint(
+                1, cfg.vocab_size, size=n), new)
+                for s, n, new in TP_SMALL_PROMPTS]
+            eng = serving.Engine(model, params,
+                                 serving.ServeConfig(**TP_SMALL_SERVE),
+                                 device="cpu", extra=extra)
+            ids = [eng.submit(p, max_new_tokens=k) for p, k in prompts]
+            got = {r.id: r.tokens for r in eng.drain()}
+            want = [got[i] for i in ids]
+            inputs = (prompts, extra)
+        else:
+            b, s, new = TF_SMALL_GEN
+            es = extra_embed_shape(cfg, b)
+            extra = None if es is None else torch.randn(
+                es, generator=torch.Generator().manual_seed(17))
+            prompts = np.random.RandomState(17).randint(1, cfg.vocab_size,
+                                                        size=(b, s))
+            want = serving.generate(model, params, prompts, num_tokens=new,
+                                    extra_embeds=extra,
+                                    device="cpu").tolist()
+            inputs = (prompts, extra)
+        cases.append((arch, params, inputs, want))
+    return cases
+
+
+def small_on_mesh(mesh, cases) -> dict:
+    """17d on this rank: each case's CPU weights placed by
+    ``shard_params`` on the card and served on ``mesh``; its tokens and
+    decode launches."""
+    from repro_torch import serving
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.base import tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.models import convert, get_model
+    out = {}
+    for arch, params, (prompts, extra), _ in cases:
+        cfg = get_smoke_config(arch)
+        model = get_model(cfg)
+        local = convert.shard_params(
+            cfg, tree_map(lambda t: t.to(mesh.device), params), mesh)
+        extra = None if extra is None else extra.to(mesh.device)
+        ops.reset_launches()
+        if model.prefill is not None:
+            eng = serving.Engine(model, local,
+                                 serving.ServeConfig(**TP_SMALL_SERVE),
+                                 device=mesh.device, mesh=mesh, extra=extra)
+            ids = [eng.submit(p, max_new_tokens=k) for p, k in prompts]
+            got = {r.id: r.tokens for r in eng.drain()}
+            tokens = [got[i] for i in ids]
+            steps = eng.stats()["decode_steps"]
+        else:
+            tokens = serving.generate(
+                model, local, prompts, num_tokens=TF_SMALL_GEN[2],
+                extra_embeds=extra, device=mesh.device,
+                mesh=mesh).cpu().tolist()
+            steps = TF_SMALL_GEN[1] + TF_SMALL_GEN[2]
+        out[arch] = {"tokens": tokens, "steps": steps,
+                     "launches": ops.launches["attention_decode"]}
+    return out
+
+
+def tf_rank(requests, tokens1, cases, probe) -> dict:
+    """17a on one rank of the (1, 4) mesh: this rank's blocks of
+    qwen2.5-3b's seed-0 draw (4 of 16 heads, every KV head: the KV cache
+    over T), the engine on the requests, the requests teacher-forced
+    along M = 1's tokens, the faults, the decode step's split; then
+    17d's cases on the same mesh, and 17b in the same world
+    (:func:`tf_data_rank`)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch import serving
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+    from repro_torch.obs import Tracer, phase_summary
+    mesh = mesh_lib.make_host_mesh(*TF_MESH)
+    model = get_model(get_config(TF_ARCH))
+    t0 = time.perf_counter()
+    params = model.init(0, device=mesh.device, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    attn0 = params["layers"][0]["attn"]
+    shapes = {k: tuple(attn0[k].shape) for k in ("wq", "wk", "wo")}
+    torch.cuda.reset_peak_memory_stats()
+    tracer = Tracer()
+    eng = serving.Engine(model, params, serving.ServeConfig(
+        slots=TF_SLOTS, max_len=TF_MAX_LEN, page_size=16),
+        device=mesh.device, tracer=tracer, mesh=mesh)
+    mesh.collectives.clear()
+    results, stats, elapsed, launches = serve(eng, ops, requests)
+    engine_coll = {k: dict(v) for k, v in mesh.collectives.items()}
+    spans = phase_summary(tracer.events())
+    pool = tuple(eng._kv.cache[0]["k"].shape)
+    tokens2 = [list(r.tokens) for r in results]
+    del eng, results
+    tf = teacher_forced(L, model, params, requests[0], tokens1, mesh,
+                        TF_MAX_LEN)
+    with faulty_merge(L, "unweighted"):
+        fault = teacher_forced(L, model, params, requests[0][:1],
+                               [tokens1[0][:TF_FAULT_TOKENS]], mesh,
+                               TF_MAX_LEN)
+    inputs = tuple(unbits(a).to(mesh.device) for a in probe)
+    attn = {"merged": attn_probe(L, model.cfg, attn0, inputs, mesh)}
+    for kind in ("unweighted", "drop"):
+        with faulty_merge(L, kind):
+            attn[kind] = attn_probe(L, model.cfg, attn0, inputs, mesh)
+    split = decode_split(model, params, mesh, ops, L, TF_SLOTS, TF_MAX_LEN)
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = small_on_mesh(mesh, cases)
+    first = mesh.rank == 0
+    tf, fault = ([bits(t) for t in x] for x in (tf, fault))
+    equal = mesh_lib.all_equal(mesh, tokens2)
+    torch.cuda.reset_peak_memory_stats()
+    return {"rank": mesh.rank, "coords": dict(mesh.coords),
+            "data": tf_data_rank(requests, cases),
+            "init_s": init_s, "init_peak": init_peak, "shapes": shapes,
+            "attn": {k: v.numpy() for k, v in attn.items()},
+            "pool": pool, "tokens": tokens2, "stats": stats,
+            "elapsed": elapsed, "launches": launches, "spans": spans,
+            "collectives": engine_coll, "split": split, "peak": peak,
+            "equal": equal, "small": small,
+            "tf": tf if first else None, "fault": fault if first else None}
+
+
+def tf_data_rank(requests, cases) -> dict:
+    """17b on this rank of a (2, 2) mesh over the same world as 17a's:
+    qwen2.5-3b's blocks (8 of 16 heads, 1 of 2 KV heads), the engine
+    holding this data row's 2 of 4 slots; then 17d's cases on the same
+    mesh."""
+    from repro_torch import serving
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+    mesh = mesh_lib.make_host_mesh(*TF_DATA_MESH)
+    model = get_model(get_config(TF_ARCH))
+    params = model.init(0, device=mesh.device, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    eng = serving.Engine(model, params, serving.ServeConfig(
+        slots=TF_SLOTS, max_len=TF_MAX_LEN, page_size=16),
+        device=mesh.device, mesh=mesh)
+    mesh.collectives.clear()
+    results, stats, elapsed, launches = serve(eng, ops, requests)
+    coll = {k: v["calls"] for k, v in mesh.collectives.items()}
+    pool = tuple(eng._kv.cache[0]["k"].shape)
+    tokens = [list(r.tokens) for r in results]
+    del eng, results
+    split = decode_split(model, params, mesh, ops, L, TF_SLOTS // 2,
+                         TF_MAX_LEN)
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = small_on_mesh(mesh, cases)
+    return {"rank": mesh.rank, "coords": dict(mesh.coords), "pool": pool,
+            "tokens": tokens, "stats": stats, "elapsed": elapsed,
+            "launches": launches, "collectives": coll, "split": split,
+            "peak": peak, "small": small,
+            "equal": mesh_lib.all_equal(mesh, tokens)}
+
+
+def local_weight_bytes(cfg, mesh_shape: tuple) -> int:
+    """A rank's weight bytes on a (data, model) mesh: its blocks of the
+    reference layout's leaves under ``state_pspecs``."""
+    from repro_torch.core.base import tree_flatten_with_path
+    from repro_torch.launch import sharding
+    from repro_torch.models import jax_template
+
+    class Shape:
+        shape = {"data": mesh_shape[0], "model": mesh_shape[1]}
+        coords = {"data": 0, "model": 0}
+
+    total = 0
+    for path, leaf in tree_flatten_with_path(jax_template(cfg)):
+        spec = sharding.leaf_pspec(path, leaf, Shape)
+        block = leaf[sharding.local_block(spec, Shape, leaf.shape)]
+        total += block.numel() * leaf.element_size()
+    return total
+
+
+def check_small(label: str, ranks_out: list, cases) -> dict:
+    """17d: every rank's tokens of every case equal the CPU's M = 1
+    tokens; decode launches = self-attention layers x decode steps."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.models.hybrid import hybrid_layout
+    out = {}
+    for arch, _, _, want in cases:
+        cfg = get_smoke_config(arch)
+        if cfg.family == "ssm":
+            per = 0
+        elif cfg.family == "hybrid":
+            per = hybrid_layout(cfg)[0]
+        elif cfg.family == "encdec":
+            per = cfg.num_layers
+        else:
+            per = sum(k != "cross" for k in layer_kinds(cfg))
+        for r in ranks_out:
+            got = r["small"][arch]
+            if got["tokens"] != want:
+                raise AssertionError(f"{label} {arch} rank {r['rank']}: "
+                                     f"tokens differ from the CPU's M=1")
+            if got["launches"] != per * got["steps"]:
+                raise AssertionError(f"{label} {arch}: {got['launches']} "
+                                     f"decode launches for {got['steps']} "
+                                     f"steps ({per} a step expected)")
+        out[arch] = ranks_out[0]["small"][arch]["launches"]
+    print(f"{label}: the smoke configs {list(TF_SMALL)} in f32 on every "
+          f"rank == M=1 on the CPU (engine for dense / vlm, generate for "
+          f"the rest), decode launches {out}; {smi_line()}", flush=True)
+    return out
+
+
+def phase_t_fallback(ops, serving, tad, mesh_lib, get_config,
+                     get_smoke_config, get_model, Tracer, phase_summary
+                     ) -> dict:
+    """17, 17a, 17b and 17d: see the module docstring."""
+    from repro_torch.models import extra_embed_shape
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = [partial_row(tad, ops, gen, *shape) for shape in TF_KERNEL]
+
+    cfg = get_config(TF_ARCH)
+    m = TF_MESH[1]
+    weights = local_weight_bytes(cfg, TF_MESH)
+    requests = requests_of(cfg.vocab_size, 16, 4, (64, 256), TF_NEW)
+    pool = kv_pool_bytes(cfg, TF_SLOTS, TF_MAX_LEN)
+    pred = (weights + 2 * pool / m) / GIB + TF_CONTEXT_GIB
+    print(f"17a {TF_ARCH}: full width and depth ({cfg.num_layers} layers, "
+          f"bf16) on a {TF_MESH} mesh, {m} gloo ranks on one card: "
+          f"{cfg.num_heads // m} of {cfg.num_heads} heads and all "
+          f"{cfg.num_kv_heads} KV heads a rank, the KV cache over T "
+          f"({TF_MAX_LEN // m} of {TF_MAX_LEN} keys); predicted peak a rank "
+          f"{pred:.2f} GiB (weights {weights / GIB:.3f} + pool "
+          f"{pool / GIB:.3f} / {m} + prefill dump {pool / GIB:.3f} / {m} + "
+          f"{TF_CONTEXT_GIB} context)", flush=True)
+    cases = small_cases(get_smoke_config, get_model, serving,
+                        extra_embed_shape)
+
+    # M = 1 in this process on the same seed-0 weights, freed after
+    model = get_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model.init(0, device="cuda")
+    results, stats1, elapsed1, _ = serve(engine(
+        serving, model, params, None, TF_SLOTS, TF_MAX_LEN), ops, requests)
+    tokens1 = [list(r.tokens) for r in results]
+    tf1 = teacher_forced(L, model, params, requests[0], tokens1,
+                         max_len=TF_MAX_LEN)
+    fault1 = teacher_forced(L, model, params, requests[0][:1],
+                            [tokens1[0][:TF_FAULT_TOKENS]],
+                            max_len=TF_MAX_LEN)
+    probe = attn_probe_inputs(cfg)
+    attn1 = attn_probe(L, cfg, params["layers"][0]["attn"], probe)
+    probe = [bits(t.cpu()) for t in probe]
+    del params, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"17a M=1: {len(tokens1)} requests (prompts "
+          f"{[len(p) for p in requests[0]]}, new "
+          f"{[int(n) for n in requests[1]]}), "
+          f"{stats1['tokens_generated']} tokens in {elapsed1:.3f} s",
+          flush=True)
+
+    t0 = time.perf_counter()
+    ranks = mesh_lib.spawn(tf_rank, m, "gloo", DEV,
+                           args=(requests, tokens1, cases, probe),
+                           timeout=600)
+    spawn_s = time.perf_counter() - t0
+    tol = tad.decode_parity_tolerance(torch.bfloat16)
+    for r in ranks:
+        if not r["equal"] or r["tokens"] != ranks[0]["tokens"]:
+            raise AssertionError("17a: the ranks served different tokens")
+        want = cfg.num_layers * r["stats"]["decode_steps"]
+        if r["launches"] != want or r["split"]["launches"] != \
+                cfg.num_layers:
+            raise AssertionError(f"17a rank {r['rank']}: {r['launches']} "
+                                 f"decode launches (expected {want}); "
+                                 f"split {r['split']['launches']} a step")
+        if r["pool"] != (TF_SLOTS, TF_MAX_LEN // m, cfg.num_kv_heads,
+                         cfg.head_dim_):
+            raise AssertionError(f"17a: pool {r['pool']}")
+        if abs(r["peak"] / GIB - pred) > TF_PEAK_MARGIN_GIB:
+            raise AssertionError(f"17a rank {r['rank']}: peak "
+                                 f"{r['peak'] / GIB:.2f} GiB, predicted "
+                                 f"{pred:.2f} +- {TF_PEAK_MARGIN_GIB}")
+
+    def gap(a, b):
+        d = (a.float() - b.float()).abs()
+        return d.max().item(), d.mean().item()
+
+    tf2 = [unbits(a) for a in ranks[0]["tf"]]
+    gaps = [gap(a, b) for a, b in zip(tf2, tf1)]
+    fault_gap = gap(unbits(ranks[0]["fault"][0]), fault1[0])
+    worst = (max(g[0] for g in gaps), max(g[1] for g in gaps))
+    scale = attn1.abs().max().item()
+    attn_rel = {k: max((torch.from_numpy(r["attn"][k]) - attn1).abs().max()
+                       .item() for r in ranks) / scale
+                for k in ranks[0]["attn"]}
+    print(f"17a: |logit gap| to M=1 along its tokens (max, mean) "
+          f"{[(round(a, 4), round(b, 5)) for a, b in gaps]}, the "
+          f"unweighted merge's ({fault_gap[0]:.4f}, {fault_gap[1]:.5f}); "
+          f"layer 0's attention on unit-scale caches, max |diff| to M=1 / "
+          f"max |M=1| ({scale:.4f}): "
+          f"{ {k: round(v, 5) for k, v in attn_rel.items()} } (bound "
+          f"{TF_ATTN_REL_BOUND})", flush=True)
+    if not (worst[0] <= TF_LOGIT_BOUND and worst[1] <= TF_LOGIT_MEAN_BOUND):
+        raise AssertionError(f"17a: logit gaps to M=1 (max, mean) {gaps}, "
+                             f"bounds {TF_LOGIT_BOUND}, "
+                             f"{TF_LOGIT_MEAN_BOUND}")
+    if not (attn_rel["merged"] <= TF_ATTN_REL_BOUND
+            and attn_rel["unweighted"] > TF_ATTN_REL_BOUND
+            and attn_rel["drop"] > TF_ATTN_REL_BOUND):
+        raise AssertionError(f"17a: the attention check {attn_rel} against "
+                             f"{TF_ATTN_REL_BOUND}: the merge must be "
+                             f"under it and both faults over it")
+    ties = near_ties("17a", tokens1, ranks[0]["tokens"], tf1, tf2, tol)
+    r0 = ranks[0]
+    sp = r0["split"]
+    step_ms = decode_step_ms(r0["spans"], r0["stats"]["decode_steps"])
+    generated = r0["stats"]["tokens_generated"]
+    coll = {k: (v["calls"], round(v["seconds"], 3))
+            for k, v in r0["collectives"].items()}
+    for r in ranks:
+        print(f"17a rank {r['rank']} {r['coords']}: blocks {r['shapes']}, "
+              f"KV pool {r['pool']}; init {r['init_s']:.1f} s (peak "
+              f"{r['init_peak'] / GIB:.2f} GiB); serving peak "
+              f"{r['peak'] / GIB:.2f} GiB (predicted {pred:.2f}); "
+              f"{r['launches']} decode launches, all in the partial mode, "
+              f"over {r['stats']['decode_steps']} steps "
+              f"({r['launches'] // r['stats']['decode_steps']} a step)",
+              flush=True)
+    print(f"17a: {len(r0['tokens'])} requests, {generated} tokens in "
+          f"{r0['elapsed']:.3f} s = {generated / r0['elapsed']:.2f} tok/s "
+          f"(M=1 {stats1['tokens_generated'] / elapsed1:.2f}); decode step "
+          f"{step_ms:.3f} ms (decode + sample spans); engine collectives "
+          f"{coll} (calls, s); tokens equal on {m} ranks; to M=1: "
+          f"{sum(a == b for a, b in zip(tokens1, r0['tokens']))} of "
+          f"{len(tokens1)} requests equal, first differences (request, "
+          f"token, gap in M=1's logits, in M=4's) {ties}; |logit gap| "
+          f"along M=1's tokens (max, mean) a request "
+          f"{[(round(a, 4), round(b, 5)) for a, b in gaps]} (bounds "
+          f"{TF_LOGIT_BOUND}, {TF_LOGIT_MEAN_BOUND}); {spawn_s:.1f} s with "
+          f"the spawn; {smi_line()}", flush=True)
+    print(f"17a decode step split (rank 0, {TF_SLOTS} slots, "
+          f"{TP_SPLIT_STEPS} steps, host clock): {sp['step_ms']:.3f} ms = "
+          f"compute {sp['compute_ms']:.3f} + "
+          + " + ".join(f"{k} {v:.3f} ({sp['calls'][k]} calls)"
+                       for k, v in sorted(sp["ms"].items()))
+          + f"; {sp['launches']:.0f} decode launches a step", flush=True)
+    small = {"17d-1x4": check_small("17d (1, 4)", ranks, cases)}
+
+    # 17b: the slots over the data axis (in 17a's world)
+    dranks = [r["data"] for r in ranks]
+    half = TF_SLOTS // TF_DATA_MESH[0]
+    for r in dranks:
+        if not r["equal"] or r["tokens"] != dranks[0]["tokens"]:
+            raise AssertionError("17b: the ranks served different tokens")
+        st = r["stats"]
+        if r["launches"] != cfg.num_layers * st["decode_steps"] or \
+                r["split"]["launches"] != cfg.num_layers:
+            raise AssertionError(f"17b rank {r['rank']}: {r['launches']} "
+                                 f"launches over {st['decode_steps']} "
+                                 f"steps")
+        if st["row_slots"] != half or r["pool"][0] != half or \
+                r["pool"][2] != cfg.num_kv_heads // TF_DATA_MESH[1]:
+            raise AssertionError(f"17b: pool {r['pool']}, slots "
+                                 f"{st['row_slots']}")
+        if r["collectives"].get("data_gather") != \
+                st["decode_steps"] + st["prefills"]:
+            raise AssertionError(f"17b: collectives {r['collectives']}")
+    dties = near_ties("17b", tokens1, dranks[0]["tokens"], tf1, None, tol)
+    d0 = dranks[0]
+    dsp = d0["split"]
+    dgen = d0["stats"]["tokens_generated"]
+    print(f"17b {TF_ARCH} on a {TF_DATA_MESH} mesh (4 gloo ranks, one "
+          f"card): each data row decodes {half} of {TF_SLOTS} slots "
+          f"(pool {d0['pool']}); {dgen} tokens in {d0['elapsed']:.3f} s = "
+          f"{dgen / d0['elapsed']:.2f} tok/s; {d0['launches']} decode "
+          f"launches a rank over {d0['stats']['decode_steps']} steps "
+          f"({cfg.num_layers} a step on {half} rows); collectives "
+          f"{d0['collectives']}; tokens equal on 4 ranks, to M=1: "
+          f"{sum(a == b for a, b in zip(tokens1, d0['tokens']))} of "
+          f"{len(tokens1)} requests equal, first differences {dties}; peak "
+          f"{[round(r['peak'] / GIB, 2) for r in dranks]} GiB; decode step "
+          f"at {half} slots {dsp['step_ms']:.3f} ms = compute "
+          f"{dsp['compute_ms']:.3f} + "
+          + " + ".join(f"{k} {v:.3f}" for k, v in sorted(dsp["ms"].items()))
+          + f"; {smi_line()}", flush=True)
+    small["17d-2x2"] = check_small("17d (2, 2)", dranks, cases)
+    return {"rows": rows, "launches": r0["launches"],
+            "data_launches": d0["launches"], "gaps": gaps,
+            "fault_gap": fault_gap, "attn_rel": attn_rel, "split": sp,
+            "data_split": dsp,
+            "peak_gib": [r["peak"] / GIB for r in ranks],
+            "predicted_gib": pred, "small": small}
+
+
+def near_ties(label, tokens1, tokens2, tf1, tf2, tol) -> list:
+    """Each request's tokens equal M = 1's up to its first difference,
+    which must be a bf16 near-tie in M = 1's teacher-forced logits (and
+    in ``tf2``'s, when given); returns (request, token, gaps)."""
+    ties = []
+    for i, (a, b) in enumerate(zip(tokens1, tokens2)):
+        if a == b:
+            continue
+        j = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
+        g1, lim1 = logit_gaps(tf1[i][j], torch.tensor(b[j]), tol)
+        g2, lim2 = (torch.tensor(0.0), torch.tensor(1.0)) if tf2 is None \
+            else logit_gaps(tf2[i][j], torch.tensor(a[j]), tol)
+        ties.append((i, j, round(g1.item(), 4), round(g2.item(), 4)))
+        if g1 > lim1 or g2 > lim2:
+            raise AssertionError(f"{label} request {i}: token {j} differs "
+                                 f"from M=1 ({a[j]} vs {b[j]}) beyond a "
+                                 f"bf16 tie: gaps {g1.item()} / "
+                                 f"{g2.item()}, allowed {lim1.item()} / "
+                                 f"{lim2.item()}")
+    return ties
+
+
+def fam_inputs(cfg, model):
+    """17c's inputs for ``cfg``: the engine's requests and image rows
+    (vlm), or ``generate``'s prompts and frames."""
+    if model.prefill is not None:
+        reqs = requests_of(cfg.vocab_size, 17, 4, (16, 48), (8, 16))
+        return reqs, extra_draw(cfg, FAM_TP_SLOTS, 17)
+    b, s, _ = FAM_TP_GEN
+    prompts = np.random.RandomState(17).randint(1, cfg.vocab_size,
+                                                size=(b, s))
+    extra = None if cfg.family != "encdec" else extra_draw(cfg, b, 17)
+    return prompts, extra
+
+
+def fam_run(serving, ops, L, model, params, mesh=None, want=None) -> dict:
+    """17c's run of one family on ``params`` (on ``mesh``'s blocks):
+    its tokens, decode launches and steps, the last prompt position's
+    logits (bf16 bits), and, against ``want`` (M = 1's tokens), for
+    each row that differs the gap of M = 1's token in this run's
+    logits at the first difference (teacher-forced along ``want``)
+    beside the bf16 tie allowance."""
+    from repro_torch.kernels.attention_decode import decode_parity_tolerance
+    cfg = model.cfg
+    inputs, extra = fam_inputs(cfg, model)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rows = None
+    if model.prefill is not None:
+        eng = serving.Engine(model, params, serving.ServeConfig(
+            slots=FAM_TP_SLOTS, max_len=FAM_TP_MAX_LEN, page_size=16),
+            device="cuda" if mesh is None else mesh.device, mesh=mesh,
+            extra=extra)
+        rows = PrefillRows(eng)
+        results, stats, elapsed, launches = serve(eng, ops, inputs)
+        tokens = [list(r.tokens) for r in results]
+        steps = stats["decode_steps"]
+        del eng
+        last = [serving.prefill(model, params, torch.tensor(
+            p[None], dtype=torch.int64, device="cuda"), FAM_TP_MAX_LEN,
+            extra[i:i + 1], mesh=mesh)[0][0, -1] for i, p in
+            enumerate(inputs[0])]
+        last = torch.stack(last)
+    else:
+        b, s, new = FAM_TP_GEN
+        tokens = serving.generate(model, params, inputs, num_tokens=new,
+                                  extra_embeds=extra, device="cuda",
+                                  mesh=mesh).cpu().tolist()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = ops.launches["attention_decode"]
+        steps = s + new
+        last = serving.prefill(model, params, torch.as_tensor(
+            inputs, device="cuda"), s + new, extra, mesh=mesh)[0][:, -1]
+    peak = torch.cuda.max_memory_allocated()
+    ties = []
+    tol = decode_parity_tolerance(torch.bfloat16)
+    for i, (a, b) in enumerate(zip(want or [], tokens)):
+        if a == b:
+            continue
+        j = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
+        if rows is not None:
+            prompt, max_len = inputs[0][i], FAM_TP_MAX_LEN
+            r = rows.row(prompt)
+        else:
+            prompt, max_len, r = inputs[i], FAM_TP_GEN[1] + FAM_TP_GEN[2], i
+        with L.batch_sharding(mesh):
+            g = tie_gaps(serving, model, params, prompt, a[:j + 1], tol,
+                         max_len, None if extra is None
+                         else extra[r:r + 1])
+        ties.append((i, j, g[j][0], g[j][1]))
+    return {"tokens": tokens, "launches": launches, "steps": steps,
+            "seconds": elapsed, "last": bits(last.float().cpu()),
+            "peak": peak, "ties": ties}
+
+
+def fam_config(get_config, arch):
+    cfg = get_config(arch)
+    if arch in FAM_TP_LAYERS:
+        cfg = cfg.replace(num_layers=FAM_TP_LAYERS[arch])
+    return cfg
+
+
+def fam_tp_rank(wants: dict) -> dict:
+    """17c on one rank of the (1, 2) mesh: each family's blocks of its
+    seed-0 draw (vlm gates opened), run as :func:`fam_run`."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch import serving
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+    mesh = mesh_lib.make_host_mesh(*FAM_TP_MESH)
+    out = {"rank": mesh.rank}
+    for arch in FAM_TP_ARCHS:
+        model = get_model(fam_config(get_config, arch))
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(0, device=mesh.device, mesh=mesh)
+        if "layers" in params:
+            open_gates(params)
+        res = fam_run(serving, ops, L, model, params, mesh, wants[arch])
+        res["equal"] = mesh_lib.all_equal(mesh, res["tokens"])
+        out[arch] = res
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_families_tp(ops, serving, mesh_lib, get_config, get_model
+                      ) -> dict:
+    """17c: the vlm, encdec, ssm and hybrid families at (1, 2), full
+    width: M = 1 here first on the same seed-0 weights, then two gloo
+    ranks."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.hybrid import hybrid_layout
+    single = {}
+    for arch in FAM_TP_ARCHS:
+        cfg = fam_config(get_config, arch)
+        if arch in FAM_TP_LAYERS:
+            print(f"17c {arch}: reduced: num_layers "
+                  f"{get_config(arch).num_layers} -> {cfg.num_layers} (the "
+                  f"script's time budget; width as published)", flush=True)
+        model = get_model(cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(0, device="cuda")
+        if "layers" in params:
+            open_gates(params)
+        single[arch] = fam_run(serving, ops, L, model, params)
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = mesh_lib.spawn(fam_tp_rank, FAM_TP_MESH[1], "gloo", DEV,
+                           args=({a: single[a]["tokens"]
+                                  for a in FAM_TP_ARCHS},), timeout=600)
+    spawn_s = time.perf_counter() - t0
+    out = {}
+    for arch in FAM_TP_ARCHS:
+        cfg = fam_config(get_config, arch)
+        per = {"vlm": cfg.num_layers, "encdec": cfg.num_layers, "ssm": 0,
+               "hybrid": hybrid_layout(cfg)[0]}[cfg.family]
+        one = single[arch]
+        got = [r[arch] for r in ranks]
+        for g in got:
+            if not g["equal"] or g["tokens"] != got[0]["tokens"]:
+                raise AssertionError(f"17c {arch}: ranks differ")
+            if g["launches"] != per * g["steps"]:
+                raise AssertionError(f"17c {arch}: {g['launches']} decode "
+                                     f"launches over {g['steps']} steps "
+                                     f"({per} a step expected)")
+        d = (unbits(got[0]["last"]).float()
+             - unbits(one["last"]).float()).abs()
+        gap = (d.max().item(), d.mean().item())
+        if not (gap[0] <= TF_LOGIT_BOUND and gap[1] <= TF_LOGIT_MEAN_BOUND):
+            raise AssertionError(f"17c {arch}: last prompt logits to M=1 "
+                                 f"(max, mean) {gap}")
+        equal = sum(a == b for a, b in zip(one["tokens"], got[0]["tokens"]))
+        for i, j, g, allowed in got[0]["ties"]:
+            if g > allowed:
+                raise AssertionError(f"17c {arch} row {i}: token {j} differs "
+                                     f"from M=1 beyond a bf16 tie: M=1's "
+                                     f"token {g:.4f} below the best of "
+                                     f"M=2's logits, allowed {allowed:.4f}")
+        how = "engine" if cfg.family == "vlm" else "generate"
+        print(f"17c {arch} ({cfg.family}, {cfg.num_layers} layers) on a "
+              f"{FAM_TP_MESH} mesh: {how} in {got[0]['seconds']:.2f} s (M=1 {one['seconds']:.2f} s), "
+              f"tokens equal on 2 ranks, {equal} of {len(one['tokens'])} "
+              f"rows equal to M=1 (first differences: row, token, gap of "
+              f"M=1's token in M=2's logits "
+              f"{[(i, j, round(g, 4)) for i, j, g, _ in got[0]['ties']]}); "
+              f"{got[0]['launches']} decode launches "
+              f"over {got[0]['steps']} steps ({per} a step); last prompt "
+              f"logits to M=1 (max, mean) ({gap[0]:.4f}, {gap[1]:.5f}); "
+              f"peak a rank {[round(g['peak'] / GIB, 2) for g in got]} GiB "
+              f"(M=1 {one['peak'] / GIB:.2f})", flush=True)
+        out[arch] = {"launches": got[0]["launches"], "gap": gap,
+                     "equal": equal}
+    print(f"17c: {spawn_s:.1f} s with the spawn; {smi_line()}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5127,7 +6031,7 @@ def main() -> int:
     # 10: the sharpness diagnostics at full width, then against the CPU,
     # the bench's port and the probe smoke's entry point
     print(f"10 qwen2.5-3b: reduced: num_layers 36 -> {PHASE10_LAYERS} "
-          f"(the script's time budget: phase 16 came in; width as "
+          f"(the script's time budget: phases 16 and 17 came in; width as "
           f"published)", flush=True)
     with phase_clock("10"), depth_cut(train_launch, "qwen2.5-3b",
                                       PHASE10_LAYERS):
@@ -5249,6 +6153,20 @@ def main() -> int:
                               get_smoke_config, get_model, Tracer,
                               phase_summary, tree_leaves)
 
+    # 17-17d: the KV cache over T (the decode kernel's partial mode), the
+    # slots over the data axis, the other families on the model axis
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase_clock("17-17b, 17d"):
+        tf = phase_t_fallback(ops, serving, tad, mesh_lib, get_config,
+                              get_smoke_config, get_model, Tracer,
+                              phase_summary)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase_clock("17c"):
+        fam_tp = phase_families_tp(ops, serving, mesh_lib, get_config,
+                                   get_model)
+
     # the serving path's mix: 40 local and 8 global launches per decode
     # step (bf16 pool); per-launch means weighted by that mix
     rows = kernel["rows"]
@@ -5261,11 +6179,12 @@ def main() -> int:
 
     # max |err| over every shape held: gemma3-12b's four, the three
     # dense configs' serving shapes, the three of 13 / 13b / 13e, the
-    # two of 14e and a rank's shape in 16
+    # two of 14e, a rank's shape in 16 and the partial mode's two in 17
     served = (codeqwen, qwen72, main12, fam["13"], fam["13b"], fam["13e"],
               cross["14"], cross["14b"], tp)
     kernel["max_abs_err"] = max(
-        [kernel["max_abs_err"]] + [r["row"]["max_abs_err"] for r in served])
+        [kernel["max_abs_err"]] + [r["row"]["max_abs_err"] for r in served]
+        + [r["max_abs_err"] for r in tf["rows"]])
     entries = [{"name": "attention_decode", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/attention_decode.cu",
                 "replaces": "src/repro/kernels/attention_decode.py:63",
@@ -5286,7 +6205,9 @@ def main() -> int:
                 + [dict(fam["13e"]["row"], layers_per_step=6)]
                 + [dict(cross[k]["row"], layers_per_step=cross[k]["layers"])
                    for k in ("14", "14b")]
-                + [dict(tp["row"], layers_per_step=48)],
+                + [dict(tp["row"], layers_per_step=TP_LAYERS)]
+                + [dict(r, layers_per_step=n, mode="partial")
+                   for r, n in zip(tf["rows"], (36, 0))],
                 "launches_by_phase": {
                     "4": main_path["launches"], "12": codeqwen["launches"],
                     "12b": qwen72["launches"],
@@ -5300,7 +6221,13 @@ def main() -> int:
                     # per rank: each rank of the mesh launches as many
                     "16": tp["launches"],
                     **{f"16b-{a}": r["launches"]
-                       for a, r in tp["small"].items()}}}]
+                       for a, r in tp["small"].items()},
+                    # per rank; 17a's (and 17d (1, 4)'s dense and vlm
+                    # ones) in the partial mode
+                    "17a": tf["launches"], "17b": tf["data_launches"],
+                    **{f"17c-{a}": r["launches"] for a, r in fam_tp.items()},
+                    **{f"{k}-{a}": n for k, per in tf["small"].items()
+                       for a, n in per.items()}}}]
     # the segmented kernels: times at the main path's shapes (the
     # training runs' own buffers); no single PyTorch call computes
     # either pass, so library_ms is null

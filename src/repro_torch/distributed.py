@@ -36,9 +36,14 @@ Collectives:
 * :meth:`Mesh.model_sum_` sums a row-parallel partial over the model
   row in place, in f32 (a bf16 partial is widened, summed, rounded
   back); :meth:`Mesh.model_gather` concatenates the row's blocks of a
-  column-parallel output in model-rank order. Each call is counted and
-  timed on the host in :attr:`Mesh.collectives` (host-staged: after the
-  card's queue has drained, so the time is the collective's own).
+  column-parallel output in model-rank order (also q and the decode
+  kernel's partials under the KV cache's T fallback, counted as
+  ``q_gather`` and ``partial_gather``);
+  :meth:`Mesh.data_gather` concatenates a data column's blocks in
+  data-index order (the tokens of the serving slots each data row
+  holds, :meth:`Mesh.data_block`). Each call is counted and timed on
+  the host in :attr:`Mesh.collectives` (host-staged: after the card's
+  queue has drained, so the time is the collective's own).
 
 Backends: ``nccl`` when every rank has a card of its own, ``gloo`` on
 the CPU or when ranks share one card. ``gloo`` collectives run on host
@@ -69,7 +74,14 @@ AXES = ("data", "model")
 BUCKET_BYTES = 256 << 20
 TIMEOUT_S = 300.0
 BACKENDS = ("gloo", "nccl")
-# what the model axis does not do yet, each with its ROADMAP item
+# what the model axis does not do yet, each with its ROADMAP item:
+# training (11c), the MoE family (11d), and a KV cache that
+# cache_pspecs would split over Dh (11b-4: the model axis divides neither
+# the KV heads nor the cache's length, e.g. whisper-large-v3's 1500
+# cross frames and 20 heads at model 8). Serving every other family on a
+# (data, model) mesh is ported: the KV cache over the KV heads or, where
+# they do not divide, over T (the decode kernel's partial mode and a
+# merge over the row), the slots over the data axis.
 FSDP_PENDING = (
     "training over the model axis (fsdp, the reference's GSPMD "
     "--data-parallel, sequence parallelism, saving split leaves) is not "
@@ -77,14 +89,10 @@ FSDP_PENDING = (
 EXPERT_PARALLEL_PENDING = (
     "expert parallelism (the MoE family at model > 1) is not ported: "
     "ROADMAP queue 1, item 11d")
-CACHE_FALLBACK_PENDING = (
-    "a KV cache split over T or Dh (the model axis does not divide the "
-    "KV heads) needs a cross-rank softmax merge, not ported: ROADMAP "
-    "queue 1, item 11b-1")
-FAMILY_PENDING = (
-    "tensor-parallel serving covers the dense family; the vlm cross "
-    "layers (and ssm, hybrid and encdec, which the engine refuses at any "
-    "width) at model > 1 are not ported: ROADMAP queue 1, item 11b-3")
+DH_FALLBACK_PENDING = (
+    "a KV cache that the model axis splits over Dh (it divides neither "
+    "the KV heads nor the cache's length, or the heads stay whole) is "
+    "not ported: ROADMAP queue 1, item 11b-4")
 
 
 class PartitionSpec(tuple):
@@ -230,8 +238,9 @@ class Mesh:
     None outside a joined world. At ``model > 1`` every rank of the
     world makes one process group per model row and one per data
     column, in the same order; a rank past the mesh belongs to
-    neither. Serving uses the rows; the columns are for what splits
-    over data next (the engine's slots, training: ROADMAP item 11)."""
+    neither. Serving uses the rows (the model axis) and the columns
+    (the slots each data row holds; training over them is ROADMAP item
+    11c)."""
 
     axis_names = AXES
 
@@ -406,27 +415,62 @@ class Mesh:
         self._record("model_sum", t0, staged.numel() * 4)
         return t
 
-    def model_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+    def model_gather(self, t: torch.Tensor, dim: int,
+                     name: str = "model_gather") -> torch.Tensor:
         """The model row's blocks of ``t`` concatenated along ``dim`` in
-        model-rank order, on ``t``'s device. Under gloo a bf16 block
-        travels as its bytes (a uint8 view: gloo refuses int16, and
-        bf16 only in some versions); the gather moves bits, so the
-        result is the blocks' bits."""
+        model-rank order, on ``t``'s device, counted under ``name``.
+        Under gloo a bf16 block travels as its bytes (a uint8 view:
+        gloo refuses int16, and bf16 only in some versions); the gather
+        moves bits, so the result is the blocks' bits."""
         if self.model == 1:
             return t
-        group = self._row_group("model_gather")
+        return self._gather(t, dim, self._row_group("model_gather"),
+                            self.model, name)
+
+    def data_block(self, n: int) -> slice:
+        """The rows of a batch of ``n`` this rank's data row holds:
+        block ``data`` index of ``data`` equal blocks, the reference's
+        batch-over-data placement (``cache_pspecs``); all ``n`` when
+        the data axis does not divide it (replicated, as
+        ``batch_pspecs`` leaves a tiny batch)."""
+        if self.data == 1 or n % self.data:
+            return slice(0, n)
+        k = n // self.data
+        j = self.coords["data"]
+        return slice(j * k, (j + 1) * k)
+
+    def data_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The data column's blocks of ``t`` concatenated along ``dim``
+        in data-index order, on ``t``'s device (the column's ranks hold
+        the same model index). Counted as ``data_gather``."""
+        if self.data == 1:
+            return t
+        if self.model > 1:
+            group = self._column
+        elif self.world == self.data:
+            group = None
+        else:
+            raise RuntimeError(f"data_gather: {self.world} ranks in the "
+                               f"world, {self.data} in the data column")
+        if not self.member:
+            raise RuntimeError(f"data_gather: rank {self.rank} lies past "
+                               f"the {self.data} x {self.model} mesh")
+        return self._gather(t, dim, group, self.data, "data_gather")
+
+    def _gather(self, t: torch.Tensor, dim: int, group, n: int,
+                name: str) -> torch.Tensor:
         t0 = self._start(t)
         wire = t.detach().contiguous()
         bits = wire.dtype == torch.bfloat16 and self.backend == "gloo"
         if bits:
             wire = wire.view(torch.uint8)
         wire = self._staged(wire)
-        parts = [torch.empty_like(wire) for _ in range(self.model)]
+        parts = [torch.empty_like(wire) for _ in range(n)]
         dist.all_gather(parts, wire, group=group)
         out = torch.cat(parts, dim=dim)
         if bits:
             out = out.view(torch.bfloat16)
-        self._record("model_gather", t0, out.numel() * out.element_size())
+        self._record(name, t0, out.numel() * out.element_size())
         return out.to(t.device)
 
     def barrier(self) -> None:

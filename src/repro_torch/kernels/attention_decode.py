@@ -21,6 +21,15 @@ the batch), the number of splits and the query heads per block. A split
 past the row's last needed key (:func:`last_key`) reads nothing; each
 split leaves an f32 partial (m, l, acc) and the last split to finish
 merges them in split order in the same launch.
+
+The partial mode serves a cache split over T across the ranks of a
+model row (``launch.sharding.cache_pspecs``' T fallback): the cache
+holds keys ``[t0, t0 + T_local)`` of ``t_total``; positions, the ring's
+slot and the mask use global key indices, the append lands only on the
+rank whose block holds the slot, and the call also returns ``lse = m +
+log(l)`` [B, H] f32 per row and query head, from which the ranks merge
+their outputs (:func:`merge_partials`). A row with no needed key in the
+block gives out 0 and lse -inf.
 """
 from __future__ import annotations
 
@@ -66,23 +75,43 @@ def _slots(pos: torch.Tensor, t: int, window: Optional[int]):
     return slot, slot.clamp(0, t - 1)
 
 
+def _block(t: int, t0: int, t_total: Optional[int]) -> int:
+    """The global length of a cache block of ``t`` keys at ``t0``."""
+    tg = t if t_total is None else int(t_total)
+    if t0 < 0 or tg < t0 + t:
+        raise ValueError(f"a block of {t} keys at t0={t0} does not fit a "
+                         f"sequence of {tg}")
+    return tg
+
+
 def attention_decode_ref(q, new_k, new_v, k_cache, v_cache, pos, *,
-                         window: Optional[int] = None) -> torch.Tensor:
+                         window: Optional[int] = None, t0: int = 0,
+                         t_total: Optional[int] = None,
+                         return_lse: bool = False):
     """Plain PyTorch decode attention. q [B,1,H,Dh], new_k/new_v
     [B,1,Hkv,Dh] (rope'd), caches [B,T,Hkv,Dh] (updated in place),
-    pos [B] int per-row depths. Returns out [B,1,H,Dh] in q's dtype."""
+    pos [B] int per-row depths. Returns out [B,1,H,Dh] in q's dtype.
+
+    Partial mode (``t0`` / ``t_total`` / ``return_lse``): the caches
+    hold keys ``[t0, t0 + T)`` of ``t_total``, and ``return_lse`` also
+    returns lse [B, H] f32; a row with no needed key in the block gives
+    out 0 and lse -inf."""
     b, _, h, dh = q.shape
     t, hkv = k_cache.shape[1], k_cache.shape[2]
+    tg = _block(t, t0, t_total)
+    partial = return_lse or t0 != 0 or tg != t
     pos = pos.to(torch.int64)
-    slot, write = _slots(pos, t, window)
+    slot, write = _slots(pos, tg, window)
     rows = torch.arange(b, device=q.device)
-    k_cache[rows, write] = new_k[:, 0].to(k_cache.dtype)
-    v_cache[rows, write] = new_v[:, 0].to(v_cache.dtype)
-    kpos = torch.arange(t, device=q.device)[None, :]          # [1,T]
+    mine = (write >= t0) & (write < t0 + t)
+    local = (write - t0).clamp(0, t - 1)
+    k_cache[rows[mine], local[mine]] = new_k[mine, 0].to(k_cache.dtype)
+    v_cache[rows[mine], local[mine]] = new_v[mine, 0].to(v_cache.dtype)
+    kpos = t0 + torch.arange(t, device=q.device)[None, :]     # [1,T]
     pos_c, slot_c = pos[:, None], slot[:, None]
     if window is not None:
-        wraps = torch.div(pos_c, t, rounding_mode="floor") * t
-        abs_pos = kpos + torch.where(kpos <= slot_c, wraps, wraps - t)
+        wraps = torch.div(pos_c, tg, rounding_mode="floor") * tg
+        abs_pos = kpos + torch.where(kpos <= slot_c, wraps, wraps - tg)
         ok = (abs_pos >= 0) & (abs_pos <= pos_c) \
             & (abs_pos > pos_c - window)
     else:
@@ -90,10 +119,33 @@ def attention_decode_ref(q, new_k, new_v, k_cache, v_cache, pos, *,
     qg = q.float().reshape(b, hkv, h // hkv, dh)
     s = torch.einsum("bkgd,btkd->bkgt", qg, k_cache.float()) \
         / math.sqrt(dh)
-    s = torch.where(ok[:, None, None, :], s, NEG_INF)
-    probs = torch.softmax(s, dim=-1)
+    if not partial:
+        s = torch.where(ok[:, None, None, :], s, NEG_INF)
+        probs = torch.softmax(s, dim=-1)
+        out = torch.einsum("bkgt,btkd->bkgd", probs, v_cache.float())
+        return out.reshape(b, 1, h, dh).to(q.dtype)
+    s = torch.where(ok[:, None, None, :], s, -math.inf)
+    lse = torch.logsumexp(s, dim=-1)                           # [B,Hkv,G]
+    empty = torch.isneginf(lse)
+    probs = torch.exp(s - torch.where(empty, 0.0, lse)[..., None])
     out = torch.einsum("bkgt,btkd->bkgd", probs, v_cache.float())
-    return out.reshape(b, 1, h, dh).to(q.dtype)
+    out = out.reshape(b, 1, h, dh).to(q.dtype)
+    return (out, lse.reshape(b, h)) if return_lse else out
+
+
+def merge_partials(outs, lses) -> torch.Tensor:
+    """The attention of a sequence split into blocks, from each block's
+    output and lse (the partial mode's results, in block order): ``o =
+    Σ_r exp(lse_r - lse) · o_r`` with ``lse = logsumexp_r lse_r``, in
+    f32, summed in block order. outs [R][B,1,H,Dh], lses [R][B,H];
+    returns [B,1,H,Dh] in the outputs' dtype."""
+    lse = torch.logsumexp(torch.stack([x.float() for x in lses]), dim=0)
+    acc = None
+    for o, x in zip(outs, lses):
+        w = torch.exp(x.float() - lse)[:, None, :, None]
+        term = w * o.float()
+        acc = term if acc is None else acc + term
+    return acc.to(outs[0].dtype)
 
 
 # The kernel's fixed shape (csrc/attention_decode.cu: kWarps, kStages,
@@ -164,13 +216,20 @@ def last_key(pos: int, t: int, window: Optional[int]) -> int:
     return pos if pos < t else t - 1
 
 
+# repro_attention_decode's C signature: ten pointers (q, new_k, new_v,
+# the caches, pos, out, the workspace, the tickets, lse), thirteen ints
+# (dtype codes, B, T, t0, T_total, H, Hkv, Dh, window, the plan's L, S,
+# G), the stream
+C_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 \
+    + [ctypes.c_void_p]
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (once)."""
     lib = _build.load("attention_decode")
     fn = lib.repro_attention_decode
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 \
-        + [ctypes.c_void_p]
+    fn.argtypes = C_ARGTYPES
     fn.restype = ctypes.c_int
     smem = lib.repro_attention_decode_smem
     smem.argtypes = [ctypes.c_int] * 3
@@ -242,11 +301,13 @@ def check_operands(q, new_k, new_v, k_cache, v_cache,
 
 
 def attention_decode_cuda(q, new_k, new_v, k_cache, v_cache, pos, *,
-                          window: Optional[int] = None) -> torch.Tensor:
+                          window: Optional[int] = None, t0: int = 0,
+                          t_total: Optional[int] = None,
+                          return_lse: bool = False):
     """Launch the Hopper kernel on PyTorch's current stream (no
     synchronisation). Same operands and result as
-    :func:`attention_decode_ref`; raises on anything the kernel does
-    not take, before building it."""
+    :func:`attention_decode_ref`, the partial mode included; raises on
+    anything the kernel does not take, before building it."""
     key = (q.shape, q.dtype, new_k.shape, new_v.shape, k_cache.shape,
            k_cache.dtype, v_cache.shape, v_cache.dtype, pos.shape)
     plan = _plans.get(key)
@@ -256,6 +317,7 @@ def attention_decode_cuda(q, new_k, new_v, k_cache, v_cache, pos, *,
     elif not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("caches must be contiguous (they are updated in "
                          "place)")
+    tg = _block(k_cache.shape[1], t0, t_total)
     dev = q.device
     if dev.type != "cuda" or dev.index != torch.cuda.current_device():
         raise ValueError(f"q must lie on the current CUDA device, got "
@@ -279,6 +341,8 @@ def attention_decode_cuda(q, new_k, new_v, k_cache, v_cache, pos, *,
         pos = pos.to(torch.int32)
     q, new_k, new_v, pos = (x.contiguous() for x in (q, new_k, new_v, pos))
     out = torch.empty((b, 1, h, dh), dtype=q.dtype, device=dev)
+    lse = torch.empty((b, h), dtype=torch.float32, device=dev) \
+        if return_lse else None
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     blocks = plan.grid(b, hkv)[0]
     tickets, ws = _workspace(dev, stream, blocks,
@@ -287,10 +351,11 @@ def attention_decode_cuda(q, new_k, new_v, k_cache, v_cache, pos, *,
         q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
         out.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
-        _DTYPE_CODES[q.dtype], _DTYPE_CODES[cdt], b, t, h, hkv, dh,
-        -1 if window is None else int(window), plan.keys, plan.splits,
+        None if lse is None else lse.data_ptr(),
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[cdt], b, t, int(t0), tg, h, hkv,
+        dh, -1 if window is None else int(window), plan.keys, plan.splits,
         plan.heads, stream)
     if rc != 0:
         raise RuntimeError(f"attention_decode kernel launch failed: CUDA "
                            f"error {rc}")
-    return out
+    return (out, lse) if return_lse else out

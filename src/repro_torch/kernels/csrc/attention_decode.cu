@@ -12,6 +12,15 @@
 //       KV head over the cached keys, with scores, online softmax and
 //       the probs.V sum all in f32; the output is written in q's dtype.
 //
+// The partial mode (a cache split over T across the ranks of a model
+// row): the cache holds keys [t0, t0 + T) of a sequence of tg keys.
+// Positions, the ring's slot and the mask use the global key index
+// t0 + k, the append lands only where its global slot falls in the
+// block, and the launch also writes lse = m + log(l) per (row, query
+// head), f32, so the ranks can merge their outputs. A row with no
+// needed key in the block reads no K/V and returns out = 0, lse = -inf.
+// With t0 = 0 and tg = T the launch is the unsplit one.
+//
 // What bounds it on this card: bytes. A launch must read the valid K/V
 // rows of its layer once and does only 4 * grp * Dh flops per key row
 // and KV head, far below what the f32 units need to be the limit. The
@@ -128,10 +137,10 @@ __device__ __forceinline__ int py_mod(int a, int m) {
   return r < 0 ? r + m : r;
 }
 
-// Key row k of a ring of length t holds absolute position k + wraps
-// (k <= slot) or k + wraps - t (not yet overwritten this lap), with
-// wraps = pos - pos mod t; it is valid iff that position lies in
-// (pos - window, pos]. Global layers (window <= 0): k <= pos.
+// Key row k (a global index) of a ring of length t holds absolute
+// position k + wraps (k <= slot) or k + wraps - t (not yet overwritten
+// this lap), with wraps = pos - pos mod t; it is valid iff that position
+// lies in (pos - window, pos]. Global layers (window <= 0): k <= pos.
 __device__ __forceinline__ bool key_valid(int k, int pos, int slot,
                                           int wraps, int t, int window) {
   if (window <= 0) return k <= pos;
@@ -191,16 +200,17 @@ size_t smem_bytes(int csize, int dh, int g) {
 // grid: (B * Hkv * Hg, S); block x = (b * Hkv + kvh) * Hg + hg covers the
 // G query heads hg*G .. hg*G+G-1 of KV head kvh, block y = split.
 // q, out: [B, H, Dh]; new_k, new_v: [B, Hkv, Dh] (cache dtype); k_cache,
-// v_cache: [B, T, Hkv, Dh]; pos: [B] int32; ws: [B*Hkv*Hg, S, 2G + G*Dh]
-// f32; tickets: [B*Hkv*Hg] u32, 0 between launches.
+// v_cache: [B, T, Hkv, Dh], keys [t0, t0 + T) of tg; pos: [B] int32; ws:
+// [B*Hkv*Hg, S, 2G + G*Dh] f32; tickets: [B*Hkv*Hg] u32, 0 between
+// launches; lse: [B, H] f32 or null.
 template <typename QT, typename CT, int G>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const QT* __restrict__ q, const CT* __restrict__ new_k,
               const CT* __restrict__ new_v, CT* k_cache, CT* v_cache,
               const int32_t* __restrict__ pos_vec, QT* __restrict__ out,
-              float* __restrict__ ws, unsigned* __restrict__ tickets, int t,
-              int h, int hkv, int dh, int window, int keys, int splits,
-              float scale) {
+              float* __restrict__ ws, unsigned* __restrict__ tickets,
+              float* __restrict__ lse, int t, int t0, int tg, int h, int hkv,
+              int dh, int window, int keys, int splits, float scale) {
   constexpr int kVec = 16 / sizeof(CT);          // elements in 16 bytes
   constexpr int kLane = kMaxHeadDim / kVec / 32;  // 16-byte pieces a lane
   constexpr int kRows = chunk_rows<CT>();
@@ -218,11 +228,13 @@ decode_kernel(const QT* __restrict__ q, const CT* __restrict__ new_k,
   const int warp = threadIdx.x >> 5;
 
   const int pos = pos_vec[b];
-  const int ring_slot = window > 0 ? py_mod(pos, t) : pos;
+  const int ring_slot = window > 0 ? py_mod(pos, tg) : pos;   // global
   const int wraps = pos - ring_slot;   // ring layers: laps before this one
-  const int slot = min(max(ring_slot, 0), t - 1);
-  // the last key this row needs
-  const int last = window > 0 ? (pos < t ? pos : t - 1) : min(pos, t - 1);
+  // the write slot in this block's rows (outside [0, t): another block's)
+  const int slot = min(max(ring_slot, 0), tg - 1) - t0;
+  // the last key of this block the row needs (negative: none)
+  const int last =
+      (window > 0 ? (pos < tg ? pos : tg - 1) : min(pos, tg - 1)) - t0;
 
   const size_t row_stride = (size_t)hkv * dh;  // elements between keys
   CT* kcol = k_cache + ((size_t)b * t * hkv + kvh) * dh;
@@ -335,7 +347,8 @@ decode_kernel(const QT* __restrict__ q, const CT* __restrict__ new_k,
           s[r * G + g] = dot;
         }
         const int k = r0 + r;
-        valid[r] = k < e && key_valid(k, pos, ring_slot, wraps, t, window);
+        valid[r] =
+            k < e && key_valid(t0 + k, pos, ring_slot, wraps, tg, window);
       }
       warp_sums<kRows * G>(s, lane);
       // online softmax over the chunk's rows
@@ -461,15 +474,20 @@ decode_kernel(const QT* __restrict__ q, const CT* __restrict__ new_k,
         a += __ldcg(p + 2 * G + i) * f;
       }
     }
-    ob[i] = from_f32<QT>(a / ll);
+    // a row with no needed key in this block: out 0, lse -inf (no 0 / 0)
+    ob[i] = from_f32<QT>(ll > 0.f ? a / ll : 0.f);
+    if (lse != nullptr && i - g * dh == 0)
+      lse[(size_t)b * h + (size_t)kvh * grp + (size_t)hg * G + g] =
+          ll > 0.f ? mm + logf(ll) : -INFINITY;
   }
 }
 
 template <typename QT, typename CT, int G>
 int launch(const void* q, const void* new_k, const void* new_v,
            void* k_cache, void* v_cache, const void* pos, void* out,
-           void* ws, void* tickets, int b, int t, int h, int hkv, int dh,
-           int window, int keys, int splits, cudaStream_t stream) {
+           void* ws, void* tickets, void* lse, int b, int t, int t0, int tg,
+           int h, int hkv, int dh, int window, int keys, int splits,
+           cudaStream_t stream) {
   // the shared-memory opt-in, once per device and instantiation
   static size_t granted[64] = {0};
   int dev = 0;
@@ -491,21 +509,22 @@ int launch(const void* q, const void* new_k, const void* new_v,
       static_cast<const CT*>(new_v), static_cast<CT*>(k_cache),
       static_cast<CT*>(v_cache), static_cast<const int32_t*>(pos),
       static_cast<QT*>(out), static_cast<float*>(ws),
-      static_cast<unsigned*>(tickets), t, h, hkv, dh, window, keys, splits,
-      scale);
+      static_cast<unsigned*>(tickets), static_cast<float*>(lse), t, t0, tg,
+      h, hkv, dh, window, keys, splits, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename QT, typename CT>
 int launch_g(int g, const void* q, const void* new_k, const void* new_v,
              void* k_cache, void* v_cache, const void* pos, void* out,
-             void* ws, void* tickets, int b, int t, int h, int hkv, int dh,
-             int window, int keys, int splits, cudaStream_t s) {
+             void* ws, void* tickets, void* lse, int b, int t, int t0,
+             int tg, int h, int hkv, int dh, int window, int keys,
+             int splits, cudaStream_t s) {
 #define REPRO_DECODE_G(N)                                                   \
   case N:                                                                   \
     return launch<QT, CT, N>(q, new_k, new_v, k_cache, v_cache, pos, out,   \
-                             ws, tickets, b, t, h, hkv, dh, window, keys,   \
-                             splits, s);
+                             ws, tickets, lse, b, t, t0, tg, h, hkv, dh,    \
+                             window, keys, splits, s);
   switch (g) {
     REPRO_DECODE_G(1)
     REPRO_DECODE_G(2)
@@ -520,39 +539,41 @@ int launch_g(int g, const void* q, const void* new_k, const void* new_v,
 
 // dtype codes: 0 = float32, 1 = bfloat16. window <= 0 means a global
 // layer. keys / splits / heads are the plan of
-// kernels/attention_decode.py::decode_plan (L, S, G). Returns
+// kernels/attention_decode.py::decode_plan (L, S, G) for the block's T.
+// The cache holds keys [t0, t0 + t) of tg (t0 = 0, tg = t: the whole
+// sequence); lse is a [B, H] f32 output, or null. Returns
 // cudaGetLastError() after the launch (0 = success), or
 // cudaErrorInvalidValue for operands or a plan the kernel does not take.
 extern "C" int repro_attention_decode(const void* q, const void* new_k,
                                       const void* new_v, void* k_cache,
                                       void* v_cache, const void* pos,
                                       void* out, void* ws, void* tickets,
-                                      int q_dtype, int c_dtype, int b, int t,
-                                      int h, int hkv, int dh, int window,
-                                      int keys, int splits, int heads,
-                                      void* stream) {
+                                      void* lse, int q_dtype, int c_dtype,
+                                      int b, int t, int t0, int tg, int h,
+                                      int hkv, int dh, int window, int keys,
+                                      int splits, int heads, void* stream) {
   const int csize = c_dtype == 1 ? 2 : 4;
-  if (b < 1 || t < 1 || hkv < 1 || h % hkv || heads < 1 ||
-      (h / hkv) % heads || dh < 1 || dh > kMaxHeadDim || (dh * csize) % 16 ||
-      keys < 1 || splits != (t + keys - 1) / keys)
+  if (b < 1 || t < 1 || t0 < 0 || tg < t0 + t || hkv < 1 || h % hkv ||
+      heads < 1 || (h / hkv) % heads || dh < 1 || dh > kMaxHeadDim ||
+      (dh * csize) % 16 || keys < 1 || splits != (t + keys - 1) / keys)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 1 && c_dtype == 1)
     return launch_g<__nv_bfloat16, __nv_bfloat16>(
-        heads, q, new_k, new_v, k_cache, v_cache, pos, out, ws, tickets, b,
-        t, h, hkv, dh, window, keys, splits, s);
+        heads, q, new_k, new_v, k_cache, v_cache, pos, out, ws, tickets, lse,
+        b, t, t0, tg, h, hkv, dh, window, keys, splits, s);
   if (q_dtype == 0 && c_dtype == 0)
     return launch_g<float, float>(heads, q, new_k, new_v, k_cache, v_cache,
-                                  pos, out, ws, tickets, b, t, h, hkv, dh,
-                                  window, keys, splits, s);
+                                  pos, out, ws, tickets, lse, b, t, t0, tg, h,
+                                  hkv, dh, window, keys, splits, s);
   if (q_dtype == 1 && c_dtype == 0)
     return launch_g<__nv_bfloat16, float>(
-        heads, q, new_k, new_v, k_cache, v_cache, pos, out, ws, tickets, b,
-        t, h, hkv, dh, window, keys, splits, s);
+        heads, q, new_k, new_v, k_cache, v_cache, pos, out, ws, tickets, lse,
+        b, t, t0, tg, h, hkv, dh, window, keys, splits, s);
   if (q_dtype == 0 && c_dtype == 1)
     return launch_g<float, __nv_bfloat16>(
-        heads, q, new_k, new_v, k_cache, v_cache, pos, out, ws, tickets, b,
-        t, h, hkv, dh, window, keys, splits, s);
+        heads, q, new_k, new_v, k_cache, v_cache, pos, out, ws, tickets, lse,
+        b, t, t0, tg, h, hkv, dh, window, keys, splits, s);
   return (int)cudaErrorInvalidValue;
 }
 

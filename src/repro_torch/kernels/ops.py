@@ -40,21 +40,27 @@ def reset_launches() -> None:
 
 
 def attention_decode(q, new_k, new_v, k_cache, v_cache, pos, *,
-                     window: Optional[int] = None) -> torch.Tensor:
+                     window: Optional[int] = None, t0: int = 0,
+                     t_total: Optional[int] = None,
+                     return_lse: bool = False):
     """Serving-decode attention: per-row KV ring append (in place on
     the caches) + mask from ``pos`` + f32 GQA softmax attention.
     q [B,1,H,Dh], new_k/new_v [B,1,Hkv,Dh] (rope'd), caches
     [B,T,Hkv,Dh], pos [B] int32 -> out [B,1,H,Dh] in q's dtype; see
     ``attention_decode.decode_parity_tolerance`` for the parity bound.
+    The partial mode (a cache holding keys ``[t0, t0 + T)`` of
+    ``t_total``; ``return_lse`` adds lse [B, H] f32) is the same
+    launch, counted alike.
     """
+    kw = dict(window=window, t0=t0, t_total=t_total, return_lse=return_lse)
     if q.device.type == "cuda":
         out = _ad.attention_decode_cuda(q, new_k, new_v, k_cache, v_cache,
-                                        pos, window=window)
+                                        pos, **kw)
         launches["attention_decode"] += 1
         return out
     if q.device.type == "cpu":
         return _ad.attention_decode_ref(q, new_k, new_v, k_cache, v_cache,
-                                        pos, window=window)
+                                        pos, **kw)
     raise RuntimeError(f"attention_decode: no implementation for device "
                        f"{q.device}")
 

@@ -22,8 +22,8 @@ from typing import Callable, Optional, Sequence
 import torch.distributed as dist
 
 from repro_torch.distributed import (  # noqa: F401  (the launchers' names)
-    BACKENDS, CACHE_FALLBACK_PENDING, EXPERT_PARALLEL_PENDING,
-    FAMILY_PENDING, FSDP_PENDING, TIMEOUT_S, World, all_equal,
+    BACKENDS, DH_FALLBACK_PENDING, EXPERT_PARALLEL_PENDING,
+    FSDP_PENDING, TIMEOUT_S, World, all_equal,
     check_backend, default_backend, init_world, joined, leave,
     make_data_mesh, make_host_mesh, placement_device, replicated, world)
 

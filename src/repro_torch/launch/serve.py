@@ -22,10 +22,13 @@ and the engine refuses them with the reference's ``ValueError``.
 
 ``--data-parallel D --model-parallel M`` serves on a ``(D, M)`` mesh of
 D × M ranks (``make_host_mesh(D, M)``, as the reference launcher does):
-each data row of M ranks serves the same requests, tensor-parallel over
-its model row (dense archs: the heads, d_ff and vocabulary split by
-``launch.sharding``, the decode kernel on each rank's share of the
-heads). Without ``--restore`` each rank draws its blocks of the seed-0
+the slots split over the D data rows (row j decodes slots ``[j·S/D,
+(j+1)·S/D)``, the sampled tokens gathered over the data column; every
+slot on every row when D does not divide ``--slots``), each row
+tensor-parallel over its M model ranks (the heads, d_ff and vocabulary
+split by ``launch.sharding``; the KV pool over the KV heads, or over T
+where M does not divide them, the decode kernel then in its partial
+mode). Without ``--restore`` each rank draws its blocks of the seed-0
 weights (``Model.init(0, mesh=)``; at M = 1 rank 0's draw is broadcast);
 with it every rank restores the whole params through
 ``Engine.from_checkpoint(mesh=)``, replicated, as the reference
@@ -33,8 +36,9 @@ launcher does. Rank 0 prints, and the run fails unless every rank
 produced the same tokens. Without a ``torchrun`` world the launcher
 spawns the D × M ranks itself; ``--dist-backend`` picks ``gloo`` or
 ``nccl`` (default: ``nccl`` when every rank has a card of its own, else
-``gloo``; printed). Families other than dense are refused at M > 1
-with the ROADMAP item that ports them.
+``gloo``; printed). The MoE family is refused at M > 1 (expert
+parallelism, ROADMAP item 11d), as is a KV cache M splits over Dh
+(item 11b-4).
 """
 from __future__ import annotations
 
@@ -71,8 +75,7 @@ def main(argv=None) -> None:
     ap.add_argument("--restore", default=None, metavar="DIR",
                     help="checkpoint dir to restore params from")
     ap.add_argument("--data-parallel", type=int, default=1,
-                    help="serve replicated on D ranks (the same requests "
-                         "on each)")
+                    help="split the slots over D data rows of ranks")
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--dist-backend", default=None,
                     choices=mesh_lib.BACKENDS,

@@ -227,16 +227,24 @@ def init_sharded(cfg: ModelConfig, init, gen: torch.Generator,
     order (so a rank's weights are the whole draw's blocks) and its
     block copied out before the next draw, so the peak is the rank's
     blocks plus the largest leaf. A first pass on the meta device
-    (which draws nothing) names each draw's path."""
+    (which draws nothing) names each draw's path. A leaf made without
+    a draw (a zero bias such as mamba's ``conv_b``) keeps its block
+    after the init."""
     drawn: list = []
     with L.on_draw(lambda x: drawn.append(x) or x):
         meta = init(cfg, torch.Generator(), torch.device("meta"))
     check_model_axis(cfg, _local_meta(meta, mesh), mesh)
     where = {id(leaf): path for path, leaf in tree_flatten_with_path(meta)}
     paths = iter([where[id(x)] for x in drawn])
+    whole = {path: tuple(leaf.shape)
+             for path, leaf in tree_flatten_with_path(meta)}
     del meta, drawn, where
     with L.on_draw(lambda x: _block(x, next(paths), mesh)):
-        return init(cfg, gen, dev)
+        params = init(cfg, gen, dev)
+    return tree_from_paths(params, {
+        path: _block(leaf, path, mesh)
+        if tuple(leaf.shape) == whole[path] else leaf
+        for path, leaf in tree_flatten_with_path(params)})
 
 
 def _leaf_segments(params: dict, top: str) -> list[Segment]:

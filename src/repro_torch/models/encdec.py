@@ -18,7 +18,10 @@ The decode cache is a list with one dict per decoder layer: ``{"k",
 "v"}`` [B, T, Hkv, Dh] at the compute dtype, which decode appends into
 in place (the decode kernel on CUDA), and ``{"ck", "cv"}`` [B, S_enc,
 Hkv, Dh], the encoder output's K/V, computed once by
-:func:`init_encdec_cache` and only read.
+:func:`init_encdec_cache` and only read. On a mesh with a model axis the
+encoder's and decoder's heads and d_ff are split as the LM's are, and
+each cache leaf is the rank's block (``layers.cache_block``: its KV
+heads, or block r of T).
 """
 from __future__ import annotations
 
@@ -120,19 +123,22 @@ def init_encdec_cache(cfg: ModelConfig, params: dict, batch: int,
                       ) -> list:
     """Runs the encoder once over ``extra`` [batch, S_enc, D] and
     precomputes every decoder layer's cross K/V; zeroed self-attention
-    caches at the compute dtype, as the reference's."""
+    caches at the compute dtype, as the reference's (each the rank's
+    block on the declared mesh)."""
     enc = encode(cfg, params, _frames(extra))
-    hkv, hd = cfg.num_kv_heads, cfg.head_dim_
+    hd = cfg.head_dim_
     cache = []
     for p in params["decoder"]:
         ck, cv = T.cross_kv_from_embeds({"attn": p["cross_attn"]}, cfg,
                                         enc)
+        t, hkv = L.cache_block(cfg, p["self_attn"], max_len)
         cache.append({
-            "k": torch.zeros((batch, max_len, hkv, hd), dtype=cfg.cdtype,
+            "k": torch.zeros((batch, t, hkv, hd), dtype=cfg.cdtype,
                              device=enc.device),
-            "v": torch.zeros((batch, max_len, hkv, hd), dtype=cfg.cdtype,
+            "v": torch.zeros((batch, t, hkv, hd), dtype=cfg.cdtype,
                              device=enc.device),
-            "ck": ck, "cv": cv})
+            "ck": L.t_block(cfg, p["cross_attn"], ck),
+            "cv": L.t_block(cfg, p["cross_attn"], cv)})
     return cache
 
 

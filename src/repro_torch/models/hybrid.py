@@ -88,12 +88,14 @@ def apply_ssm_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor
 
 def init_ssm_cache(cfg: ModelConfig, params: dict, batch: int,
                    max_len: int) -> dict:
-    """One zeroed (state, conv) cache per block; position-free, so
+    """One zeroed (state, conv) cache per block, at the rank's block of
+    its block's leaves (``ssm.mamba_init_cache``); position-free, so
     ``max_len`` is unused."""
     del max_len
     dev = params["embed"]["table"].device
-    return {"ssm": [S.mamba_init_cache(cfg, batch, cfg.cdtype, dev)
-                    for _ in range(cfg.num_layers)]}
+    return {"ssm": [S.mamba_init_cache(cfg, batch, cfg.cdtype, dev,
+                                       p["mamba"])
+                    for p in params["blocks"]]}
 
 
 def decode_ssm_lm(cfg: ModelConfig, params: dict, cache: dict,
@@ -167,17 +169,19 @@ def init_hybrid_cache(cfg: ModelConfig, params: dict, batch: int,
                       max_len: int) -> dict:
     """A (state, conv) cache per block and a [B, max_len, Hkv, Dh] K/V
     pair per call site of the shared block, in the compute dtype (as
-    the reference's)."""
+    the reference's); each the rank's block of its leaves on a mesh."""
     groups, _ = hybrid_layout(cfg)
-    hkv, hd = cfg.num_kv_heads, cfg.head_dim_
+    t, hkv = L.cache_block(cfg, params["shared_attn"]["attn"], max_len)
+    hd = cfg.head_dim_
     dev = params["embed"]["table"].device
 
     def zeros():
-        return torch.zeros((batch, max_len, hkv, hd), dtype=cfg.cdtype,
+        return torch.zeros((batch, t, hkv, hd), dtype=cfg.cdtype,
                            device=dev)
 
-    return {"ssm": [S.mamba_init_cache(cfg, batch, cfg.cdtype, dev)
-                    for _ in range(cfg.num_layers)],
+    return {"ssm": [S.mamba_init_cache(cfg, batch, cfg.cdtype, dev,
+                                       p["mamba"])
+                    for p in params["blocks"]],
             "kv": [{"k": zeros(), "v": zeros()} for _ in range(groups)]}
 
 

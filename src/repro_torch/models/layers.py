@@ -21,6 +21,17 @@ logits are gathered over the row. The mesh is the one a serving entry
 point declared with :func:`set_batch_sharding` (or
 :func:`batch_sharding`); unset, none of this runs and the code path is
 the single-rank one.
+
+The KV cache follows the layer's leaves (``launch.sharding.cache_pspecs``
+places it alike): split ``wk`` / ``wv`` give a cache of the rank's KV
+heads; a split ``wq`` beside a whole ``wk`` (the model axis divides the
+heads but not the KV heads) gives the T fallback, a cache of every KV
+head over block r of T (:func:`kv_split`). There, prefill computes the
+whole K/V and keeps its block; decode gathers q over the row, runs the
+decode kernel in its partial mode over the rank's block, gathers every
+rank's (out, lse) and merges its own heads
+(``attention_decode.merge_partials``); cross layers do the same in
+plain PyTorch.
 """
 from __future__ import annotations
 
@@ -33,6 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.attention_decode import merge_partials
 
 NEG_INF = -2.0e38  # f32-safe mask value
 
@@ -101,6 +113,42 @@ def _row_sum(y: torch.Tensor, local: int, full: int, what: str
     if local == full:
         return y
     return _row_mesh(local, full, what).model_sum_(y)
+
+
+def kv_split(cfg: ModelConfig, attn: dict) -> int:
+    """How many blocks of T the layer's KV cache is split into: the
+    model axis's size M when this rank holds a block of the heads
+    (``wq``) but every KV head (``wk``), cache_pspecs' T fallback; else
+    1 (a cache of the rank's KV heads, or a whole one)."""
+    local = attn["wq"].shape[1]
+    if local == cfg.num_heads or attn["wk"].shape[1] != cfg.num_kv_heads:
+        return 1
+    return cfg.num_heads // local
+
+
+def cache_block(cfg: ModelConfig, attn: dict, t: int) -> tuple[int, int]:
+    """(keys, KV heads) of the rank's block of a KV cache of length
+    ``t`` for the layer ``attn``; a T that the split does not divide is
+    cache_pspecs' Dh fallback, not ported."""
+    m = kv_split(cfg, attn)
+    if t % m:
+        from repro_torch.distributed import DH_FALLBACK_PENDING
+        raise NotImplementedError(
+            f"a KV cache of {t} keys over {m} model ranks with "
+            f"{cfg.num_kv_heads} KV heads: {DH_FALLBACK_PENDING}")
+    return t // m, attn["wk"].shape[1]
+
+
+def t_block(cfg: ModelConfig, attn: dict, x: torch.Tensor) -> torch.Tensor:
+    """This rank's block of T of a whole [B, T, Hkv, Dh] K or V (a copy)
+    under the T fallback; ``x`` itself otherwise."""
+    m = kv_split(cfg, attn)
+    if m == 1:
+        return x
+    t, _ = cache_block(cfg, attn, x.shape[1])
+    r = _row_mesh(attn["wq"].shape[1], cfg.num_heads,
+                  "a KV cache split over T").coords["model"]
+    return x[:, r * t:(r + 1) * t].contiguous()
 
 
 def _head_rows(b: torch.Tensor, heads: int) -> torch.Tensor:
@@ -271,6 +319,53 @@ def _qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
     return q, k, v
 
 
+def _query_kv(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor):
+    """K and V for this rank's query heads: under the T fallback (a
+    block of the heads, every KV head) each local head's KV head,
+    picked per head; else ``k`` / ``v``."""
+    local = q.shape[2]
+    if local == cfg.num_heads or k.shape[2] != cfg.num_kv_heads:
+        return k, v
+    r = _row_mesh(local, cfg.num_heads, "query heads").coords["model"]
+    grp = cfg.num_heads // cfg.num_kv_heads
+    idx = torch.div(r * local + torch.arange(local, device=k.device), grp,
+                    rounding_mode="floor")
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _merge_row(q: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+               mesh) -> torch.Tensor:
+    """This rank's heads of the attention whose blocks of T the model
+    row's ranks computed for every head: ``out`` [B,1,H,Dh] and ``lse``
+    [B,H] gathered over the row (one gather) and merged in rank order,
+    in f32; returns [B,1,H_local,Dh] in q's dtype."""
+    b, _, h, dh = out.shape
+    local = q.shape[2]
+    packed = torch.cat([out.float().reshape(b, h, dh), lse[..., None]],
+                       dim=-1)[None]
+    rows = mesh.model_gather(packed, 0, "partial_gather")  # [M,B,H,Dh+1]
+    r = mesh.coords["model"]
+    mine = rows[:, :, r * local:(r + 1) * local]
+    merged = merge_partials([x[:, None, :, :dh] for x in mine],
+                            [x[..., dh] for x in mine])
+    return merged.to(q.dtype)
+
+
+def _block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """One query against every key of a block, no mask: (out [B,1,H,Dh]
+    in q's dtype, lse [B,H] f32), f32 scores, as ``gqa_scores_apply``'s
+    one-query path computes them."""
+    b, _, h, dh = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, 1, hkv, h // hkv, dh).float()
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) / math.sqrt(dh)
+    lse = torch.logsumexp(s, dim=-1)                       # [B,Hkv,G,1]
+    probs = torch.exp(s - lse[..., None])
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    return out.reshape(b, 1, h, dh).to(q.dtype), lse.reshape(b, h)
+
+
 def _out_proj(params: dict, cfg: ModelConfig, out: torch.Tensor,
               dt) -> torch.Tensor:
     """Attention's output projection over this rank's heads, summed
@@ -356,7 +451,9 @@ def attention(params: dict, cfg: ModelConfig, x: torch.Tensor,
     if use_rope and kv_src is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    out = _out_proj(params, cfg, gqa_scores_apply(q, k, v, mask), x.dtype)
+    kq, vq = _query_kv(cfg, q, k, v)
+    out = _out_proj(params, cfg, gqa_scores_apply(q, kq, vq, mask),
+                    x.dtype)
     if return_kv:
         return out, (k, v)
     return out
@@ -372,7 +469,10 @@ def attention_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
     layers keep a ring of length T (write slot pos % T) and RoPE uses
     absolute positions. Projections and RoPE are here; the append,
     mask and contraction are ``ops.attention_decode`` (the Hopper
-    kernel on CUDA). Returns out [B,1,D]."""
+    kernel on CUDA). Under the T fallback the caches are this rank's
+    block r of T: the kernel runs in its partial mode on every head (q
+    gathered over the row) and the row's partials are merged for this
+    rank's heads. Returns out [B,1,D]."""
     b = x.shape[0]
     if isinstance(pos, torch.Tensor) and pos.dim() == 1:
         posv = pos
@@ -383,8 +483,18 @@ def attention_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
     posb = posv[:, None]
     q = rope(q, posb, cfg.rope_theta)
     k = rope(k, posb, cfg.rope_theta)
-    out = ops.attention_decode(q, k, v, k_cache, v_cache, posv,
-                               window=window)
+    m = kv_split(cfg, params)
+    if m == 1:
+        out = ops.attention_decode(q, k, v, k_cache, v_cache, posv,
+                                   window=window)
+    else:
+        mesh = _row_mesh(q.shape[2], cfg.num_heads, "attention wq")
+        t = k_cache.shape[1]
+        full, lse = ops.attention_decode(
+            mesh.model_gather(q, 2, "q_gather"), k, v, k_cache, v_cache,
+            posv, window=window, t0=mesh.coords["model"] * t,
+            t_total=t * m, return_lse=True)
+        out = _merge_row(q, full, lse, mesh)
     return _out_proj(params, cfg, out, x.dtype)
 
 
@@ -397,11 +507,19 @@ def cross_attention_decode(params: dict, x: torch.Tensor, ck: torch.Tensor,
                            ) -> torch.Tensor:
     """One query token against precomputed cross K/V [B,T,Hkv,Dh]: no
     RoPE, no mask, plain PyTorch (f32 scores and softmax), as the
-    reference computes it outside any kernel. x: [B,1,D] -> [B,1,D]."""
+    reference computes it outside any kernel. Under the T fallback the
+    cross K/V are this rank's block of T, and the row's partials are
+    merged as decode's are. x: [B,1,D] -> [B,1,D]."""
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
     if cfg.qkv_bias:
         q = q + _head_rows(params["bq"], q.shape[2]).to(x.dtype)
-    out = gqa_scores_apply(q, ck.to(q.dtype), cv.to(q.dtype), None)
+    if kv_split(cfg, params) == 1:
+        out = gqa_scores_apply(q, ck.to(q.dtype), cv.to(q.dtype), None)
+    else:
+        mesh = _row_mesh(q.shape[2], cfg.num_heads, "cross wq")
+        full, lse = _block_attention(mesh.model_gather(q, 2, "q_gather"),
+                                     ck.to(q.dtype), cv.to(q.dtype))
+        out = _merge_row(q, full, lse, mesh)
     return _out_proj(params, cfg, out, x.dtype)
 
 

@@ -9,6 +9,14 @@ softplus), so the chunked exponentials are safe in f32.
 
 Shapes: heads H = (expand·d) / head_dim, state N = ``cfg.ssm_state``,
 head dim P = ``cfg.ssm_head_dim``, one B/C group shared by the heads.
+
+On a mesh with a model axis (decode only) a rank holds the blocks
+``launch.sharding`` gives: ``in_proj``'s and ``conv_w`` / ``conv_b``'s
+columns (cut across the z | x | B | C | dt boundaries), ``out_proj``'s
+rows, and a decode cache of its conv channels and, where the heads
+divide, its heads of the state (``cache_pspecs``). A step gathers the
+projection and the conv output over the model row, updates the rank's
+heads of the state, gathers y, and sums ``out_proj``'s partials.
 """
 from __future__ import annotations
 
@@ -157,48 +165,91 @@ def mamba_apply(params: dict, cfg: ModelConfig, x: torch.Tensor
     return y @ params["out_proj"].to(x.dtype)
 
 
-def mamba_init_cache(cfg: ModelConfig, batch: int, dtype, device
-                     ) -> SSMCache:
-    di, n = cfg.ssm_d_inner, cfg.ssm_state
+def cache_block(cfg: ModelConfig, params=None) -> tuple[int, int]:
+    """(conv channels, SSM heads) of a rank's decode cache for a block
+    with ``params`` (this rank's blocks of its leaves): the conv cache's
+    channels are ``conv_w``'s, the state's heads split by the model axis
+    that split ``out_proj`` where it divides them (``cache_pspecs``'
+    rule); whole without params."""
+    c, h = cfg.ssm_d_inner + 2 * cfg.ssm_state, cfg.ssm_num_heads
+    if params is None:
+        return c, h
+    m = cfg.ssm_d_inner // params["out_proj"].shape[0]
+    return params["conv_w"].shape[1], h // m if h % m == 0 else h
+
+
+def mamba_init_cache(cfg: ModelConfig, batch: int, dtype, device,
+                     params=None) -> SSMCache:
+    c, h = cache_block(cfg, params)
     return SSMCache(
-        state=torch.zeros((batch, cfg.ssm_num_heads, cfg.ssm_head_dim, n),
+        state=torch.zeros((batch, h, cfg.ssm_head_dim, cfg.ssm_state),
                           dtype=torch.float32, device=device),
-        conv=torch.zeros((batch, cfg.ssm_conv_width - 1, di + 2 * n),
-                         dtype=dtype, device=device))
+        conv=torch.zeros((batch, cfg.ssm_conv_width - 1, c), dtype=dtype,
+                         device=device))
 
 
 def mamba_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
                  cache: SSMCache) -> tuple[torch.Tensor, SSMCache]:
     """One-token recurrent step. x: [B,1,d]. The cache's state and conv
-    window are updated in place and returned."""
+    window are updated in place and returned. On the model axis the
+    rank computes its conv channels and its heads of the state from the
+    gathered projection, and sums ``out_proj``'s partials."""
     di, n, h, p = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_num_heads,
                    cfg.ssm_head_dim)
     bsz = x.shape[0]
-    proj = x @ params["in_proj"].to(x.dtype)
+    w_in = params["in_proj"]
+    proj = x @ w_in.to(x.dtype)
+    if w_in.shape[1] != 2 * di + 2 * n + h:
+        proj = L._row_mesh(w_in.shape[1], 2 * di + 2 * n + h,
+                           "in_proj").model_gather(proj, -1)
     z, xbc, dt = _split_proj(cfg, proj)
 
-    # conv over (the cached W-1 inputs, the current one)
+    # conv over (the cached W-1 inputs, the current one), on the
+    # channels of the rank's conv cache
+    chans = cache.conv.shape[2]
+    conv_mesh = None
+    if chans != di + 2 * n:
+        conv_mesh = L._row_mesh(chans, di + 2 * n, "the conv cache")
+        r = conv_mesh.coords["model"]
+        xbc = xbc[..., r * chans:(r + 1) * chans]
     conv_in = torch.cat([cache.conv, xbc], dim=1)          # [B, W, C]
     w = params["conv_w"].to(x.dtype)
     out = torch.einsum("bwc,wc->bc", conv_in, w) \
         + params["conv_b"].to(x.dtype)
     xbc1 = F.silu(out)[:, None, :]
+    if conv_mesh is not None:
+        xbc1 = conv_mesh.model_gather(xbc1, -1)
 
     xin, bmat, cmat = torch.split(xbc1, [di, n, n], dim=-1)
-    xh = xin.reshape(bsz, h, p).float()
+    heads, state_mesh = slice(None), None
+    if cache.state.shape[1] != h:
+        hs = cache.state.shape[1]
+        state_mesh = L._row_mesh(hs, h, "the SSM state")
+        r = state_mesh.coords["model"]
+        heads = slice(r * hs, (r + 1) * hs)
+    xh = xin.reshape(bsz, h, p)[:, heads].float()
     bvec = bmat[:, 0].float()                              # [B, N]
     cvec = cmat[:, 0].float()
-    dt32 = F.softplus(dt[:, 0].float() + params["dt_bias"])
-    a = -torch.exp(params["a_log"])
+    dt32 = F.softplus(dt[:, 0, heads].float() + params["dt_bias"][heads])
+    a = -torch.exp(params["a_log"][heads])
     da = torch.exp(dt32 * a)                               # [B, H]
     # "bh,bhp,bn->bhpn": (dt · x), then the outer product with B
     state = cache.state * da[:, :, None, None] \
         + (dt32[:, :, None] * xh)[..., None] * bvec[:, None, None, :]
     y = torch.einsum("bhpn,bn->bhp", state, cvec) \
-        + params["D"][None, :, None] * xh
+        + params["D"][heads][None, :, None] * xh
+    if state_mesh is not None:
+        y = state_mesh.model_gather(y, 1)
     y = y.reshape(bsz, 1, di).to(x.dtype)
     y = y * F.silu(z)
     y = L.rmsnorm(params["norm"], y, cfg.norm_eps)
     cache.state.copy_(state)
     cache.conv.copy_(conv_in[:, 1:, :])
-    return y @ params["out_proj"].to(x.dtype), cache
+    w_out = params["out_proj"]
+    rows = w_out.shape[0]
+    if rows == di:
+        return y @ w_out.to(x.dtype), cache
+    out_mesh = L._row_mesh(rows, di, "out_proj")
+    r = out_mesh.coords["model"]
+    part = y[..., r * rows:(r + 1) * rows] @ w_out.to(x.dtype)
+    return out_mesh.model_sum_(part), cache

@@ -19,7 +19,9 @@ The KV cache is a list with one dict per layer: ``{"k", "v"}`` of
 ``[B, T, Hkv, Dh]`` (``T = min(window, max_len)`` for local layers),
 which decode appends into in place, or for a cross layer ``{"ck",
 "cv"}`` of ``[B, T_img, Hkv, Dh]``, the image's K/V, which decode only
-reads.
+reads. On a mesh with a model axis each leaf is the rank's block
+(``layers.cache_block``): its KV heads, or under the T fallback block r
+of T of every KV head.
 """
 from __future__ import annotations
 
@@ -226,11 +228,12 @@ def cross_kv_from_embeds(p: dict, cfg: ModelConfig,
     """A cross layer's K/V [B,T,Hkv,Dh] from (image or encoder)
     embeddings [B,T,D], in the embeddings' dtype."""
     dt = embeds.dtype
-    k = torch.einsum("btd,dhk->bthk", embeds, p["attn"]["wk"].to(dt))
-    v = torch.einsum("btd,dhk->bthk", embeds, p["attn"]["wv"].to(dt))
+    a = p["attn"]
+    k = torch.einsum("btd,dhk->bthk", embeds, a["wk"].to(dt))
+    v = torch.einsum("btd,dhk->bthk", embeds, a["wv"].to(dt))
     if cfg.qkv_bias:
-        k = k + p["attn"]["bk"].to(dt)
-        v = v + p["attn"]["bv"].to(dt)
+        k = k + L._head_rows(a["bk"], k.shape[2]).to(dt)
+        v = v + L._head_rows(a["bv"], v.shape[2]).to(dt)
     return k, v
 
 
@@ -238,20 +241,22 @@ def init_lm_cache(cfg: ModelConfig, params: dict, batch: int,
                   max_len: int, extra: Optional[torch.Tensor] = None
                   ) -> list:
     """Zeroed pool at ``cfg.kv_dtype`` on the params' device (decode
-    accumulates in f32 whatever the storage dtype) with each layer's
-    KV heads as its ``wk`` holds them (a rank's block on the model
-    axis); a vlm's cross layers hold the K/V of ``extra`` [batch, T_img,
-    D], computed from it at ``cfg.kv_dtype`` as the reference does."""
+    accumulates in f32 whatever the storage dtype), each layer's the
+    rank's block (``layers.cache_block``: its KV heads, or block r of
+    T); a vlm's cross layers hold the K/V of ``extra`` [batch, T_img,
+    D], computed from it at ``cfg.kv_dtype`` as the reference does
+    (their block of T under the T fallback, on the declared mesh)."""
     hd, dev = cfg.head_dim_, _device(params)
     src = _kv_src(cfg, extra, cfg.kv_dtype)
     cache = []
     for p, kind in zip(params["layers"], layer_kinds(cfg)):
         if kind == "cross":
             ck, cv = cross_kv_from_embeds(p, cfg, src)
-            cache.append({"ck": ck, "cv": cv})
+            cache.append({"ck": L.t_block(cfg, p["attn"], ck),
+                          "cv": L.t_block(cfg, p["attn"], cv)})
             continue
-        hkv = p["attn"]["wk"].shape[1]
-        t = _cache_len(cfg, kind, max_len)
+        t, hkv = L.cache_block(cfg, p["attn"],
+                               _cache_len(cfg, kind, max_len))
         cache.append({
             "k": torch.zeros((batch, t, hkv, hd), dtype=cfg.kv_dtype,
                              device=dev),
@@ -302,7 +307,8 @@ def apply_lm_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     """Single-shot batched prefill: ONE full-sequence forward that also
     dumps a decode-ready KV cache. tokens: [B,S]. Returns (logits,
     cache) where ``cache`` matches ``init_lm_cache(..., max_len)`` after
-    streaming the prompt through ``decode_lm``. Right-padded prompts are
+    streaming the prompt through ``decode_lm`` (under the T fallback
+    every rank computes the whole K/V and keeps its block of T). Right-padded prompts are
     safe: pass ``lens`` [B] so local layers ring-pack each row's own
     last ``window`` tokens.
 
@@ -328,8 +334,10 @@ def apply_lm_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         h, (k, v) = layer_apply(p, cfg, h, positions, masks[kind],
                                 return_kv=True, kind=kind,
                                 kv_src=src if cross else None)
-        cache.append({"ck": k, "cv": v} if cross else
-                     _prefill_cache_layout(cfg, kind, k, v, max_len, lens))
+        c = {"ck": k, "cv": v} if cross else \
+            _prefill_cache_layout(cfg, kind, k, v, max_len, lens)
+        cache.append({n: L.t_block(cfg, p["attn"], x)
+                      for n, x in c.items()})
     if logits_at is not None:
         rows = torch.arange(b, device=h.device)
         h = h[rows, logits_at.to(device=h.device,
@@ -338,46 +346,82 @@ def apply_lm_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     return L.unembed(params["embed"], cfg, h), cache
 
 
+def _blocks(params: dict):
+    """(label, attention dicts, MLP dict) of every attention + MLP block
+    of an LM, encoder-decoder or hybrid tree (an ssm tree has none)."""
+    for i, p in enumerate(params.get("layers", ())):
+        yield f"layer {i}", [p["attn"]], p.get("mlp")
+    for top in ("encoder", "decoder"):
+        for i, p in enumerate(params.get(top, ())):
+            attn = [p[k] for k in ("attn", "self_attn", "cross_attn")
+                    if k in p]
+            yield f"{top} layer {i}", attn, p["mlp"]
+    if "shared_attn" in params:
+        p = params["shared_attn"]
+        yield "shared block", [p["attn"]], p["mlp"]
+
+
+def _cross_len(cfg: ModelConfig) -> Optional[int]:
+    """The length of the cross caches (image tokens or encoder frames),
+    None without cross layers."""
+    if cfg.family == "vlm" and cfg.cross_attn_every:
+        return cfg.num_image_tokens
+    if cfg.family == "encdec":
+        return cfg.encoder_seq
+    return None
+
+
 def check_model_axis(cfg: ModelConfig, params: dict, mesh) -> None:
     """Refuse, before any step, what tensor-parallel serving does not do
     on ``mesh`` with this rank's ``params`` (its blocks of the leaves,
-    or meta tensors of their shapes): a family other than dense, a
-    layer whose heads are split while its KV heads stay whole (the KV
-    cache would have to split over T or Dh), and an attention or MLP
-    leaf left whole while a partner is split."""
+    or meta tensors of their shapes): the MoE family (expert
+    parallelism), a KV cache that ``cache_pspecs`` would split over Dh
+    (the model axis divides neither the KV heads nor the cross caches'
+    length, or leaves the heads whole while the KV heads do not
+    divide), and a leaf left whole while a partner is split. A split
+    ``wq`` / ``wo`` beside a whole ``wk`` / ``wv`` is the KV cache's T
+    fallback (``layers.kv_split``); the self caches' T is checked where
+    the cache is made (``layers.cache_block``)."""
     from repro_torch import distributed as dist_lib
     if mesh is None or mesh.shape["model"] == 1:
         return
+    m = int(mesh.shape["model"])
     if cfg.family == "moe":
         raise NotImplementedError(dist_lib.EXPERT_PARALLEL_PENDING)
-    if cfg.family != "dense":
+    blocks = list(_blocks(params))
+    cross = _cross_len(cfg)
+    if blocks and cfg.num_kv_heads % m and (
+            cfg.num_heads % m or (cross is not None and cross % m)):
         raise NotImplementedError(
-            f"the {cfg.family} family at model {mesh.shape['model']}: "
-            f"{dist_lib.FAMILY_PENDING}")
-    for i, p in enumerate(params["layers"]):
-        a, f = p["attn"], p["mlp"]
-        blocks = {
-            "attention": {"wq": a["wq"].shape[1] != cfg.num_heads,
-                          "wk": a["wk"].shape[1] != cfg.num_kv_heads,
-                          "wv": a["wv"].shape[1] != cfg.num_kv_heads,
-                          "wo": a["wo"].shape[0] != cfg.num_heads},
-            "mlp": {name: f[name].shape[dim] != cfg.d_ff
-                    for name, dim in (("wi", 1), ("wg", 1), ("wo", 0))
-                    if name in f}}
-        att = blocks["attention"]
-        if att["wq"] and not att["wk"]:
-            raise NotImplementedError(
-                f"layer {i}: {cfg.num_heads} heads split over "
-                f"{mesh.shape['model']} model ranks but its "
-                f"{cfg.num_kv_heads} KV heads do not divide: "
-                f"{dist_lib.CACHE_FALLBACK_PENDING}")
-        for block, split in blocks.items():
-            if len(set(split.values())) > 1:
+            f"{cfg.num_heads} heads, {cfg.num_kv_heads} KV heads"
+            + ("" if cross is None else f", cross caches of {cross}")
+            + f" over {m} model ranks: {dist_lib.DH_FALLBACK_PENDING}")
+    for label, attns, f in blocks:
+        for a in attns:
+            split = {"wq": a["wq"].shape[1] != cfg.num_heads,
+                     "wk": a["wk"].shape[1] != cfg.num_kv_heads,
+                     "wv": a["wv"].shape[1] != cfg.num_kv_heads,
+                     "wo": a["wo"].shape[0] != cfg.num_heads}
+            if split["wq"] != split["wo"] or split["wk"] != split["wv"] \
+                    or (split["wk"] and not split["wq"]):
                 on = sorted(k for k, v in split.items() if v)
                 off = sorted(k for k, v in split.items() if not v)
-                raise ValueError(f"layer {i} {block}: {on} split but {off} "
+                raise ValueError(f"{label} attention: {on} split but {off} "
                                  f"whole; a row-parallel product needs its "
-                                 f"partners split alike")
+                                 f"partners split alike (a whole wk / wv "
+                                 f"beside a split wq / wo is the KV "
+                                 f"cache's T fallback)")
+        if f is None:
+            continue
+        split = {name: f[name].shape[dim] != cfg.d_ff
+                 for name, dim in (("wi", 1), ("wg", 1), ("wo", 0))
+                 if name in f}
+        if len(set(split.values())) > 1:
+            on = sorted(k for k, v in split.items() if v)
+            off = sorted(k for k, v in split.items() if not v)
+            raise ValueError(f"{label} mlp: {on} split but {off} whole; a "
+                             f"row-parallel product needs its partners "
+                             f"split alike")
 
 
 def layer_decode(p: dict, cfg: ModelConfig, h: torch.Tensor, c: dict,

@@ -16,7 +16,10 @@ of the params (``Model.init(mesh=)`` or ``convert.shard_params``): the
 heads, d_ff and vocabulary split as ``launch.sharding`` says, the
 row-parallel partials summed and the logits gathered over the model
 row (``layers.batch_sharding``), so every rank of a row returns the
-same logits and tokens. Every data row computes the whole batch.
+same logits and tokens. ``make_serve_step`` and ``prefill`` compute the
+batch they are given; ``generate(mesh=)`` splits the prompts' rows over
+the data axis (``Mesh.data_block``), each data row generating its own,
+and gathers the tokens over the data column.
 """
 from __future__ import annotations
 
@@ -80,28 +83,42 @@ def generate(model: Model, params, prompt, *, num_tokens: int,
              max_len: Optional[int] = None, extra_embeds=None,
              temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
-             device="cuda") -> torch.Tensor:
+             device="cuda", mesh=None) -> torch.Tensor:
     """Greedy/temperature generation on ``device`` (where ``params``
     must lie). prompt: [B, S] ints -> [B, num_tokens] int32;
-    ``extra_embeds`` [B, ...] where the family needs it."""
+    ``extra_embeds`` [B, ...] where the family needs it. On ``mesh``
+    this rank generates its data row's block of the rows on its blocks
+    of the params and returns every row's tokens; a sampled step draws
+    for all B rows, as at D = 1, and keeps its own."""
     dev = _device.resolve(device)
     prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int64,
                              device=dev)
     b, s = prompt.shape
     max_len = max_len or (s + num_tokens)
+    rows = slice(0, b) if mesh is None else mesh.data_block(b)
+    split = rows != slice(0, b)
     if extra_embeds is not None:
-        extra_embeds = extra_embeds.to(dev)
-    logits, cache = prefill(model, params, prompt, max_len, extra_embeds)
+        extra_embeds = extra_embeds.to(dev)[rows]
+    logits, cache = prefill(model, params, prompt[rows], max_len,
+                            extra_embeds, mesh=mesh)
     out = []
     tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
-    for i in range(num_tokens):
-        out.append(tok)
-        logits, cache = model.decode_step(params, cache, tok, s + i)
-        lg = logits[:, -1]
-        if temperature > 0 and generator is not None:
-            probs = torch.softmax(lg.float() / temperature, dim=-1)
-            tok = torch.multinomial(probs, 1, generator=generator)
-        else:
-            tok = torch.argmax(lg, dim=-1)[:, None]
-        tok = tok.to(torch.int32)
-    return torch.cat(out, dim=1)
+    with L.batch_sharding(mesh):
+        for i in range(num_tokens):
+            out.append(tok)
+            logits, cache = model.decode_step(params, cache, tok, s + i)
+            lg = logits[:, -1]
+            if temperature > 0 and generator is not None:
+                if split:
+                    lg = torch.zeros((b, lg.shape[1]), dtype=lg.dtype,
+                                     device=lg.device).index_copy_(
+                        0, torch.arange(rows.start, rows.stop,
+                                        device=lg.device), lg)
+                probs = torch.softmax(lg.float() / temperature, dim=-1)
+                tok = torch.multinomial(probs, 1,
+                                        generator=generator)[rows]
+            else:
+                tok = torch.argmax(lg, dim=-1)[:, None]
+            tok = tok.to(torch.int32)
+    tokens = torch.cat(out, dim=1)
+    return mesh.data_gather(tokens, 0) if split else tokens

@@ -30,14 +30,22 @@ of a batch reads row i whatever its slot, as in the reference.
 ``mesh=`` serves on a ``(D, M)`` mesh, one engine per rank: each rank
 holds its blocks of the params (``Model.init(mesh=)``,
 ``convert.shard_params`` or ``from_checkpoint(shardings=)``) and a KV
-pool of its own KV heads, and every prefill and decode step runs under
-``layers.batch_sharding(mesh)``: the row-parallel partials are summed
-and the logits gathered over the model row, so every rank samples the
-same tokens from the same logits with the same generator and takes the
-same scheduler decisions. Each data row of M ranks serves the same
-requests (replicated serving, at M = 1 too); ``drain`` fails
-unless every rank of the world holds the same tokens. The decode
-kernel runs on each rank's share of the heads.
+pool of its blocks (its KV heads, or under the T fallback block r of T
+of every KV head: ``layers.cache_block``), and every prefill and decode
+step runs under ``layers.batch_sharding(mesh)``: the row-parallel
+partials are summed and the logits gathered over the model row. The
+slots split over the data axis (``Mesh.data_block``, the reference's
+batch-over-data placement): data row j's pool holds slots ``[j·S/D,
+(j+1)·S/D)``, and it prefills and decodes those slots only; the sampled
+tokens are gathered over the data column, so every rank holds every
+slot's token and takes the same scheduler decisions (all S slots when
+D does not divide S). A sampled step draws for all S rows (the
+admission: all rows of the batch) exactly as the D = 1 engine does and
+keeps its own, so tokens do not depend on the split. An admission
+batch keeps F10's meaning across rows: its i-th request reads row i of
+``extra``. ``drain`` fails unless every rank of the world holds the
+same tokens. The decode kernel runs on each rank's share of the heads,
+or in its partial mode on every head over the rank's block of T.
 """
 from __future__ import annotations
 
@@ -173,7 +181,15 @@ class Engine:
         # an admission batch can never exceed the free slots
         self._prefill_cap = min(config.prefill_batch, config.slots)
         self._extra = None if extra is None else extra.to(pdev)
-        self._kv = PagedKVCache(model, params, config, self._extra)
+        # the slots this rank's data row holds
+        self._rows = slice(0, config.slots) if mesh is None \
+            else mesh.data_block(config.slots)
+        self._split = self._rows != slice(0, config.slots)
+        with L.batch_sharding(mesh):
+            self._kv = PagedKVCache(
+                model, params, config,
+                None if self._extra is None else self._extra[self._rows],
+                self._rows.stop - self._rows.start)
         self._pos = np.zeros(config.slots, np.int32)
         self._tok = np.zeros(config.slots, np.int32)
         self._active: list = [None] * config.slots
@@ -184,6 +200,7 @@ class Engine:
         self._steps = 0
         self._decode_steps = 0
         self._prefills = 0
+        self._row_prefills = 0
         self._kernel_launches = 0
         self._tokens_generated = 0
         self._gen = torch.Generator(device=pdev)
@@ -252,18 +269,21 @@ class Engine:
                 L.batch_sharding(self.mesh):
             finished = self._admit()
         if any(r is not None for r in self._active):
-            tok = torch.tensor(self._tok[:, None], device=self.device)
-            pos = torch.tensor(self._pos, device=self.device)
+            rows = self._rows
+            tok = torch.tensor(self._tok[rows, None], device=self.device)
+            pos = torch.tensor(self._pos[rows], device=self.device)
             with tr.span("decode", step=self._steps,
                          active=self.active_count), \
                     L.batch_sharding(self.mesh):
                 before = ops.launches["attention_decode"]
                 logits, self._kv.cache = self.model.decode_step(
                     self.params, self._kv.cache, tok, pos)
-                nxt = self._sampler(logits[:, -1], self._gen)
+                nxt = self._sample(logits[:, -1], rows, self.config.slots)
                 self._kernel_launches += \
                     ops.launches["attention_decode"] - before
             with tr.span("sample", step=self._steps):
+                if self._split:
+                    nxt = self.mesh.data_gather(nxt, 0)
                 nxt = nxt.cpu().numpy()
             self._decode_steps += 1
             with tr.span("finish", step=self._steps):
@@ -321,6 +341,20 @@ class Engine:
 
     # -- scheduler internals ----------------------------------------------
 
+    def _sample(self, logits: torch.Tensor, rows, n: int) -> torch.Tensor:
+        """Tokens for ``logits``, the rows ``rows`` (a slice or an index
+        list) of a batch of ``n``: a sampling engine draws for all ``n``
+        rows as the single-rank engine does (the other rows' logits
+        zeros) and keeps its own, so the generator's state and every
+        row's draw do not depend on the data split."""
+        if self.config.sampling.temperature == 0.0 or logits.shape[0] == n:
+            return self._sampler(logits, self._gen)
+        idx = torch.arange(n, device=logits.device)[rows]
+        full = torch.zeros((n, logits.shape[-1]), dtype=logits.dtype,
+                           device=logits.device)
+        full.index_copy_(0, idx, logits)
+        return self._sampler(full, self._gen)[idx]
+
     def _admit(self) -> list[RequestResult]:
         """Move waiting requests into free slots through ONE batched
         prefill (padded to pow2 count/length buckets)."""
@@ -341,18 +375,43 @@ class Engine:
         for i, (req, _) in enumerate(batch):
             tokens[i, :req.prompt.size] = req.prompt
             lens[i] = req.prompt.size
+        # the batch rows whose slots this rank's data row holds (all of
+        # them without a data split); row i keeps its index i: extra row
+        # i (F10) and its place among the sampler's rows
+        lo, hi = self._rows.start, self._rows.stop
+        mine = [i for i, (_, slot) in enumerate(batch) if lo <= slot < hi] \
+            if self._split else list(range(nb))
         with self.tracer.span("prefill", step=self._steps, batch=nb,
                               length=lb):
-            lens_t = torch.tensor(lens, device=self.device)
-            logits, pf_cache = self.model.prefill(
-                self.params, torch.tensor(tokens, device=self.device),
-                self.config.max_len, lens_t, logits_at=lens_t - 1,
-                extra=None if self._extra is None else self._extra[:nb])
-            first = self._sampler(logits[:, 0], self._gen).cpu().numpy()
+            first = torch.zeros(nb, dtype=torch.int32, device=self.device)
+            if mine:
+                lens_t = torch.tensor(lens[mine], device=self.device)
+                logits, pf_cache = self.model.prefill(
+                    self.params, torch.tensor(tokens[mine],
+                                              device=self.device),
+                    self.config.max_len, lens_t, logits_at=lens_t - 1,
+                    extra=None if self._extra is None
+                    else self._extra[:nb][mine])
+                first[mine] = self._sample(logits[:, 0], mine, nb)
+                self._row_prefills += 1
+            elif self.config.sampling.temperature > 0.0:
+                # the draws the other rows' samplers make
+                self._sample(torch.zeros((0, self.model.cfg.vocab_size),
+                                         device=self.device), [], nb)
+            if self._split:
+                # the data row holding each batch row's slot
+                owner = torch.tensor([slot // (hi - lo) for _, slot in batch]
+                                     + [0] * (nb - len(batch)),
+                                     device=self.device)
+                every = self.mesh.data_gather(first[None], 0)  # [D, nb]
+                first = every[owner, torch.arange(nb, device=self.device)]
+            first = first.cpu().numpy()
         self._prefills += 1
         finished = []
+        local = {i: k for k, i in enumerate(mine)}
         for i, (req, slot) in enumerate(batch):
-            self._kv.insert(pf_cache, i, slot)
+            if i in local:
+                self._kv.insert(pf_cache, local[i], slot - lo)
             self._kv.table.ensure(slot, int(req.prompt.size) + 1)
             self._pos[slot] = req.prompt.size
             self._tok[slot] = first[i]
@@ -390,6 +449,8 @@ class Engine:
         return {"steps": self._steps,
                 "decode_steps": self._decode_steps,
                 "prefills": self._prefills,
+                "row_prefills": self._row_prefills,
+                "row_slots": self._rows.stop - self._rows.start,
                 "tokens_generated": self._tokens_generated,
                 "active": self.active_count,
                 "waiting": self.queue_depth,

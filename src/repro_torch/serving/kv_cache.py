@@ -95,14 +95,20 @@ class PageTable:
 
 
 class PagedKVCache:
-    """The device cache pool + its page table + the slot-insert op."""
+    """The device cache pool + its page table + the slot-insert op.
 
-    def __init__(self, model, params, config, extra=None):
+    The table accounts for all ``config.slots`` slots; the device pool
+    holds ``rows`` of them (a data row's block of the slots on a mesh;
+    all by default), indexed from 0."""
+
+    def __init__(self, model, params, config, extra=None,
+                 rows: Optional[int] = None):
         self.table = PageTable(config.slots,
                                config.max_len // config.page_size,
                                config.page_size)
-        self.cache = model.init_cache(params, config.slots,
-                                      config.max_len, extra)
+        self.cache = model.init_cache(
+            params, config.slots if rows is None else rows,
+            config.max_len, extra)
 
     def insert(self, prefill_cache: list, src: int, dst: int) -> None:
         """Copy batch row ``src`` of ``prefill_cache`` into slot ``dst``

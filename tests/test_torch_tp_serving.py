@@ -19,10 +19,13 @@ and in the subprocess from the same keys.
   restored from a checkpoint replicated (``mesh=``) and split
   (``shardings=``), the tokens of the port's M = 1 engine on the same
   weights, and on the reference's params the reference engine's. A
-  rank's blocks are the whole draw's; its KV pool holds its KV heads;
-  the row-parallel sums and logit gathers happen once per layer and
-  step (none on replicated params); the vocab-parallel embedding is
-  M = 1's bit for bit; every rank holds the same tokens.
+  rank's blocks are the whole draw's; its KV pool holds its KV heads
+  and its data row's slots; the row-parallel sums and logit gathers
+  happen once per layer and step (none on replicated params), the
+  sampled tokens' gather over the data column once per step; the
+  vocab-parallel embedding is M = 1's bit for bit; every rank holds the
+  same tokens. Sampled at ``temperature > 0`` the engine draws as the
+  single-rank engine does, whatever the data split.
 * ``launch.serve --model-parallel 2`` prints M = 1's sample line.
 * The refusals name their ROADMAP item.
 """
@@ -43,7 +46,7 @@ import torch_tp_ranks as ranks
 import torch_tp_ref as ref_side
 from repro.kernels.ref import decode_parity_tolerance
 from repro_torch.checkpoint import checkpoint as ck
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import convert, get_model
@@ -101,6 +104,10 @@ def runs(tmp_path_factory):
             ck.save(str(tmp / arch), convert.params_to_jax(cfg, params))
             single[arch] = {
                 "init": _drain_m1(model, params),
+                "sampled": ranks.drain(
+                    model, params,
+                    temperature=ranks.SAMPLE_TEMPERATURE)["tokens"]
+                if arch == ranks.SAMPLED_ARCH else None,
                 "ref": _drain_m1(model, convert.params_from_jax(
                     cfg, ref_params[arch], device="cpu")),
                 "params": params}
@@ -180,6 +187,18 @@ def test_engine_tokens_equal_the_single_rank_engine(runs, mesh, arch,
         assert want == got
 
 
+@pytest.mark.parametrize("mesh", list(WORLDS), ids=["1x2", "2x2"])
+def test_sampled_engine_tokens_do_not_depend_on_the_split(runs, mesh):
+    """At temperature > 0 every data row draws for all slots as the
+    single-rank engine does and keeps its own: the same tokens
+    (gemma3's smoke config: the windowed ring, both axes)."""
+    arch = ranks.SAMPLED_ARCH
+    want = runs["single"][arch]["sampled"]
+    assert want != runs["single"][arch]["init"]
+    for r in runs["worlds"][mesh]:
+        assert r[arch]["sampled"]["tokens"] == want
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("mesh", list(WORLDS), ids=["1x2", "2x2"])
 def test_rank_blocks_are_the_whole_draws_blocks(runs, mesh, arch):
@@ -204,27 +223,36 @@ def test_rank_blocks_are_the_whole_draws_blocks(runs, mesh, arch):
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("mesh", list(WORLDS), ids=["1x2", "2x2"])
 def test_pool_and_collectives_follow_the_split(runs, mesh, arch):
-    """A rank's KV pool holds its KV heads; a split model sums twice a
-    layer plus once for the embedding, and gathers the logits once,
-    per prefill and per decode step; replicated params do neither."""
+    """A rank's KV pool holds its KV heads and its data row's slots; a
+    split model sums twice a layer plus once for the embedding, and
+    gathers the logits once, per prefill this rank ran and per decode
+    step; replicated params do neither. Over a data axis of 2 the
+    sampled tokens are gathered over the data column once per decode
+    step and per admission."""
     cfg = get_smoke_config(arch)
     sc = ref_side.SERVE
     t_first = min(cfg.sliding_window or sc["max_len"], sc["max_len"])
+    d = mesh[0]
     for r in runs["worlds"][mesh]:
         for source in SOURCES:
             got = r[arch][source]
             split = source != "restored"
             hkv = cfg.num_kv_heads // (mesh[1] if split else 1)
-            assert got["pool"] == (sc["slots"], t_first, hkv,
+            assert got["pool"] == (sc["slots"] // d, t_first, hkv,
                                    cfg.head_dim_)
             stats = got["stats"]
             calls = {k: v["calls"] for k, v in got["collectives"].items()}
-            if not split:
-                assert calls == {}
-                continue
-            passes = stats["decode_steps"] + stats["prefills"]
-            assert calls == {"model_sum": (2 * cfg.num_layers + 1) * passes,
-                             "model_gather": passes}
+            want = {}
+            if d > 1:
+                want["data_gather"] = stats["decode_steps"] \
+                    + stats["prefills"]
+            if split:
+                passes = stats["decode_steps"] + stats["row_prefills"]
+                want.update({
+                    "model_sum": (2 * cfg.num_layers + 1) * passes,
+                    "model_gather": passes})
+            assert calls == want
+            assert 0 < stats["row_prefills"] <= stats["prefills"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -281,10 +309,9 @@ class StandIn:
 
 
 @pytest.mark.parametrize("arch,model,item", [
-    ("gemma3-12b", 4, "11b-1"), ("qwen2.5-3b", 4, "11b-1"),
     ("olmoe-1b-7b", 2, "11d"), ("qwen3-moe-30b-a3b", 2, "11d"),
-    ("llama-3.2-vision-11b", 2, "11b-3"), ("mamba2-1.3b", 2, "11b-3"),
-    ("zamba2-1.2b", 2, "11b-3"), ("whisper-large-v3", 2, "11b-3")])
+    ("whisper-large-v3", 8, "11b-4"), ("qwen2.5-3b", 8, "11b-4"),
+    ("llama-3.2-vision-11b", 8, "11b-4")])
 def test_refusals_name_their_roadmap_item(arch, model, item):
     """Model.init(mesh=) refuses before it draws, and shard_params before
     it slices, naming the item that ports the case."""
@@ -300,7 +327,8 @@ def test_refusals_name_their_roadmap_item(arch, model, item):
 def test_a_whole_leaf_beside_a_split_partner_is_refused(leaf):
     """A placement that splits one of a row-parallel group and leaves
     a partner whole (as a hand-made ``shardings=`` could) is refused
-    before a step."""
+    before a step: ``wo`` whole beside a split ``wq``, ``wk`` whole
+    beside a split ``wv``, ``wg`` beside split ``wi`` / ``wo``."""
     cfg = get_smoke_config("qwen2-72b")
     mesh = StandIn(1, 2)
     params = convert.shard_params(
@@ -311,9 +339,36 @@ def test_a_whole_leaf_beside_a_split_partner_is_refused(leaf):
         match = r"layer 1 mlp: \['wi', 'wo'\] split but \['wg'\] whole"
     else:
         params["layers"][1]["attn"][leaf] = whole["attn"][leaf]
-        match = "layer 1 attention" if leaf == "wo" else "item 11b-1"
-    with pytest.raises((ValueError, NotImplementedError), match=match):
+        match = "layer 1 attention"
+    with pytest.raises(ValueError, match=match):
         check_model_axis(cfg, params, mesh)
+
+
+def test_a_whole_wk_and_wv_beside_a_split_wq_is_the_t_fallback():
+    """The layout a whole ``wk`` / ``wv`` beside split ``wq`` / ``wo``
+    makes is served: the KV cache splits over T (the pool a block of T
+    of every KV head; test_torch_tp_fallback.py serves it)."""
+    cfg = get_smoke_config("qwen2-72b")
+    mesh = StandIn(1, 2)
+    model = get_model(cfg)
+    params = convert.shard_params(cfg, model.init(0, device="cpu"), mesh)
+    whole = model.init(0, device="cpu")["layers"][1]
+    for leaf in ("wk", "wv", "bk", "bv"):
+        params["layers"][1]["attn"][leaf] = whole["attn"][leaf]
+    check_model_axis(cfg, params, mesh)
+    assert [L.kv_split(cfg, p["attn"]) for p in params["layers"]] == [1, 2]
+    cache = model.init_cache(params, 3, 16)
+    assert [tuple(c["k"].shape) for c in cache] == [
+        (3, 16, cfg.num_kv_heads // 2, cfg.head_dim_),
+        (3, 8, cfg.num_kv_heads, cfg.head_dim_)]
+
+
+def test_whisper_at_model_8_names_11b_4_before_drawing():
+    """whisper-large-v3's 20 heads and 1500 cross frames do not divide
+    8: cache_pspecs would split the cross K/V over Dh."""
+    m = get_model(get_config("whisper-large-v3"))
+    with pytest.raises(NotImplementedError, match="item 11b-4$"):
+        m.init(0, device="cpu", mesh=StandIn(1, 8))
 
 
 def test_training_and_sequence_parallelism_over_the_model_axis_name_11c():

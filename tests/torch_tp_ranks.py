@@ -18,7 +18,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding
-from repro_torch.models import convert, get_model
+from repro_torch.models import convert, extra_embed_shape, get_model
 from repro_torch.models import layers as L
 
 # the reference side's constants (torch_tp_ref), repeated here: a rank
@@ -31,6 +31,16 @@ SERVE = dict(slots=4, max_len=48, page_size=8, prefill_batch=4)
 PROMPTS = [(0, 5, 12), (1, 19, 9), (2, 3, 16), (3, 11, 7), (4, 26, 10),
            (5, 8, 14)]
 EMBED_TOKENS = np.random.RandomState(5).randint(0, 512, size=(3, 7))
+SAMPLE_TEMPERATURE, SAMPLE_SEED = 0.8, 3
+SAMPLED_ARCH = "gemma3-12b"    # the windowed ring, both axes
+# torch_tp_more_ref's constants
+FALLBACK_LM = dict(DECODE_LM, num_kv_heads=2)
+RING_T = 4
+RING_LM = dict(FALLBACK_LM, sliding_window=RING_T, global_every=2)
+FALLBACK_STEPS = {"": STEPS, "-ring": 3 * RING_T}
+FALLBACK_ENGINES = ("qwen2.5-3b", "gemma3-12b", "llama-3.2-vision-11b")
+GENERATE = ("whisper-large-v3", "mamba2-1.3b", "zamba2-1.2b")
+GEN_B, GEN_S, GEN_N = 4, 8, 6
 
 
 def prompts(vocab: int) -> list:
@@ -43,33 +53,40 @@ def varied_tokens() -> np.ndarray:
         1, DECODE_LM["vocab_size"], size=(STEP_BATCH, 1)).astype(np.int32)
 
 
-def drain(model, params, mesh=None, eng=None) -> dict:
+def drain(model, params, mesh=None, eng=None, extra=None,
+          temperature: float = 0.0) -> dict:
     """Serve :data:`PROMPTS` through an engine (``eng``, or one on
-    ``params`` and ``mesh``); its tokens per request, its stats, its KV
-    pool's shape and the mesh's collective counts."""
+    ``params`` and ``mesh``, greedy or sampled at ``temperature``); its
+    tokens per request, its stats, its KV pool's shape (and a cross
+    layer's) and the mesh's collective counts."""
     if eng is None:
-        eng = serving.Engine(model, params, serving.ServeConfig(**SERVE),
-                             device="cpu", mesh=mesh)
+        sc = serving.ServeConfig(**SERVE, sampling=serving.SamplingParams(
+            temperature=temperature, seed=SAMPLE_SEED))
+        eng = serving.Engine(model, params, sc, device="cpu", mesh=mesh,
+                             extra=extra)
     if mesh is not None:
         mesh.collectives.clear()
     ids = [eng.submit(p, max_new_tokens=n)
            for p, n in prompts(model.cfg.vocab_size)]
     got = {r.id: r.tokens for r in eng.drain()}
+    cross = [tuple(c["ck"].shape) for c in eng._kv.cache if "ck" in c]
     return {"tokens": [got[i] for i in ids], "stats": eng.stats(),
             "pool": tuple(eng._kv.cache[0]["k"].shape),
+            "cross_pool": cross[0] if cross else None,
             "collectives": {k: dict(v) for k, v in
                             (mesh.collectives.items() if mesh else ())}}
 
 
-def _serve_step_run(model, params, mesh, start) -> tuple:
-    """``STEPS`` steps of ``make_serve_step(model, mesh)`` from
-    ``start``, each step's logits read first by ``decode_step`` on a
-    copy of the cache."""
+def _serve_step_run(model, params, mesh, start, steps: int = STEPS
+                    ) -> tuple:
+    """``steps`` steps of ``make_serve_step(model, mesh)`` from
+    ``start`` (its rows), each step's logits read first by
+    ``decode_step`` on a copy of the cache."""
     step = serving.make_serve_step(model, mesh)
-    cache = model.init_cache(params, STEP_BATCH, STEP_LEN)
+    cache = model.init_cache(params, start.shape[0], STEP_LEN)
     tok = torch.from_numpy(start)
     toks, logits = [], []
-    for i in range(STEPS):
+    for i in range(steps):
         copy = [{k: v.clone() for k, v in c.items()} for c in cache]
         with L.batch_sharding(mesh):
             logits.append(model.decode_step(params, copy, tok, i)[0]
@@ -120,6 +137,9 @@ def engine_world(data: int, model_axis: int, ref_params: dict,
         model = get_model(cfg)
         params = model.init(0, device="cpu", mesh=mesh)
         res = {"init": drain(model, params, mesh),
+               "sampled": drain(model, params, mesh,
+                                temperature=SAMPLE_TEMPERATURE)
+               if arch == SAMPLED_ARCH else None,
                "init_shapes": {
                    "wq": tuple(params["layers"][0]["attn"]["wq"].shape),
                    "wi": tuple(params["layers"][0]["mlp"]["wi"].shape),
@@ -161,4 +181,143 @@ def engine_world(data: int, model_axis: int, ref_params: dict,
         except NotImplementedError as e:
             refused[name] = str(e)
     out["refused"] = refused
+    return out
+
+
+def gen_prompts(vocab: int) -> np.ndarray:
+    return np.random.RandomState(21).randint(1, vocab, size=(GEN_B, GEN_S))
+
+
+def extra_rows(shape) -> np.ndarray:
+    return np.random.RandomState(23).normal(size=shape).astype(np.float32)
+
+
+def _extra(cfg, batch: int):
+    es = extra_embed_shape(cfg, batch)
+    return None if es is None else torch.from_numpy(extra_rows(es))
+
+
+def _cache_shapes(cache) -> dict:
+    """A cache's leaf shapes by leaf name (dict keys, SSMCache
+    fields)."""
+    out: dict = {}
+
+    def walk(node, name=None):
+        if isinstance(node, torch.Tensor):
+            out.setdefault(name, set()).add(tuple(node.shape))
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, k)
+        elif hasattr(node, "_fields"):
+            for k, v in zip(node._fields, node):
+                walk(v, k)
+        else:
+            for v in node:
+                walk(v, name)
+
+    walk(cache)
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def fallback_step_world(ref_params: dict) -> dict:
+    """The ``FALLBACK_LM`` step (2 KV heads: the cache over T) and its
+    windowed twin on a (2, 4) mesh of this world's 8 ranks, on the
+    reference's params placed by ``shard_params``: each data row steps
+    its half of the batch, the tokens and logits gathered over the data
+    column."""
+    torch.set_num_threads(1)
+    mesh = mesh_lib.make_host_mesh(2, 4)
+    out = {"coords": dict(mesh.coords)}
+    rows = mesh.data_block(STEP_BATCH)
+    for tag, lm in (("", FALLBACK_LM), ("-ring", RING_LM)):
+        cfg = ModelConfig(**lm)
+        model = get_model(cfg)
+        params = convert.shard_params(cfg, convert.params_from_jax(
+            cfg, ref_params[tag], device="cpu"), mesh)
+        with L.batch_sharding(mesh):
+            cache = model.init_cache(params, rows.stop - rows.start,
+                                     STEP_LEN)
+        out[f"{tag}/cache"] = [tuple(c["k"].shape) for c in cache]
+        out[f"{tag}/wk"] = tuple(params["layers"][0]["attn"]["wk"].shape)
+        out[f"{tag}/wq"] = tuple(params["layers"][0]["attn"]["wq"].shape)
+        for start, tok in (("", np.ones((STEP_BATCH, 1), np.int32)),
+                           ("-varied", varied_tokens())):
+            mesh.collectives.clear()
+            toks, logits = _serve_step_run(model, params, mesh, tok[rows],
+                                           FALLBACK_STEPS[tag])
+            out[f"{tag}{start}/collectives"] = {
+                k: v["calls"] for k, v in mesh.collectives.items()}
+            out[f"{tag}{start}/tokens"] = mesh.data_gather(
+                torch.from_numpy(toks), 1).numpy()
+            out[f"{tag}{start}/logits"] = mesh.data_gather(
+                torch.from_numpy(logits), 1).numpy()
+    out["equal"] = mesh_lib.all_equal(mesh, [
+        out[k].tobytes() for k in sorted(out) if k.endswith(("tokens",
+                                                             "logits"))])
+    return out
+
+
+def fallback_engine_world(ref_params: dict) -> dict:
+    """The engine on a (1, 4) mesh (the cache over T for every arch of
+    ``FALLBACK_ENGINES``) on the reference's params, placed by
+    ``shard_params``."""
+    torch.set_num_threads(1)
+    mesh = mesh_lib.make_host_mesh(1, 4)
+    out = {"coords": dict(mesh.coords)}
+    for arch in FALLBACK_ENGINES:
+        cfg = get_smoke_config(arch)
+        model = get_model(cfg)
+        ref = convert.shard_params(cfg, convert.params_from_jax(
+            cfg, ref_params[arch], device="cpu"), mesh)
+        out[arch] = {"ref": drain(model, ref, mesh,
+                                  extra=_extra(cfg, SERVE["slots"]))}
+    out["equal"] = mesh_lib.all_equal(
+        mesh, [out[a]["ref"]["tokens"] for a in FALLBACK_ENGINES])
+    return out
+
+
+def families_world(data: int, model_axis: int, ref_params: dict) -> dict:
+    """The vlm engine and ``generate`` for the encdec, ssm and hybrid
+    smoke configs on a (data, model) mesh, on the reference's params
+    and on this rank's blocks of the seed-0 draw; each one's cache
+    leaves by name as this rank holds them."""
+    torch.set_num_threads(1)
+    mesh = mesh_lib.make_host_mesh(data, model_axis)
+    out = {"coords": dict(mesh.coords)}
+    arch = "llama-3.2-vision-11b"
+    cfg = get_smoke_config(arch)
+    model = get_model(cfg)
+    extra = _extra(cfg, SERVE["slots"])
+    ref = convert.shard_params(cfg, convert.params_from_jax(
+        cfg, ref_params[arch], device="cpu"), mesh)
+    eng = serving.Engine(model, ref, serving.ServeConfig(**SERVE),
+                         device="cpu", mesh=mesh, extra=extra)
+    out[arch] = {"ref": drain(model, ref, mesh, eng),
+                 "cache": _cache_shapes(eng._kv.cache)}
+    for arch in GENERATE:
+        cfg = get_smoke_config(arch)
+        model = get_model(cfg)
+        extra = _extra(cfg, GEN_B)
+        prompt = gen_prompts(cfg.vocab_size)
+        res = {}
+        for source, params in (
+                ("ref", convert.shard_params(cfg, convert.params_from_jax(
+                    cfg, ref_params[arch], device="cpu"), mesh)),
+                ("init", model.init(0, device="cpu", mesh=mesh))):
+            mesh.collectives.clear()
+            res[source] = serving.generate(
+                model, params, prompt, num_tokens=GEN_N, extra_embeds=extra,
+                device="cpu", mesh=mesh).numpy()
+            res[f"{source}/collectives"] = {
+                k: v["calls"] for k, v in mesh.collectives.items()}
+        rows = mesh.data_block(GEN_B)
+        with L.batch_sharding(mesh):
+            cache = model.init_cache(
+                params, rows.stop - rows.start, GEN_S + GEN_N,
+                *(() if extra is None else (extra[rows],)))
+        res["cache"] = _cache_shapes(cache)
+        out[arch] = res
+    out["equal"] = mesh_lib.all_equal(mesh, [
+        out["llama-3.2-vision-11b"]["ref"]["tokens"]] + [
+        [out[a][s].tolist() for s in ("ref", "init")] for a in GENERATE])
     return out

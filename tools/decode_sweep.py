@@ -98,8 +98,7 @@ def use(tad, path: Path, warps: int, stages: int, chunk: int) -> None:
     """Point the wrapper at one build and its shape constants."""
     lib = ctypes.CDLL(str(path))
     fn = lib.repro_attention_decode
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 \
-        + [ctypes.c_void_p]
+    fn.argtypes = tad.C_ARGTYPES
     fn.restype = ctypes.c_int
     tad._lib = lambda: lib
     tad.WARPS, tad.STAGES = warps, stages
