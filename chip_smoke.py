@@ -252,8 +252,9 @@ script exits non-zero:
 15. data parallelism over ``torch.distributed``: two ranks (spawned,
    gloo: NCCL refuses two ranks on one card) share the card, each
    training qwen2.5-3b at full width cut in depth (``reduced:
-   num_layers 36 -> L`` is printed: the deepest L whose rank is
-   predicted under half the free card less a context) through
+   num_layers 36 -> L`` is printed: at most ``DP_LAYERS`` (4), the
+   script's time budget, and predicted under half the free card less a
+   context) through
    ``launch.train.run --mesh-data 2``: fused TVLARS f32, 8 x 512 (4 x
    512 a rank), 3 steps, after a D = 1 run on the same samples in this
    process. 1 + 1 segmented launches per rank per step, the ranks'
@@ -275,9 +276,12 @@ script exits non-zero:
 15d. rank 0's checkpoint of phase 15's params restored here (D = 1) by
    ``Engine.from_checkpoint(mesh=make_data_mesh(1))`` onto the card,
    bitwise the ranks' params, serving 4
-   requests. The kernels are built before any rank is spawned, and a
-   rank that fails or a world that hangs past its timeout fails the
-   phase.
+   requests. The kernels are built before any rank is spawned. Phases
+   15-18 (15c's NCCL world apart) hand their calls to two worlds of 2
+   and 4 gloo ranks that start on first use and stay up to the end
+   (``RankPool``), so each rank's start, imports and first launches are
+   paid once; a rank that fails or a call that hangs past its timeout
+   fails the phase.
 16. the model axis, tensor-parallel serving: gemma3-12b at full width,
    cut to ``TP_LAYERS`` (24) of 48 layers (the script's time budget),
    bf16, on a (1, 2) mesh, two gloo ranks sharing
@@ -316,19 +320,20 @@ script exits non-zero:
    no NaN), the four blocks merged against the unsplit launch within
    ``decode_parity_tolerance``; each block's card time beside SDPA over
    the same block and its bound;
-17a. qwen2.5-3b at full width and depth (36 layers, bf16) on a (1, 4)
+17a. qwen2.5-3b at full width cut to ``TF_LAYERS`` (9) of its 36
+   layers (the script's time budget), bf16, on a (1, 4)
    mesh of four gloo ranks sharing the card: 4 of 16 heads and both KV
    heads a rank, so the KV pool holds block r of T (72 of 288 keys) and
    every decode launch is in the partial mode (q gathered over the row,
    the (out, lse) partials gathered and merged). As phase 16: M = 1
-   first on the same weights, the engine's 4 requests (36 launches per
+   first on the same weights, the engine's 4 requests (9 launches per
    rank per step, ranks' tokens equal, differences to M = 1 only at
    bf16 near-ties), teacher-forced logit gaps under ``TF_LOGIT_BOUND``
    / ``TF_LOGIT_MEAN_BOUND``, which merging without the lse weights
    must exceed, the peak a rank against its prediction, and a decode
    step split into compute, the sums and each gather;
 17b. the same weights on a (2, 2) mesh: each data row's pool holds 2 of
-   the 4 slots and decodes them (36 launches per rank per step on the
+   the 4 slots and decodes them (9 launches per rank per step on the
    half batch), the sampled tokens gathered over the data column; the
    tokens equal M = 1's up to bf16 near-ties;
 17c. llama-3.2-vision-11b through the engine (40 decode launches a
@@ -339,6 +344,34 @@ script exits non-zero:
    1 on the same weights under the 17a bounds;
 17d. every family's smoke config in f32 at (1, 4) (inside 17a's world)
    and (2, 2) (inside 17b's): tokens equal the CPU's M = 1.
+18. training over the model axis: qwen2.5-3b at full width (2048 wide,
+   16 / 2 heads, d_ff 11008, vocab 151936, bf16) cut to ``TT_LAYERS``
+   (2) of 36 layers (printed), fused TVLARS f32, 4 x 512, 3 steps
+   through ``launch.train.run --mesh-model 2`` on a (1, 2) mesh of two
+   gloo ranks sharing the card (each holding its blocks of the seed-0
+   draw under the reference's training placement), after an M = 1 run
+   on the same weights and batches here: 1 + 1 segmented launches a
+   rank a step, the ranks holding the same block bitwise equal, the
+   loss, grad_norm and layer-wise norms within ``TT_BOUNDS`` of M = 1
+   and every rank's blocks of the params within its ``params`` bound;
+   the step split (compute, row sums, fsdp gathers, column reduce, the
+   norm table's and grad norm's all-reduce, from ``Mesh.collectives``),
+   the state bytes a rank equal to the placement rules' prediction, the
+   peak against its prediction; the segmented kernels on rank 0's flat
+   buffers against their plain versions, timed;
+18a. the same on a (2, 2) mesh of four ranks: fsdp over the data axis
+   (the leaves' data blocks gathered per layer, their gradients
+   summed over the column);
+18b. per-tensor WA-LARS at (1, 2): 2 launches per kernel segment (by
+   whole size) a rank a step, the state bytes and the split as 18, the
+   per-tensor kernels on rank 0's blocks of the largest segment against
+   their plain versions, timed;
+18c. 18a's state saved (``checkpoint.save_train_state``: rank 0 writes
+   the gathered state) and restored here at M = 1, bitwise the gathered
+   state, one request served from it through the decode kernel; the
+   qwen2.5-3b and gemma3-12b smoke configs in f32 at (2, 2) and (1, 4)
+   (inside 18a's world; weights and batches drawn on the CPU, K = 2)
+   against the CPU's single-rank losses (1e-5).
 
 Every phase prints its seconds (``phase {label}: {s} s``).
 
@@ -353,6 +386,7 @@ printing any result.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import dataclasses
@@ -1740,15 +1774,16 @@ def phase_train_full(run, ops, su, sref, tree_leaves, argv: list,
 
 
 class LarsLastStepCheck:
-    """Stands in for ``ops.lars_update`` during a per-tensor training run
-    and checks each kernel segment at the run's last optimizer step: a
-    norm launch of its own (a comparison launch, not counted) must give
-    the sums whose square roots lie within LARS_NORM_RTOL / 2 of
-    ``torch.linalg.vector_norm`` of the members (a square root halves a
-    relative error), the telemetry triple of
-    the counted launches must equal the plain ratio from those sums, and
-    4,096 random elements of the new momentum and the delta must equal
-    the plain apply on the same sums (bitwise). Keeps the last step's
+    """Stands in for ``ops.lars_apply`` during a per-tensor training run
+    (the optimizer takes every kernel segment's sums with
+    ``ops.lars_norm2`` first, then applies each) and checks each kernel
+    segment at the run's last optimizer step: the sums it is handed
+    (the counted norm launch's) must have square roots within
+    LARS_NORM_RTOL / 2 of ``torch.linalg.vector_norm`` of the members (a
+    square root halves a relative error), the telemetry triple of the
+    counted apply must equal the plain ratio from those sums, and 4,096
+    random elements of the new momentum and the delta must equal the
+    plain apply on the same sums (bitwise). Keeps the last step's
     segments for timing (without their gradients when ``keep_grads`` is
     False, so that they are freed with the step)."""
 
@@ -1763,15 +1798,15 @@ class LarsLastStepCheck:
         self.elem_abs = 0.0
         self.peak_before_last_step = None
 
-    def __call__(self, w, g, m, **kw):
+    def __call__(self, w, g, m, sums, **kw):
         self.calls += 1
         if self.calls <= self.last_from:
-            return self.real(w, g, m, **kw)
+            return self.real(w, g, m, sums, **kw)
         if self.peak_before_last_step is None:
             torch.cuda.synchronize()
             self.peak_before_last_step = torch.cuda.max_memory_allocated()
         ws, gs, ms = list(w), list(g), list(m)
-        sums = self.lu.lars_norm2_cuda(ws, gs)
+        sums = sums.clone()
         n = ws[0].numel()
         gen = torch.Generator(device=DEV).manual_seed(self.calls)
         idx = torch.randint(0, n * len(ws), (4096,), generator=gen,
@@ -1786,7 +1821,7 @@ class LarsLastStepCheck:
             return vals
 
         snap = (pick(ws), pick(gs), pick(ms))
-        out = self.real(w, g, m, **kw)
+        out = self.real(w, g, m, sums, **kw)
         torch.cuda.synchronize()
         wn = torch.sqrt(sum(torch.linalg.vector_norm(x.float()) ** 2
                             for x in ws))
@@ -1803,7 +1838,7 @@ class LarsLastStepCheck:
             raise AssertionError(f"last step: per-tensor norms {rel:.3e} "
                                  f"relative from vector_norm (bound "
                                  f"{LARS_NORM_RTOL / 2})")
-        stats = out[2]
+        stats = out[1]
         if not torch.equal(stats, torch.stack([pwn, pgn, pratio])):
             raise AssertionError("last step: telemetry differs from the "
                                  "plain ratio of the kernel's sums")
@@ -1811,7 +1846,7 @@ class LarsLastStepCheck:
             snap[0], snap[1], snap[2], scale,
             weight_decay=kw["weight_decay"], momentum_mu=kw["momentum_mu"],
             nesterov=kw["nesterov"])
-        km, kd = pick(out[0]), pick(out[1])
+        km, kd = pick(ms), pick(out[0])
         self.elem_abs = max(self.elem_abs, (pd - kd).abs().max().item(),
                             (pm - km).abs().max().item())
         if not (torch.equal(pm, km) and torch.equal(pd, kd)):
@@ -1846,15 +1881,15 @@ def phase_train_per_tensor(run, ops, lu, sref, layerwise, flatten,
     model = get_model(get_config(arch))
     names = layerwise.kernel_segments(
         flatten.build_spec(meta_params(model.cfg), segments=model.segments))
-    check = LarsLastStepCheck(ops.lars_update, lu, sref, steps, len(names))
+    check = LarsLastStepCheck(ops.lars_apply, lu, sref, steps, len(names))
     ops.reset_launches()
-    ops.lars_update = check
+    ops.lars_apply = check
     try:
         out = run(argv + ["--device", DEV, "--layerwise-every", "1"],
                   log_fn=lambda line: print(f"  {label}: {line}",
                                             flush=True))
     finally:
-        ops.lars_update = check.real
+        ops.lars_apply = check.real
     launches = dict(ops.launches)
     want = {k: 0 for k in launches}
     want.update({"lars_norm2": steps * len(names),
@@ -2079,8 +2114,8 @@ def phase_paper_loop(classify, cnn, core, training, synthetic, ops,
 # largest eigenvalue of T is at least its (1,1) entry; eigh in f32)
 SAM_FLOOR_REL = 1e-3
 # phase 10's depth: cut from 36 to 18 when phase 16 pushed the script
-# past its time aim, to 9 when phases 17-17d came in (ROADMAP "Time
-# budgets")
+# past its time aim, to 9 when phases 17-17d came in, to 4 when phases
+# 18-18c did (ROADMAP "Time budgets")
 PHASE10_LAYERS = 9
 HVP_SYM_BF16 = 2.0 ** -8
 LANCZOS_EIGH_TOL = 1e-5
@@ -2200,11 +2235,11 @@ def phase_sharpness_full(run, ops, lu, sref, layerwise, flatten,
     names = layerwise.kernel_segments(
         flatten.build_spec(meta, segments=model.segments))
     per_step = {"lars_norm2": len(names), "lars_apply": len(names)}
-    check = LarsLastStepCheck(ops.lars_update, lu, sref, steps, len(names),
+    check = LarsLastStepCheck(ops.lars_apply, lu, sref, steps, len(names),
                               keep_grads=False)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    ops.lars_update = check
+    ops.lars_apply = check
     watch = ProbeWatch(diag.LanczosProbe, ops, tree_leaves)
     tmp = tempfile.mkdtemp(prefix="phase10_")
     metrics = f"{tmp}/metrics.jsonl"
@@ -2214,7 +2249,7 @@ def phase_sharpness_full(run, ops, lu, sref, layerwise, flatten,
                   log_fn=lambda line: print(f"  {label}: {line}",
                                             flush=True))
     finally:
-        ops.lars_update = check.real
+        ops.lars_apply = check.real
         watch.restore()
     launches = dict(ops.launches)
     want = {k_: 0 for k_ in launches}
@@ -4173,10 +4208,144 @@ def phase_cross_families_small(get_smoke_config, get_model, serving,
               f"{smi_line()}", flush=True)
 
 
+# ------------------------------------------- ranks shared by 15-18
+class RankPool:
+    """``size`` gloo ranks sharing the card, started once (``spawn``
+    start method, a ``FileStore`` rendezvous in a temporary directory)
+    and joined into one world that phases 15-18 hand their calls to in
+    turn: :meth:`run` gives every rank ``fn(*args)`` and returns the
+    results in rank order, as ``launch.mesh.spawn`` does with a world of
+    its own. Before each call a rank zeroes the launch counts and the
+    peak memory statistic (what a new process starts from); after it,
+    it frees what the call left cached. A rank that raises, or a call
+    that does not finish within its timeout, stops every rank and
+    raises here; a rank also stops when this process is gone."""
+
+    def __init__(self, size: int, device=DEV, timeout: float = 900.0):
+        import multiprocessing
+        ctx = multiprocessing.get_context("spawn")
+        self.size = size
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+        init = "file://" + os.path.join(self.tmp, "rendezvous")
+        self.jobs = [ctx.Queue() for _ in range(size)]
+        self.out = ctx.Queue()
+        self.procs = [ctx.Process(target=pool_rank_main,
+                                  args=(r, size, str(device), init, timeout,
+                                        self.jobs[r], self.out))
+                      for r in range(size)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, fn, args=(), timeout: float = 600.0) -> list:
+        import queue
+        for q in self.jobs:
+            q.put((fn, tuple(args)))
+        results: dict = {}
+        deadline = time.monotonic() + timeout
+        while len(results) < self.size:
+            left = deadline - time.monotonic()
+            try:
+                rank, ok, value = self.out.get(timeout=min(max(left, 0.01),
+                                                           5.0))
+            except queue.Empty:
+                dead = [p.exitcode for p in self.procs
+                        if p.exitcode is not None]
+                if left > 5.0 and not dead:
+                    continue
+                self.close(wait=1.0)
+                raise RuntimeError(
+                    f"{fn.__name__} on {self.size} ranks: " + (
+                        f"ranks exited with codes {dead}" if dead else
+                        f"did not finish in {timeout:.0f} s"))
+            if not ok:
+                self.close(wait=1.0)
+                raise RuntimeError(f"{fn.__name__}: rank {rank} of "
+                                   f"{self.size} failed:\n{value}")
+            results[rank] = value
+        return [results[r] for r in range(self.size)]
+
+    def close(self, wait: float = 60.0) -> None:
+        for q in self.jobs:
+            q.put(None)
+        for p in self.procs:
+            p.join(timeout=wait)
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def pool_rank_main(rank, size, device, init, timeout, jobs, out) -> None:
+    """One rank of a :class:`RankPool`: join the world, then run the
+    calls handed to it until told to stop."""
+    import multiprocessing
+    import queue
+    import traceback
+    from repro_torch import distributed as dist_lib
+    from repro_torch.kernels import ops
+    parent = multiprocessing.parent_process()
+    dist_lib.init_world("gloo", device, rank, size, init, timeout)
+    try:
+        while True:
+            try:
+                job = jobs.get(timeout=5.0)
+            except queue.Empty:
+                if parent is not None and not parent.is_alive():
+                    return
+                continue
+            if job is None:
+                return
+            fn, args = job
+            ops.reset_launches()
+            if torch.cuda.is_available():
+                torch.cuda.reset_peak_memory_stats()
+            try:
+                result = fn(*args)
+                torch.distributed.barrier()
+            except BaseException:
+                out.put((rank, False, traceback.format_exc()))
+                raise
+            out.put((rank, True, result))
+            del result, job, fn, args
+            gc.collect()
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+    finally:
+        dist_lib.leave()
+
+
+_POOLS: dict = {}
+
+
+def on_ranks(fn, size: int, args=(), timeout: float = 600.0) -> list:
+    """``fn(*args)`` on every rank of the script's shared world of
+    ``size`` gloo ranks (a :class:`RankPool`, started on first use and
+    stopped at this process's exit)."""
+    if not _POOLS:
+        # runs before multiprocessing's own exit hook, which would wait
+        # on the idle ranks
+        atexit.register(close_pools)
+    if size not in _POOLS:
+        _POOLS[size] = RankPool(size)
+    return _POOLS[size].run(fn, args, timeout)
+
+
+def close_pools() -> None:
+    """Stop every rank :func:`on_ranks` started."""
+    while _POOLS:
+        _POOLS.popitem()[1].close()
+
+
 # ------------------------------------------------ 15-15d: data parallel
 DP_ARCH = "qwen2.5-3b"
 DP_RANKS = 2
 DP_STEPS = 3
+# of 36: the script's time budget. The gloo all-reduce moves every
+# gradient through the host each step, 7.1 GB at the 15 layers that fit
+# half the card and 3.7 GB at 4 (the table and head are 622M of the
+# params at any depth)
+DP_LAYERS = 4
 DP_ARGV = ["--arch", DP_ARCH, "--optimizer", "tvlars", "--use-kernel",
            "fused", "--precision", "f32", "--global-batch", "8", "--seq",
            "512", "--steps", str(DP_STEPS), "--layerwise-every", "1",
@@ -4241,16 +4410,18 @@ def duplicated_shards(launcher, d: int):
         launcher.lm_iterator = real
 
 
-def dp_depth(cfg, budget_gib: float) -> tuple:
-    """(layers, predicted GiB per rank): the deepest cut of ``cfg``
-    whose rank is predicted under ``budget_gib``."""
+def dp_depth(cfg, budget_gib: float, most: int) -> tuple:
+    """(layers, predicted GiB per rank): the deepest cut of ``cfg`` of
+    at most ``most`` layers whose rank is predicted under
+    ``budget_gib``."""
     one, two = (tree_params(cfg.replace(num_layers=n)) for n in (1, 2))
     per, fixed = two - one, 2 * one - two
 
     def gib(n):
         return (fixed + n * per) * DP_BYTES_PER_PARAM / GIB
 
-    n = max(k for k in range(1, cfg.num_layers + 1) if gib(k) <= budget_gib)
+    n = max(k for k in range(1, min(cfg.num_layers, most) + 1)
+            if gib(k) <= budget_gib)
     return n, gib(n)
 
 
@@ -4445,11 +4616,12 @@ def phase_data_parallel(train_launch, ops, serving, mesh_lib, get_config,
     free, total = torch.cuda.mem_get_info()
     budget = free / DP_RANKS / GIB - DP_CONTEXT_GIB
     cfg_full = get_config(DP_ARCH)
-    layers, pred = dp_depth(cfg_full, budget)
+    layers, pred = dp_depth(cfg_full, budget, DP_LAYERS)
     print(f"15 {DP_ARCH}: reduced: num_layers {cfg_full.num_layers} -> "
-          f"{layers} (the deepest cut whose rank is predicted under "
-          f"{budget:.2f} GiB: half of the {free / GIB:.2f} GiB free less "
-          f"a {DP_CONTEXT_GIB} GiB context; {DP_BYTES_PER_PARAM:.2f} B a "
+          f"{layers} (the script's time budget: at most {DP_LAYERS}, the "
+          f"all-reduce's bytes; and predicted under {budget:.2f} GiB a "
+          f"rank: half of the {free / GIB:.2f} GiB free less a "
+          f"{DP_CONTEXT_GIB} GiB context; {DP_BYTES_PER_PARAM:.2f} B a "
           f"parameter); predicted peak per rank {pred:.2f} GiB; width as "
           f"published", flush=True)
 
@@ -4489,8 +4661,8 @@ def phase_data_parallel(train_launch, ops, serving, mesh_lib, get_config,
                                f"{tmp}, the checkpoint needs "
                                f"{need / 1e9:.1f} GB")
         t0 = time.perf_counter()
-        ranks = mesh_lib.spawn(dp_rank, DP_RANKS, "gloo", DEV,
-                               args=(layers, tmp), timeout=600)
+        ranks = on_ranks(dp_rank, DP_RANKS, args=(layers, tmp),
+                         timeout=600)
         spawn_s = time.perf_counter() - t0
         want = {"seg_norm_lars": 1, "seg_apply_lars": 1}
         for r in ranks:
@@ -4519,7 +4691,8 @@ def phase_data_parallel(train_launch, ops, serving, mesh_lib, get_config,
                   flush=True)
         print(f"15: {DP_RANKS} ranks of {layers} layers on one card, "
               f"{DP_STEPS} steps of 8 x 512 (4 x 512 a rank) in "
-              f"{spawn_s:.1f} s with the spawn; ranks bitwise equal after "
+              f"{spawn_s:.1f} s on the shared ranks (started on first "
+              f"use); ranks bitwise equal after "
               f"every step (fingerprints); against D=1 on the same samples "
               f"(peak {single_peak / GIB:.2f} GiB) worst relative "
               + ", ".join(f"{k} {v:.3e}" for k, v in sorted(worst.items()))
@@ -4560,7 +4733,7 @@ def phase_data_parallel(train_launch, ops, serving, mesh_lib, get_config,
     torch.cuda.empty_cache()
 
     # 15b: the controller's D knob, 4 ranks on the smoke LM
-    ctl = mesh_lib.spawn(dp_controller_rank, 4, "gloo", DEV, timeout=300)
+    ctl = on_ranks(dp_controller_rank, 4, timeout=300)
     for i, r in enumerate(ctl):
         ok = (r["batches"] == [float(b) for b in DP_BATCHES]
               and r["records"] == (len(DP_BATCHES) // 2 if i == 0 else 0)
@@ -4823,7 +4996,7 @@ def tp_small_rank(arch: str, params, prompts) -> dict:
             "max_len"], mesh=mesh)[0][0, -1].cpu() for p, _ in prompts]
     real = L._head_rows
 
-    def other_rows(b, heads):
+    def other_rows(b, heads, partial=False):
         if b.shape[0] == heads:
             return b
         j = (mesh.coords["model"] + 1) % mesh.shape["model"]
@@ -4901,8 +5074,7 @@ def phase_model_axis(ops, serving, tad, mesh_lib, get_config,
           f"teacher-forced logits kept", flush=True)
 
     t0 = time.perf_counter()
-    ranks = mesh_lib.spawn(tp_rank, m, "gloo", DEV,
-                           args=(requests, tokens1), timeout=600)
+    ranks = on_ranks(tp_rank, m, args=(requests, tokens1), timeout=600)
     spawn_s = time.perf_counter() - t0
     tol = tad.decode_parity_tolerance(torch.bfloat16)
     for r in ranks:
@@ -4984,7 +5156,8 @@ def phase_model_axis(ops, serving, tad, mesh_lib, get_config,
           f"{[(round(a, 4), round(b, 5)) for a, b in gaps]} (bounds "
           f"{TP_LOGIT_BOUND}, {TP_LOGIT_MEAN_BOUND}); every wo unsummed "
           f"(the fault) ({fault_gap[0]:.4f}, {fault_gap[1]:.5f}); "
-          f"{spawn_s:.1f} s with the spawn; {smi_line()}", flush=True)
+          f"{spawn_s:.1f} s on the shared ranks (started on first use); "
+          f"{smi_line()}", flush=True)
     print(f"16 decode step split (rank 0, {TP_SLOTS} slots, "
           f"{TP_SPLIT_STEPS} steps, host clock): {sp['step_ms']:.3f} ms = "
           f"compute {sp['compute_ms']:.3f} + model_sum_ {sp['sum_ms']:.3f} "
@@ -5016,8 +5189,8 @@ def phase_model_axis(ops, serving, tad, mesh_lib, get_config,
         last = torch.stack([serving.prefill(smodel, cpu, torch.tensor(
             p[None], dtype=torch.int64), TP_SMALL_SERVE["max_len"])[0][0, -1]
             for p, _ in prompts])
-        rs = mesh_lib.spawn(tp_small_rank, 4, "gloo", DEV,
-                            args=(arch, cpu, prompts), timeout=300)
+        rs = on_ranks(tp_small_rank, 4, args=(arch, cpu, prompts),
+                      timeout=300)
         for r in rs:
             if not r["equal"] or r["tokens"] != want:
                 raise AssertionError(f"16b {arch} rank {r['rank']}: tokens "
@@ -5050,6 +5223,7 @@ def phase_model_axis(ops, serving, tad, mesh_lib, get_config,
 
 # -------------------------------- 17-17d: the rest of the model axis
 TF_ARCH = "qwen2.5-3b"
+TF_LAYERS = 9                  # of 36: the script's time budget
 TF_MESH = (1, 4)               # 4 of 16 heads a rank; 2 KV heads: over T
 TF_DATA_MESH = (2, 2)          # 2 of 4 slots a data row; 8 / 1 heads
 TF_SLOTS, TF_MAX_LEN = 4, 288  # 72 keys of T a rank at M = 4
@@ -5091,15 +5265,22 @@ FAM_TP_ARCHS = ("llama-3.2-vision-11b", "whisper-large-v3", "mamba2-1.3b",
 FAM_TP_MESH = (1, 2)
 FAM_TP_GEN = (2, 16, 8)
 FAM_TP_SLOTS, FAM_TP_MAX_LEN = 4, 64
-# arch -> num_layers: each cut to about half its depth (the script's
+# arch -> num_layers: each cut to about half its depth, then to about a
+# quarter (two vlm groups) when phases 18-18c came in (the script's
 # time budget; whisper's 32 encoder layers stay)
-FAM_TP_LAYERS = {"llama-3.2-vision-11b": 20, "whisper-large-v3": 16,
-                 "mamba2-1.3b": 24, "zamba2-1.2b": 20}
+FAM_TP_LAYERS = {"llama-3.2-vision-11b": 10, "whisper-large-v3": 8,
+                 "mamba2-1.3b": 12, "zamba2-1.2b": 10}
 # 17d: every family's smoke config at (1, 4) and (2, 2), f32, card
 # against the CPU
 TF_SMALL = ("qwen2.5-3b", "gemma3-12b", "llama-3.2-vision-11b",
             "whisper-large-v3", "mamba2-1.3b", "zamba2-1.2b")
 TF_SMALL_GEN = (4, 8, 6)
+
+
+def tf_config(get_config):
+    """17a / 17b's config: ``TF_ARCH`` cut to ``TF_LAYERS`` layers, its
+    widths as published."""
+    return get_config(TF_ARCH).replace(num_layers=TF_LAYERS)
 
 
 def partial_row(tad, ops, gen, kind, t, window, slots, heads, kv_heads,
@@ -5375,7 +5556,7 @@ def tf_rank(requests, tokens1, cases, probe) -> dict:
     from repro_torch.models import layers as L
     from repro_torch.obs import Tracer, phase_summary
     mesh = mesh_lib.make_host_mesh(*TF_MESH)
-    model = get_model(get_config(TF_ARCH))
+    model = get_model(tf_config(get_config))
     t0 = time.perf_counter()
     params = model.init(0, device=mesh.device, mesh=mesh)
     torch.cuda.synchronize()
@@ -5439,7 +5620,7 @@ def tf_data_rank(requests, cases) -> dict:
     from repro_torch.models import get_model
     from repro_torch.models import layers as L
     mesh = mesh_lib.make_host_mesh(*TF_DATA_MESH)
-    model = get_model(get_config(TF_ARCH))
+    model = get_model(tf_config(get_config))
     params = model.init(0, device=mesh.device, mesh=mesh)
     torch.cuda.reset_peak_memory_stats()
     eng = serving.Engine(model, params, serving.ServeConfig(
@@ -5526,13 +5707,17 @@ def phase_t_fallback(ops, serving, tad, mesh_lib, get_config,
     gen = torch.Generator(device="cuda").manual_seed(17)
     rows = [partial_row(tad, ops, gen, *shape) for shape in TF_KERNEL]
 
-    cfg = get_config(TF_ARCH)
+    cfg = tf_config(get_config)
     m = TF_MESH[1]
     weights = local_weight_bytes(cfg, TF_MESH)
     requests = requests_of(cfg.vocab_size, 16, 4, (64, 256), TF_NEW)
     pool = kv_pool_bytes(cfg, TF_SLOTS, TF_MAX_LEN)
     pred = (weights + 2 * pool / m) / GIB + TF_CONTEXT_GIB
-    print(f"17a {TF_ARCH}: full width and depth ({cfg.num_layers} layers, "
+    print(f"17a {TF_ARCH}: reduced: num_layers "
+          f"{get_config(TF_ARCH).num_layers} -> {cfg.num_layers} (the "
+          f"script's time budget: phases 18-18c came in; width as "
+          f"published)", flush=True)
+    print(f"17a {TF_ARCH}: full width ({cfg.num_layers} layers, "
           f"bf16) on a {TF_MESH} mesh, {m} gloo ranks on one card: "
           f"{cfg.num_heads // m} of {cfg.num_heads} heads and all "
           f"{cfg.num_kv_heads} KV heads a rank, the KV cache over T "
@@ -5569,9 +5754,8 @@ def phase_t_fallback(ops, serving, tad, mesh_lib, get_config,
           flush=True)
 
     t0 = time.perf_counter()
-    ranks = mesh_lib.spawn(tf_rank, m, "gloo", DEV,
-                           args=(requests, tokens1, cases, probe),
-                           timeout=600)
+    ranks = on_ranks(tf_rank, m, args=(requests, tokens1, cases, probe),
+                     timeout=600)
     spawn_s = time.perf_counter() - t0
     tol = tad.decode_parity_tolerance(torch.bfloat16)
     for r in ranks:
@@ -5646,8 +5830,8 @@ def phase_t_fallback(ops, serving, tad, mesh_lib, get_config,
           f"token, gap in M=1's logits, in M=4's) {ties}; |logit gap| "
           f"along M=1's tokens (max, mean) a request "
           f"{[(round(a, 4), round(b, 5)) for a, b in gaps]} (bounds "
-          f"{TF_LOGIT_BOUND}, {TF_LOGIT_MEAN_BOUND}); {spawn_s:.1f} s with "
-          f"the spawn; {smi_line()}", flush=True)
+          f"{TF_LOGIT_BOUND}, {TF_LOGIT_MEAN_BOUND}); {spawn_s:.1f} s on "
+          f"the shared ranks (started on first use); {smi_line()}", flush=True)
     print(f"17a decode step split (rank 0, {TF_SLOTS} slots, "
           f"{TP_SPLIT_STEPS} steps, host clock): {sp['step_ms']:.3f} ms = "
           f"compute {sp['compute_ms']:.3f} + "
@@ -5858,9 +6042,9 @@ def phase_families_tp(ops, serving, mesh_lib, get_config, get_model
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = mesh_lib.spawn(fam_tp_rank, FAM_TP_MESH[1], "gloo", DEV,
-                           args=({a: single[a]["tokens"]
-                                  for a in FAM_TP_ARCHS},), timeout=600)
+    ranks = on_ranks(fam_tp_rank, FAM_TP_MESH[1],
+                     args=({a: single[a]["tokens"] for a in FAM_TP_ARCHS},),
+                     timeout=600)
     spawn_s = time.perf_counter() - t0
     out = {}
     for arch in FAM_TP_ARCHS:
@@ -5903,8 +6087,509 @@ def phase_families_tp(ops, serving, mesh_lib, get_config, get_model
               f"(M=1 {one['peak'] / GIB:.2f})", flush=True)
         out[arch] = {"launches": got[0]["launches"], "gap": gap,
                      "equal": equal}
-    print(f"17c: {spawn_s:.1f} s with the spawn; {smi_line()}", flush=True)
+    print(f"17c: {spawn_s:.1f} s on the shared ranks (started on first "
+          f"use); {smi_line()}", flush=True)
     return out
+
+
+# ------------------------------------ 18-18c: training over the model axis
+TT_ARCH = "qwen2.5-3b"
+TT_LAYERS = 2                  # of 36: the script's time budget
+TT_STEPS = 3
+TT_BATCH = 4                   # global batch of 4 x 512 tokens
+TT_ARGV = ["--arch", TT_ARCH, "--optimizer", "tvlars", "--use-kernel",
+           "fused", "--precision", "f32", "--global-batch", str(TT_BATCH),
+           "--seq", "512", "--steps", str(TT_STEPS), "--layerwise-every",
+           "1", "--device", DEV]
+TT_PT_ARGV = ["--arch", TT_ARCH, "--optimizer", "wa-lars", "--use-kernel",
+              "per_tensor", "--precision", "f32", "--global-batch",
+              str(TT_BATCH), "--seq", "512", "--steps", str(TT_STEPS),
+              "--device", DEV]
+TT_MESH, TT_FSDP_MESH = (1, 2), (2, 2)
+# gaps to M = 1 on the same samples and weights (bf16 model): the loss,
+# grad_norm and the layer-wise norms relative as phase 15's DP_BOUNDS;
+# the params after 3 steps absolute, the reference test's own atol
+# (tests/test_sharding_multidevice.py) over the bf16 leaves
+TT_BOUNDS = dict(DP_BOUNDS, params=2e-3)
+TT_SMOKE = ("qwen2.5-3b", "gemma3-12b")
+TT_SMOKE_MESHES = ((2, 2), (1, 4))
+# the step split: collectives by what they carry (Mesh.collectives names)
+TT_SPLIT = {"row sums": ("model_sum",),
+            "fsdp gathers": ("fsdp_gather",),
+            "column reduce": ("fsdp_reduce", "column_reduce"),
+            "table all_reduce": ("norm_table", "grad_norm")}
+
+
+def tt_rules(cfg, mesh_shape: tuple, use_kernel: str) -> dict:
+    """What the placement rules give one rank of a ``mesh_shape`` mesh
+    (every rank's blocks have one shape): the params' bytes, the
+    optimizer state's (the step, and the fused flat buffer over the
+    blocks or a tree of f32 blocks), the gradients' (the blocks at the
+    params' dtype; f32 for leaves whole over the data axis when D > 1,
+    which the column average widens), the flat elements and the kernel
+    segments by whole size."""
+    from repro_torch.core import flatten, layerwise
+    from repro_torch.core.base import tree_flatten_with_path, tree_from_paths
+    from repro_torch.launch import sharding
+    from repro_torch.models import convert, get_model
+    from repro_torch.models.registry import FAMILIES
+
+    class At:
+        shape = dict(zip(("data", "model"), mesh_shape))
+        coords = {"data": 0, "model": 0}
+
+    place = convert.placement(cfg, At())
+    meta = FAMILIES[cfg.family][0](cfg, torch.Generator(),
+                                   torch.device("meta"))
+    blocks = tree_from_paths(meta, {
+        p: t[sharding.local_block(place.spec(p), At(), t.shape)]
+        for p, t in tree_flatten_with_path(meta)})
+    spec = flatten.build_spec(blocks, segments=get_model(cfg).segments)
+    leaves = list(tree_flatten_with_path(blocks))
+    params = sum(t.numel() * t.element_size() for _, t in leaves)
+    grads = sum(t.numel() * (4 if mesh_shape[0] > 1
+                             and place.data_dim(p) is None
+                             else t.element_size()) for p, t in leaves)
+    elems = spec.num_rows * flatten.LANES
+    state = params + 4 + (elems * 4 if use_kernel == "fused"
+                          else sum(t.numel() * 4 for _, t in leaves))
+    return {"params": params, "grads": grads, "state": state,
+            "flat": elems,
+            "kernel_segments": layerwise.kernel_segments(spec, place)}
+
+
+def tt_peak(cfg, mesh_shape: tuple, rules: dict, fused: bool = True
+            ) -> float:
+    """Predicted peak bytes of a rank of a TVLARS / WA-LARS f32 step: the
+    state, the gradients (:func:`tt_rules`), on the fused path the
+    optimizer's packed weights, gradients and f32 delta (3 x 4 B a flat
+    element; the per-tensor path's deltas are one segment's), the remat
+    inputs of every layer, one layer's recomputed activations at the TP
+    widths, and a CE chunk's f32 logits over V / M (three live
+    copies)."""
+    d, m = mesh_shape
+    b, s = TT_BATCH // d, 512
+    grads = rules["grads"]
+    layer = b * s * (8 * cfg.d_model + 3 * cfg.d_ff // m) * 4
+    remat = b * s * cfg.d_model * 2 * cfg.num_layers
+    ce = b * 256 * (cfg.vocab_size // m) * 4 * 3
+    work = 3 * 4 * rules["flat"] if fused else 0
+    return rules["state"] + grads + work + remat + layer + ce
+
+
+def tt_state_bytes(state) -> int:
+    from repro_torch.core.base import tree_leaves
+    return sum(x.numel() * x.element_size() for x in tree_leaves(state)
+               if isinstance(x, torch.Tensor))
+
+
+def tt_param_gap(params, place, ref_path: str) -> float:
+    """The largest |gap| of this rank's blocks to the M = 1 run's whole
+    params (a file of CPU tensors by path, memory-mapped)."""
+    from repro_torch.core.base import path_name, tree_flatten_with_path
+    ref = torch.load(ref_path, mmap=True)
+    worst = 0.0
+    for path, block in tree_flatten_with_path(params):
+        whole = ref[path_name(path)]
+        mine = place.block(path, whole).to(block.device)
+        worst = max(worst, (mine.float() - block.float()).abs().max().item())
+    return worst
+
+
+def tt_split(out: dict, steps: int) -> dict:
+    """Mean ms a step: the step (loss+grad and optimizer spans, both
+    synchronised) and each TT_SPLIT group of collectives, compute the
+    rest."""
+    total = (sum(out["loss_grad_seconds"]) + sum(out["optimizer_seconds"])) \
+        / steps * 1e3
+    col = out["collectives"]
+    split = {k: sum(col.get(n, {}).get("seconds", 0.0) for n in names)
+             / steps * 1e3 for k, names in TT_SPLIT.items()}
+    calls = {k: sum(col.get(n, {}).get("calls", 0) for n in names) // steps
+             for k, names in TT_SPLIT.items()}
+    return {"step": total, "compute": total - sum(split.values()),
+            **split, "calls": calls}
+
+
+def tt_seg_kernels(su, sref, flatten, model, params, place) -> dict:
+    """The segmented kernels on this rank's flat buffers (its blocks
+    packed, seeded gradients, a copy of the momentum): pass 1 against
+    the plain version (NORM_RTOL), pass 2 bitwise, and on rank 0 both
+    timed."""
+    spec = flatten.build_spec(params, segments=model.segments)
+    w = flatten.pack(params, spec)
+    gen = torch.Generator(device=w.device).manual_seed(18)
+    g = torch.randn(w.shape, generator=gen, device=w.device) * 1e-3
+    bufs = (torch.randn(w.shape, generator=gen, device=w.device) * 1e-3,)
+    ids = spec.segment_ids(w.device)
+    adapt = spec.adapt_mask(w.device)
+    h = OPT_HYPER
+    common = dict(b1=h["b1"], b2=h["b2"], eps=h["eps"], bc1=0.5, bc2=0.01)
+    nseg = spec.num_segments
+    norms = su.seg_norm_cuda(w, g, bufs, ids, nseg, mode="paper",
+                             weight_decay=h["weight_decay"], **common)
+    plain = su.seg_norm_ref(w, g, bufs, ids, nseg, mode="paper",
+                                        weight_decay=h["weight_decay"],
+                                        **common)
+    err = ((norms - plain).abs() / plain.abs().clamp_min(1e-30)).max().item()
+    if not err <= NORM_RTOL:
+        raise AssertionError(f"18: seg_norm on a rank's block, relative "
+                             f"error {err}")
+    _, _, ratio = sref.trust_ratio(norms[0], norms[1], adapt, mode="paper",
+                                   eta=h["eta"],
+                                   weight_decay=h["weight_decay"],
+                                   eps=h["eps"], trust_clip=None)
+    table = sref.scales_from_ratio(ratio, adapt, 0.1, h["weight_decay"])
+    kb = tuple(b.clone() for b in bufs)
+    _, kd = su.seg_apply_cuda(w, g, kb, ids, table, mode="paper",
+                              momentum=h["momentum"], seed=1, **common)
+    pb, pd = su.seg_apply_ref(w, g, bufs, ids, table, mode="paper",
+                              momentum=h["momentum"], seed=1, **common)
+    if not (torch.equal(kd, pd) and all(torch.equal(a, b)
+                                        for a, b in zip(kb, pb))):
+        raise AssertionError("18: seg_apply on a rank's block differs "
+                             "from its plain version")
+    # timed on rank 0 alone: the other rank would share the card
+    place.mesh.barrier()
+    times = time_seg(su, spec, w, g, bufs, ids, table, "paper", False,
+                     iters=5, plain_iters=1) if place.mesh.rank == 0 \
+        else None
+    place.mesh.barrier()
+    return {"norm_err": err, "apply_abs_err": (kd - pd).abs().max().item(),
+            "rows": spec.num_rows, "segments": nseg, "times": times}
+
+
+def tt_lars_kernels(lu, sref, cfg, params, names: list, mesh) -> dict:
+    """The per-tensor kernels on this rank's blocks of the largest
+    kernel segment (its members, seeded gradients, zero momentum):
+    sums within LARS_NORM_RTOL of plain, the apply bitwise, and on rank
+    0 both timed."""
+    from repro_torch.core.base import tree_get
+    from repro_torch.models import convert
+    segs = convert.segment_paths(cfg, params)
+    seg = max((s for s in segs if s.name in names),
+              key=lambda s: sum(tree_get(params, p).numel() for p in s.paths))
+    ws = [tree_get(params, p).contiguous() for p in seg.paths]
+    gen = torch.Generator(device=ws[0].device).manual_seed(19)
+    gs = [torch.randn(w.shape, generator=gen, device=w.device)
+          .to(w.dtype) * 1e-3 for w in ws]
+    ms = [torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+          for w in ws]
+    case = lars_case(lu, sref, ws, gs, ms, 0.1, False)
+    mesh.barrier()
+    times = time_lars(lu, sref, [(ws, gs, [m.clone() for m in ms], 0.1)]) \
+        if mesh.rank == 0 else None
+    mesh.barrier()
+    return {"segment": seg.name, "case": case, "times": times,
+            "elements": sum(w.numel() for w in ws)}
+
+
+def tt_rank_1x2(layers: int, ref_path: str) -> dict:
+    """18 and 18b on one rank of a (1, 2) world: fused TVLARS through
+    ``launch.train.run --mesh-model 2`` (launch counts a step, the step
+    split, state bytes, peak, the param gap to M = 1, the segmented
+    kernels on this rank's flat buffers), then per-tensor WA-LARS (its
+    launches a step and the per-tensor kernels on this rank's blocks)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.core import flatten
+    from repro_torch.kernels import lars_update as lu
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as sref
+    from repro_torch.kernels import segmented_update as su
+    from repro_torch.launch import train as train_launch
+    res = {}
+    for label, argv in (("18", TT_ARGV), ("18b", TT_PT_ARGV)):
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        watch = StepWatch(ops)
+        with depth_cut(train_launch, TT_ARCH, layers), \
+                watched_fit(train_launch, watch):
+            out = train_launch.run(argv + ["--mesh-model", "2"],
+                                   log_fn=_tt_log(label))
+        model, place, state = out["model"], out["placement"], out["state"]
+        r = {"history": out["history"], "launches": watch.launches,
+             "split": tt_split(out, TT_STEPS),
+             "state_bytes": tt_state_bytes(state),
+             "peak": out["peak_memory_bytes"], "rank": out["rank"]}
+        if label == "18":
+            r["param_gap"] = tt_param_gap(state.params, place, ref_path)
+            r["seg"] = tt_seg_kernels(su, sref, flatten, model,
+                                      state.params, place)
+        else:
+            names = tt_rules(model.cfg, TT_MESH, "per_tensor")[
+                "kernel_segments"]
+            r["kernel_segments"] = len(names)
+            r["lars"] = tt_lars_kernels(lu, sref, model.cfg, state.params,
+                                        names, out["mesh"])
+        res[label] = r
+        del out, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def _tt_log(label: str):
+    from repro_torch import distributed as dist_lib
+    rank = dist_lib.world().rank
+    return lambda line: print(f"  {label} rank {rank}: {line}", flush=True) \
+        if rank == 0 else None
+
+
+def tt_rank_2x2(layers: int, ref_path: str, ckpt: str) -> dict:
+    """18a and 18c on one rank of a (2, 2) world: fused TVLARS through
+    ``launch.train.run --mesh-model 2 --mesh-data 2`` (as 18), its state
+    saved (``checkpoint.save_train_state``, the gathered state's
+    fingerprint returned), then the smoke configs at (2, 2) and (1, 4)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch import checkpoint
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as train_launch
+    from repro_torch.training.train_state import fingerprint
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    watch = StepWatch(ops)
+    with depth_cut(train_launch, TT_ARCH, layers), \
+            watched_fit(train_launch, watch):
+        out = train_launch.run(TT_ARGV + ["--mesh-model", "2",
+                                          "--mesh-data", "2"],
+                               log_fn=_tt_log("18a"))
+    model, place, state = out["model"], out["placement"], out["state"]
+    res = {"history": out["history"], "launches": watch.launches,
+           "split": tt_split(out, TT_STEPS),
+           "state_bytes": tt_state_bytes(state),
+           "peak": out["peak_memory_bytes"], "rank": out["rank"],
+           "param_gap": tt_param_gap(state.params, place, ref_path)}
+    t0 = time.perf_counter()
+    whole = checkpoint.save_train_state(ckpt, state, cfg=model.cfg,
+                                        mesh=out["mesh"], placement=place,
+                                        segments=model.segments)
+    res["save_s"] = time.perf_counter() - t0
+    res["saved_print"] = None if whole is None else fingerprint(whole)
+    del out, state, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = {}
+    for d, m in TT_SMOKE_MESHES:
+        mesh = mesh_lib.make_host_mesh(d, m)
+        for arch in TT_SMOKE:
+            small[(d, m, arch)] = tt_small_losses(arch, mesh)
+    res["small"] = small
+    res["world"] = mesh_lib.world().size
+    return res
+
+
+def tt_small_losses(arch: str, mesh=None) -> list:
+    """3 fused TVLARS steps of ``arch``'s smoke config in f32 (K = 2 of
+    4 x 32) from the seed-0 weights drawn on the CPU and CPU-drawn
+    batches: on the CPU (``mesh=None``), or on this rank's blocks of
+    ``mesh`` on its card. The losses."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import build_optimizer
+    from repro_torch.core.base import tree_map
+    from repro_torch.data.synthetic import lm_iterator
+    from repro_torch.models import convert, get_model
+    from repro_torch.training import TrainState, lm_task, make_train_step
+    cfg = get_smoke_config(arch)
+    model = get_model(cfg)
+    params = model.init(0, device="cpu")
+    dev, place = torch.device("cpu"), None
+    if mesh is not None:
+        dev, place = mesh.device, convert.placement(cfg, mesh)
+        params = tree_map(lambda t: t.to(dev), convert.shard_params(
+            cfg, params, mesh, fsdp=True))
+    opt = build_optimizer("tvlars", total_steps=10, learning_rate=2.0,
+                          batch_size=8, use_kernel="fused",
+                          segments=model.segments, device=dev,
+                          placement=place)
+    state = TrainState.create(params, opt)
+    step = make_train_step(lm_task(model), opt, accum_steps=2, mesh=mesh,
+                           placement=place)
+    losses = []
+    for batch in lm_iterator(8, 32, cfg.vocab_size, seed=1, accum_steps=2,
+                             device="cpu"):
+        state, metrics = step(state, {k: v.to(dev) for k, v in
+                                      batch.items()})
+        losses.append(float(metrics["loss"]))
+        if len(losses) == 3:
+            return losses
+
+
+def tt_report(label, mesh_shape, ranks, one, rules, pred_peak, per_step):
+    """Check and print one mesh's run: launches a step, replicas (the
+    launcher raised otherwise), gaps to M = 1's history ``one`` (when
+    given) and params within TT_BOUNDS, state bytes equal to the rules'
+    prediction; the split, the peak."""
+    for r in ranks:
+        if r["launches"] != [per_step] * TT_STEPS:
+            raise AssertionError(f"{label} rank {r['rank']}: launches per "
+                                 f"step {r['launches']}, expected "
+                                 f"{per_step}")
+        if r["state_bytes"] != rules["state"]:
+            raise AssertionError(f"{label} rank {r['rank']}: state "
+                                 f"{r['state_bytes']} B, the rules say "
+                                 f"{rules['state']}")
+    gaps = {} if one is None else dp_gaps(ranks[0]["history"], one)
+    if "param_gap" in ranks[0]:
+        gaps["params"] = max(r["param_gap"] for r in ranks)
+    over = {k: v for k, v in gaps.items() if not v <= TT_BOUNDS[k]}
+    if over:
+        raise AssertionError(f"{label}: gaps to M=1 {gaps} over the bounds "
+                             f"{TT_BOUNDS}")
+    sp = ranks[0]["split"]
+    print(f"{label} {TT_ARCH} on a {mesh_shape} mesh (gloo ranks sharing "
+          f"the card): {per_step} a rank a step; ranks holding the same "
+          f"block bitwise equal; "
+          + (f"gaps to M=1 (worst over {TT_STEPS} steps) "
+             + ", ".join(f"{k} {v:.3e}" for k, v in sorted(gaps.items()))
+             + f" (bounds {TT_BOUNDS}); " if gaps else "")
+          + "step split (rank 0, mean ms a step) "
+          f"{sp['step']:.1f} = compute {sp['compute']:.1f} + "
+          + " + ".join(f"{k} {sp[k]:.1f} ({sp['calls'][k]} calls)"
+                       for k in TT_SPLIT)
+          + f"; state a rank {ranks[0]['state_bytes']} B (rules "
+          f"{rules['state']} B, params {rules['params']} B); peak a rank "
+          f"{[round(r['peak'] / GIB, 2) for r in ranks]} GiB (predicted "
+          f"{pred_peak / GIB:.2f})", flush=True)
+    return gaps
+
+
+def phase_model_axis_training(train_launch, ops, serving, checkpoint,
+                              mesh_lib, get_config, get_smoke_config,
+                              get_model, tree_leaves) -> dict:
+    """18-18c: training over the model axis (see the module docstring)."""
+    from repro_torch.core import build_optimizer
+    from repro_torch.core.base import path_name, tree_flatten_with_path
+    from repro_torch.training import TrainState
+    from repro_torch.training.train_state import fingerprint
+    full = get_config(TT_ARCH)
+    cfg = full.replace(num_layers=TT_LAYERS)
+    print(f"18 {TT_ARCH}: reduced: num_layers {full.num_layers} -> "
+          f"{TT_LAYERS} (the script's time budget; width as published: "
+          f"{cfg.d_model} wide, {cfg.num_heads} / {cfg.num_kv_heads} heads, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, bf16)", flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tt_")
+    try:
+        # M = 1 on the same weights and batches, both optimizers
+        ref_path = os.path.join(tmp, "m1.pt")
+        with depth_cut(train_launch, TT_ARCH, TT_LAYERS):
+            one = train_launch.run(TT_ARGV, log_fn=lambda line: None)
+        single = one["history"]
+        torch.save({path_name(p): t.detach().cpu() for p, t in
+                    tree_flatten_with_path(one["state"].params)}, ref_path)
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+        rules = {shape: tt_rules(cfg, shape, "fused")
+                 for shape in (TT_MESH, TT_FSDP_MESH)}
+        rules_pt = tt_rules(cfg, TT_MESH, "per_tensor")
+        preds = {shape: tt_peak(cfg, shape, rules[shape])
+                 for shape in rules}
+        print(f"18 predicted: state a rank {rules[TT_MESH]['state']} B at "
+              f"{TT_MESH}, {rules[TT_FSDP_MESH]['state']} B at "
+              f"{TT_FSDP_MESH}; peak a rank "
+              f"{preds[TT_MESH] / GIB:.2f} / "
+              f"{preds[TT_FSDP_MESH] / GIB:.2f} GiB", flush=True)
+        seg = {"seg_norm_lars": 1, "seg_apply_lars": 1}
+        t0 = time.perf_counter()
+        r12 = on_ranks(tt_rank_1x2, 2, args=(TT_LAYERS, ref_path),
+                       timeout=600)
+        s12 = time.perf_counter() - t0
+        gaps = {"18": tt_report("18", TT_MESH, [r["18"] for r in r12],
+                                single, rules[TT_MESH], preds[TT_MESH],
+                                seg)}
+        n_pt = len(rules_pt["kernel_segments"])
+        pt = {"lars_norm2": n_pt, "lars_apply": n_pt}
+        for r in r12:
+            if r["18b"]["kernel_segments"] != n_pt:
+                raise AssertionError("18b: kernel segments differ from the "
+                                     "rules'")
+        tt_report("18b", TT_MESH, [r["18b"] for r in r12], None, rules_pt,
+                                tt_peak(cfg, TT_MESH, rules_pt, False), pt)
+        s18 = r12[0]["18"]["seg"]
+        l18 = r12[0]["18b"]["lars"]
+        print(f"18 kernels on rank 0's flat buffers ({s18['rows']} rows, "
+              f"{s18['segments']} segments): seg_norm within "
+              f"{s18['norm_err']:.2e} of plain, seg_apply bitwise; "
+              f"{s18['times']['norm']['ms']:.4f} / "
+              f"{s18['times']['apply']['ms']:.4f} ms (plain "
+              f"{s18['times']['norm']['plain_ms']:.4f} / "
+              f"{s18['times']['apply']['plain_ms']:.4f}, bounds "
+              f"{s18['times']['norm']['bound_ms']:.4f} / "
+              f"{s18['times']['apply']['bound_ms']:.4f}); 18b per-tensor "
+              f"kernels on rank 0's blocks of {l18['segment']} "
+              f"({l18['elements']} elements): {l18['case']}; "
+              f"{l18['times']['norm']['ms']:.4f} / "
+              f"{l18['times']['apply']['ms']:.4f} ms (plain "
+              f"{l18['times']['norm']['plain_ms']:.4f} / "
+              f"{l18['times']['apply']['plain_ms']:.4f}, bounds "
+              f"{l18['times']['norm']['bound_ms']:.4f} / "
+              f"{l18['times']['apply']['bound_ms']:.4f}); {s12:.1f} s "
+              f"on the shared ranks (started on first use); {smi_line()}", flush=True)
+
+        # 18a / 18c: (2, 2), the save, the smoke configs
+        cpu_small = {arch: tt_small_losses(arch) for arch in TT_SMOKE}
+        ckpt = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        r22 = on_ranks(tt_rank_2x2, 4, args=(TT_LAYERS, ref_path, ckpt),
+                       timeout=900)
+        s22 = time.perf_counter() - t0
+        gaps["18a"] = tt_report("18a", TT_FSDP_MESH, r22, single,
+                                rules[TT_FSDP_MESH], preds[TT_FSDP_MESH],
+                                seg)
+        for (d, m, arch), got in r22[0]["small"].items():
+            np.testing.assert_allclose(got, cpu_small[arch], rtol=1e-5,
+                                       err_msg=f"18c {arch} ({d}, {m})")
+        print(f"18c smoke configs {TT_SMOKE} f32 at {TT_SMOKE_MESHES} on the "
+              f"card: losses within 1e-5 of the CPU's single-rank run "
+              f"({ {a: [round(x, 6) for x in v] for a, v in cpu_small.items()} })",
+              flush=True)
+        # restore at M = 1, bitwise the gathered state, and serve
+        model = get_model(cfg)
+        opt = build_optimizer("tvlars", total_steps=TT_STEPS,
+                              learning_rate=2.0, batch_size=TT_BATCH,
+                              use_kernel="fused", segments=model.segments,
+                              device=DEV)
+        like = TrainState.create(model.init(0, device=DEV), opt)
+        t0 = time.perf_counter()
+        restored = checkpoint.restore_train_state(ckpt, like, cfg=cfg,
+                                                  device=DEV)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        back = fingerprint(checkpoint.train_state_tree(restored, cfg=cfg))
+        if back != r22[0]["saved_print"]:
+            raise AssertionError("18c: the state restored at M=1 differs "
+                                 "from the (2, 2) ranks' gathered state")
+        sc = serving.ServeConfig(slots=1, max_len=256, page_size=16)
+        eng = serving.Engine(model, restored.params, sc, device=DEV)
+        results, stats, elapsed, launches = serve(
+            eng, ops, requests_of(cfg.vocab_size, 18, 1, (64, 128),
+                                  (16, 32)))
+        if launches != TT_LAYERS * stats["decode_steps"] or not launches:
+            raise AssertionError(f"18c: {launches} decode launches for "
+                                 f"{stats['decode_steps']} steps")
+        print(f"18c: saved at {TT_FSDP_MESH} in {r22[0]['save_s']:.2f} s "
+              f"(rank 0 writes the gathered state); restored at M=1 in "
+              f"{restore_s:.2f} s, bitwise the gathered state "
+              f"(fingerprints); one request served from it: "
+              f"{stats['tokens_generated']} tokens, {launches} "
+              f"attention_decode launches; {s22:.1f} s on the shared ranks (started on first use); "
+              f"{smi_line()}", flush=True)
+        del eng, restored, like
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"gaps": gaps, "r12": r12, "r22": r22,
+            "seg": r12[0]["18"]["seg"], "lars": r12[0]["18b"]["lars"],
+            "launches": {k: sum(s.get(k, 0) for s in r12[0]["18"]["launches"])
+                         for k in SEG_LARS},
+            "launches_2x2": {k: sum(s.get(k, 0)
+                                    for s in r22[0]["launches"])
+                             for k in SEG_LARS},
+            "launches_pt": {k: sum(s.get(k, 0)
+                                   for s in r12[0]["18b"]["launches"])
+                            for k in ("lars_norm2", "lars_apply")}}
 
 
 def main() -> int:
@@ -6167,6 +6852,15 @@ def main() -> int:
         fam_tp = phase_families_tp(ops, serving, mesh_lib, get_config,
                                    get_model)
 
+    # 18-18c: training over the model axis (fsdp + tensor parallelism)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase_clock("18-18c"):
+        tt = phase_model_axis_training(train_launch, ops, serving,
+                                       checkpoint, mesh_lib, get_config,
+                                       get_smoke_config, get_model,
+                                       tree_leaves)
+
     # the serving path's mix: 40 local and 8 global launches per decode
     # step (bf16 pool); per-launch means weighted by that mix
     rows = kernel["rows"]
@@ -6207,7 +6901,7 @@ def main() -> int:
                    for k in ("14", "14b")]
                 + [dict(tp["row"], layers_per_step=TP_LAYERS)]
                 + [dict(r, layers_per_step=n, mode="partial")
-                   for r, n in zip(tf["rows"], (36, 0))],
+                   for r, n in zip(tf["rows"], (TF_LAYERS, 0))],
                 "launches_by_phase": {
                     "4": main_path["launches"], "12": codeqwen["launches"],
                     "12b": qwen72["launches"],
@@ -6254,7 +6948,12 @@ def main() -> int:
                 "14c-stub": cross["14c-stub"].get(name, 0),
                 # per rank: every rank of 15 and 15b launches as many
                 "15": dp["launches"].get(name, 0),
-                "15b": dp["controller_launches"].get(name, 0)}})
+                "15b": dp["controller_launches"].get(name, 0),
+                # per rank, on the rank's blocks
+                "18": tt["launches"].get(name, 0),
+                "18a": tt["launches_2x2"].get(name, 0)},
+            "on_a_ranks_block": tt["seg"]["times"][
+                "norm" if "norm" in name else "apply"]})
     # the per-tensor kernels: per-launch means over the 14 segments of a
     # step at the main path's shapes; no single PyTorch call computes a
     # multi-tensor norm pair or the trust-scaled momentum apply, so
@@ -6273,7 +6972,13 @@ def main() -> int:
                 "7c": t["launches"],
                 "11c": paper["launches"].get(name, 0),
                 "13d": fam["13d-pt"][name]["launches"],
-                "14c": cross["14c-pt"][name]["launches"]}})
+                "14c": cross["14c-pt"][name]["launches"],
+                # per rank, on the rank's blocks
+                "18b": tt["launches_pt"][name]},
+            "on_a_ranks_block": {
+                k: v for k, v in tt["lars"]["times"][
+                    "norm" if "norm" in name else "apply"].items()
+                if k != "rows"}})
     # RMSNorm: its path is the public ops.rmsnorm (no model calls it, as
     # in the JAX package); means over the four shapes it was driven at
     m = rmsn["mean"]

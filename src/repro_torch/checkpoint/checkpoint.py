@@ -33,8 +33,17 @@ which needs no ``ml_dtypes``.
 
 Across worlds: the payload does not depend on the mesh. ``save(mesh=)``
 is called on every rank; rank 0 writes and every rank waits at a
-barrier; over a mesh with a model axis it raises (each rank holds its
-own blocks: saving split leaves is ROADMAP item 11c).
+barrier. With ``shardings=`` (one spec per leaf) each rank's leaf is
+its block under that spec: every leaf is gathered whole over the mesh
+(every rank takes part, in leaf order) and rank 0 writes the whole
+payload, recording the spec as the leaf's provenance.
+:func:`save_train_state` saves a GSPMD-trained state (fsdp + tensor
+parallelism, ``launch.sharding.Placement``) that way in the
+reference's layout: the params and tree-path buffers stacked as the
+reference stacks them, a fused state's flat buffers packed over the
+whole tree as the reference's are, and each leaf's provenance the spec
+the reference's launcher places it with (``state_pspecs(mesh, state,
+fsdp=True)``).
 ``restore(mesh=)`` places every leaf whole on each rank's device;
 ``restore(shardings=)`` takes placements
 (``distributed.NamedSharding``, one for all leaves or a tree of them,
@@ -57,9 +66,9 @@ import torch
 
 from repro_torch.core.base import (path_name, tree_flatten_with_path,
                                    tree_leaves)
-from repro_torch.distributed import (FSDP_PENDING, NamedSharding,
+from repro_torch.distributed import (NamedSharding, PartitionSpec,
                                      placement_device, replicated)
-from repro_torch.launch.sharding import local_block
+from repro_torch.launch.sharding import local_block, named, state_pspecs
 from repro_torch.models.convert import params_from_jax, params_to_jax
 from repro_torch.training.train_state import TrainState
 
@@ -107,41 +116,86 @@ def _atomic_write(path: str, name: str, write) -> None:
         raise
 
 
-def _leaf_sharding_meta(mesh) -> Optional[dict]:
-    """The provenance of a leaf replicated on ``mesh`` (None without)."""
+def _leaf_sharding_meta(mesh, spec=None) -> Optional[dict]:
+    """The provenance of a leaf placed on ``mesh`` by ``spec``
+    (replicated when None); None without a mesh."""
     if mesh is None:
         return None
-    return {"spec": str(replicated(mesh).spec),
+    return {"spec": str(replicated(mesh).spec if spec is None else spec),
             "mesh": {str(k): int(v) for k, v in mesh.shape.items()}}
 
 
+def _specs(shardings: Any) -> list:
+    """The spec of every ``NamedSharding`` of a tree, in the
+    checkpoint's leaf order."""
+    out = tree_leaves(shardings)
+    for i, sh in enumerate(out):
+        if not isinstance(sh, NamedSharding):
+            raise ValueError(f"leaf {i}: sharding entry is "
+                             f"{type(sh).__name__}, expected a "
+                             f"distributed.NamedSharding")
+    return [sh.spec for sh in out]
+
+
+def _whole(block: torch.Tensor, spec: PartitionSpec, mesh) -> tuple:
+    """The whole shape of which ``block`` is one rank's block."""
+    shape = list(block.shape)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            shape[d] *= int(mesh.shape[a])
+    return tuple(shape)
+
+
 def save(path: str, tree: Any, *, step: Optional[int] = None,
-         mesh=None) -> None:
+         mesh=None, shardings: Any = None) -> None:
     """Write ``tree`` (tensors on any device, numpy arrays or numbers)
     as a checkpoint directory at ``path``. ``mesh=``: called on every
-    rank of a data-parallel world, whose state is equal on every rank;
-    rank 0 writes, records every leaf as replicated on the mesh, and the
-    ranks meet at a barrier before returning."""
-    if mesh is not None and mesh.shape["model"] > 1:
-        raise NotImplementedError(f"save over a mesh with a model axis "
-                                  f"(split leaves): {FSDP_PENDING}")
+    rank of a world; rank 0 writes and the ranks meet at a barrier
+    before returning. Without ``shardings`` the state is equal on every
+    rank and every leaf is recorded as replicated on the mesh; with
+    ``shardings`` (a tree of ``NamedSharding`` matching ``tree``, as
+    :func:`restore` takes) each rank's leaf is its block under that spec:
+    every split leaf is gathered whole over the mesh first (all ranks,
+    in leaf order) and its spec recorded."""
+    pairs = list(tree_flatten_with_path(tree))
+    specs = None
+    if shardings is not None:
+        if mesh is None:
+            raise ValueError("save: shardings= needs the mesh= the "
+                             "leaves are placed on")
+        specs = _specs(shardings)
+        if len(specs) != len(pairs):
+            raise ValueError(f"save: {len(specs)} shardings for "
+                             f"{len(pairs)} leaves")
+        pairs = [(p, mesh.gather_whole(
+            x.detach().contiguous(), sp, _whole(x, sp, mesh),
+            name="checkpoint_gather")
+            if isinstance(x, torch.Tensor) and sp.axes() else x)
+            for (p, x), sp in zip(pairs, specs)]
+    _write(path, pairs, step, mesh, specs)
+
+
+def _write(path: str, pairs: list, step, mesh, specs) -> None:
+    """Rank 0 writes ``pairs`` (path, whole leaf) with each leaf's
+    provenance (``specs[i]``, replicated when None); with a mesh every
+    rank meets the others at a barrier after."""
     if mesh is not None and mesh.rank != 0:
         mesh.barrier()
         return
-    pairs = list(tree_flatten_with_path(tree))
     arrays, dtypes, shapes = {}, {}, {}
     for i, (_, leaf) in enumerate(pairs):
-        arr, dtype, shape = _payload(leaf)
-        arrays[f"leaf_{i}"] = arr
-        dtypes[f"leaf_{i}"] = dtype
-        shapes[f"leaf_{i}"] = shape
-    prov = _leaf_sharding_meta(mesh)
+        arrays[f"leaf_{i}"], dtypes[f"leaf_{i}"], shapes[f"leaf_{i}"] = \
+            _payload(leaf)
     meta = {"num_leaves": len(pairs),
             "treedef": "repro_torch tree: " + ", ".join(
                 path_name(p) for p, _ in pairs),
             "step": step, "dtypes": dtypes, "shapes": shapes,
-            "shardings": {} if prov is None else
-            {f"leaf_{i}": prov for i in range(len(pairs))}}
+            "shardings": {} if mesh is None else {
+                f"leaf_{i}": _leaf_sharding_meta(
+                    mesh, None if specs is None else specs[i])
+                for i in range(len(pairs))}}
     os.makedirs(path, exist_ok=True)
     _atomic_write(path, ARRAYS, lambda f: np.savez(f, **arrays))
     _atomic_write(path, META,
@@ -342,6 +396,66 @@ def train_state_tree(state: TrainState, *, cfg=None) -> TrainState:
         else params_to_jax(cfg, state.params)
     return TrainState(np.asarray(int(state.step), np.int32), params,
                       state.opt_state)
+
+
+def _is_flat(buf) -> bool:
+    from repro_torch.core import flatten
+    return isinstance(buf, torch.Tensor) and buf.dim() == 2 \
+        and buf.shape[1] == flatten.LANES
+
+
+def gathered_train_state(state: TrainState, *, cfg, placement,
+                         segments=None, dst: Optional[int] = None
+                         ) -> Optional[TrainState]:
+    """The whole state of which every rank of ``placement``'s mesh
+    holds ``state``'s blocks, in the reference's layout: on every rank,
+    or with ``dst`` on that rank only (None elsewhere); every rank takes
+    part. The params gathered and stacked (``convert.gather_params``,
+    ``params_to_jax``), a tree-path buffer alike, a fused flat buffer
+    unpacked to its leaves, gathered and packed again over the whole
+    tree (``segments`` as the optimizer was built with), so it is the
+    flat buffer a one-device run of the same state holds."""
+    from repro_torch.core import flatten
+    from repro_torch.models import convert
+    whole = convert.gather_params(state.params, placement, dst=dst)
+    bufs = []
+    for buf in list(state.opt_state)[1:]:
+        if _is_flat(buf):
+            spec = flatten.build_spec(state.params, dtype=buf.dtype,
+                                      segments=segments)
+            tree = convert.gather_params(
+                flatten.unpack(buf, spec, state.params), placement, dst=dst)
+            bufs.append(None if tree is None else flatten.pack(
+                tree, flatten.build_spec(whole, dtype=buf.dtype,
+                                         segments=segments)))
+        else:
+            tree = convert.gather_params(buf, placement, dst=dst)
+            bufs.append(None if tree is None else params_to_jax(cfg, tree))
+    if whole is None:
+        return None
+    opt = type(state.opt_state)(state.opt_state[0], *bufs)
+    dev = next(iter(tree_leaves(whole))).device
+    return TrainState(np.asarray(int(state.step), np.int32),
+                      params_to_jax(cfg, whole, device=dev), opt)
+
+
+def save_train_state(path: str, state: TrainState, *, cfg, mesh,
+                     placement, segments=None) -> TrainState:
+    """Save a state trained over ``placement`` (every rank holding its
+    blocks) as the reference saves the same state placed on the same
+    mesh by its launcher: rank 0 writes :func:`gathered_train_state`'s
+    payload, and each leaf's provenance is its spec under
+    ``state_pspecs(mesh, ..., fsdp=True)`` of that whole tree. Called on
+    every rank (the leaves are gathered to rank 0 only); returns the
+    whole tree written on rank 0, None elsewhere."""
+    whole = gathered_train_state(state, cfg=cfg, placement=placement,
+                                 segments=segments, dst=0)
+    specs = None if whole is None else _specs(
+        named(mesh, state_pspecs(mesh, whole, fsdp=True)))
+    _write(path, [] if whole is None else
+           list(tree_flatten_with_path(whole)), int(state.step), mesh,
+           specs)
+    return whole
 
 
 def restore_train_state(path: str, like: TrainState, *, cfg=None,

@@ -52,7 +52,7 @@ def build_optimizer(name: str, *, total_steps: int,
                     momentum_style: str = "paper",
                     scaling_rule: str = "sqrt",
                     segments=None,
-                    device="cuda") -> GradientTransform:
+                    device="cuda", placement=None) -> GradientTransform:
     name = name.lower()
     if name not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {name!r}; one of {OPTIMIZERS}")
@@ -72,7 +72,7 @@ def build_optimizer(name: str, *, total_steps: int,
             gamma_min = 1e-3
     gamma_min = min(gamma_min, 0.5)
     common = dict(use_kernel=use_kernel, precision=precision,
-                  segments=segments, device=device)
+                  segments=segments, device=device, placement=placement)
 
     if name in ("wa-lars", "lars"):
         sched = schedules.warmup_cosine(lr, warmup_steps, total_steps)

@@ -27,18 +27,25 @@ class LayerNorms(NamedTuple):
 
 
 def layer_norms(params: PyTree, grads: PyTree, eps: float = 1e-12, *,
-                segments: Optional[flatten.Segmenter] = None
-                ) -> LayerNorms:
-    """Per-segment LWN/LGN/LNR (f32 accumulation)."""
+                segments: Optional[flatten.Segmenter] = None,
+                placement=None) -> LayerNorms:
+    """Per-segment LWN/LGN/LNR (f32 accumulation). ``placement``: the
+    trees are this rank's blocks, and each segment's Σw², Σg² are
+    summed over the mesh with each distinct block counted once (one
+    collective) before the square roots."""
     segs = (segments or flatten.tree_segments)(params)
 
-    def norm(tree, seg):
-        return torch.sqrt(sum(sum_of_squares(tree_get(tree, p))
-                              for p in seg.paths))
+    def sq(tree, seg):
+        return sum(sum_of_squares(tree_get(tree, p)) for p in seg.paths)
 
     with torch.no_grad():
-        lwn = torch.stack([norm(params, s) for s in segs])
-        lgn = torch.stack([norm(grads, s) for s in segs])
+        sums = torch.stack([torch.stack([sq(params, s) for s in segs]),
+                            torch.stack([sq(grads, s) for s in segs])])
+        if placement is not None:
+            counted = torch.tensor([placement.counts_once(s.paths[0])
+                                    for s in segs], dtype=torch.bool)
+            placement.mesh.sum_blocks_(sums, counted, name="layer_norms")
+        lwn, lgn = torch.sqrt(sums[0]), torch.sqrt(sums[1])
     return LayerNorms(lwn=lwn, lgn=lgn, lnr=lwn / (lgn + eps))
 
 

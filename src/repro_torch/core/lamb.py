@@ -25,10 +25,10 @@ def lamb(learning_rate: Schedule, *, b1: float = 0.9, b2: float = 0.999,
          eps: float = 1e-6, weight_decay: float = 5e-4,
          trust_clip: Optional[float] = 10.0,
          use_kernel=False, precision: str = "f32", segments=None,
-         device="cuda") -> GradientTransform:
+         device="cuda", placement=None) -> GradientTransform:
     return layerwise_transform(
         learning_rate, mode="lamb", state_cls=LambState, b1=b1, b2=b2,
         eps=eps, weight_decay=weight_decay, trust_clip=trust_clip,
         use_kernel=use_kernel,
         precision=precision, optimizer_name="lamb", segments=segments,
-        device=device)
+        device=device, placement=placement)

@@ -28,7 +28,7 @@ def lars(learning_rate: Schedule, *, eta: float = 1e-3,
          eps: float = 1e-9, nesterov: bool = False,
          trust_clip: Optional[float] = None,
          use_kernel=False, precision: str = "f32", segments=None,
-         device="cuda") -> GradientTransform:
+         device="cuda", placement=None) -> GradientTransform:
     """Build LARS; ``segments`` / ``device`` as in
     :func:`~repro_torch.core.layerwise.layerwise_transform`."""
     return layerwise_transform(
@@ -37,4 +37,4 @@ def lars(learning_rate: Schedule, *, eta: float = 1e-3,
         nesterov=nesterov, trust_clip=trust_clip,
         use_kernel=use_kernel,
         precision=precision, optimizer_name="lars", segments=segments,
-        device=device)
+        device=device, placement=placement)

@@ -18,8 +18,9 @@ dispatch paths:
   * ``use_kernel="per_tensor"`` — the tree path, except that every
                              ADAPT segment of 8 or more elements goes
                              through the per-tensor LARS kernels
-                             (``kernels.ops.lars_update``): two
-                             launches per such segment, heavy ball or
+                             (``kernels.ops.lars_norm2``, then
+                             ``lars_apply``): two launches per such
+                             segment, heavy ball or
                              nesterov only (``_validate_use_kernel``
                              refuses the rest, as the reference does).
 
@@ -37,6 +38,21 @@ and the f32 delta live in work buffers kept across steps; the updates
 returned are views into the delta, valid until the next update. The step's scalars (``base_lr``,
 ``bc1``, ``bc2`` and the stochastic-rounding seed = the step) are 0-d
 tensors on the state's device: a step reads nothing back.
+
+Every path takes all segments' Σw² and Σg² first and applies after:
+the fused path in its two launches, the tree and per-tensor paths in a
+pass of sums (a kernel segment's norm launch; a plain segment's terms
+kept for its apply) and a pass of applies. Over a mesh (``placement=``,
+a ``launch.sharding.Placement``: training over fsdp and the model
+axis), each rank holds blocks of the leaves and packs or walks its
+blocks: the same segments in the same order on every rank, and the
+table of sums is summed over the mesh between the two, in ONE
+collective for all segments (``Mesh.sum_blocks_``: each distinct block
+counted once, so a segment replicated over the model row is not counted
+M times). The launches stay 1 + 1 per rank per step on the fused path
+and 2 per kernel segment per rank per step on the per-tensor path, the
+kernel chosen by the WHOLE segment's size so every rank enters the same
+collectives in the same order.
 
 Precision (fused only): ``"f32"``, ``"bf16_master"`` (bf16 working
 params / grads / state, f32 norms, table and delta) and
@@ -118,14 +134,37 @@ def _validate_use_kernel(use_kernel: UseKernel, *, mode: str,
             f"trust_clip; use use_kernel='fused'")
 
 
-def kernel_segments(spec: flatten.FlatSpec) -> list:
+def kernel_segments(spec: flatten.FlatSpec, placement=None) -> list:
     """Names of the segments the per-tensor path sends to its kernels:
     ADAPT and at least ``PER_TENSOR_MIN_SIZE`` elements (on an LM tree
-    the size of the whole stacked leaf). Each costs two launches per
+    the size of the whole stacked leaf; under a ``placement``, of the
+    whole segment, not the rank's block). Each costs two launches per
     step."""
+    sizes = whole_sizes(spec, placement)
     return [name for name, adapt, size in zip(spec.names, spec.adapt,
-                                              spec.sizes)
+                                              sizes)
             if adapt and size >= PER_TENSOR_MIN_SIZE]
+
+
+def whole_sizes(spec: flatten.FlatSpec, placement=None) -> list:
+    """Each segment's element count over the whole leaves (a rank's
+    block size times the blocks the placement cuts the leaf into)."""
+    if placement is None:
+        return list(spec.sizes)
+    return [size * placement.parts(paths[0])
+            for size, paths in zip(spec.sizes, spec.paths)]
+
+
+def block_reducer(spec: flatten.FlatSpec, placement) -> Callable:
+    """``table -> table``: a ``[..., nseg]`` f32 table of per-segment
+    sums over this rank's blocks summed over the placement's mesh, each
+    distinct block counted once (``Mesh.sum_blocks_``, in place); the
+    identity without a placement."""
+    if placement is None:
+        return lambda t: t
+    counted = torch.tensor([placement.counts_once(paths[0])
+                            for paths in spec.paths], dtype=torch.bool)
+    return lambda t: placement.mesh.sum_blocks_(t, counted)
 
 
 def layerwise_transform(base_lr_fn: Callable, *,
@@ -143,7 +182,7 @@ def layerwise_transform(base_lr_fn: Callable, *,
                         precision: str = "f32",
                         optimizer_name: str = "layerwise",
                         segments: Optional[flatten.Segmenter] = None,
-                        device="cuda") -> GradientTransform:
+                        device="cuda", placement=None) -> GradientTransform:
     """Build a layer-wise GradientTransform (updates are deltas).
 
     ``mode``: "lars", "paper" or "lamb". ``state_cls(step, *bufs)`` is
@@ -153,7 +192,9 @@ def layerwise_transform(base_lr_fn: Callable, *,
     LM trees need ``model.segments``). ``device`` is where a kernel
     path (fused substrate, per-tensor kernels) runs: resolved at build
     time, so asking for CUDA on a host without it raises; the tree path
-    runs on the params' device.
+    runs on the params' device. ``placement``: the params are this
+    rank's blocks of a tree placed over a mesh (see the module
+    docstring).
     """
     if mode not in ref.MODES:
         raise ValueError(f"unknown mode {mode!r}; one of {ref.MODES}")
@@ -234,7 +275,8 @@ def layerwise_transform(base_lr_fn: Callable, *,
             weight_decay=weight_decay, momentum=momentum, b1=b1, b2=b2,
             eps=eps, nesterov=nesterov, trust_clip=trust_clip,
             bc1=bc1, bc2=bc2, stochastic_round=stochastic,
-            seed=state.step, telemetry=telemetry)
+            seed=state.step, telemetry=telemetry,
+            reduce_norms=block_reducer(spec, placement))
         if telemetry:
             obs_layerwise.deposit(out[2])
         updates = flatten.unpack(out[1], spec, params)
@@ -248,23 +290,17 @@ def layerwise_transform(base_lr_fn: Callable, *,
             else _spec(params, torch.float32)
         base_lr, bc1, bc2 = _step_scalars(state.step)
         telemetry = obs_layerwise.active()
-        rows = []
-        updates = {}
-        for paths, adapt, size in zip(spec.paths, spec.adapt, spec.sizes):
-            bs = [tuple(tree_get(state[1 + k], p) for k in range(n_bufs))
-                  for p in paths]
-            if use_kernel == "per_tensor" and adapt \
-                    and size >= PER_TENSOR_MIN_SIZE:
-                out = kops.lars_update(
-                    [tree_get(params, p).contiguous() for p in paths],
-                    [tree_get(grads, p).contiguous() for p in paths],
-                    [b[0] for b in bs], base_lr=base_lr, eta=eta,
-                    weight_decay=weight_decay, momentum_mu=momentum,
-                    eps=eps, nesterov=nesterov, telemetry=telemetry)
-                updates.update(zip(paths, out[1]))
-                if telemetry:
-                    rows.append(tuple(out[2]))
-                continue
+        sizes = whole_sizes(spec, placement)
+
+        def members(paths):
+            return [tuple(tree_get(state[1 + k], p) for k in range(n_bufs))
+                    for p in paths]
+
+        def on_kernel(adapt, size):
+            return use_kernel == "per_tensor" and adapt \
+                and size >= PER_TENSOR_MIN_SIZE
+
+        def plain_terms(paths, bs):
             ws = [tree_get(params, p).float() for p in paths]
             gs = [tree_get(grads, p).float() for p in paths]
             dirs = [ref.direction(mode, w, g, b, b1=b1, b2=b2, bc1=bc1,
@@ -272,18 +308,55 @@ def layerwise_transform(base_lr_fn: Callable, *,
                     for w, g, b in zip(ws, gs, bs)]
             bvecs = [d + weight_decay * w if mode == "lamb" else g
                      for (d, _), w, g in zip(dirs, ws, gs)]
-            w2 = sum(sum_of_squares(w) for w in ws)
-            b2_ = sum(sum_of_squares(b) for b in bvecs)
+            sums = torch.stack([sum(sum_of_squares(w) for w in ws),
+                                sum(sum_of_squares(b) for b in bvecs)])
+            return (ws, dirs), sums
+
+        def kernel_members(paths):
+            return ([tree_get(params, p).contiguous() for p in paths],
+                    [tree_get(grads, p).contiguous() for p in paths])
+
+        # every segment's sums first (a kernel segment's first launch; a
+        # plain one's terms kept for its apply), then one collective over
+        # the placement's mesh (none on one device), then the applies
+        terms, parts = [], []
+        for paths, adapt, size in zip(spec.paths, spec.adapt, sizes):
+            if on_kernel(adapt, size):
+                terms.append(kernel_members(paths))
+                parts.append(kops.lars_norm2(*terms[-1]))
+            else:
+                kept, sums = plain_terms(paths, members(paths))
+                terms.append(kept)
+                parts.append(sums)
+        table = block_reducer(spec, placement)(torch.stack(parts, dim=1))
+        rows = []
+        updates = {}
+        for s_i, (paths, adapt, size, kept) in enumerate(zip(
+                spec.paths, spec.adapt, sizes, terms)):
+            bs = members(paths)
+            if on_kernel(adapt, size):
+                ws, gs = kept
+                deltas, stats = kops.lars_apply(
+                    ws, gs, [b[0] for b in bs], table[:, s_i].contiguous(),
+                    base_lr=base_lr, eta=eta, weight_decay=weight_decay,
+                    momentum_mu=momentum, eps=eps, nesterov=nesterov,
+                    telemetry=telemetry)
+                updates.update(zip(paths, deltas))
+                if telemetry:
+                    rows.append(tuple(stats))
+                continue
+            ws, dirs = kept
+            w2, b2_ = table[0, s_i], table[1, s_i]
             adapt_t = torch.as_tensor(adapt, device=w2.device)
             wn, bn, ratio = ref.trust_ratio(
                 w2, b2_, adapt_t, mode=mode, eta=eta,
                 weight_decay=weight_decay, eps=eps, trust_clip=trust_clip)
             if telemetry:
                 rows.append((wn, bn, ratio))
-            table = ref.scales_from_ratio(ratio, adapt_t, base_lr,
-                                          weight_decay)
+            table_s = ref.scales_from_ratio(ratio, adapt_t, base_lr,
+                                            weight_decay)
             for p, w, b, (d, bufs2) in zip(paths, ws, bs, dirs):
-                scaled = table[0] * d + table[1] * w
+                scaled = table_s[0] * d + table_s[1] * w
                 nb, delta = ref.integrate(mode, w, bufs2, scaled,
                                           momentum=momentum,
                                           nesterov=nesterov)

@@ -27,7 +27,7 @@ def tvlars(gamma_target: float, *, lam: float = 1e-4,
            momentum: float = 0.9, weight_decay: float = 5e-4,
            eps: float = 1e-9, momentum_style: str = "paper",
            use_kernel=False, precision: str = "f32", segments=None,
-           device="cuda") -> GradientTransform:
+           device="cuda", placement=None) -> GradientTransform:
     """Build TVLARS; ``gamma_target`` is Table 1's target LR."""
     if momentum_style not in ("paper", "lars"):
         raise ValueError(f"unknown momentum_style {momentum_style!r}")
@@ -41,4 +41,4 @@ def tvlars(gamma_target: float, *, lam: float = 1e-4,
         momentum=momentum, weight_decay=weight_decay, eps=eps,
         use_kernel=use_kernel,
         precision=precision, optimizer_name="tvlars", segments=segments,
-        device=device)
+        device=device, placement=placement)

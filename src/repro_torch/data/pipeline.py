@@ -19,7 +19,12 @@ stacked ``[K, D·b, ...]`` leaves, dim 0 otherwise), the order in which
 the reference's ``make_data_mesh`` devices take shards. The global
 batch is ``K × D × microbatch``. :func:`shard_over_data` runs a
 function on this rank's shard (the reference's ``shard_map``); the
-function averages its own outputs over the axis (``Mesh.mean_``). The
+function averages its own outputs over the axis (``Mesh.mean_``). On a
+``(data, model)`` mesh (the reference's GSPMD step, fsdp + tensor
+parallelism) the batch goes over the data column the same way
+(:func:`place_over_data`: every rank of a model row takes its data
+row's block, or the whole batch when the data width does not divide
+it), and ``--microbatch`` is the global size of one pass. The
 ``PartitionSpec`` helpers keep the reference's descriptor of which dim
 is split over which axes.
 """
@@ -146,6 +151,25 @@ def shard_batch(mesh: Mesh, batch: PyTree, *, batch_dim: int = 0
         return x.narrow(batch_dim, mesh.shard * b, b)
 
     return _tree_map(place, batch)
+
+
+def place_over_data(mesh: Mesh, batch: PyTree, *, batch_dim: int = 0
+                    ) -> PyTree:
+    """The GSPMD batch placement (``launch.sharding.batch_pspecs``):
+    this data row's block of ``batch_dim`` when the data width divides
+    it (:func:`shard_batch`, at any model width: every rank of a model
+    row computes the row's block), else the whole batch on every rank
+    (a tiny batch stays replicated, as the reference leaves it)."""
+    dp = dp_size(mesh)
+
+    def fits(x):
+        return x.dim() > batch_dim and x.shape[batch_dim] % dp == 0
+
+    leaves = [batch] if isinstance(batch, torch.Tensor) else (
+        list(batch.values()) if isinstance(batch, dict) else list(batch))
+    if dp == 1 or not all(fits(x) for x in leaves):
+        return batch
+    return shard_batch(mesh, batch, batch_dim=batch_dim)
 
 
 def sharded_iterator(mesh: Mesh, host_iter: Iterator, *,

@@ -29,10 +29,11 @@ Collectives:
   D contributes ``-0.0``, the exact additive identity, so a step at
   D < world sums what a world of D ranks sums. At D = 1 it hands rank
   0's tensors, in their own dtype, to the other ranks. Over a mesh with
-  a model axis it raises (training over that axis is
-  :data:`FSDP_PENDING`).
+  a model axis it runs over this rank's data column (``D`` ranks of one
+  model index), so each model rank keeps its own blocks.
 * :meth:`Mesh.broadcast_` copies rank 0's tensors to every rank in
-  place, byte for byte (``train_state.replicate``).
+  place, byte for byte (``train_state.replicate``); over a mesh with a
+  model axis, data index 0's to the rest of the column.
 * :meth:`Mesh.model_sum_` sums a row-parallel partial over the model
   row in place, in f32 (a bf16 partial is widened, summed, rounded
   back); :meth:`Mesh.model_gather` concatenates the row's blocks of a
@@ -44,6 +45,32 @@ Collectives:
   holds, :meth:`Mesh.data_block`). Each call is counted and timed on
   the host in :attr:`Mesh.collectives` (host-staged: after the card's
   queue has drained, so the time is the collective's own).
+
+Training over the model axis (fsdp + tensor parallelism, the
+reference's GSPMD step) differentiates through these collectives, so
+the Megatron pair and the fsdp pair are ``torch.autograd.Function``
+classes (the model's layers call the Megatron pair when serving too;
+its forward gives the bits of the in-place calls):
+
+* :func:`copy_to_row` is the identity, and its backward sums the
+  gradient over the model row: it stands at every column-parallel
+  input and on every replicated leaf a rank uses only in part (the QKV
+  biases' rows of its heads, a whole ``wk`` / ``wv`` of which it reads
+  its heads' KV groups);
+* :func:`sum_over_row` sums a row-parallel partial over the row, and
+  its backward is the identity;
+* :func:`gather_row` concatenates the row's blocks, and its backward
+  keeps this rank's block;
+* :func:`fsdp_gather` all-gathers a leaf's blocks over the data column,
+  and its backward sums the gradient over the column, keeps this
+  rank's block and divides by D: the reference's mean over the global
+  batch.
+
+Serving calls the in-place :meth:`Mesh.model_sum_` /
+:meth:`Mesh.model_gather` directly, as before. :meth:`Mesh.sum_blocks_`
+sums per-block statistics (Σw², Σg²) over the whole mesh with each
+distinct block counted once: a rank whose coordinate is not 0 on an
+axis that does not split the leaf adds ``-0.0``.
 
 Backends: ``nccl`` when every rank has a card of its own, ``gloo`` on
 the CPU or when ranks share one card. ``gloo`` collectives run on host
@@ -63,6 +90,7 @@ import collections
 import dataclasses
 import datetime
 import time
+import types
 from typing import Any, Optional, Sequence
 
 import torch
@@ -75,17 +103,25 @@ BUCKET_BYTES = 256 << 20
 TIMEOUT_S = 300.0
 BACKENDS = ("gloo", "nccl")
 # what the model axis does not do yet, each with its ROADMAP item:
-# training (11c), the MoE family (11d), and a KV cache that
-# cache_pspecs would split over Dh (11b-4: the model axis divides neither
-# the KV heads nor the cache's length, e.g. whisper-large-v3's 1500
-# cross frames and 20 heads at model 8). Serving every other family on a
-# (data, model) mesh is ported: the KV cache over the KV heads or, where
-# they do not divide, over T (the decode kernel's partial mode and a
-# merge over the row), the slots over the data axis.
-FSDP_PENDING = (
-    "training over the model axis (fsdp, the reference's GSPMD "
-    "--data-parallel, sequence parallelism, saving split leaves) is not "
-    "ported: ROADMAP queue 1, item 11c")
+# sequence parallelism (10, with the dry run that is its only user),
+# the other families trained over it and the probes at model > 1
+# (11c-2), the MoE family (11d), and a KV cache that cache_pspecs
+# would split over Dh (11b-4: the model axis divides neither the KV
+# heads nor the cache's length, e.g. whisper-large-v3's 1500 cross
+# frames and 20 heads at model 8). Serving every other family on a
+# (data, model) mesh is ported, and so is training the dense family
+# (fsdp over the data axis, tensor parallelism over the model axis).
+SEQUENCE_PARALLEL_PENDING = (
+    "sequence parallelism (set_batch_sharding(seq_axis=), the dry "
+    "run's sequence-split residuals) is not ported: ROADMAP queue 1, "
+    "item 10")
+TRAIN_FAMILIES_PENDING = (
+    "training the vlm, encdec, ssm and hybrid families (and moe at "
+    "model 1) over the reference's GSPMD mesh (fsdp + the model axis) "
+    "is not ported: ROADMAP queue 1, item 11c-2")
+PROBES_PENDING = (
+    "probes over a mesh with a model axis (double backward through the "
+    "row's collectives) are not ported: ROADMAP queue 1, item 11c-2")
 EXPERT_PARALLEL_PENDING = (
     "expert parallelism (the MoE family at model > 1) is not ported: "
     "ROADMAP queue 1, item 11d")
@@ -239,8 +275,8 @@ class Mesh:
     world makes one process group per model row and one per data
     column, in the same order; a rank past the mesh belongs to
     neither. Serving uses the rows (the model axis) and the columns
-    (the slots each data row holds; training over them is ROADMAP item
-    11c)."""
+    (the slots each data row holds); training uses both (tensor
+    parallelism over the rows, fsdp and the batch over the columns)."""
 
     axis_names = AXES
 
@@ -298,15 +334,39 @@ class Mesh:
             return t.detach().to("cpu")
         return t
 
+    def _column_group(self, what: str):
+        """The process group of this rank's data column (None: the
+        default group, when the column is the whole world)."""
+        if not self.member:
+            raise RuntimeError(f"{what}: rank {self.rank} lies past the "
+                               f"{self.data} x {self.model} mesh")
+        if self.model > 1:
+            return self._column
+        if self.world == self.data:
+            return None
+        raise RuntimeError(f"{what}: {self.world} ranks in the world, "
+                           f"{self.data} in the data column")
+
+    def _mesh_group(self, what: str):
+        """The default group, which must hold exactly the mesh's ranks."""
+        if self.world != self.data * self.model:
+            raise RuntimeError(f"{what}: {self.world} ranks in the world, "
+                               f"{self.data} x {self.model} in the mesh")
+        return None
+
     def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
         """Copy rank 0's ``tensors`` into every rank's, in place, byte
-        for byte, in chunks of at most :data:`BUCKET_BYTES`."""
-        if self.model > 1:
-            raise NotImplementedError(f"broadcast_ over a mesh with a "
-                                      f"model axis (each rank holds its "
-                                      f"own block): {FSDP_PENDING}")
+        for byte, in chunks of at most :data:`BUCKET_BYTES`. Over a mesh
+        with a model axis the copy runs over this rank's data column,
+        from its data index 0 (each model rank keeps its own blocks)."""
         if self.world == 1:
             return
+        group, src = None, 0
+        if self.model > 1:
+            group = self._column_group("broadcast_")
+            src = self.coords["model"]
+            if self.data == 1:
+                return
         for t in tensors:
             if not t.is_contiguous():
                 raise ValueError("broadcast_: contiguous tensors only")
@@ -314,32 +374,38 @@ class Mesh:
             for start in range(0, flat.numel(), BUCKET_BYTES):
                 part = flat[start:start + BUCKET_BYTES]
                 staged = self._staged(part).contiguous()
-                dist.broadcast(staged, src=0)
+                dist.broadcast(staged, src=src, group=group)
                 if staged.data_ptr() != part.data_ptr():
                     part.copy_(staged)
 
-    def mean_(self, tensors: Sequence[torch.Tensor]) -> None:
+    def mean_(self, tensors: Sequence[torch.Tensor],
+              name: Optional[str] = None) -> None:
         """Average ``tensors`` over the data axis, in place: each is f32
         and contiguous, and every rank ends with the sum of the mesh
         ranks' values divided by D; at D = 1 over several ranks every
-        rank ends with rank 0's values (their own dtype). A joined world
-        of one rank still runs the collectives (a sum of one); outside
-        any world this is a no-op."""
-        if self.model > 1:
-            raise NotImplementedError(f"mean_ over a mesh with a model "
-                                      f"axis: {FSDP_PENDING}")
+        rank ends with rank 0's values (their own dtype). Over a mesh
+        with a model axis the average runs over this rank's data column
+        (a no-op at D = 1). A joined world of one rank still runs the
+        collectives (a sum of one); outside any world this is a no-op.
+        ``name`` counts and times the call in :attr:`collectives`."""
         for t in tensors:
             if not t.is_contiguous():
                 raise ValueError("mean_: contiguous tensors only (a "
                                  "reshaped copy would not be written)")
         if self.world == 1 and not dist.is_initialized():
             return
-        if self.data == 1 and self.world > 1:
+        group = None
+        if self.model > 1:
+            group = self._column_group("mean_")
+            if self.data == 1:
+                return
+        elif self.data == 1 and self.world > 1:
             self.broadcast_(tensors)
             return
         for t in tensors:
             if t.dtype != torch.float32:
                 raise TypeError(f"mean_: f32 tensors only, got {t.dtype}")
+        t0 = self._start(tensors[0]) if name and tensors else 0.0
         flats = [t.detach().view(-1) for t in tensors]
         limit = BUCKET_BYTES // 4
         bucket: list = []
@@ -352,28 +418,139 @@ class Mesh:
                 used += take
                 start += take
                 if used == limit:
-                    self._mean_bucket(flats, bucket, used)
+                    self._mean_bucket(flats, bucket, used, group)
                     bucket, used = [], 0
         if bucket:
-            self._mean_bucket(flats, bucket, used)
+            self._mean_bucket(flats, bucket, used, group)
+        if name and tensors:
+            self._record(name, t0, sum(f.numel() for f in flats) * 4)
 
-    def _mean_bucket(self, flats, pieces, n: int) -> None:
+    def _mean_bucket(self, flats, pieces, n: int, group) -> None:
         dev = flats[pieces[0][0]].device
         stage = torch.device("cpu") if self.backend == "gloo" else dev
         buf = torch.empty(n, dtype=torch.float32, device=stage)
-        if self.rank < self.data:
+        if self.member:
             o = 0
             for i, a, b in pieces:
                 buf[o:o + b - a].copy_(flats[i][a:b])
                 o += b - a
         else:
             buf.fill_(-0.0)
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
         buf.div_(self.data)
         o = 0
         for i, a, b in pieces:
             flats[i][a:b].copy_(buf[o:o + b - a])
             o += b - a
+
+    def counts_once(self, spec: PartitionSpec) -> bool:
+        """Whether this rank counts its block of a leaf placed by
+        ``spec`` in a sum over the whole mesh: its coordinate is 0 on
+        every mesh axis that does not split the leaf (the ranks that
+        hold copies of one block count it once between them)."""
+        split = spec.axes()
+        return all(self.coords[a] == 0 for a in AXES if a not in split)
+
+    def sum_blocks_(self, t: torch.Tensor, counted: torch.Tensor,
+                    name: str = "norm_table") -> torch.Tensor:
+        """Sum per-block statistics over the whole mesh, in place: ``t``
+        is f32 ``[..., n]`` with one column per leaf (or segment) and
+        ``counted`` a ``[n]`` bool, whether this rank counts each
+        (:meth:`counts_once`); an uncounted column adds ``-0.0``, the
+        exact additive identity. One ``all_reduce``; every rank ends
+        with the same bits. Returns ``t``."""
+        if self.world == 1 and not dist.is_initialized():
+            return t
+        group = self._mesh_group("sum_blocks_")
+        t0 = self._start(t)
+        mask = counted.to(device=t.device, dtype=torch.bool)
+        buf = torch.where(mask, t.detach(),
+                          torch.full((), -0.0, dtype=t.dtype,
+                                     device=t.device)).contiguous()
+        staged = self._staged(buf)
+        dist.all_reduce(staged, op=dist.ReduceOp.SUM, group=group)
+        t.copy_(staged)
+        self._record(name, t0, staged.numel() * 4)
+        return t
+
+    def row_max_(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of ``t`` over this rank's model row, in
+        place (no gradient: a stabiliser); counted as ``model_sum``."""
+        if self.model == 1:
+            return t
+        group = self._row_group("row_max_")
+        t0 = self._start(t)
+        staged = self._staged(t.detach().contiguous())
+        dist.all_reduce(staged, op=dist.ReduceOp.MAX, group=group)
+        if staged.data_ptr() != t.data_ptr():
+            t.copy_(staged)
+        self._record("model_sum", t0, staged.numel() * t.element_size())
+        return t
+
+    def column_sum_(self, t: torch.Tensor, name: str = "column_reduce"
+                    ) -> torch.Tensor:
+        """Sum ``t`` over this rank's data column, in place, in f32 (a
+        bf16 tensor widened, summed, rounded back). Returns ``t``."""
+        if self.data == 1:
+            return t
+        group = self._column_group("column_sum_")
+        t0 = self._start(t)
+        buf = t.detach()
+        if buf.dtype != torch.float32 or not buf.is_contiguous():
+            buf = buf.float().contiguous()
+        staged = self._staged(buf)
+        dist.all_reduce(staged, op=dist.ReduceOp.SUM, group=group)
+        if staged.data_ptr() != t.data_ptr():
+            t.copy_(staged)
+        self._record(name, t0, staged.numel() * 4)
+        return t
+
+    def column_gather(self, t: torch.Tensor, dim: int,
+                      name: str = "fsdp_gather") -> torch.Tensor:
+        """The data column's blocks of ``t`` concatenated along ``dim``
+        in data-index order (bits, as :meth:`model_gather`)."""
+        if self.data == 1:
+            return t
+        return self._gather(t, dim, self._column_group(name), self.data,
+                            name)
+
+    def gather_whole(self, block: torch.Tensor, spec: PartitionSpec,
+                     shape: Sequence[int], name: str = "gather_whole",
+                     dst: Optional[int] = None) -> Optional[torch.Tensor]:
+        """The whole leaf of ``shape`` whose blocks the mesh's ranks hold
+        under ``spec`` (``launch.sharding.local_block``), each block
+        placed at its rank's coordinates: on every rank (one all-gather
+        over the mesh), or with ``dst`` on that rank only (one gather;
+        the others get None). A replicated leaf is returned as it is."""
+        if not spec.axes():
+            return block if dst is None or self.rank == dst else None
+        group = self._mesh_group(name)
+        if dst is None:
+            parts = self._gather(block[None], 0, group, self.world, name)
+        else:
+            t0 = self._start(block)
+            wire = block.detach().contiguous()
+            bits = wire.dtype == torch.bfloat16 and self.backend == "gloo"
+            wire = self._staged(wire.view(torch.uint8) if bits else wire)
+            into = [torch.empty_like(wire) for _ in range(self.world)] \
+                if self.rank == dst else None
+            dist.gather(wire, into, dst=dst, group=group)
+            self._record(name, t0, wire.numel() * wire.element_size()
+                         * (self.world if into is not None else 1))
+            if into is None:
+                return None
+            parts = [(x.view(torch.bfloat16) if bits else x)
+                     .to(block.device) for x in into]
+        # imported here: launch.sharding imports this module
+        from repro_torch.launch.sharding import local_block
+        out = torch.empty(tuple(shape), dtype=block.dtype,
+                          device=block.device)
+        for r in range(self.world):
+            at = types.SimpleNamespace(
+                shape=self.shape, coords=dict(zip(AXES, divmod(r,
+                                                               self.model))))
+            out[local_block(spec, at, shape)] = parts[r]
+        return out
 
     def _row_group(self, what: str):
         if not self.member:
@@ -396,11 +573,12 @@ class Mesh:
         c["seconds"] += time.perf_counter() - t0
         c["bytes"] += nbytes
 
-    def model_sum_(self, t: torch.Tensor) -> torch.Tensor:
+    def model_sum_(self, t: torch.Tensor, name: str = "model_sum"
+                   ) -> torch.Tensor:
         """Sum ``t`` over this rank's model row, in place, in f32: a
         bf16 partial is widened, summed and rounded back once. Every
         rank of the row ends with the same bits. Returns ``t``; at
-        ``model = 1`` it is left alone."""
+        ``model = 1`` it is left alone. Counted under ``name``."""
         if self.model == 1:
             return t
         group = self._row_group("model_sum_")
@@ -412,7 +590,7 @@ class Mesh:
         dist.all_reduce(staged, op=dist.ReduceOp.SUM, group=group)
         if staged.data_ptr() != t.data_ptr():
             t.copy_(staged)
-        self._record("model_sum", t0, staged.numel() * 4)
+        self._record(name, t0, staged.numel() * 4)
         return t
 
     def model_gather(self, t: torch.Tensor, dim: int,
@@ -476,6 +654,97 @@ class Mesh:
     def barrier(self) -> None:
         if self.world > 1:
             dist.barrier()
+
+
+# --------------------------------------------------------------------------
+# collectives that autograd differentiates (training over the model axis)
+# --------------------------------------------------------------------------
+
+class _CopyToRow(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.model_sum_(g.contiguous().clone()), None
+
+
+class _SumOverRow(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.model_sum_(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherRow(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.dim, ctx.local, ctx.index = dim, x.shape[dim], \
+            mesh.coords["model"]
+        return mesh.model_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.local,
+                        ctx.local).contiguous(), None, None
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, block, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.local = mesh, dim, block.shape[dim]
+        return mesh.column_gather(block, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        total = mesh.column_sum_(g.float().contiguous(), "fsdp_reduce")
+        mine = total.narrow(ctx.dim, mesh.coords["data"] * ctx.local,
+                            ctx.local) / mesh.data
+        return mine.to(g.dtype).contiguous(), None, None
+
+
+def copy_to_row(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Identity forward; the backward sums the gradient over the model
+    row (Megatron's f: every column-parallel input, and every
+    replicated leaf a rank uses in part)."""
+    if mesh.model == 1:
+        return x
+    return _CopyToRow.apply(x, mesh)
+
+
+def sum_over_row(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum of a row-parallel partial over the model row (a new
+    tensor, summed in f32 as :meth:`Mesh.model_sum_`); the backward is
+    the identity (Megatron's g)."""
+    if mesh.model == 1:
+        return x
+    return _SumOverRow.apply(x, mesh)
+
+
+def gather_row(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """The row's blocks of ``x`` concatenated along ``dim``; the
+    backward keeps this rank's block of the gradient."""
+    if mesh.model == 1:
+        return x
+    return _GatherRow.apply(x, mesh, dim)
+
+
+def fsdp_gather(block: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """A leaf's blocks over the data column, all-gathered along ``dim``
+    (counted as ``fsdp_gather``). The backward sums the gradient over
+    the column in f32 (``fsdp_reduce``), keeps this rank's block and
+    divides it by D, then rounds to the leaf's dtype: each data row
+    computed the mean loss of its shard of the batch, so this is the
+    gradient of the mean over the global batch."""
+    if mesh.data == 1:
+        return block
+    return _FsdpGather.apply(block, mesh, dim)
 
 
 def make_host_mesh(data: int = 1, model: int = 1) -> Mesh:

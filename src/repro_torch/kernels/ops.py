@@ -4,7 +4,10 @@
 * :func:`segmented_update` — the fused optimizer step on the flat
   substrate (two launches: segmented norms, then the apply);
 * :func:`lars_update` — the per-tensor LARS step of one segment (two
-  launches: its norms, then the apply);
+  launches: its norms, then the apply); :func:`lars_norm2` and
+  :func:`lars_apply` are its two launches alone, for a rank holding a
+  block of the segment, whose sums are reduced over the mesh between
+  them;
 * :func:`rmsnorm` — RMSNorm with ``(1 + weight)`` scaling (one launch;
   off the models' path, as in the JAX package).
 
@@ -71,7 +74,8 @@ def segmented_update(w2d, g2d, bufs, *, delta=None, **kw):
     ``w2d``/``g2d``/``bufs`` are ``(rows, 128)`` buffers at the storage
     dtype; ``kw`` are ``segmented_update_ref``'s (seg_ids, adapt_mask,
     base_lr, mode, eta, weight_decay, momentum, b1, b2, eps, nesterov,
-    trust_clip, bc1, bc2, stochastic_round, seed, telemetry). The state
+    trust_clip, bc1, bc2, stochastic_round, seed, telemetry,
+    reduce_norms: pass 1's table reduced between the passes). The state
     buffers are updated IN PLACE and the f32 delta is written into
     ``delta`` (allocated when None). Returns ``(bufs, delta)``, plus the
     per-segment ``{"w_norm", "g_norm", "trust_ratio"}`` with
@@ -130,6 +134,55 @@ def lars_update(w, g, m, *, base_lr, eta: float, weight_decay: float,
                            f"{dev}")
     out = (ms[0], deltas[0]) if single else (ms, deltas)
     return out + (stats,) if telemetry else out
+
+
+def lars_norm2(ws, gs) -> torch.Tensor:
+    """``[Σw², Σg²]`` f32 over one segment's member tensors (the first
+    of :func:`lars_update`'s launches, counted under ``lars_norm2`` on
+    CUDA; the plain version on the CPU)."""
+    ws, gs = list(ws), list(gs)
+    dev = ws[0].device
+    if dev.type == "cuda":
+        out = _lu.lars_norm2_cuda(ws, gs)
+        launches["lars_norm2"] += 1
+        return out
+    if dev.type == "cpu":
+        return _ref.lars_norm2(ws, gs)
+    raise RuntimeError(f"lars_norm2: no implementation for device {dev}")
+
+
+def lars_apply(ws, gs, ms, sums, *, base_lr, eta: float,
+               weight_decay: float, momentum_mu: float, eps: float = 1e-9,
+               nesterov: bool = False, telemetry: bool = False):
+    """The second of :func:`lars_update`'s launches, from ``sums``
+    (``[Σw², Σg²]`` f32, e.g. summed over a mesh's blocks): the trust
+    ratio, ``ms`` updated IN PLACE, ``(deltas, stats)`` returned
+    (``stats`` ``[w_norm, g_norm, ratio]`` with ``telemetry``, else
+    None). Counted under ``lars_apply`` on CUDA."""
+    ws, gs, ms = list(ws), list(gs), list(ms)
+    kw = dict(base_lr=base_lr, eta=eta, weight_decay=weight_decay,
+              momentum_mu=momentum_mu, eps=eps, nesterov=nesterov)
+    dev = ws[0].device
+    if dev.type == "cuda":
+        deltas, stats = _lu.lars_apply_cuda(ws, gs, ms, sums, stats=telemetry,
+                                            **kw)
+        launches["lars_apply"] += 1
+        return deltas, stats
+    if dev.type != "cpu":
+        raise RuntimeError(f"lars_apply: no implementation for device "
+                           f"{dev}")
+    wn, gn, ratio, scale = _ref.lars_ratio(sums, base_lr, eta=eta,
+                                           weight_decay=weight_decay,
+                                           eps=eps)
+    deltas = []
+    for w, g, m in zip(ws, gs, ms):
+        new_m, delta = _ref.lars_apply(w, g, m, scale,
+                                       weight_decay=weight_decay,
+                                       momentum_mu=momentum_mu,
+                                       nesterov=nesterov)
+        m.copy_(new_m)
+        deltas.append(delta)
+    return deltas, (torch.stack([wn, gn, ratio]) if telemetry else None)
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *,

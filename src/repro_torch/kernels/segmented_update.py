@@ -158,16 +158,21 @@ def segmented_update_ref(w2d, g2d, bufs, *, seg_ids, adapt_mask, base_lr,
                          momentum: float, b1: float, b2: float, eps: float,
                          nesterov: bool = False, trust_clip=None,
                          bc1=1.0, bc2=1.0, stochastic_round: bool = False,
-                         seed=0, telemetry: bool = False):
+                         seed=0, telemetry: bool = False,
+                         reduce_norms=None):
     """Whole-tree step in plain PyTorch: the port of
     ``ref.ref_segmented_update``. Returns ``(new_bufs, delta2d)`` (plus
     the ``{"w_norm", "g_norm", "trust_ratio"}`` triple with
-    ``telemetry=True``); the inputs are not modified."""
+    ``telemetry=True``); the inputs are not modified. ``reduce_norms``
+    (a rank holding blocks of the segments) maps pass 1's ``(2, nseg)``
+    table to the whole segments' before the trust table."""
     nseg = adapt_mask.shape[0]
     adapt = adapt_mask.to(w2d.device)
     norms = seg_norm_ref(w2d, g2d, bufs, seg_ids, nseg, mode=mode,
                          weight_decay=weight_decay, b1=b1, b2=b2, eps=eps,
                          bc1=bc1, bc2=bc2)
+    if reduce_norms is not None:
+        norms = reduce_norms(norms)
     wn, bn, ratio = ref.trust_ratio(norms[0], norms[1], adapt, mode=mode,
                                     eta=eta, weight_decay=weight_decay,
                                     eps=eps, trust_clip=trust_clip)
@@ -329,11 +334,14 @@ def segmented_update_cuda(w2d, g2d, bufs, *, seg_ids, adapt_mask, base_lr,
                           bc1=1.0, bc2=1.0, stochastic_round: bool = False,
                           seed=0, telemetry: bool = False,
                           delta: Optional[torch.Tensor] = None,
-                          launches: Optional[dict] = None):
+                          launches: Optional[dict] = None,
+                          reduce_norms=None):
     """The host glue of the two launches (the port of
     ``segmented_update_pallas``): pass 1, the trust table in PyTorch on
     the card, pass 2. State is updated in place; ``launches[name]`` is
-    incremented right after each kernel launch when a dict is given."""
+    incremented right after each kernel launch when a dict is given.
+    ``reduce_norms`` maps pass 1's table of a rank's blocks to the whole
+    segments' (one collective) before the trust table."""
     _check_mode(mode)
     norm_name, apply_name = KERNELS[mode]
     nseg = adapt_mask.shape[0]
@@ -343,6 +351,8 @@ def segmented_update_cuda(w2d, g2d, bufs, *, seg_ids, adapt_mask, base_lr,
                           bc1=bc1, bc2=bc2)
     if launches is not None:
         launches[norm_name] += 1
+    if reduce_norms is not None:
+        norms = reduce_norms(norms)
     wn, bn, ratio = ref.trust_ratio(norms[0], norms[1], adapt, mode=mode,
                                     eta=eta, weight_decay=weight_decay,
                                     eps=eps, trust_clip=trust_clip)

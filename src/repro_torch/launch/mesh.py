@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import multiprocessing
 import os
+import pickle
 import queue
 import tempfile
 import time
@@ -23,7 +24,8 @@ import torch.distributed as dist
 
 from repro_torch.distributed import (  # noqa: F401  (the launchers' names)
     BACKENDS, DH_FALLBACK_PENDING, EXPERT_PARALLEL_PENDING,
-    FSDP_PENDING, TIMEOUT_S, World, all_equal,
+    PROBES_PENDING, SEQUENCE_PARALLEL_PENDING, TIMEOUT_S,
+    TRAIN_FAMILIES_PENDING, World, all_equal,
     check_backend, default_backend, init_world, joined, leave,
     make_data_mesh, make_host_mesh, placement_device, replicated, world)
 
@@ -47,9 +49,11 @@ def join(backend: Optional[str] = None, device="cuda") -> World:
                       "env://")
 
 
-def _rank_main(fn, rank, size, backend, device, init_method, timeout,
-               args, out):
+def _rank_main(call_path, rank, size, backend, device, init_method,
+               timeout, out):
     try:
+        with open(call_path, "rb") as f:
+            fn, args = pickle.load(f)
         init_world(backend, device, rank, size, init_method, timeout)
         result = fn(*args)
         dist.barrier()
@@ -65,8 +69,10 @@ def _rank_main(fn, rank, size, backend, device, init_method, timeout,
 def spawn(fn: Callable, world_size: int, backend: str, device, *,
           args: Sequence = (), timeout: float = TIMEOUT_S) -> list:
     """Run ``fn(*args)`` on ``world_size`` new ranks (``spawn`` start
-    method; ``fn`` and ``args`` are pickled, so ``fn`` is a module-level
-    function) that have joined one world, and return their results in
+    method; ``fn`` and ``args`` are pickled by value into a file each
+    rank reads, so ``fn`` is a module-level function and tensors in
+    ``args`` arrive as copies) that have joined one world, and return
+    their results in
     rank order. A rank that raises, or a world that does not finish
     within ``timeout`` seconds, raises ``RuntimeError`` here after
     every rank has been stopped."""
@@ -75,9 +81,16 @@ def spawn(fn: Callable, world_size: int, backend: str, device, *,
     out = ctx.Queue()
     with tempfile.TemporaryDirectory(prefix="repro_torch_world_") as tmp:
         init = "file://" + os.path.join(tmp, "rendezvous")
+        # the call goes through a file, not the process's start pipe: a
+        # start blocks while a child has not read its pipe, and a child
+        # reads it only after importing fn's module, so large args
+        # would start the ranks one after another
+        call = os.path.join(tmp, "call.pkl")
+        with open(call, "wb") as f:
+            pickle.dump((fn, tuple(args)), f)
         procs = [ctx.Process(target=_rank_main,
-                             args=(fn, r, world_size, backend, str(device),
-                                   init, timeout, tuple(args), out))
+                             args=(call, r, world_size, backend,
+                                   str(device), init, timeout, out))
                  for r in range(world_size)]
         for p in procs:
             p.start()

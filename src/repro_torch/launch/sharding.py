@@ -19,7 +19,9 @@ numpy arrays). Trees are the port's: nested dicts, lists, tuples and
 NamedTuples (the SSM cache), whose fields name their leaves.
 :func:`local_block` is the port's own: the slices of a leaf that one
 rank holds under a spec, where the reference hands the spec to
-``jax.device_put``.
+``jax.device_put``; so is :class:`Placement`, the specs of a whole tree
+that a training step, its optimizer and a checkpoint read to know which
+of a rank's blocks are split over which axes.
 """
 from __future__ import annotations
 
@@ -233,3 +235,50 @@ def local_block(spec: P, mesh, shape) -> tuple:
         out.append(slice(index * block, (index + 1) * block))
     return tuple(out)
 
+
+class Placement:
+    """Where every leaf of a parameter tree lies over ``mesh``: each
+    leaf's spec under :func:`leaf_pspec` (``fsdp=True``: the model axis
+    on the Megatron dim, the data axes on the largest remaining dim that
+    divides them), computed from the WHOLE leaves' shapes ``whole``
+    (``{path: shape}``), so a rank that holds only its blocks can ask
+    what the whole leaf is. Paths are the port's tree paths."""
+
+    def __init__(self, mesh, whole: dict, *, fsdp: bool = True):
+        self.mesh = mesh
+        self.fsdp = fsdp
+        self.whole = {tuple(p): tuple(s) for p, s in whole.items()}
+        self.specs = {p: leaf_pspec(p, _Shape(s), mesh, fsdp=fsdp)
+                      for p, s in self.whole.items()}
+
+    def spec(self, path) -> P:
+        return self.specs[tuple(path)]
+
+    def data_dim(self, path) -> Optional[int]:
+        """The dim split over the data axes, or None."""
+        for d, entry in enumerate(self.spec(path)):
+            axes = entry if isinstance(entry, tuple) else (entry,)
+            if "data" in axes:
+                return d
+        return None
+
+    def parts(self, path) -> int:
+        """How many blocks the whole leaf is cut into."""
+        n = 1
+        for a in self.spec(path).axes():
+            n *= int(self.mesh.shape[a])
+        return n
+
+    def counts_once(self, path) -> bool:
+        """Whether this rank counts its block of the leaf in a sum over
+        the mesh (``Mesh.counts_once``)."""
+        return self.mesh.counts_once(self.spec(path))
+
+    def block(self, path, leaf):
+        """This rank's block of the whole ``leaf`` at ``path`` (a view)."""
+        return leaf[local_block(self.spec(path), self.mesh, leaf.shape)]
+
+
+class _Shape:
+    def __init__(self, shape):
+        self.shape = tuple(shape)

@@ -60,11 +60,21 @@ it joins the world given. ``--dist-backend`` picks ``gloo`` or ``nccl``
 (default: ``nccl`` when every rank has a card of its own, else
 ``gloo``; printed). Rank 0 alone prints and writes the metrics, trace
 and profile. ``--adaptive-batch`` then moves D too (``data_max`` =
-``--mesh-data``, a power of two). ``--mesh-model > 1`` and the
-reference's GSPMD ``--data-parallel D > 1`` raise
-``NotImplementedError``: training over the model axis (fsdp and tensor
-parallelism) is ROADMAP item 11c; the model axis serves
-(``launch.serve --model-parallel``).
+``--mesh-data``, a power of two).
+
+The reference's GSPMD path (``--mesh-model M > 1`` with ``--mesh-data
+D``, its alias ``--model-parallel``, or the legacy ``--data-parallel D
+> 1``): D × M ranks, spawned or joined as above, each holding its
+blocks of the params and optimizer state under the reference's
+training placement (``state_pspecs(fsdp=True)``: tensor parallelism
+over the model axis, fsdp over the data axis;
+``Model.init(0, mesh=, fsdp=True)``), the batch over the data axis and
+``--microbatch`` GLOBAL (K = global / micro), as in the reference
+(``make_train_step(mesh=, placement=)``). The dense family only; the
+MoE family at M > 1 raises naming ROADMAP item 11d, the other families
+and ``--probe-every`` item 11c-2; ``--adaptive-batch`` is refused with
+the reference's message. After the run the ranks that hold the same
+block of a leaf are checked bitwise equal.
 
 :func:`run` is the entry point for programs (``chip_smoke.py``): it
 takes the argument list and returns the run's numbers and final state.
@@ -74,6 +84,7 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+import types
 from typing import Optional, Sequence
 
 import torch
@@ -94,7 +105,10 @@ from repro_torch.obs import trace as obs_trace
 from repro_torch.training import (AdaptiveBatchController,
                                   ControllerConfig, FitOptions, TrainState,
                                   fit, lm_task, make_train_step)
-from repro_torch.training.train_state import fingerprint, replicate
+from repro_torch.models import convert
+from repro_torch.models.transformer import check_training_axis
+from repro_torch.training.train_state import (fingerprint, replicas_equal,
+                                              replicate)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -169,7 +183,7 @@ def parser() -> argparse.ArgumentParser:
                     help="length of the profiler window in steps")
     ap.add_argument("--data-parallel", type=int, default=1,
                     help="the reference's GSPMD data axis (fsdp + TP "
-                         "rules): not ported past 1, use --mesh-data")
+                         "rules; --microbatch is global)")
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--mesh-data", type=int, default=None,
                     help="data axis of the mesh: D > 1 with --mesh-model "
@@ -177,7 +191,9 @@ def parser() -> argparse.ArgumentParser:
                          "(--microbatch is PER RANK)")
     ap.add_argument("--mesh-model", type=int, default=None,
                     help="model axis of the mesh (alias of "
-                         "--model-parallel); only 1 is ported")
+                         "--model-parallel): M > 1 trains on D x M ranks "
+                         "over the GSPMD path (fsdp + tensor "
+                         "parallelism, --microbatch global)")
     ap.add_argument("--dist-backend", default=None,
                     choices=mesh_lib.BACKENDS,
                     help="collective backend of the ranks (default: nccl "
@@ -244,7 +260,9 @@ def run(argv: Optional[Sequence[str]] = None, *,
     "optimizer_seconds", "probe_seconds", "dispatch_seconds",
     "resolve_seconds", "seconds", "peak_memory_bytes" (None off the
     card), "segment_names", "history", "probes" (the probe records,
-    ``{"step", "lanczos/lambda_max", ...}``), "state", "model"}``.
+    ``{"step", "lanczos/lambda_max", ...}``), "state", "model", "mesh",
+    "placement" (the GSPMD path's, else None), "collectives" (the
+    mesh's counts, seconds and bytes per collective)}``.
     Without ``--async-metrics`` the step spans synchronise the card and
     a probe reads its result back, so their times are device times;
     with it they are the host's."""
@@ -265,23 +283,36 @@ def run(argv: Optional[Sequence[str]] = None, *,
     if mesh_data < 1 or mesh_model < 1:
         raise SystemExit(f"--mesh-data {mesh_data} and --mesh-model "
                          f"{mesh_model} must be >= 1")
-    if mesh_model > 1:
-        raise NotImplementedError(f"--mesh-model {mesh_model}: "
-                                  f"{mesh_lib.FSDP_PENDING}")
-    if args.mesh_data is None and args.data_parallel > 1:
-        raise NotImplementedError(
-            f"--data-parallel {args.data_parallel} selects the reference's "
-            f"GSPMD path: {mesh_lib.FSDP_PENDING}; use --mesh-data")
     # the mesh-native path (batch over ranks, params replicated) is
-    # opted into by the explicit --mesh-data flag
-    mesh_native = args.mesh_data is not None and mesh_data > 1
-    if mesh_native and not mesh_lib.joined():
+    # opted into by the explicit --mesh-data flag at --mesh-model 1; a
+    # model axis or the legacy --data-parallel take the GSPMD path
+    mesh_native = args.mesh_data is not None and mesh_data > 1 \
+        and mesh_model == 1
+    gspmd = mesh_model > 1 or (args.mesh_data is None and mesh_data > 1)
+    if gspmd and args.adaptive_batch:
+        raise SystemExit(
+            "--adaptive-batch composes with the shard_map data axis only: "
+            "pass --mesh-data (with --mesh-model 1); the GSPMD fsdp+TP "
+            "path has no re-stack boundary")
+    if gspmd and args.probe_every > 0:
+        raise NotImplementedError(f"--probe-every over the GSPMD mesh "
+                                  f"{(mesh_data, mesh_model)}: "
+                                  f"{mesh_lib.PROBES_PENDING}")
+    need = mesh_data * mesh_model
+    if gspmd:
+        # refused before any rank starts
+        check_training_axis(
+            get_smoke_config(args.arch) if args.smoke
+            else get_config(args.arch),
+            types.SimpleNamespace(shape={"data": mesh_data,
+                                         "model": mesh_model}))
+    if (mesh_native or gspmd) and not mesh_lib.joined():
         backend = args.dist_backend or mesh_lib.default_backend(
-            args.device, mesh_data)
+            args.device, need)
         if not mesh_lib.in_torchrun():
-            log_fn(f"data_parallel={mesh_data} backend={backend}: spawning "
-                   f"{mesh_data} ranks")
-            return mesh_lib.spawn(_rank_run, mesh_data, backend,
+            log_fn(f"data_parallel={mesh_data} model_parallel={mesh_model} "
+                   f"backend={backend}: spawning {need} ranks")
+            return mesh_lib.spawn(_rank_run, need, backend,
                                   args.device, args=(argv,))[0]
         mesh_lib.join(backend, args.device)
         try:
@@ -304,8 +335,8 @@ def run(argv: Optional[Sequence[str]] = None, *,
             f"{per_pull // microbatch} = {per_pull} (global batch is "
             f"K x D x per-device microbatch)")
     accum_steps = args.global_batch // per_pull
-    mesh = mesh_lib.make_host_mesh(mesh_data) if mesh_lib.joined() \
-        else None
+    mesh = mesh_lib.make_host_mesh(mesh_data, mesh_model) \
+        if mesh_lib.joined() else None
     if mesh is not None and mesh.rank != 0:
         log_fn = _quiet
     dev = mesh_lib.placement_device(mesh, args.device)
@@ -326,7 +357,9 @@ def run(argv: Optional[Sequence[str]] = None, *,
     model = get_model(cfg)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    params = model.init(0, device=dev)
+    place = convert.placement(cfg, mesh) if gspmd else None
+    params = model.init(0, device=dev, mesh=mesh, fsdp=True) if gspmd \
+        else model.init(0, device=dev)
     tracer = obs_trace.Tracer()
     layerwise = args.layerwise_every > 0
 
@@ -337,11 +370,13 @@ def run(argv: Optional[Sequence[str]] = None, *,
                                batch_size=batch_size,
                                use_kernel=use_kernel,
                                precision=args.precision,
-                               segments=model.segments, device=dev)
+                               segments=model.segments, device=dev,
+                               placement=place)
 
     def step_for(opt_, k: int, mesh_=mesh):
         return make_train_step(lm_task(model), opt_, accum_steps=k,
-                               mesh=mesh_, layerwise=layerwise,
+                               mesh=mesh_, placement=place,
+                               layerwise=layerwise,
                                tracer=tracer,
                                sync_spans=args.async_metrics == 0)
 
@@ -396,7 +431,9 @@ def run(argv: Optional[Sequence[str]] = None, *,
     if args.prefetch > 0:
         batches = pipeline.PrefetchingStream(batches, size=args.prefetch,
                                              tracer=tracer)
-    state = replicate(TrainState.create(params, opt), mesh)
+    state = TrainState.create(params, opt)
+    if not gspmd:
+        state = replicate(state, mesh)
     names = list(flatten.build_spec(params, segments=model.segments).names)
     callbacks = []
     if args.probe_every > 0:
@@ -494,13 +531,19 @@ def run(argv: Optional[Sequence[str]] = None, *,
                                if "controller/changed" in r],
         "controller": controller, "global_batches": [
             h.get("global_batch", args.global_batch) for h in history],
-        "state": state, "model": model,
+        "state": state, "model": model, "mesh": mesh, "placement": place,
+        "collectives": {} if mesh is None else {
+            k: dict(v) for k, v in mesh.collectives.items()},
         "rank": 0 if mesh is None else mesh.rank,
         "world": 1 if mesh is None else mesh.world,
         "fingerprint": fingerprint(state),
     }
-    if mesh is not None and not mesh_lib.all_equal(mesh,
-                                                   out["fingerprint"]):
+    if gspmd:
+        if not replicas_equal(state, place, segments=model.segments):
+            raise RuntimeError("ranks holding the same block of a leaf "
+                               "differ after the run")
+    elif mesh is not None and not mesh_lib.all_equal(mesh,
+                                                     out["fingerprint"]):
         raise RuntimeError("the ranks' states differ after the run")
     for i, (lg, op, pr, ct, ar) in enumerate(zip(
             out["loss_grad_seconds"], out["optimizer_seconds"],
@@ -522,7 +565,11 @@ def run(argv: Optional[Sequence[str]] = None, *,
     if args.metrics_out:
         log_fn(f"metrics -> {args.metrics_out} "
                f"({len(memory.records)} records)")
-    if mesh is not None:
+    if gspmd:
+        log_fn(f"replicas bitwise equal: {mesh.world} ranks of a "
+               f"{(mesh_data, mesh_model)} mesh, each block of a leaf "
+               f"equal on the ranks that hold it")
+    elif mesh is not None:
         log_fn(f"ranks bitwise equal: {mesh.world} ranks, state "
                f"fingerprint {out['fingerprint'][:2]}")
     if args.trace_out and rank0:
@@ -542,10 +589,12 @@ def _quiet(*_args, **_kw) -> None:
 
 def _rank_run(argv: list) -> dict:
     """One spawned rank of ``run(argv)``: its numbers, without the
-    state, model and controller (rank 0's go back to the caller)."""
+    state, model, controller, mesh and placement (rank 0's go back to
+    the caller)."""
     out = run(argv)
     return {k: v for k, v in out.items()
-            if k not in ("state", "model", "controller")}
+            if k not in ("state", "model", "controller", "mesh",
+                         "placement")}
 
 
 def main() -> None:

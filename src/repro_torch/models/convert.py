@@ -31,6 +31,8 @@ reference's segments.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -43,7 +45,8 @@ from repro_torch.core.flatten import Segment
 from repro_torch.launch import sharding
 from repro_torch.models import layers as L
 from repro_torch.models.hybrid import hybrid_layout
-from repro_torch.models.transformer import _group_spec, check_model_axis
+from repro_torch.models.transformer import (_group_spec, check_model_axis,
+                                           check_training_axis)
 
 
 def _tensor(x, dev: torch.device) -> torch.Tensor:
@@ -187,18 +190,19 @@ def jax_template(cfg: ModelConfig) -> dict:
                          device=meta)
 
 
-def _block(leaf: torch.Tensor, path, mesh) -> torch.Tensor:
+def _block(leaf: torch.Tensor, path, mesh, fsdp: bool = False
+           ) -> torch.Tensor:
     """This rank's block of ``leaf`` under its rule: a copy when the
     rule splits it (so the whole leaf can be freed), else ``leaf``."""
-    spec = sharding.leaf_pspec(path, leaf, mesh)
+    spec = sharding.leaf_pspec(path, leaf, mesh, fsdp=fsdp)
     if not spec.axes():
         return leaf
     return leaf[sharding.local_block(spec, mesh, leaf.shape)].clone()
 
 
 def _local_meta(params: dict, mesh) -> dict:
-    """Meta tensors of the shapes this rank's blocks of ``params``
-    have."""
+    """Meta tensors of the shapes this rank's blocks of ``params`` have
+    over the model axis (the tensor-parallel blocks, without fsdp)."""
     return tree_from_paths(params, {
         path: torch.empty(leaf[sharding.local_block(
             sharding.leaf_pspec(path, leaf, mesh), mesh, leaf.shape)].shape,
@@ -206,22 +210,31 @@ def _local_meta(params: dict, mesh) -> dict:
         for path, leaf in tree_flatten_with_path(params)})
 
 
-def shard_params(cfg: ModelConfig, params: dict, mesh) -> dict:
+def _check(cfg: ModelConfig, meta: dict, mesh, fsdp: bool) -> None:
+    check_model_axis(cfg, _local_meta(meta, mesh), mesh)
+    if fsdp:
+        check_training_axis(cfg, mesh)
+
+
+def shard_params(cfg: ModelConfig, params: dict, mesh, *,
+                 fsdp: bool = False) -> dict:
     """This rank's blocks of the port's whole ``params`` under
-    ``launch.sharding.state_pspecs(mesh, params, fsdp=False)``, the
+    ``launch.sharding.state_pspecs(mesh, params, fsdp=fsdp)``, the
     reference's placement: a leaf the rules split keeps the block at
-    the rank's model coordinate (a copy), every other leaf stays whole.
+    the rank's coordinates (a copy), every other leaf stays whole.
     ``params_from_jax`` then ``shard_params`` gives each rank the
-    reference's params as the reference places them. Refuses what
-    ``transformer.check_model_axis`` refuses."""
-    check_model_axis(cfg, _local_meta(params, mesh), mesh)
+    reference's params as the reference places them (``fsdp=True``:
+    its training placement, also split over the data axis). Refuses
+    what ``transformer.check_model_axis`` refuses, and with ``fsdp``
+    what ``check_training_axis`` does."""
+    _check(cfg, params, mesh, fsdp)
     return tree_from_paths(params, {
-        path: _block(leaf, path, mesh)
+        path: _block(leaf, path, mesh, fsdp)
         for path, leaf in tree_flatten_with_path(params)})
 
 
 def init_sharded(cfg: ModelConfig, init, gen: torch.Generator,
-                 dev: torch.device, mesh) -> dict:
+                 dev: torch.device, mesh, *, fsdp: bool = False) -> dict:
     """``init(cfg, gen, dev)`` keeping this rank's block of each leaf as
     it is drawn: every leaf is drawn whole from ``gen`` in ``init``'s
     order (so a rank's weights are the whole draw's blocks) and its
@@ -229,22 +242,54 @@ def init_sharded(cfg: ModelConfig, init, gen: torch.Generator,
     blocks plus the largest leaf. A first pass on the meta device
     (which draws nothing) names each draw's path. A leaf made without
     a draw (a zero bias such as mamba's ``conv_b``) keeps its block
-    after the init."""
+    after the init. ``fsdp=True``: the training placement (blocks over
+    the data axis too)."""
     drawn: list = []
     with L.on_draw(lambda x: drawn.append(x) or x):
         meta = init(cfg, torch.Generator(), torch.device("meta"))
-    check_model_axis(cfg, _local_meta(meta, mesh), mesh)
+    _check(cfg, meta, mesh, fsdp)
     where = {id(leaf): path for path, leaf in tree_flatten_with_path(meta)}
     paths = iter([where[id(x)] for x in drawn])
     whole = {path: tuple(leaf.shape)
              for path, leaf in tree_flatten_with_path(meta)}
     del meta, drawn, where
-    with L.on_draw(lambda x: _block(x, next(paths), mesh)):
+    with L.on_draw(lambda x: _block(x, next(paths), mesh, fsdp)):
         params = init(cfg, gen, dev)
     return tree_from_paths(params, {
-        path: _block(leaf, path, mesh)
+        path: _block(leaf, path, mesh, fsdp)
         if tuple(leaf.shape) == whole[path] else leaf
         for path, leaf in tree_flatten_with_path(params)})
+
+
+def placement(cfg: ModelConfig, mesh, *, fsdp: bool = True
+              ) -> sharding.Placement:
+    """The :class:`launch.sharding.Placement` of ``cfg``'s port tree on
+    ``mesh`` (whole shapes from an init on the meta device)."""
+    from repro_torch.models.registry import FAMILIES
+    meta = FAMILIES[cfg.family][0](cfg, torch.Generator(),
+                                   torch.device("meta"))
+    return sharding.Placement(
+        mesh, {path: tuple(leaf.shape)
+               for path, leaf in tree_flatten_with_path(meta)}, fsdp=fsdp)
+
+
+def gather_params(tree, place: sharding.Placement, *,
+                  dst: Optional[int] = None):
+    """The whole tree of which this rank holds ``tree``'s blocks under
+    ``place`` (a tree shaped like the params: the params themselves, or
+    a tree-path optimizer buffer): on every rank of the mesh, or with
+    ``dst`` on that rank only (None elsewhere). One collective per split
+    leaf (``Mesh.gather_whole``), every rank taking part in the same
+    order. The inverse of :func:`shard_params`; the tests and
+    ``checkpoint.save_train_state`` read it."""
+    mesh = place.mesh
+    out = {path: mesh.gather_whole(leaf.detach().contiguous(),
+                                   place.spec(path), place.whole[path],
+                                   dst=dst)
+           for path, leaf in tree_flatten_with_path(tree)}
+    if dst is not None and mesh.rank != dst:
+        return None
+    return tree_from_paths(tree, out)
 
 
 def _leaf_segments(params: dict, top: str) -> list[Segment]:

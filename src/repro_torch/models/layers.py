@@ -13,7 +13,7 @@ is read from its own shape against the config's full size, never from
 the mesh: ``wq`` / ``wk`` / ``wv`` / ``wo`` over the heads, ``wi`` /
 ``wg`` / MLP ``wo`` over d_ff, ``table`` and ``head`` over the
 vocabulary. A row-parallel product (``wo`` over split heads or d_ff) is
-a partial that :meth:`Mesh.model_sum_` sums over the model row; a
+a partial that ``distributed.sum_over_row`` sums over the model row; a
 replicated leaf is computed whole and never summed. The QKV biases are
 replicated (no rule splits them): each rank adds its heads' rows. A
 split table embeds through :func:`_vocab_parallel_embed`, and split
@@ -21,6 +21,19 @@ logits are gathered over the row. The mesh is the one a serving entry
 point declared with :func:`set_batch_sharding` (or
 :func:`batch_sharding`); unset, none of this runs and the code path is
 the single-rank one.
+
+The row's collectives are autograd functions
+(``distributed.copy_to_row`` / ``sum_over_row`` / ``gather_row``), so
+serving and training over the mesh (:func:`training`) run the same
+forward: every column-parallel input passes through ``copy_to_row``,
+and so does every replicated leaf a rank uses only in part (the QKV
+biases' rows of its heads; a whole ``wk`` / ``wv`` and their biases
+when the rank reads only its heads' KV groups), so each rank's partial
+gradient of those is summed over the row. A split table's embedding
+has a local backward. Under fsdp a leaf may also be split over the data
+axis: :func:`gathered` all-gathers a subtree's such leaves over the
+data column (``distributed.fsdp_gather``) right before they are used,
+so the layers only ever see tensor-parallel blocks.
 
 The KV cache follows the layer's leaves (``launch.sharding.cache_pspecs``
 places it alike): split ``wk`` / ``wv`` give a cache of the rank's KV
@@ -65,13 +78,17 @@ def set_batch_sharding(batch_axes: Optional[tuple],
                        model_size: int = 1, mesh=None) -> None:
     """Declare the mesh whose model rows sum the row-parallel partials,
     embed a split table and gather split logits (the reference's
-    signature). Every data row holds the whole batch, so ``batch_axes``
-    places nothing; sequence parallelism (``seq_axis``) is training's
-    (ROADMAP item 11c). ``set_batch_sharding(None)`` clears it."""
+    signature). ``batch_axes`` says the batch is split over the data
+    axis (the train step shards it, ``data.pipeline.shard_batch``;
+    serving splits slots with ``Mesh.data_block``); the model code reads
+    the model rows only. Sequence parallelism (``seq_axis``) is the
+    dry run's (ROADMAP item 10). ``set_batch_sharding(None)`` clears
+    it."""
     global _MESH
     if seq_axis is not None:
-        from repro_torch.distributed import FSDP_PENDING
-        raise NotImplementedError(f"seq_axis={seq_axis!r}: {FSDP_PENDING}")
+        from repro_torch.distributed import SEQUENCE_PARALLEL_PENDING
+        raise NotImplementedError(f"seq_axis={seq_axis!r}: "
+                                  f"{SEQUENCE_PARALLEL_PENDING}")
     if mesh is not None and int(mesh.shape["model"]) != model_size:
         raise ValueError(f"model_size {model_size} but the mesh's model "
                          f"axis is {mesh.shape['model']}")
@@ -94,6 +111,55 @@ def batch_sharding(mesh):
         _MESH = saved
 
 
+_FSDP = None                          # the declared training Placement
+
+
+def declared_mesh():
+    """The mesh declared by :func:`set_batch_sharding` (None: unset)."""
+    return _MESH
+
+
+@contextlib.contextmanager
+def training(mesh, place=None):
+    """Inside the block a step trains over ``mesh``: its model rows as
+    :func:`batch_sharding` declares them, and ``place`` (a
+    ``launch.sharding.Placement`` with fsdp) names the leaves split over
+    the data axis, which :func:`gathered` all-gathers. The previous
+    state after."""
+    global _MESH, _FSDP
+    saved = _MESH, _FSDP
+    set_batch_sharding(("data",), model_size=mesh.shape["model"],
+                       mesh=mesh)
+    _FSDP = place if place is not None and mesh.shape["data"] > 1 \
+        else None
+    try:
+        yield
+    finally:
+        _MESH, _FSDP = saved
+
+
+def gathered(tree, prefix: tuple):
+    """The subtree ``tree`` at path ``prefix`` of the params with every
+    leaf the declared training placement splits over the data axis
+    all-gathered over the data column (``fsdp_gather``: one gather in
+    the forward, a column sum of the gradient in the backward); the
+    tree itself outside :func:`training` or without fsdp. Called inside
+    a layer's remat, the gather is redone in the recomputation and the
+    gathered leaves are freed after each use."""
+    place = _FSDP
+    if place is None:
+        return tree
+    from repro_torch.distributed import fsdp_gather
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        dim = place.data_dim(path)
+        return node if dim is None else fsdp_gather(node, place.mesh, dim)
+
+    return walk(tree, tuple(prefix))
+
+
 def _row_mesh(local: int, full: int, what: str):
     """The declared mesh, for a leaf dim of ``local`` rows that is a
     block of ``full``; raises unless it is this mesh's model block."""
@@ -109,10 +175,30 @@ def _row_mesh(local: int, full: int, what: str):
 def _row_sum(y: torch.Tensor, local: int, full: int, what: str
              ) -> torch.Tensor:
     """``y`` when the contracted dim was whole; else its sum over the
-    model row (a row-parallel partial)."""
+    model row (a row-parallel partial, ``sum_over_row``)."""
     if local == full:
         return y
-    return _row_mesh(local, full, what).model_sum_(y)
+    from repro_torch.distributed import sum_over_row
+    return sum_over_row(y, _row_mesh(local, full, what))
+
+
+def _col_in(x: torch.Tensor, local: int, full: int, what: str
+            ) -> torch.Tensor:
+    """A column-parallel input (the leaf holds ``local`` of ``full``
+    output rows): ``copy_to_row``, whose backward sums this rank's
+    partial gradient of ``x`` over the row; ``x`` when it is whole."""
+    if local == full:
+        return x
+    from repro_torch.distributed import copy_to_row
+    return copy_to_row(x, _row_mesh(local, full, what))
+
+
+def _partial_use(w: torch.Tensor, local: int, full: int, what: str
+                 ) -> torch.Tensor:
+    """A replicated leaf this rank uses only in part (its heads'
+    rows, its heads' KV groups): ``copy_to_row``, so its partial
+    gradient is summed over the row."""
+    return _col_in(w, local, full, what)
 
 
 def kv_split(cfg: ModelConfig, attn: dict) -> int:
@@ -151,11 +237,21 @@ def t_block(cfg: ModelConfig, attn: dict, x: torch.Tensor) -> torch.Tensor:
     return x[:, r * t:(r + 1) * t].contiguous()
 
 
-def _head_rows(b: torch.Tensor, heads: int) -> torch.Tensor:
-    """A replicated [H, Dh] bias's rows of this rank's ``heads``."""
+def _head_rows(b: torch.Tensor, heads: int, partial: bool = False
+               ) -> torch.Tensor:
+    """A replicated [H, Dh] bias's rows of this rank's ``heads`` (its
+    gradient summed over the row, ``copy_to_row``; ``partial``: every
+    row is kept but the rank reads only some, the KV groups of its
+    query heads)."""
+    if b.shape[0] == heads and not partial:
+        return b
+    mesh = _row_mesh(heads, b.shape[0], "a QKV bias's heads") \
+        if b.shape[0] != heads else _MESH
+    from repro_torch.distributed import copy_to_row
+    b = copy_to_row(b, mesh)
     if b.shape[0] == heads:
         return b
-    i = _row_mesh(heads, b.shape[0], "a QKV bias's heads").coords["model"]
+    i = mesh.coords["model"]
     return b[i * heads:(i + 1) * heads]
 
 
@@ -306,16 +402,27 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 def _qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
          kv_src: Optional[torch.Tensor] = None):
     """Q from x, K and V from ``kv_src`` (x itself for self-attention),
-    the weights cast to x's dtype."""
+    the weights cast to x's dtype. Over split heads, x
+    (and ``kv_src``) pass through ``copy_to_row``; so do a whole ``wk``
+    / ``wv`` and their biases beside a split ``wq`` (the rank reads its
+    heads' KV groups only)."""
     dt = x.dtype
-    kv_in = x if kv_src is None else kv_src
+    local, full = params["wq"].shape[1], cfg.num_heads
+    x = _col_in(x, local, full, "attention wq")
+    kv_in = x if kv_src is None else _col_in(kv_src, local, full,
+                                             "attention wq")
+    wk, wv = params["wk"], params["wv"]
+    partial = local != full and wk.shape[1] == cfg.num_kv_heads
+    if partial:
+        wk = _partial_use(wk, local, full, "attention wk")
+        wv = _partial_use(wv, local, full, "attention wv")
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
-    k = torch.einsum("btd,dhk->bthk", kv_in, params["wk"].to(dt))
-    v = torch.einsum("btd,dhk->bthk", kv_in, params["wv"].to(dt))
+    k = torch.einsum("btd,dhk->bthk", kv_in, wk.to(dt))
+    v = torch.einsum("btd,dhk->bthk", kv_in, wv.to(dt))
     if cfg.qkv_bias:
         q = q + _head_rows(params["bq"], q.shape[2]).to(dt)
-        k = k + _head_rows(params["bk"], k.shape[2]).to(dt)
-        v = v + _head_rows(params["bv"], v.shape[2]).to(dt)
+        k = k + _head_rows(params["bk"], k.shape[2], partial).to(dt)
+        v = v + _head_rows(params["bv"], v.shape[2], partial).to(dt)
     return q, k, v
 
 
@@ -526,6 +633,7 @@ def cross_attention_decode(params: dict, x: torch.Tensor, ck: torch.Tensor,
 def mlp(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Column-parallel ``wi`` / ``wg``, row-parallel ``wo`` over this
     rank's d_ff block, summed over the model row when split."""
+    x = _col_in(x, params["wi"].shape[1], cfg.d_ff, "mlp wi")
     h = x @ params["wi"].to(x.dtype)
     if cfg.act == "silu":
         g = x @ params["wg"].to(x.dtype)
@@ -551,7 +659,10 @@ def _vocab_parallel_embed(table: torch.Tensor, tokens: torch.Tensor,
     x = table[torch.where(ok, loc, torch.zeros_like(loc))]
     x = torch.where(ok[..., None], x,
                     torch.full((), -0.0, dtype=x.dtype, device=x.device))
-    return mesh.model_sum_(x)
+    # the backward is local: each rank scatters the whole gradient into
+    # the rows of its tokens
+    from repro_torch.distributed import sum_over_row
+    return sum_over_row(x, mesh)
 
 
 def embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor
@@ -568,13 +679,16 @@ def embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor
 def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor
             ) -> torch.Tensor:
     """Logits [..., V]; over a split vocabulary this rank's [..., V/M]
-    block is gathered over the model row in rank order."""
+    block is gathered over the model row in rank order (``gather_row``,
+    its input through ``copy_to_row``)."""
     if cfg.tie_embeddings:
         w = params["table"].to(x.dtype).T
     else:
         w = params["head"].to(x.dtype)
+    x = _col_in(x, w.shape[1], cfg.vocab_size, "unembed")
     logits = x @ w
     if w.shape[1] == cfg.vocab_size:
         return logits
-    return _row_mesh(w.shape[1], cfg.vocab_size,
-                     "unembed").model_gather(logits, -1)
+    from repro_torch.distributed import gather_row
+    return gather_row(logits, _row_mesh(w.shape[1], cfg.vocab_size,
+                                        "unembed"), logits.dim() - 1)

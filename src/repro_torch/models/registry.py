@@ -6,6 +6,8 @@ architecture:
     params = model.init(seed, device="cuda")
     params = model.init(seed, device="cuda", mesh=mesh)  # this rank's
                                                          # blocks
+    params = model.init(seed, device="cuda", mesh=mesh,  # training's:
+                        fsdp=True)                       # also over data
     logits = model.apply(params, tokens, extra)          # [B,S,V]
     cache = model.init_cache(params, batch, max_len, extra)
     logits, cache = model.decode_step(params, cache, tokens, pos)
@@ -36,15 +38,18 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import convert
 from repro_torch.models import encdec as E
 from repro_torch.models import hybrid as H
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.training import losses
 
 
 class Model(NamedTuple):
     cfg: ModelConfig
-    init: Callable          # (seed=0, *, device="cuda", mesh=None) ->
-                            #  params; on a mesh with a model axis, this
-                            #  rank's blocks of the whole draw
+    init: Callable          # (seed=0, *, device="cuda", mesh=None,
+                            #  fsdp=False) -> params; on a mesh, this
+                            #  rank's blocks of the whole draw (fsdp:
+                            #  the training placement, split over the
+                            #  data axis too)
     apply: Callable         # (params, tokens, extra=None) -> logits
     init_cache: Callable    # (params, batch, max_len, extra=None) -> cache
     decode_step: Callable   # (params, cache, tokens, pos) -> (logits, cache)
@@ -106,13 +111,15 @@ def get_model(cfg: ModelConfig) -> Model:
             return ()
         return (extra,)
 
-    def init(seed: int = 0, *, device="cuda", mesh=None) -> dict:
+    def init(seed: int = 0, *, device="cuda", mesh=None,
+             fsdp: bool = False) -> dict:
         dev = _device.resolve(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        if mesh is None or mesh.shape["model"] == 1:
+        if mesh is None or (mesh.shape["model"] == 1 and not fsdp):
             return init_fn(cfg, gen, dev)
-        return convert.init_sharded(cfg, init_fn, gen, dev, mesh)
+        return convert.init_sharded(cfg, init_fn, gen, dev, mesh,
+                                    fsdp=fsdp)
 
     def apply(params, tokens, extra=None):
         return apply_fn(cfg, params, tokens, *with_extra(extra))
@@ -137,7 +144,9 @@ def get_model(cfg: ModelConfig) -> Model:
                            *with_extra(extra))
         emb = params["embed"]
         w = emb["table"].T if cfg.tie_embeddings else emb["head"]
-        ce = losses.fused_ce_from_hidden(h, w.to(h.dtype), batch["labels"])
+        ce = losses.fused_ce_from_hidden(h, w.to(h.dtype), batch["labels"],
+                                         mesh=L.declared_mesh(),
+                                         vocab=cfg.vocab_size)
         return ce, aux
 
     def segments(params):

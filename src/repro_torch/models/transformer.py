@@ -174,6 +174,17 @@ def _kv_src(cfg: ModelConfig, extra: Optional[torch.Tensor],
     return extra.to(dtype)
 
 
+def _gathered_layer(p: dict, i: int, cfg: ModelConfig, h: torch.Tensor,
+                    positions: torch.Tensor, mask, kind: str,
+                    kv: Optional[torch.Tensor]):
+    """Layer ``i`` on its leaves all-gathered over the data column first
+    when a training placement splits them (``layers.gathered``; a no-op
+    otherwise), so under remat the gather is redone in the
+    recomputation and freed after each use."""
+    return layer_apply(L.gathered(p, ("layers", i)), cfg, h, positions,
+                       mask, kind=kind, kv_src=kv)
+
+
 def apply_lm_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                     extra: Optional[torch.Tensor] = None
                     ) -> tuple[torch.Tensor, LMAux]:
@@ -183,26 +194,28 @@ def apply_lm_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     ``cfg.remat`` and gradients enabled, each layer (cross layers
     included) is checkpointed (its activations recomputed in the
     backward), the counterpart of the reference's ``scan_layers``
-    remat; it changes no value."""
-    h = L.embed(params["embed"], cfg, tokens)
+    remat; it changes no value. Under a training placement
+    (``layers.training``) each layer's fsdp leaves are gathered inside
+    its checkpoint."""
+    h = L.embed(L.gathered(params["embed"], ("embed",)), cfg, tokens)
     positions = _positions(tokens)
     masks = _masks(cfg)
     src = _kv_src(cfg, extra, h.dtype)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = zero_aux(h.device)
-    for p, kind in zip(params["layers"], layer_kinds(cfg)):
+    for i, (p, kind) in enumerate(zip(params["layers"], layer_kinds(cfg))):
         kv = src if kind == "cross" else None
         if remat:
-            h, a = checkpoint(layer_apply, p, cfg, h, positions,
-                              masks[kind], False, kind, kv,
-                              use_reentrant=False)
+            h, a = checkpoint(_gathered_layer, p, i, cfg, h, positions,
+                              masks[kind], kind, kv, use_reentrant=False)
         else:
-            h, a = layer_apply(p, cfg, h, positions, masks[kind],
-                               kind=kind, kv_src=kv)
+            h, a = _gathered_layer(p, i, cfg, h, positions, masks[kind],
+                                   kind, kv)
         if a is not None:
             aux = LMAux(aux.load_balance_loss + a.load_balance_loss,
                         aux.router_z_loss + a.router_z_loss)
-    return L.norm(cfg, params["final_norm"], h), aux
+    final = L.gathered(params["final_norm"], ("final_norm",))
+    return L.norm(cfg, final, h), aux
 
 
 def apply_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -422,6 +435,22 @@ def check_model_axis(cfg: ModelConfig, params: dict, mesh) -> None:
             raise ValueError(f"{label} mlp: {on} split but {off} whole; a "
                              f"row-parallel product needs its partners "
                              f"split alike")
+
+
+def check_training_axis(cfg: ModelConfig, mesh) -> None:
+    """Refuse, before any step, what training over the reference's
+    GSPMD mesh (fsdp over the data axis, tensor parallelism over the
+    model axis) does not do: the MoE family at model > 1 (expert
+    parallelism, item 11d), every family but the dense one (item
+    11c-2)."""
+    from repro_torch import distributed as dist_lib
+    if mesh is None:
+        return
+    if cfg.family == "moe" and mesh.shape["model"] > 1:
+        raise NotImplementedError(dist_lib.EXPERT_PARALLEL_PENDING)
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r}: "
+                                  f"{dist_lib.TRAIN_FAMILIES_PENDING}")
 
 
 def layer_decode(p: dict, cfg: ModelConfig, h: torch.Tensor, c: dict,

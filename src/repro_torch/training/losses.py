@@ -7,7 +7,7 @@ B/K samples reproduce the 1×B statistics.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -81,22 +81,56 @@ def _chunk_ce(h_blk, unembed_w, y_blk):
     return _ce_sum(h_blk @ unembed_w, y_blk)
 
 
+def _chunk_ce_vocab_parallel(h_blk, unembed_w, y_blk, mesh):
+    """One chunk's Σ CE over a vocabulary split over the model row: this
+    rank's logits block [B, c, V/M] only. The row max (a stabiliser, no
+    gradient), the row's Σ exp and the target logit from the rank that
+    owns it are each one collective over the row, so f32 logits are
+    never gathered; the backward (softmax − one-hot on the rank's
+    block, scaled by the upstream gradient) is local, and the gradient
+    of ``h_blk`` is summed over the row (``copy_to_row``)."""
+    from repro_torch.distributed import copy_to_row, sum_over_row
+    logits = (copy_to_row(h_blk, mesh) @ unembed_w).float()
+    local = logits.shape[-1]
+    m = mesh.row_max_(logits.detach().amax(dim=-1))
+    sumexp = sum_over_row(torch.exp(logits - m[..., None]).sum(dim=-1),
+                          mesh)
+    loc = y_blk.long() - mesh.coords["model"] * local
+    mine = (loc >= 0) & (loc < local)
+    gold = torch.gather(logits, -1,
+                        torch.where(mine, loc, 0)[..., None])[..., 0]
+    gold = sum_over_row(torch.where(mine, gold, torch.zeros_like(gold)),
+                        mesh)
+    return torch.sum(torch.log(sumexp) + m - gold)
+
+
 def fused_ce_from_hidden(h: torch.Tensor, unembed_w: torch.Tensor,
-                         labels: torch.Tensor) -> torch.Tensor:
+                         labels: torch.Tensor, *, mesh=None,
+                         vocab: Optional[int] = None) -> torch.Tensor:
     """Chunked softmax cross-entropy fused with the unembed projection:
     the sequence is cut into ``CE_CHUNK`` blocks whose logits are
     recomputed in the backward (checkpointed), so [B, S, V] logits
     never exist whole. h [B,S,D], unembed_w [D,V], labels [B,S] ->
-    scalar mean CE."""
+    scalar mean CE. A head holding ``V/M`` of ``vocab`` columns (split
+    over ``mesh``'s model row) is vocabulary-parallel cross-entropy
+    (:func:`_chunk_ce_vocab_parallel`)."""
     b, s, _ = h.shape
     chunk = CE_CHUNK if s % CE_CHUNK == 0 else s
+    split = vocab is not None and unembed_w.shape[1] != vocab
+    if split and (mesh is None
+                  or unembed_w.shape[1] * mesh.shape["model"] != vocab):
+        raise ValueError(f"a head of {unembed_w.shape[1]} of {vocab} "
+                         f"columns needs the mesh whose model row splits "
+                         f"it, got {mesh}")
+    fn = _chunk_ce_vocab_parallel if split else _chunk_ce
+    extra = (mesh,) if split else ()
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for off in range(0, s, chunk):
         h_blk, y_blk = h[:, off:off + chunk], labels[:, off:off + chunk]
         if torch.is_grad_enabled():
-            part = checkpoint(_chunk_ce, h_blk, unembed_w, y_blk,
+            part = checkpoint(fn, h_blk, unembed_w, y_blk, *extra,
                               use_reentrant=False)
         else:
-            part = _chunk_ce(h_blk, unembed_w, y_blk)
+            part = fn(h_blk, unembed_w, y_blk, *extra)
         total = total + part
     return total / (b * s)

@@ -45,6 +45,20 @@ a world of several ranks rank 0's gradients are then handed to the
 others. Under a mesh, ``fit`` is called on every rank (probes and the
 controller take part in collectives); only rank 0 writes to its sink
 and steps its profiler (``FitOptions(rank=mesh.rank)``).
+
+``make_train_step(..., mesh=mesh, placement=place)`` is the reference's
+GSPMD step over a ``(D, M)`` mesh (fsdp over the data axis, tensor
+parallelism over the model axis): each rank holds its blocks of the
+params and optimizer state (``Model.init(seed, mesh=, fsdp=True)``,
+``place = convert.placement(cfg, mesh)``, the optimizer built with
+``placement=place``). The loss runs under ``layers.training(mesh,
+place)`` on this data row's block of the global batch
+(``pipeline.place_over_data``); the fsdp leaves' gradients come back
+averaged over the data column from their gather's backward, every other
+leaf's gradient, the loss and the metrics are averaged over the column
+here (``Mesh.mean_``, counted as ``column_reduce``). ``grad_norm``, the
+layer-wise tap and ``layer_norms`` are summed over the blocks with each
+distinct block counted once (``Mesh.sum_blocks_``).
 """
 from __future__ import annotations
 
@@ -56,7 +70,7 @@ import torch
 
 from repro_torch.core import instrumentation
 from repro_torch.core.base import (GradientTransform, global_norm,
-                                   tree_flatten_with_path,
+                                   sum_of_squares, tree_flatten_with_path,
                                    tree_from_paths, tree_leaves, tree_map)
 from repro_torch.data import pipeline
 from repro_torch.diagnostics import probes
@@ -163,8 +177,67 @@ def _sharded_grad_fn(task: tasks.Task, mesh, axes, accum_steps: int,
     return pipeline.shard_over_data(local, mesh, axes, accum_steps)
 
 
+def _gspmd_grad_fn(task: tasks.Task, mesh, place, accum_steps: int,
+                   tracer, sync: Callable):
+    """``(params, step, batch) -> (loss, metrics, grads)`` of the GSPMD
+    step: the loss on this data row's block of the global batch under
+    ``layers.training``; the gradients of leaves not split over the
+    data axis, the loss and the metrics averaged over the data column
+    in f32 (the fsdp leaves' were averaged by their gather's
+    backward)."""
+    from repro_torch.models import layers as L
+    batch_dim = 1 if accum_steps > 1 else 0
+
+    def fn(params, step, batch):
+        local = pipeline.place_over_data(mesh, batch, batch_dim=batch_dim)
+        with L.training(mesh, place):
+            if accum_steps == 1:
+                loss, metrics, grads = _grads(task, params, local)
+            else:
+                loss, metrics, grads = _accumulate(task, params, local,
+                                                   accum_steps)
+        paths = [p for p, _ in tree_flatten_with_path(grads)]
+        leaves = [g for _, g in tree_flatten_with_path(grads)]
+        del grads
+        whole = [i for i, p in enumerate(paths)
+                 if place.data_dim(p) is None]
+        if mesh.data > 1:
+            loss = loss.float()
+            metrics = {k: v.float() for k, v in metrics.items()}
+            for i in whole:
+                leaves[i] = leaves[i].float().contiguous()
+        sync(loss.device)
+        with tracer.span("all_reduce", step=step):
+            mesh.mean_([loss, *metrics.values(),
+                        *(leaves[i] for i in whole)], name="column_reduce")
+            sync(loss.device)
+        return loss, metrics, tree_from_paths(params,
+                                              dict(zip(paths, leaves)))
+
+    return fn
+
+
+def block_norm(tree, place) -> torch.Tensor:
+    """The f32 global norm of a tree of this rank's blocks under
+    ``place``: Σx² of each block, summed over the mesh with each
+    distinct block counted once (one collective, ``grad_norm``), then
+    over the leaves in order; ``global_norm`` without a placement."""
+    if place is None:
+        return global_norm(tree)
+    pairs = list(tree_flatten_with_path(tree))
+    sums = torch.stack([sum_of_squares(x) for _, x in pairs])
+    counted = torch.tensor([place.counts_once(p) for p, _ in pairs],
+                           dtype=torch.bool)
+    place.mesh.sum_blocks_(sums, counted, name="grad_norm")
+    total = sums[0]
+    for x in sums[1:]:
+        total = total + x
+    return torch.sqrt(total)
+
+
 def make_train_step(task, optimizer: GradientTransform, *,
                     accum_steps: int = 1, mesh=None, data_axes=None,
+                    placement=None,
                     layerwise: bool = False,
                     record_norms: bool = False,
                     tracer: Optional[obs_trace.Tracer] = None,
@@ -185,7 +258,9 @@ def make_train_step(task, optimizer: GradientTransform, *,
     (default ``data_axes``: the ``("pod", "data")`` subset present):
     ``batch`` is the GLOBAL batch, its microbatch dim split over the
     ranks; params and optimizer state must be equal on every rank
-    (``train_state.replicate``). See the module docstring."""
+    (``train_state.replicate``). With ``placement=`` (a
+    ``launch.sharding.Placement`` of ``mesh``) it is the GSPMD step
+    over the rank's blocks instead. See the module docstring."""
     if not isinstance(task, tasks.Task):
         task = tasks.lm_task(task)
     if accum_steps < 1:
@@ -198,7 +273,14 @@ def make_train_step(task, optimizer: GradientTransform, *,
 
     dp = pipeline.resolve_dp_size(mesh, data_axes)
     sharded = None
-    if mesh is not None and mesh.world > 1:
+    if placement is not None:
+        if mesh is None or placement.mesh is not mesh:
+            raise ValueError("make_train_step: placement= needs the mesh "
+                             "it was made for (mesh=)")
+        sharded = _gspmd_grad_fn(task, mesh, placement, accum_steps,
+                                 tracer, _sync)
+        dp = 1          # the batch need not divide: placed or replicated
+    elif mesh is not None and mesh.world > 1:
         data_axes = pipeline.resolve_data_axes(mesh, data_axes)
         sharded = _sharded_grad_fn(task, mesh, data_axes, accum_steps,
                                    tracer, _sync)
@@ -224,10 +306,11 @@ def make_train_step(task, optimizer: GradientTransform, *,
                 f"trainer-reserved metric names")
         with tracer.span("optimizer", step=state.step):
             with torch.no_grad():
-                grad_norm = global_norm(grads)
+                grad_norm = block_norm(grads, placement)
                 # on the accumulated grads, before the in-place update:
                 # the reference's layer_norms(state.params, grads)
-                norms = instrumentation.layer_norms(state.params, grads) \
+                norms = instrumentation.layer_norms(
+                    state.params, grads, placement=placement) \
                     if record_norms else None
                 if layerwise:
                     with obs_layerwise.capture() as tap:

@@ -460,7 +460,7 @@ def _ops_calls(monkeypatch) -> dict:
     """Count calls into every kernel entry point of ``kernels.ops``."""
     calls = {}
     for name in ("attention_decode", "segmented_update", "lars_update",
-                 "rmsnorm"):
+                 "lars_norm2", "lars_apply", "rmsnorm"):
         real = getattr(ops, name)
 
         def counted(*a, _real=real, _name=name, **k):
@@ -479,7 +479,8 @@ def _state_bytes(state) -> list:
 def test_probes_leave_state_bitwise_and_launch_nothing(monkeypatch):
     """Each probe: params and optimizer state bitwise unchanged, no call
     into a kernel entry point (so no ``ops.launches``), while the
-    per-tensor step itself goes through ``ops.lars_update``; and a run
+    per-tensor step itself goes through ``ops.lars_norm2`` and
+    ``ops.lars_apply``; and a run
     with all three probes trains exactly as one without."""
     calls = _ops_calls(monkeypatch)
     data = synthetic.ClassificationData(num_classes=4, image_size=4,
@@ -499,7 +500,8 @@ def test_probes_leave_state_bitwise_and_launch_nothing(monkeypatch):
 
     plain_state, plain_hist = train([])
     step_calls = dict(calls)
-    assert step_calls.get("lars_update", 0) > 0
+    assert step_calls.get("lars_norm2", 0) > 0
+    assert step_calls["lars_apply"] == step_calls["lars_norm2"]
 
     class Watched:
         """Runs a probe and checks it left the state and ops alone."""

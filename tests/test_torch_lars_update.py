@@ -241,26 +241,33 @@ def test_kernel_segments_match_reference_pallas_calls():
     # the 1-D final norm stays on the tree math
     assert "final_norm/scale" not in names
     # and the run launches nothing on the CPU but counts what the card
-    # would: the same segments go to ops.lars_update, once per step
-    calls = []
-    real = ops.lars_update
+    # would: the same segments go to ops.lars_norm2 and ops.lars_apply,
+    # once each per step
+    calls = {"lars_norm2": [], "lars_apply": []}
+    real = {name: getattr(ops, name) for name in calls}
 
-    def spy(w, g, m, **kw):
-        calls.append(len(w))
-        return real(w, g, m, **kw)
+    def spy(name):
+        def call(w, *a, **kw):
+            calls[name].append(len(w))
+            return real[name](w, *a, **kw)
+        return call
 
     topt = core.build_optimizer("wa-lars", total_steps=10,
                                 use_kernel="per_tensor", device="cpu",
                                 segments=model.segments)
     state = topt.init(params)
-    ops.lars_update = spy
+    for name in calls:
+        setattr(ops, name, spy(name))
     try:
         topt.update(params_from_jax(cfg, grads[0], device="cpu"), state,
                     params)
     finally:
-        ops.lars_update = real
-    assert len(calls) == len(names)
-    assert max(calls) == cfg.num_layers        # stacked group members
+        for name, fn in real.items():
+            setattr(ops, name, fn)
+    assert calls["lars_norm2"] == calls["lars_apply"]
+    assert len(calls["lars_apply"]) == len(names)
+    # stacked group members
+    assert max(calls["lars_apply"]) == cfg.num_layers
 
 
 # ---------------------------------------------------------------------------

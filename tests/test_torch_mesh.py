@@ -444,10 +444,18 @@ def test_launch_serve_data_parallel_gives_equal_tokens():
 
 
 def test_model_axis_raises_naming_the_roadmap_item():
-    """Training over the model axis is ROADMAP item 11c (serving over
-    it is ported: ``test_torch_tp_serving.py``)."""
+    """Training over the model axis (ROADMAP item 11c) is ported: the
+    launcher's three flags for it take the GSPMD path and train on their
+    ranks, with the single-rank run's losses (``test_torch_tp_train
+    _mesh.py`` holds them closer); the probes over it name item 11c-2."""
     from repro_torch.launch import train
+    base = ["--smoke", "--device", "cpu", "--steps", "1", "--seq", "16",
+            "--global-batch", "4"]
+    one = train.run(base, log_fn=lambda *a: None)["losses"]
     for argv in (["--mesh-model", "2"], ["--data-parallel", "2"],
                  ["--model-parallel", "2"]):
-        with pytest.raises(NotImplementedError, match="item 11c"):
-            train.run(["--smoke", "--device", "cpu", *argv])
+        got = train.run(base + argv, log_fn=lambda *a: None)
+        np.testing.assert_allclose(got["losses"], one, rtol=1e-5)
+        assert got["world"] == 2
+    with pytest.raises(NotImplementedError, match="item 11c-2$"):
+        train.run(base + ["--mesh-model", "2", "--probe-every", "1"])

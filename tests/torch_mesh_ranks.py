@@ -107,7 +107,7 @@ def _one_step(mesh, workload, k, inputs, use_kernel="fused"):
     single-device step on the same global batch."""
     task, opt, params = _setup(workload, inputs, use_kernel)
     batch = _stack(_batch(inputs[f"{workload}-batch-{k}"]), k)
-    counted = "segmented_update" if use_kernel == "fused" else "lars_update"
+    counted = "segmented_update" if use_kernel == "fused" else "lars_apply"
     state = replicate(TrainState.create(params, opt), mesh)
     # LWN / LGN / LNR per leaf of the MLP (an LM tree's norms go by the
     # reference's stacked leaves: its layerwise/* below)

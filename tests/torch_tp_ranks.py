@@ -168,19 +168,23 @@ def engine_world(data: int, model_axis: int, ref_params: dict,
     out["equal"] = mesh_lib.all_equal(mesh, [
         [out[a][k]["tokens"] for k in ("init", "ref", "restored", "split")]
         for a in ENGINE_ARCHS])
-    refused = {}
-    for name, call in (
-            ("mean_", lambda: mesh.mean_([torch.zeros(4)])),
-            ("broadcast_", lambda: mesh.broadcast_([torch.zeros(4)])),
-            ("save", lambda: checkpoint.save(f"{ckpt}/refused-{mesh.rank}",
-                                             {"a": torch.zeros(2)},
-                                             mesh=mesh))):
-        try:
-            call()
-            refused[name] = None
-        except NotImplementedError as e:
-            refused[name] = str(e)
-    out["refused"] = refused
+    # the data column's collectives and a save of split leaves, which
+    # training over the model axis uses (each model rank keeps its own)
+    mine = torch.full((4,), float(mesh.rank))
+    mesh.mean_([mine])
+    copied = torch.full((4,), float(mesh.rank))
+    mesh.broadcast_([copied])
+    whole = torch.arange(8 * mesh.shape["model"], dtype=torch.float32) \
+        .reshape(2, -1)
+    spec = sharding.P(None, "model")
+    block = whole[sharding.local_block(spec, mesh, whole.shape)]
+    path = f"{ckpt}/split-save"
+    checkpoint.save(path, {"a": block}, mesh=mesh,
+                    shardings=sharding.named(mesh, {"a": spec}))
+    back = checkpoint.restore(path, {"a": whole}, device="cpu")["a"]
+    out["column"] = {"mean_": mine.tolist(), "broadcast_": copied.tolist(),
+                     "save": bool(torch.equal(back, whole)),
+                     "provenance": checkpoint.saved_shardings(path)}
     return out
 
 
