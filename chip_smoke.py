@@ -372,6 +372,34 @@ script exits non-zero:
    qwen2.5-3b and gemma3-12b smoke configs in f32 at (2, 2) and (1, 4)
    (inside 18a's world; weights and batches drawn on the CPU, K = 2)
    against the CPU's single-rank losses (1e-5).
+19. training the other families over the reference's GSPMD mesh:
+   mamba2-1.3b and zamba2-1.2b at full width cut to whole blocks
+   (``FT_CUTS``, printed as ``reduced:``), fused TVLARS f32, 4 x 512, 2
+   steps through ``launch.train.run --mesh-model 2 --mesh-data 2`` on
+   a (2, 2) mesh of four gloo ranks sharing the card, after an M = 1
+   run on the same weights and batches here: as 18, 1 + 1 segmented
+   launches a rank a step, the state bytes a rank equal to the rules'
+   blocks, the ranks holding one block bitwise equal, the gaps to M =
+   1 within ``TT_BOUNDS``, the step split; the leaves whose data axis
+   the reference puts on a stacked dim (conv_w / conv_b) counted;
+19a. whisper-large-v3 and llama-3.2-vision-11b (one group) likewise on
+   a (1, 2) mesh of two ranks, in f32 (printed: in bf16 the vlm gate's
+   and whisper's final norm's gradients round apart by up to 12%), on
+   seeded random frames and image embeddings (zero frames overflow
+   whisper's LayerNorm backward, F11) and the vlm's cross gates
+   opened;
+19b. olmoe-1b-7b likewise on a (2, 1) mesh through the GSPMD
+   ``--data-parallel 2``: its load balance within ``FT_LB_BOUND`` of M
+   = 1 (the global batch's means), and the per-shard means' value on
+   the same weights and batch, whose gap must exceed that bound;
+19c. a 4-iteration Lanczos probe (no reorthogonalization) of
+   qwen2.5-3b cut to ``TT_LAYERS`` after a per-tensor WA-LARS step at
+   (1, 2) and (2, 2): λ_max within ``FT_PROBE_BOUND`` of the M = 1
+   probe from the same seed vector, no kernel launched inside a probe,
+   the state bitwise unchanged by it;
+19d. every family's smoke config in f32 at (2, 2) (the MoE's at (4,
+   1)), 2 steps, the vlm's gates opened and seeded extra embeddings,
+   against the CPU's single-rank losses (1e-5).
 
 Every phase prints its seconds (``phase {label}: {s} s``).
 
@@ -3476,17 +3504,23 @@ def train_depth(cfg) -> tuple:
 
 
 @contextlib.contextmanager
-def depth_cut(launcher, arch: str, layers: int):
-    """Inside the block ``launcher.get_config(arch)`` is cut to
-    ``layers`` layers, its widths as published: how a phase trains a
-    model too deep for one card through the launcher's own path."""
+def config_cut(launcher, arch: str, **fields):
+    """Inside the block ``launcher.get_config(arch)`` has ``fields``
+    replaced (depth cuts: ``num_layers``, ``encoder_layers``), its
+    widths as published: how a phase trains a model too deep for one
+    card through the launcher's own path."""
     real = launcher.get_config
-    launcher.get_config = lambda a: real(a).replace(num_layers=layers) \
+    launcher.get_config = lambda a: real(a).replace(**fields) \
         if a == arch else real(a)
     try:
         yield
     finally:
         launcher.get_config = real
+
+
+def depth_cut(launcher, arch: str, layers: int):
+    """:func:`config_cut` of ``arch`` to ``layers`` layers."""
+    return config_cut(launcher, arch, num_layers=layers)
 
 
 def moe_aux_check(out) -> dict:
@@ -3784,8 +3818,8 @@ def live_frontend(launcher, draw_seed: int, gates=None):
     def get_model(cfg):
         model = real_get_model(cfg)
 
-        def init(seed=0, *, device="cuda"):
-            params = model.init(seed, device=device)
+        def init(seed=0, *, device="cuda", **kw):
+            params = model.init(seed, device=device, **kw)
             open_gates(params, gates)
             return params
         return model._replace(init=init)
@@ -4374,17 +4408,25 @@ DP_BOUNDS = {"loss": 5e-5, "grad_norm": 7e-4, "w_norm": 5e-3,
              "g_norm": 1e-2, "trust_ratio": 1e-2}
 
 
-def dp_gaps(got: list, want: list) -> dict:
+def gaps_where(got: list, want: list) -> tuple:
     """The worst relative gap of every ``DP_BOUNDS`` metric between two
-    runs' histories, over steps and segments."""
-    worst = {}
+    runs' histories, over steps and segments, and the key (segment)
+    where each is."""
+    worst, where = {}, {}
     for a, b in zip(got, want):
         for key in b:
             metric = key.split("/")[-1]
             if metric in DP_BOUNDS:
                 rel = abs(a[key] - b[key]) / max(abs(b[key]), 1e-30)
-                worst[metric] = max(worst.get(metric, 0.0), rel)
-    return worst
+                if rel >= worst.get(metric, -1.0):
+                    worst[metric], where[metric] = rel, key
+    return worst, where
+
+
+def dp_gaps(got: list, want: list) -> dict:
+    """The worst relative gap of every ``DP_BOUNDS`` metric between two
+    runs' histories, over steps and segments."""
+    return gaps_where(got, want)[0]
 
 
 @contextlib.contextmanager
@@ -6379,20 +6421,24 @@ def tt_rank_2x2(layers: int, ref_path: str, ckpt: str) -> dict:
     return res
 
 
-def tt_small_losses(arch: str, mesh=None) -> list:
-    """3 fused TVLARS steps of ``arch``'s smoke config in f32 (K = 2 of
-    4 x 32) from the seed-0 weights drawn on the CPU and CPU-drawn
-    batches: on the CPU (``mesh=None``), or on this rank's blocks of
-    ``mesh`` on its card. The losses."""
+def tt_small_losses(arch: str, mesh=None, steps: int = 3) -> list:
+    """``steps`` fused TVLARS steps of ``arch``'s smoke config in f32
+    (K = 2 of 4 x 32) from the seed-0 weights drawn on the CPU (a vlm's
+    gates opened) and CPU-drawn batches (with seeded normal extra
+    embeddings for a family that reads them): on the CPU
+    (``mesh=None``), or on this rank's blocks of ``mesh`` on its card.
+    The losses."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core import build_optimizer
     from repro_torch.core.base import tree_map
     from repro_torch.data.synthetic import lm_iterator
-    from repro_torch.models import convert, get_model
+    from repro_torch.models import convert, extra_embed_shape, get_model
     from repro_torch.training import TrainState, lm_task, make_train_step
     cfg = get_smoke_config(arch)
     model = get_model(cfg)
     params = model.init(0, device="cpu")
+    if cfg.family == "vlm":
+        open_gates(params)
     dev, place = torch.device("cpu"), None
     if mesh is not None:
         dev, place = mesh.device, convert.placement(cfg, mesh)
@@ -6405,52 +6451,68 @@ def tt_small_losses(arch: str, mesh=None) -> list:
     state = TrainState.create(params, opt)
     step = make_train_step(lm_task(model), opt, accum_steps=2, mesh=mesh,
                            placement=place)
+    gen = torch.Generator().manual_seed(FT_DRAW_SEED)
+    shape = extra_embed_shape(cfg, 4)
     losses = []
     for batch in lm_iterator(8, 32, cfg.vocab_size, seed=1, accum_steps=2,
                              device="cpu"):
+        if shape is not None:
+            batch = dict(batch, extra_embeds=torch.randn(
+                (2,) + shape, generator=gen))
         state, metrics = step(state, {k: v.to(dev) for k, v in
                                       batch.items()})
         losses.append(float(metrics["loss"]))
-        if len(losses) == 3:
+        if len(losses) == steps:
             return losses
 
 
-def tt_report(label, mesh_shape, ranks, one, rules, pred_peak, per_step):
+def tt_report(label, mesh_shape, ranks, one, rules, pred_peak, per_step,
+              arch=TT_ARCH, steps=TT_STEPS):
     """Check and print one mesh's run: launches a step, replicas (the
     launcher raised otherwise), gaps to M = 1's history ``one`` (when
-    given) and params within TT_BOUNDS, state bytes equal to the rules'
-    prediction; the split, the peak."""
+    given; the segment of each metric's worst gap printed) and params
+    within TT_BOUNDS, state bytes equal to the rules' prediction; the
+    split, the peak (beside ``pred_peak`` when given) and, where the run
+    counted them, the leaves whose data axis the reference puts on a
+    stacked dim."""
     for r in ranks:
-        if r["launches"] != [per_step] * TT_STEPS:
-            raise AssertionError(f"{label} rank {r['rank']}: launches per "
-                                 f"step {r['launches']}, expected "
-                                 f"{per_step}")
+        if r["launches"] != [per_step] * steps:
+            raise AssertionError(f"{label} {arch} rank {r['rank']}: "
+                                 f"launches per step {r['launches']}, "
+                                 f"expected {per_step}")
         if r["state_bytes"] != rules["state"]:
-            raise AssertionError(f"{label} rank {r['rank']}: state "
+            raise AssertionError(f"{label} {arch} rank {r['rank']}: state "
                                  f"{r['state_bytes']} B, the rules say "
                                  f"{rules['state']}")
-    gaps = {} if one is None else dp_gaps(ranks[0]["history"], one)
+    gaps, worst = ({}, {}) if one is None \
+        else gaps_where(ranks[0]["history"], one)
     if "param_gap" in ranks[0]:
         gaps["params"] = max(r["param_gap"] for r in ranks)
     over = {k: v for k, v in gaps.items() if not v <= TT_BOUNDS[k]}
     if over:
-        raise AssertionError(f"{label}: gaps to M=1 {gaps} over the bounds "
-                             f"{TT_BOUNDS}")
+        raise AssertionError(f"{label} {arch}: gaps to M=1 {gaps} over the "
+                             f"bounds {TT_BOUNDS} (worst at {worst})")
     sp = ranks[0]["split"]
-    print(f"{label} {TT_ARCH} on a {mesh_shape} mesh (gloo ranks sharing "
+    picks = ranks[0].get("stacked_picks")
+    print(f"{label} {arch} on a {mesh_shape} mesh (gloo ranks sharing "
           f"the card): {per_step} a rank a step; ranks holding the same "
           f"block bitwise equal; "
-          + (f"gaps to M=1 (worst over {TT_STEPS} steps) "
+          + ("" if picks is None else
+             f"{picks} leaves whole over the data column where the "
+             f"reference puts the data axis on a stacked dim; ")
+          + (f"gaps to M=1 (worst over {steps} steps) "
              + ", ".join(f"{k} {v:.3e}" for k, v in sorted(gaps.items()))
-             + f" (bounds {TT_BOUNDS}); " if gaps else "")
+             + f" (bounds {TT_BOUNDS}; worst at {worst}); "
+             if gaps else "")
           + "step split (rank 0, mean ms a step) "
           f"{sp['step']:.1f} = compute {sp['compute']:.1f} + "
           + " + ".join(f"{k} {sp[k]:.1f} ({sp['calls'][k]} calls)"
                        for k in TT_SPLIT)
           + f"; state a rank {ranks[0]['state_bytes']} B (rules "
           f"{rules['state']} B, params {rules['params']} B); peak a rank "
-          f"{[round(r['peak'] / GIB, 2) for r in ranks]} GiB (predicted "
-          f"{pred_peak / GIB:.2f})", flush=True)
+          f"{[round(r['peak'] / GIB, 2) for r in ranks]} GiB"
+          + ("" if pred_peak is None
+             else f" (predicted {pred_peak / GIB:.2f})"), flush=True)
     return gaps
 
 
@@ -6590,6 +6652,303 @@ def phase_model_axis_training(train_launch, ops, serving, checkpoint,
             "launches_pt": {k: sum(s.get(k, 0)
                                    for s in r12[0]["18b"]["launches"])
                             for k in ("lars_norm2", "lars_apply")}}
+
+
+# ---------------- 19-19d: the other families over the GSPMD mesh, probes
+FT_STEPS = 2
+FT_ARGV = ["--optimizer", "tvlars", "--use-kernel", "fused", "--precision",
+           "f32", "--global-batch", str(TT_BATCH), "--seq", "512",
+           "--steps", str(FT_STEPS), "--layerwise-every", "1", "--device",
+           DEV]
+# depth cuts (whole blocks, groups or layers; widths as published): the
+# script's time budget. mamba2 keeps 6 blocks so that fsdp gives the data
+# axis to the stacked dim of conv_w / conv_b as at 48 (at 4 or fewer the
+# conv width takes it); zamba2 one group of 6 blocks and its shared
+# block; whisper 2 + 2 layers; the vlm one group (4 + 1 cross); olmoe 1.
+# whisper and the vlm train in f32: in bf16 the gradients of the vlm
+# gate (one scalar) and whisper's final norm scale are sums over
+# 2048 x d products that cancel, whose M = 1 value itself rounds apart
+# from M = 2's by 11.7% and 3.8% (g_norm), where the same runs in f32
+# differ by 1.9e-7: bf16 there cannot tell a fault from rounding
+FT_F32 = dict(param_dtype="float32", compute_dtype="float32")
+FT_CUTS = {"mamba2-1.3b": dict(num_layers=6),
+           "zamba2-1.2b": dict(num_layers=6),
+           "whisper-large-v3": dict(num_layers=2, encoder_layers=2,
+                                    **FT_F32),
+           "llama-3.2-vision-11b": dict(num_layers=5, **FT_F32),
+           "olmoe-1b-7b": dict(num_layers=1)}
+FT_MESHES = {"19": (("mamba2-1.3b", "zamba2-1.2b"), (2, 2)),
+             "19a": (("whisper-large-v3", "llama-3.2-vision-11b"), (1, 2)),
+             "19b": (("olmoe-1b-7b",), (2, 1))}
+FT_DRAW_SEED = 19              # the random frames and image embeddings
+# 19b: olmoe's load balance (summed over its layers) at D = 2 against
+# D = 1, relative. Each data row routes its own block of the batch with
+# the same weights as D = 1's rows (routing groups are batch rows), so
+# the global means differ from D = 1's only where a bf16 product's
+# rounding moves a router probability or flips a top-1 choice between
+# near-ties; each flip moves the term by about E / N of a layer's
+# value (N = 2048 tokens): 1e-4 leaves room for a few. The per-shard
+# means' gap (0.16% at the smoke config's 2 shards) must exceed it
+FT_LB_BOUND = 1e-4
+# 19c: λ_max of the (1, 2) / (2, 2) probe against M = 1's from the same
+# seed vector. The HVP is taken at the params' dtype (bf16): the TP
+# path rounds its partial products apart from one device's, and the
+# repo's bf16 HVP is held to 4·2⁻⁸ relative of the reference's
+# (test_flat_hvp_bf16_lm_matches_reference, F5); λ_max of a 4-step
+# Lanczos is a Rayleigh quotient of those products, so it gets the same
+# relative bound
+FT_PROBE_BOUND = 4 * 2.0 ** -8
+FT_PROBE_ARGV = ["--arch", TT_ARCH, "--optimizer", "wa-lars",
+                 "--use-kernel", "per_tensor", "--precision", "f32",
+                 "--global-batch", str(TT_BATCH), "--seq", "512",
+                 "--steps", "1", "--probe-every", "1", "--probe-iters",
+                 "4", "--probe-no-reorth", "--device", DEV]
+FT_SMALL = ("qwen2.5-3b", "olmoe-1b-7b", "mamba2-1.3b", "zamba2-1.2b",
+            "whisper-large-v3", "llama-3.2-vision-11b")
+FT_SMALL_STEPS = 2             # of 18c's 3: the script's time budget
+
+
+def ft_live(launcher, arch: str):
+    """The launcher with seeded random extra embeddings and the vlm's
+    gates opened for a cross family, else nothing."""
+    if arch == "whisper-large-v3":
+        return live_frontend(launcher, FT_DRAW_SEED)
+    if arch == "llama-3.2-vision-11b":
+        return live_frontend(launcher, FT_DRAW_SEED, GATE_OPEN)
+    return contextlib.nullcontext()
+
+
+def ft_argv(arch: str, mesh_shape=None) -> list:
+    argv = ["--arch", arch] + FT_ARGV
+    if mesh_shape is None:
+        return argv
+    d, m = mesh_shape
+    if m == 1:
+        return argv + ["--data-parallel", str(d)]
+    return argv + ["--mesh-model", str(m), "--mesh-data", str(d)]
+
+
+def ft_lb_per_shard(arch: str, cut: dict, shards: int) -> float:
+    """The load balance of the first batch of a run of ``arch`` (its
+    seed-0 weights, the launcher's seed-0 stream) with each of
+    ``shards`` data rows taking the means of its own block, averaged
+    over the rows: the mesh-native data axis's rule, which the GSPMD
+    step must not follow."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_iterator
+    from repro_torch.models import get_model
+    cfg = get_config(arch).replace(**cut)
+    model = get_model(cfg)
+    params = model.init(0, device=DEV)
+    batch = next(lm_iterator(TT_BATCH, 512, cfg.vocab_size, seed=0,
+                             device=DEV))
+    b = TT_BATCH // shards
+    with torch.no_grad():
+        lbs = [float(model.loss(params, {k: v[i * b:(i + 1) * b]
+                                         for k, v in batch.items()})[1]
+                     .load_balance_loss) for i in range(shards)]
+    del params
+    return sum(lbs) / shards
+
+
+def ft_rank(arch: str, cut: dict, mesh_shape: tuple, ref_path: str
+            ) -> dict:
+    """19-19b on one rank: ``arch`` with ``cut`` (``FT_CUTS``) through
+    ``launch.train.run`` on ``mesh_shape`` (launch counts a step, the
+    step split, state bytes, peak, the param gap to M = 1, the leaves
+    whose data axis the reference puts on a stacked dim)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_launch
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    watch = StepWatch(ops)
+    with config_cut(train_launch, arch, **cut), \
+            ft_live(train_launch, arch), watched_fit(train_launch, watch):
+        out = train_launch.run(ft_argv(arch, mesh_shape),
+                               log_fn=_tt_log(f"19 {arch}"))
+    place, state = out["placement"], out["state"]
+    res = {"history": out["history"], "launches": watch.launches,
+           "split": tt_split(out, FT_STEPS),
+           "state_bytes": tt_state_bytes(state),
+           "peak": out["peak_memory_bytes"], "rank": out["rank"],
+           "param_gap": tt_param_gap(state.params, place, ref_path),
+           "stacked_picks": len(place.stacked_picks)}
+    del out, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def fp_rank(mesh_shape) -> dict:
+    """19c on one rank (or, with ``mesh_shape`` None, here at M = 1):
+    qwen2.5-3b cut to ``TT_LAYERS``, a per-tensor WA-LARS step and a
+    4-iteration Lanczos probe through ``launch.train.run`` (the GSPMD
+    path with ``mesh_shape``): λ_max, the launches around the probe and
+    whether it left the state bitwise as it was."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch import diagnostics as diag
+    from repro_torch.core.base import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_launch
+    ops.reset_launches()
+    argv = list(FT_PROBE_ARGV)
+    if mesh_shape is not None:
+        argv += ["--mesh-model", str(mesh_shape[1]), "--mesh-data",
+                 str(mesh_shape[0])]
+    watch = ProbeWatch(diag.LanczosProbe, ops, tree_leaves)
+    try:
+        with depth_cut(train_launch, TT_ARCH, TT_LAYERS):
+            out = train_launch.run(argv, log_fn=_tt_log("19c"))
+    finally:
+        watch.restore()
+    res = {"calls": watch.calls, "rank": out["rank"],
+           "lambda_max": [c["out"]["lambda_max"] for c in watch.calls],
+           "collectives": {k: v["calls"] for k, v in
+                           out["collectives"].items()}}
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def fs_rank() -> dict:
+    """19d on one rank of a world of 4: every family's smoke config at
+    (2, 2), the MoE's at (4, 1)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import mesh as mesh_lib
+    meshes = {shape: mesh_lib.make_host_mesh(*shape)
+              for shape in ((2, 2), (4, 1))}
+    return {arch: tt_small_losses(arch, meshes[
+        (4, 1) if get_smoke_config(arch).family == "moe" else (2, 2)],
+        FT_SMALL_STEPS) for arch in FT_SMALL}
+
+
+def ft_train(label: str, arch: str, cut: dict, shape: tuple,
+             train_launch, get_config, tmp: str, per_step: dict) -> dict:
+    """One arch of 19-19b: M = 1 here, then ``shape`` on the shared
+    ranks, checked and printed (:func:`ft_report`); olmoe's load balance
+    against M = 1 and the per-shard means'."""
+    from repro_torch.core.base import path_name, tree_flatten_with_path
+    t0 = time.perf_counter()
+    full = get_config(arch)
+    cfg = full.replace(**cut)
+    print(f"{label} {arch}: reduced: " + ", ".join(
+        f"{k} {getattr(full, k)} -> {v}" for k, v in cut.items())
+        + f" (the script's time budget, and f32 where FT_CUTS says why; "
+        f"width as published: {cfg.d_model} wide, {cfg.param_dtype})",
+        flush=True)
+    ref_path = os.path.join(tmp, f"{arch}.pt")
+    with config_cut(train_launch, arch, **cut), ft_live(train_launch, arch):
+        one = train_launch.run(ft_argv(arch), log_fn=lambda line: None)
+    torch.save({path_name(p): t.detach().cpu() for p, t in
+                tree_flatten_with_path(one["state"].params)}, ref_path)
+    single = one["history"]
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = on_ranks(ft_rank, shape[0] * shape[1],
+                     args=(arch, cut, shape, ref_path), timeout=600)
+    gaps = tt_report(label, shape, ranks, single,
+                     tt_rules(cfg, shape, "fused"), None, per_step,
+                     arch=arch, steps=FT_STEPS)
+    r = {"gaps": gaps, "split": ranks[0]["split"], "launches": {
+        k: sum(x.get(k, 0) for x in ranks[0]["launches"])
+        for k in SEG_LARS}}
+    if cfg.family == "moe":
+        lb1 = single[0]["load_balance"]
+        lbs = [h["load_balance"] for h in ranks[0]["history"]]
+        gap = max(abs(a["load_balance"] - b["load_balance"])
+                  / abs(b["load_balance"])
+                  for a, b in zip(ranks[0]["history"], single))
+        shard = ft_lb_per_shard(arch, cut, shape[0])
+        shard_gap = abs(shard - lb1) / abs(lb1)
+        if not gap <= FT_LB_BOUND < shard_gap:
+            raise AssertionError(f"{label}: load balance gap {gap:.3e}, "
+                                 f"per-shard means' {shard_gap:.3e}, bound "
+                                 f"{FT_LB_BOUND}")
+        print(f"{label} {arch}: load balance per step {lbs} at D="
+              f"{shape[0]} (the global batch's means), gap to D=1 "
+              f"{gap:.3e} <= {FT_LB_BOUND}; per-shard means on step 0's "
+              f"weights and batch {shard:.6f} against {lb1:.6f}, gap "
+              f"{shard_gap:.3e}", flush=True)
+        r["lb_gap"], r["lb_shard_gap"] = gap, shard_gap
+    r["seconds"] = time.perf_counter() - t0
+    print(f"{label} {arch}: {r['seconds']:.1f} s (M=1 here, then the "
+          f"shared ranks)", flush=True)
+    return r
+
+
+def phase_families_training(train_launch, get_config) -> dict:
+    """19-19d: the other families trained over the GSPMD mesh and the
+    probe over it (see the module docstring)."""
+    seg = {"seg_norm_lars": 1, "seg_apply_lars": 1}
+    res: dict = {"train": {}, "probe": {}, "seconds": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ft_")
+    try:
+        for label, (archs, shape) in FT_MESHES.items():
+            for arch in archs:
+                res["train"][(label, arch)] = ft_train(
+                    label, arch, FT_CUTS[arch], shape, train_launch,
+                    get_config, tmp, seg)
+        # 19c: the probe over the GSPMD mesh
+        t0 = time.perf_counter()
+        one = fp_rank(None)
+        lam1 = one["lambda_max"]
+        pt = None
+        for shape in ((1, 2), (2, 2)):
+            ranks = on_ranks(fp_rank, shape[0] * shape[1], args=(shape,),
+                             timeout=600)
+            for r in ranks:
+                check_probe_calls(f"19c {shape}", r["calls"], None)
+                if r["lambda_max"] != ranks[0]["lambda_max"]:
+                    raise AssertionError(f"19c {shape}: ranks' lambda_max "
+                                         f"differ")
+                launched = r["calls"][0]["launches_before"]
+                pt = launched if pt is None else pt
+                if launched != pt:
+                    raise AssertionError(f"19c {shape}: launches before "
+                                         f"the probe {launched}, M=1 {pt}")
+            got = ranks[0]["lambda_max"]
+            gap = max(abs(a - b) / abs(b) for a, b in zip(got, lam1))
+            if not gap <= FT_PROBE_BOUND:
+                raise AssertionError(f"19c {shape}: lambda_max {got} against "
+                                     f"M=1 {lam1}, gap {gap:.3e} over "
+                                     f"{FT_PROBE_BOUND:.3e}")
+            secs = [c["seconds"] for c in ranks[0]["calls"]]
+            print(f"19c {TT_ARCH} ({TT_LAYERS} layers) probe on {shape}: "
+                  f"lambda_max {got} against M=1 {lam1} (gap {gap:.3e} <= "
+                  f"{FT_PROBE_BOUND:.3e}); no kernel launched inside it "
+                  f"(per-tensor launches before it {pt}, as M=1's step), "
+                  f"state bitwise unchanged; probe {secs} s on rank 0 (M=1 "
+                  f"{[c['seconds'] for c in one['calls']]} s); lanczos "
+                  f"inner products "
+                  f"{ranks[0]['collectives'].get('lanczos_dot', 0)} "
+                  f"collectives; {smi_line()}", flush=True)
+            res["probe"][shape] = {"gap": gap, "lambda_max": got,
+                                   "seconds": secs}
+        res["probe_launches"] = pt
+        res["seconds"]["19c"] = time.perf_counter() - t0
+        print(f"19c: {res['seconds']['19c']:.1f} s", flush=True)
+        # 19d: every family's smoke config at (2, 2)
+        t0 = time.perf_counter()
+        cpu = {arch: tt_small_losses(arch, steps=FT_SMALL_STEPS)
+               for arch in FT_SMALL}
+        got = on_ranks(fs_rank, 4, timeout=600)[0]
+        for arch in FT_SMALL:
+            np.testing.assert_allclose(got[arch], cpu[arch], rtol=1e-5,
+                                       err_msg=f"19d {arch}")
+        print(f"19d smoke configs f32 at (2, 2) (olmoe at (4, 1)) on the "
+              f"card: losses within 1e-5 of the CPU's single-rank run "
+              f"({ {a: [round(x, 6) for x in v] for a, v in cpu.items()} })",
+              flush=True)
+        res["seconds"]["19d"] = time.perf_counter() - t0
+        print(f"19d: {res['seconds']['19d']:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def main() -> int:
@@ -6861,6 +7220,12 @@ def main() -> int:
                                        get_smoke_config, get_model,
                                        tree_leaves)
 
+    # 19-19d: the other families over the GSPMD mesh, and the probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase_clock("19-19d"):
+        ft = phase_families_training(train_launch, get_config)
+
     # the serving path's mix: 40 local and 8 global launches per decode
     # step (bf16 pool); per-launch means weighted by that mix
     rows = kernel["rows"]
@@ -6951,7 +7316,9 @@ def main() -> int:
                 "15b": dp["controller_launches"].get(name, 0),
                 # per rank, on the rank's blocks
                 "18": tt["launches"].get(name, 0),
-                "18a": tt["launches_2x2"].get(name, 0)},
+                "18a": tt["launches_2x2"].get(name, 0),
+                **{f"{label}-{arch}": r["launches"].get(name, 0)
+                   for (label, arch), r in ft["train"].items()}},
             "on_a_ranks_block": tt["seg"]["times"][
                 "norm" if "norm" in name else "apply"]})
     # the per-tensor kernels: per-launch means over the 14 segments of a
@@ -6974,7 +7341,8 @@ def main() -> int:
                 "13d": fam["13d-pt"][name]["launches"],
                 "14c": cross["14c-pt"][name]["launches"],
                 # per rank, on the rank's blocks
-                "18b": tt["launches_pt"][name]},
+                "18b": tt["launches_pt"][name],
+                "19c": ft["probe_launches"].get(name, 0)},
             "on_a_ranks_block": {
                 k: v for k, v in tt["lars"]["times"][
                     "norm" if "norm" in name else "apply"].items()

@@ -284,9 +284,34 @@ class FlatHVP:
         return self._w2d
 
 
+def _placed_hvp(task, params: PyTree, batch: PyTree, accum_steps: int,
+                tangent: list, place) -> list:
+    """:func:`_hvp_leaves` of the GSPMD step's loss over ``place``'s
+    mesh: this data row's block of the batch under
+    ``layers.training(mesh, place)``, differentiated twice through the
+    row's and the column's autograd functions (``distributed``) and the
+    vocab-parallel cross-entropy. A leaf split over the data axis gets
+    its product from its gather's backward; every other leaf's is
+    averaged over the data column here, in f32, as the train step
+    averages its gradient."""
+    from repro_torch.models import layers as L
+    mesh = place.mesh
+    local = pipeline.place_over_data(
+        mesh, batch, batch_dim=1 if accum_steps > 1 else 0)
+    with L.training(mesh, place):
+        hv = _hvp_leaves(task, params, local, accum_steps, tangent)
+    if mesh.data > 1:
+        whole = [i for i, (p, _) in enumerate(tree_flatten_with_path(params))
+                 if place.data_dim(p) is None]
+        for i in whole:
+            hv[i] = hv[i].float().contiguous()
+        mesh.mean_([hv[i] for i in whole], name="column_reduce")
+    return hv
+
+
 def make_flat_hvp(task, params: PyTree, batch: PyTree, *,
                   accum_steps: int = 1, mesh=None,
-                  data_axes=None) -> FlatHVP:
+                  data_axes=None, placement=None) -> FlatHVP:
     """Build ``v2d -> H(loss) @ v2d`` on the flat buffer.
 
     The Hessian is of the *accumulated* mean loss; K > 1 runs one
@@ -296,7 +321,11 @@ def make_flat_hvp(task, params: PyTree, batch: PyTree, *,
     the product is packed into a fresh f32 buffer. ``mesh=``: each rank
     takes the product on its shard of the probe batch and the flat
     products are averaged over the data axes; the probe vectors stay
-    whole on every rank."""
+    whole on every rank. ``placement=`` (a ``launch.sharding.Placement``
+    of the GSPMD step, with ``params`` this rank's blocks): the product
+    of the global batch's loss on this rank's blocks (:func:`_placed_hvp`),
+    the probe vectors this rank's blocks in the flat layout of its
+    blocks."""
     check_stacked(batch, accum_steps)
     spec = build_spec(task, params)
     template = tree_leaves(params)
@@ -305,12 +334,19 @@ def make_flat_hvp(task, params: PyTree, batch: PyTree, *,
         views = tree_leaves(flatten.unpack(v2d.float(), spec, params))
         tangent = [v.to(p.dtype) for v, p in zip(views, template)]
         del views
-        hv = _hvp_leaves(task, params, batch_, accum_steps, tangent)
+        if placement is None:
+            hv = _hvp_leaves(task, params, batch_, accum_steps, tangent)
+        else:
+            hv = _placed_hvp(task, params, batch_, accum_steps, tangent,
+                             placement)
         del tangent
         pairs = tree_flatten_with_path(params)
         return flatten.pack(tree_from_paths(
             params, {p: h for (p, _), h in zip(pairs, hv)}), spec)
 
+    if placement is not None and mesh is not None:
+        raise ValueError("make_flat_hvp: mesh= is the mesh-native data "
+                         "axis, placement= the GSPMD mesh; pass one")
     if not _on_mesh(mesh):
         def matvec(v2d: torch.Tensor) -> torch.Tensor:
             return local_hvp(v2d, batch)

@@ -62,11 +62,63 @@ def vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return total
 
 
+class BlockInner:
+    """Inner products of flat vectors that hold this rank's blocks of
+    the whole vectors (the GSPMD probe): the sums over the segments this
+    rank counts (``Placement.counts_once``: the ranks holding copies of
+    one block count it once between them), then one sum over the mesh
+    (``Mesh.sum_blocks_``), so every rank holds the whole vectors'
+    product. ``spec`` is the rank's flat layout, ``place`` the
+    placement; segments are whole rows, so each counted segment is one
+    range of the flat vector."""
+
+    def __init__(self, spec, place):
+        from repro_torch.core.flatten import LANES
+        self.mesh = place.mesh
+        ranges: list = []
+        for paths, off, rows in zip(spec.paths, spec.row_offset,
+                                    spec.seg_rows):
+            if not place.counts_once(paths[0]):
+                continue
+            a, b = off * LANES, (off + rows) * LANES
+            if ranges and ranges[-1][1] == a:
+                ranges[-1][1] = b
+            else:
+                ranges.append([a, b])
+        self.pieces = [slice(s.start + a, s.stop + a) for a, b in ranges
+                       for s in _pieces(b - a)]
+
+    def _reduce(self, t: torch.Tensor) -> torch.Tensor:
+        flat = t.reshape(1, -1).contiguous()
+        self.mesh.sum_blocks_(flat, torch.ones(flat.shape[1],
+                                               dtype=torch.bool),
+                              name="lanczos_dot")
+        return flat.reshape(t.shape)
+
+    def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """⟨a, b⟩ of the whole vectors (a 0-d tensor)."""
+        total = torch.zeros((), dtype=torch.float32, device=a.device)
+        for s in self.pieces:
+            total = total + torch.dot(a[s], b[s])
+        return self._reduce(total)
+
+    def dots(self, basis: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``basis @ w`` of the whole vectors ([m])."""
+        total = torch.zeros(basis.shape[0], dtype=torch.float32,
+                            device=w.device)
+        for s in self.pieces:
+            total = total + basis[:, s] @ w[s]
+        return self._reduce(total)
+
+
 def lanczos(matvec: Callable, v0: torch.Tensor, num_iters: int, *,
-            reorth: bool = True) -> LanczosResult:
+            reorth: bool = True,
+            inner: Optional[BlockInner] = None) -> LanczosResult:
     """m-step Lanczos on ``matvec`` seeded with ``v0`` (any shape;
     normalized into a new buffer, so a caller that drops its reference
-    frees it). Deterministic given (matvec, v0).
+    frees it). Deterministic given (matvec, v0). ``inner`` takes the
+    inner products of vectors of this rank's blocks over the mesh
+    (:class:`BlockInner`); None: the vectors are whole here.
 
     v_prev is the basis's previous row with ``reorth``; without it,
     v_prev waits in host memory (pinned, for a CUDA vector) while the
@@ -74,10 +126,11 @@ def lanczos(matvec: Callable, v0: torch.Tensor, num_iters: int, *,
     the device holds one f32 vector beside the operator's work."""
     if num_iters < 1:
         raise ValueError(f"num_iters must be >= 1, got {num_iters}")
+    dot = vdot if inner is None else inner.dot
     shape = v0.shape
     r0 = v0.reshape(-1).float()
     del v0
-    v = r0 / torch.sqrt(vdot(r0, r0))
+    v = r0 / torch.sqrt(dot(r0, r0))
     del r0
     n = v.numel()
     if reorth:
@@ -95,7 +148,7 @@ def lanczos(matvec: Callable, v0: torch.Tensor, num_iters: int, *,
         w = matvec(v.view(shape)).reshape(-1).float()
         if w.data_ptr() == v.data_ptr():
             w = w.clone()
-        alpha = vdot(w, v)
+        alpha = dot(w, v)
         for s in _pieces(n):
             piece = w[s]
             piece.sub_(alpha * v[s])
@@ -105,8 +158,9 @@ def lanczos(matvec: Callable, v0: torch.Tensor, num_iters: int, *,
                 piece.sub_(beta * prev)
         if basis is not None:
             # unwritten basis rows are zero vectors: coefficients 0
-            w.sub_(basis.T @ (basis @ w))
-        beta_new = torch.sqrt(vdot(w, w))
+            w.sub_(basis.T @ (basis @ w if inner is None
+                              else inner.dots(basis, w)))
+        beta_new = torch.sqrt(dot(w, w))
         ok = beta_new > _BREAKDOWN_TOL
         w.div_(torch.clamp(beta_new, min=_BREAKDOWN_TOL)).mul_(ok)
         beta = torch.where(ok, beta_new, torch.zeros_like(beta_new))

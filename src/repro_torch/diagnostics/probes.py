@@ -46,8 +46,8 @@ import torch
 from repro_torch.core import flatten
 from repro_torch.core.base import tree_leaves
 from repro_torch.diagnostics import hvp, sharpness
-from repro_torch.diagnostics.lanczos import (LanczosResult, lanczos,
-                                             top_k_eigenvalues)
+from repro_torch.diagnostics.lanczos import (BlockInner, LanczosResult,
+                                             lanczos, top_k_eigenvalues)
 
 PyTree = Any
 
@@ -91,6 +91,26 @@ def seed_vector(spec: flatten.FlatSpec, seed: int, device) -> torch.Tensor:
     return v0.mul_(hvp.padding_mask(spec, device))
 
 
+def placed_seed_vector(spec: flatten.FlatSpec, params: PyTree, task,
+                       place, seed: int, device) -> torch.Tensor:
+    """This rank's blocks of the Lanczos seed the whole params would get
+    (:func:`seed_vector` over the whole tree's flat layout, drawn whole,
+    each leaf's block under ``place`` kept), in ``spec``, the flat
+    layout of this rank's blocks: a GSPMD probe starts from the
+    single-rank probe's vector, so its early Ritz values are the
+    single-rank ones (they depend on the seed)."""
+    from repro_torch.core.base import (tree_flatten_with_path,
+                                       tree_from_paths, tree_get)
+    pairs = list(tree_flatten_with_path(params))
+    whole = tree_from_paths(params, {
+        p: torch.empty(place.whole[p], dtype=x.dtype, device="meta")
+        for p, x in pairs})
+    wspec = hvp.build_spec(task, whole)
+    views = flatten.unpack(seed_vector(wspec, seed, device), wspec, whole)
+    return flatten.pack(tree_from_paths(params, {
+        p: place.block(p, tree_get(views, p)) for p, _ in pairs}), spec)
+
+
 @dataclasses.dataclass
 class LanczosProbe:
     """Top-k Hessian eigenvalues of the task loss on a held batch.
@@ -101,7 +121,13 @@ class LanczosProbe:
     across steps are comparable (same Krylov seed every probe).
     ``reorth=False`` keeps no Krylov basis on the device and holds the
     previous Lanczos vector in host memory, what a full-size model
-    needs (``lanczos.lanczos``).
+    needs (``lanczos.lanczos``). ``placement=`` (the GSPMD step's
+    ``launch.sharding.Placement``, the state holding this rank's
+    blocks): every rank of the placement's mesh calls the probe with
+    the global held batch; the products are the global batch's
+    (``hvp.make_flat_hvp(placement=)``), the vectors this rank's blocks
+    of the single-rank ones (:func:`placed_seed_vector`) and the inner
+    products summed over the mesh (``lanczos.BlockInner``).
     """
     task: Any
     batch: PyTree
@@ -113,6 +139,7 @@ class LanczosProbe:
     seed: int = 0
     mesh: Any = None
     data_axes: Any = None
+    placement: Any = None
     name: str = "lanczos"
 
     def __post_init__(self):
@@ -124,15 +151,23 @@ class LanczosProbe:
     def dispatch(self, step: int, state) -> LanczosResult:
         """Run Lanczos on the device; returns the device ``(alphas,
         betas)`` without reading them back."""
+        place = self.placement
         op = hvp.make_flat_hvp(self.task, state.params, self.batch,
                                accum_steps=self.accum_steps,
-                               mesh=self.mesh, data_axes=self.data_axes)
+                               mesh=self.mesh, data_axes=self.data_axes,
+                               placement=place)
         device = tree_leaves(state.params)[0].device
         # the seed is handed over, not kept: Lanczos frees it once it
         # has its normalized copy, so without reorthogonalization the
         # device holds one flat f32 vector during each matvec
-        return lanczos(op.matvec, seed_vector(op.spec, self.seed, device),
-                       self.num_iters, reorth=self.reorth)
+        if place is None:
+            return lanczos(op.matvec, seed_vector(op.spec, self.seed,
+                                                  device),
+                           self.num_iters, reorth=self.reorth)
+        return lanczos(op.matvec, placed_seed_vector(
+            op.spec, state.params, self.task, place, self.seed, device),
+            self.num_iters, reorth=self.reorth,
+            inner=BlockInner(op.spec, place))
 
     def resolve(self, raw: LanczosResult) -> dict[str, float]:
         """Host eigenvalues of the tridiagonal (reads the device back)."""

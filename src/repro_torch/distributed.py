@@ -64,7 +64,16 @@ its forward gives the bits of the in-place calls):
 * :func:`fsdp_gather` all-gathers a leaf's blocks over the data column,
   and its backward sums the gradient over the column, keeps this
   rank's block and divides by D: the reference's mean over the global
-  batch.
+  batch;
+* :func:`column_mean` averages a statistic over the data column (the
+  MoE load-balance means of the global batch).
+
+Each backward is itself one of these functions (``copy_to_row`` and
+``sum_over_row`` are each other's backward; ``gather_row``'s keeps the
+rank's block, whose backward gathers; ``fsdp_gather``'s reduces over
+the column, whose backward gathers), never an in-place collective on a
+tensor autograd sees, so a Hessian-vector product differentiates
+through them twice.
 
 Serving calls the in-place :meth:`Mesh.model_sum_` /
 :meth:`Mesh.model_gather` directly, as before. :meth:`Mesh.sum_blocks_`
@@ -104,24 +113,18 @@ TIMEOUT_S = 300.0
 BACKENDS = ("gloo", "nccl")
 # what the model axis does not do yet, each with its ROADMAP item:
 # sequence parallelism (10, with the dry run that is its only user),
-# the other families trained over it and the probes at model > 1
-# (11c-2), the MoE family (11d), and a KV cache that cache_pspecs
-# would split over Dh (11b-4: the model axis divides neither the KV
-# heads nor the cache's length, e.g. whisper-large-v3's 1500 cross
-# frames and 20 heads at model 8). Serving every other family on a
-# (data, model) mesh is ported, and so is training the dense family
-# (fsdp over the data axis, tensor parallelism over the model axis).
+# the MoE family at model > 1 (11d: experts over the model axis), and a
+# KV cache that cache_pspecs would split over Dh (11b-4: the model axis
+# divides neither the KV heads nor the cache's length, e.g.
+# whisper-large-v3's 1500 cross frames and 20 heads at model 8).
+# Serving every other family on a (data, model) mesh is ported, and so
+# is training every family over the reference's GSPMD mesh (fsdp over
+# the data axis, tensor parallelism over the model axis; MoE at model
+# 1) with the Lanczos probe on it.
 SEQUENCE_PARALLEL_PENDING = (
     "sequence parallelism (set_batch_sharding(seq_axis=), the dry "
     "run's sequence-split residuals) is not ported: ROADMAP queue 1, "
     "item 10")
-TRAIN_FAMILIES_PENDING = (
-    "training the vlm, encdec, ssm and hybrid families (and moe at "
-    "model 1) over the reference's GSPMD mesh (fsdp + the model axis) "
-    "is not ported: ROADMAP queue 1, item 11c-2")
-PROBES_PENDING = (
-    "probes over a mesh with a model axis (double backward through the "
-    "row's collectives) are not ported: ROADMAP queue 1, item 11c-2")
 EXPERT_PARALLEL_PENDING = (
     "expert parallelism (the MoE family at model > 1) is not ported: "
     "ROADMAP queue 1, item 11d")
@@ -295,15 +298,21 @@ class Mesh:
         self.shard = self.coords["data"]
         self.collectives: dict = collections.defaultdict(
             lambda: {"calls": 0, "seconds": 0.0, "bytes": 0})
-        self._row = self._column = None
+        self._row = self._column = self._all = None
         if self.model > 1 and dist.is_initialized():
-            self._row, self._column = self._make_groups()
+            self._row, self._column, self._all = self._make_groups()
 
     def _make_groups(self):
-        """Every rank makes every row's and every column's group, in
-        the same order (``new_group`` is collective over the world)."""
+        """Every rank makes every row's and every column's group, and
+        the mesh's own when it is a prefix of a larger world, in the
+        same order (``new_group`` is collective over the world)."""
         timeout = datetime.timedelta(seconds=TIMEOUT_S)
-        row = column = None
+        row = column = everyone = None
+        size = self.data * self.model
+        if self.world > size:
+            g = dist.new_group(list(range(size)), timeout=timeout,
+                               backend=self.backend)
+            everyone = g if self.member else None
         for d in range(self.data):
             g = dist.new_group([d * self.model + m
                                 for m in range(self.model)],
@@ -316,7 +325,7 @@ class Mesh:
                                timeout=timeout, backend=self.backend)
             if self.member and m == self.coords["model"]:
                 column = g
-        return row, column
+        return row, column, everyone
 
     @property
     def shape(self) -> dict:
@@ -348,11 +357,26 @@ class Mesh:
                            f"{self.data} in the data column")
 
     def _mesh_group(self, what: str):
-        """The default group, which must hold exactly the mesh's ranks."""
-        if self.world != self.data * self.model:
-            raise RuntimeError(f"{what}: {self.world} ranks in the world, "
-                               f"{self.data} x {self.model} in the mesh")
-        return None
+        """The group of the mesh's ranks: the default group when the
+        mesh is the whole world, else (at ``model > 1``) the mesh's own
+        group over the world's first ranks."""
+        if self.world == self.data * self.model:
+            return None
+        if self._all is not None:
+            return self._all
+        raise RuntimeError(f"{what}: rank {self.rank} of {self.world} in "
+                           f"the world, {self.data} x {self.model} in the "
+                           f"mesh")
+
+    def all_gather_object(self, value: Any) -> list:
+        """``value`` of every rank of the mesh, in rank order (one
+        ``all_gather_object`` over the mesh's group)."""
+        if self.world == 1:
+            return [value]
+        got = [None] * (self.data * self.model)
+        dist.all_gather_object(got, value,
+                               group=self._mesh_group("all_gather_object"))
+        return got
 
     def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
         """Copy rank 0's ``tensors`` into every rank's, in place, byte
@@ -525,18 +549,19 @@ class Mesh:
         if not spec.axes():
             return block if dst is None or self.rank == dst else None
         group = self._mesh_group(name)
+        size = self.data * self.model
         if dst is None:
-            parts = self._gather(block[None], 0, group, self.world, name)
+            parts = self._gather(block[None], 0, group, size, name)
         else:
             t0 = self._start(block)
             wire = block.detach().contiguous()
             bits = wire.dtype == torch.bfloat16 and self.backend == "gloo"
             wire = self._staged(wire.view(torch.uint8) if bits else wire)
-            into = [torch.empty_like(wire) for _ in range(self.world)] \
+            into = [torch.empty_like(wire) for _ in range(size)] \
                 if self.rank == dst else None
             dist.gather(wire, into, dst=dst, group=group)
             self._record(name, t0, wire.numel() * wire.element_size()
-                         * (self.world if into is not None else 1))
+                         * (size if into is not None else 1))
             if into is None:
                 return None
             parts = [(x.view(torch.bfloat16) if bits else x)
@@ -545,7 +570,7 @@ class Mesh:
         from repro_torch.launch.sharding import local_block
         out = torch.empty(tuple(shape), dtype=block.dtype,
                           device=block.device)
-        for r in range(self.world):
+        for r in range(size):
             at = types.SimpleNamespace(
                 shape=self.shape, coords=dict(zip(AXES, divmod(r,
                                                                self.model))))
@@ -652,8 +677,10 @@ class Mesh:
         return out.to(t.device)
 
     def barrier(self) -> None:
+        """Every rank of the world meets here; of the mesh's only, when
+        the mesh has a group of its own (a prefix at ``model > 1``)."""
         if self.world > 1:
-            dist.barrier()
+            dist.barrier(group=self._all)
 
 
 # --------------------------------------------------------------------------
@@ -668,30 +695,44 @@ class _CopyToRow(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.mesh.model_sum_(g.contiguous().clone()), None
+        return _SumOverRow.apply(g, ctx.mesh), None
 
 
 class _SumOverRow(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
+        ctx.mesh = mesh
         return mesh.model_sum_(x.contiguous().clone())
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return _CopyToRow.apply(g, ctx.mesh), None
 
 
 class _GatherRow(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, dim):
-        ctx.dim, ctx.local, ctx.index = dim, x.shape[dim], \
-            mesh.coords["model"]
+        ctx.mesh, ctx.dim, ctx.local = mesh, dim, x.shape[dim]
         return mesh.model_gather(x, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return g.narrow(ctx.dim, ctx.index * ctx.local,
-                        ctx.local).contiguous(), None, None
+        return _RowBlock.apply(g, ctx.mesh, ctx.dim, ctx.local), None, None
+
+
+class _RowBlock(torch.autograd.Function):
+    """This rank's block of a tensor replicated over the model row (the
+    gather's backward); its own backward gathers the row's blocks."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, local):
+        ctx.mesh, ctx.dim = mesh, dim
+        return x.narrow(dim, mesh.coords["model"] * local,
+                        local).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GatherRow.apply(g, ctx.mesh, ctx.dim), None, None, None
 
 
 class _FsdpGather(torch.autograd.Function):
@@ -702,17 +743,54 @@ class _FsdpGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        mesh = ctx.mesh
-        total = mesh.column_sum_(g.float().contiguous(), "fsdp_reduce")
-        mine = total.narrow(ctx.dim, mesh.coords["data"] * ctx.local,
-                            ctx.local) / mesh.data
-        return mine.to(g.dtype).contiguous(), None, None
+        return _ColumnBlock.apply(g, ctx.mesh, ctx.dim, ctx.local), \
+            None, None
+
+
+class _ColumnBlock(torch.autograd.Function):
+    """The fsdp gather's backward: the gradient summed over the data
+    column in f32 (``fsdp_reduce``), this rank's block kept and divided
+    by D, rounded to the gradient's dtype. Its own backward gathers the
+    column's blocks of the cotangent, undivided: a data row's graph
+    carries D times its share of the global mean loss (each row
+    differentiates the mean over its own shard), which the division
+    here takes back out."""
+
+    @staticmethod
+    def forward(ctx, g, mesh, dim, local):
+        ctx.mesh, ctx.dim = mesh, dim
+        total = mesh.column_sum_(g.detach().to(torch.float32, copy=True)
+                                 .contiguous(), "fsdp_reduce")
+        mine = total.narrow(dim, mesh.coords["data"] * local, local) \
+            / mesh.data
+        return mine.to(g.dtype).contiguous()
+
+    @staticmethod
+    def backward(ctx, c):
+        return _FsdpGather.apply(c, ctx.mesh, ctx.dim), None, None, None
+
+
+class _ColumnMean(torch.autograd.Function):
+    """The mean of ``x`` over the data column in f32 (its own adjoint:
+    the backward is the column mean of the gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, name):
+        ctx.mesh, ctx.name = mesh, name
+        buf = mesh.column_sum_(x.detach().to(torch.float32, copy=True)
+                               .contiguous(), name)
+        return buf.div_(mesh.data).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ColumnMean.apply(g, ctx.mesh, ctx.name), None, None
 
 
 def copy_to_row(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Identity forward; the backward sums the gradient over the model
     row (Megatron's f: every column-parallel input, and every
-    replicated leaf a rank uses in part)."""
+    replicated leaf a rank uses in part). The backward is
+    :func:`sum_over_row` itself, so it differentiates again."""
     if mesh.model == 1:
         return x
     return _CopyToRow.apply(x, mesh)
@@ -721,7 +799,7 @@ def copy_to_row(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def sum_over_row(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The sum of a row-parallel partial over the model row (a new
     tensor, summed in f32 as :meth:`Mesh.model_sum_`); the backward is
-    the identity (Megatron's g)."""
+    :func:`copy_to_row` (Megatron's g)."""
     if mesh.model == 1:
         return x
     return _SumOverRow.apply(x, mesh)
@@ -729,7 +807,10 @@ def sum_over_row(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 def gather_row(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
     """The row's blocks of ``x`` concatenated along ``dim``; the
-    backward keeps this rank's block of the gradient."""
+    backward keeps this rank's block of the gradient (whose own
+    backward gathers again). Every consumer of the result must run
+    replicated over the row: an input a rank uses only in part goes
+    through :func:`copy_to_row` first."""
     if mesh.model == 1:
         return x
     return _GatherRow.apply(x, mesh, dim)
@@ -741,10 +822,23 @@ def fsdp_gather(block: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
     the column in f32 (``fsdp_reduce``), keeps this rank's block and
     divides it by D, then rounds to the leaf's dtype: each data row
     computed the mean loss of its shard of the batch, so this is the
-    gradient of the mean over the global batch."""
+    gradient of the mean over the global batch. That backward is itself
+    an autograd function (its backward gathers), so a Hessian-vector
+    product differentiates through it."""
     if mesh.data == 1:
         return block
     return _FsdpGather.apply(block, mesh, dim)
+
+
+def column_mean(x: torch.Tensor, mesh: Mesh,
+                name: str = "column_mean") -> torch.Tensor:
+    """The mean of ``x`` over this rank's data column, in f32, with a
+    gradient (the column mean of the gradient): a statistic of the
+    global batch from each data row's statistic of its shard (the MoE
+    layer's load-balance means)."""
+    if mesh.data == 1:
+        return x
+    return _ColumnMean.apply(x, mesh, name)
 
 
 def make_host_mesh(data: int = 1, model: int = 1) -> Mesh:

@@ -20,12 +20,12 @@ import time
 import traceback
 from typing import Callable, Optional, Sequence
 
+import torch
 import torch.distributed as dist
 
 from repro_torch.distributed import (  # noqa: F401  (the launchers' names)
     BACKENDS, DH_FALLBACK_PENDING, EXPERT_PARALLEL_PENDING,
-    PROBES_PENDING, SEQUENCE_PARALLEL_PENDING, TIMEOUT_S,
-    TRAIN_FAMILIES_PENDING, World, all_equal,
+    SEQUENCE_PARALLEL_PENDING, TIMEOUT_S, World, all_equal,
     check_backend, default_backend, init_world, joined, leave,
     make_data_mesh, make_host_mesh, placement_device, replicated, world)
 
@@ -54,6 +54,10 @@ def _rank_main(call_path, rank, size, backend, device, init_method,
     try:
         with open(call_path, "rb") as f:
             fn, args = pickle.load(f)
+        if torch.device(device).type == "cpu":
+            # ranks on the CPU share its cores: without a share each,
+            # every rank runs as many threads as there are cores
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // size))
         init_world(backend, device, rank, size, init_method, timeout)
         result = fn(*args)
         dist.barrier()
@@ -73,7 +77,8 @@ def spawn(fn: Callable, world_size: int, backend: str, device, *,
     rank reads, so ``fn`` is a module-level function and tensors in
     ``args`` arrive as copies) that have joined one world, and return
     their results in
-    rank order. A rank that raises, or a world that does not finish
+    rank order. On the CPU each rank computes on its share of the cores
+    (``torch.set_num_threads``). A rank that raises, or a world that does not finish
     within ``timeout`` seconds, raises ``RuntimeError`` here after
     every rank has been stopped."""
     check_backend(backend, device, world_size)

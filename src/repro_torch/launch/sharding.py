@@ -242,14 +242,34 @@ class Placement:
     on the Megatron dim, the data axes on the largest remaining dim that
     divides them), computed from the WHOLE leaves' shapes ``whole``
     (``{path: shape}``), so a rank that holds only its blocks can ask
-    what the whole leaf is. Paths are the port's tree paths."""
+    what the whole leaf is. Paths are the port's tree paths.
 
-    def __init__(self, mesh, whole: dict, *, fsdp: bool = True):
+    ``stacked`` (``{path: dims}``) gives, for a leaf that is one member
+    of a stacked leaf of the reference's tree (a layer, block or group),
+    the stacked dims that leaf has in front of the member's: the spec is
+    then the reference leaf's with those dims dropped, so the port
+    places each member as the reference places its stacked leaf. Where
+    the reference gives the data axes to a stacked dim (mamba2's and
+    zamba2's ``conv_w`` / ``conv_b``, the vlm cross layers' ``gate``),
+    the member stays whole over the data column: it keeps its model
+    split, counts once in a sum over the mesh (:meth:`counts_once`) and
+    has its gradient averaged over the column like any leaf the data
+    axis leaves whole; :attr:`stacked_picks` names those leaves."""
+
+    def __init__(self, mesh, whole: dict, *, fsdp: bool = True,
+                 stacked: Optional[dict] = None):
         self.mesh = mesh
         self.fsdp = fsdp
         self.whole = {tuple(p): tuple(s) for p, s in whole.items()}
-        self.specs = {p: leaf_pspec(p, _Shape(s), mesh, fsdp=fsdp)
-                      for p, s in self.whole.items()}
+        lead = {tuple(p): tuple(d) for p, d in (stacked or {}).items()}
+        self.specs = {}
+        self.stacked_picks = set()
+        for p, s in self.whole.items():
+            dims = lead.get(p, ())
+            spec = leaf_pspec(p, _Shape(dims + s), mesh, fsdp=fsdp)
+            self.specs[p] = P(*spec[len(dims):])
+            if P(*spec[:len(dims)]).axes():
+                self.stacked_picks.add(p)
 
     def spec(self, path) -> P:
         return self.specs[tuple(path)]

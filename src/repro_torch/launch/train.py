@@ -70,11 +70,15 @@ training placement (``state_pspecs(fsdp=True)``: tensor parallelism
 over the model axis, fsdp over the data axis;
 ``Model.init(0, mesh=, fsdp=True)``), the batch over the data axis and
 ``--microbatch`` GLOBAL (K = global / micro), as in the reference
-(``make_train_step(mesh=, placement=)``). The dense family only; the
-MoE family at M > 1 raises naming ROADMAP item 11d, the other families
-and ``--probe-every`` item 11c-2; ``--adaptive-batch`` is refused with
-the reference's message. After the run the ranks that hold the same
-block of a leaf are checked bitwise equal.
+(``make_train_step(mesh=, placement=)``). Every family trains there
+(the vlm and encdec archs' extra embeddings split over the data axis
+with their batch); the MoE family at M > 1 raises naming ROADMAP item
+11d (expert parallelism); ``--adaptive-batch`` is refused with the
+reference's message. ``--probe-every`` probes the global held batch on
+each rank's blocks, as the reference's probe runs on its sharded
+params (``diagnostics.probes.LanczosProbe(placement=)``), and prints
+the single-rank run's probe lines. After the run the ranks that hold
+the same block of a leaf are checked bitwise equal.
 
 :func:`run` is the entry point for programs (``chip_smoke.py``): it
 takes the argument list and returns the run's numbers and final state.
@@ -294,10 +298,6 @@ def run(argv: Optional[Sequence[str]] = None, *,
             "--adaptive-batch composes with the shard_map data axis only: "
             "pass --mesh-data (with --mesh-model 1); the GSPMD fsdp+TP "
             "path has no re-stack boundary")
-    if gspmd and args.probe_every > 0:
-        raise NotImplementedError(f"--probe-every over the GSPMD mesh "
-                                  f"{(mesh_data, mesh_model)}: "
-                                  f"{mesh_lib.PROBES_PENDING}")
     need = mesh_data * mesh_model
     if gspmd:
         # refused before any rank starts
@@ -448,9 +448,12 @@ def run(argv: Optional[Sequence[str]] = None, *,
             every=args.probe_every, num_iters=args.probe_iters,
             top_k=args.probe_topk, accum_steps=accum_steps,
             # mesh-native runs probe data-parallel too: per-shard HVPs,
-            # averaged products, a replicated Krylov basis
+            # averaged products, a replicated Krylov basis; GSPMD runs
+            # probe the global batch on each rank's blocks (the
+            # reference builds its probe with mesh=None there: the HVP
+            # runs on the sharded params)
             mesh=mesh if mesh_native and controller is None else None,
-            reorth=not args.probe_no_reorth))
+            placement=place, reorth=not args.probe_no_reorth))
     rank0 = mesh is None or mesh.rank == 0
     memory = sinks.MemorySink()
     sink_list = [_Console(args.log_every, log_fn), memory]

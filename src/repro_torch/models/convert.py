@@ -190,11 +190,9 @@ def jax_template(cfg: ModelConfig) -> dict:
                          device=meta)
 
 
-def _block(leaf: torch.Tensor, path, mesh, fsdp: bool = False
-           ) -> torch.Tensor:
-    """This rank's block of ``leaf`` under its rule: a copy when the
-    rule splits it (so the whole leaf can be freed), else ``leaf``."""
-    spec = sharding.leaf_pspec(path, leaf, mesh, fsdp=fsdp)
+def _block(leaf: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of ``leaf`` under ``spec``: a copy when the spec
+    splits it (so the whole leaf can be freed), else ``leaf``."""
     if not spec.axes():
         return leaf
     return leaf[sharding.local_block(spec, mesh, leaf.shape)].clone()
@@ -219,17 +217,18 @@ def _check(cfg: ModelConfig, meta: dict, mesh, fsdp: bool) -> None:
 def shard_params(cfg: ModelConfig, params: dict, mesh, *,
                  fsdp: bool = False) -> dict:
     """This rank's blocks of the port's whole ``params`` under
-    ``launch.sharding.state_pspecs(mesh, params, fsdp=fsdp)``, the
-    reference's placement: a leaf the rules split keeps the block at
-    the rank's coordinates (a copy), every other leaf stays whole.
+    :func:`placement` (``fsdp=fsdp``), the reference's placement of its
+    stacked tree: a leaf the rules split keeps the block at the rank's
+    coordinates (a copy), every other leaf stays whole.
     ``params_from_jax`` then ``shard_params`` gives each rank the
     reference's params as the reference places them (``fsdp=True``:
     its training placement, also split over the data axis). Refuses
     what ``transformer.check_model_axis`` refuses, and with ``fsdp``
     what ``check_training_axis`` does."""
     _check(cfg, params, mesh, fsdp)
+    place = placement(cfg, mesh, fsdp=fsdp)
     return tree_from_paths(params, {
-        path: _block(leaf, path, mesh, fsdp)
+        path: _block(leaf, place.spec(path), mesh)
         for path, leaf in tree_flatten_with_path(params)})
 
 
@@ -238,39 +237,62 @@ def init_sharded(cfg: ModelConfig, init, gen: torch.Generator,
     """``init(cfg, gen, dev)`` keeping this rank's block of each leaf as
     it is drawn: every leaf is drawn whole from ``gen`` in ``init``'s
     order (so a rank's weights are the whole draw's blocks) and its
-    block copied out before the next draw, so the peak is the rank's
-    blocks plus the largest leaf. A first pass on the meta device
-    (which draws nothing) names each draw's path. A leaf made without
-    a draw (a zero bias such as mamba's ``conv_b``) keeps its block
-    after the init. ``fsdp=True``: the training placement (blocks over
-    the data axis too)."""
+    block (:func:`placement`'s) copied out before the next draw, so the
+    peak is the rank's blocks plus the largest leaf. A first pass on
+    the meta device (which draws nothing) names each draw's path. A
+    leaf made without a draw (a zero bias such as mamba's ``conv_b``)
+    keeps its block after the init. ``fsdp=True``: the training
+    placement (blocks over the data axis too)."""
     drawn: list = []
     with L.on_draw(lambda x: drawn.append(x) or x):
         meta = init(cfg, torch.Generator(), torch.device("meta"))
     _check(cfg, meta, mesh, fsdp)
     where = {id(leaf): path for path, leaf in tree_flatten_with_path(meta)}
     paths = iter([where[id(x)] for x in drawn])
-    whole = {path: tuple(leaf.shape)
-             for path, leaf in tree_flatten_with_path(meta)}
+    place = _placement(cfg, meta, mesh, fsdp)
     del meta, drawn, where
-    with L.on_draw(lambda x: _block(x, next(paths), mesh, fsdp)):
+    with L.on_draw(lambda x: _block(x, place.spec(next(paths)), mesh)):
         params = init(cfg, gen, dev)
     return tree_from_paths(params, {
-        path: _block(leaf, path, mesh, fsdp)
-        if tuple(leaf.shape) == whole[path] else leaf
+        path: _block(leaf, place.spec(path), mesh)
+        if tuple(leaf.shape) == place.whole[path] else leaf
         for path, leaf in tree_flatten_with_path(params)})
+
+
+def stacked_dims(cfg: ModelConfig, tree: dict) -> dict:
+    """``{path: dims}`` for every leaf of the port's ``tree`` (whole
+    leaves, or meta tensors of their shapes): the dims the reference's
+    leaf that stacks it has in front of its own (``(L,)`` for an ssm
+    block, ``(G, attn_every)`` for a hybrid group's, ``(G,)`` for a
+    dense, moe or vlm layer kind, ``()`` for an unstacked leaf)."""
+    ref = {path_name(p): tuple(x.shape) for p, x in
+           tree_flatten_with_path(params_to_jax(cfg, tree, device="meta"))}
+    out = {}
+    for seg in segment_paths(cfg, tree):
+        shape = ref[seg.name]
+        for path in seg.paths:
+            out[path] = shape[:len(shape) - tree_get(tree, path).dim()]
+    return out
+
+
+def _placement(cfg: ModelConfig, meta: dict, mesh, fsdp: bool
+               ) -> sharding.Placement:
+    return sharding.Placement(
+        mesh, {path: tuple(leaf.shape)
+               for path, leaf in tree_flatten_with_path(meta)}, fsdp=fsdp,
+        stacked=stacked_dims(cfg, meta))
 
 
 def placement(cfg: ModelConfig, mesh, *, fsdp: bool = True
               ) -> sharding.Placement:
     """The :class:`launch.sharding.Placement` of ``cfg``'s port tree on
-    ``mesh`` (whole shapes from an init on the meta device)."""
+    ``mesh`` (whole shapes from an init on the meta device): each leaf
+    placed as the reference places the stacked leaf it is a member of,
+    the stacked dims dropped (:func:`stacked_dims`)."""
     from repro_torch.models.registry import FAMILIES
     meta = FAMILIES[cfg.family][0](cfg, torch.Generator(),
                                    torch.device("meta"))
-    return sharding.Placement(
-        mesh, {path: tuple(leaf.shape)
-               for path, leaf in tree_flatten_with_path(meta)}, fsdp=fsdp)
+    return _placement(cfg, meta, mesh, fsdp)
 
 
 def gather_params(tree, place: sharding.Placement, *,

@@ -64,22 +64,32 @@ def _frames(extra: Optional[torch.Tensor]) -> torch.Tensor:
     return extra
 
 
+def _enc_layer(p: dict, i: int, cfg: ModelConfig, h: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    """Encoder layer ``i`` on its leaves gathered over the data column
+    when a training placement splits them (``layers.gathered``)."""
+    return T.layer_apply(L.gathered(p, ("encoder", i)), cfg, h, positions,
+                         None)[0]
+
+
 def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor
            ) -> torch.Tensor:
     """frames [B, S_enc, D] (the stub frontend's output) -> the encoder
     states after ``enc_norm``, in the compute dtype: bidirectional
-    self-attention with RoPE over positions 0..S_enc-1."""
+    self-attention with RoPE over positions 0..S_enc-1. Under a
+    training placement each layer's fsdp leaves are gathered inside its
+    checkpoint, and ``enc_norm``'s before the norm."""
     b, s, _ = frames.shape
     h = frames.to(cfg.cdtype)
     positions = torch.arange(s, device=h.device)[None].expand(b, s)
     remat = cfg.remat and torch.is_grad_enabled()
-    for p in params["encoder"]:
+    for i, p in enumerate(params["encoder"]):
         if remat:
-            h, _ = checkpoint(T.layer_apply, p, cfg, h, positions, None,
-                              use_reentrant=False)
+            h = checkpoint(_enc_layer, p, i, cfg, h, positions,
+                           use_reentrant=False)
         else:
-            h, _ = T.layer_apply(p, cfg, h, positions, None)
-    return L.norm(cfg, params["enc_norm"], h)
+            h = _enc_layer(p, i, cfg, h, positions)
+    return L.norm(cfg, L.gathered(params["enc_norm"], ("enc_norm",)), h)
 
 
 def _dec_layer_apply(p: dict, cfg: ModelConfig, h: torch.Tensor,
@@ -92,23 +102,36 @@ def _dec_layer_apply(p: dict, cfg: ModelConfig, h: torch.Tensor,
     return h + L.mlp(p["mlp"], cfg, L.norm(cfg, p["norm2"], h))
 
 
+def _dec_layer(p: dict, i: int, cfg: ModelConfig, h: torch.Tensor,
+               positions: torch.Tensor, enc: torch.Tensor) -> torch.Tensor:
+    """Decoder layer ``i`` on its gathered leaves (as :func:`_enc_layer`):
+    the cross-attention's K/V from ``enc`` through the same
+    column-parallel path as its self-attention's."""
+    return _dec_layer_apply(L.gathered(p, ("decoder", i)), cfg, h,
+                            positions, enc)
+
+
 def apply_encdec_hidden(cfg: ModelConfig, params: dict,
                         tokens: torch.Tensor,
                         extra: Optional[torch.Tensor] = None):
     """tokens [B, S_dec], extra [B, S_enc, D] -> (h after the final
     norm [B, S_dec, D], zero aux). With ``cfg.remat`` and gradients
-    enabled every encoder and decoder layer is checkpointed."""
+    enabled every encoder and decoder layer is checkpointed; under a
+    training placement (``layers.training``) each gathers its fsdp
+    leaves inside its checkpoint, and ``embed`` / ``final_norm`` are
+    gathered where they are used."""
     enc = encode(cfg, params, _frames(extra))
-    h = L.embed(params["embed"], cfg, tokens)
+    h = L.embed(L.gathered(params["embed"], ("embed",)), cfg, tokens)
     positions = T._positions(tokens)
     remat = cfg.remat and torch.is_grad_enabled()
-    for p in params["decoder"]:
+    for i, p in enumerate(params["decoder"]):
         if remat:
-            h = checkpoint(_dec_layer_apply, p, cfg, h, positions, enc,
+            h = checkpoint(_dec_layer, p, i, cfg, h, positions, enc,
                            use_reentrant=False)
         else:
-            h = _dec_layer_apply(p, cfg, h, positions, enc)
-    return L.norm(cfg, params["final_norm"], h), T.zero_aux(h.device)
+            h = _dec_layer(p, i, cfg, h, positions, enc)
+    final = L.gathered(params["final_norm"], ("final_norm",))
+    return L.norm(cfg, final, h), T.zero_aux(h.device)
 
 
 def apply_encdec(cfg: ModelConfig, params: dict, tokens: torch.Tensor,

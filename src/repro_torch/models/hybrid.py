@@ -38,6 +38,15 @@ def _mamba_block(p: dict, cfg: ModelConfig, h: torch.Tensor
     return h + S.mamba_apply(p["mamba"], cfg, L.norm(cfg, p["norm"], h))
 
 
+def _gathered_block(p: dict, i: int, cfg: ModelConfig, h: torch.Tensor
+                    ) -> torch.Tensor:
+    """Block ``i`` on its leaves gathered over the data column when a
+    training placement splits them (``layers.gathered``; a no-op
+    otherwise): inside the block's checkpoint, so the gather is redone
+    in the recomputation."""
+    return _mamba_block(L.gathered(p, ("blocks", i)), cfg, h)
+
+
 def _mamba_block_decode(p: dict, cfg: ModelConfig, h: torch.Tensor,
                         cache: S.SSMCache) -> torch.Tensor:
     y, _ = S.mamba_decode(p["mamba"], cfg, L.norm(cfg, p["norm"], h),
@@ -54,7 +63,8 @@ def _call(fn, remat: bool, *args):
 
 
 def _finish(cfg: ModelConfig, params: dict, h: torch.Tensor):
-    return L.norm(cfg, params["final_norm"], h), T.zero_aux(h.device)
+    final = L.gathered(params["final_norm"], ("final_norm",))
+    return L.norm(cfg, final, h), T.zero_aux(h.device)
 
 
 # --------------------------------------------------------------------------
@@ -72,11 +82,14 @@ def init_ssm_lm(cfg: ModelConfig, gen: torch.Generator,
 def apply_ssm_lm_hidden(cfg: ModelConfig, params: dict,
                         tokens: torch.Tensor):
     """Backbone up to the final norm and the (zero) aux; with
-    ``cfg.remat`` and gradients enabled each block is checkpointed."""
-    h = L.embed(params["embed"], cfg, tokens)
+    ``cfg.remat`` and gradients enabled each block is checkpointed.
+    Under a training placement (``layers.training``) each block's fsdp
+    leaves are gathered inside its checkpoint, and ``embed`` /
+    ``final_norm`` where they are used."""
+    h = L.embed(L.gathered(params["embed"], ("embed",)), cfg, tokens)
     remat = cfg.remat and torch.is_grad_enabled()
-    for p in params["blocks"]:
-        h = _call(_mamba_block, remat, p, cfg, h)
+    for i, p in enumerate(params["blocks"]):
+        h = _call(_gathered_block, remat, p, i, cfg, h)
     return _finish(cfg, params, h)
 
 
@@ -142,18 +155,22 @@ def apply_hybrid_lm_hidden(cfg: ModelConfig, params: dict,
                            tokens: torch.Tensor):
     """Backbone up to the final norm and the (zero) aux. Under remat
     each mamba block and each call of the shared block is checkpointed
-    on its own, as the reference's nested remat is."""
+    on its own, as the reference's nested remat is. Under a training
+    placement each block gathers its fsdp leaves inside its checkpoint,
+    and the shared block is gathered inside each call site's, one
+    gather a call: autograd sums its gradient over the call sites."""
     b, s = tokens.shape
-    h = L.embed(params["embed"], cfg, tokens)
+    h = L.embed(L.gathered(params["embed"], ("embed",)), cfg, tokens)
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     shared = params["shared_attn"]
     remat = cfg.remat and torch.is_grad_enabled()
 
     def attn(p, h2):
-        return T.layer_apply(p, cfg, h2, positions, ("causal", None))[0]
+        return T.layer_apply(L.gathered(p, ("shared_attn",)), cfg, h2,
+                             positions, ("causal", None))[0]
 
     for i, p in enumerate(params["blocks"]):
-        h = _call(_mamba_block, remat, p, cfg, h)
+        h = _call(_gathered_block, remat, p, i, cfg, h)
         if _shared_after(cfg, i) >= 0:
             h = _call(attn, remat, shared, h)
     return _finish(cfg, params, h)

@@ -112,6 +112,7 @@ def batch_sharding(mesh):
 
 
 _FSDP = None                          # the declared training Placement
+_COLUMN = None                        # the training step's data column
 
 
 def declared_mesh():
@@ -119,23 +120,33 @@ def declared_mesh():
     return _MESH
 
 
+def data_column():
+    """The mesh whose data column splits the batch of the training step
+    declared by :func:`training` (None: unset, or a data axis of 1):
+    a statistic of the global batch is the column mean of each data
+    row's statistic of its block."""
+    return _COLUMN
+
+
 @contextlib.contextmanager
 def training(mesh, place=None):
     """Inside the block a step trains over ``mesh``: its model rows as
-    :func:`batch_sharding` declares them, and ``place`` (a
+    :func:`batch_sharding` declares them, its data column as
+    :func:`data_column` names it, and ``place`` (a
     ``launch.sharding.Placement`` with fsdp) names the leaves split over
     the data axis, which :func:`gathered` all-gathers. The previous
     state after."""
-    global _MESH, _FSDP
-    saved = _MESH, _FSDP
+    global _MESH, _FSDP, _COLUMN
+    saved = _MESH, _FSDP, _COLUMN
     set_batch_sharding(("data",), model_size=mesh.shape["model"],
                        mesh=mesh)
     _FSDP = place if place is not None and mesh.shape["data"] > 1 \
         else None
+    _COLUMN = mesh if mesh.shape["data"] > 1 else None
     try:
         yield
     finally:
-        _MESH, _FSDP = saved
+        _MESH, _FSDP, _COLUMN = saved
 
 
 def gathered(tree, prefix: tuple):

@@ -19,7 +19,17 @@ order.
 
 Aux losses: load balance ``E · Σ_e mean(probs_e) · mean(top-1 == e)``
 and router z ``mean(logsumexp(logits)²)``, returned for the trainer to
-add.
+add. In a GSPMD training step (``layers.training`` over a data axis D >
+1) each data row holds a block of the batch, and the two means of the
+load balance are the global batch's, as the reference's GSPMD step
+takes them: the column mean of the rows' means
+(``distributed.column_mean``, whose backward is the column mean of the
+gradient), before the product. A row's loss is the mean over its
+block, and the fsdp gather's backward divides the router's gradient by
+D, so that backward gives the reference's gradient. The router z loss
+is linear in the positions and stays the row's mean (the step averages
+the loss over the column). The mesh-native data axis (``--mesh-data``)
+keeps each shard's means, as the reference's ``shard_map`` step does.
 """
 from __future__ import annotations
 
@@ -136,6 +146,13 @@ def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor
     # aux losses (means over every position of the batch)
     me = r.probs.mean(dim=(0, 1))                               # [E]
     ce = F.one_hot(r.topk_idx[..., 0], e).float().mean(dim=(0, 1))
+    column = L.data_column()
+    if column is not None:
+        # a GSPMD step's data row holds a block of the batch: both
+        # means are the global batch's, the column mean of the rows'
+        from repro_torch.distributed import column_mean
+        me, ce = column_mean(torch.stack([me, ce]), column,
+                             "moe_aux").unbind(0)
     lb = e * torch.sum(me * ce)
     z = torch.mean(torch.square(torch.logsumexp(r.logits, dim=-1)))
     return out, MoEAux(lb, z)

@@ -10,13 +10,18 @@ softplus), so the chunked exponentials are safe in f32.
 Shapes: heads H = (expand·d) / head_dim, state N = ``cfg.ssm_state``,
 head dim P = ``cfg.ssm_head_dim``, one B/C group shared by the heads.
 
-On a mesh with a model axis (decode only) a rank holds the blocks
+On a mesh with a model axis a rank holds the blocks
 ``launch.sharding`` gives: ``in_proj``'s and ``conv_w`` / ``conv_b``'s
 columns (cut across the z | x | B | C | dt boundaries), ``out_proj``'s
 rows, and a decode cache of its conv channels and, where the heads
 divide, its heads of the state (``cache_pspecs``). A step gathers the
 projection and the conv output over the model row, updates the rank's
-heads of the state, gathers y, and sums ``out_proj``'s partials.
+heads of the state, gathers y, and sums ``out_proj``'s partials. The
+full-sequence block (:func:`mamba_apply`, training) does the same
+through the row's autograd functions (``distributed.copy_to_row`` /
+``gather_row`` / ``sum_over_row``), so its gradients and
+Hessian-vector products are summed over the row where a rank uses a
+tensor only in part; decode keeps the in-place collectives.
 """
 from __future__ import annotations
 
@@ -146,23 +151,87 @@ def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 def mamba_apply(params: dict, cfg: ModelConfig, x: torch.Tensor
                 ) -> torch.Tensor:
-    """Full-sequence Mamba2 block. x: [B,S,d] -> [B,S,d]."""
+    """Full-sequence Mamba2 block. x: [B,S,d] -> [B,S,d].
+
+    On the model row (this rank's blocks of ``in_proj``'s columns,
+    ``conv_w`` / ``conv_b``'s channels and ``out_proj``'s rows) the
+    projection is gathered (``gather_row``): its column blocks cut
+    across z | xBC | dt, so every part is whole on every rank. Each
+    part a rank uses only in part goes through ``copy_to_row`` before
+    the rank's slice, so its partial gradients are summed over the row:
+    the conv input (the rank's channels, gathered after the silu),
+    x, B, C and dt of the SSD (the rank's heads, where the heads divide
+    as ``cache_block`` splits the state; y gathered), the replicated
+    ``dt_bias`` / ``a_log`` / ``D`` at the rank's heads, and the gated,
+    normed y feeding ``out_proj``'s rows (a partial summed over the row,
+    ``sum_over_row``)."""
+    from repro_torch import distributed as dist_lib
     di, n, h, p = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_num_heads,
                    cfg.ssm_head_dim)
-    proj = x @ params["in_proj"].to(x.dtype)
-    z, xbc, dt = _split_proj(cfg, proj)
-    xbc = F.silu(_causal_conv(xbc, params["conv_w"], params["conv_b"]))
-    xin, bmat, cmat = torch.split(xbc, [di, n, n], dim=-1)
     bsz, s = x.shape[0], x.shape[1]
-    xh = xin.reshape(bsz, s, h, p)
-    dt32 = F.softplus(dt.float() + params["dt_bias"])
-    a = -torch.exp(params["a_log"])
+    w_in, conv_w = params["in_proj"], params["conv_w"]
+    width = 2 * di + 2 * n + h
+    proj = L._col_in(x, w_in.shape[1], width, "in_proj") \
+        @ w_in.to(x.dtype)
+    if w_in.shape[1] != width:
+        proj = dist_lib.gather_row(
+            proj, L._row_mesh(w_in.shape[1], width, "in_proj"), -1)
+    z, xbc, dt = _split_proj(cfg, proj)
+
+    # the causal conv on the rank's channels
+    chans = conv_w.shape[1]
+    if chans == di + 2 * n:
+        xbc = F.silu(_causal_conv(xbc, conv_w, params["conv_b"]))
+    else:
+        mesh = L._row_mesh(chans, di + 2 * n, "conv_w")
+        r = mesh.coords["model"]
+        mine = dist_lib.copy_to_row(xbc, mesh)[..., r * chans:
+                                               (r + 1) * chans]
+        xbc = dist_lib.gather_row(
+            F.silu(_causal_conv(mine, conv_w, params["conv_b"])), mesh, -1)
+    xin, bmat, cmat = torch.split(xbc, [di, n, n], dim=-1)
+
+    # the SSD on the rank's heads where the state splits
+    _, hs = cache_block(cfg, params)
+    dt_bias, a_log, d_skip = params["dt_bias"], params["a_log"], params["D"]
+    head_mesh = None
+    if hs != h:
+        head_mesh = L._row_mesh(hs, h, "the SSD heads")
+        heads = slice(head_mesh.coords["model"] * hs,
+                      (head_mesh.coords["model"] + 1) * hs)
+
+        def mine(t, dim=-1):
+            t = dist_lib.copy_to_row(t, head_mesh)
+            return t[heads] if dim == 0 else t.narrow(
+                dim, heads.start, hs)
+
+        xh = mine(xin.reshape(bsz, s, h, p), 2)
+        dt, dt_bias, a_log, d_skip = (mine(dt), mine(dt_bias, 0),
+                                      mine(a_log, 0), mine(d_skip, 0))
+        bmat = dist_lib.copy_to_row(bmat, head_mesh)
+        cmat = dist_lib.copy_to_row(cmat, head_mesh)
+    else:
+        xh = xin.reshape(bsz, s, h, p)
+    dt32 = F.softplus(dt.float() + dt_bias)
+    a = -torch.exp(a_log)
     y = _ssd_chunked(xh, dt32, a, bmat, cmat, cfg.ssm_chunk)
-    y = y + params["D"].to(y.dtype)[None, None, :, None] * xh
+    y = y + d_skip.to(y.dtype)[None, None, :, None] * xh
+    if head_mesh is not None:
+        y = dist_lib.gather_row(y, head_mesh, 2)
     y = y.reshape(bsz, s, di)
     y = y * F.silu(z)
     y = L.rmsnorm(params["norm"], y, cfg.norm_eps)
-    return y @ params["out_proj"].to(x.dtype)
+
+    # out_proj over the rank's rows, summed over the row
+    w_out = params["out_proj"]
+    rows = w_out.shape[0]
+    if rows == di:
+        return y @ w_out.to(x.dtype)
+    mesh = L._row_mesh(rows, di, "out_proj")
+    r = mesh.coords["model"]
+    part = dist_lib.copy_to_row(y, mesh)[..., r * rows:(r + 1) * rows] \
+        @ w_out.to(x.dtype)
+    return dist_lib.sum_over_row(part, mesh)
 
 
 def cache_block(cfg: ModelConfig, params=None) -> tuple[int, int]:

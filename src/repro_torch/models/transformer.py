@@ -441,16 +441,14 @@ def check_training_axis(cfg: ModelConfig, mesh) -> None:
     """Refuse, before any step, what training over the reference's
     GSPMD mesh (fsdp over the data axis, tensor parallelism over the
     model axis) does not do: the MoE family at model > 1 (expert
-    parallelism, item 11d), every family but the dense one (item
-    11c-2)."""
+    parallelism, item 11d). Every family trains at model 1, and every
+    other family at any model width the serving rules take
+    (:func:`check_model_axis`)."""
     from repro_torch import distributed as dist_lib
     if mesh is None:
         return
     if cfg.family == "moe" and mesh.shape["model"] > 1:
         raise NotImplementedError(dist_lib.EXPERT_PARALLEL_PENDING)
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r}: "
-                                  f"{dist_lib.TRAIN_FAMILIES_PENDING}")
 
 
 def layer_decode(p: dict, cfg: ModelConfig, h: torch.Tensor, c: dict,

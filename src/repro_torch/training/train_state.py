@@ -74,8 +74,8 @@ def replicas_equal(state: TrainState, place, *, segments=None) -> bool:
     same coordinates on the axes that split it) hold the same bits: the
     replicated leaves equal over the model row (norm scales, biases),
     the data-replicated ones (the embedding table, the head) over the
-    data column. One ``all_gather_object`` of per-block fingerprints."""
-    import torch.distributed as dist
+    data column. One ``all_gather_object`` of per-block fingerprints
+    over the mesh's ranks."""
     mesh = place.mesh
     mine = []
     for t, tree in enumerate(block_trees(state, segments)):
@@ -90,10 +90,8 @@ def replicas_equal(state: TrainState, place, *, segments=None) -> bool:
                for i, k in enumerate(mine)]
     if mesh.world == 1:
         return True
-    got = [None] * mesh.world
-    dist.all_gather_object(got, entries)
     seen: dict = {}
-    for rank_entries in got:
+    for rank_entries in mesh.all_gather_object(entries):
         for key, value in rank_entries:
             if seen.setdefault(key, value) != value:
                 return False

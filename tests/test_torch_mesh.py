@@ -447,7 +447,10 @@ def test_model_axis_raises_naming_the_roadmap_item():
     """Training over the model axis (ROADMAP item 11c) is ported: the
     launcher's three flags for it take the GSPMD path and train on their
     ranks, with the single-rank run's losses (``test_torch_tp_train
-    _mesh.py`` holds them closer); the probes over it name item 11c-2."""
+    _mesh.py`` holds them closer); the probe over it (ROADMAP item
+    11c-2, ported) gives the single-rank run's λ_max. Only the MoE
+    family at model > 1 is still refused (item 11d,
+    ``test_torch_tp_train_mesh.py``)."""
     from repro_torch.launch import train
     base = ["--smoke", "--device", "cpu", "--steps", "1", "--seq", "16",
             "--global-batch", "4"]
@@ -457,5 +460,10 @@ def test_model_axis_raises_naming_the_roadmap_item():
         got = train.run(base + argv, log_fn=lambda *a: None)
         np.testing.assert_allclose(got["losses"], one, rtol=1e-5)
         assert got["world"] == 2
-    with pytest.raises(NotImplementedError, match="item 11c-2$"):
-        train.run(base + ["--mesh-model", "2", "--probe-every", "1"])
+    probe = ["--probe-every", "1", "--probe-iters", "2"]
+    want = train.run(base + probe, log_fn=lambda *a: None)["probes"]
+    got = train.run(base + ["--mesh-model", "2"] + probe,
+                    log_fn=lambda *a: None)["probes"]
+    np.testing.assert_allclose([r["lanczos/lambda_max"] for r in got],
+                               [r["lanczos/lambda_max"] for r in want],
+                               rtol=1e-4)

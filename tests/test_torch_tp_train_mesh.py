@@ -13,8 +13,8 @@ CPU (the reference's ``(2, 4)`` step and checkpoints are
   2)`` world's 2 ranks) print the single-rank run's losses within 1e-5
   and check their replicas.
 * The refusals name their ROADMAP items: the MoE family at model > 1
-  (11d), the other families on the GSPMD path (11c-2); the adaptive
-  batch on it is refused with the reference's message.
+  (11d); the adaptive batch on the GSPMD path is refused with the
+  reference's message.
 """
 from __future__ import annotations
 
@@ -101,11 +101,15 @@ def test_launcher_prints_the_single_rank_losses(runs, capfd, argv, ranks_):
 
 @pytest.mark.parametrize("arch,argv,item", [
     ("olmoe-1b-7b", ["--mesh-model", "2"], "11d"),
-    ("mamba2-1.3b", ["--mesh-model", "2"], "11c-2"),
-    ("llama-3.2-vision-11b", ["--data-parallel", "2"], "11c-2"),
-    ("olmoe-1b-7b", ["--data-parallel", "2"], "11c-2")])
+    ("olmoe-1b-7b", ["--model-parallel", "2"], "11d"),
+    ("qwen3-moe-30b-a3b", ["--mesh-model", "2", "--mesh-data", "2"],
+     "11d"),
+    ("olmoe-1b-7b", ["--data-parallel", "2", "--mesh-model", "4"],
+     "11d")])
 def test_unported_families_name_their_roadmap_item(arch, argv, item):
-    """Refused before any rank starts."""
+    """Refused before any rank starts: the MoE family at model > 1, in
+    each spelling of the model axis (every other family, and the MoE
+    family at model 1, trains over the GSPMD mesh)."""
     with pytest.raises(NotImplementedError, match=f"item {item}$"):
         train.run(["--arch", arch, "--smoke", "--device", "cpu", *argv])
 
