@@ -61,7 +61,8 @@ script exits non-zero:
    and sample spans) and, from a second run of the same traffic with
    CUDA events around every decode-attention launch, the kernel's share
    of a step;
-5. the same traffic through gemma3-12b at full width and depth in f32:
+5. the same traffic through gemma3-12b at full width in f32, cut to
+   ``PHASE5_LAYERS`` (24) of 48 layers (printed as ``reduced:``):
    engine and ``generate`` give exactly the same greedy tokens;
 6. the same engine at smoke size in f32 on the card against the CPU's
    plain path on the same weights, token for token;
@@ -97,7 +98,7 @@ script exits non-zero:
    per-tensor kernels (2 launches per ADAPT leaf per step), each
    step's update against the tree path's from the same state;
 10. the sharpness diagnostics at full width through
-   ``launch.train.run``: qwen2.5-3b cut to ``PHASE10_LAYERS`` (9) of its
+   ``launch.train.run``: qwen2.5-3b cut to ``PHASE10_LAYERS`` (2) of its
    36 layers (``depth_cut``), bf16 weights from seed 0, per-tensor
    WA-LARS, global batch 8 in 8 microbatches of 1 x
    512 tokens (microbatches of 2 leave no room for the probe's double
@@ -123,8 +124,8 @@ script exits non-zero:
    ``launch.train.run --adaptive-batch``: qwen2.5-3b, all 36 layers,
    bf16 weights from seed 0, fused TVLARS in f32, microbatches of 1 x
    512 tokens, the global batch starting at 2 and free in [1, 16], a
-   noise-scale probe (2 microbatches from seed 998) every 2 steps, 6
-   steps, batches drawn by ``--prefetch 2``. At least one switch, each
+   noise-scale probe (2 microbatches from seed 998) every 2 steps, 4
+   steps (6 until phases 20-20c came in), batches drawn by ``--prefetch 2``. At least one switch, each
    switch's ``controller/lr`` equal to ``batch_scaled_lr`` at its batch,
    exactly one segmented norm and one apply launch per step at every
    visited K and none inside the controller, one step built per visited
@@ -252,11 +253,11 @@ script exits non-zero:
 15. data parallelism over ``torch.distributed``: two ranks (spawned,
    gloo: NCCL refuses two ranks on one card) share the card, each
    training qwen2.5-3b at full width cut in depth (``reduced:
-   num_layers 36 -> L`` is printed: at most ``DP_LAYERS`` (4), the
+   num_layers 36 -> L`` is printed: at most ``DP_LAYERS`` (2), the
    script's time budget, and predicted under half the free card less a
    context) through
    ``launch.train.run --mesh-data 2``: fused TVLARS f32, 8 x 512 (4 x
-   512 a rank), 3 steps, after a D = 1 run on the same samples in this
+   512 a rank), 1 step, after a D = 1 run on the same samples in this
    process. 1 + 1 segmented launches per rank per step, the ranks'
    state fingerprints equal after every step, loss, grad_norm and every
    segment's (w_norm, g_norm, trust_ratio) within a bound of its own
@@ -283,7 +284,7 @@ script exits non-zero:
    paid once; a rank that fails or a call that hangs past its timeout
    fails the phase.
 16. the model axis, tensor-parallel serving: gemma3-12b at full width,
-   cut to ``TP_LAYERS`` (24) of 48 layers (the script's time budget),
+   cut to ``TP_LAYERS`` (6) of 48 layers (the script's time budget),
    bf16, on a (1, 2) mesh, two gloo ranks sharing
    the card, each holding its blocks of the seed-0 draw
    (``Model.init(0, mesh=)``: 8 of 16 heads, 4 of 8 KV heads, half of
@@ -295,7 +296,7 @@ script exits non-zero:
    tokens, 16-32 new, 4 slots, greedy), the requests as one padded
    batch (and request 0 alone) are teacher-forced along its tokens
    (the logits kept), and the weights are freed. On the ranks: the
-   engine on the same requests (24 decode launches per rank per step,
+   engine on the same requests (6 decode launches per rank per step,
    every rank's tokens equal, equal to M = 1's up to each request's
    first difference, which must be a bf16 near-tie in both logit
    sets), the same teacher-forced batches (the max and mean |logit
@@ -320,20 +321,20 @@ script exits non-zero:
    no NaN), the four blocks merged against the unsplit launch within
    ``decode_parity_tolerance``; each block's card time beside SDPA over
    the same block and its bound;
-17a. qwen2.5-3b at full width cut to ``TF_LAYERS`` (9) of its 36
+17a. qwen2.5-3b at full width cut to ``TF_LAYERS`` (2) of its 36
    layers (the script's time budget), bf16, on a (1, 4)
    mesh of four gloo ranks sharing the card: 4 of 16 heads and both KV
    heads a rank, so the KV pool holds block r of T (72 of 288 keys) and
    every decode launch is in the partial mode (q gathered over the row,
    the (out, lse) partials gathered and merged). As phase 16: M = 1
-   first on the same weights, the engine's 4 requests (9 launches per
+   first on the same weights, the engine's 4 requests (2 launches per
    rank per step, ranks' tokens equal, differences to M = 1 only at
    bf16 near-ties), teacher-forced logit gaps under ``TF_LOGIT_BOUND``
    / ``TF_LOGIT_MEAN_BOUND``, which merging without the lse weights
    must exceed, the peak a rank against its prediction, and a decode
    step split into compute, the sums and each gather;
 17b. the same weights on a (2, 2) mesh: each data row's pool holds 2 of
-   the 4 slots and decodes them (9 launches per rank per step on the
+   the 4 slots and decodes them (2 launches per rank per step on the
    half batch), the sampled tokens gathered over the data column; the
    tokens equal M = 1's up to bf16 near-ties;
 17c. llama-3.2-vision-11b through the engine (40 decode launches a
@@ -346,7 +347,7 @@ script exits non-zero:
    and (2, 2) (inside 17b's): tokens equal the CPU's M = 1.
 18. training over the model axis: qwen2.5-3b at full width (2048 wide,
    16 / 2 heads, d_ff 11008, vocab 151936, bf16) cut to ``TT_LAYERS``
-   (2) of 36 layers (printed), fused TVLARS f32, 4 x 512, 3 steps
+   (2) of 36 layers (printed), fused TVLARS f32, 4 x 512, 2 steps
    through ``launch.train.run --mesh-model 2`` on a (1, 2) mesh of two
    gloo ranks sharing the card (each holding its blocks of the seed-0
    draw under the reference's training placement), after an M = 1 run
@@ -374,8 +375,8 @@ script exits non-zero:
    against the CPU's single-rank losses (1e-5).
 19. training the other families over the reference's GSPMD mesh:
    mamba2-1.3b and zamba2-1.2b at full width cut to whole blocks
-   (``FT_CUTS``, printed as ``reduced:``), fused TVLARS f32, 4 x 512, 2
-   steps through ``launch.train.run --mesh-model 2 --mesh-data 2`` on
+   (``FT_CUTS``, printed as ``reduced:``), fused TVLARS f32, 4 x 512, 1
+   step through ``launch.train.run --mesh-model 2 --mesh-data 2`` on
    a (2, 2) mesh of four gloo ranks sharing the card, after an M = 1
    run on the same weights and batches here: as 18, 1 + 1 segmented
    launches a rank a step, the state bytes a rank equal to the rules'
@@ -392,7 +393,7 @@ script exits non-zero:
    ``--data-parallel 2``: its load balance within ``FT_LB_BOUND`` of M
    = 1 (the global batch's means), and the per-shard means' value on
    the same weights and batch, whose gap must exceed that bound;
-19c. a 4-iteration Lanczos probe (no reorthogonalization) of
+19c. a 2-iteration Lanczos probe (no reorthogonalization) of
    qwen2.5-3b cut to ``TT_LAYERS`` after a per-tensor WA-LARS step at
    (1, 2) and (2, 2): λ_max within ``FT_PROBE_BOUND`` of the M = 1
    probe from the same seed vector, no kernel launched inside a probe,
@@ -400,6 +401,38 @@ script exits non-zero:
 19d. every family's smoke config in f32 at (2, 2) (the MoE's at (4,
    1)), 2 steps, the vlm's gates opened and seeded extra embeddings,
    against the CPU's single-rank losses (1e-5).
+20. expert parallelism, the MoE family over the model axis:
+   qwen3-moe-30b-a3b at full width cut to ``EP_LAYERS`` (6) of 48
+   layers (printed as ``reduced:``), bf16, on a (1, 2) mesh of two gloo
+   ranks sharing the card, each holding its blocks of the seed-0 draw
+   (64 of 128 experts and the router's 64 columns, 16 / 2 heads, half
+   the vocabulary). The decode kernel at a rank's shape (4 slots, 16 /
+   2 heads, G = 8, Dh 128, T 1024) against its plain version, timed;
+   then M = 1 here on the same weights (the engine's 4 requests on 4
+   slots x 1024, 4-8 new tokens, and the requests teacher-forced
+   along its tokens), and on the ranks the same through
+   ``Engine(mesh=)``: 6 decode launches a rank a step, the ranks'
+   tokens equal, equal to M = 1's up to bf16 near-ties, the |logit
+   gap| to M = 1 under ``TP_LOGIT_BOUND`` / ``TP_LOGIT_MEAN_BOUND``,
+   the decode step's split (compute, the row's sums, the router-logit
+   and logit gathers) beside the rank's expert weight read;
+20a. olmoe-1b-7b likewise at full width cut to ``EP_OLMOE_LAYERS`` (4)
+   of 16 layers on a (1, 4) mesh of four ranks: 16 of 64 experts, 4 /
+   4 heads a rank;
+20b. olmoe-1b-7b trained at full width cut to 1 of 16 layers through
+   ``launch.train.run --mesh-model 2 --mesh-data 2`` on a (2, 2) mesh
+   (32 of 64 experts a rank, fsdp over the data axis): fused TVLARS f32,
+   4 x 512, 1 step after an M = 1 run on the same weights and batches,
+   then one per-tensor WA-LARS step: 1 + 1 segmented launches a rank a
+   step and 2 per-tensor launches a kernel segment, the state bytes a
+   rank equal to the rules' blocks, the ranks holding one block bitwise
+   equal, the gaps to M = 1 within ``TT_BOUNDS`` and the load balance
+   within ``FT_LB_BOUND``, the step split; both kernels on rank 0's
+   buffers against their plain versions, timed;
+20c. both MoE smoke configs in f32 at (2, 2) and (1, 4), 2 steps,
+   against the CPU's single-rank losses (1e-5); a 4-iteration Lanczos
+   probe of olmoe's smoke config at (2, 2) against M = 1
+   (``FT_PROBE_BOUND``), no kernel launched inside it.
 
 Every phase prints its seconds (``phase {label}: {s} s``).
 
@@ -958,9 +991,15 @@ def phase_serving(ops, serving, get_config, get_model, Tracer,
 
 def phase_f32_full_width(ops, serving, get_config, get_model):
     """Engine == generate exactly: the same traffic through gemma3-12b
-    at full width and depth in f32 (no bf16 rounding to break ties)."""
-    model = get_model(get_config("gemma3-12b").replace(
-        param_dtype="float32", compute_dtype="float32"))
+    at full width in f32 (no bf16 rounding to break ties), cut to
+    ``PHASE5_LAYERS`` layers."""
+    full = get_config("gemma3-12b")
+    print(f"f32 gemma3-12b: reduced: num_layers {full.num_layers} -> "
+          f"{PHASE5_LAYERS} (the script's time budget: phases 20-20c came "
+          f"in; width as published)", flush=True)
+    model = get_model(full.replace(num_layers=PHASE5_LAYERS,
+                                   param_dtype="float32",
+                                   compute_dtype="float32"))
     params = init_checked(model)
     results, stats, elapsed, launches = serve(
         engine(serving, model, params, None), ops)
@@ -2142,9 +2181,12 @@ def phase_paper_loop(classify, cnn, core, training, synthetic, ops,
 # largest eigenvalue of T is at least its (1,1) entry; eigh in f32)
 SAM_FLOOR_REL = 1e-3
 # phase 10's depth: cut from 36 to 18 when phase 16 pushed the script
-# past its time aim, to 9 when phases 17-17d came in, to 4 when phases
-# 18-18c did (ROADMAP "Time budgets")
-PHASE10_LAYERS = 9
+# past its time aim, to 9 when phases 17-17d came in, to 2 when phases
+# 20-20c did (ROADMAP "Time budgets")
+PHASE10_LAYERS = 2
+# phase 5's depth (4 of gemma3-12b's local:global groups of 6): cut from
+# 48 when phases 20-20c came in (the script's time budget)
+PHASE5_LAYERS = 24
 HVP_SYM_BF16 = 2.0 ** -8
 LANCZOS_EIGH_TOL = 1e-5
 # phase 10b, the smoke LM in f32, card against the CPU's plain path: a
@@ -4374,12 +4416,12 @@ def close_pools() -> None:
 # ------------------------------------------------ 15-15d: data parallel
 DP_ARCH = "qwen2.5-3b"
 DP_RANKS = 2
-DP_STEPS = 3
+DP_STEPS = 1
 # of 36: the script's time budget. The gloo all-reduce moves every
 # gradient through the host each step, 7.1 GB at the 15 layers that fit
 # half the card and 3.7 GB at 4 (the table and head are 622M of the
 # params at any depth)
-DP_LAYERS = 4
+DP_LAYERS = 2
 DP_ARGV = ["--arch", DP_ARCH, "--optimizer", "tvlars", "--use-kernel",
            "fused", "--precision", "f32", "--global-batch", "8", "--seq",
            "512", "--steps", str(DP_STEPS), "--layerwise-every", "1",
@@ -4821,7 +4863,7 @@ def phase_data_parallel(train_launch, ops, serving, mesh_lib, get_config,
 TP_ARCH = "gemma3-12b"
 # phase 16's depth: cut from 48 (4 of its local:global groups of 6)
 # when phases 17-17d came in (the script's time aim)
-TP_LAYERS = 24
+TP_LAYERS = 6
 TP_MESH = (1, 2)               # (data, model): two gloo ranks, one card
 TP_SLOTS, TP_MAX_LEN = 4, 288  # prompts 64-256 + 16-32 new tokens
 TP_SPLIT_STEPS = 8             # decode steps of the timed split
@@ -5265,7 +5307,7 @@ def phase_model_axis(ops, serving, tad, mesh_lib, get_config,
 
 # -------------------------------- 17-17d: the rest of the model axis
 TF_ARCH = "qwen2.5-3b"
-TF_LAYERS = 9                  # of 36: the script's time budget
+TF_LAYERS = 2                  # of 36: the script's time budget
 TF_MESH = (1, 4)               # 4 of 16 heads a rank; 2 KV heads: over T
 TF_DATA_MESH = (2, 2)          # 2 of 4 slots a data row; 8 / 1 heads
 TF_SLOTS, TF_MAX_LEN = 4, 288  # 72 keys of T a rank at M = 4
@@ -5308,10 +5350,11 @@ FAM_TP_MESH = (1, 2)
 FAM_TP_GEN = (2, 16, 8)
 FAM_TP_SLOTS, FAM_TP_MAX_LEN = 4, 64
 # arch -> num_layers: each cut to about half its depth, then to about a
-# quarter (two vlm groups) when phases 18-18c came in (the script's
-# time budget; whisper's 32 encoder layers stay)
-FAM_TP_LAYERS = {"llama-3.2-vision-11b": 10, "whisper-large-v3": 8,
-                 "mamba2-1.3b": 12, "zamba2-1.2b": 10}
+# quarter (two vlm groups) when phases 18-18c came in, then to about an
+# eighth (one vlm group, one zamba2 group) when phases 20-20c did (the
+# script's time budget; whisper's 32 encoder layers stay)
+FAM_TP_LAYERS = {"llama-3.2-vision-11b": 5, "whisper-large-v3": 4,
+                 "mamba2-1.3b": 6, "zamba2-1.2b": 6}
 # 17d: every family's smoke config at (1, 4) and (2, 2), f32, card
 # against the CPU
 TF_SMALL = ("qwen2.5-3b", "gemma3-12b", "llama-3.2-vision-11b",
@@ -6137,7 +6180,7 @@ def phase_families_tp(ops, serving, mesh_lib, get_config, get_model
 # ------------------------------------ 18-18c: training over the model axis
 TT_ARCH = "qwen2.5-3b"
 TT_LAYERS = 2                  # of 36: the script's time budget
-TT_STEPS = 3
+TT_STEPS = 2
 TT_BATCH = 4                   # global batch of 4 x 512 tokens
 TT_ARGV = ["--arch", TT_ARCH, "--optimizer", "tvlars", "--use-kernel",
            "fused", "--precision", "f32", "--global-batch", str(TT_BATCH),
@@ -6415,7 +6458,8 @@ def tt_rank_2x2(layers: int, ref_path: str, ckpt: str) -> dict:
     for d, m in TT_SMOKE_MESHES:
         mesh = mesh_lib.make_host_mesh(d, m)
         for arch in TT_SMOKE:
-            small[(d, m, arch)] = tt_small_losses(arch, mesh)
+            small[(d, m, arch)] = tt_small_losses(arch, mesh,
+                                                  FT_SMALL_STEPS)
     res["small"] = small
     res["world"] = mesh_lib.world().size
     return res
@@ -6590,7 +6634,8 @@ def phase_model_axis_training(train_launch, ops, serving, checkpoint,
               f"on the shared ranks (started on first use); {smi_line()}", flush=True)
 
         # 18a / 18c: (2, 2), the save, the smoke configs
-        cpu_small = {arch: tt_small_losses(arch) for arch in TT_SMOKE}
+        cpu_small = {arch: tt_small_losses(arch, steps=FT_SMALL_STEPS)
+                     for arch in TT_SMOKE}
         ckpt = os.path.join(tmp, "ckpt")
         t0 = time.perf_counter()
         r22 = on_ranks(tt_rank_2x2, 4, args=(TT_LAYERS, ref_path, ckpt),
@@ -6655,7 +6700,7 @@ def phase_model_axis_training(train_launch, ops, serving, checkpoint,
 
 
 # ---------------- 19-19d: the other families over the GSPMD mesh, probes
-FT_STEPS = 2
+FT_STEPS = 1
 FT_ARGV = ["--optimizer", "tvlars", "--use-kernel", "fused", "--precision",
            "f32", "--global-batch", str(TT_BATCH), "--seq", "512",
            "--steps", str(FT_STEPS), "--layerwise-every", "1", "--device",
@@ -6698,14 +6743,19 @@ FT_LB_BOUND = 1e-4
 # Lanczos is a Rayleigh quotient of those products, so it gets the same
 # relative bound
 FT_PROBE_BOUND = 4 * 2.0 ** -8
+# 19c's probe: 2 Lanczos iterations (4 until phases 20-20c came in: the
+# script's time budget; each is a Hessian-vector product over the mesh)
+FT_PROBE_ITERS = 2
 FT_PROBE_ARGV = ["--arch", TT_ARCH, "--optimizer", "wa-lars",
                  "--use-kernel", "per_tensor", "--precision", "f32",
                  "--global-batch", str(TT_BATCH), "--seq", "512",
                  "--steps", "1", "--probe-every", "1", "--probe-iters",
-                 "4", "--probe-no-reorth", "--device", DEV]
+                 str(FT_PROBE_ITERS), "--probe-no-reorth", "--device", DEV]
 FT_SMALL = ("qwen2.5-3b", "olmoe-1b-7b", "mamba2-1.3b", "zamba2-1.2b",
             "whisper-large-v3", "llama-3.2-vision-11b")
-FT_SMALL_STEPS = 2             # of 18c's 3: the script's time budget
+# the smoke configs' steps in 18c, 19d and 20c (3 until phases 19 and
+# 20 came in: the script's time budget)
+FT_SMALL_STEPS = 2
 
 
 def ft_live(launcher, arch: str):
@@ -6782,8 +6832,9 @@ def ft_rank(arch: str, cut: dict, mesh_shape: tuple, ref_path: str
 
 def fp_rank(mesh_shape) -> dict:
     """19c on one rank (or, with ``mesh_shape`` None, here at M = 1):
-    qwen2.5-3b cut to ``TT_LAYERS``, a per-tensor WA-LARS step and a
-    4-iteration Lanczos probe through ``launch.train.run`` (the GSPMD
+    qwen2.5-3b cut to ``TT_LAYERS``, a per-tensor WA-LARS step and an
+    ``FT_PROBE_ITERS``-iteration Lanczos probe through
+    ``launch.train.run`` (the GSPMD
     path with ``mesh_shape``): λ_max, the launches around the probe and
     whether it left the state bitwise as it was."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6951,6 +7002,427 @@ def phase_families_training(train_launch, get_config) -> dict:
     return res
 
 
+# -------------------- 20-20c: the MoE family over the model axis (experts)
+EP_ARCH = "qwen3-moe-30b-a3b"
+# 20's depth: 6 of 48 layers (the script's time budget: each layer adds
+# three host-staged collectives a decode step at 1.8-4.5 ms each, PR 21)
+EP_LAYERS = 6
+EP_MESH = (1, 2)               # 64 of 128 experts, 16 / 2 heads a rank
+EP_OLMOE = "olmoe-1b-7b"
+EP_OLMOE_MESH = (1, 4)         # 16 of 64 experts, 4 / 4 heads a rank
+EP_OLMOE_LAYERS = 4            # of 16: the script's time budget
+EP_SLOTS, EP_MAX_LEN = 4, 1024
+EP_PROMPTS, EP_NEW = (128, 512), (4, 8)
+EP_CONTEXT_GIB = 0.5           # activations, logits, the CUDA allocator
+# 20b: olmoe trained at full width, 1 of 16 layers (the script's time
+# budget: the experts' fsdp gathers and the column reduce are
+# host-staged), fused TVLARS f32 then one per-tensor WA-LARS step
+EP_TRAIN_CUT = dict(num_layers=1)
+EP_TRAIN_MESH = (2, 2)
+EP_PT_ARGV = ["--optimizer", "wa-lars", "--use-kernel", "per_tensor",
+              "--precision", "f32", "--global-batch", str(TT_BATCH),
+              "--seq", "512", "--steps", "1", "--device", DEV]
+EP_SMALL = ("olmoe-1b-7b", "qwen3-moe-30b-a3b")
+EP_SMALL_MESHES = ((2, 2), (1, 4))
+EP_PROBE_ARGV = ["--arch", EP_OLMOE, "--smoke", "--optimizer", "wa-lars",
+                 "--use-kernel", "per_tensor", "--precision", "f32",
+                 "--global-batch", str(TT_BATCH), "--seq", "512",
+                 "--steps", "1", "--probe-every", "1", "--probe-iters",
+                 "4", "--probe-no-reorth", "--device", DEV]
+
+
+def moe_weight_bytes(params) -> int:
+    """The bytes of the MoE leaves (router and experts) of a tree: a
+    decode step reads every one of them (every expert holds a slot)."""
+    return sum(t.numel() * t.element_size() for layer in params["layers"]
+               for t in layer["moe"].values())
+
+
+def ep_serve_rank(arch: str, layers: int, shape: tuple, requests,
+                  tokens1) -> dict:
+    """20 / 20a on one rank: this rank's blocks of ``arch``'s seed-0
+    draw cut to ``layers`` (its experts, heads and vocabulary), the
+    engine on the requests, the requests teacher-forced along M = 1's
+    tokens and the decode step's split."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch import serving
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+    from repro_torch.obs import Tracer, phase_summary
+    mesh = mesh_lib.make_host_mesh(*shape)
+    model = get_model(get_config(arch).replace(num_layers=layers))
+    t0 = time.perf_counter()
+    params = model.init(0, device=mesh.device, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    layer = params["layers"][0]
+    shapes = {"router": tuple(layer["moe"]["router"].shape),
+              "wi": tuple(layer["moe"]["wi"].shape),
+              "wq": tuple(layer["attn"]["wq"].shape),
+              "wk": tuple(layer["attn"]["wk"].shape)}
+    expert_bytes = moe_weight_bytes(params)
+    torch.cuda.reset_peak_memory_stats()
+    tracer = Tracer()
+    eng = serving.Engine(model, params, serving.ServeConfig(
+        slots=EP_SLOTS, max_len=EP_MAX_LEN, page_size=16),
+        device=mesh.device, tracer=tracer, mesh=mesh)
+    mesh.collectives.clear()
+    results, stats, elapsed, launches = serve(eng, ops, requests)
+    engine_coll = {k: dict(v) for k, v in mesh.collectives.items()}
+    spans = phase_summary(tracer.events())
+    pool = tuple(eng._kv.cache[0]["k"].shape)
+    tokens2 = [list(r.tokens) for r in results]
+    del eng, results
+    tf = teacher_forced(L, model, params, requests[0], tokens1, mesh,
+                        EP_MAX_LEN)
+    split = decode_split(model, params, mesh, ops, L, EP_SLOTS, EP_MAX_LEN)
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    first = mesh.rank == 0
+    return {"rank": mesh.rank, "coords": dict(mesh.coords),
+            "backend": mesh.backend, "init_s": init_s, "shapes": shapes,
+            "expert_bytes": expert_bytes, "pool": pool, "tokens": tokens2,
+            "stats": stats, "elapsed": elapsed, "launches": launches,
+            "spans": spans, "collectives": engine_coll, "split": split,
+            "peak": peak, "equal": mesh_lib.all_equal(mesh, tokens2),
+            "tf": [bits(t) for t in tf] if first else None}
+
+
+def ep_serving(label: str, arch: str, layers: int, shape: tuple, seed: int,
+               tad, ops, serving, get_config, get_model) -> dict:
+    """20 / 20a: the decode kernel at a rank's shape against its plain
+    version, M = 1 here on the same seed-0 weights (the engine's tokens
+    and the teacher-forced logits), then the ranks (``ep_serve_rank``):
+    launches, tokens, logit gaps, the step split and the rank's expert
+    read."""
+    from repro_torch.models import layers as L
+    full = get_config(arch)
+    cfg = full.replace(num_layers=layers)
+    m = shape[1]
+    if layers != full.num_layers:
+        print(f"{label} {arch}: reduced: num_layers {full.num_layers} -> "
+              f"{layers} (the script's time budget; width as published)",
+              flush=True)
+    weights = local_weight_bytes(cfg, shape)
+    pool = kv_pool_bytes(cfg, EP_SLOTS, EP_MAX_LEN)
+    kv_local = cfg.num_kv_heads // m
+    pred = (weights + 2 * pool / m) / GIB + EP_CONTEXT_GIB
+    print(f"{label} {arch}: full width ({cfg.num_layers} layers, bf16) on a "
+          f"{shape} mesh, {m} gloo ranks on one card: "
+          f"{cfg.num_experts // m} of {cfg.num_experts} experts (top-"
+          f"{cfg.experts_per_token}), {cfg.num_heads // m} of "
+          f"{cfg.num_heads} heads, {kv_local} of {cfg.num_kv_heads} KV "
+          f"heads, {cfg.vocab_size // m} of {cfg.vocab_size} words a rank; "
+          f"predicted peak a rank {pred:.2f} GiB (its blocks "
+          f"{weights / GIB:.3f} + pool {pool / GIB:.3f} / {m} + prefill "
+          f"dump {pool / GIB:.3f} / {m} + {EP_CONTEXT_GIB} context)",
+          flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    row = kernel_row(tad, ops, gen, "global", EP_MAX_LEN, None,
+                     torch.bfloat16, EP_SLOTS, cfg.num_heads // m,
+                     kv_local, cfg.head_dim_, [64, 200, 513, 1023])
+    model = get_model(cfg)
+    requests = requests_of(cfg.vocab_size, seed, 4, EP_PROMPTS, EP_NEW)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model.init(0, device="cuda")
+    read1 = moe_weight_bytes(params)
+    results, stats1, elapsed1, _ = serve(engine(
+        serving, model, params, None, EP_SLOTS, EP_MAX_LEN), ops, requests)
+    tokens1 = [list(r.tokens) for r in results]
+    tf1 = teacher_forced(L, model, params, requests[0], tokens1,
+                         max_len=EP_MAX_LEN)
+    del params, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = on_ranks(ep_serve_rank, m, args=(arch, layers, shape, requests,
+                                             tokens1), timeout=600)
+    ranks_s = time.perf_counter() - t0
+    tol = tad.decode_parity_tolerance(torch.bfloat16)
+    for r in ranks:
+        if not r["equal"] or r["tokens"] != ranks[0]["tokens"]:
+            raise AssertionError(f"{label}: the ranks served different "
+                                 f"tokens")
+        want = layers * r["stats"]["decode_steps"]
+        if r["launches"] != want or r["split"]["launches"] != layers:
+            raise AssertionError(f"{label} rank {r['rank']}: "
+                                 f"{r['launches']} decode launches for "
+                                 f"{r['stats']['decode_steps']} steps "
+                                 f"(expected {want}); split "
+                                 f"{r['split']['launches']} a step")
+        if r["shapes"]["wi"][0] != cfg.num_experts // m \
+                or r["shapes"]["router"][1] != cfg.num_experts // m:
+            raise AssertionError(f"{label}: expert blocks {r['shapes']}")
+    tf2 = [unbits(a) for a in ranks[0]["tf"]]
+    gaps = []
+    for a, b in zip(tf2, tf1):
+        d = (a.float() - b.float()).abs()
+        gaps.append((d.max().item(), d.mean().item()))
+    worst = (max(g[0] for g in gaps), max(g[1] for g in gaps))
+    if not (worst[0] <= TP_LOGIT_BOUND and worst[1] <= TP_LOGIT_MEAN_BOUND):
+        raise AssertionError(f"{label}: logit gaps to M=1 (max, mean) "
+                             f"{gaps}, bounds {TP_LOGIT_BOUND}, "
+                             f"{TP_LOGIT_MEAN_BOUND}")
+    ties = near_ties(label, tokens1, ranks[0]["tokens"], tf1, tf2, tol)
+    r0 = ranks[0]
+    sp = r0["split"]
+    step_ms = decode_step_ms(r0["spans"], r0["stats"]["decode_steps"])
+    read_ms = r0["expert_bytes"] / HBM_BYTES_PER_S * 1e3
+    generated = r0["stats"]["tokens_generated"]
+    for r in ranks:
+        print(f"{label} rank {r['rank']} {r['coords']} ({r['backend']}): "
+              f"blocks {r['shapes']}, KV pool {r['pool']}; init "
+              f"{r['init_s']:.1f} s; serving peak {r['peak'] / GIB:.2f} GiB "
+              f"(predicted {pred:.2f}); {r['launches']} decode launches "
+              f"over {r['stats']['decode_steps']} steps "
+              f"({r['launches'] // r['stats']['decode_steps']} a step)",
+              flush=True)
+    coll = {k: (v["calls"], round(v["seconds"], 3))
+            for k, v in r0["collectives"].items()}
+    print(f"{label}: {len(r0['tokens'])} requests (prompts "
+          f"{[len(p) for p in requests[0]]}), {generated} tokens in "
+          f"{r0['elapsed']:.3f} s = {generated / r0['elapsed']:.2f} tok/s "
+          f"(M=1 {stats1['tokens_generated'] / elapsed1:.2f}); decode step "
+          f"{step_ms:.3f} ms (decode + sample spans); engine collectives "
+          f"{coll} (calls, s); tokens equal on {m} ranks; to M=1: "
+          f"{sum(a == b for a, b in zip(tokens1, r0['tokens']))} of "
+          f"{len(tokens1)} requests equal, first differences (request, "
+          f"token, gap in M=1's logits, in M={m}'s) {ties}; |logit gap| "
+          f"along M=1's tokens (max, mean) a request "
+          f"{[(round(a, 4), round(b, 5)) for a, b in gaps]} (bounds "
+          f"{TP_LOGIT_BOUND}, {TP_LOGIT_MEAN_BOUND}); {ranks_s:.1f} s on "
+          f"the shared ranks; {smi_line()}", flush=True)
+    others = "".join(f" + {k} {v:.3f}" for k, v in sp["ms"].items()
+                     if k not in ("model_sum", "model_gather"))
+    print(f"{label} decode step split (rank 0, {EP_SLOTS} slots, "
+          f"{TP_SPLIT_STEPS} steps, host clock): {sp['step_ms']:.3f} ms = "
+          f"compute {sp['compute_ms']:.3f} + model_sum_ {sp['sum_ms']:.3f} "
+          f"({sp['sums']} calls: attention's wo and the experts' output a "
+          f"layer, the embedding) + gathers {sp['gather_ms']:.3f} "
+          f"({sp['gathers']} calls: the router logits a layer, the "
+          f"logits){others}; "
+          f"the rank's expert weights {r0['expert_bytes']} B read a step: "
+          f"{read_ms:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s (M=1 "
+          f"{read1 / HBM_BYTES_PER_S * 1e3:.3f} ms)", flush=True)
+    return {"row": row, "launches": r0["launches"], "gaps": gaps,
+            "ties": ties, "split": sp, "step_ms": step_ms,
+            "read_ms": read_ms, "peak_gib": [r["peak"] / GIB for r in ranks],
+            "predicted_gib": pred, "layers": layers}
+
+
+def ep_train_rank(ref_path: str) -> dict:
+    """20b on one rank of the (2, 2) world: olmoe cut to
+    ``EP_TRAIN_CUT`` through ``launch.train.run --mesh-model 2
+    --mesh-data 2`` with fused TVLARS (launches, split, state bytes,
+    peak, the param gap to M = 1, the segmented kernels on this rank's
+    flat buffers), then one per-tensor WA-LARS step (its launches,
+    state bytes and the per-tensor kernels on this rank's blocks)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.core import flatten
+    from repro_torch.kernels import lars_update as lu
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as sref
+    from repro_torch.kernels import segmented_update as su
+    from repro_torch.launch import train as train_launch
+    mesh_argv = ["--mesh-model", str(EP_TRAIN_MESH[1]), "--mesh-data",
+                 str(EP_TRAIN_MESH[0])]
+    res = {}
+    for label, argv in (("20b", ft_argv(EP_OLMOE) + mesh_argv),
+                        ("20b-pt", ["--arch", EP_OLMOE] + EP_PT_ARGV
+                         + mesh_argv)):
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        watch = StepWatch(ops)
+        with config_cut(train_launch, EP_OLMOE, **EP_TRAIN_CUT), \
+                watched_fit(train_launch, watch):
+            out = train_launch.run(argv, log_fn=_tt_log(label))
+        model, place, state = out["model"], out["placement"], out["state"]
+        steps = len(out["history"])
+        r = {"history": out["history"], "launches": watch.launches,
+             "split": tt_split(out, steps),
+             "state_bytes": tt_state_bytes(state),
+             "peak": out["peak_memory_bytes"], "rank": out["rank"],
+             "experts": state.params["layers"][0]["moe"]["wi"].shape}
+        if label == "20b":
+            r["param_gap"] = tt_param_gap(state.params, place, ref_path)
+            r["seg"] = tt_seg_kernels(su, sref, flatten, model,
+                                      state.params, place)
+        else:
+            names = tt_rules(model.cfg, EP_TRAIN_MESH, "per_tensor")[
+                "kernel_segments"]
+            r["kernel_segments"] = len(names)
+            r["lars"] = tt_lars_kernels(lu, sref, model.cfg, state.params,
+                                        names, out["mesh"])
+        res[label] = r
+        del out, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def ep_small_rank() -> dict:
+    """20c on one rank of a world of 4: both MoE smoke configs' losses
+    at (2, 2) and (1, 4)."""
+    from repro_torch.launch import mesh as mesh_lib
+    meshes = {shape: mesh_lib.make_host_mesh(*shape)
+              for shape in EP_SMALL_MESHES}
+    return {(shape, arch): tt_small_losses(arch, mesh, FT_SMALL_STEPS)
+            for shape, mesh in meshes.items() for arch in EP_SMALL}
+
+
+def ep_probe_rank(mesh_shape) -> dict:
+    """20c's probe on one rank (or, with ``mesh_shape`` None, here at M
+    = 1): olmoe's smoke config in f32, a per-tensor WA-LARS step and a
+    4-iteration Lanczos probe through ``launch.train.run``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch import diagnostics as diag
+    from repro_torch.core.base import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_launch
+    ops.reset_launches()
+    argv = list(EP_PROBE_ARGV)
+    if mesh_shape is not None:
+        argv += ["--mesh-model", str(mesh_shape[1]), "--mesh-data",
+                 str(mesh_shape[0])]
+    watch = ProbeWatch(diag.LanczosProbe, ops, tree_leaves)
+    try:
+        out = train_launch.run(argv, log_fn=lambda line: None)
+    finally:
+        watch.restore()
+    return {"calls": watch.calls, "rank": out["rank"],
+            "lambda_max": [c["out"]["lambda_max"] for c in watch.calls]}
+
+
+def phase_experts(tad, ops, serving, train_launch, get_config,
+                  get_model) -> dict:
+    """20-20c: the MoE family over the model axis (see the module
+    docstring)."""
+    out: dict = {"seconds": {}}
+    t0 = time.perf_counter()
+    out["20"] = ep_serving("20", EP_ARCH, EP_LAYERS, EP_MESH, 20, tad, ops,
+                           serving, get_config, get_model)
+    out["seconds"]["20"] = time.perf_counter() - t0
+    print(f"20: {out['seconds']['20']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    out["20a"] = ep_serving("20a", EP_OLMOE,
+                            EP_OLMOE_LAYERS, EP_OLMOE_MESH,
+                            21, tad, ops, serving, get_config, get_model)
+    out["seconds"]["20a"] = time.perf_counter() - t0
+    print(f"20a: {out['seconds']['20a']:.1f} s", flush=True)
+
+    # 20b: olmoe trained over (2, 2), after M = 1 on the same weights
+    from repro_torch.core.base import path_name, tree_flatten_with_path
+    t0 = time.perf_counter()
+    full = get_config(EP_OLMOE)
+    cfg = full.replace(**EP_TRAIN_CUT)
+    shape = EP_TRAIN_MESH
+    print(f"20b {EP_OLMOE}: reduced: " + ", ".join(
+        f"{k} {getattr(full, k)} -> {v}" for k, v in EP_TRAIN_CUT.items())
+        + f" (the script's time budget; width as published: {cfg.d_model} "
+        f"wide, {cfg.num_experts} experts, {cfg.param_dtype})", flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ep_")
+    try:
+        ref_path = os.path.join(tmp, "m1.pt")
+        with config_cut(train_launch, EP_OLMOE, **EP_TRAIN_CUT):
+            one = train_launch.run(ft_argv(EP_OLMOE), log_fn=lambda line: None)
+        torch.save({path_name(p): t.detach().cpu() for p, t in
+                    tree_flatten_with_path(one["state"].params)}, ref_path)
+        single = one["history"]
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks = on_ranks(ep_train_rank, shape[0] * shape[1],
+                         args=(ref_path,), timeout=600)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seg = {"seg_norm_lars": 1, "seg_apply_lars": 1}
+    fused = [r["20b"] for r in ranks]
+    for r in fused:
+        if r["experts"][0] != cfg.num_experts // shape[1]:
+            raise AssertionError(f"20b: rank {r['rank']} holds experts "
+                                 f"{r['experts']}")
+    gaps = tt_report("20b", shape, fused, single,
+                     tt_rules(cfg, shape, "fused"), None, seg,
+                     arch=EP_OLMOE, steps=FT_STEPS)
+    lb_gap = max(abs(a["load_balance"] - b["load_balance"])
+                 / abs(b["load_balance"])
+                 for a, b in zip(fused[0]["history"], single))
+    if not lb_gap <= FT_LB_BOUND:
+        raise AssertionError(f"20b: load balance gap {lb_gap:.3e} over "
+                             f"{FT_LB_BOUND}")
+    pt_rules = tt_rules(cfg, shape, "per_tensor")
+    n = len(pt_rules["kernel_segments"])
+    pt = [r["20b-pt"] for r in ranks]
+    tt_report("20b per-tensor", shape, pt, None, pt_rules, None,
+              {"lars_norm2": n, "lars_apply": n}, arch=EP_OLMOE, steps=1)
+    s0 = fused[0]["seg"]
+    l0 = pt[0]["lars"]
+    print(f"20b {EP_OLMOE}: {cfg.num_experts // shape[1]} of "
+          f"{cfg.num_experts} experts a rank (fsdp over the data axis); "
+          f"load balance per step "
+          f"{[h['load_balance'] for h in fused[0]['history']]} against M=1 "
+          f"{[h['load_balance'] for h in single]}, gap {lb_gap:.3e} <= "
+          f"{FT_LB_BOUND}; segmented kernels on rank 0's flat buffers "
+          f"({s0['rows']} rows, {s0['segments']} segments): norm relative "
+          f"error {s0['norm_err']:.3e}, apply bitwise; card ms "
+          f"{s0['times']}; per-tensor kernels on rank 0's blocks of "
+          f"{l0['segment']} ({l0['elements']} elements): card ms "
+          f"{l0['times']}; {smi_line()}", flush=True)
+    out["20b"] = {"gaps": gaps, "lb_gap": lb_gap, "split": fused[0]["split"],
+                  "launches": {k: sum(x.get(k, 0) for x in fused[0][
+                      "launches"]) for k in SEG_LARS},
+                  "launches_pt": {k: sum(x.get(k, 0) for x in pt[0][
+                      "launches"]) for k in ("lars_norm2", "lars_apply")},
+                  "seg": s0, "lars": l0}
+    out["seconds"]["20b"] = time.perf_counter() - t0
+    print(f"20b: {out['seconds']['20b']:.1f} s", flush=True)
+
+    # 20c: the smoke configs at (2, 2) and (1, 4), and the probe
+    t0 = time.perf_counter()
+    cpu = {arch: tt_small_losses(arch, steps=FT_SMALL_STEPS)
+           for arch in EP_SMALL}
+    got = on_ranks(ep_small_rank, 4, timeout=600)[0]
+    for (mesh_shape, arch), losses in got.items():
+        np.testing.assert_allclose(losses, cpu[arch], rtol=1e-5,
+                                   err_msg=f"20c {arch} {mesh_shape}")
+    shown = {a: [round(x, 6) for x in v] for a, v in cpu.items()}
+    print(f"20c MoE smoke configs f32 at {EP_SMALL_MESHES} on the card "
+          f"(experts 2 and 1 a rank): losses within 1e-5 of the CPU's "
+          f"single-rank run ({shown})", flush=True)
+    one = ep_probe_rank(None)
+    ranks = on_ranks(ep_probe_rank, 4, args=((2, 2),), timeout=600)
+    pt_before = one["calls"][0]["launches_before"]
+    for r in ranks:
+        check_probe_calls("20c (2, 2)", r["calls"], None)
+        if r["lambda_max"] != ranks[0]["lambda_max"] \
+                or r["calls"][0]["launches_before"] != pt_before:
+            before = r["calls"][0]["launches_before"]
+            raise AssertionError(f"20c: rank {r['rank']} lambda_max "
+                                 f"{r['lambda_max']}, launches before "
+                                 f"the probe {before} (M=1 {pt_before})")
+    lam1, lam = one["lambda_max"], ranks[0]["lambda_max"]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(lam, lam1))
+    if not gap <= FT_PROBE_BOUND:
+        raise AssertionError(f"20c: lambda_max {lam} against M=1 {lam1}, "
+                             f"gap {gap:.3e} over {FT_PROBE_BOUND:.3e}")
+    print(f"20c {EP_OLMOE} smoke f32 probe on (2, 2): lambda_max {lam} "
+          f"against M=1 {lam1} (gap {gap:.3e} <= {FT_PROBE_BOUND:.3e}); no "
+          f"kernel launched inside it (per-tensor launches before it "
+          f"{pt_before}, as M=1's step), state bitwise unchanged; probe "
+          f"{[round(c['seconds'], 3) for c in ranks[0]['calls']]} s on rank "
+          f"0 (M=1 {[round(c['seconds'], 3) for c in one['calls']]} s)",
+          flush=True)
+    out["20c"] = {"probe_gap": gap, "probe_launches": pt_before}
+    out["seconds"]["20c"] = time.perf_counter() - t0
+    print(f"20c: {out['seconds']['20c']:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7107,7 +7579,7 @@ def main() -> int:
             ["--arch", "qwen2.5-3b", "--optimizer", "tvlars",
              "--use-kernel", "fused", "--global-batch", "2", "--microbatch",
              "1", "--seq", "512", "--batch-max", "16", "--controller-every",
-             "2", "--steps", "6", "--prefetch", "2", "--adaptive-batch"],
+             "2", "--steps", "4", "--prefetch", "2", "--adaptive-batch"],
             "tvlars-adaptive")
     gc.collect()
     torch.cuda.empty_cache()
@@ -7226,6 +7698,13 @@ def main() -> int:
     with phase_clock("19-19d"):
         ft = phase_families_training(train_launch, get_config)
 
+    # 20-20c: the MoE family over the model axis (expert parallelism)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase_clock("20-20c"):
+        ep = phase_experts(tad, ops, serving, train_launch, get_config,
+                           get_model)
+
     # the serving path's mix: 40 local and 8 global launches per decode
     # step (bf16 pool); per-launch means weighted by that mix
     rows = kernel["rows"]
@@ -7240,7 +7719,7 @@ def main() -> int:
     # dense configs' serving shapes, the three of 13 / 13b / 13e, the
     # two of 14e, a rank's shape in 16 and the partial mode's two in 17
     served = (codeqwen, qwen72, main12, fam["13"], fam["13b"], fam["13e"],
-              cross["14"], cross["14b"], tp)
+              cross["14"], cross["14b"], tp, ep["20"], ep["20a"])
     kernel["max_abs_err"] = max(
         [kernel["max_abs_err"]] + [r["row"]["max_abs_err"] for r in served]
         + [r["max_abs_err"] for r in tf["rows"]])
@@ -7265,6 +7744,8 @@ def main() -> int:
                 + [dict(cross[k]["row"], layers_per_step=cross[k]["layers"])
                    for k in ("14", "14b")]
                 + [dict(tp["row"], layers_per_step=TP_LAYERS)]
+                + [dict(ep[k]["row"], layers_per_step=ep[k]["layers"])
+                   for k in ("20", "20a")]
                 + [dict(r, layers_per_step=n, mode="partial")
                    for r, n in zip(tf["rows"], (TF_LAYERS, 0))],
                 "launches_by_phase": {
@@ -7286,7 +7767,10 @@ def main() -> int:
                     "17a": tf["launches"], "17b": tf["data_launches"],
                     **{f"17c-{a}": r["launches"] for a, r in fam_tp.items()},
                     **{f"{k}-{a}": n for k, per in tf["small"].items()
-                       for a, n in per.items()}}}]
+                       for a, n in per.items()},
+                    # per rank, on the rank's heads beside its experts
+                    "20": ep["20"]["launches"],
+                    "20a": ep["20a"]["launches"]}}]
     # the segmented kernels: times at the main path's shapes (the
     # training runs' own buffers); no single PyTorch call computes
     # either pass, so library_ms is null
@@ -7318,7 +7802,8 @@ def main() -> int:
                 "18": tt["launches"].get(name, 0),
                 "18a": tt["launches_2x2"].get(name, 0),
                 **{f"{label}-{arch}": r["launches"].get(name, 0)
-                   for (label, arch), r in ft["train"].items()}},
+                   for (label, arch), r in ft["train"].items()},
+                "20b": ep["20b"]["launches"].get(name, 0)},
             "on_a_ranks_block": tt["seg"]["times"][
                 "norm" if "norm" in name else "apply"]})
     # the per-tensor kernels: per-launch means over the 14 segments of a
@@ -7342,7 +7827,9 @@ def main() -> int:
                 "14c": cross["14c-pt"][name]["launches"],
                 # per rank, on the rank's blocks
                 "18b": tt["launches_pt"][name],
-                "19c": ft["probe_launches"].get(name, 0)},
+                "19c": ft["probe_launches"].get(name, 0),
+                "20b": ep["20b"]["launches_pt"][name],
+                "20c": ep["20c"]["probe_launches"].get(name, 0)},
             "on_a_ranks_block": {
                 k: v for k, v in tt["lars"]["times"][
                     "norm" if "norm" in name else "apply"].items()

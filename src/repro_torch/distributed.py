@@ -113,21 +113,17 @@ TIMEOUT_S = 300.0
 BACKENDS = ("gloo", "nccl")
 # what the model axis does not do yet, each with its ROADMAP item:
 # sequence parallelism (10, with the dry run that is its only user),
-# the MoE family at model > 1 (11d: experts over the model axis), and a
-# KV cache that cache_pspecs would split over Dh (11b-4: the model axis
-# divides neither the KV heads nor the cache's length, e.g.
+# and a KV cache that cache_pspecs would split over Dh (11b-4: the
+# model axis divides neither the KV heads nor the cache's length, e.g.
 # whisper-large-v3's 1500 cross frames and 20 heads at model 8).
-# Serving every other family on a (data, model) mesh is ported, and so
-# is training every family over the reference's GSPMD mesh (fsdp over
-# the data axis, tensor parallelism over the model axis; MoE at model
-# 1) with the Lanczos probe on it.
+# Serving and training every family on a (data, model) mesh is ported:
+# fsdp over the data axis, tensor parallelism over the model axis (the
+# MoE family's experts over it, expert parallelism), and the Lanczos
+# probe on it.
 SEQUENCE_PARALLEL_PENDING = (
     "sequence parallelism (set_batch_sharding(seq_axis=), the dry "
     "run's sequence-split residuals) is not ported: ROADMAP queue 1, "
     "item 10")
-EXPERT_PARALLEL_PENDING = (
-    "expert parallelism (the MoE family at model > 1) is not ported: "
-    "ROADMAP queue 1, item 11d")
 DH_FALLBACK_PENDING = (
     "a KV cache that the model axis splits over Dh (it divides neither "
     "the KV heads nor the cache's length, or the heads stay whole) is "

@@ -36,9 +36,10 @@ launcher does. Rank 0 prints, and the run fails unless every rank
 produced the same tokens. Without a ``torchrun`` world the launcher
 spawns the D × M ranks itself; ``--dist-backend`` picks ``gloo`` or
 ``nccl`` (default: ``nccl`` when every rank has a card of its own, else
-``gloo``; printed). The MoE family is refused at M > 1 (expert
-parallelism, ROADMAP item 11d), as is a KV cache M splits over Dh
-(item 11b-4).
+``gloo``; printed). The MoE family's experts split over the model
+axis where M divides their count (each rank runs its experts' entries
+and the row sums the output; whole on every rank otherwise). A KV
+cache M splits over Dh is refused (ROADMAP item 11b-4).
 """
 from __future__ import annotations
 

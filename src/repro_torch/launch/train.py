@@ -72,10 +72,11 @@ over the model axis, fsdp over the data axis;
 ``--microbatch`` GLOBAL (K = global / micro), as in the reference
 (``make_train_step(mesh=, placement=)``). Every family trains there
 (the vlm and encdec archs' extra embeddings split over the data axis
-with their batch); the MoE family at M > 1 raises naming ROADMAP item
-11d (expert parallelism); ``--adaptive-batch`` is refused with the
-reference's message. ``--probe-every`` probes the global held batch on
-each rank's blocks, as the reference's probe runs on its sharded
+with their batch; the MoE family's experts over the model axis, as
+the reference's rules place them, where M divides their count);
+``--adaptive-batch`` is refused with the reference's message.
+``--probe-every`` probes the global held batch on each rank's blocks,
+as the reference's probe runs on its sharded
 params (``diagnostics.probes.LanczosProbe(placement=)``), and prints
 the single-rank run's probe lines. After the run the ranks that hold
 the same block of a leaf are checked bitwise equal.
@@ -88,7 +89,6 @@ from __future__ import annotations
 import argparse
 import sys
 import time
-import types
 from typing import Optional, Sequence
 
 import torch
@@ -110,7 +110,6 @@ from repro_torch.training import (AdaptiveBatchController,
                                   ControllerConfig, FitOptions, TrainState,
                                   fit, lm_task, make_train_step)
 from repro_torch.models import convert
-from repro_torch.models.transformer import check_training_axis
 from repro_torch.training.train_state import (fingerprint, replicas_equal,
                                               replicate)
 
@@ -299,13 +298,6 @@ def run(argv: Optional[Sequence[str]] = None, *,
             "pass --mesh-data (with --mesh-model 1); the GSPMD fsdp+TP "
             "path has no re-stack boundary")
     need = mesh_data * mesh_model
-    if gspmd:
-        # refused before any rank starts
-        check_training_axis(
-            get_smoke_config(args.arch) if args.smoke
-            else get_config(args.arch),
-            types.SimpleNamespace(shape={"data": mesh_data,
-                                         "model": mesh_model}))
     if (mesh_native or gspmd) and not mesh_lib.joined():
         backend = args.dist_backend or mesh_lib.default_backend(
             args.device, need)

@@ -45,8 +45,7 @@ from repro_torch.core.flatten import Segment
 from repro_torch.launch import sharding
 from repro_torch.models import layers as L
 from repro_torch.models.hybrid import hybrid_layout
-from repro_torch.models.transformer import (_group_spec, check_model_axis,
-                                           check_training_axis)
+from repro_torch.models.transformer import _group_spec, check_model_axis
 
 
 def _tensor(x, dev: torch.device) -> torch.Tensor:
@@ -208,12 +207,6 @@ def _local_meta(params: dict, mesh) -> dict:
         for path, leaf in tree_flatten_with_path(params)})
 
 
-def _check(cfg: ModelConfig, meta: dict, mesh, fsdp: bool) -> None:
-    check_model_axis(cfg, _local_meta(meta, mesh), mesh)
-    if fsdp:
-        check_training_axis(cfg, mesh)
-
-
 def shard_params(cfg: ModelConfig, params: dict, mesh, *,
                  fsdp: bool = False) -> dict:
     """This rank's blocks of the port's whole ``params`` under
@@ -223,9 +216,8 @@ def shard_params(cfg: ModelConfig, params: dict, mesh, *,
     ``params_from_jax`` then ``shard_params`` gives each rank the
     reference's params as the reference places them (``fsdp=True``:
     its training placement, also split over the data axis). Refuses
-    what ``transformer.check_model_axis`` refuses, and with ``fsdp``
-    what ``check_training_axis`` does."""
-    _check(cfg, params, mesh, fsdp)
+    what ``transformer.check_model_axis`` refuses."""
+    check_model_axis(cfg, _local_meta(params, mesh), mesh)
     place = placement(cfg, mesh, fsdp=fsdp)
     return tree_from_paths(params, {
         path: _block(leaf, place.spec(path), mesh)
@@ -246,7 +238,7 @@ def init_sharded(cfg: ModelConfig, init, gen: torch.Generator,
     drawn: list = []
     with L.on_draw(lambda x: drawn.append(x) or x):
         meta = init(cfg, torch.Generator(), torch.device("meta"))
-    _check(cfg, meta, mesh, fsdp)
+    check_model_axis(cfg, _local_meta(meta, mesh), mesh)
     where = {id(leaf): path for path, leaf in tree_flatten_with_path(meta)}
     paths = iter([where[id(x)] for x in drawn])
     place = _placement(cfg, meta, mesh, fsdp)

@@ -12,7 +12,8 @@ widths come from the local weights' shapes, and whether a leaf is split
 is read from its own shape against the config's full size, never from
 the mesh: ``wq`` / ``wk`` / ``wv`` / ``wo`` over the heads, ``wi`` /
 ``wg`` / MLP ``wo`` over d_ff, ``table`` and ``head`` over the
-vocabulary. A row-parallel product (``wo`` over split heads or d_ff) is
+vocabulary, the MoE router and experts over the experts
+(``models.moe``). A row-parallel product (``wo`` over split heads or d_ff) is
 a partial that ``distributed.sum_over_row`` sums over the model row; a
 replicated leaf is computed whole and never summed. The QKV biases are
 replicated (no rule splits them): each rank adds its heads' rows. A

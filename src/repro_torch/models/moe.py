@@ -30,6 +30,28 @@ D, so that backward gives the reference's gradient. The router z loss
 is linear in the positions and stays the row's mean (the step averages
 the loss over the column). The mesh-native data axis (``--mesh-data``)
 keeps each shard's means, as the reference's ``shard_map`` step does.
+
+Expert parallelism (the model axis, ``launch.sharding``'s rules: the
+router's ``[d, E/M]`` and the experts' ``[E/M, ...]`` blocks). Where
+the reference's GSPMD scatter is an all-to-all, the port keeps the
+tensor-parallel pattern: activations are whole on a model row, so every
+rank holds every token of its data block. The rank's router block gives
+the logits' block, gathered over the row (``distributed.gather_row``,
+f32); routing then runs replicated and gives the decisions, capacity
+and slots of M = 1. Dispatch scatters only the entries of the rank's
+experts ``[e0, e0 + E/M)`` into a ``[B, (E/M)·C, d]`` buffer (slots
+offset by ``e0·C``; the rest add zero at local slot 0, so ``index_add``
+stays), the experts run on the rank's blocks, the combine gathers the
+local entries (the others weigh 0) and ``sum_over_row`` sums the partial
+output; ``x`` enters through ``copy_to_row`` (a column-parallel
+input). The gathered logits feed the combine weights, used in part (a
+rank combines its own experts' entries), and the aux losses, used
+whole and the same on every rank. So the combine weights read the
+logits through ``copy_to_row`` (their gradient summed over the row)
+and the aux losses read them as they are (counted once), and
+``gather_row``'s backward keeps the rank's block of that sum. Where M
+does not divide E the rules leave the router and the experts whole:
+the layer runs whole on every rank, with no collective.
 """
 from __future__ import annotations
 
@@ -86,21 +108,44 @@ def moe_capacity(group_tokens: int, cfg: ModelConfig) -> int:
     return max(8, -(-c // 8) * 8)
 
 
+def _experts(local: int, cfg: ModelConfig):
+    """(this rank's first expert, its expert count, the mesh whose
+    model row splits the experts or None when they are whole) for a
+    leaf that holds ``local`` of the experts."""
+    if local == cfg.num_experts:
+        return 0, local, None
+    mesh = L._row_mesh(local, cfg.num_experts, "moe experts")
+    return mesh.coords["model"] * local, local, mesh
+
+
 def route(params: dict, cfg: ModelConfig, x: torch.Tensor) -> Routing:
     """Router logits in f32, softmax, top-k (ties to the lower expert
     index) renormalised by their sum + 1e-9, and each entry's slot: its
     position inside its expert is the number of earlier entries of the
-    row (token-major, then k-rank) routed to the same expert."""
+    row (token-major, then k-rank) routed to the same expert. A router
+    block [d, E/M] gives the logits' block, gathered over the model row
+    (``gather_row``), so every rank of the row routes alike; the
+    top-k weights then come from the gathered logits through
+    ``copy_to_row``: the rank combines its own experts' entries only,
+    so their gradient is summed over the row, while the aux losses read
+    the logits whole and count once."""
     b, s, _ = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     cap = moe_capacity(s, cfg)
     logits = x.float() @ params["router"].float()               # [B,S,E]
+    _, _, mesh = _experts(params["router"].shape[1], cfg)
+    if mesh is not None:
+        from repro_torch.distributed import copy_to_row, gather_row
+        logits = gather_row(logits, mesh, logits.dim() - 1)
     probs = torch.softmax(logits, dim=-1)
     # a stable descending sort breaks ties by the lower expert index,
     # as jax.lax.top_k does (torch.topk does not, on the CPU)
     topk_probs, topk_idx = torch.sort(probs, dim=-1, descending=True,
                                       stable=True)
     topk_probs, topk_idx = topk_probs[..., :k], topk_idx[..., :k]
+    if mesh is not None:
+        topk_probs = torch.softmax(copy_to_row(logits, mesh), dim=-1) \
+            .gather(-1, topk_idx)
     topk_probs = topk_probs / (topk_probs.sum(-1, keepdim=True) + 1e-9)
     expert_of = topk_idx.reshape(b, s * k)
     fa = F.one_hot(expert_of, e)                                # [B,S·k,E]
@@ -111,39 +156,10 @@ def route(params: dict, cfg: ModelConfig, x: torch.Tensor) -> Routing:
     return Routing(logits, probs, topk_probs, topk_idx, keep, slot, cap)
 
 
-def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor
-              ) -> tuple[torch.Tensor, MoEAux]:
-    """x: [B, S, d] -> (out [B, S, d], aux losses)."""
-    b, s, d = x.shape
-    e, k = cfg.num_experts, cfg.experts_per_token
-    r = route(params, cfg, x)
-    cap = r.cap
-
-    # dispatch: every row's kept entries added into its [E·C, d] block
-    src = x.repeat_interleave(k, dim=1)                         # [B,S·k,d]
-    src = torch.where(r.keep[..., None], src,
-                      torch.zeros((), dtype=x.dtype, device=x.device))
-    rows = torch.arange(b, device=x.device)[:, None] * (e * cap)
-    buf = torch.zeros((b * e * cap, d), dtype=x.dtype, device=x.device)
-    buf = buf.index_add(0, (rows + r.slot).reshape(-1),
-                        src.reshape(b * s * k, d))
-    # [B, E, C, d] -> [E, B·C, d]: one batched product per expert
-    buf = buf.reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
-
-    h = torch.bmm(buf, params["wi"].to(buf.dtype))
-    g = torch.bmm(buf, params["wg"].to(buf.dtype))
-    h = F.silu(g) * h
-    out_buf = torch.bmm(h, params["wo"].to(buf.dtype))
-
-    # combine: gather each entry's slot, weighted by its kept probability
-    out_buf = out_buf.reshape(e, b, cap, d).transpose(0, 1).reshape(
-        b, e * cap, d)
-    gathered = out_buf[torch.arange(b, device=x.device)[:, None], r.slot]
-    w = (r.topk_probs.reshape(b, s * k, 1) * r.keep[..., None]).to(
-        gathered.dtype)
-    out = (gathered * w).reshape(b, s, k, d).sum(dim=2)
-
-    # aux losses (means over every position of the batch)
+def aux_losses(cfg: ModelConfig, r: Routing) -> MoEAux:
+    """Load balance and router z over every position of the batch, from
+    the whole logits (replicated over the model row, counted once)."""
+    e = cfg.num_experts
     me = r.probs.mean(dim=(0, 1))                               # [E]
     ce = F.one_hot(r.topk_idx[..., 0], e).float().mean(dim=(0, 1))
     column = L.data_column()
@@ -155,4 +171,50 @@ def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor
                              "moe_aux").unbind(0)
     lb = e * torch.sum(me * ce)
     z = torch.mean(torch.square(torch.logsumexp(r.logits, dim=-1)))
-    return out, MoEAux(lb, z)
+    return MoEAux(lb, z)
+
+
+def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor
+              ) -> tuple[torch.Tensor, MoEAux]:
+    """x: [B, S, d] -> (out [B, S, d], aux losses). Over experts split
+    on the model row, the rank dispatches and combines the entries of
+    its experts ``[e0, e0 + E/M)`` only and the row sums the partial
+    output."""
+    b, s, d = x.shape
+    k = cfg.experts_per_token
+    e0, el, _ = _experts(params["wi"].shape[0], cfg)
+    x = L._col_in(x, el, cfg.num_experts, "moe experts")
+    r = route(params, cfg, x)
+    cap = r.cap
+
+    # dispatch: every row's kept entries of this rank's experts added
+    # into its [E/M·C, d] block (the rest add zero at local slot 0)
+    mine, slot = r.keep, r.slot
+    if el != cfg.num_experts:
+        mine = mine & (slot >= e0 * cap) & (slot < (e0 + el) * cap)
+        slot = torch.where(mine, slot - e0 * cap, 0)
+    src = x.repeat_interleave(k, dim=1)                         # [B,S·k,d]
+    src = torch.where(mine[..., None], src,
+                      torch.zeros((), dtype=x.dtype, device=x.device))
+    rows = torch.arange(b, device=x.device)[:, None] * (el * cap)
+    buf = torch.zeros((b * el * cap, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_add(0, (rows + slot).reshape(-1),
+                        src.reshape(b * s * k, d))
+    # [B, E, C, d] -> [E, B·C, d]: one batched product per expert
+    buf = buf.reshape(b, el, cap, d).transpose(0, 1).reshape(
+        el, b * cap, d)
+
+    h = torch.bmm(buf, params["wi"].to(buf.dtype))
+    g = torch.bmm(buf, params["wg"].to(buf.dtype))
+    h = F.silu(g) * h
+    out_buf = torch.bmm(h, params["wo"].to(buf.dtype))
+
+    # combine: gather each entry's slot, weighted by its kept probability
+    out_buf = out_buf.reshape(el, b, cap, d).transpose(0, 1).reshape(
+        b, el * cap, d)
+    gathered = out_buf[torch.arange(b, device=x.device)[:, None], slot]
+    w = (r.topk_probs.reshape(b, s * k, 1) * mine[..., None]).to(
+        gathered.dtype)
+    out = (gathered * w).reshape(b, s, k, d).sum(dim=2)
+    out = L._row_sum(out, el, cfg.num_experts, "moe wo")
+    return out, aux_losses(cfg, r)

@@ -385,22 +385,21 @@ def _cross_len(cfg: ModelConfig) -> Optional[int]:
 
 
 def check_model_axis(cfg: ModelConfig, params: dict, mesh) -> None:
-    """Refuse, before any step, what tensor-parallel serving does not do
-    on ``mesh`` with this rank's ``params`` (its blocks of the leaves,
-    or meta tensors of their shapes): the MoE family (expert
-    parallelism), a KV cache that ``cache_pspecs`` would split over Dh
-    (the model axis divides neither the KV heads nor the cross caches'
-    length, or leaves the heads whole while the KV heads do not
-    divide), and a leaf left whole while a partner is split. A split
-    ``wq`` / ``wo`` beside a whole ``wk`` / ``wv`` is the KV cache's T
-    fallback (``layers.kv_split``); the self caches' T is checked where
-    the cache is made (``layers.cache_block``)."""
+    """Refuse, before any step, what tensor parallelism does not do on
+    ``mesh`` with this rank's ``params`` (its blocks of the leaves, or
+    meta tensors of their shapes): a KV cache that ``cache_pspecs``
+    would split over Dh (the model axis divides neither the KV heads
+    nor the cross caches' length, or leaves the heads whole while the
+    KV heads do not divide), and a leaf left whole while a partner is
+    split (an MoE layer's router and experts split over the experts
+    alike, or all whole where the model axis does not divide them). A
+    split ``wq`` / ``wo`` beside a whole ``wk`` / ``wv`` is the KV
+    cache's T fallback (``layers.kv_split``); the self caches' T is
+    checked where the cache is made (``layers.cache_block``)."""
     from repro_torch import distributed as dist_lib
     if mesh is None or mesh.shape["model"] == 1:
         return
     m = int(mesh.shape["model"])
-    if cfg.family == "moe":
-        raise NotImplementedError(dist_lib.EXPERT_PARALLEL_PENDING)
     blocks = list(_blocks(params))
     cross = _cross_len(cfg)
     if blocks and cfg.num_kv_heads % m and (
@@ -435,20 +434,19 @@ def check_model_axis(cfg: ModelConfig, params: dict, mesh) -> None:
             raise ValueError(f"{label} mlp: {on} split but {off} whole; a "
                              f"row-parallel product needs its partners "
                              f"split alike")
-
-
-def check_training_axis(cfg: ModelConfig, mesh) -> None:
-    """Refuse, before any step, what training over the reference's
-    GSPMD mesh (fsdp over the data axis, tensor parallelism over the
-    model axis) does not do: the MoE family at model > 1 (expert
-    parallelism, item 11d). Every family trains at model 1, and every
-    other family at any model width the serving rules take
-    (:func:`check_model_axis`)."""
-    from repro_torch import distributed as dist_lib
-    if mesh is None:
-        return
-    if cfg.family == "moe" and mesh.shape["model"] > 1:
-        raise NotImplementedError(dist_lib.EXPERT_PARALLEL_PENDING)
+    for i, p in enumerate(params.get("layers", ())):
+        if "moe" not in p:
+            continue
+        e = cfg.num_experts
+        split = {name: p["moe"][name].shape[dim] != e
+                 for name, dim in (("router", 1), ("wi", 0), ("wg", 0),
+                                   ("wo", 0))}
+        if len(set(split.values())) > 1:
+            on = sorted(k for k, v in split.items() if v)
+            off = sorted(k for k, v in split.items() if not v)
+            raise ValueError(f"layer {i} moe: {on} split but {off} whole; "
+                             f"the router's logits and the experts need "
+                             f"the same block of the experts")
 
 
 def layer_decode(p: dict, cfg: ModelConfig, h: torch.Tensor, c: dict,

@@ -448,9 +448,9 @@ def test_model_axis_raises_naming_the_roadmap_item():
     launcher's three flags for it take the GSPMD path and train on their
     ranks, with the single-rank run's losses (``test_torch_tp_train
     _mesh.py`` holds them closer); the probe over it (ROADMAP item
-    11c-2, ported) gives the single-rank run's λ_max. Only the MoE
-    family at model > 1 is still refused (item 11d,
-    ``test_torch_tp_train_mesh.py``)."""
+    11c-2, ported) gives the single-rank run's λ_max. The MoE family
+    trains at model > 1 too (item 11d, ported:
+    ``test_torch_tp_train_mesh.py``, ``test_torch_ep_train.py``)."""
     from repro_torch.launch import train
     base = ["--smoke", "--device", "cpu", "--steps", "1", "--seq", "16",
             "--global-batch", "4"]

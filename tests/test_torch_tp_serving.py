@@ -27,7 +27,8 @@ and in the subprocess from the same keys.
   same tokens. Sampled at ``temperature > 0`` the engine draws as the
   single-rank engine does, whatever the data split.
 * ``launch.serve --model-parallel 2`` prints M = 1's sample line.
-* The refusals name their ROADMAP item; the data column's ``mean_`` /
+* The refusals name their ROADMAP item (the MoE family's cases, item
+  11d, now give the rules' blocks); the data column's ``mean_`` /
   ``broadcast_`` and a save of split leaves work over the model axis.
 """
 from __future__ import annotations
@@ -49,6 +50,7 @@ from repro.kernels.ref import decode_parity_tolerance
 from repro_torch.checkpoint import checkpoint as ck
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.base import tree_leaves
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import convert, get_model
 from repro_torch.models import layers as L
@@ -328,9 +330,28 @@ class StandIn:
     ("llama-3.2-vision-11b", 8, "11b-4")])
 def test_refusals_name_their_roadmap_item(arch, model, item):
     """Model.init(mesh=) refuses before it draws, and shard_params before
-    it slices, naming the item that ports the case."""
+    it slices, naming the item that ports the case (11b-4). Item 11d,
+    expert parallelism, is ported: there both give this rank the rules'
+    blocks, the same bits (the router's [d, E/M] and the experts' [E/M,
+    ...] at model coordinate 0, every leaf of the whole draw's block)."""
     m = get_model(get_smoke_config(arch))
     mesh = StandIn(1, model)
+    if item == "11d":
+        whole = m.init(0, device="cpu")
+        local = m.init(0, device="cpu", mesh=mesh)
+        split = convert.shard_params(m.cfg, whole, mesh)
+        e, d, f = m.cfg.num_experts, m.cfg.d_model, m.cfg.d_ff
+        for i, layer in enumerate(local["layers"]):
+            got = {k: tuple(v.shape) for k, v in layer["moe"].items()}
+            assert got == {"router": (d, e // model),
+                           "wi": (e // model, d, f),
+                           "wg": (e // model, d, f),
+                           "wo": (e // model, f, d)}, (i, got)
+        for a, b, c in zip(tree_leaves(local), tree_leaves(split),
+                           tree_leaves(whole)):
+            assert torch.equal(a, b)
+            assert torch.equal(a, c[tuple(slice(0, n) for n in a.shape)])
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}$"):
         m.init(0, device="cpu", mesh=mesh)
     with pytest.raises(NotImplementedError, match=f"item {item}$"):

@@ -3,7 +3,7 @@ mesh in the port against the JAX package's own GSPMD step and the
 port's single-rank step, on the CPU: whisper-large-v3 and
 llama-3.2-vision-11b over ``(2, 4)`` (fsdp over the data axis, tensor
 parallelism over the model axis), olmoe-1b-7b over ``(8, 1)`` (fsdp
-only: its experts over the model axis are ROADMAP item 11d).
+only; its experts over the model axis are ``test_torch_ep_train.py``'s).
 
 The reference side runs once, in a subprocess that fabricates 8 host
 devices before jax is imported (``torch_tp_train_families_ref.main``),

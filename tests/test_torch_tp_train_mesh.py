@@ -12,9 +12,11 @@ CPU (the reference's ``(2, 4)`` step and checkpoints are
   and the reference's GSPMD ``--data-parallel 2`` (joining the ``(1,
   2)`` world's 2 ranks) print the single-rank run's losses within 1e-5
   and check their replicas.
-* The refusals name their ROADMAP items: the MoE family at model > 1
-  (11d); the adaptive batch on the GSPMD path is refused with the
-  reference's message.
+* The MoE family trains at model > 1 (expert parallelism, ROADMAP
+  item 11d, no longer refused) in each spelling of the model axis,
+  with the single-rank run's losses (``test_torch_ep_train.py`` holds
+  it against the reference's own step); the adaptive batch on the
+  GSPMD path is refused with the reference's message.
 """
 from __future__ import annotations
 
@@ -35,6 +37,19 @@ SMOKE = ["--smoke", "--device", "cpu", "--steps", "2", "--seq", "32",
 
 
 JOINED = ["--data-parallel", "2"]       # run inside the (1, 2) world
+# the MoE family in each spelling of the model axis: one step, against
+# the single-rank run; the 2-rank spellings run inside the (1, 2) world
+MOE_SMOKE = ["--smoke", "--device", "cpu", "--steps", "1", "--seq", "16",
+             "--global-batch", "8", "--use-kernel", "fused"]
+MOE_SPELLINGS = [
+    ("olmoe-1b-7b", ["--mesh-model", "2"], "11d"),
+    ("olmoe-1b-7b", ["--model-parallel", "2"], "11d"),
+    ("qwen3-moe-30b-a3b", ["--mesh-model", "2", "--mesh-data", "2"],
+     "11d"),
+    ("olmoe-1b-7b", ["--data-parallel", "2", "--mesh-model", "4"],
+     "11d")]
+IN_WORLD = [["--arch", arch] + MOE_SMOKE + argv
+            for arch, argv, _ in MOE_SPELLINGS[:2]]
 
 
 @pytest.fixture(scope="module")
@@ -43,7 +58,7 @@ def runs():
     single = {case: ranks.step(params, batch, case) for case in CASES}
     world = mesh_lib.spawn(ranks.world, 2, "gloo", "cpu",
                            args=(1, 2, params, batch, CASES, (), "", 1,
-                                 (SMOKE + JOINED,)),
+                                 (SMOKE + JOINED, *IN_WORLD)),
                            timeout=TIMEOUT_S)
     one = train.run(SMOKE, log_fn=lambda *a: None)["losses"]
     return {"single": single, "world": world, "one": one}
@@ -99,19 +114,32 @@ def test_launcher_prints_the_single_rank_losses(runs, capfd, argv, ranks_):
     assert f"mesh=(('data', {d}), ('model', {m}))" in out
 
 
-@pytest.mark.parametrize("arch,argv,item", [
-    ("olmoe-1b-7b", ["--mesh-model", "2"], "11d"),
-    ("olmoe-1b-7b", ["--model-parallel", "2"], "11d"),
-    ("qwen3-moe-30b-a3b", ["--mesh-model", "2", "--mesh-data", "2"],
-     "11d"),
-    ("olmoe-1b-7b", ["--data-parallel", "2", "--mesh-model", "4"],
-     "11d")])
-def test_unported_families_name_their_roadmap_item(arch, argv, item):
-    """Refused before any rank starts: the MoE family at model > 1, in
-    each spelling of the model axis (every other family, and the MoE
-    family at model 1, trains over the GSPMD mesh)."""
-    with pytest.raises(NotImplementedError, match=f"item {item}$"):
-        train.run(["--arch", arch, "--smoke", "--device", "cpu", *argv])
+@pytest.mark.parametrize("arch,argv,item", MOE_SPELLINGS)
+def test_unported_families_name_their_roadmap_item(runs, capfd, arch, argv,
+                                                  item):
+    """Item 11d (expert parallelism) is ported: the MoE family trains at
+    model > 1 in each spelling of the model axis, one step with the
+    single-rank run's loss (rtol 1e-5) and its replicas checked. The
+    2-rank spellings run in the module's (1, 2) world; the others spawn
+    their ranks."""
+    line = ["--arch", arch] + MOE_SMOKE + argv
+    one = train.run(["--arch", arch] + MOE_SMOKE,
+                    log_fn=lambda *a: None)["losses"]
+    if line in IN_WORLD:
+        got = runs["world"][0][f"launch/{1 + IN_WORLD.index(line)}"]
+        lines = got["lines"]
+    else:
+        capfd.readouterr()
+        got = train.run(line)
+        lines = capfd.readouterr().out.splitlines()
+    np.testing.assert_allclose(got["losses"], one, rtol=1e-5)
+    ranks_ = 1
+    for flag in ("--mesh-model", "--model-parallel", "--mesh-data",
+                 "--data-parallel"):
+        if flag in argv:
+            ranks_ *= int(argv[argv.index(flag) + 1])
+    assert any(f"replicas bitwise equal: {ranks_} ranks" in ln
+               for ln in lines), lines
 
 
 def test_adaptive_batch_on_the_gspmd_path_is_refused_as_the_reference():

@@ -87,6 +87,12 @@ def inputs(arch: str) -> tuple:
 
 
 def run(group: str, out: dict) -> None:
+    run_jobs(FILES[group], out)
+
+
+def run_jobs(jobs: tuple, out: dict) -> None:
+    """:func:`run`'s steps for ``jobs`` (``(arch, mesh, cases)`` as a
+    group of :data:`FILES` holds them)."""
     import jax
     import jax.numpy as jnp
     from repro import checkpoint
@@ -102,7 +108,7 @@ def run(group: str, out: dict) -> None:
         return jax.tree_util.tree_map(
             lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), tree)
 
-    for arch, (d, mm), cases in FILES[group]:
+    for arch, (d, mm), cases in jobs:
         model = get_model(config(arch))
         params_np, batch_np = inputs(arch)
         for i, leaf in enumerate(jax.tree_util.tree_leaves(params_np)):
