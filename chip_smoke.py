@@ -434,6 +434,42 @@ script exits non-zero:
    probe of olmoe's smoke config at (2, 2) against M = 1
    (``FT_PROBE_BOUND``), no kernel launched inside it.
 
+21. the decode kernel's two modes for a KV cache split over the head
+   dim (scores: the append and the f32 partial scores; apply: mask,
+   scale, softmax and probs . V over the block) against their plain
+   versions at whisper-large-v3's rank shape at M = 8 (4 slots, 20 / 20
+   heads, Dh 64 in blocks of 8, T 448) and qwen2.5-3b's at M = 4 in case
+   B (16 heads gathered over 2 KV heads, Dh 128 in blocks of 32, T
+   1021), bf16 and f32, global and a ring past two laps: each block's
+   scores within f32 rounding of plain, nothing written past a row's
+   last needed key, each append in its block's slice only; the blocks'
+   scores summed in rank order within f32 rounding of the one-block
+   launch; apply within ``decode_parity_tolerance`` of plain and the
+   gathered output of ``attention_decode_ref`` on the whole cache;
+   rank 0's launches timed on the card, eagerly and in their plain
+   versions beside their byte bounds, SDPA over the whole cache;
+21a. whisper-large-v3 at full width cut to ``DH_LAYERS`` (2) of 32 + 32
+   layers (printed as ``reduced:``), bf16, on a (1, 8) mesh of eight
+   gloo ranks sharing the card (its 20 heads whole on every rank, d_ff
+   640 of 5120): ``generate(mesh=)`` of 4 prompts of 8 tokens, 8 new,
+   on random frames [4, 1500, 1280], after M = 1 here on the same
+   weights, twice: a cache of 16 (8 divides it: the self caches over T,
+   the partial mode, one launch a decoder layer a rank a call) and of
+   17 (over Dh: one scores and one apply launch); the cross K/V over
+   Dh in both. A rank's cache bytes 1/8 of M = 1's, the ranks' tokens
+   equal, equal to M = 1's up to bf16 near-ties, the |logit gap| along
+   the calls within ``TP_LOGIT_BOUND`` / ``TP_LOGIT_MEAN_BOUND``, the
+   decode step split (compute, score sums, gathers, wo / MLP sums);
+21b. qwen2.5-3b at full width cut to 2 layers on (1, 4) (case B: 4 of
+   16 heads a rank, both KV heads): the engine on a pool of 1021 keys a
+   slot (over Dh), 4 requests of 4-8 new tokens: one scores and one
+   apply launch a layer
+   a rank a step, tokens and teacher-forced gaps as 17a's;
+21c. one fused TVLARS f32 step of whisper-large-v3 cut to 2 + 2 layers
+   at (1, 8) through ``launch.train.run``, after M = 1: as 19a (1 + 1
+   segmented launches a rank, the gaps within ``TT_BOUNDS``, the state
+   bytes a rank the rules').
+
 Every phase prints its seconds (``phase {label}: {s} s``).
 
 The last lines are the script's total time, the ``nvidia-smi`` line,
@@ -4974,7 +5010,7 @@ def decode_split(model, params, mesh, ops, L, slots: int = TP_SLOTS,
             "gathers": coll["model_gather"]["calls"] // TP_SPLIT_STEPS,
             "ms": per, "calls": {k: v["calls"] // TP_SPLIT_STEPS
                                  for k, v in coll.items()},
-            "launches": ops.launches["attention_decode"] / TP_SPLIT_STEPS}
+            "launches": ops.decode_launches() / TP_SPLIT_STEPS}
 
 
 def bits(t: torch.Tensor) -> np.ndarray:
@@ -5351,9 +5387,10 @@ FAM_TP_GEN = (2, 16, 8)
 FAM_TP_SLOTS, FAM_TP_MAX_LEN = 4, 64
 # arch -> num_layers: each cut to about half its depth, then to about a
 # quarter (two vlm groups) when phases 18-18c came in, then to about an
-# eighth (one vlm group, one zamba2 group) when phases 20-20c did (the
-# script's time budget; whisper's 32 encoder layers stay)
-FAM_TP_LAYERS = {"llama-3.2-vision-11b": 5, "whisper-large-v3": 4,
+# eighth (one vlm group, one zamba2 group) when phases 20-20c did, and
+# whisper to 2 when phases 21-21c did (the script's time budget;
+# whisper's 32 encoder layers stay)
+FAM_TP_LAYERS = {"llama-3.2-vision-11b": 5, "whisper-large-v3": 2,
                  "mamba2-1.3b": 6, "zamba2-1.2b": 6}
 # 17d: every family's smoke config at (1, 4) and (2, 2), f32, card
 # against the CPU
@@ -7423,6 +7460,575 @@ def phase_experts(tad, ops, serving, train_launch, get_config,
     torch.cuda.empty_cache()
     return out
 
+# ------------------------------------- 21-21c: the head-dim split (Dh)
+DH_WHISPER = "whisper-large-v3"
+DH_QWEN = "qwen2.5-3b"
+# 21: (label, slots, heads, KV heads, Dh, M, T): whisper's rank shape at
+# M = 8 (Dh 64 in blocks of 8; its decoder's 448 positions), qwen2.5-3b's
+# at M = 4 in case B (16 heads gathered over 2 KV heads, Dh 128 in
+# blocks of 32, 21b's pool of 1021 keys)
+DH_KERNEL = [("whisper-large-v3 M=8", 4, 20, 20, 64, 8, 448),
+             ("qwen2.5-3b M=4", 4, 16, 2, 128, 4, 1021)]
+DH_MODES = ("attention_decode_scores", "attention_decode_apply")
+
+
+def dh_positions(kind: str, t: int) -> list:
+    """21's positions: global rows early, mid and at T - 1; ring rows in
+    the first lap and two laps on."""
+    if kind == "global":
+        return [0, 37, t // 2, t - 1]
+    return [5, t + 7, 2 * t + 11, 3 * t - 1]
+
+
+def sum_bound(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """[B, H, T]: twice the f32 rounding bound of a dot product of Dh
+    terms summed in any order (Dh * 2^-24 * Σ|q_i k_i|): two summation
+    orders of the same scores differ by at most this."""
+    b, _, h, dh = q.shape
+    hkv = k.shape[2]
+    qa = q.float().abs().reshape(b, hkv, h // hkv, dh)
+    mag = torch.einsum("bkgd,btkd->bkgt", qa, k.float().abs())
+    return 2 * dh * 2.0 ** -24 * mag.reshape(b, h, -1)
+
+
+def dh_row(tad, ops, gen, label, slots, heads, kv_heads, dh, m, t, kind,
+           dtype) -> dict:
+    """21: the scores and apply modes against their plain versions on
+    the ``m`` blocks of the head dim of one decode step (every rank's
+    block in turn, here): each block's scores within f32 rounding of
+    plain, its appended block bitwise plain's and only its slot's row
+    changed, nothing written past each row's last needed key; the
+    blocks' scores summed in rank order within f32 rounding of the
+    one-block launch; each block's apply within the parity bound of
+    plain, and the gathered outputs within it of
+    ``attention_decode_ref`` on the whole cache. Then rank 0's launches
+    timed on the card, eagerly and in their plain versions beside their
+    bounds, and SDPA over the whole cache. Returns the shape's row."""
+    dev = torch.device("cuda")
+    tol = tad.decode_parity_tolerance(dtype)
+    dl = dh // m
+    window = None if kind == "global" else t
+    dname = str(dtype).split(".")[-1]
+    positions = dh_positions(kind, t)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(dtype)
+
+    q = randn(slots, 1, heads, dh)
+    nk, nv = randn(slots, 1, kv_heads, dh), randn(slots, 1, kv_heads, dh)
+    kc, vc = randn(slots, t, kv_heads, dh), randn(slots, t, kv_heads, dh)
+    whole_k, whole_v = kc.clone(), vc.clone()
+    whole = tad.attention_decode_ref(q, nk, nv, whole_k, whole_v, pos,
+                                     window=window)
+    one = ops.attention_decode_scores(q, nk, nv, kc.clone(), vc.clone(), pos,
+                                      window=window)
+    last = tad.last_keys(pos.long(), t, window)
+    past = torch.arange(t, device=dev)[None, :] > last[:, None]   # [B,T]
+    write = tad._slots(pos.long(), t, window)[1]
+    rows = torch.arange(slots, device=dev)
+    blocks, summed, s_err = [], None, 0.0
+    for r in range(m):
+        blk = slice(r * dl, (r + 1) * dl)
+        qb, nkb, nvb = (x[..., blk].contiguous() for x in (q, nk, nv))
+        kb, vb = kc[..., blk].contiguous(), vc[..., blk].contiguous()
+        kp, vp = kb.clone(), vb.clone()
+        before = kb.clone()
+        s_k = ops.attention_decode_scores(qb, nkb, nvb, kb, vb, pos,
+                                          window=window)
+        s_p = tad.attention_decode_scores_ref(qb, nkb, nvb, kp, vp, pos,
+                                              window=window)
+        torch.cuda.synchronize()
+        where = f"21 {label} {kind} {dname} block {r}"
+        bound = sum_bound(qb, kp)
+        gap = (s_k - s_p).abs()
+        if not bool((gap <= bound).all()):
+            raise AssertionError(f"{where}: scores off plain by "
+                                 f"{gap.max().item():.3e} (bound "
+                                 f"{bound.max().item():.3e})")
+        s_err = max(s_err, gap.max().item())
+        if s_k.masked_select(past[:, None, :]).abs().max().item() \
+                if past.any() else 0.0:
+            raise AssertionError(f"{where}: a score past a row's last "
+                                 f"needed key is not 0")
+        if not (torch.equal(kb, kp) and torch.equal(vb, vp)):
+            raise AssertionError(f"{where}: appended blocks differ from "
+                                 f"plain")
+        changed = (kb != before).any(-1).any(-1)                  # [B,T]
+        want = torch.zeros_like(changed)
+        want[rows, write] = True
+        if bool((changed & ~want).any()) \
+                or not torch.equal(kb[rows, write], nkb[:, 0]):
+            raise AssertionError(f"{where}: the append touched another "
+                                 f"row than the slot's")
+        summed = s_k if summed is None else summed + s_k
+        blocks.append((qb, nkb, nvb, kb, vb))
+    gap = (summed - one).abs()
+    bound = sum_bound(q, whole_k)
+    if not bool((gap <= bound).all()):
+        raise AssertionError(f"21 {label} {kind} {dname}: the {m} blocks' "
+                             f"scores summed in rank order off the "
+                             f"one-block launch by {gap.max().item():.3e} "
+                             f"(f32 rounding bound {bound.max().item():.3e})")
+    sum_err = gap.max().item()
+    outs, a_err = [], 0.0
+    for r, (_, _, _, kb, vb) in enumerate(blocks):
+        o_k = ops.attention_decode_apply(summed, vb, pos, head_dim=dh,
+                                         dtype=dtype, window=window)
+        o_p = tad.attention_decode_apply_ref(summed, vb, pos, head_dim=dh,
+                                             dtype=dtype, window=window)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(o_k.float(), o_p.float(), **tol)
+        a_err = max(a_err, (o_k.float() - o_p.float()).abs().max().item())
+        outs.append(o_k)
+    gathered = torch.cat(outs, dim=-1)
+    torch.testing.assert_close(gathered.float(), whole.float(), **tol)
+    err = (gathered.float() - whole.float()).abs().max().item()
+
+    # rank 0's launches timed, at these positions
+    qb, nkb, nvb, kb, vb = blocks[0]
+    csize, qsize = kc.element_size(), q.element_size()
+    needed = int((last + 1).sum().item())             # (row, key) pairs
+    ok = tad._valid(pos.long(), 0, t, t, window)
+    valid = int(ok.sum().item())
+    s_bytes = (needed * kv_heads * dl * csize + qb.numel() * qsize
+               + 4 * nkb.numel() * csize + 4 * slots * heads * t
+               + 4 * slots)
+    s_ops = 2 * needed * heads * dl
+    a_bytes = (4 * needed * heads + valid * kv_heads * dl * csize
+               + slots * heads * dl * qsize + 4 * slots)
+    a_ops = 2 * valid * heads * dl + 4 * needed * heads
+
+    def bound_of(nbytes, nops):
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = nops / F32_FLOP_PER_S * 1e3
+        return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
+
+    def scores():
+        return ops.attention_decode_scores(qb, nkb, nvb, kb, vb, pos,
+                                           window=window)
+
+    def apply():
+        return ops.attention_decode_apply(summed, vb, pos, head_dim=dh,
+                                          dtype=dtype, window=window)
+
+    mask = ok[:, None, None, :]
+    qs, ks, vs = (x.transpose(1, 2) for x in (q, whole_k, whole_v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True)
+
+    timed = {}
+    for name, fn, plain, (nbytes, nops) in (
+            ("attention_decode_scores", scores,
+             lambda: tad.attention_decode_scores_ref(
+                 qb, nkb, nvb, kb, vb, pos, window=window),
+             (s_bytes, s_ops)),
+            ("attention_decode_apply", apply,
+             lambda: tad.attention_decode_apply_ref(
+                 summed, vb, pos, head_dim=dh, dtype=dtype, window=window),
+             (a_bytes, a_ops))):
+        b_ms, by = bound_of(nbytes, nops)
+        timed[name] = {"ms": device_ms(fn), "eager_ms": time_ms(fn, 50),
+                       "plain_ms": time_ms(plain, 10), "bound_ms": b_ms,
+                       "bound_by": by, "bytes": nbytes, "ops": nops}
+    library = device_ms(sdpa)
+    row = {"shape": f"{label} {kind} T={t} {dname} B={slots} H={heads} "
+                    f"Hkv={kv_heads} Dh={dh} in {m} blocks of {dl}",
+           "kind": kind, "dtype": dname,
+           "modes": timed, "library_ms": library,
+           "max_abs_err": max(err, a_err), "scores_err": s_err,
+           "apply_err": max(err, a_err), "sum_err": sum_err}
+    print(f"21 {row['shape']} positions {positions}: each block's scores "
+          f"within f32 rounding of plain (max|err| {s_err:.3e}), 0 past "
+          f"the last needed key, its append bitwise plain's and only in "
+          f"the slot's row; the {m} blocks summed in rank order within "
+          f"{sum_err:.3e} of the one-block launch (f32 rounding bound); "
+          f"apply within rtol=atol={tol['rtol']:.2e} of plain (max|err| "
+          f"{a_err:.3e}), the gathered output within it of the whole "
+          f"cache's decode (max|err| {err:.3e}). Card ms (CUDA graph) / "
+          f"eager / plain eager / bound: " + "; ".join(
+              f"{n.split('_')[-1]} {v['ms']:.4f} / {v['eager_ms']:.4f} / "
+              f"{v['plain_ms']:.4f} / {v['bound_ms']:.5f} ({v['bound_by']}, "
+              f"{v['bytes']} B; {v['bound_ms'] / v['ms']:.1%})"
+              for n, v in timed.items())
+          + f"; SDPA over the whole cache {library:.4f}", flush=True)
+    return row
+
+
+def phase_dh_kernels(tad, ops) -> dict:
+    """21: both modes at both rank shapes, bf16 and f32, global and a
+    ring past two laps."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rows = []
+    for label, slots, heads, kv, dh, m, t in DH_KERNEL:
+        for dtype in (torch.bfloat16, torch.float32):
+            for kind in ("global", "ring"):
+                rows.append(dh_row(tad, ops, gen, label, slots, heads, kv,
+                                   dh, m, t, kind, dtype))
+    return {"rows": rows}
+
+
+# 21a: whisper-large-v3 at full width on a (1, 8) mesh of eight gloo
+# ranks: its 20 heads stay whole (8 divides neither them nor its 1500
+# cross frames), d_ff 640 of 5120 a rank
+DH_MESH = (1, 8)
+# of 32 decoder and 32 encoder layers: the script's time budget (8 in
+# the phase's first run on an NVIDIA H100 80GB HBM3 at 700 W: 73.9 s, a
+# decode call 0.85-0.93 s, 24-32 collectives at 25-35 ms each among
+# eight gloo ranks)
+DH_LAYERS = 2
+DH_GEN = (4, 8, 8)            # prompts, prompt length, new tokens
+# generate's cache length: run 1's 16 divides 8 (the self caches over T,
+# the decode kernel's partial mode), run 2's 17 does not (over Dh, its
+# scores and apply modes); the cross K/V over Dh in both
+DH_LENGTHS = {"t": 16, "dh": 17}
+DH_DRAW_SEED = 21
+# 21b: qwen2.5-3b at full width on (1, 4), case B: 4 of 16 heads a rank
+# (gathered for the Dh split), its 2 KV heads whole, the engine's pool
+# of 1021 keys a slot (pages of 1: 4 divides neither) over Dh
+DH_ENGINE_MESH = (1, 4)
+DH_ENGINE_LAYERS = 2          # of 36 (as 17a: the script's time budget)
+DH_POOL = 1021
+DH_SLOTS = 4
+DH_NEW = (4, 8)               # new tokens a request (17a's 8-16 halved)
+# 21c: one fused TVLARS f32 step of whisper-large-v3 at (1, 8), 2 + 2
+# layers (19a's cut)
+DH_TRAIN_CUT = FT_CUTS["whisper-large-v3"]
+
+
+class DecodeWatch:
+    """``model`` with a ``decode_step`` that keeps each call's last
+    position's logits (on the card) and, at its first call (the encoder
+    and cross K/V done before it), the cache's bytes, and restarts the
+    clock, the launch counts and ``mesh``'s collective counts there."""
+
+    def __init__(self, model, ops, mesh=None):
+        self.calls, self.logits, self.cache_bytes, self.t0 = 0, [], 0, 0.0
+        self.cache_shapes = {}
+        real = model.decode_step
+
+        def step(params, cache, tokens, pos):
+            if self.calls == 0:
+                torch.cuda.synchronize()
+                for c in cache:
+                    for k, v in c.items():
+                        self.cache_bytes += v.numel() * v.element_size()
+                        self.cache_shapes[k] = tuple(v.shape)
+                if mesh is not None:
+                    mesh.collectives.clear()
+                ops.reset_launches()
+                self.t0 = time.perf_counter()
+            self.calls += 1
+            logits, cache = real(params, cache, tokens, pos)
+            self.logits.append(logits[:, -1].float())
+            return logits, cache
+
+        self.model = model._replace(decode_step=step)
+
+
+def dh_generate(serving, ops, model, params, prompts, frames, max_len,
+                mesh=None, keep_logits: bool = True) -> dict:
+    """21a's ``generate`` (token-by-token prefill, then the new tokens)
+    on ``params`` (``mesh``'s blocks): tokens, per-call logits (f32 on
+    the host), the decode step's host time, launches by mode, the
+    cache's bytes and leaf shapes and the row's collectives over the
+    decode steps."""
+    watch = DecodeWatch(model, ops, mesh)
+    tokens = serving.generate(
+        watch.model, params, prompts, num_tokens=DH_GEN[2], max_len=max_len,
+        extra_embeds=frames, device="cuda" if mesh is None else mesh.device,
+        mesh=mesh).cpu().tolist()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - watch.t0) * 1e3 / watch.calls
+    return {"tokens": tokens, "calls": watch.calls, "step_ms": step_ms,
+            "logits": torch.stack(watch.logits).cpu().numpy()
+            if keep_logits else None,
+            "launches": {k: ops.launches[k] for k in ops.DECODE_KERNELS},
+            "cache_bytes": watch.cache_bytes,
+            "cache": watch.cache_shapes,
+            "collectives": {} if mesh is None else {
+                k: dict(v) for k, v in mesh.collectives.items()}}
+
+
+def dh_whisper_rank(prompts) -> dict:
+    """21a on one rank of the (1, 8) world: this rank's blocks of
+    whisper-large-v3's seed-0 draw cut to ``DH_LAYERS``, ``generate``
+    at each length of ``DH_LENGTHS`` (rank 0 keeps the logits)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch import serving
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import get_model
+    mesh = mesh_lib.make_host_mesh(*DH_MESH)
+    cfg = get_config(DH_WHISPER).replace(num_layers=DH_LAYERS,
+                                         encoder_layers=DH_LAYERS)
+    model = get_model(cfg)
+    params = model.init(0, device=mesh.device, mesh=mesh)
+    layer = params["decoder"][0]
+    out = {"rank": mesh.rank, "backend": mesh.backend,
+           "shapes": {"wq": tuple(layer["self_attn"]["wq"].shape),
+                      "wi": tuple(layer["mlp"]["wi"].shape)}}
+    frames = extra_draw(cfg, DH_GEN[0], DH_DRAW_SEED, device=mesh.device)
+    for run, length in DH_LENGTHS.items():
+        r = dh_generate(serving, ops, model, params, prompts, frames, length,
+                        mesh, keep_logits=mesh.rank == 0)
+        r["equal"] = mesh_lib.all_equal(mesh, r["tokens"])
+        out[run] = r
+    out["peak"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def dh_engine_rank(requests, tokens1) -> dict:
+    """21b on one rank of the (1, 4) world: this rank's blocks of
+    qwen2.5-3b cut to ``DH_ENGINE_LAYERS``, the engine on a pool of
+    ``DH_POOL`` keys (over Dh), the requests teacher-forced along M =
+    1's tokens, and the decode step's split."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch import serving
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+    mesh = mesh_lib.make_host_mesh(*DH_ENGINE_MESH)
+    model = get_model(get_config(DH_QWEN).replace(
+        num_layers=DH_ENGINE_LAYERS))
+    params = model.init(0, device=mesh.device, mesh=mesh)
+    eng = serving.Engine(model, params, serving.ServeConfig(
+        slots=DH_SLOTS, max_len=DH_POOL, page_size=1), device=mesh.device,
+        mesh=mesh)
+    mesh.collectives.clear()
+    results, stats, elapsed, _ = serve(eng, ops, requests)
+    modes = {k: ops.launches[k] for k in ops.DECODE_KERNELS}
+    pool = tuple(eng._kv.cache[0]["k"].shape)
+    tokens2 = [list(r.tokens) for r in results]
+    del eng, results
+    tf = teacher_forced(L, model, params, requests[0], tokens1, mesh,
+                        DH_POOL)
+    split = decode_split(model, params, mesh, ops, L, DH_SLOTS, DH_POOL)
+    return {"rank": mesh.rank, "pool": pool, "tokens": tokens2,
+            "stats": stats, "elapsed": elapsed, "modes": modes,
+            "split": split, "peak": torch.cuda.max_memory_allocated(),
+            "equal": mesh_lib.all_equal(mesh, tokens2),
+            "tf": [bits(t) for t in tf] if mesh.rank == 0 else None}
+
+
+def dh_gaps(label, run1, run8, prompt_len: int, tol) -> tuple:
+    """21a's logits of the ranks' run against M = 1's at every call up
+    to each row's first different token (|gap| max and mean), and that
+    difference a bf16 near-tie in both logit sets: ((max, mean), ties)."""
+    l1, l8 = torch.from_numpy(run1["logits"]), torch.from_numpy(
+        run8["logits"])
+    diffs, ties = [], []
+    for i, (a, b) in enumerate(zip(run1["tokens"], run8["tokens"])):
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        last = l1.shape[0] if j is None else prompt_len + j
+        diffs.append((l8[:last, i] - l1[:last, i]).abs())
+        if j is not None:
+            call = prompt_len - 1 + j
+            g1, lim1 = logit_gaps(l1[call, i], torch.tensor(b[j]), tol)
+            g8, lim8 = logit_gaps(l8[call, i], torch.tensor(a[j]), tol)
+            if g1 > lim1 or g8 > lim8:
+                raise AssertionError(f"{label} row {i}: token {j} differs "
+                                     f"from M=1 ({a[j]} vs {b[j]}) beyond a "
+                                     f"bf16 tie: {g1.item()} / {g8.item()}")
+            ties.append((i, j, round(g1.item(), 4), round(g8.item(), 4)))
+    d = torch.cat([x.flatten() for x in diffs])
+    return (d.max().item(), d.mean().item()), ties
+
+
+def dh_split_line(r: dict) -> str:
+    """A decode step's host time split from the row's collectives."""
+    per = {k: v["seconds"] * 1e3 / r["calls"]
+           for k, v in r["collectives"].items()}
+    sums = per.get("model_sum", 0.0)
+    scores = per.get("score_sum", 0.0)
+    gathers = sum(v for k, v in per.items() if k.endswith("gather"))
+    compute = r["step_ms"] - sums - scores - gathers
+    calls = {k: v["calls"] // r["calls"] for k, v in
+             r["collectives"].items()}
+    return (f"{r['step_ms']:.3f} ms = compute {compute:.3f} + score sums "
+            f"{scores:.3f} + gathers {gathers:.3f} + wo/MLP sums "
+            f"{sums:.3f} (calls a step {calls})")
+
+
+def phase_dh_split(tad, ops, serving, train_launch, get_config,
+                   get_model) -> dict:
+    """21-21c: the head-dim split (see the module docstring)."""
+    out: dict = {"seconds": {}}
+    t0 = time.perf_counter()
+    out["21"] = phase_dh_kernels(tad, ops)
+    out["seconds"]["21"] = time.perf_counter() - t0
+    print(f"21: {out['seconds']['21']:.1f} s", flush=True)
+
+    # 21a: whisper-large-v3 at (1, 8), after M = 1 here
+    t0 = time.perf_counter()
+    full = get_config(DH_WHISPER)
+    cfg = full.replace(num_layers=DH_LAYERS, encoder_layers=DH_LAYERS)
+    m = DH_MESH[1]
+    print(f"21a {DH_WHISPER}: reduced: num_layers {full.num_layers} -> "
+          f"{DH_LAYERS}, encoder_layers {full.encoder_layers} -> "
+          f"{DH_LAYERS} (the script's time budget; width as published: "
+          f"{cfg.d_model} wide, {cfg.num_heads} heads of "
+          f"{cfg.head_dim_}, {cfg.encoder_seq} frames)", flush=True)
+    model = get_model(cfg)
+    b, s, new = DH_GEN
+    prompts = np.random.RandomState(21).randint(1, cfg.vocab_size,
+                                                size=(b, s))
+    params = model.init(0, device="cuda")
+    frames = extra_draw(cfg, b, DH_DRAW_SEED)
+    single = {run: dh_generate(serving, ops, model, params, prompts, frames,
+                               length)
+              for run, length in DH_LENGTHS.items()}
+    del params, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = on_ranks(dh_whisper_rank, m, args=(prompts,), timeout=900)
+    tol = tad.decode_parity_tolerance(torch.bfloat16)
+    from repro_torch.models import layers as L
+    res = {}
+    for run, length in DH_LENGTHS.items():
+        one, r0 = single[run], ranks[0][run]
+        axis = L.cache_axis(cfg, length, m)
+        per = cfg.num_layers * r0["calls"]
+        want = {"attention_decode": per if axis == "t" else 0,
+                "attention_decode_scores": per if axis == "dh" else 0,
+                "attention_decode_apply": per if axis == "dh" else 0}
+        for r in ranks:
+            x = r[run]
+            if not x["equal"] or x["tokens"] != r0["tokens"]:
+                raise AssertionError(f"21a {run}: the ranks differ")
+            if x["launches"] != want:
+                raise AssertionError(f"21a {run} rank {r['rank']}: "
+                                     f"launches {x['launches']}, expected "
+                                     f"{want}")
+            if x["cache_bytes"] * m != one["cache_bytes"]:
+                raise AssertionError(f"21a {run} rank {r['rank']}: cache "
+                                     f"{x['cache_bytes']} B, M=1 "
+                                     f"{one['cache_bytes']} B")
+        if one["launches"]["attention_decode"] != per:
+            raise AssertionError(f"21a {run} M=1: {one['launches']}")
+        gaps, ties = dh_gaps(f"21a {run}", one, r0, s, tol)
+        if not (gaps[0] <= TP_LOGIT_BOUND
+                and gaps[1] <= TP_LOGIT_MEAN_BOUND):
+            raise AssertionError(f"21a {run}: |logit gap| (max, mean) "
+                                 f"{gaps}, bounds {TP_LOGIT_BOUND}, "
+                                 f"{TP_LOGIT_MEAN_BOUND}")
+        equal = sum(a == c for a, c in zip(one["tokens"], r0["tokens"]))
+        print(f"21a {DH_WHISPER} run {run} (cache length {length}: self "
+              f"caches over {axis}, cross K/V over "
+              f"{L.cache_axis(cfg, cfg.encoder_seq, m)}) on a {DH_MESH} mesh "
+              f"of {m} {ranks[0]['backend']} ranks sharing the card: blocks "
+              f"{ranks[0]['shapes']}; cache a rank {r0['cache_bytes']} B = "
+              f"M=1's {one['cache_bytes']} B / {m} (leaves {r0['cache']}); "
+              f"launches a rank {r0['launches']} over {r0['calls']} calls "
+              f"({cfg.num_layers} layers); tokens equal on {m} ranks, "
+              f"{equal} of {b} rows equal to M=1 (first differences: row, "
+              f"token, gaps in M=1's / M=8's logits {ties}); |logit gap| "
+              f"to M=1 (max, mean) ({gaps[0]:.4f}, {gaps[1]:.5f}) (bounds "
+              f"{TP_LOGIT_BOUND}, {TP_LOGIT_MEAN_BOUND}); decode step "
+              f"(rank 0, host clock) {dh_split_line(r0)}; M=1 "
+              f"{one['step_ms']:.3f} ms", flush=True)
+        res[run] = {"launches": r0["launches"], "gaps": gaps,
+                    "step_ms": r0["step_ms"], "ties": ties,
+                    "collectives": r0["collectives"], "calls": r0["calls"],
+                    "one_ms": one["step_ms"]}
+    out["21a"] = res
+    out["21a"]["peak_gib"] = [r["peak"] / GIB for r in ranks]
+    out["seconds"]["21a"] = time.perf_counter() - t0
+    print(f"21a: {out['seconds']['21a']:.1f} s; peak a rank "
+          f"{[round(x, 2) for x in out['21a']['peak_gib']]} GiB; "
+          f"{smi_line()}", flush=True)
+
+    # 21b: qwen2.5-3b, case B, through the engine at (1, 4)
+    t0 = time.perf_counter()
+    full = get_config(DH_QWEN)
+    cfg = full.replace(num_layers=DH_ENGINE_LAYERS)
+    m = DH_ENGINE_MESH[1]
+    print(f"21b {DH_QWEN}: reduced: num_layers {full.num_layers} -> "
+          f"{DH_ENGINE_LAYERS} (the script's time budget; width as "
+          f"published)", flush=True)
+    model = get_model(cfg)
+    requests = requests_of(cfg.vocab_size, 21, 4, (64, 256), DH_NEW)
+    params = model.init(0, device="cuda")
+    eng = serving.Engine(model, params, serving.ServeConfig(
+        slots=DH_SLOTS, max_len=DH_POOL, page_size=1), device="cuda")
+    results, stats1, elapsed1, _ = serve(eng, ops, requests)
+    pool1 = tuple(eng._kv.cache[0]["k"].shape)
+    tokens1 = [list(r.tokens) for r in results]
+    del eng, results
+    tf1 = teacher_forced(L, model, params, requests[0], tokens1,
+                         max_len=DH_POOL)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = on_ranks(dh_engine_rank, m, args=(requests, tokens1),
+                     timeout=600)
+    r0 = ranks[0]
+    for r in ranks:
+        steps = r["stats"]["decode_steps"]
+        per = cfg.num_layers * steps
+        if not r["equal"] or r["tokens"] != r0["tokens"]:
+            raise AssertionError("21b: the ranks served different tokens")
+        if r["modes"] != {"attention_decode": 0,
+                          "attention_decode_scores": per,
+                          "attention_decode_apply": per} \
+                or r["split"]["launches"] != 2 * cfg.num_layers:
+            raise AssertionError(f"21b rank {r['rank']}: launches "
+                                 f"{r['modes']} over {steps} steps, split "
+                                 f"{r['split']['launches']} a step")
+        if r["pool"] != pool1[:3] + (pool1[3] // m,):
+            raise AssertionError(f"21b: pool {r['pool']} (M=1 {pool1})")
+    tf2 = [unbits(a) for a in r0["tf"]]
+    gaps = []
+    for a, c in zip(tf2, tf1):
+        d = (a.float() - c.float()).abs()
+        gaps.append((d.max().item(), d.mean().item()))
+    worst = (max(g[0] for g in gaps), max(g[1] for g in gaps))
+    if not (worst[0] <= TF_LOGIT_BOUND and worst[1] <= TF_LOGIT_MEAN_BOUND):
+        raise AssertionError(f"21b: logit gaps to M=1 {gaps}")
+    ties = near_ties("21b", tokens1, r0["tokens"], tf1, tf2, tol)
+    sp = r0["split"]
+    others = ", ".join(f"{k} {v:.3f}" for k, v in sp["ms"].items())
+    print(f"21b {DH_QWEN} on a {DH_ENGINE_MESH} mesh (4 of 16 heads a rank, "
+          f"both KV heads, the pool of {DH_POOL} keys over Dh): KV pool a "
+          f"rank {r0['pool']} (M=1 {pool1}); launches a rank {r0['modes']} "
+          f"over {r0['stats']['decode_steps']} steps; tokens equal on {m} "
+          f"ranks, {sum(a == c for a, c in zip(tokens1, r0['tokens']))} of "
+          f"{len(tokens1)} requests equal to M=1 (first differences "
+          f"{ties}); |logit gap| along M=1's tokens (max, mean) a request "
+          f"{[(round(a, 4), round(c, 5)) for a, c in gaps]} (bounds "
+          f"{TF_LOGIT_BOUND}, {TF_LOGIT_MEAN_BOUND}); "
+          f"{r0['stats']['tokens_generated'] / r0['elapsed']:.2f} tok/s (M=1 "
+          f"{stats1['tokens_generated'] / elapsed1:.2f}); decode step split "
+          f"(rank 0, {DH_SLOTS} slots, host clock) {sp['step_ms']:.3f} ms = "
+          f"compute {sp['compute_ms']:.3f} + collectives by name (ms) "
+          f"{others}", flush=True)
+    out["21b"] = {"modes": r0["modes"], "gaps": gaps, "ties": ties,
+                  "split": sp, "steps": r0["stats"]["decode_steps"]}
+    out["seconds"]["21b"] = time.perf_counter() - t0
+    print(f"21b: {out['seconds']['21b']:.1f} s", flush=True)
+
+    # 21c: whisper-large-v3 trained one fused step at (1, 8)
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dh_")
+    try:
+        out["21c"] = ft_train("21c", DH_WHISPER, DH_TRAIN_CUT, DH_MESH,
+                              train_launch, get_config, tmp,
+                              {"seg_norm_lars": 1, "seg_apply_lars": 1})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"]["21c"] = time.perf_counter() - t0
+    print(f"21c: {out['seconds']['21c']:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7705,6 +8311,15 @@ def main() -> int:
         ep = phase_experts(tad, ops, serving, train_launch, get_config,
                            get_model)
 
+    # 21-21c: the KV cache over the head dim (the decode kernel's scores
+    # and apply modes) and over T beside whole heads; whisper-large-v3
+    # served and trained at (1, 8), qwen2.5-3b's case B at (1, 4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase_clock("21-21c"):
+        dh = phase_dh_split(tad, ops, serving, train_launch, get_config,
+                            get_model)
+
     # the serving path's mix: 40 local and 8 global launches per decode
     # step (bf16 pool); per-launch means weighted by that mix
     rows = kernel["rows"]
@@ -7770,7 +8385,36 @@ def main() -> int:
                        for a, n in per.items()},
                     # per rank, on the rank's heads beside its experts
                     "20": ep["20"]["launches"],
-                    "20a": ep["20a"]["launches"]}}]
+                    "20a": ep["20a"]["launches"],
+                    # per rank: whisper's self caches over T, heads whole
+                    "21a-t": dh["21a"]["t"]["launches"]["attention_decode"]}}]
+    # the head-dim split's two modes: card times at the main path's
+    # shapes (21's bf16 global rows, rank 0's block), SDPA over the whole
+    # cache as the yardstick; launches per rank on 21a's Dh run and 21b
+    main21 = [r for r in dh["21"]["rows"]
+              if r["kind"] == "global" and r["dtype"] == "bfloat16"]
+    for name in DH_MODES:
+        rows21 = [r["modes"][name] for r in main21]
+        mean21 = {k: sum(r[k] for r in rows21) / len(rows21)
+                  for k in ("ms", "plain_ms", "bound_ms")}
+        err = "scores_err" if name.endswith("scores") else "apply_err"
+        by_phase = {"21a-dh": dh["21a"]["dh"]["launches"][name],
+                    "21b": dh["21b"]["modes"][name]}
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/attention_decode.cu",
+            "replaces": "src/repro/kernels/attention_decode.py:63",
+            "launches": sum(by_phase.values()),
+            "max_abs_err": max(r[err] for r in dh["21"]["rows"]),
+            "ms": mean21["ms"], "plain_ms": mean21["plain_ms"],
+            "bound_ms": mean21["bound_ms"],
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                       for r in rows21) else "operations",
+            "library_ms": sum(r["library_ms"] for r in main21) / len(main21),
+            "shapes": [dict(r["modes"][name], shape=r["shape"],
+                            library_ms=r["library_ms"])
+                       for r in dh["21"]["rows"]],
+            "launches_by_phase": by_phase})
     # the segmented kernels: times at the main path's shapes (the
     # training runs' own buffers); no single PyTorch call computes
     # either pass, so library_ms is null
@@ -7803,7 +8447,8 @@ def main() -> int:
                 "18a": tt["launches_2x2"].get(name, 0),
                 **{f"{label}-{arch}": r["launches"].get(name, 0)
                    for (label, arch), r in ft["train"].items()},
-                "20b": ep["20b"]["launches"].get(name, 0)},
+                "20b": ep["20b"]["launches"].get(name, 0),
+                "21c": dh["21c"]["launches"].get(name, 0)},
             "on_a_ranks_block": tt["seg"]["times"][
                 "norm" if "norm" in name else "apply"]})
     # the per-tensor kernels: per-launch means over the 14 segments of a

@@ -38,8 +38,10 @@ Collectives:
   row in place, in f32 (a bf16 partial is widened, summed, rounded
   back); :meth:`Mesh.model_gather` concatenates the row's blocks of a
   column-parallel output in model-rank order (also q and the decode
-  kernel's partials under the KV cache's T fallback, counted as
-  ``q_gather`` and ``partial_gather``);
+  kernel's partials of a KV cache over T, counted as ``q_gather`` and
+  ``partial_gather``, and the outputs of a cache over the head dim,
+  ``dh_gather``, whose partial scores ``model_sum_`` sums as
+  ``score_sum``);
   :meth:`Mesh.data_gather` concatenates a data column's blocks in
   data-index order (the tokens of the serving slots each data row
   holds, :meth:`Mesh.data_block`). Each call is counted and timed on
@@ -111,23 +113,17 @@ AXES = ("data", "model")
 BUCKET_BYTES = 256 << 20
 TIMEOUT_S = 300.0
 BACKENDS = ("gloo", "nccl")
-# what the model axis does not do yet, each with its ROADMAP item:
-# sequence parallelism (10, with the dry run that is its only user),
-# and a KV cache that cache_pspecs would split over Dh (11b-4: the
-# model axis divides neither the KV heads nor the cache's length, e.g.
-# whisper-large-v3's 1500 cross frames and 20 heads at model 8).
-# Serving and training every family on a (data, model) mesh is ported:
-# fsdp over the data axis, tensor parallelism over the model axis (the
-# MoE family's experts over it, expert parallelism), and the Lanczos
-# probe on it.
+# what the model axis does not do yet, with its ROADMAP item: sequence
+# parallelism (10, with the dry run that is its only user). Serving and
+# training every family on a (data, model) mesh is ported: fsdp over
+# the data axis, tensor parallelism over the model axis (the MoE
+# family's experts over it, expert parallelism; KV caches over the KV
+# heads, T or the head dim as cache_pspecs places them), and the
+# Lanczos probe on it.
 SEQUENCE_PARALLEL_PENDING = (
     "sequence parallelism (set_batch_sharding(seq_axis=), the dry "
     "run's sequence-split residuals) is not ported: ROADMAP queue 1, "
     "item 10")
-DH_FALLBACK_PENDING = (
-    "a KV cache that the model axis splits over Dh (it divides neither "
-    "the KV heads nor the cache's length, or the heads stay whole) is "
-    "not ported: ROADMAP queue 1, item 11b-4")
 
 
 class PartitionSpec(tuple):
@@ -365,13 +361,20 @@ class Mesh:
                            f"mesh")
 
     def all_gather_object(self, value: Any) -> list:
-        """``value`` of every rank of the mesh, in rank order (one
-        ``all_gather_object`` over the mesh's group)."""
+        """``value`` of every rank that takes part in the mesh's steps,
+        in rank order (one ``all_gather_object``): the mesh's ranks, over
+        its own group where it is narrower than the world at ``model >
+        1`` (a rank past it takes no part); every rank of the world at
+        ``model = 1``, where a rank past D computes a data shard too."""
         if self.world == 1:
             return [value]
-        got = [None] * (self.data * self.model)
-        dist.all_gather_object(got, value,
-                               group=self._mesh_group("all_gather_object"))
+        if self.model == 1:
+            group, n = None, self.world
+        else:
+            group = self._mesh_group("all_gather_object")
+            n = self.data * self.model
+        got = [None] * n
+        dist.all_gather_object(got, value, group=group)
         return got
 
     def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
@@ -872,9 +875,10 @@ def placement_device(mesh: Optional[Mesh], device) -> torch.device:
 
 def all_equal(mesh: Optional[Mesh], values: Any) -> bool:
     """True when ``values`` (any picklable object) is equal on every rank
-    of the world (one ``all_gather_object``)."""
+    that takes part in ``mesh``'s steps (:meth:`Mesh.all_gather_object`:
+    the mesh's ranks at ``model > 1``, the whole world at ``model =
+    1``). Only those ranks call it."""
     if mesh is None or mesh.world == 1:
         return True
-    got = [None] * mesh.world
-    dist.all_gather_object(got, values)
+    got = mesh.all_gather_object(values)
     return all(g == got[0] for g in got)

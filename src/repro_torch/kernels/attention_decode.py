@@ -30,6 +30,19 @@ rank whose block holds the slot, and the call also returns ``lse = m +
 log(l)`` [B, H] f32 per row and query head, from which the ranks merge
 their outputs (:func:`merge_partials`). A row with no needed key in the
 block gives out 0 and lse -inf.
+
+Two more modes serve a cache split over the head dim (``cache_pspecs``'
+Dh fallback: the model axis divides neither the KV heads nor T): a rank
+holds ``Dl = Dh / M`` of every KV head's dims, so its scores are
+partial sums that the model row must sum before the softmax, which one
+launch cannot do. The scores mode (:func:`attention_decode_scores_ref`,
+:func:`attention_decode_scores_cuda`) appends the rank's block of the
+new K / V and writes the f32 partial scores ``q[blk] · K[blk]`` of
+every key up to the row's last needed key (0 past it); the caller sums
+them over the row; the apply mode (:func:`attention_decode_apply_ref`,
+:func:`attention_decode_apply_cuda`) masks, scales by the WHOLE head
+dim's ``1/sqrt(Dh)``, runs the f32 softmax and returns probs · V over
+the rank's block of the dims.
 """
 from __future__ import annotations
 
@@ -84,6 +97,22 @@ def _block(t: int, t0: int, t_total: Optional[int]) -> int:
     return tg
 
 
+def _valid(pos: torch.Tensor, t0: int, t: int, tg: int,
+           window: Optional[int]) -> torch.Tensor:
+    """[B, T] bool: key ``t0 + k`` of a sequence of ``tg`` is one row
+    ``pos`` [B] (int64) attends to: global layers k <= pos; a ring of
+    ``tg`` the keys whose absolute position lies in (pos - window,
+    pos]."""
+    kpos = t0 + torch.arange(t, device=pos.device)[None, :]   # [1,T]
+    pos_c = pos[:, None]
+    if window is None:
+        return kpos <= pos_c
+    slot_c = (pos % tg)[:, None]
+    wraps = torch.div(pos_c, tg, rounding_mode="floor") * tg
+    abs_pos = kpos + torch.where(kpos <= slot_c, wraps, wraps - tg)
+    return (abs_pos >= 0) & (abs_pos <= pos_c) & (abs_pos > pos_c - window)
+
+
 def attention_decode_ref(q, new_k, new_v, k_cache, v_cache, pos, *,
                          window: Optional[int] = None, t0: int = 0,
                          t_total: Optional[int] = None,
@@ -101,21 +130,13 @@ def attention_decode_ref(q, new_k, new_v, k_cache, v_cache, pos, *,
     tg = _block(t, t0, t_total)
     partial = return_lse or t0 != 0 or tg != t
     pos = pos.to(torch.int64)
-    slot, write = _slots(pos, tg, window)
+    _, write = _slots(pos, tg, window)
     rows = torch.arange(b, device=q.device)
     mine = (write >= t0) & (write < t0 + t)
     local = (write - t0).clamp(0, t - 1)
     k_cache[rows[mine], local[mine]] = new_k[mine, 0].to(k_cache.dtype)
     v_cache[rows[mine], local[mine]] = new_v[mine, 0].to(v_cache.dtype)
-    kpos = t0 + torch.arange(t, device=q.device)[None, :]     # [1,T]
-    pos_c, slot_c = pos[:, None], slot[:, None]
-    if window is not None:
-        wraps = torch.div(pos_c, tg, rounding_mode="floor") * tg
-        abs_pos = kpos + torch.where(kpos <= slot_c, wraps, wraps - tg)
-        ok = (abs_pos >= 0) & (abs_pos <= pos_c) \
-            & (abs_pos > pos_c - window)
-    else:
-        ok = kpos <= pos_c                                     # [B,T]
+    ok = _valid(pos, t0, t, tg, window)                       # [B,T]
     qg = q.float().reshape(b, hkv, h // hkv, dh)
     s = torch.einsum("bkgd,btkd->bkgt", qg, k_cache.float()) \
         / math.sqrt(dh)
@@ -131,6 +152,57 @@ def attention_decode_ref(q, new_k, new_v, k_cache, v_cache, pos, *,
     out = torch.einsum("bkgt,btkd->bkgd", probs, v_cache.float())
     out = out.reshape(b, 1, h, dh).to(q.dtype)
     return (out, lse.reshape(b, h)) if return_lse else out
+
+
+def last_keys(pos: torch.Tensor, t: int, window: Optional[int]
+              ) -> torch.Tensor:
+    """:func:`last_key` of every row of ``pos`` [B] (int64)."""
+    if window is None:
+        return pos.clamp(max=t - 1)
+    return torch.where(pos < t, pos, torch.full_like(pos, t - 1))
+
+
+def attention_decode_scores_ref(q, new_k, new_v, k_cache, v_cache, pos, *,
+                                window: Optional[int] = None
+                                ) -> torch.Tensor:
+    """Plain PyTorch scores mode (a cache split over the head dim). q
+    [B,1,H,Dl] (a block of the rope'd q's dims, every head), new_k /
+    new_v [B,1,Hkv,Dl], caches [B,T,Hkv,Dl] holding the same block of
+    every key's dims (the append lands in place at the ring's slot, as
+    :func:`attention_decode_ref`'s). Returns the unscaled f32 partial
+    scores s [B,H,T] of every key up to the row's last needed key, and
+    0 past it."""
+    b, _, h, dl = q.shape
+    t, hkv = k_cache.shape[1], k_cache.shape[2]
+    pos = pos.to(torch.int64)
+    _, write = _slots(pos, t, window)
+    rows = torch.arange(b, device=q.device)
+    k_cache[rows, write] = new_k[:, 0].to(k_cache.dtype)
+    v_cache[rows, write] = new_v[:, 0].to(v_cache.dtype)
+    qg = q.float().reshape(b, hkv, h // hkv, dl)
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k_cache.float()) \
+        .reshape(b, h, t)
+    kpos = torch.arange(t, device=q.device)
+    keep = kpos[None, :] <= last_keys(pos, t, window)[:, None]    # [B,T]
+    return torch.where(keep[:, None], s, 0.0)
+
+
+def attention_decode_apply_ref(s, v_cache, pos, *, head_dim: int,
+                               dtype: torch.dtype,
+                               window: Optional[int] = None
+                               ) -> torch.Tensor:
+    """Plain PyTorch apply mode: ``s`` [B,H,T] f32, the scores mode's
+    partials summed over the model row; v_cache [B,T,Hkv,Dl] a block of
+    the dims. The mask from ``pos``, the scale ``1/sqrt(head_dim)`` of
+    the WHOLE head dim, an f32 softmax over T and probs · V over the
+    block: out [B,1,H,Dl] in ``dtype``."""
+    b, h, t = s.shape
+    hkv, dl = v_cache.shape[2], v_cache.shape[3]
+    ok = _valid(pos.to(torch.int64), 0, t, t, window)
+    sc = torch.where(ok[:, None], s / math.sqrt(head_dim), NEG_INF)
+    probs = torch.softmax(sc, dim=-1).reshape(b, hkv, h // hkv, t)
+    out = torch.einsum("bkgt,btkd->bkgd", probs, v_cache.float())
+    return out.reshape(b, 1, h, dl).to(dtype)
 
 
 def merge_partials(outs, lses) -> torch.Tensor:
@@ -224,6 +296,20 @@ C_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 \
     + [ctypes.c_void_p]
 
 
+# the head-dim split's two modes: repro_attention_decode_scores takes
+# seven pointers (q, new_k, new_v, the caches, pos, s), ten ints (dtype
+# codes, B, T, H, Hkv, Dl, window, G, the load width in bytes) and the
+# stream; repro_attention_decode_apply four pointers (s, v_cache, pos,
+# out), the same ten ints, the scale and the stream
+SCORES_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 \
+    + [ctypes.c_void_p]
+APPLY_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 \
+    + [ctypes.c_float, ctypes.c_void_p]
+# the modes' load widths: 16 bytes, else one element (the kernel's two
+# instantiations)
+PIECE_BYTES = 16
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (once)."""
@@ -234,6 +320,11 @@ def _lib() -> ctypes.CDLL:
     smem = lib.repro_attention_decode_smem
     smem.argtypes = [ctypes.c_int] * 3
     smem.restype = ctypes.c_longlong
+    for name, types in (("repro_attention_decode_scores", SCORES_ARGTYPES),
+                        ("repro_attention_decode_apply", APPLY_ARGTYPES)):
+        fn = getattr(lib, name)
+        fn.argtypes = types
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -359,3 +450,136 @@ def attention_decode_cuda(q, new_k, new_v, k_cache, v_cache, pos, *,
         raise RuntimeError(f"attention_decode kernel launch failed: CUDA "
                            f"error {rc}")
     return (out, lse) if return_lse else out
+
+
+def check_block_operands(q, new_k, new_v, k_cache, v_cache,
+                         pos) -> int:
+    """Raise ``ValueError`` for operands the scores mode does not take
+    (on any device); return G, the query heads a block handles. A block
+    of the head dim may be as narrow as one element: rows of any width
+    are read 16 bytes at a time where they can be, else an element at a
+    time."""
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"q must be [B,1,H,Dl], got {tuple(q.shape)}")
+    b, _, h, dl = q.shape
+    if k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
+            or k_cache.shape[0] != b or k_cache.shape[3] != dl:
+        raise ValueError(f"caches must both be [B,T,Hkv,Dl] with B={b}, "
+                         f"Dl={dl}; got {tuple(k_cache.shape)} and "
+                         f"{tuple(v_cache.shape)}")
+    t, hkv = k_cache.shape[1], k_cache.shape[2]
+    kv_shape = (b, 1, hkv, dl)
+    if tuple(new_k.shape) != kv_shape or tuple(new_v.shape) != kv_shape:
+        raise ValueError(f"new_k/new_v must be {kv_shape}, got "
+                         f"{tuple(new_k.shape)}, {tuple(new_v.shape)}")
+    if tuple(pos.shape) != (b,):
+        raise ValueError(f"pos must be [{b}], got {tuple(pos.shape)}")
+    if hkv < 1 or h % hkv:
+        raise ValueError(f"H={h} is not a multiple of Hkv={hkv}")
+    cdt = k_cache.dtype
+    if q.dtype not in _DTYPE_CODES or cdt not in _DTYPE_CODES \
+            or v_cache.dtype != cdt:
+        raise ValueError(f"dtypes not supported: q {q.dtype}, caches "
+                         f"{cdt}/{v_cache.dtype} (float32 or bfloat16)")
+    if not 1 <= dl <= MAX_HEAD_DIM or t < 1:
+        raise ValueError(f"a block of {dl} dims of {t} keys: want 1 to "
+                         f"{MAX_HEAD_DIM} dims and at least one key")
+    for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (it is updated "
+                             f"in place)")
+    return next(g for g in HEADS_PER_BLOCK if (h // hkv) % g == 0)
+
+
+def piece_bytes(dl: int, cache_dtype: torch.dtype, *ptrs: int) -> int:
+    """The modes' load width for rows of ``dl`` elements: 16 bytes when
+    that divides a row's bytes and every address in ``ptrs``, else one
+    element's."""
+    if (dl * _ITEMSIZE[cache_dtype]) % PIECE_BYTES == 0 \
+            and all(p % PIECE_BYTES == 0 for p in ptrs):
+        return PIECE_BYTES
+    return _ITEMSIZE[cache_dtype]
+
+
+def _stream_of(dev: torch.device, named: dict) -> int:
+    """PyTorch's current stream on ``dev``, after checking every tensor
+    of ``named`` lies there."""
+    if dev.type != "cuda" or dev.index != torch.cuda.current_device():
+        raise ValueError(f"operands must lie on the current CUDA device, "
+                         f"got {dev}")
+    for name, x in named.items():
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, expected {dev}")
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def attention_decode_scores_cuda(q, new_k, new_v, k_cache, v_cache, pos, *,
+                                 window: Optional[int] = None
+                                 ) -> torch.Tensor:
+    """Launch the scores mode (``csrc/attention_decode.cu``,
+    ``scores_kernel``) on PyTorch's current stream: the same operands
+    and result as :func:`attention_decode_scores_ref`; raises on
+    anything it does not take, before building it."""
+    heads = check_block_operands(q, new_k, new_v, k_cache, v_cache, pos)
+    dev = q.device
+    stream = _stream_of(dev, {"new_k": new_k, "new_v": new_v,
+                              "k_cache": k_cache, "v_cache": v_cache,
+                              "pos": pos})
+    b, _, h, dl = q.shape
+    t, hkv = k_cache.shape[1], k_cache.shape[2]
+    cdt = k_cache.dtype
+    new_k, new_v = (x.to(cdt).contiguous() for x in (new_k, new_v))
+    q = q.contiguous()
+    pos = pos.to(torch.int32).contiguous()
+    s = torch.empty((b, h, t), dtype=torch.float32, device=dev)
+    piece = piece_bytes(dl, cdt, k_cache.data_ptr(), v_cache.data_ptr(),
+                        new_k.data_ptr(), new_v.data_ptr())
+    rc = _lib().repro_attention_decode_scores(
+        q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
+        k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
+        s.data_ptr(), _DTYPE_CODES[q.dtype], _DTYPE_CODES[cdt], b, t, h,
+        hkv, dl, -1 if window is None else int(window), heads, piece,
+        stream)
+    if rc != 0:
+        raise RuntimeError(f"attention_decode scores launch failed: CUDA "
+                           f"error {rc}")
+    return s
+
+
+def attention_decode_apply_cuda(s, v_cache, pos, *, head_dim: int,
+                                dtype: torch.dtype,
+                                window: Optional[int] = None
+                                ) -> torch.Tensor:
+    """Launch the apply mode (``apply_kernel``) on PyTorch's current
+    stream: the same operands and result as
+    :func:`attention_decode_apply_ref`."""
+    if s.dim() != 3 or s.dtype != torch.float32:
+        raise ValueError(f"s must be [B,H,T] float32, got "
+                         f"{tuple(s.shape)} {s.dtype}")
+    b, h, t = s.shape
+    if v_cache.dim() != 4 or tuple(v_cache.shape[:2]) != (b, t) \
+            or h % v_cache.shape[2] or tuple(pos.shape) != (b,):
+        raise ValueError(f"v_cache {tuple(v_cache.shape)} and pos "
+                         f"{tuple(pos.shape)} do not fit s {(b, h, t)}")
+    hkv, dl = v_cache.shape[2], v_cache.shape[3]
+    cdt = v_cache.dtype
+    if dtype not in _DTYPE_CODES or cdt not in _DTYPE_CODES \
+            or not 1 <= dl <= MAX_HEAD_DIM or not v_cache.is_contiguous():
+        raise ValueError(f"apply: out {dtype}, cache {cdt} "
+                         f"{tuple(v_cache.shape)} not supported")
+    heads = next(g for g in HEADS_PER_BLOCK if (h // hkv) % g == 0)
+    dev = s.device
+    stream = _stream_of(dev, {"v_cache": v_cache, "pos": pos})
+    s = s.contiguous()
+    pos = pos.to(torch.int32).contiguous()
+    out = torch.empty((b, 1, h, dl), dtype=dtype, device=dev)
+    piece = piece_bytes(dl, cdt, v_cache.data_ptr())
+    rc = _lib().repro_attention_decode_apply(
+        s.data_ptr(), v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        _DTYPE_CODES[dtype], _DTYPE_CODES[cdt], b, t, h, hkv, dl,
+        -1 if window is None else int(window), heads, piece,
+        1.0 / math.sqrt(head_dim), stream)
+    if rc != 0:
+        raise RuntimeError(f"attention_decode apply launch failed: CUDA "
+                           f"error {rc}")
+    return out

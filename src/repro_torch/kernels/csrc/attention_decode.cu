@@ -66,6 +66,36 @@
 // bytes at about 55% of the memory rate in bf16 and 65% in f32; the
 // kernel runs within about 10% of that, so a faster kernel needs more
 // bytes in flight per SM (TMA bulk copies, deeper rings), not less math.
+//
+// Two more modes serve a cache split over the head dim (cache_pspecs'
+// Dh fallback: the model axis divides neither the KV heads nor T, e.g.
+// whisper-large-v3's 20 heads and 1500 cross frames at model 8). A rank
+// holds Dl = Dh / M of every KV head's dims, so its scores are partial
+// sums the model row must add before the softmax; the caller sums them
+// between the two launches:
+//   scores_kernel: the append of the rank's block of new_k / new_v at
+//     the row's slot (same slot, ring and clamp rules as above; readers
+//     of key `slot` take it from new_k), then s[b, h, k] = q[b, h, blk] .
+//     K[b, k, kv(h), blk] in f32 for every key up to the row's last
+//     needed key, and 0 past it (no K byte past that key is read). One
+//     thread a key, the G query heads of a block in turn, so the writes
+//     of s are coalesced along T.
+//   apply_kernel: from the summed s, the mask from pos, the scale of the
+//     WHOLE head dim (1 / sqrt(Dh), passed in), an f32 softmax over T
+//     (block-wide max and sum in a fixed order) and probs . V over the
+//     block, written in the output dtype. Threads are (16-byte piece of
+//     a V row, key lane); the key lanes' sums are added in lane order.
+// A block of the dims may be as narrow as one element (whisper's 8 at
+// model 8, 4 in the smoke configs): rows are read with 16-byte loads
+// where the row's bytes and the caches' addresses are multiples of 16,
+// else one element at a time (the wrapper's piece_bytes), never by the
+// plain version. Both modes are bound by bytes on this card: the scores mode
+// reads B * T * Hkv * Dl cache elements and writes B * H * T f32 scores
+// (a Dl of 8 in bf16 writes 2 * G times the bytes it reads), the apply
+// mode reads those scores and the V block; each does 2 * G * Dl flops a
+// key and KV head. They are written to be right, not fast: a thread
+// reads its own key row, and a launch of few rows is a handful of
+// blocks, so it is latency-bound (chip_smoke.py phase 21 times both).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -535,6 +565,284 @@ int launch_g(int g, const void* q, const void* new_k, const void* new_v,
   return (int)cudaErrorInvalidValue;
 }
 
+
+// ---------------------------------------------------------------------------
+// The head-dim split: the scores and apply modes.
+
+constexpr int kScoreThreads = 128;   // keys of one scores block
+constexpr int kApplyThreads = 256;
+
+// W bytes of a cache row (16, or one element) as f32.
+template <typename CT, int W>
+__device__ __forceinline__ void load_piece(const CT* p, float* f) {
+  if constexpr (W == 16) {
+    unpack16(p, f);
+  } else {
+    static_assert(W == (int)sizeof(CT), "16 bytes or one element");
+    f[0] = to_f32(*p);
+  }
+}
+
+// The block's max (kMax) or sum of one value a thread, in a fixed order
+// (warp butterflies, then the warps in order), returned to every thread.
+// red holds a float per warp.
+template <bool kMax>
+__device__ __forceinline__ float block_reduce(float v, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float o = __shfl_xor_sync(0xffffffffu, v, off);
+    v = kMax ? fmaxf(v, o) : v + o;
+  }
+  __syncthreads();   // every thread is done reading red's last use
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float r = red[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
+    r = kMax ? fmaxf(r, red[w]) : r + red[w];
+  return r;
+}
+
+// grid: (B * Hkv * Hg, ceil(T / kScoreThreads)); block x as decode_kernel's
+// (the G query heads hg*G .. of KV head kvh of row b), thread = one key.
+// q: [B, H, Dl] (q_dtype); new_k, new_v: [B, Hkv, Dl]; caches [B, T, Hkv,
+// Dl]; s: [B, H, T] f32.
+template <typename CT, int G, int W>
+__global__ void __launch_bounds__(kScoreThreads)
+scores_kernel(const void* __restrict__ q, int q_dtype,
+              const CT* __restrict__ new_k, const CT* __restrict__ new_v,
+              CT* k_cache, CT* v_cache, const int32_t* __restrict__ pos_vec,
+              float* __restrict__ s, int t, int h, int hkv, int dl,
+              int window) {
+  constexpr int kN = W / (int)sizeof(CT);
+  extern __shared__ __align__(16) float qs[];   // [G][Dl] f32
+  const int grp = h / hkv;
+  const int hgroups = grp / G;
+  const int bkg = blockIdx.x;
+  const int hg = bkg % hgroups;
+  const int kvh = bkg / hgroups % hkv;
+  const int b = bkg / hgroups / hkv;
+  const int h0 = kvh * grp + hg * G;
+
+  const int pos = pos_vec[b];
+  const int ring_slot = window > 0 ? py_mod(pos, t) : pos;
+  const int slot = min(max(ring_slot, 0), t - 1);
+  const int last = window > 0 ? (pos < t ? pos : t - 1) : min(pos, t - 1);
+  const size_t row_stride = (size_t)hkv * dl;
+  CT* kcol = k_cache + ((size_t)b * t * hkv + kvh) * dl;
+  CT* vcol = v_cache + ((size_t)b * t * hkv + kvh) * dl;
+  const CT* nk = new_k + ((size_t)b * hkv + kvh) * dl;
+  const CT* nv = new_v + ((size_t)b * hkv + kvh) * dl;
+
+  const int k0 = blockIdx.y * kScoreThreads;
+  // the append, by the head-group-0 block whose keys hold the slot
+  if (hg == 0 && slot >= k0 && slot < k0 + kScoreThreads) {
+    for (int d = threadIdx.x; d < dl; d += kScoreThreads) {
+      kcol[(size_t)slot * row_stride + d] = nk[d];
+      vcol[(size_t)slot * row_stride + d] = nv[d];
+    }
+  }
+  const size_t q0 = ((size_t)b * h + h0) * dl;
+  for (int i = threadIdx.x; i < G * dl; i += kScoreThreads)
+    qs[i] = q_dtype == 1
+                ? __bfloat162float(
+                      static_cast<const __nv_bfloat16*>(q)[q0 + i])
+                : static_cast<const float*>(q)[q0 + i];
+  __syncthreads();
+
+  const int k = k0 + threadIdx.x;
+  if (k >= t) return;
+  float acc[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) acc[g] = 0.f;
+  if (k <= last) {
+    const CT* row = k == slot ? nk : kcol + (size_t)k * row_stride;
+    for (int c = 0; c < dl; c += kN) {
+      float f[kN];
+      load_piece<CT, W>(row + c, f);
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int x = 0; x < kN; ++x) acc[g] += qs[g * dl + c + x] * f[x];
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) s[((size_t)b * h + h0 + g) * t + k] = acc[g];
+}
+
+// grid: B * Hkv * Hg blocks (as scores_kernel's x). s: [B, H, T] f32, the
+// row's summed scores; v_cache: [B, T, Hkv, Dl]; out: [B, H, Dl] in
+// out_dtype.
+template <typename CT, int G, int W>
+__global__ void __launch_bounds__(kApplyThreads)
+apply_kernel(const float* __restrict__ s, const CT* __restrict__ v_cache,
+             const int32_t* __restrict__ pos_vec, void* __restrict__ out,
+             int out_dtype, int t, int h, int hkv, int dl, int window,
+             float scale) {
+  constexpr int kN = W / (int)sizeof(CT);
+  extern __shared__ __align__(16) float part[];   // [key lanes][Dl]
+  __shared__ float red[kApplyThreads / 32];
+  __shared__ float m_s[G], l_s[G];
+  const int grp = h / hkv;
+  const int hgroups = grp / G;
+  const int bkg = blockIdx.x;
+  const int hg = bkg % hgroups;
+  const int kvh = bkg / hgroups % hkv;
+  const int b = bkg / hgroups / hkv;
+  const int h0 = kvh * grp + hg * G;
+
+  const int pos = pos_vec[b];
+  const int ring_slot = window > 0 ? py_mod(pos, t) : pos;
+  const int wraps = pos - ring_slot;
+  const int last = window > 0 ? (pos < t ? pos : t - 1) : min(pos, t - 1);
+  const float* sb = s + ((size_t)b * h + h0) * t;
+
+  // the softmax's max and sum over the valid keys, a head at a time
+  for (int g = 0; g < G; ++g) {
+    float mx = kNegInf;
+    for (int k = threadIdx.x; k <= last; k += kApplyThreads)
+      if (key_valid(k, pos, ring_slot, wraps, t, window))
+        mx = fmaxf(mx, sb[(size_t)g * t + k] * scale);
+    mx = block_reduce<true>(mx, red);
+    float sum = 0.f;
+    for (int k = threadIdx.x; k <= last; k += kApplyThreads)
+      if (key_valid(k, pos, ring_slot, wraps, t, window))
+        sum += expf(sb[(size_t)g * t + k] * scale - mx);
+    sum = block_reduce<false>(sum, red);
+    if (threadIdx.x == 0) {
+      m_s[g] = mx;
+      l_s[g] = sum;
+    }
+  }
+  __syncthreads();
+
+  // probs . V: thread (piece c of a row, key lane j)
+  const int pieces = dl / kN;
+  const int lanes = kApplyThreads / pieces;
+  const int c = threadIdx.x % pieces;
+  const int j = threadIdx.x / pieces;
+  const size_t row_stride = (size_t)hkv * dl;
+  const CT* vcol = v_cache + ((size_t)b * t * hkv + kvh) * dl + c * kN;
+  float acc[G][kN];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int x = 0; x < kN; ++x) acc[g][x] = 0.f;
+  if (j < lanes) {
+    for (int k = j; k <= last; k += lanes) {
+      if (!key_valid(k, pos, ring_slot, wraps, t, window)) continue;
+      float f[kN];
+      load_piece<CT, W>(vcol + (size_t)k * row_stride, f);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float p = expf(sb[(size_t)g * t + k] * scale - m_s[g]);
+#pragma unroll
+        for (int x = 0; x < kN; ++x) acc[g][x] += p * f[x];
+      }
+    }
+  }
+  // the key lanes' sums added in lane order, a head at a time
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    __syncthreads();
+    if (j < lanes) {
+#pragma unroll
+      for (int x = 0; x < kN; ++x)
+        part[(size_t)j * dl + c * kN + x] = acc[g][x];
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < dl; i += kApplyThreads) {
+      float a = 0.f;
+      for (int jj = 0; jj < lanes; ++jj) a += part[(size_t)jj * dl + i];
+      const float v = l_s[g] > 0.f ? a / l_s[g] : 0.f;
+      const size_t o = ((size_t)b * h + h0 + g) * dl + i;
+      if (out_dtype == 1)
+        static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16(v);
+      else
+        static_cast<float*>(out)[o] = v;
+    }
+  }
+}
+
+struct ModeArgs {
+  const void* q;      // scores: q; apply: unused
+  const void* new_k;
+  const void* new_v;
+  void* k_cache;      // scores: both caches; apply: v_cache only
+  void* v_cache;
+  const void* pos;
+  void* s;
+  void* out;
+  int dtype;          // scores: q's dtype code; apply: the output's
+  int b, t, h, hkv, dl, window;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename CT, int G, int W>
+int run_mode(const ModeArgs& a, bool scores) {
+  const unsigned blocks = (unsigned)(a.b * a.hkv * (a.h / a.hkv / G));
+  if (scores) {
+    const dim3 grid(blocks,
+                    (unsigned)((a.t + kScoreThreads - 1) / kScoreThreads));
+    scores_kernel<CT, G, W>
+        <<<grid, kScoreThreads, (size_t)G * a.dl * sizeof(float),
+           a.stream>>>(a.q, a.dtype, static_cast<const CT*>(a.new_k),
+                       static_cast<const CT*>(a.new_v),
+                       static_cast<CT*>(a.k_cache),
+                       static_cast<CT*>(a.v_cache),
+                       static_cast<const int32_t*>(a.pos),
+                       static_cast<float*>(a.s), a.t, a.h, a.hkv, a.dl,
+                       a.window);
+  } else {
+    constexpr int kN = W / (int)sizeof(CT);
+    const int lanes = kApplyThreads / (a.dl / kN);
+    apply_kernel<CT, G, W>
+        <<<blocks, kApplyThreads, (size_t)lanes * a.dl * sizeof(float),
+           a.stream>>>(static_cast<const float*>(a.s),
+                       static_cast<const CT*>(a.v_cache),
+                       static_cast<const int32_t*>(a.pos), a.out, a.dtype,
+                       a.t, a.h, a.hkv, a.dl, a.window, a.scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+// 16-byte loads where a row's bytes and the addresses allow them, else
+// one element at a time (two instantiations a mode, not four: the build
+// time of the whole source is the script's)
+template <typename CT, int G>
+int mode_w(const ModeArgs& a, int w, bool scores) {
+  if (w == 16) return run_mode<CT, G, 16>(a, scores);
+  if (w == (int)sizeof(CT)) return run_mode<CT, G, (int)sizeof(CT)>(a, scores);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename CT>
+int mode_g(const ModeArgs& a, int g, int w, bool scores) {
+  switch (g) {
+    case 1:
+      return mode_w<CT, 1>(a, w, scores);
+    case 2:
+      return mode_w<CT, 2>(a, w, scores);
+    case 4:
+      return mode_w<CT, 4>(a, w, scores);
+    case 8:
+      return mode_w<CT, 8>(a, w, scores);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int run_block_mode(const ModeArgs& a, int c_dtype, int heads, int piece,
+                   bool scores) {
+  const int csize = c_dtype == 1 ? 2 : 4;
+  if (a.b < 1 || a.t < 1 || a.hkv < 1 || a.h % a.hkv || heads < 1 ||
+      (a.h / a.hkv) % heads || a.dl < 1 || a.dl > kMaxHeadDim ||
+      piece < csize || (a.dl * csize) % piece || (a.dtype != 0 &&
+      a.dtype != 1) || (c_dtype != 0 && c_dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (c_dtype == 1) return mode_g<__nv_bfloat16>(a, heads, piece, scores);
+  return mode_g<float>(a, heads, piece, scores);
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. window <= 0 means a global
@@ -583,4 +891,33 @@ extern "C" int repro_attention_decode(const void* q, const void* new_k,
 extern "C" long long repro_attention_decode_smem(int c_dtype, int dh,
                                                  int heads) {
   return (long long)smem_bytes(c_dtype == 1 ? 2 : 4, dh, heads);
+}
+
+// The head-dim split's scores mode: q [B, H, Dl] (q_dtype), new_k / new_v
+// [B, Hkv, Dl] and the caches [B, T, Hkv, Dl] (c_dtype, updated in place),
+// pos [B] int32, s [B, H, T] f32 out. heads = G a block; piece = the load
+// width in bytes (16, 8, 4 or 2, dividing Dl's bytes and the addresses).
+extern "C" int repro_attention_decode_scores(
+    const void* q, const void* new_k, const void* new_v, void* k_cache,
+    void* v_cache, const void* pos, void* s, int q_dtype, int c_dtype, int b,
+    int t, int h, int hkv, int dl, int window, int heads, int piece,
+    void* stream) {
+  ModeArgs a{q, new_k, new_v, k_cache, v_cache, pos, s, nullptr, q_dtype,
+             b, t, h, hkv, dl, window, 0.f,
+             static_cast<cudaStream_t>(stream)};
+  return run_block_mode(a, c_dtype, heads, piece, true);
+}
+
+// The head-dim split's apply mode: s [B, H, T] f32 (summed over the model
+// row), v_cache [B, T, Hkv, Dl] (c_dtype), pos [B] int32, out [B, H, Dl]
+// (out_dtype); scale = 1 / sqrt(the whole head dim).
+extern "C" int repro_attention_decode_apply(
+    const void* s, const void* v_cache, const void* pos, void* out,
+    int out_dtype, int c_dtype, int b, int t, int h, int hkv, int dl,
+    int window, int heads, int piece, float scale, void* stream) {
+  ModeArgs a{nullptr, nullptr, nullptr, nullptr,
+             const_cast<void*>(v_cache), pos, const_cast<void*>(s), out,
+             out_dtype, b, t, h, hkv, dl, window, scale,
+             static_cast<cudaStream_t>(stream)};
+  return run_block_mode(a, c_dtype, heads, piece, false);
 }

@@ -1,6 +1,9 @@
 """Public kernel entry points of the port, dispatched by tensor device.
 
 * :func:`attention_decode` — serving-decode attention (one launch);
+  :func:`attention_decode_scores` and :func:`attention_decode_apply`
+  are its two launches for a KV cache split over the head dim, whose
+  partial scores are summed over the model row between them;
 * :func:`segmented_update` — the fused optimizer step on the flat
   substrate (two launches: segmented norms, then the apply);
 * :func:`lars_update` — the per-tensor LARS step of one segment (two
@@ -32,7 +35,9 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import segmented_update as _su
 
-launches = {"attention_decode": 0, "seg_norm_lars": 0, "seg_norm_lamb": 0,
+launches = {"attention_decode": 0, "attention_decode_scores": 0,
+            "attention_decode_apply": 0, "seg_norm_lars": 0,
+            "seg_norm_lamb": 0,
             "seg_apply_lars": 0, "seg_apply_lamb": 0, "lars_norm2": 0,
             "lars_apply": 0, "rmsnorm": 0}
 
@@ -66,6 +71,52 @@ def attention_decode(q, new_k, new_v, k_cache, v_cache, pos, *,
                                         pos, **kw)
     raise RuntimeError(f"attention_decode: no implementation for device "
                        f"{q.device}")
+
+
+def attention_decode_scores(q, new_k, new_v, k_cache, v_cache, pos, *,
+                            window: Optional[int] = None) -> torch.Tensor:
+    """The scores mode of decode attention over a block of the head dim
+    (``attention_decode.attention_decode_scores_ref``): the append of
+    the block of new_k / new_v in place, then the f32 partial scores
+    [B, H, T] up to each row's last needed key. On CUDA one launch,
+    counted under ``attention_decode_scores``."""
+    if q.device.type == "cuda":
+        s = _ad.attention_decode_scores_cuda(q, new_k, new_v, k_cache,
+                                             v_cache, pos, window=window)
+        launches["attention_decode_scores"] += 1
+        return s
+    if q.device.type == "cpu":
+        return _ad.attention_decode_scores_ref(q, new_k, new_v, k_cache,
+                                               v_cache, pos, window=window)
+    raise RuntimeError(f"attention_decode_scores: no implementation for "
+                       f"device {q.device}")
+
+
+def attention_decode_apply(s, v_cache, pos, *, head_dim: int,
+                           dtype: torch.dtype,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """The apply mode (``attention_decode.attention_decode_apply_ref``):
+    summed scores ``s`` [B, H, T] f32 -> out [B, 1, H, Dl] in ``dtype``
+    over the block of V. On CUDA one launch, counted under
+    ``attention_decode_apply``."""
+    kw = dict(head_dim=head_dim, dtype=dtype, window=window)
+    if s.device.type == "cuda":
+        out = _ad.attention_decode_apply_cuda(s, v_cache, pos, **kw)
+        launches["attention_decode_apply"] += 1
+        return out
+    if s.device.type == "cpu":
+        return _ad.attention_decode_apply_ref(s, v_cache, pos, **kw)
+    raise RuntimeError(f"attention_decode_apply: no implementation for "
+                       f"device {s.device}")
+
+
+DECODE_KERNELS = ("attention_decode", "attention_decode_scores",
+                  "attention_decode_apply")
+
+
+def decode_launches() -> int:
+    """The decode-attention launches counted so far, every mode."""
+    return sum(launches[name] for name in DECODE_KERNELS)
 
 
 def segmented_update(w2d, g2d, bufs, *, delta=None, **kw):

@@ -26,9 +26,11 @@ the slots split over the D data rows (row j decodes slots ``[j·S/D,
 (j+1)·S/D)``, the sampled tokens gathered over the data column; every
 slot on every row when D does not divide ``--slots``), each row
 tensor-parallel over its M model ranks (the heads, d_ff and vocabulary
-split by ``launch.sharding``; the KV pool over the KV heads, or over T
-where M does not divide them, the decode kernel then in its partial
-mode). Without ``--restore`` each rank draws its blocks of the seed-0
+split by ``launch.sharding``; the KV pool as ``cache_pspecs`` places
+it: over the KV heads, else over T, the decode kernel then in its
+partial mode, else over the head dim, the decode kernel's scores and
+apply modes with the scores summed over the row between them).
+Without ``--restore`` each rank draws its blocks of the seed-0
 weights (``Model.init(0, mesh=)``; at M = 1 rank 0's draw is broadcast);
 with it every rank restores the whole params through
 ``Engine.from_checkpoint(mesh=)``, replicated, as the reference
@@ -38,8 +40,10 @@ spawns the D × M ranks itself; ``--dist-backend`` picks ``gloo`` or
 ``nccl`` (default: ``nccl`` when every rank has a card of its own, else
 ``gloo``; printed). The MoE family's experts split over the model
 axis where M divides their count (each rank runs its experts' entries
-and the row sums the output; whole on every rank otherwise). A KV
-cache M splits over Dh is refused (ROADMAP item 11b-4).
+and the row sums the output; whole on every rank otherwise). Where M
+does not divide the heads (whisper-large-v3's 20, the smoke configs'
+4 at M = 8) the attention stays whole on every rank and only its KV
+cache splits.
 """
 from __future__ import annotations
 
@@ -178,6 +182,8 @@ def _serve(args) -> list:
     tokens = [list(map(int, r.tokens)) for r in
               sorted(results, key=lambda r: r.id)]
     if mesh is not None:
+        # over the mesh's ranks: a rank past a mesh narrower than the
+        # world serves nothing and takes no part
         if not mesh_lib.all_equal(mesh, tokens):
             raise RuntimeError(f"data_parallel={mesh.data} model_parallel="
                                f"{mesh.model}: the ranks served different "

@@ -537,6 +537,8 @@ def run(argv: Optional[Sequence[str]] = None, *,
         if not replicas_equal(state, place, segments=model.segments):
             raise RuntimeError("ranks holding the same block of a leaf "
                                "differ after the run")
+    # the data mesh (M = 1): every rank of the world, a rank past D
+    # included, takes part in every step, so the check spans the world
     elif mesh is not None and not mesh_lib.all_equal(mesh,
                                                      out["fingerprint"]):
         raise RuntimeError("the ranks' states differ after the run")

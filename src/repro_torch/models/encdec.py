@@ -21,7 +21,9 @@ Hkv, Dh], the encoder output's K/V, computed once by
 :func:`init_encdec_cache` and only read. On a mesh with a model axis the
 encoder's and decoder's heads and d_ff are split as the LM's are, and
 each cache leaf is the rank's block (``layers.cache_block``: its KV
-heads, or block r of T).
+heads, else block r of T, else of the head dim: whisper-large-v3 at
+model 8 keeps its 20 heads whole, its self caches over T where 8
+divides their length, its 1500-frame cross K/V over the head dim).
 """
 from __future__ import annotations
 
@@ -149,19 +151,17 @@ def init_encdec_cache(cfg: ModelConfig, params: dict, batch: int,
     caches at the compute dtype, as the reference's (each the rank's
     block on the declared mesh)."""
     enc = encode(cfg, params, _frames(extra))
-    hd = cfg.head_dim_
     cache = []
     for p in params["decoder"]:
+        m = L.model_split(cfg, p)
         ck, cv = T.cross_kv_from_embeds({"attn": p["cross_attn"]}, cfg,
                                         enc)
-        t, hkv = L.cache_block(cfg, p["self_attn"], max_len)
+        shape = (batch,) + L.cache_block(cfg, max_len, m)
         cache.append({
-            "k": torch.zeros((batch, t, hkv, hd), dtype=cfg.cdtype,
-                             device=enc.device),
-            "v": torch.zeros((batch, t, hkv, hd), dtype=cfg.cdtype,
-                             device=enc.device),
-            "ck": L.t_block(cfg, p["cross_attn"], ck),
-            "cv": L.t_block(cfg, p["cross_attn"], cv)})
+            "k": torch.zeros(shape, dtype=cfg.cdtype, device=enc.device),
+            "v": torch.zeros(shape, dtype=cfg.cdtype, device=enc.device),
+            "ck": L.cache_slice(cfg, ck, m),
+            "cv": L.cache_slice(cfg, cv, m)})
     return cache
 
 
@@ -173,12 +173,13 @@ def decode_encdec(cfg: ModelConfig, params: dict, cache: list,
     (logits [B,1,V], cache)."""
     h = L.embed(params["embed"], cfg, tokens)
     for p, c in zip(params["decoder"], cache):
+        m = L.model_split(cfg, p)
         h = h + L.attention_decode(p["self_attn"], cfg,
                                    L.norm(cfg, p["norm1"], h), c["k"],
-                                   c["v"], pos)
+                                   c["v"], pos, split=m)
         h = h + L.cross_attention_decode(p["cross_attn"],
                                          L.norm(cfg, p["norm_x"], h),
-                                         c["ck"], c["cv"], cfg)
+                                         c["ck"], c["cv"], cfg, m)
         h = h + L.mlp(p["mlp"], cfg, L.norm(cfg, p["norm2"], h))
     h = L.norm(cfg, params["final_norm"], h)
     return L.unembed(params["embed"], cfg, h), cache

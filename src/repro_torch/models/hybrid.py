@@ -188,13 +188,12 @@ def init_hybrid_cache(cfg: ModelConfig, params: dict, batch: int,
     pair per call site of the shared block, in the compute dtype (as
     the reference's); each the rank's block of its leaves on a mesh."""
     groups, _ = hybrid_layout(cfg)
-    t, hkv = L.cache_block(cfg, params["shared_attn"]["attn"], max_len)
-    hd = cfg.head_dim_
+    shape = (batch,) + L.cache_block(
+        cfg, max_len, L.model_split(cfg, params["shared_attn"]))
     dev = params["embed"]["table"].device
 
     def zeros():
-        return torch.zeros((batch, t, hkv, hd), dtype=cfg.cdtype,
-                           device=dev)
+        return torch.zeros(shape, dtype=cfg.cdtype, device=dev)
 
     return {"ssm": [S.mamba_init_cache(cfg, batch, cfg.cdtype, dev,
                                        p["mamba"])

@@ -36,16 +36,20 @@ axis: :func:`gathered` all-gathers a subtree's such leaves over the
 data column (``distributed.fsdp_gather``) right before they are used,
 so the layers only ever see tensor-parallel blocks.
 
-The KV cache follows the layer's leaves (``launch.sharding.cache_pspecs``
-places it alike): split ``wk`` / ``wv`` give a cache of the rank's KV
-heads; a split ``wq`` beside a whole ``wk`` (the model axis divides the
-heads but not the KV heads) gives the T fallback, a cache of every KV
-head over block r of T (:func:`kv_split`). There, prefill computes the
-whole K/V and keeps its block; decode gathers q over the row, runs the
-decode kernel in its partial mode over the rank's block, gathers every
+The KV cache follows ``launch.sharding.cache_pspecs`` on the cache's
+own shape over the layer's model split (:func:`model_split`,
+:func:`cache_axis`): the model axis goes to the KV heads where it
+divides them (``wk`` / ``wv`` are split alike), else to T, else to the
+head dim. Where the KV heads stay whole, prefill computes the whole
+K/V and keeps its block. Over T, decode runs the kernel in its partial
+mode over the rank's block on every head (q gathered over the row
+where the heads are split, whole where they are not), gathers every
 rank's (out, lse) and merges its own heads
-(``attention_decode.merge_partials``); cross layers do the same in
-plain PyTorch.
+(``attention_decode.merge_partials``). Over the head dim, each rank's
+scores are partial sums: decode runs the kernel's scores mode on the
+block of the rope'd q and K, sums the f32 scores over the row, runs
+the apply mode over the block of V and gathers the outputs along the
+head dim. Cross layers do the same in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -213,40 +217,92 @@ def _partial_use(w: torch.Tensor, local: int, full: int, what: str
     return _col_in(w, local, full, what)
 
 
-def kv_split(cfg: ModelConfig, attn: dict) -> int:
-    """How many blocks of T the layer's KV cache is split into: the
-    model axis's size M when this rank holds a block of the heads
-    (``wq``) but every KV head (``wk``), cache_pspecs' T fallback; else
-    1 (a cache of the rank's KV heads, or a whole one)."""
-    local = attn["wq"].shape[1]
-    if local == cfg.num_heads or attn["wk"].shape[1] != cfg.num_kv_heads:
-        return 1
-    return cfg.num_heads // local
+CACHE_AXES = ("heads", "t", "dh")     # cache_pspecs' order
 
 
-def cache_block(cfg: ModelConfig, attn: dict, t: int) -> tuple[int, int]:
-    """(keys, KV heads) of the rank's block of a KV cache of length
-    ``t`` for the layer ``attn``; a T that the split does not divide is
-    cache_pspecs' Dh fallback, not ported."""
-    m = kv_split(cfg, attn)
-    if t % m:
-        from repro_torch.distributed import DH_FALLBACK_PENDING
-        raise NotImplementedError(
-            f"a KV cache of {t} keys over {m} model ranks with "
-            f"{cfg.num_kv_heads} KV heads: {DH_FALLBACK_PENDING}")
-    return t // m, attn["wk"].shape[1]
+def cache_axis(cfg: ModelConfig, t: int, m: int) -> Optional[str]:
+    """The axis ``launch.sharding.cache_pspecs`` gives the model axis of
+    ``m`` ranks on a [B, T, Hkv, Dh] KV cache leaf of ``t`` keys: the KV
+    heads when ``m`` divides them, else T, else the head dim, else None
+    (the leaf stays whole)."""
+    if m > 1:
+        for axis, n in zip(CACHE_AXES, (cfg.num_kv_heads, t, cfg.head_dim_)):
+            if n % m == 0 and n >= m:
+                return axis
+    return None
 
 
-def t_block(cfg: ModelConfig, attn: dict, x: torch.Tensor) -> torch.Tensor:
-    """This rank's block of T of a whole [B, T, Hkv, Dh] K or V (a copy)
-    under the T fallback; ``x`` itself otherwise."""
-    m = kv_split(cfg, attn)
-    if m == 1:
+def model_split(cfg: ModelConfig, layer: dict) -> int:
+    """The model axis's size a layer's blocks show (1: every leaf
+    whole): the split of its query heads, else of its MLP's d_ff, else
+    of its experts. A layer whose leaves are all whole (replicated
+    params) keeps a whole cache and runs no collective; a split layer's
+    caches follow ``cache_pspecs`` over this many ranks, its heads whole
+    or not."""
+    for key in ("attn", "self_attn"):
+        if key in layer and layer[key]["wq"].shape[1] != cfg.num_heads:
+            return cfg.num_heads // layer[key]["wq"].shape[1]
+    if "mlp" in layer and layer["mlp"]["wi"].shape[1] != cfg.d_ff:
+        return cfg.d_ff // layer["mlp"]["wi"].shape[1]
+    if "moe" in layer and layer["moe"]["router"].shape[1] != cfg.num_experts:
+        return cfg.num_experts // layer["moe"]["router"].shape[1]
+    return 1
+
+
+def cache_block(cfg: ModelConfig, t: int, m: int) -> tuple[int, int, int]:
+    """(keys, KV heads, head dims) of a rank's block of a KV cache of
+    ``t`` keys over ``m`` model ranks (:func:`cache_axis`). A cache the
+    rule leaves whole beside a model axis (``m`` divides none of its
+    dims: only at a head dim below ``m`` or not a multiple of it) is
+    refused: decode could not tell it from a block of T."""
+    axis = cache_axis(cfg, t, m)
+    if axis is None and m > 1:
+        raise ValueError(
+            f"a KV cache of {t} keys, {cfg.num_kv_heads} KV heads and head "
+            f"dim {cfg.head_dim_}: {m} model ranks divide none of them, so "
+            f"cache_pspecs keeps it whole, which decode cannot tell from a "
+            f"block of T")
+    return (t // m if axis == "t" else t,
+            cfg.num_kv_heads // m if axis == "heads" else cfg.num_kv_heads,
+            cfg.head_dim_ // m if axis == "dh" else cfg.head_dim_)
+
+
+def _split_mesh(m: int, what: str):
+    """The declared mesh, whose model axis must have ``m`` ranks."""
+    mesh = _MESH
+    if mesh is None or int(mesh.shape["model"]) != m:
+        raise ValueError(f"{what} over {m} model ranks needs a declared "
+                         f"mesh with that model axis (set_batch_sharding); "
+                         f"declared: {mesh}")
+    return mesh
+
+
+def cache_slice(cfg: ModelConfig, x: torch.Tensor, m: int) -> torch.Tensor:
+    """This rank's block (a copy) of a [B, T, Hkv, Dh] K or V that the
+    layer computed (every KV head, or the rank's own where ``wk`` is
+    split), as :func:`cache_block` cuts a cache of T = ``x.shape[1]``
+    over ``m`` ranks; ``x`` itself when it already is the block."""
+    cache_block(cfg, x.shape[1], m)
+    axis = cache_axis(cfg, x.shape[1], m)
+    if axis is None or (axis == "heads"
+                        and x.shape[2] != cfg.num_kv_heads):
         return x
-    t, _ = cache_block(cfg, attn, x.shape[1])
-    r = _row_mesh(attn["wq"].shape[1], cfg.num_heads,
-                  "a KV cache split over T").coords["model"]
-    return x[:, r * t:(r + 1) * t].contiguous()
+    dim = {"heads": 2, "t": 1, "dh": 3}[axis]
+    n = x.shape[dim] // m
+    r = _split_mesh(m, f"a KV cache over {axis}").coords["model"]
+    return x.narrow(dim, r * n, n).contiguous()
+
+
+def _cache_split(cfg: ModelConfig, cache: torch.Tensor, m: int
+                 ) -> Optional[str]:
+    """The axis a rank's cache block was cut along, read from its shape
+    (the head dim, the KV heads), else T at ``m`` > 1
+    (:func:`cache_block` refuses a whole cache there), else None."""
+    if cache.shape[3] != cfg.head_dim_:
+        return "dh"
+    if cache.shape[2] != cfg.num_kv_heads:
+        return "heads"
+    return "t" if m > 1 else None
 
 
 def _head_rows(b: torch.Tensor, heads: int, partial: bool = False
@@ -440,9 +496,9 @@ def _qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def _query_kv(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor):
-    """K and V for this rank's query heads: under the T fallback (a
-    block of the heads, every KV head) each local head's KV head,
-    picked per head; else ``k`` / ``v``."""
+    """K and V for this rank's query heads: where the heads are split
+    and the KV heads whole (a block of the heads, every KV head), each
+    local head's KV head, picked per head; else ``k`` / ``v``."""
     local = q.shape[2]
     if local == cfg.num_heads or k.shape[2] != cfg.num_kv_heads:
         return k, v
@@ -455,20 +511,45 @@ def _query_kv(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
 
 def _merge_row(q: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
                mesh) -> torch.Tensor:
-    """This rank's heads of the attention whose blocks of T the model
-    row's ranks computed for every head: ``out`` [B,1,H,Dh] and ``lse``
-    [B,H] gathered over the row (one gather) and merged in rank order,
-    in f32; returns [B,1,H_local,Dh] in q's dtype."""
+    """This rank's heads (every head where the heads are whole) of the
+    attention whose blocks of T the model row's ranks computed for every
+    head: ``out`` [B,1,H,Dh] and ``lse`` [B,H] gathered over the row
+    (one gather) and merged in rank order, in f32; returns
+    [B,1,H_local,Dh] in q's dtype."""
     b, _, h, dh = out.shape
-    local = q.shape[2]
     packed = torch.cat([out.float().reshape(b, h, dh), lse[..., None]],
                        dim=-1)[None]
     rows = mesh.model_gather(packed, 0, "partial_gather")  # [M,B,H,Dh+1]
-    r = mesh.coords["model"]
-    mine = rows[:, :, r * local:(r + 1) * local]
+    mine = _own_heads(rows, q.shape[2], h, mesh, 2)
     merged = merge_partials([x[:, None, :, :dh] for x in mine],
                             [x[..., dh] for x in mine])
     return merged.to(q.dtype)
+
+
+def _own_heads(x: torch.Tensor, local: int, h: int, mesh, dim: int
+               ) -> torch.Tensor:
+    """This rank's ``local`` of the ``h`` heads along ``dim`` of ``x``
+    (every head when they are whole)."""
+    if local == h:
+        return x
+    return x.narrow(dim, mesh.coords["model"] * local, local)
+
+
+def _all_heads(q: torch.Tensor, cfg: ModelConfig, mesh) -> torch.Tensor:
+    """Every head's q: ``q`` where the heads are whole, else gathered
+    over the row (``q_gather``)."""
+    if q.shape[2] == cfg.num_heads:
+        return q
+    return mesh.model_gather(q, 2, "q_gather")
+
+
+def _dh_gathered(cfg: ModelConfig, q: torch.Tensor, out: torch.Tensor,
+                 mesh) -> torch.Tensor:
+    """[B,1,H,Dl] outputs over the rank's block of the head dim ->
+    this rank's heads [B,1,H_local,Dh]: one gather over the row along
+    the head dim (``dh_gather``)."""
+    whole = mesh.model_gather(out, 3, "dh_gather")
+    return _own_heads(whole, q.shape[2], cfg.num_heads, mesh, 2)
 
 
 def _block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -580,7 +661,8 @@ def attention(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def attention_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
                      k_cache: torch.Tensor, v_cache: torch.Tensor, pos, *,
-                     window: Optional[int] = None) -> torch.Tensor:
+                     window: Optional[int] = None,
+                     split: Optional[int] = None) -> torch.Tensor:
     """One-token decode. x: [B,1,D]; caches [B,T,Hkv,Dh], updated in
     place; pos: an int (every row at the same depth) or a [B] int32
     tensor of per-row depths (the engine's continuous batching).
@@ -588,10 +670,21 @@ def attention_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
     layers keep a ring of length T (write slot pos % T) and RoPE uses
     absolute positions. Projections and RoPE are here; the append,
     mask and contraction are ``ops.attention_decode`` (the Hopper
-    kernel on CUDA). Under the T fallback the caches are this rank's
-    block r of T: the kernel runs in its partial mode on every head (q
-    gathered over the row) and the row's partials are merged for this
-    rank's heads. Returns out [B,1,D]."""
+    kernel on CUDA). ``split`` is the layer's model split
+    (:func:`model_split`; None: the split of these heads, which a layer
+    whose heads stay whole must pass); the caches are the rank's block
+    of :func:`cache_block`:
+
+    * its KV heads: the kernel on the rank's heads;
+    * block r of T: the kernel in its partial mode on every head (q
+      gathered over the row where the heads are split), the row's
+      partials merged for this rank's heads;
+    * block r of the head dim: the scores mode on every head's block of
+      the rope'd q and K, the f32 scores summed over the row
+      (``score_sum``), the apply mode over the block of V, the outputs
+      gathered along the head dim.
+
+    Returns out [B,1,D]."""
     b = x.shape[0]
     if isinstance(pos, torch.Tensor) and pos.dim() == 1:
         posv = pos
@@ -600,20 +693,41 @@ def attention_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
                           device=x.device)
     q, k, v = _qkv(params, x, cfg)
     posb = posv[:, None]
+    # RoPE on the whole head dim before any block of it is taken: it
+    # pairs dim i with dim i + Dh/2
     q = rope(q, posb, cfg.rope_theta)
     k = rope(k, posb, cfg.rope_theta)
-    m = kv_split(cfg, params)
-    if m == 1:
-        out = ops.attention_decode(q, k, v, k_cache, v_cache, posv,
-                                   window=window)
-    else:
-        mesh = _row_mesh(q.shape[2], cfg.num_heads, "attention wq")
+    if split is None:
+        split = model_split(cfg, {"attn": params})
+    axis = _cache_split(cfg, k_cache, split)
+    if axis == "t":
+        mesh = _split_mesh(split, "a KV cache over T")
         t = k_cache.shape[1]
         full, lse = ops.attention_decode(
-            mesh.model_gather(q, 2, "q_gather"), k, v, k_cache, v_cache,
-            posv, window=window, t0=mesh.coords["model"] * t,
-            t_total=t * m, return_lse=True)
+            _all_heads(q, cfg, mesh), k, v, k_cache, v_cache, posv,
+            window=window, t0=mesh.coords["model"] * t, t_total=t * split,
+            return_lse=True)
         out = _merge_row(q, full, lse, mesh)
+    elif axis == "dh":
+        mesh = _split_mesh(split, "a KV cache over the head dim")
+        dl = k_cache.shape[3]
+        blk = slice(mesh.coords["model"] * dl, (mesh.coords["model"] + 1)
+                    * dl)
+        s = ops.attention_decode_scores(
+            _all_heads(q, cfg, mesh)[..., blk], k[..., blk], v[..., blk],
+            k_cache, v_cache, posv, window=window)
+        mesh.model_sum_(s, "score_sum")
+        out = _dh_gathered(cfg, q, ops.attention_decode_apply(
+            s, v_cache, posv, head_dim=cfg.head_dim_, dtype=q.dtype,
+            window=window), mesh)
+    else:
+        if k.shape[2] != k_cache.shape[2]:
+            # a whole wk beside a cache of the rank's KV heads
+            mesh = _split_mesh(split, "a KV cache over the KV heads")
+            k, v = (_own_heads(y, k_cache.shape[2], cfg.num_kv_heads, mesh,
+                               2) for y in (k, v))
+        out = ops.attention_decode(q, k, v, k_cache, v_cache, posv,
+                                   window=window)
     return _out_proj(params, cfg, out, x.dtype)
 
 
@@ -622,23 +736,44 @@ def attention_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def cross_attention_decode(params: dict, x: torch.Tensor, ck: torch.Tensor,
-                           cv: torch.Tensor, cfg: ModelConfig
-                           ) -> torch.Tensor:
+                           cv: torch.Tensor, cfg: ModelConfig,
+                           split: Optional[int] = None) -> torch.Tensor:
     """One query token against precomputed cross K/V [B,T,Hkv,Dh]: no
     RoPE, no mask, plain PyTorch (f32 scores and softmax), as the
-    reference computes it outside any kernel. Under the T fallback the
-    cross K/V are this rank's block of T, and the row's partials are
-    merged as decode's are. x: [B,1,D] -> [B,1,D]."""
+    reference computes it outside any kernel. The cross K/V are the
+    rank's block of :func:`cache_block` (``split`` as
+    :func:`attention_decode`'s): over T, every head's attention over
+    the block, the row's partials merged as decode's are; over the head
+    dim, every head's partial f32 scores over the block summed over the
+    row (``score_sum``), the softmax, probs · the block of V, and the
+    outputs gathered along the head dim. x: [B,1,D] -> [B,1,D]."""
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
     if cfg.qkv_bias:
         q = q + _head_rows(params["bq"], q.shape[2]).to(x.dtype)
-    if kv_split(cfg, params) == 1:
-        out = gqa_scores_apply(q, ck.to(q.dtype), cv.to(q.dtype), None)
-    else:
-        mesh = _row_mesh(q.shape[2], cfg.num_heads, "cross wq")
-        full, lse = _block_attention(mesh.model_gather(q, 2, "q_gather"),
-                                     ck.to(q.dtype), cv.to(q.dtype))
+    if split is None:
+        split = model_split(cfg, {"attn": params})
+    axis = _cache_split(cfg, ck, split)
+    ck, cv = ck.to(q.dtype), cv.to(q.dtype)
+    if axis == "t":
+        mesh = _split_mesh(split, "cross K/V over T")
+        full, lse = _block_attention(_all_heads(q, cfg, mesh), ck, cv)
         out = _merge_row(q, full, lse, mesh)
+    elif axis == "dh":
+        mesh = _split_mesh(split, "cross K/V over the head dim")
+        dl = ck.shape[3]
+        r = mesh.coords["model"]
+        qa = _all_heads(q, cfg, mesh)[..., r * dl:(r + 1) * dl]
+        b, _, h, _ = qa.shape
+        hkv = ck.shape[2]
+        qg = qa.reshape(b, 1, hkv, h // hkv, dl).float()
+        s = torch.einsum("bskgd,btkd->bkgst", qg, ck.float()).contiguous()
+        mesh.model_sum_(s, "score_sum")
+        probs = torch.softmax(s / math.sqrt(cfg.head_dim_), dim=-1)
+        blk = torch.einsum("bkgst,btkd->bskgd", probs, cv.float())
+        out = _dh_gathered(cfg, q, blk.reshape(b, 1, h, dl).to(q.dtype),
+                           mesh)
+    else:
+        out = gqa_scores_apply(q, ck, cv, None)
     return _out_proj(params, cfg, out, x.dtype)
 
 

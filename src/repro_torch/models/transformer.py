@@ -20,8 +20,8 @@ The KV cache is a list with one dict per layer: ``{"k", "v"}`` of
 which decode appends into in place, or for a cross layer ``{"ck",
 "cv"}`` of ``[B, T_img, Hkv, Dh]``, the image's K/V, which decode only
 reads. On a mesh with a model axis each leaf is the rank's block
-(``layers.cache_block``): its KV heads, or under the T fallback block r
-of T of every KV head.
+(``layers.cache_block``, ``cache_pspecs``' rule): its KV heads, else
+block r of T, else block r of the head dim, of every KV head.
 """
 from __future__ import annotations
 
@@ -255,26 +255,26 @@ def init_lm_cache(cfg: ModelConfig, params: dict, batch: int,
                   ) -> list:
     """Zeroed pool at ``cfg.kv_dtype`` on the params' device (decode
     accumulates in f32 whatever the storage dtype), each layer's the
-    rank's block (``layers.cache_block``: its KV heads, or block r of
-    T); a vlm's cross layers hold the K/V of ``extra`` [batch, T_img,
-    D], computed from it at ``cfg.kv_dtype`` as the reference does
-    (their block of T under the T fallback, on the declared mesh)."""
-    hd, dev = cfg.head_dim_, _device(params)
+    rank's block (``layers.cache_block`` over the layer's model split:
+    its KV heads, or block r of T or of the head dim); a vlm's cross
+    layers hold the K/V of ``extra`` [batch, T_img, D], computed from it
+    at ``cfg.kv_dtype`` as the reference does (their block, on the
+    declared mesh)."""
+    dev = _device(params)
     src = _kv_src(cfg, extra, cfg.kv_dtype)
     cache = []
     for p, kind in zip(params["layers"], layer_kinds(cfg)):
+        m = L.model_split(cfg, p)
         if kind == "cross":
             ck, cv = cross_kv_from_embeds(p, cfg, src)
-            cache.append({"ck": L.t_block(cfg, p["attn"], ck),
-                          "cv": L.t_block(cfg, p["attn"], cv)})
+            cache.append({"ck": L.cache_slice(cfg, ck, m),
+                          "cv": L.cache_slice(cfg, cv, m)})
             continue
-        t, hkv = L.cache_block(cfg, p["attn"],
-                               _cache_len(cfg, kind, max_len))
+        shape = (batch,) + L.cache_block(
+            cfg, _cache_len(cfg, kind, max_len), m)
         cache.append({
-            "k": torch.zeros((batch, t, hkv, hd), dtype=cfg.kv_dtype,
-                             device=dev),
-            "v": torch.zeros((batch, t, hkv, hd), dtype=cfg.kv_dtype,
-                             device=dev)})
+            "k": torch.zeros(shape, dtype=cfg.kv_dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.kv_dtype, device=dev)})
     return cache
 
 
@@ -320,8 +320,9 @@ def apply_lm_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     """Single-shot batched prefill: ONE full-sequence forward that also
     dumps a decode-ready KV cache. tokens: [B,S]. Returns (logits,
     cache) where ``cache`` matches ``init_lm_cache(..., max_len)`` after
-    streaming the prompt through ``decode_lm`` (under the T fallback
-    every rank computes the whole K/V and keeps its block of T). Right-padded prompts are
+    streaming the prompt through ``decode_lm`` (where the KV heads are
+    whole every rank computes the whole K/V and keeps its block of T or
+    of the head dim). Right-padded prompts are
     safe: pass ``lens`` [B] so local layers ring-pack each row's own
     last ``window`` tokens.
 
@@ -349,8 +350,8 @@ def apply_lm_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                                 kv_src=src if cross else None)
         c = {"ck": k, "cv": v} if cross else \
             _prefill_cache_layout(cfg, kind, k, v, max_len, lens)
-        cache.append({n: L.t_block(cfg, p["attn"], x)
-                      for n, x in c.items()})
+        m = L.model_split(cfg, p)
+        cache.append({n: L.cache_slice(cfg, x, m) for n, x in c.items()})
     if logits_at is not None:
         rows = torch.arange(b, device=h.device)
         h = h[rows, logits_at.to(device=h.device,
@@ -374,41 +375,18 @@ def _blocks(params: dict):
         yield "shared block", [p["attn"]], p["mlp"]
 
 
-def _cross_len(cfg: ModelConfig) -> Optional[int]:
-    """The length of the cross caches (image tokens or encoder frames),
-    None without cross layers."""
-    if cfg.family == "vlm" and cfg.cross_attn_every:
-        return cfg.num_image_tokens
-    if cfg.family == "encdec":
-        return cfg.encoder_seq
-    return None
-
-
 def check_model_axis(cfg: ModelConfig, params: dict, mesh) -> None:
-    """Refuse, before any step, what tensor parallelism does not do on
-    ``mesh`` with this rank's ``params`` (its blocks of the leaves, or
-    meta tensors of their shapes): a KV cache that ``cache_pspecs``
-    would split over Dh (the model axis divides neither the KV heads
-    nor the cross caches' length, or leaves the heads whole while the
-    KV heads do not divide), and a leaf left whole while a partner is
-    split (an MoE layer's router and experts split over the experts
-    alike, or all whole where the model axis does not divide them). A
-    split ``wq`` / ``wo`` beside a whole ``wk`` / ``wv`` is the KV
-    cache's T fallback (``layers.kv_split``); the self caches' T is
-    checked where the cache is made (``layers.cache_block``)."""
-    from repro_torch import distributed as dist_lib
+    """Refuse, before any step, a leaf left whole on ``mesh`` while a
+    partner is split, with this rank's ``params`` (its blocks of the
+    leaves, or meta tensors of their shapes): ``wq`` / ``wo`` split
+    alike, ``wk`` / ``wv`` alike (a whole ``wk`` / ``wv`` beside a split
+    ``wq`` / ``wo`` is served: the KV cache follows ``cache_pspecs``
+    over T or the head dim, ``layers.cache_block``), the MLP's ``wi`` /
+    ``wg`` / ``wo`` alike, and an MoE layer's router and experts split
+    over the experts alike."""
     if mesh is None or mesh.shape["model"] == 1:
         return
-    m = int(mesh.shape["model"])
-    blocks = list(_blocks(params))
-    cross = _cross_len(cfg)
-    if blocks and cfg.num_kv_heads % m and (
-            cfg.num_heads % m or (cross is not None and cross % m)):
-        raise NotImplementedError(
-            f"{cfg.num_heads} heads, {cfg.num_kv_heads} KV heads"
-            + ("" if cross is None else f", cross caches of {cross}")
-            + f" over {m} model ranks: {dist_lib.DH_FALLBACK_PENDING}")
-    for label, attns, f in blocks:
+    for label, attns, f in _blocks(params):
         for a in attns:
             split = {"wq": a["wq"].shape[1] != cfg.num_heads,
                      "wk": a["wk"].shape[1] != cfg.num_kv_heads,
@@ -421,8 +399,7 @@ def check_model_axis(cfg: ModelConfig, params: dict, mesh) -> None:
                 raise ValueError(f"{label} attention: {on} split but {off} "
                                  f"whole; a row-parallel product needs its "
                                  f"partners split alike (a whole wk / wv "
-                                 f"beside a split wq / wo is the KV "
-                                 f"cache's T fallback)")
+                                 f"beside a split wq / wo is served)")
         if f is None:
             continue
         split = {name: f[name].shape[dim] != cfg.d_ff
@@ -459,12 +436,13 @@ def layer_decode(p: dict, cfg: ModelConfig, h: torch.Tensor, c: dict,
     layer routes the step's one token per row (capacity >= 1) and drops
     its aux."""
     x = L.norm(cfg, p["norm1"], h)
+    m = L.model_split(cfg, p)
     if kind == "cross":
         a = _gated(p, L.cross_attention_decode(p["attn"], x, c["ck"],
-                                               c["cv"], cfg))
+                                               c["cv"], cfg, m))
     else:
         a = L.attention_decode(p["attn"], cfg, x, c["k"], c["v"], pos,
-                               window=window)
+                               window=window, split=m)
     h = h + a
     return h + _ffn(p, cfg, L.norm(cfg, p["norm2"], h))[0]
 

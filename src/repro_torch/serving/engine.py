@@ -18,7 +18,8 @@ device shape:
   position 0 only; admission overwrites the whole slot row).
 
 ``stats()["kernel_launches"]`` counts the decode-attention kernel
-launches this engine's decode steps made (``kernels.ops.launches``);
+launches this engine's decode steps made, every mode
+(``kernels.ops.decode_launches``);
 it stays 0 on the CPU, where the plain version runs. A family without
 a batched prefill (ssm, hybrid, encdec) is refused, as the reference's
 engine refuses it; serve those through ``serving.generate``. A vlm
@@ -30,8 +31,9 @@ of a batch reads row i whatever its slot, as in the reference.
 ``mesh=`` serves on a ``(D, M)`` mesh, one engine per rank: each rank
 holds its blocks of the params (``Model.init(mesh=)``,
 ``convert.shard_params`` or ``from_checkpoint(shardings=)``) and a KV
-pool of its blocks (its KV heads, or under the T fallback block r of T
-of every KV head: ``layers.cache_block``), and every prefill and decode
+pool of its blocks (``layers.cache_block``, ``cache_pspecs``' rule: its
+KV heads, else block r of T, else block r of the head dim, of every KV
+head), and every prefill and decode
 step runs under ``layers.batch_sharding(mesh)``: the row-parallel
 partials are summed and the logits gathered over the model row. The
 slots split over the data axis (``Mesh.data_block``, the reference's
@@ -43,9 +45,11 @@ D does not divide S). A sampled step draws for all S rows (the
 admission: all rows of the batch) exactly as the D = 1 engine does and
 keeps its own, so tokens do not depend on the split. An admission
 batch keeps F10's meaning across rows: its i-th request reads row i of
-``extra``. ``drain`` fails unless every rank of the world holds the
-same tokens. The decode kernel runs on each rank's share of the heads,
-or in its partial mode on every head over the rank's block of T.
+``extra``. ``drain`` fails unless every rank of the mesh holds the
+same tokens (a rank past a mesh narrower than its world takes no
+part). The decode kernel runs on each rank's share of the heads, in
+its partial mode on every head over the rank's block of T, or in its
+scores and apply modes over the rank's block of the head dim.
 """
 from __future__ import annotations
 
@@ -275,12 +279,11 @@ class Engine:
             with tr.span("decode", step=self._steps,
                          active=self.active_count), \
                     L.batch_sharding(self.mesh):
-                before = ops.launches["attention_decode"]
+                before = ops.decode_launches()
                 logits, self._kv.cache = self.model.decode_step(
                     self.params, self._kv.cache, tok, pos)
                 nxt = self._sample(logits[:, -1], rows, self.config.slots)
-                self._kernel_launches += \
-                    ops.launches["attention_decode"] - before
+                self._kernel_launches += ops.decode_launches() - before
             with tr.span("sample", step=self._steps):
                 if self._split:
                     nxt = self.mesh.data_gather(nxt, 0)
@@ -315,6 +318,7 @@ class Engine:
                 raise RuntimeError(
                     "drain did not converge — scheduler bug (a step "
                     "must either admit or generate)")
+        # over the mesh's ranks, which alone run the engine's steps
         if not all_equal(self.mesh, sorted((r.id, r.tokens) for r in out)):
             raise RuntimeError(f"drain: the ranks of {self.mesh} hold "
                                f"different tokens")

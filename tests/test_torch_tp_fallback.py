@@ -38,6 +38,7 @@ import torch
 
 import torch_tp_more_ref as ref_side
 import torch_tp_ranks as ranks
+import torch_tp_train_families_ref as train_ref
 from repro.kernels.ref import decode_parity_tolerance, ref_attention_decode
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import ModelConfig
@@ -48,8 +49,10 @@ from repro_torch.models import convert, get_model
 from repro_torch.models import layers as L
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TIMEOUT_S = 180
+TIMEOUT_S = 300
 ENGINES = ref_side.FALLBACK_ENGINES
+DH_ENGINE = "qwen2.5-3b"
+DH_TAGS = [case[0] for case in ref_side.DH_CASES]
 TAGS = ("", "-ring")
 F32 = decode_parity_tolerance("float32")
 
@@ -101,6 +104,10 @@ def runs(tmp_path_factory):
                        (("", ref_side.FALLBACK_LM),
                         ("-ring", ref_side.RING_LM))}
         engine_params = {a: ref_side.reference_params(a) for a in ENGINES}
+        dh_params = {a: ref_side.reference_params(a)
+                     for a in {case[1] for case in ref_side.DH_CASES}}
+        train_inputs = {arch: train_ref.inputs(arch)
+                        for arch, _, _ in ref_side.DH_TRAIN}
         single = {}
         for arch in ENGINES:
             cfg = get_smoke_config(arch)
@@ -109,8 +116,15 @@ def runs(tmp_path_factory):
             single[arch] = ranks.drain(model, convert.params_from_jax(
                 cfg, engine_params[arch], device="cpu"),
                 extra=extra)["tokens"]
+        cfg = get_smoke_config(DH_ENGINE)
+        single["dh"] = ranks.drain(get_model(cfg), convert.params_from_jax(
+            cfg, engine_params[DH_ENGINE], device="cpu"),
+            serve=ranks.DH_SERVE)["tokens"]
+        jobs = tuple((arch,) + train_inputs[arch]
+                     for arch, _, _ in ref_side.DH_TRAIN)
         step = mesh_lib.spawn(ranks.fallback_step_world, 8, "gloo", "cpu",
-                              args=(step_params,), timeout=TIMEOUT_S)
+                              args=(step_params, dh_params, jobs),
+                              timeout=TIMEOUT_S)
         engine = mesh_lib.spawn(ranks.fallback_engine_world, 4, "gloo",
                                 "cpu", args=(engine_params,),
                                 timeout=TIMEOUT_S)
@@ -118,7 +132,8 @@ def runs(tmp_path_factory):
         reference = finish_reference(proc, out)
     return {"ref": reference, "step": step, "engine": engine,
             "single": single, "step_params": step_params,
-            "engine_params": engine_params}
+            "engine_params": engine_params, "dh_params": dh_params,
+            "train_inputs": train_inputs}
 
 
 def _leaves(res: dict, key: str) -> list:
@@ -337,13 +352,176 @@ def test_merge_weighs_each_block_by_its_lse():
 
 
 def test_the_t_fallback_needs_the_kv_cache_to_divide():
+    """The T fallback needs the KV cache's length to divide: the model
+    axis (4) divides the 4 heads but not the 2 KV heads, so a cache of
+    16 keys goes over T (4 a rank) and one of 18 over the head dim (16
+    in blocks of 4, every key a rank); at 2 the KV heads take it, and
+    on one rank the cache is whole."""
     cfg = ModelConfig(**ranks.FALLBACK_LM)
-    attn = {"wq": torch.empty(64, 1, 16, device="meta"),
-            "wk": torch.empty(64, 2, 16, device="meta")}
-    assert L.kv_split(cfg, attn) == 4
-    assert L.cache_block(cfg, attn, 16) == (4, 2)
-    with pytest.raises(NotImplementedError, match="item 11b-4$"):
-        L.cache_block(cfg, attn, 18)
-    attn["wk"] = torch.empty(64, 1, 16, device="meta")
-    assert L.kv_split(cfg, attn) == 1
-    assert L.cache_block(cfg, attn, 18) == (18, 1)
+    assert (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_) == (4, 2, 16)
+    assert L.cache_axis(cfg, 16, 4) == "t"
+    assert L.cache_block(cfg, 16, 4) == (4, 2, 16)
+    assert L.cache_axis(cfg, 18, 4) == "dh"
+    assert L.cache_block(cfg, 18, 4) == (18, 2, 4)
+    assert L.cache_axis(cfg, 18, 2) == "heads"
+    assert L.cache_block(cfg, 18, 2) == (18, 1, 16)
+    assert L.cache_axis(cfg, 18, 1) is None
+    assert L.cache_block(cfg, 18, 1) == (18, 2, 16)
+    narrow = ModelConfig(**dict(ranks.FALLBACK_LM, d_model=48, num_heads=12,
+                                num_kv_heads=6))
+    assert narrow.head_dim_ == 4 and L.cache_axis(narrow, 18, 8) is None
+    with pytest.raises(ValueError, match="divide none of them"):
+        L.cache_block(narrow, 18, 8)
+
+
+# ------------------------------- the cache over Dh, and over T beside whole
+# heads, on the reference's own mesh
+def _dh_case(tag: str) -> tuple:
+    return next(c for c in ref_side.DH_CASES if c[0] == tag)
+
+
+def _dh_runs(runs, tag: str) -> list:
+    """Every rank's result of case ``tag`` (the ranks of its mesh)."""
+    return [r["dh"][tag] for r in runs["step"] if tag in r["dh"]]
+
+
+def test_reference_dh_inputs_are_the_tests(runs):
+    for arch, tree in runs["dh_params"].items():
+        got = _leaves(runs["ref"], f"dh/{arch}/params")
+        want = jax.tree_util.tree_leaves(tree)
+        assert len(got) == len(want) > 0
+        for a, b in zip(got, want):
+            b = np.asarray(b)
+            assert np.array_equal(a, b.view(np.uint16)
+                                  if str(b.dtype) == "bfloat16" else b)
+    for arch, (params, batch) in runs["train_inputs"].items():
+        got = _leaves(runs["ref"], f"{arch}/inputs/params")
+        want = jax.tree_util.tree_leaves(params)
+        assert len(got) == len(want) > 0
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+        for k, v in batch.items():
+            np.testing.assert_array_equal(v, runs["ref"][f"{arch}/inputs/{k}"])
+
+
+@pytest.mark.parametrize("tag", DH_TAGS)
+def test_reference_puts_the_caches_where_the_port_does(runs, tag):
+    """``cache_pspecs``' specs of the first self and cross K caches on
+    the case's mesh, and each rank's cache blocks: over T where the
+    length divides, else over the head dim, the heads whole."""
+    _, arch, edits, (d, m), length = _dh_case(tag)
+    cfg = get_smoke_config(arch).replace(**edits)
+    data = "'data'"            # B over the data axis, at D = 1 too
+    axis = L.cache_axis(cfg, length, m)
+    assert axis in ("t", "dh")
+    spec = ["None", data, "None", "None", "None"]
+    spec[2 if axis == "t" else 4] = "'model'"
+    assert str(runs["ref"][f"dh/{tag}/kspec"]) == f"({', '.join(spec)})"
+    b = ranks.DH_BATCH // d
+    want = {"k": [(b,) + L.cache_block(cfg, length, m)]}
+    if cfg.family == "encdec":
+        cross = cfg.encoder_seq
+        want["ck"] = [(b,) + L.cache_block(cfg, cross, m)]
+        cspec = ["None", data, "None", "None", "None"]
+        cspec[2 if cross % m == 0 else 4] = "'model'"
+        assert str(runs["ref"][f"dh/{tag}/ckspec"]) == f"({', '.join(cspec)})"
+    for r in _dh_runs(runs, tag):
+        for name, shapes in want.items():
+            assert r["cache"][name] == shapes, (name, r["cache"])
+
+
+@pytest.mark.parametrize("tag", DH_TAGS)
+def test_decode_gives_the_references_mesh_tokens(runs, tag):
+    """The port's step on the case's mesh gives the reference's own
+    tokens on that mesh every step, and its logits within
+    ``decode_parity_tolerance("float32")``; the reference's mesh gives
+    its one-device tokens."""
+    ref = runs["ref"]
+    key = f"dh/{tag}"
+    np.testing.assert_array_equal(ref[f"{key}/mesh/tokens"],
+                                  ref[f"{key}/single/tokens"])
+    got = _dh_runs(runs, tag)
+    assert len(got) == int(np.prod(_dh_case(tag)[3]))
+    for r in got:
+        np.testing.assert_array_equal(r["tokens"], ref[f"{key}/mesh/tokens"])
+        np.testing.assert_allclose(r["logits"], ref[f"{key}/mesh/logits"],
+                                   rtol=F32["rtol"], atol=F32["atol"])
+        assert r["equal"]
+
+
+@pytest.mark.parametrize("tag", DH_TAGS)
+def test_decode_collectives_follow_the_cache_axis(runs, tag):
+    """Per step and layer, over T: the (out, lse) partials gathered
+    (and q where the heads are split); over the head dim: the scores
+    summed and the outputs gathered along it (and q gathered where the
+    heads are split). Each step decodes twice (the logits read, then
+    the step)."""
+    _, arch, edits, (d, m), length = _dh_case(tag)
+    cfg = get_smoke_config(arch).replace(**edits)
+    n = 2 * ranks.DH_STEPS * cfg.num_layers
+    split_heads = cfg.num_heads % m == 0
+    self_axis = L.cache_axis(cfg, length, m)
+    axes = [self_axis]
+    if cfg.family == "encdec":
+        axes.append(L.cache_axis(cfg, cfg.encoder_seq, m))
+    want = {"partial_gather": n * axes.count("t"),
+            "score_sum": n * axes.count("dh"),
+            "dh_gather": n * axes.count("dh")}
+    if split_heads:
+        want["q_gather"] = n * len(axes)
+    for r in _dh_runs(runs, tag):
+        got = {k: v for k, v in r["collectives"].items() if k in want}
+        assert got == {k: v for k, v in want.items() if v}, got
+
+
+def test_unsummed_scores_miss_the_bound(runs):
+    """The control: the same decode with each rank applying its own
+    partial scores (``score_sum`` left out) misses the bound the port
+    meets."""
+    key = f"dh/{ranks.DH_CONTROL}"
+    want = runs["ref"][f"{key}/mesh/logits"]
+    for r in runs["step"]:
+        if "control" not in r["dh"]:
+            continue
+        gap = np.abs(r["dh"]["control"]["logits"] - want)
+        assert (gap > F32["atol"] + F32["rtol"] * np.abs(want)).any()
+        assert gap.max() > 100 * F32["atol"], gap.max()
+
+
+def test_engine_pool_over_the_head_dim_gives_the_single_rank_tokens(runs):
+    """Case B through the engine: qwen2.5-3b's pool of 42 keys at (1, 4)
+    goes over the head dim (32 in blocks of 8); the tokens are the
+    port's M = 1 engine's on the same params."""
+    cfg = get_smoke_config(DH_ENGINE)
+    sc = ranks.DH_SERVE
+    for r in runs["engine"]:
+        got = r["dh"]
+        assert got["pool"] == (sc["slots"], sc["max_len"], cfg.num_kv_heads,
+                               cfg.head_dim_ // 4)
+        assert got["tokens"] == runs["single"]["dh"]
+        assert got["stats"]["kernel_launches"] == 0
+        assert got["collectives"]["score_sum"]["calls"] > 0
+
+
+@pytest.mark.parametrize("arch", [a for a, _, _ in ref_side.DH_TRAIN])
+def test_training_with_whole_heads_matches_the_gspmd_step(runs, arch):
+    """One tree TVLARS step at (1, 8), where neither smoke config's 4
+    heads divide 8 (every rank computes the same whole attention, d_ff
+    split), against the reference's own GSPMD step on ``make_data_mesh(1,
+    8)``, within ``test_torch_tp_train_families.py``'s bounds; the ranks
+    holding one block hold the same bits."""
+    ref, key = runs["ref"], f"{arch}/tree"
+    bounds = train_ref.BOUNDS
+    for r in runs["step"]:
+        got = r["dh"][f"train/{arch}"]
+        assert got["replicas_equal"]
+        np.testing.assert_allclose(got["loss"], ref[f"{key}/loss"],
+                                   rtol=bounds["loss"])
+        theirs = train_ref.leaves(ref, f"{key}/params")
+        assert len(got["params"]) == len(theirs)
+        for a, b in zip(got["params"], theirs):
+            np.testing.assert_allclose(a, b, rtol=bounds["params_rtol"],
+                                       atol=bounds["params_atol"])
+        for name in train_ref.NORMS:
+            np.testing.assert_allclose(got[name], ref[f"{key}/{name}"],
+                                       rtol=bounds["norms"], err_msg=name)

@@ -27,8 +27,10 @@ and in the subprocess from the same keys.
   same tokens. Sampled at ``temperature > 0`` the engine draws as the
   single-rank engine does, whatever the data split.
 * ``launch.serve --model-parallel 2`` prints M = 1's sample line.
-* The refusals name their ROADMAP item (the MoE family's cases, item
-  11d, now give the rules' blocks); the data column's ``mean_`` /
+* The cases once refused (the MoE family's, item 11d, and the model
+  axis dividing neither the heads nor the KV heads, item 11b-4) give
+  the rules' blocks, the KV caches ``cache_pspecs``'; the data
+  column's ``mean_`` /
   ``broadcast_`` and a save of split leaves work over the model axis.
 """
 from __future__ import annotations
@@ -52,7 +54,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.base import tree_leaves
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.models import convert, get_model
+from repro_torch.models import convert, extra_embed_shape, get_model
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import check_model_axis
 
@@ -329,33 +331,59 @@ class StandIn:
     ("whisper-large-v3", 8, "11b-4"), ("qwen2.5-3b", 8, "11b-4"),
     ("llama-3.2-vision-11b", 8, "11b-4")])
 def test_refusals_name_their_roadmap_item(arch, model, item):
-    """Model.init(mesh=) refuses before it draws, and shard_params before
-    it slices, naming the item that ports the case (11b-4). Item 11d,
-    expert parallelism, is ported: there both give this rank the rules'
-    blocks, the same bits (the router's [d, E/M] and the experts' [E/M,
-    ...] at model coordinate 0, every leaf of the whole draw's block)."""
+    """The cases of items 11d and 11b-4, which both used to be refused,
+    give this rank the rules' blocks from ``Model.init(mesh=)`` and
+    ``shard_params`` alike, the same bits (every leaf the whole draw's
+    block at model coordinate 0). Item 11d, expert parallelism: the
+    router's [d, E/M] and the experts' [E/M, ...]. Item 11b-4, the
+    model axis dividing neither the heads nor the KV heads (4 of them
+    at M = 8): the attention whole, d_ff split, and the KV caches
+    ``cache_pspecs``' blocks, over T where 8 divides their length, else
+    over the head dim (32 in blocks of 4)."""
     m = get_model(get_smoke_config(arch))
+    cfg = m.cfg
     mesh = StandIn(1, model)
+    whole = m.init(0, device="cpu")
+    local = m.init(0, device="cpu", mesh=mesh)
+    split = convert.shard_params(cfg, whole, mesh)
+    for a, b, c in zip(tree_leaves(local), tree_leaves(split),
+                       tree_leaves(whole)):
+        assert torch.equal(a, b)
+        assert torch.equal(a, c[tuple(slice(0, n) for n in a.shape)])
     if item == "11d":
-        whole = m.init(0, device="cpu")
-        local = m.init(0, device="cpu", mesh=mesh)
-        split = convert.shard_params(m.cfg, whole, mesh)
-        e, d, f = m.cfg.num_experts, m.cfg.d_model, m.cfg.d_ff
+        e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
         for i, layer in enumerate(local["layers"]):
             got = {k: tuple(v.shape) for k, v in layer["moe"].items()}
             assert got == {"router": (d, e // model),
                            "wi": (e // model, d, f),
                            "wg": (e // model, d, f),
                            "wo": (e // model, f, d)}, (i, got)
-        for a, b, c in zip(tree_leaves(local), tree_leaves(split),
-                           tree_leaves(whole)):
-            assert torch.equal(a, b)
-            assert torch.equal(a, c[tuple(slice(0, n) for n in a.shape)])
         return
-    with pytest.raises(NotImplementedError, match=f"item {item}$"):
-        m.init(0, device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match=f"item {item}$"):
-        convert.shard_params(m.cfg, m.init(0, device="cpu"), mesh)
+    layers = local.get("layers") or local["decoder"]
+    attn = layers[0].get("attn") or layers[0]["self_attn"]
+    assert tuple(attn["wq"].shape) == (cfg.d_model, cfg.num_heads,
+                                       cfg.head_dim_)
+    assert layers[0]["mlp"]["wi"].shape[1] == cfg.d_ff // model
+    dh, hkv = cfg.head_dim_, cfg.num_kv_heads
+    cross = {"encdec": cfg.encoder_seq,
+             "vlm": cfg.num_image_tokens}.get(cfg.family)
+    for length, want in ((16, (2, 16 // model, hkv, dh)),
+                         (18, (2, 18, hkv, dh // model))):
+        assert (2,) + L.cache_block(cfg, length, model) == want
+        if cfg.family == "encdec":
+            # its cache runs the encoder, whose row sums need the ranks
+            # (test_torch_tp_fallback.py serves it on them)
+            continue
+        es = extra_embed_shape(cfg, 2)
+        with L.batch_sharding(mesh):
+            cache = m.init_cache(local, 2, length,
+                                 None if es is None else torch.ones(es))
+        got = ranks._cache_shapes(cache)
+        assert got["k"] == got["v"] == [want], (length, got)
+        if cross is not None:
+            block = (2, cross // model, hkv, dh) if cross % model == 0 \
+                else (2, cross, hkv, dh // model)
+            assert got["ck"] == got["cv"] == [block], got
 
 
 @pytest.mark.parametrize("leaf", ["wo", "wk", "mlp-wg"])
@@ -380,30 +408,59 @@ def test_a_whole_leaf_beside_a_split_partner_is_refused(leaf):
 
 
 def test_a_whole_wk_and_wv_beside_a_split_wq_is_the_t_fallback():
-    """The layout a whole ``wk`` / ``wv`` beside split ``wq`` / ``wo``
-    makes is served: the KV cache splits over T (the pool a block of T
-    of every KV head; test_torch_tp_fallback.py serves it)."""
+    """A whole ``wk`` / ``wv`` beside split ``wq`` / ``wo`` is served,
+    and the KV cache follows ``cache_pspecs`` on its own shape: at M = 4
+    the rules leave the 2 KV heads whole beside 2 of 8 heads a rank, so
+    the cache goes over T (16 keys), or over the head dim (32 in blocks
+    of 8) where 4 does not divide T (18); at M = 2, where the rules
+    would split them, a ``wk`` / ``wv`` left whole by hand still gives
+    a cache of the rank's KV heads (test_torch_tp_fallback.py serves
+    the rules' layouts)."""
     cfg = get_smoke_config("qwen2-72b")
-    mesh = StandIn(1, 2)
     model = get_model(cfg)
-    params = convert.shard_params(cfg, model.init(0, device="cpu"), mesh)
-    whole = model.init(0, device="cpu")["layers"][1]
-    for leaf in ("wk", "wv", "bk", "bv"):
-        params["layers"][1]["attn"][leaf] = whole["attn"][leaf]
+    whole = model.init(0, device="cpu")
+    dh, hkv = cfg.head_dim_, cfg.num_kv_heads
+    mesh = StandIn(1, 4)
+    params = convert.shard_params(cfg, whole, mesh)
+    assert params["layers"][0]["attn"]["wk"].shape[1] == hkv
     check_model_axis(cfg, params, mesh)
-    assert [L.kv_split(cfg, p["attn"]) for p in params["layers"]] == [1, 2]
+    for length, want in ((16, (3, 4, hkv, dh)), (18, (3, 18, hkv, dh // 4))):
+        assert [L.cache_axis(cfg, length, L.model_split(cfg, p))
+                for p in params["layers"]] == [
+            "t" if length == 16 else "dh"] * 2
+        with L.batch_sharding(mesh):
+            cache = model.init_cache(params, 3, length)
+        assert [tuple(c["k"].shape) for c in cache] == [want, want]
+    mesh = StandIn(1, 2)
+    params = convert.shard_params(cfg, whole, mesh)
+    for leaf in ("wk", "wv", "bk", "bv"):
+        params["layers"][1]["attn"][leaf] = whole["layers"][1]["attn"][leaf]
+    check_model_axis(cfg, params, mesh)
+    assert [L.model_split(cfg, p) for p in params["layers"]] == [2, 2]
     cache = model.init_cache(params, 3, 16)
-    assert [tuple(c["k"].shape) for c in cache] == [
-        (3, 16, cfg.num_kv_heads // 2, cfg.head_dim_),
-        (3, 8, cfg.num_kv_heads, cfg.head_dim_)]
+    assert [tuple(c["k"].shape) for c in cache] == [(3, 16, hkv // 2, dh)] * 2
 
 
 def test_whisper_at_model_8_names_11b_4_before_drawing():
     """whisper-large-v3's 20 heads and 1500 cross frames do not divide
-    8: cache_pspecs would split the cross K/V over Dh."""
-    m = get_model(get_config("whisper-large-v3"))
-    with pytest.raises(NotImplementedError, match="item 11b-4$"):
-        m.init(0, device="cpu", mesh=StandIn(1, 8))
+    8 (nor 16): before drawing, its rank blocks pass the partner checks
+    (attention whole, d_ff split), and ``cache_pspecs``' rule puts its
+    448-position self caches over T and its cross K/V over the head dim
+    (64 in blocks of 8, of 4 at M = 16)."""
+    from repro_torch.models.encdec import init_encdec
+    cfg = get_config("whisper-large-v3")
+    meta = init_encdec(cfg, torch.Generator(), torch.device("meta"))
+    for model in (8, 16):
+        mesh = StandIn(1, model)
+        local = convert._local_meta(meta, mesh)
+        check_model_axis(cfg, local, mesh)
+        layer = local["decoder"][0]
+        assert layer["self_attn"]["wq"].shape[1] == 20
+        assert L.model_split(cfg, layer) == model
+        assert L.cache_axis(cfg, 448, model) == "t"
+        assert L.cache_axis(cfg, cfg.encoder_seq, model) == "dh"
+        assert L.cache_block(cfg, cfg.encoder_seq, model) == (
+            1500, 20, 64 // model)
 
 
 def test_training_and_sequence_parallelism_over_the_model_axis_name_11c():

@@ -23,6 +23,13 @@ is imported), and reads the one ``.npz`` file it writes:
   smoke configs of :data:`FALLBACK_ENGINES`, their seed-0 params with
   seeded QKV biases (vlm: cross gates opened, seeded image
   embeddings), serving ``torch_tp_ref.PROMPTS``.
+* ``dh/{tag}/...``: each case of :data:`DH_CASES` (the KV cache over T
+  beside whole heads, or over the head dim) decoded on one device and
+  on its mesh, each step's tokens and logits, and ``cache_pspecs``'
+  specs of the first self and cross K caches.
+* ``{arch}/...``: one GSPMD TVLARS step of each job of
+  :data:`DH_TRAIN` (``torch_tp_train_families_ref.run_jobs``: the heads
+  whole at (1, 8)).
 
 ``WHAT`` is ``"families"``: the same engine for the vlm smoke config,
 ``generate`` for the encdec, ssm and hybrid ones (:data:`GENERATE`),
@@ -48,6 +55,29 @@ GATE = 0.5
 GENERATE = ("whisper-large-v3", "mamba2-1.3b", "zamba2-1.2b")
 GEN_B, GEN_S, GEN_N = 4, 8, 6
 FAMILY_MESHES = ((1, 2), (2, 2))
+# the KV cache over T beside whole heads and over the head dim, on the
+# reference's own mesh: (tag, arch, config edits, mesh, cache length).
+# whisper's smoke config at (1, 8) keeps its 4 heads whole: a length 8
+# divides puts its self caches over T, 14 over Dh (32 in blocks of 4),
+# and 20 encoder frames its cross K/V over Dh (24 over T); qwen2.5-3b's
+# (4 heads, 2 KV heads) at (1, 4) and (2, 4) splits its heads, and 18
+# keys go over Dh (case B)
+DH_CASES = (("whisper-t", "whisper-large-v3", {}, (1, 8), 16),
+            ("whisper-dh", "whisper-large-v3", {}, (1, 8), 14),
+            ("whisper-cross-dh", "whisper-large-v3", {"encoder_seq": 20},
+             (1, 8), 14),
+            ("qwen-1x4", "qwen2.5-3b", {}, (1, 4), 18),
+            ("qwen-2x4", "qwen2.5-3b", {}, (2, 4), 18))
+DH_BATCH, DH_STEPS = 4, 8
+# training where the heads stay whole (the reference's GSPMD step,
+# torch_tp_train_families_ref's)
+DH_TRAIN = (("whisper-large-v3", (1, 8), ("tree",)),
+            ("qwen2.5-3b", (1, 8), ("tree",)))
+
+
+def dh_start(vocab: int) -> np.ndarray:
+    return np.random.RandomState(31).randint(
+        1, vocab, size=(DH_BATCH, 1)).astype(np.int32)
 
 
 def gen_prompts(vocab: int) -> np.ndarray:
@@ -77,6 +107,78 @@ def reference_params(arch: str) -> dict:
 
 def _spec_str(spec) -> str:
     return repr(tuple(spec))
+
+
+def _run(step_fn, decode, params, cache, tok, steps: int):
+    """``steps`` serve steps from ``tok``, each step's logits read first
+    by ``decode`` on the same cache: (tokens, logits) stacked."""
+    import jax.numpy as jnp
+    logits, got = [], []
+    for i in range(steps):
+        logits.append(np.asarray(decode(params, cache, tok,
+                                        jnp.int32(i))[0]))
+        tok, cache = step_fn(params, cache, tok, jnp.int32(i))
+        got.append(np.asarray(tok))
+    return np.stack(got), np.stack(logits)
+
+
+def _shapes(tree):
+    import jax
+    return jax.tree_util.tree_map(
+        lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), tree)
+
+
+def dh_step(out, tag: str, arch: str, edits: dict, shape: tuple,
+            length: int) -> None:
+    """One :data:`DH_CASES` case: the decode from :func:`dh_start` for
+    :data:`DH_STEPS` steps on one device and on ``make_data_mesh(*shape)``
+    (params by ``state_pspecs``, cache by ``cache_pspecs``, whose specs
+    of the self and cross K caches are kept)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_smoke_config
+    from repro.launch import sharding
+    from repro.launch.mesh import make_data_mesh
+    from repro.models import extra_embed_shape, get_model
+    from repro.models import layers as layers_lib
+    from repro.serving.decode import make_serve_step
+    cfg = get_smoke_config(arch).replace(**edits)
+    m = get_model(cfg)
+    layers_lib.set_batch_sharding(None)
+    if f"dh/{arch}/params/0" not in out:
+        base._put(out, f"dh/{arch}/params", reference_params(arch))
+    params = jax.tree_util.tree_map(jnp.asarray, reference_params(arch))
+    es = extra_embed_shape(cfg, DH_BATCH)
+    extra = None if es is None else jnp.asarray(extra_rows(es))
+    cache = m.init_cache(params, DH_BATCH, length, extra)
+    tok = jnp.asarray(dh_start(cfg.vocab_size))
+    serve = make_serve_step(m)
+    key = f"dh/{tag}"
+    out[f"{key}/single/tokens"], out[f"{key}/single/logits"] = _run(
+        jax.jit(serve), jax.jit(m.decode_step), params, cache, tok,
+        DH_STEPS)
+    mesh = make_data_mesh(*shape)
+    with mesh:
+        layers_lib.set_batch_sharding(("data",), None, model_size=shape[1],
+                                      mesh=mesh)
+        params_sh = sharding.named(
+            mesh, sharding.state_pspecs(mesh, _shapes(params)))
+        cspecs = sharding.cache_pspecs(mesh, _shapes(cache))
+        for (path, _), spec in zip(
+                jax.tree_util.tree_leaves_with_path(cache),
+                jax.tree_util.tree_leaves(cspecs, is_leaf=lambda x: isinstance(
+                    x, jax.sharding.PartitionSpec))):
+            name = str(getattr(path[-1], "key", ""))
+            if name in ("k", "ck") and f"{key}/{name}spec" not in out:
+                out[f"{key}/{name}spec"] = np.asarray(_spec_str(spec))
+        cache_sh = sharding.named(mesh, cspecs)
+        ins = (params_sh, cache_sh, None, None)
+        out[f"{key}/mesh/tokens"], out[f"{key}/mesh/logits"] = _run(
+            jax.jit(serve, in_shardings=ins),
+            jax.jit(m.decode_step, in_shardings=ins),
+            jax.device_put(params, params_sh),
+            jax.device_put(cache, cache_sh), tok, DH_STEPS)
+    layers_lib.set_batch_sharding(None)
 
 
 def step(out, tag: str, lm: dict):
@@ -219,10 +321,14 @@ def cache_blocks(out, arch: str, batch: int, max_len: int):
 def main(what: str, path: str) -> None:
     out = {}
     if what == "fallback":
+        import torch_tp_train_families_ref as train_ref
         step(out, "", FALLBACK_LM)
         step(out, "-ring", RING_LM)
         for arch in FALLBACK_ENGINES:
             engine(out, arch)
+        for case in DH_CASES:
+            dh_step(out, *case)
+        train_ref.run_jobs(DH_TRAIN, out)
     elif what == "families":
         engine(out, "llama-3.2-vision-11b")
         cache_blocks(out, "llama-3.2-vision-11b", base.SERVE["slots"],

@@ -41,6 +41,23 @@ FALLBACK_STEPS = {"": STEPS, "-ring": 3 * RING_T}
 FALLBACK_ENGINES = ("qwen2.5-3b", "gemma3-12b", "llama-3.2-vision-11b")
 GENERATE = ("whisper-large-v3", "mamba2-1.3b", "zamba2-1.2b")
 GEN_B, GEN_S, GEN_N = 4, 8, 6
+DH_CASES = (("whisper-t", "whisper-large-v3", {}, (1, 8), 16),
+            ("whisper-dh", "whisper-large-v3", {}, (1, 8), 14),
+            ("whisper-cross-dh", "whisper-large-v3", {"encoder_seq": 20},
+             (1, 8), 14),
+            ("qwen-1x4", "qwen2.5-3b", {}, (1, 4), 18),
+            ("qwen-2x4", "qwen2.5-3b", {}, (2, 4), 18))
+DH_BATCH, DH_STEPS = 4, 8
+DH_CONTROL = "whisper-dh"       # the case run again with the row sum left out
+# the engine of case B: qwen2.5-3b's pool of 42 keys (pages of 6) at
+# (1, 4), over the head dim
+DH_SERVE = dict(slots=4, max_len=42, page_size=6, prefill_batch=4)
+DH_TRAIN_MESH = (1, 8)
+
+
+def dh_start(vocab: int) -> np.ndarray:
+    return np.random.RandomState(31).randint(
+        1, vocab, size=(DH_BATCH, 1)).astype(np.int32)
 
 
 def prompts(vocab: int) -> list:
@@ -54,13 +71,13 @@ def varied_tokens() -> np.ndarray:
 
 
 def drain(model, params, mesh=None, eng=None, extra=None,
-          temperature: float = 0.0) -> dict:
+          temperature: float = 0.0, serve: dict = SERVE) -> dict:
     """Serve :data:`PROMPTS` through an engine (``eng``, or one on
     ``params`` and ``mesh``, greedy or sampled at ``temperature``); its
     tokens per request, its stats, its KV pool's shape (and a cross
     layer's) and the mesh's collective counts."""
     if eng is None:
-        sc = serving.ServeConfig(**SERVE, sampling=serving.SamplingParams(
+        sc = serving.ServeConfig(**serve, sampling=serving.SamplingParams(
             temperature=temperature, seed=SAMPLE_SEED))
         eng = serving.Engine(model, params, sc, device="cpu", mesh=mesh,
                              extra=extra)
@@ -77,13 +94,15 @@ def drain(model, params, mesh=None, eng=None, extra=None,
                             (mesh.collectives.items() if mesh else ())}}
 
 
-def _serve_step_run(model, params, mesh, start, steps: int = STEPS
-                    ) -> tuple:
+def _serve_step_run(model, params, mesh, start, steps: int = STEPS,
+                    cache=None) -> tuple:
     """``steps`` steps of ``make_serve_step(model, mesh)`` from
     ``start`` (its rows), each step's logits read first by
-    ``decode_step`` on a copy of the cache."""
+    ``decode_step`` on a copy of the cache (``cache``, or a new one of
+    :data:`STEP_LEN`)."""
     step = serving.make_serve_step(model, mesh)
-    cache = model.init_cache(params, start.shape[0], STEP_LEN)
+    if cache is None:
+        cache = model.init_cache(params, start.shape[0], STEP_LEN)
     tok = torch.from_numpy(start)
     toks, logits = [], []
     for i in range(steps):
@@ -223,15 +242,94 @@ def _cache_shapes(cache) -> dict:
     return {k: sorted(v) for k, v in out.items()}
 
 
-def fallback_step_world(ref_params: dict) -> dict:
+def dh_step(case: tuple, ref_params: dict, mesh) -> dict:
+    """One case of :data:`DH_CASES` on ``mesh`` (this rank a member), on
+    the reference's params placed by ``shard_params``: the decode from
+    :func:`dh_start` for :data:`DH_STEPS` steps, each data row on its
+    block of the batch, the tokens and logits gathered over the data
+    column; the cache's leaf shapes, the row's collectives and whether
+    the mesh's ranks hold the same tokens and logits."""
+    _, arch, edits, _, length = case
+    cfg = get_smoke_config(arch).replace(**edits)
+    model = get_model(cfg)
+    params = convert.shard_params(cfg, convert.params_from_jax(
+        cfg, ref_params, device="cpu"), mesh)
+    rows = mesh.data_block(DH_BATCH)
+    extra = _extra(cfg, DH_BATCH)
+    with L.batch_sharding(mesh):
+        cache = model.init_cache(params, rows.stop - rows.start, length,
+                                 *(() if extra is None else (extra[rows],)))
+    shapes = _cache_shapes(cache)
+    mesh.collectives.clear()
+    toks, logits = _serve_step_run(model, params, mesh,
+                                   dh_start(cfg.vocab_size)[rows], DH_STEPS,
+                                   cache)
+    out = {"cache": shapes,
+           "collectives": {k: v["calls"] for k, v in
+                           mesh.collectives.items()},
+           "tokens": mesh.data_gather(torch.from_numpy(toks), 1).numpy(),
+           "logits": mesh.data_gather(torch.from_numpy(logits), 1).numpy()}
+    # over the case mesh's ranks (the ranks past a narrower mesh sit out)
+    out["equal"] = mesh_lib.all_equal(mesh, [out["tokens"].tobytes(),
+                                             out["logits"].tobytes()])
+    return out
+
+
+def unsummed_scores():
+    """The Dh split's fault: ``Mesh.model_sum_`` leaves the partial
+    scores (``score_sum``) unsummed, each rank applying its own."""
+    import contextlib
+    from repro_torch.distributed import Mesh
+    real = Mesh.model_sum_
+
+    def model_sum_(self, t, name="model_sum"):
+        return t if name == "score_sum" else real(self, t, name)
+
+    @contextlib.contextmanager
+    def patched():
+        Mesh.model_sum_ = model_sum_
+        try:
+            yield
+        finally:
+            Mesh.model_sum_ = real
+    return patched()
+
+
+def dh_world(dh_params: dict, train_jobs: tuple) -> dict:
+    """Every case of :data:`DH_CASES` on its mesh of this world's first
+    ranks (the :data:`DH_CONTROL` case again under
+    :func:`unsummed_scores`), then one tree TVLARS step of each
+    ``(arch, params, batch)`` of ``train_jobs`` on a
+    :data:`DH_TRAIN_MESH` mesh (``torch_tp_train_families_ranks.step``:
+    the heads whole). A rank past a mesh sits its case out."""
+    import torch_tp_train_families_ranks as train_ranks
+    out: dict = {}
+    for case in DH_CASES:
+        mesh = mesh_lib.make_host_mesh(*case[3])
+        if not mesh.member:
+            continue
+        out[case[0]] = dh_step(case, dh_params[case[1]], mesh)
+        if case[0] == DH_CONTROL:
+            with unsummed_scores():
+                out["control"] = dh_step(case, dh_params[case[1]], mesh)
+    mesh = mesh_lib.make_host_mesh(*DH_TRAIN_MESH)
+    for arch, params_np, batch_np in train_jobs:
+        out[f"train/{arch}"] = train_ranks.step(arch, params_np, batch_np,
+                                                "tree", mesh)
+    return out
+
+
+def fallback_step_world(ref_params: dict, dh_params: dict,
+                        train_jobs: tuple) -> dict:
     """The ``FALLBACK_LM`` step (2 KV heads: the cache over T) and its
     windowed twin on a (2, 4) mesh of this world's 8 ranks, on the
     reference's params placed by ``shard_params``: each data row steps
     its half of the batch, the tokens and logits gathered over the data
-    column."""
+    column. Then :func:`dh_world` (under ``"dh"``)."""
     torch.set_num_threads(1)
+    out = {"dh": dh_world(dh_params, train_jobs)}
     mesh = mesh_lib.make_host_mesh(2, 4)
-    out = {"coords": dict(mesh.coords)}
+    out["coords"] = dict(mesh.coords)
     rows = mesh.data_block(STEP_BATCH)
     for tag, lm in (("", FALLBACK_LM), ("-ring", RING_LM)):
         cfg = ModelConfig(**lm)
@@ -264,7 +362,8 @@ def fallback_step_world(ref_params: dict) -> dict:
 def fallback_engine_world(ref_params: dict) -> dict:
     """The engine on a (1, 4) mesh (the cache over T for every arch of
     ``FALLBACK_ENGINES``) on the reference's params, placed by
-    ``shard_params``."""
+    ``shard_params``; qwen2.5-3b's again on a pool of :data:`DH_SERVE`
+    (42 keys: over the head dim, case B)."""
     torch.set_num_threads(1)
     mesh = mesh_lib.make_host_mesh(1, 4)
     out = {"coords": dict(mesh.coords)}
@@ -275,8 +374,11 @@ def fallback_engine_world(ref_params: dict) -> dict:
             cfg, ref_params[arch], device="cpu"), mesh)
         out[arch] = {"ref": drain(model, ref, mesh,
                                   extra=_extra(cfg, SERVE["slots"]))}
+        if arch == "qwen2.5-3b":
+            out["dh"] = drain(model, ref, mesh, serve=DH_SERVE)
     out["equal"] = mesh_lib.all_equal(
-        mesh, [out[a]["ref"]["tokens"] for a in FALLBACK_ENGINES])
+        mesh, [out[a]["ref"]["tokens"] for a in FALLBACK_ENGINES]
+        + [out["dh"]["tokens"]])
     return out
 
 
@@ -325,3 +427,34 @@ def families_world(data: int, model_axis: int, ref_params: dict) -> dict:
         out["llama-3.2-vision-11b"]["ref"]["tokens"]] + [
         [out[a][s].tolist() for s in ("ref", "init")] for a in GENERATE])
     return out
+
+
+PREFIX_ARCH, PREFIX_MESH = "qwen2.5-3b", (1, 2)
+PREFIX_SERVE = dict(slots=2, max_len=32, page_size=8, prefill_batch=2)
+PREFIX_PROMPTS = [(0, 5, 4), (1, 9, 3), (2, 3, 5)]
+
+
+def prefix_drain(mesh=None) -> list:
+    """The tokens of :data:`PREFIX_PROMPTS` through an engine on this
+    rank's blocks of the seed-0 draw of :data:`PREFIX_ARCH` (whole
+    without a mesh)."""
+    model = get_model(get_smoke_config(PREFIX_ARCH))
+    params = model.init(0, device="cpu", mesh=mesh)
+    eng = serving.Engine(model, params, serving.ServeConfig(**PREFIX_SERVE),
+                         device="cpu", mesh=mesh)
+    ids = [eng.submit(np.random.RandomState(s).randint(
+        1, model.cfg.vocab_size, size=n), max_new_tokens=new)
+        for s, n, new in PREFIX_PROMPTS]
+    got = {r.id: r.tokens for r in eng.drain()}
+    return [got[i] for i in ids]
+
+
+def prefix_engine_world():
+    """An engine on a :data:`PREFIX_MESH` mesh of this world's first
+    ranks; a rank past the mesh builds the mesh (its groups are made
+    over the world) and serves nothing (None)."""
+    torch.set_num_threads(1)
+    mesh = mesh_lib.make_host_mesh(*PREFIX_MESH)
+    if not mesh.member:
+        return None
+    return prefix_drain(mesh)
