@@ -206,35 +206,37 @@ script exits non-zero:
    parameter + 6 GiB; printed), fused TVLARS f32, 8 x 512, 3 steps: 1 +
    1 segmented launches per step, the last step checked as in phase 7,
    the load-balance and router z losses finite and non-zero;
-13d. mamba2-1.3b trained at full width and depth (48 blocks, 8 x 512,
-   two SSD chunks a row): fused TVLARS f32 (then ``generate`` on its
+13d. mamba2-1.3b trained at full width cut to 12 of 48 blocks
+   (``FAMILY_CUTS``: the script's time budget; 8 x 512, two SSD chunks
+   a row): fused TVLARS f32 (then ``generate`` on its
    params: 4 prompts of 32 tokens through the token-by-token prefill
    plus 16 new tokens, 0 decode-attention launches) and per-tensor
    WA-LARS (2 launches per kernel segment per step, the last step
    checked as in 7c);
 13e. zamba2-1.2b: the kernel at (4 slots, 32 / 32 heads, Dh 64, T 48,
-   ``generate``'s cache), then trained at full width and depth (38
-   blocks, the shared block at 6 call sites; fused TVLARS f32, 8 x 512,
-   3 steps) and ``generate`` as in 13d with 6 decode launches per step;
+   ``generate``'s cache), then trained at full width cut to 14 of 38
+   blocks (two groups and the trailing two: the shared block at 2 call
+   sites; fused TVLARS f32, 8 x 512, 3 steps) and ``generate`` as in
+   13d with 2 decode launches per step;
 13f. the four families' smoke configs in f32 on the card against the
    CPU's plain path on the same weights: logits, every MoE layer's
    routing decisions (equal, with and without drops), ``generate``'s
    tokens and one fused TVLARS step.
-14. llama-3.2-vision-11b (40 self + 8 gated cross layers) served at
-   full width and depth (bf16, random weights from seed 0, every gate
+14. llama-3.2-vision-11b cut to 20 of 40 self layers (4 of 8 gated
+   cross layers) served at full width (bf16, random weights from seed 0, every gate
    opened to 0.5 in the phase, one image block [8, 1600, 4096] of
    seeded normal draws) on phase 4's engine and traffic: the
-   prediction, 40 decode launches per step (the cross layers none),
+   prediction, 20 decode launches per step (the cross layers none),
    tok/s, the decode step beside its weight read, the peak; three
    requests, one per image row the engine gave them (row i of its
    admission batch), held against ``generate`` on that row up to bf16
    ties, and one request on another image must change tokens;
-14b. whisper-large-v3 (32 + 32 layers) ``generate`` at full width and
-   depth: 4 prompts of 64 tokens, 32 new, random frames [4, 1500,
-   1280]; 32 decode launches per step, the tokens against the argmax
+14b. whisper-large-v3 cut to 8 + 8 of 32 + 32 layers ``generate`` at
+   full width: 4 prompts of 64 tokens, 32 new, random frames [4, 1500,
+   1280]; 8 decode launches per step, the tokens against the argmax
    of a teacher-forced ``apply`` up to bf16 ties, other frames must
    change tokens;
-14c. whisper-large-v3 trained at full width and depth through
+14c. whisper-large-v3 trained at full width, 8 + 8 layers, through
    ``launch.train.run`` with random frames in place of the launcher's
    zero stub (``live_frontend``): fused TVLARS f32 8 x 512 (1 + 1
    launches per step) and per-tensor WA-LARS (28 + 28), last steps
@@ -468,7 +470,28 @@ script exits non-zero:
 21c. one fused TVLARS f32 step of whisper-large-v3 cut to 2 + 2 layers
    at (1, 8) through ``launch.train.run``, after M = 1: as 19a (1 + 1
    segmented launches a rank, the gaps within ``TT_BOUNDS``, the state
-   bytes a rank the rules').
+   bytes a rank the rules');
+22. sequence parallelism against its own dry run: qwen2.5-3b at full
+   width cut to ``SP_LAYERS`` (4) of 36, seq 4096, bf16, on a (1, 2)
+   mesh of two gloo ranks sharing the card, after M = 1 here on the
+   same weights and batch: one fused TVLARS step with the sequence over
+   the model axis and one without, from the same state. The gaps
+   between the two and to M = 1 within ``TT_BOUNDS``; each rank's
+   ``max_memory_allocated`` within ``SP_PEAK_RTOL`` (10%) of the dry
+   run's prediction for the same step (``launch.dryrun`` on a
+   ``DryMesh`` of the rank), and so the bytes the forward holds for the
+   backward (the split's saving), the collective
+   records equal to the prediction name by name (count and bytes), and
+   1 + 1 segmented launches a rank a step, as predicted;
+22a. prefill under sequence parallelism: ``Model.apply``'s
+   last-position logits on the same shape with the split and without,
+   |logit gap| max and mean within ``TP_LOGIT_BOUND`` /
+   ``TP_LOGIT_MEAN_BOUND``;
+22b. three production dry runs on the (16, 16) mesh (qwen2-72b ×
+   train_4k, qwen2.5-3b × decode_32k, gemma3-12b × long_500k), in a
+   process of their own while 22 runs: status, GiB a rank, dot FLOPs,
+   collective GiB and seconds (predictions of the port, not card
+   measurements).
 
 Every phase prints its seconds (``phase {label}: {s} s``).
 
@@ -3797,28 +3820,30 @@ def phase_families(train_module, ops, su, sref, lu, layerwise, flatten,
     out["13c"]["predicted_gib"] = gib
     clear()
 
-    mamba = get_config("mamba2-1.3b")
-    print(f"13d mamba2-1.3b: full width and depth, {tree_params(mamba)} "
-          f"params (param_count() says {mamba.param_count()}, F8): "
-          f"predicted fused peak "
+    mamba = cut_config(get_config, "mamba2-1.3b")
+    print(cut_line("13d mamba2-1.3b", get_config("mamba2-1.3b"), mamba)
+          + f", {tree_params(mamba)} params (param_count() says "
+          f"{mamba.param_count()}, F8): predicted fused peak "
           f"{tree_params(mamba) * TRAIN_BYTES_PER_PARAM / GIB:.2f} GiB "
           f"before activations", flush=True)
-    out["13d"] = phase_train_full(
-        run, ops, su, sref, tree_leaves,
-        ["--arch", "mamba2-1.3b"] + FAMILY_ARGV, "13d mamba2-tvlars-f32",
-        want_layers=mamba.num_layers,
-        inspect=lambda o: family_generate("13d mamba2-1.3b", serving, ops,
-                                          o, 0))
-    clear()
-    out["13d-pt"] = phase_train_per_tensor(
-        run, ops, lu, sref, layerwise, flatten, tree_leaves,
-        ["--arch", "mamba2-1.3b", "--optimizer", "wa-lars", "--use-kernel",
-         "per_tensor", "--precision", "f32", "--global-batch", "8",
-         "--seq", "512", "--steps", "3"], "13d mamba2-wa-lars-per-tensor",
-        want_layers=mamba.num_layers)
+    with config_cut(train_module, "mamba2-1.3b",
+                    **FAMILY_CUTS["mamba2-1.3b"]):
+        out["13d"] = phase_train_full(
+            run, ops, su, sref, tree_leaves,
+            ["--arch", "mamba2-1.3b"] + FAMILY_ARGV,
+            "13d mamba2-tvlars-f32", want_layers=mamba.num_layers,
+            inspect=lambda o: family_generate("13d mamba2-1.3b", serving,
+                                              ops, o, 0))
+        clear()
+        out["13d-pt"] = phase_train_per_tensor(
+            run, ops, lu, sref, layerwise, flatten, tree_leaves,
+            ["--arch", "mamba2-1.3b", "--optimizer", "wa-lars",
+             "--use-kernel", "per_tensor", "--precision", "f32",
+             "--global-batch", "8", "--seq", "512", "--steps", "3"],
+            "13d mamba2-wa-lars-per-tensor", want_layers=mamba.num_layers)
     clear()
 
-    zamba = get_config("zamba2-1.2b")
+    zamba = cut_config(get_config, "zamba2-1.2b")
     sites = zamba.num_layers // zamba.attn_every
     b, s, new = GEN_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(13)
@@ -3826,17 +3851,20 @@ def phase_families(train_module, ops, su, sref, lu, layerwise, flatten,
     row = kernel_row(tad, ops, gen, "global", t, None, zamba.cdtype, b,
                      zamba.num_heads, zamba.num_kv_heads, zamba.head_dim_,
                      [p * t // MAX_LEN for p in POS["global"]])
-    print(f"13e zamba2-1.2b: full width and depth, {tree_params(zamba)} "
-          f"params (param_count() says {zamba.param_count()}, F8), the "
-          f"shared attention block at {sites} call sites; the kernel row "
-          f"above on {smi_line()}", flush=True)
+    print(cut_line("13e zamba2-1.2b", get_config("zamba2-1.2b"), zamba)
+          + f", {tree_params(zamba)} params (param_count() says "
+          f"{zamba.param_count()}, F8), the shared attention block at "
+          f"{sites} call sites; the kernel row above on {smi_line()}",
+          flush=True)
     clear()
-    out["13e"] = phase_train_full(
-        run, ops, su, sref, tree_leaves,
-        ["--arch", "zamba2-1.2b"] + FAMILY_ARGV, "13e zamba2-tvlars-f32",
-        want_layers=zamba.num_layers,
-        inspect=lambda o: family_generate("13e zamba2-1.2b", serving, ops,
-                                          o, sites))
+    with config_cut(train_module, "zamba2-1.2b",
+                    **FAMILY_CUTS["zamba2-1.2b"]):
+        out["13e"] = phase_train_full(
+            run, ops, su, sref, tree_leaves,
+            ["--arch", "zamba2-1.2b"] + FAMILY_ARGV,
+            "13e zamba2-tvlars-f32", want_layers=zamba.num_layers,
+            inspect=lambda o: family_generate("13e zamba2-1.2b", serving,
+                                              ops, o, sites))
     out["13e"]["row"] = row
     clear()
     return out
@@ -3845,6 +3873,32 @@ def phase_families(train_module, ops, su, sref, lu, layerwise, flatten,
 # --------------------------------------------------------------------------
 # 14-14f: the encoder-decoder and vision families
 # --------------------------------------------------------------------------
+
+# 13d / 13e / 14 / 14b / 14c: depth cuts for the script's time budget
+# (with phase 22 the whole script took 1127.8 s of its 1200 s on an
+# H100 machine whose host ran 1.3x slower than others); widths as
+# published. mamba2 48 -> 12 blocks, zamba2 38 -> 14 (two
+# groups of 6 and the 2 trailing: 2 shared-block sites), the vlm 40 ->
+# 20 self layers (4 gated cross layers), whisper 32 + 32 -> 8 + 8
+FAMILY_CUTS = {"mamba2-1.3b": dict(num_layers=12),
+               "zamba2-1.2b": dict(num_layers=14),
+               "llama-3.2-vision-11b": dict(num_layers=20),
+               "whisper-large-v3": dict(num_layers=8, encoder_layers=8)}
+
+
+def cut_config(get_config, arch: str):
+    """``get_config(arch)`` at its ``FAMILY_CUTS`` depth."""
+    return get_config(arch).replace(**FAMILY_CUTS[arch])
+
+
+def cut_line(label: str, full, cut) -> str:
+    """``reduced:`` for each depth field ``cut`` changes from ``full``."""
+    fields = [f"{k} {getattr(full, k)} -> {getattr(cut, k)}"
+              for k in ("num_layers", "encoder_layers")
+              if getattr(full, k) != getattr(cut, k)]
+    return (f"{label}: reduced: {', '.join(fields)} (the script's time "
+            f"budget; width as published)")
+
 
 GATE_OPEN = 0.5               # 14 / 14d / 14f: every vlm cross gate
 WHISPER_GEN = (4, 64, 32)     # 14b: prompts, prompt length, new tokens
@@ -4147,24 +4201,33 @@ def phase_cross_families(train_module, ops, su, sref, lu, layerwise,
         torch.cuda.empty_cache()
 
     clear()
-    out["14"] = phase_vlm_serving(ops, serving, tad, get_config, get_model,
+
+    def cut(arch):
+        return cut_config(get_config, arch)
+
+    for arch, label in (("llama-3.2-vision-11b", "14"),
+                        ("whisper-large-v3", "14b / 14c")):
+        print(cut_line(f"{label} {arch}", get_config(arch), cut(arch)),
+              flush=True)
+    out["14"] = phase_vlm_serving(ops, serving, tad, cut, get_model,
                                   Tracer, phase_summary, tree_leaves,
                                   tad.decode_parity_tolerance(torch.bfloat16))
     clear()
-    out["14b"] = phase_whisper_generate(ops, serving, tad, get_config,
-                                        get_model, tree_leaves)
+    out["14b"] = phase_whisper_generate(ops, serving, tad, cut, get_model,
+                                        tree_leaves)
     clear()
 
-    whisper = get_config("whisper-large-v3")
+    whisper = cut("whisper-large-v3")
     n = tree_params(whisper)
-    print(f"14c whisper-large-v3: full width and depth, {n} params "
-          f"({whisper.param_count()} by param_count(), F9): predicted "
-          f"fused peak {n * TRAIN_BYTES_PER_PARAM / GIB:.2f} GiB + "
-          f"activations (one encoder layer's [8, 20, 1500, 1500] f32 "
-          f"scores {8 * 20 * 1500 * 1500 * 4 / GIB:.2f} GiB under remat): "
-          f"32-38 GiB; batches carry random frames [8, 1500, 1280]",
-          flush=True)
-    with live_frontend(train_module, 17):
+    print(f"14c whisper-large-v3: {n} params ({whisper.param_count()} by "
+          f"param_count(), F9): predicted fused peak "
+          f"{n * TRAIN_BYTES_PER_PARAM / GIB:.2f} GiB + activations (one "
+          f"encoder layer's [8, 20, 1500, 1500] f32 scores "
+          f"{8 * 20 * 1500 * 1500 * 4 / GIB:.2f} GiB under remat); batches "
+          f"carry random frames [8, 1500, 1280]", flush=True)
+    with live_frontend(train_module, 17), \
+            config_cut(train_module, "whisper-large-v3",
+                       **FAMILY_CUTS["whisper-large-v3"]):
         out["14c"] = phase_train_full(
             run, ops, su, sref, tree_leaves,
             ["--arch", "whisper-large-v3"] + FAMILY_ARGV,
@@ -4183,11 +4246,13 @@ def phase_cross_families(train_module, ops, su, sref, lu, layerwise,
     # rsqrt(eps) in every layer, so the gradient overflows at full depth
     # and step 1 would be NaN, as in the reference (F11)
     ops.reset_launches()
-    stub = run(["--arch", "whisper-large-v3", "--optimizer", "tvlars",
-                "--use-kernel", "fused", "--global-batch", "8", "--seq",
-                "512", "--steps", "1", "--device", DEV],
-               log_fn=lambda line: print(f"  14c launch.train stub: {line}",
-                                         flush=True))
+    with config_cut(train_module, "whisper-large-v3",
+                    **FAMILY_CUTS["whisper-large-v3"]):
+        stub = run(["--arch", "whisper-large-v3", "--optimizer", "tvlars",
+                    "--use-kernel", "fused", "--global-batch", "8",
+                    "--seq", "512", "--steps", "1", "--device", DEV],
+                   log_fn=lambda line: print(
+                       f"  14c launch.train stub: {line}", flush=True))
     want = {k: 0 for k in ops.launches}
     want.update({k: 1 for k in su.KERNELS["lars"]})
     if dict(ops.launches) != want or not np.all(np.isfinite(
@@ -8029,6 +8094,321 @@ def phase_dh_split(tad, ops, serving, train_launch, get_config,
     return out
 
 
+# ------------------- 22-22b: sequence parallelism and its dry run
+SP_ARCH = "qwen2.5-3b"
+SP_LAYERS = 4                  # of 36: the script's time budget
+SP_SEQ, SP_BATCH = 4096, 1
+SP_MESH = (1, 2)
+SP_HYPER = dict(total_steps=10, learning_rate=1.0)
+# |card - dry run| / card, for the peak and the forward's held bytes
+SP_PEAK_RTOL = 0.10
+SP_DRY = (("qwen2-72b", "train_4k"), ("qwen2.5-3b", "decode_32k"),
+          ("gemma3-12b", "long_500k"))
+SP_METRICS = ("loss", "grad_norm", "layerwise/w_norm", "layerwise/g_norm",
+              "layerwise/trust_ratio")
+
+
+def sp_config():
+    from repro_torch.configs import get_config
+    return get_config(SP_ARCH).replace(num_layers=SP_LAYERS)
+
+
+def sp_build(cfg, mesh, device):
+    """The phase's step: the seed-0 params (this rank's fsdp + tensor
+    parallel blocks on ``mesh``, whole at ``mesh=None``), fused TVLARS
+    f32, and the seeded global batch, on ``device`` (the card, or meta
+    for the dry run). Returns (model, placement, state, step, batch)."""
+    from repro_torch.core import build_optimizer
+    from repro_torch.models import convert, get_model
+    from repro_torch.training import TrainState, make_train_step
+    model = get_model(cfg)
+    place = None if mesh is None else convert.placement(cfg, mesh)
+    params = model.init(0, device=device, mesh=mesh, fsdp=mesh is not None)
+    opt = build_optimizer("tvlars", **SP_HYPER, use_kernel="fused",
+                          segments=model.segments, device=device,
+                          placement=place)
+    state = TrainState.create(params, opt)
+    step = make_train_step(model, opt, mesh=mesh, placement=place,
+                           layerwise=True)
+    gen = torch.Generator().manual_seed(22)
+    toks = torch.randint(0, cfg.vocab_size, (SP_BATCH, SP_SEQ + 1),
+                         generator=gen)
+    batch = {"tokens": toks[:, :-1].to(device),
+             "labels": toks[:, 1:].to(device)}
+    return model, place, state, step, batch
+
+
+def sp_declare(L, mesh, seq: bool) -> None:
+    L.set_batch_sharding(("data",), "model" if seq else None,
+                         model_size=mesh.shape["model"], mesh=mesh)
+
+
+def sp_saved(L, model, state, batch, mesh, place, seq, dev) -> int:
+    """The bytes the forward of the step's loss holds for its backward
+    (the remat boundaries, the CE chunks' inputs): allocated after the
+    forward minus before, on ``dev`` (the card: ``memory_allocated``;
+    meta: the dry run's live-bytes tracker)."""
+    from repro_torch.core.base import tree_leaves
+    from repro_torch.data import pipeline
+    from repro_torch.launch import dryrun
+    for t in tree_leaves(state.params):
+        t.requires_grad_(True)       # as the step's gradient does
+    sp_declare(L, mesh, seq)
+    local = pipeline.place_over_data(mesh, batch)
+    try:
+        with L.training(mesh, place):
+            if dev == "meta":
+                with dryrun.LiveBytes() as live:
+                    loss, _ = model.loss(state.params, local)
+                    held = live.live
+            else:
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                loss, _ = model.loss(state.params, local)
+                held = torch.cuda.memory_allocated() - before
+            del loss
+    finally:
+        L.set_batch_sharding(None)
+    return held
+
+
+def sp_step_rank(ref_path: str) -> dict:
+    """22 and 22a on one rank of a (1, 2) world: for the split and the
+    unsplit run, the dry run of the step on a ``DryMesh`` of this rank
+    (peak, records, launches, the forward's held bytes), then the step
+    on the card from a fresh state (the same readings, the metrics, the
+    params' gap to M = 1 and to the other run); then the prefill
+    logits both ways."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.core.base import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import layers as L
+    cfg = sp_config()
+    mesh = mesh_lib.make_host_mesh(*SP_MESH)
+    dry_mesh = dryrun.DryMesh(*SP_MESH, rank=mesh.rank)
+    # cuBLAS keeps a workspace from its first product in a process: take
+    # it before any reading, so no reading counts it
+    torch.ones((8, 8), device=DEV) @ torch.ones((8, 8), device=DEV)
+    torch.cuda.synchronize()
+    out, blocks = {}, {}
+    for seq in (True, False):
+        key = "sp" if seq else "plain"
+        # the prediction: the same step on meta
+        model, place, state, step, batch = sp_build(cfg, dry_mesh, "meta")
+        sp_declare(L, dry_mesh, seq)
+        try:
+            pred = dryrun.trace(dryrun.DryStep(
+                step, (state, batch), dryrun.tensor_bytes(state)
+                + dryrun.tensor_bytes(batch), "train"), dry_mesh)
+        finally:
+            L.set_batch_sharding(None)
+        pred["held"] = sp_saved(L, model, state, batch, dry_mesh, place,
+                                seq, "meta")
+        del model, place, state, step, batch
+        # the card
+        model, place, state, step, batch = sp_build(cfg, mesh, DEV)
+        held = sp_saved(L, model, state, batch, mesh, place, seq, DEV)
+        args = dryrun.tensor_bytes(state) + dryrun.tensor_bytes(batch)
+        gc.collect()
+        torch.cuda.synchronize()
+        other = torch.cuda.memory_allocated() - args
+        torch.cuda.reset_peak_memory_stats()
+        mesh.collectives.clear()
+        ops.reset_launches()
+        sp_declare(L, mesh, seq)
+        t0 = time.perf_counter()
+        try:
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+        finally:
+            L.set_batch_sharding(None)
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - other
+        got = {"metrics": {k: metrics[k].float().cpu().numpy()
+                           for k in SP_METRICS},
+               "collectives": {k: {"count": v["calls"], "bytes": v["bytes"]}
+                               for k, v in sorted(mesh.collectives.items())},
+               "launches": {k: v for k, v in ops.launches.items() if v},
+               "peak": peak, "other": other, "held": held, "args": args,
+               "seconds": seconds,
+               "param_gap_m1": tt_param_gap(state.params, place, ref_path)}
+        blocks[key] = [t.detach().float() for t in
+                       tree_leaves(state.params)]
+        out[key] = {"pred": pred, "card": got}
+        del model, state, step, batch, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["param_gap_sp"] = max((a - b).abs().max().item() for a, b in
+                              zip(blocks["sp"], blocks["plain"]))
+    del blocks
+    # 22a: the prefill's last-position logits, split and unsplit
+    from repro_torch.models import get_model
+    model = get_model(cfg)
+    params = model.init(0, device=DEV, mesh=mesh)
+    tokens = torch.randint(
+        0, cfg.vocab_size, (SP_BATCH, SP_SEQ),
+        generator=torch.Generator().manual_seed(23)).to(DEV)
+    logits = {}
+    with torch.no_grad():
+        for seq in (True, False):
+            sp_declare(L, mesh, seq)
+            try:
+                logits[seq] = model.apply(params, tokens)[:, -1:].float()
+            finally:
+                L.set_batch_sharding(None)
+    gap = (logits[True] - logits[False]).abs()
+    out["logits"] = {"max": gap.max().item(), "mean": gap.mean().item(),
+                     "bitwise": bool(torch.equal(logits[True],
+                                                 logits[False]))}
+    return out
+
+
+def sp_dry_process(save_dir: str) -> subprocess.Popen:
+    """22b: the three production dry runs in a process of their own
+    (``python -m repro_torch.launch.dryrun``, meta tensors only)."""
+    code = ("import sys; from repro_torch.launch import dryrun\n"
+            f"for a, s in {SP_DRY!r}:\n"
+            f"    dryrun.dryrun_one(a, s, save_dir={save_dir!r}, "
+            f"verbose=False)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT),
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT)
+
+
+def phase_seq_parallel(get_config) -> dict:
+    """22-22b (see the module docstring)."""
+    from repro_torch.core.base import path_name, tree_flatten_with_path
+    cfg = sp_config()
+    full = get_config(SP_ARCH)
+    print(f"22 {SP_ARCH}: reduced: num_layers {full.num_layers} -> "
+          f"{SP_LAYERS} (the script's time budget; width as published: "
+          f"{cfg.d_model} wide, {cfg.num_heads} / {cfg.num_kv_heads} heads, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, bf16); seq {SP_SEQ}, "
+          f"batch {SP_BATCH}, mesh {SP_MESH}", flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sp_")
+    dry = sp_dry_process(tmp)
+    try:
+        # M = 1 on the same weights and batch
+        model, _, state, step, batch = sp_build(cfg, None, DEV)
+        state, m1 = step(state, batch)
+        single = {k: m1[k].float().cpu().numpy() for k in SP_METRICS}
+        ref_path = os.path.join(tmp, "m1.pt")
+        torch.save({path_name(p): t.detach().cpu() for p, t in
+                    tree_flatten_with_path(state.params)}, ref_path)
+        del model, state, step, batch, m1
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = on_ranks(sp_step_rank, SP_MESH[0] * SP_MESH[1],
+                         args=(ref_path,), timeout=600)
+        ranks_s = time.perf_counter() - t0
+
+        def rel(a, b):
+            a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+            return float(np.max(np.abs(a - b)
+                                / np.maximum(np.abs(b), 1e-30)))
+
+        for r, res in enumerate(ranks):
+            for key in ("sp", "plain"):
+                pred, card = res[key]["pred"], res[key]["card"]
+                gaps = {k.split("/")[-1]: rel(card["metrics"][k], single[k])
+                        for k in SP_METRICS}
+                gaps["params"] = card["param_gap_m1"]
+                bad = {k: v for k, v in gaps.items() if not v <= TT_BOUNDS[k]}
+                if bad:
+                    raise AssertionError(f"22 rank {r} {key}: gaps to M = 1 "
+                                         f"over TT_BOUNDS: {bad}")
+                if card["collectives"] != pred["collectives"]:
+                    raise AssertionError(
+                        f"22 rank {r} {key}: collective records "
+                        f"{card['collectives']} but the dry run predicted "
+                        f"{pred['collectives']}")
+                if card["launches"] != pred["launches"] or \
+                        card["launches"] != {"seg_norm_lars": 1,
+                                             "seg_apply_lars": 1}:
+                    raise AssertionError(
+                        f"22 rank {r} {key}: launches {card['launches']}, "
+                        f"predicted {pred['launches']}")
+                err = abs(card["peak"] - pred["peak_bytes"]) / card["peak"]
+                print(f"22 rank {r} {key}: peak {card['peak'] / GIB:.3f} GiB "
+                      f"(max_memory_allocated less {card['other']} B held "
+                      f"before the step) against the dry run's "
+                      f"{pred['peak_bytes'] / GIB:.3f} GiB ({err:.2%}); "
+                      f"arguments {card['args'] / GIB:.3f} GiB (dry "
+                      f"{pred['argument_bytes'] / GIB:.3f}); the forward "
+                      f"holds {card['held'] / 2**20:.1f} MiB for the "
+                      f"backward (dry {pred['held'] / 2**20:.1f}); "
+                      f"{pred['flops']:.4e} dot FLOPs predicted; step "
+                      f"{card['seconds']:.2f} s; gaps to M = 1 "
+                      f"{ {k: float(f'{v:.3g}') for k, v in gaps.items()} }; "
+                      f"records {card['collectives']} as predicted; "
+                      f"launches {card['launches']}", flush=True)
+                held = abs(card["held"] - pred["held"]) / card["held"]
+                if not (err <= SP_PEAK_RTOL and held <= SP_PEAK_RTOL):
+                    raise AssertionError(
+                        f"22 rank {r} {key}: peak off the dry run's by "
+                        f"{err:.2%}, the forward's held bytes by {held:.2%}")
+            sp, plain = res["sp"]["card"], res["plain"]["card"]
+            gaps = {k.split("/")[-1]: rel(sp["metrics"][k],
+                                          plain["metrics"][k])
+                    for k in SP_METRICS}
+            gaps["params"] = res["param_gap_sp"]
+            bad = {k: v for k, v in gaps.items() if not v <= TT_BOUNDS[k]}
+            if bad:
+                raise AssertionError(f"22 rank {r}: split vs unsplit over "
+                                     f"TT_BOUNDS: {bad}")
+            print(f"22 rank {r}: split vs unsplit gaps "
+                  f"{ {k: float(f'{v:.3g}') for k, v in gaps.items()} }; "
+                  f"the split saves {(plain['held'] - sp['held']) / 2**20:.1f}"
+                  f" MiB of the forward's held bytes (dry "
+                  f"{(res['plain']['pred']['held'] - res['sp']['pred']['held']) / 2**20:.1f}"
+                  f") and {(plain['peak'] - sp['peak']) / 2**20:.1f} MiB of "
+                  f"the peak (dry "
+                  f"{(res['plain']['pred']['peak_bytes'] - res['sp']['pred']['peak_bytes']) / 2**20:.1f})",
+                  flush=True)
+        lg = ranks[0]["logits"]
+        if not (lg["max"] <= TP_LOGIT_BOUND
+                and lg["mean"] <= TP_LOGIT_MEAN_BOUND):
+            raise AssertionError(f"22a: prefill logits split vs unsplit {lg}")
+        print(f"22a prefill logits [{SP_BATCH}, 1, {cfg.vocab_size}] split vs "
+              f"unsplit: |gap| max {lg['max']:.4g} mean {lg['mean']:.4g} "
+              f"(bitwise equal: {lg['bitwise']}); {ranks_s:.1f} s on the "
+              f"shared ranks; {smi_line()}", flush=True)
+        log, _ = dry.communicate(timeout=600)
+        if dry.returncode != 0:
+            raise AssertionError(f"22b: the dry runs failed:\n"
+                                 f"{log.decode()[-3000:]}")
+        prod = {}
+        for arch, shape in SP_DRY:
+            with open(os.path.join(tmp, f"{arch}__{shape}__single.json")) as f:
+                r = json.load(f)
+            prod[(arch, shape)] = r
+            if r["status"] != "ok":
+                raise AssertionError(f"22b {arch} x {shape}: {r}")
+            print(f"22b {arch} x {shape} on (16, 16), the port's prediction "
+                  f"(meta tensors, not a card measurement): {r['status']}, "
+                  f"{r['peak_bytes'] / GIB:.2f} GiB a rank (arguments "
+                  f"{r['argument_bytes'] / GIB:.2f}), {r['flops']:.4e} dot "
+                  f"FLOPs a rank, {r['collective_bytes'] / GIB:.3f} GiB of "
+                  f"collectives a rank, launches {r['launches']}, "
+                  f"{r['seconds']:.1f} s", flush=True)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ranks": ranks, "production": prod,
+            "launches": {k: sum(r[key]["card"]["launches"].get(k, 0)
+                                for key in ("sp", "plain"))
+                         for r in ranks[:1] for k in SEG_LARS}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -8320,6 +8700,13 @@ def main() -> int:
         dh = phase_dh_split(tad, ops, serving, train_launch, get_config,
                             get_model)
 
+    # 22-22b: sequence parallelism against its own dry run, prefill
+    # under it, and three production dry runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase_clock("22-22b"):
+        sp = phase_seq_parallel(get_config)
+
     # the serving path's mix: 40 local and 8 global launches per decode
     # step (bf16 pool); per-launch means weighted by that mix
     rows = kernel["rows"]
@@ -8448,7 +8835,9 @@ def main() -> int:
                 **{f"{label}-{arch}": r["launches"].get(name, 0)
                    for (label, arch), r in ft["train"].items()},
                 "20b": ep["20b"]["launches"].get(name, 0),
-                "21c": dh["21c"]["launches"].get(name, 0)},
+                "21c": dh["21c"]["launches"].get(name, 0),
+                # per rank: the split and the unsplit step
+                "22": sp["launches"].get(name, 0)},
             "on_a_ranks_block": tt["seg"]["times"][
                 "norm" if "norm" in name else "apply"]})
     # the per-tensor kernels: per-launch means over the 14 segments of a

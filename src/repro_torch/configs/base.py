@@ -5,6 +5,13 @@
 ``torch.dtype``s. There is no ``use_decode_kernel`` flag: on CUDA the
 Hopper decode kernel is the path (``kernels.ops`` dispatches by the
 tensors' device).
+
+Input shapes (the reference's four, read by ``launch.dryrun``):
+
+    train_4k      seq_len=4096    global_batch=256   (train step)
+    prefill_32k   seq_len=32768   global_batch=32    (prefill)
+    decode_32k    seq_len=32768   global_batch=128   (serve step, 1 token)
+    long_500k     seq_len=524288  global_batch=1     (serve step, 1 token)
 """
 from __future__ import annotations
 
@@ -14,6 +21,13 @@ from typing import Optional
 import torch
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+
+INPUT_SHAPES = {
+    "train_4k": {"seq_len": 4096, "global_batch": 256, "kind": "train"},
+    "prefill_32k": {"seq_len": 32768, "global_batch": 32, "kind": "prefill"},
+    "decode_32k": {"seq_len": 32768, "global_batch": 128, "kind": "decode"},
+    "long_500k": {"seq_len": 524288, "global_batch": 1, "kind": "decode"},
+}
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}

@@ -42,6 +42,8 @@ Collectives:
   ``partial_gather``, and the outputs of a cache over the head dim,
   ``dh_gather``, whose partial scores ``model_sum_`` sums as
   ``score_sum``);
+  :meth:`Mesh.model_scatter` sums the row's partials in f32 and keeps
+  this rank's block (a reduce-scatter: sequence parallelism's exit);
   :meth:`Mesh.data_gather` concatenates a data column's blocks in
   data-index order (the tokens of the serving slots each data row
   holds, :meth:`Mesh.data_block`). Each call is counted and timed on
@@ -68,12 +70,20 @@ its forward gives the bits of the in-place calls):
   rank's block and divides by D: the reference's mean over the global
   batch;
 * :func:`column_mean` averages a statistic over the data column (the
-  MoE load-balance means of the global batch).
+  MoE load-balance means of the global batch);
+* :func:`gather_seq` and :func:`scatter_seq` are sequence parallelism's
+  pair (``layers.set_batch_sharding(seq_axis="model")``): the row's
+  sequence blocks gathered at a block's column-parallel entry (backward:
+  the partial gradients reduce-scattered), and a row-parallel partial
+  reduce-scattered at its exit (backward: gathered); counted as
+  ``seq_gather`` / ``seq_scatter``. :func:`row_block` keeps the rank's
+  block of a row-replicated tensor (backward: gathered).
 
 Each backward is itself one of these functions (``copy_to_row`` and
-``sum_over_row`` are each other's backward; ``gather_row``'s keeps the
-rank's block, whose backward gathers; ``fsdp_gather``'s reduces over
-the column, whose backward gathers), never an in-place collective on a
+``sum_over_row`` are each other's backward, and so are ``gather_seq``
+and ``scatter_seq``; ``gather_row``'s keeps the rank's block, whose
+backward gathers; ``fsdp_gather``'s reduces over the column, whose
+backward gathers), never an in-place collective on a
 tensor autograd sees, so a Hessian-vector product differentiates
 through them twice.
 
@@ -113,17 +123,6 @@ AXES = ("data", "model")
 BUCKET_BYTES = 256 << 20
 TIMEOUT_S = 300.0
 BACKENDS = ("gloo", "nccl")
-# what the model axis does not do yet, with its ROADMAP item: sequence
-# parallelism (10, with the dry run that is its only user). Serving and
-# training every family on a (data, model) mesh is ported: fsdp over
-# the data axis, tensor parallelism over the model axis (the MoE
-# family's experts over it, expert parallelism; KV caches over the KV
-# heads, T or the head dim as cache_pspecs places them), and the
-# Lanczos probe on it.
-SEQUENCE_PARALLEL_PENDING = (
-    "sequence parallelism (set_batch_sharding(seq_axis=), the dry "
-    "run's sequence-split residuals) is not ported: ROADMAP queue 1, "
-    "item 10")
 
 
 class PartitionSpec(tuple):
@@ -397,7 +396,7 @@ class Mesh:
             for start in range(0, flat.numel(), BUCKET_BYTES):
                 part = flat[start:start + BUCKET_BYTES]
                 staged = self._staged(part).contiguous()
-                dist.broadcast(staged, src=src, group=group)
+                self._broadcast(staged, src, group)
                 if staged.data_ptr() != part.data_ptr():
                     part.copy_(staged)
 
@@ -459,7 +458,7 @@ class Mesh:
                 o += b - a
         else:
             buf.fill_(-0.0)
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+        self._all_reduce(buf, dist.ReduceOp.SUM, group)
         buf.div_(self.data)
         o = 0
         for i, a, b in pieces:
@@ -491,7 +490,7 @@ class Mesh:
                           torch.full((), -0.0, dtype=t.dtype,
                                      device=t.device)).contiguous()
         staged = self._staged(buf)
-        dist.all_reduce(staged, op=dist.ReduceOp.SUM, group=group)
+        self._all_reduce(staged, dist.ReduceOp.SUM, group)
         t.copy_(staged)
         self._record(name, t0, staged.numel() * 4)
         return t
@@ -504,7 +503,7 @@ class Mesh:
         group = self._row_group("row_max_")
         t0 = self._start(t)
         staged = self._staged(t.detach().contiguous())
-        dist.all_reduce(staged, op=dist.ReduceOp.MAX, group=group)
+        self._all_reduce(staged, dist.ReduceOp.MAX, group)
         if staged.data_ptr() != t.data_ptr():
             t.copy_(staged)
         self._record("model_sum", t0, staged.numel() * t.element_size())
@@ -522,7 +521,7 @@ class Mesh:
         if buf.dtype != torch.float32 or not buf.is_contiguous():
             buf = buf.float().contiguous()
         staged = self._staged(buf)
-        dist.all_reduce(staged, op=dist.ReduceOp.SUM, group=group)
+        self._all_reduce(staged, dist.ReduceOp.SUM, group)
         if staged.data_ptr() != t.data_ptr():
             t.copy_(staged)
         self._record(name, t0, staged.numel() * 4)
@@ -558,7 +557,7 @@ class Mesh:
             wire = self._staged(wire.view(torch.uint8) if bits else wire)
             into = [torch.empty_like(wire) for _ in range(size)] \
                 if self.rank == dst else None
-            dist.gather(wire, into, dst=dst, group=group)
+            self._gather_to(wire, into, dst, group)
             self._record(name, t0, wire.numel() * wire.element_size()
                          * (size if into is not None else 1))
             if into is None:
@@ -611,7 +610,7 @@ class Mesh:
         if buf.dtype != torch.float32 or not buf.is_contiguous():
             buf = buf.float().contiguous()
         staged = self._staged(buf)
-        dist.all_reduce(staged, op=dist.ReduceOp.SUM, group=group)
+        self._all_reduce(staged, dist.ReduceOp.SUM, group)
         if staged.data_ptr() != t.data_ptr():
             t.copy_(staged)
         self._record(name, t0, staged.numel() * 4)
@@ -668,12 +667,62 @@ class Mesh:
             wire = wire.view(torch.uint8)
         wire = self._staged(wire)
         parts = [torch.empty_like(wire) for _ in range(n)]
-        dist.all_gather(parts, wire, group=group)
+        self._all_gather(parts, wire, group)
         out = torch.cat(parts, dim=dim)
         if bits:
             out = out.view(torch.bfloat16)
         self._record(name, t0, out.numel() * out.element_size())
         return out.to(t.device)
+
+    def model_scatter(self, t: torch.Tensor, dim: int,
+                      name: str = "seq_scatter") -> torch.Tensor:
+        """Sum the row's partials ``t`` in f32 and return this rank's
+        block along ``dim`` (block ``model`` index of ``model`` equal
+        blocks), rounded to ``t``'s dtype: a reduce-scatter. Under gloo
+        it is :meth:`model_sum_`'s all-reduce of the f32 buffer, then
+        the rank's block (so its bits are ``model_sum_``'s); under nccl
+        one ``reduce_scatter_tensor`` over the dim moved to the front.
+        Counted under ``name`` with the f32 partial's bytes, either
+        way."""
+        if self.model == 1:
+            return t
+        group = self._row_group("model_scatter")
+        n = t.shape[dim] // self.model
+        r = self.coords["model"]
+        t0 = self._start(t)
+        buf = t.detach().float().contiguous()
+        if self.backend == "nccl":
+            front = buf.movedim(dim, 0).contiguous()
+            out = torch.empty((n,) + tuple(front.shape[1:]),
+                              dtype=torch.float32, device=front.device)
+            self._reduce_scatter(out, front, group)
+            mine = out.movedim(0, dim)
+        else:
+            staged = self._staged(buf)
+            self._all_reduce(staged, dist.ReduceOp.SUM, group)
+            mine = staged.narrow(dim, r * n, n).to(t.device)
+        self._record(name, t0, buf.numel() * 4)
+        return mine.to(t.dtype).contiguous()
+
+    # the backend's calls: the one place a collective reaches
+    # torch.distributed (a dry mesh, ``launch.dryrun.DryMesh``, makes
+    # them no-ops on meta tensors and keeps everything else)
+    def _all_reduce(self, t: torch.Tensor, op, group) -> None:
+        dist.all_reduce(t, op=op, group=group)
+
+    def _all_gather(self, parts: list, t: torch.Tensor, group) -> None:
+        dist.all_gather(parts, t, group=group)
+
+    def _broadcast(self, t: torch.Tensor, src: int, group) -> None:
+        dist.broadcast(t, src=src, group=group)
+
+    def _gather_to(self, t: torch.Tensor, into, dst: int, group) -> None:
+        dist.gather(t, into, dst=dst, group=group)
+
+    def _reduce_scatter(self, out: torch.Tensor, t: torch.Tensor,
+                        group) -> None:
+        dist.reduce_scatter_tensor(out, t, op=dist.ReduceOp.SUM,
+                                   group=group)
 
     def barrier(self) -> None:
         """Every rank of the world meets here; of the mesh's only, when
@@ -732,6 +781,34 @@ class _RowBlock(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _GatherRow.apply(g, ctx.mesh, ctx.dim), None, None, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """The row's sequence blocks concatenated (``seq_gather``); the
+    backward reduce-scatters the row's partial gradients."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return mesh.model_gather(x, dim, "seq_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ScatterSeq.apply(g, ctx.mesh, ctx.dim), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """The row's partials summed in f32, this rank's sequence block
+    kept (``seq_scatter``); the backward gathers the blocks."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return mesh.model_scatter(x, dim, "seq_scatter")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GatherSeq.apply(g, ctx.mesh, ctx.dim), None, None
 
 
 class _FsdpGather(torch.autograd.Function):
@@ -813,6 +890,38 @@ def gather_row(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
     if mesh.model == 1:
         return x
     return _GatherRow.apply(x, mesh, dim)
+
+
+def row_block(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``x``, a tensor replicated over
+    the model row (block ``model`` index of ``model`` equal blocks); the
+    backward gathers the row's blocks of the gradient:
+    :func:`gather_row`'s inverse."""
+    if mesh.model == 1:
+        return x
+    return _RowBlock.apply(x, mesh, dim, x.shape[dim] // mesh.model)
+
+
+def gather_seq(x: torch.Tensor, mesh: Mesh, dim: int = 1) -> torch.Tensor:
+    """Sequence parallelism's entry to a block: the row's blocks of the
+    sequence concatenated along ``dim`` in model-rank order (counted as
+    ``seq_gather``). The backward is :func:`scatter_seq`: the consumers
+    are column-parallel, so each rank's gradient of the whole sequence
+    is a partial, summed over the row and cut to the rank's block."""
+    if mesh.model == 1:
+        return x
+    return _GatherSeq.apply(x, mesh, dim)
+
+
+def scatter_seq(x: torch.Tensor, mesh: Mesh, dim: int = 1) -> torch.Tensor:
+    """Sequence parallelism's exit from a block: a row-parallel partial
+    of the whole sequence summed over the row in f32 and cut to this
+    rank's block along ``dim`` (a reduce-scatter,
+    :meth:`Mesh.model_scatter`, counted as ``seq_scatter``). The
+    backward is :func:`gather_seq`, so either differentiates again."""
+    if mesh.model == 1:
+        return x
+    return _ScatterSeq.apply(x, mesh, dim)
 
 
 def fsdp_gather(block: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:

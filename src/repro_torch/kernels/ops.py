@@ -16,12 +16,21 @@
 
 A CUDA tensor goes to the hand-written Hopper kernel; if the build or
 the launch fails, the call raises. A CPU tensor goes to the kernel's
-plain PyTorch version. There is no environment switch and no fallback
-from the kernel to the plain version.
+plain PyTorch version. A tensor on the ``meta`` device (the dry run,
+``launch.dryrun``, which traces a step without allocating) gets outputs
+of the kernel's shapes and dtypes and nothing else: in-place outputs
+stay in place, nothing is allocated beyond the outputs, and no value is
+computed (a meta tensor holds none). There is no environment switch and
+no fallback from the kernel to the plain version.
 
 ``launches`` counts kernel launches per kernel (plain integers,
 incremented only where a kernel is launched), so a run can show that
-its main path went through the kernels.
+its main path went through the kernels. ``meta_launches`` counts, under
+the same names, the launches a meta call stands for: the launches per
+step the card would make; ``meta_flops`` the matmul FLOPs of those
+launches (decode attention's q·K and p·V over every cached key, as its
+plain version computes them), which a FLOP counter cannot see in a
+kernel.
 """
 from __future__ import annotations
 
@@ -42,9 +51,23 @@ launches = {"attention_decode": 0, "attention_decode_scores": 0,
             "lars_apply": 0, "rmsnorm": 0}
 
 
+meta_launches = dict.fromkeys(launches, 0)
+meta_flops = dict.fromkeys(launches, 0)
+
+
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def reset_meta_launches() -> None:
+    for name in meta_launches:
+        meta_launches[name] = 0
+        meta_flops[name] = 0
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def attention_decode(q, new_k, new_v, k_cache, v_cache, pos, *,
@@ -69,6 +92,13 @@ def attention_decode(q, new_k, new_v, k_cache, v_cache, pos, *,
     if q.device.type == "cpu":
         return _ad.attention_decode_ref(q, new_k, new_v, k_cache, v_cache,
                                         pos, **kw)
+    if q.device.type == "meta":
+        meta_launches["attention_decode"] += 1
+        meta_flops["attention_decode"] += 4 * q.numel() * k_cache.shape[1]
+        out = _meta(q.shape, q.dtype)
+        if return_lse:
+            return out, _meta(q.shape[:1] + q.shape[2:3], torch.float32)
+        return out
     raise RuntimeError(f"attention_decode: no implementation for device "
                        f"{q.device}")
 
@@ -88,6 +118,12 @@ def attention_decode_scores(q, new_k, new_v, k_cache, v_cache, pos, *,
     if q.device.type == "cpu":
         return _ad.attention_decode_scores_ref(q, new_k, new_v, k_cache,
                                                v_cache, pos, window=window)
+    if q.device.type == "meta":
+        meta_launches["attention_decode_scores"] += 1
+        meta_flops["attention_decode_scores"] += \
+            2 * q.numel() * k_cache.shape[1]
+        return _meta((q.shape[0], q.shape[2], k_cache.shape[1]),
+                     torch.float32)
     raise RuntimeError(f"attention_decode_scores: no implementation for "
                        f"device {q.device}")
 
@@ -106,6 +142,11 @@ def attention_decode_apply(s, v_cache, pos, *, head_dim: int,
         return out
     if s.device.type == "cpu":
         return _ad.attention_decode_apply_ref(s, v_cache, pos, **kw)
+    if s.device.type == "meta":
+        meta_launches["attention_decode_apply"] += 1
+        meta_flops["attention_decode_apply"] += 2 * s.numel() \
+            * v_cache.shape[3]
+        return _meta((s.shape[0], 1, s.shape[1], v_cache.shape[3]), dtype)
     raise RuntimeError(f"attention_decode_apply: no implementation for "
                        f"device {s.device}")
 
@@ -147,6 +188,9 @@ def segmented_update(w2d, g2d, bufs, *, delta=None, **kw):
         else:
             delta.copy_(out[1])
         return (tuple(bufs), delta) + tuple(out[2:])
+    if w2d.device.type == "meta":
+        return _su.segmented_update_meta(w2d, g2d, bufs, delta=delta,
+                                         launches=meta_launches, **kw)
     raise RuntimeError(f"segmented_update: no implementation for device "
                        f"{w2d.device}")
 
@@ -180,6 +224,11 @@ def lars_update(w, g, m, *, base_lr, eta: float, weight_decay: float,
         new_ms, deltas, stats = _ref.lars_update_ref(ws, gs, ms, **kw)
         for buf, new in zip(ms, new_ms):
             buf.copy_(new)
+    elif dev.type == "meta":
+        meta_launches["lars_norm2"] += 1
+        meta_launches["lars_apply"] += 1
+        deltas = [_meta(w.shape, torch.float32) for w in ws]
+        stats = _meta((3,), torch.float32) if telemetry else None
     else:
         raise RuntimeError(f"lars_update: no implementation for device "
                            f"{dev}")
@@ -199,6 +248,9 @@ def lars_norm2(ws, gs) -> torch.Tensor:
         return out
     if dev.type == "cpu":
         return _ref.lars_norm2(ws, gs)
+    if dev.type == "meta":
+        meta_launches["lars_norm2"] += 1
+        return _meta((2,), torch.float32)
     raise RuntimeError(f"lars_norm2: no implementation for device {dev}")
 
 
@@ -219,6 +271,10 @@ def lars_apply(ws, gs, ms, sums, *, base_lr, eta: float,
                                             **kw)
         launches["lars_apply"] += 1
         return deltas, stats
+    if dev.type == "meta":
+        meta_launches["lars_apply"] += 1
+        return [_meta(w.shape, torch.float32) for w in ws], \
+            (_meta((3,), torch.float32) if telemetry else None)
     if dev.type != "cpu":
         raise RuntimeError(f"lars_apply: no implementation for device "
                            f"{dev}")
@@ -246,4 +302,7 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *,
         return _rms.rmsnorm_cuda(x, weight, eps=eps, launches=launches)
     if x.device.type == "cpu":
         return _ref.rmsnorm_ref(x, weight, eps=eps)
+    if x.device.type == "meta":
+        meta_launches["rmsnorm"] += 1
+        return _meta(x.shape, x.dtype)
     raise RuntimeError(f"rmsnorm: no implementation for device {x.device}")

@@ -367,3 +367,41 @@ def segmented_update_cuda(w2d, g2d, bufs, *, seg_ids, adapt_mask, base_lr,
         return new_bufs, delta, {"w_norm": wn, "g_norm": bn,
                                  "trust_ratio": ratio}
     return new_bufs, delta
+
+
+def segmented_update_meta(w2d, g2d, bufs, *, seg_ids, adapt_mask, base_lr,
+                          mode: str, eta: float, weight_decay: float,
+                          momentum: float, b1: float, b2: float, eps: float,
+                          nesterov: bool = False, trust_clip=None,
+                          bc1=1.0, bc2=1.0, stochastic_round: bool = False,
+                          seed=0, telemetry: bool = False,
+                          delta: Optional[torch.Tensor] = None,
+                          launches: Optional[dict] = None,
+                          reduce_norms=None):
+    """:func:`segmented_update_cuda`'s glue on meta tensors (the dry
+    run): each launch gives an output of its kernel's shape and dtype
+    (pass 1 the ``(2, nseg)`` f32 table, pass 2 the f32 delta, the state
+    in place), counted in ``launches``; the table's reduction and the
+    trust table run as on the card."""
+    _check_mode(mode)
+    norm_name, apply_name = KERNELS[mode]
+    nseg = adapt_mask.shape[0]
+    adapt = adapt_mask.to(w2d.device)
+    norms = torch.empty((2, nseg), dtype=torch.float32, device=w2d.device)
+    if launches is not None:
+        launches[norm_name] += 1
+    if reduce_norms is not None:
+        norms = reduce_norms(norms)
+    wn, bn, ratio = ref.trust_ratio(norms[0], norms[1], adapt, mode=mode,
+                                    eta=eta, weight_decay=weight_decay,
+                                    eps=eps, trust_clip=trust_clip)
+    ref.scales_from_ratio(ratio, adapt, base_lr, weight_decay)
+    if delta is None:
+        delta = torch.empty(w2d.shape, dtype=torch.float32,
+                            device=w2d.device)
+    if launches is not None:
+        launches[apply_name] += 1
+    if telemetry:
+        return tuple(bufs), delta, {"w_norm": wn, "g_norm": bn,
+                                    "trust_ratio": ratio}
+    return tuple(bufs), delta

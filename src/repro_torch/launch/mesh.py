@@ -24,7 +24,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.distributed import (  # noqa: F401  (the launchers' names)
-    BACKENDS, SEQUENCE_PARALLEL_PENDING, TIMEOUT_S,
+    BACKENDS, TIMEOUT_S,
     World, all_equal, check_backend, default_backend, init_world, joined,
     leave, make_data_mesh, make_host_mesh, placement_device, replicated,
     world)

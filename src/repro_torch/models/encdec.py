@@ -67,11 +67,11 @@ def _frames(extra: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 def _enc_layer(p: dict, i: int, cfg: ModelConfig, h: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor, seq=None) -> torch.Tensor:
     """Encoder layer ``i`` on its leaves gathered over the data column
     when a training placement splits them (``layers.gathered``)."""
     return T.layer_apply(L.gathered(p, ("encoder", i)), cfg, h, positions,
-                         None)[0]
+                         None, seq=seq)[0]
 
 
 def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor
@@ -80,37 +80,46 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor
     states after ``enc_norm``, in the compute dtype: bidirectional
     self-attention with RoPE over positions 0..S_enc-1. Under a
     training placement each layer's fsdp leaves are gathered inside its
-    checkpoint, and ``enc_norm``'s before the norm."""
+    checkpoint, and ``enc_norm``'s before the norm. Under sequence
+    parallelism (``layers.seq_mesh`` of S_enc; whisper's 1500 frames
+    run unsplit where M does not divide them) the layers run on the
+    rank's block of the frames and the states are gathered whole at
+    the end: the decoder's cross layers read every frame."""
     b, s, _ = frames.shape
-    h = frames.to(cfg.cdtype)
+    seq = L.seq_mesh(s)
+    h = L.seq_rows(frames, seq).to(cfg.cdtype)
     positions = torch.arange(s, device=h.device)[None].expand(b, s)
     remat = cfg.remat and torch.is_grad_enabled()
     for i, p in enumerate(params["encoder"]):
         if remat:
-            h = checkpoint(_enc_layer, p, i, cfg, h, positions,
+            h = checkpoint(_enc_layer, p, i, cfg, h, positions, seq,
                            use_reentrant=False)
         else:
-            h = _enc_layer(p, i, cfg, h, positions)
-    return L.norm(cfg, L.gathered(params["enc_norm"], ("enc_norm",)), h)
+            h = _enc_layer(p, i, cfg, h, positions, seq)
+    return L.seq_whole(L.norm(cfg, L.gathered(params["enc_norm"],
+                                              ("enc_norm",)), h, seq), seq)
 
 
 def _dec_layer_apply(p: dict, cfg: ModelConfig, h: torch.Tensor,
-                     positions: torch.Tensor, enc: torch.Tensor
+                     positions: torch.Tensor, enc: torch.Tensor, seq=None
                      ) -> torch.Tensor:
-    h = h + L.attention(p["self_attn"], cfg, L.norm(cfg, p["norm1"], h),
-                        positions, ("causal", None))
-    h = h + L.attention(p["cross_attn"], cfg, L.norm(cfg, p["norm_x"], h),
-                        positions, None, kv_src=enc, use_rope=False)
-    return h + L.mlp(p["mlp"], cfg, L.norm(cfg, p["norm2"], h))
+    h = h + L.attention(p["self_attn"], cfg,
+                        L.norm(cfg, p["norm1"], h, seq), positions,
+                        ("causal", None), seq=seq)
+    h = h + L.attention(p["cross_attn"], cfg,
+                        L.norm(cfg, p["norm_x"], h, seq), positions, None,
+                        kv_src=enc, use_rope=False, seq=seq)
+    return h + L.mlp(p["mlp"], cfg, L.norm(cfg, p["norm2"], h, seq), seq)
 
 
 def _dec_layer(p: dict, i: int, cfg: ModelConfig, h: torch.Tensor,
-               positions: torch.Tensor, enc: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor, enc: torch.Tensor, seq=None
+               ) -> torch.Tensor:
     """Decoder layer ``i`` on its gathered leaves (as :func:`_enc_layer`):
     the cross-attention's K/V from ``enc`` through the same
     column-parallel path as its self-attention's."""
     return _dec_layer_apply(L.gathered(p, ("decoder", i)), cfg, h,
-                            positions, enc)
+                            positions, enc, seq)
 
 
 def apply_encdec_hidden(cfg: ModelConfig, params: dict,
@@ -121,19 +130,23 @@ def apply_encdec_hidden(cfg: ModelConfig, params: dict,
     enabled every encoder and decoder layer is checkpointed; under a
     training placement (``layers.training``) each gathers its fsdp
     leaves inside its checkpoint, and ``embed`` / ``final_norm`` are
-    gathered where they are used."""
+    gathered where they are used. Under sequence parallelism each stack
+    whose length the model axis divides runs on the rank's block of its
+    sequence (``layers.seq_mesh``)."""
     enc = encode(cfg, params, _frames(extra))
-    h = L.embed(L.gathered(params["embed"], ("embed",)), cfg, tokens)
+    seq = L.seq_mesh(tokens.shape[1])
+    h = L.embed(L.gathered(params["embed"], ("embed",)), cfg, tokens, seq)
     positions = T._positions(tokens)
     remat = cfg.remat and torch.is_grad_enabled()
     for i, p in enumerate(params["decoder"]):
         if remat:
-            h = checkpoint(_dec_layer, p, i, cfg, h, positions, enc,
+            h = checkpoint(_dec_layer, p, i, cfg, h, positions, enc, seq,
                            use_reentrant=False)
         else:
-            h = _dec_layer(p, i, cfg, h, positions, enc)
+            h = _dec_layer(p, i, cfg, h, positions, enc, seq)
     final = L.gathered(params["final_norm"], ("final_norm",))
-    return L.norm(cfg, final, h), T.zero_aux(h.device)
+    return L.seq_whole(L.norm(cfg, final, h, seq), seq), \
+        T.zero_aux(h.device)
 
 
 def apply_encdec(cfg: ModelConfig, params: dict, tokens: torch.Tensor,

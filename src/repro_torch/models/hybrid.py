@@ -33,18 +33,19 @@ def _init_mamba_block(cfg: ModelConfig, gen, device) -> dict:
             "mamba": S.init_mamba(cfg, gen, device)}
 
 
-def _mamba_block(p: dict, cfg: ModelConfig, h: torch.Tensor
+def _mamba_block(p: dict, cfg: ModelConfig, h: torch.Tensor, seq=None
                  ) -> torch.Tensor:
-    return h + S.mamba_apply(p["mamba"], cfg, L.norm(cfg, p["norm"], h))
+    return h + S.mamba_apply(p["mamba"], cfg,
+                             L.norm(cfg, p["norm"], h, seq), seq)
 
 
-def _gathered_block(p: dict, i: int, cfg: ModelConfig, h: torch.Tensor
-                    ) -> torch.Tensor:
+def _gathered_block(p: dict, i: int, cfg: ModelConfig, h: torch.Tensor,
+                    seq=None) -> torch.Tensor:
     """Block ``i`` on its leaves gathered over the data column when a
     training placement splits them (``layers.gathered``; a no-op
     otherwise): inside the block's checkpoint, so the gather is redone
     in the recomputation."""
-    return _mamba_block(L.gathered(p, ("blocks", i)), cfg, h)
+    return _mamba_block(L.gathered(p, ("blocks", i)), cfg, h, seq)
 
 
 def _mamba_block_decode(p: dict, cfg: ModelConfig, h: torch.Tensor,
@@ -62,9 +63,12 @@ def _call(fn, remat: bool, *args):
     return fn(*args)
 
 
-def _finish(cfg: ModelConfig, params: dict, h: torch.Tensor):
+def _finish(cfg: ModelConfig, params: dict, h: torch.Tensor, seq=None):
+    """The final norm (on the rank's rows under sequence parallelism,
+    then the whole sequence gathered for the head) and the zero aux."""
     final = L.gathered(params["final_norm"], ("final_norm",))
-    return L.norm(cfg, final, h), T.zero_aux(h.device)
+    return L.seq_whole(L.norm(cfg, final, h, seq), seq), \
+        T.zero_aux(h.device)
 
 
 # --------------------------------------------------------------------------
@@ -85,12 +89,15 @@ def apply_ssm_lm_hidden(cfg: ModelConfig, params: dict,
     ``cfg.remat`` and gradients enabled each block is checkpointed.
     Under a training placement (``layers.training``) each block's fsdp
     leaves are gathered inside its checkpoint, and ``embed`` /
-    ``final_norm`` where they are used."""
-    h = L.embed(L.gathered(params["embed"], ("embed",)), cfg, tokens)
+    ``final_norm`` where they are used. Under sequence parallelism
+    (``layers.seq_mesh``) the residual is the rank's block of the
+    sequence."""
+    seq = L.seq_mesh(tokens.shape[1])
+    h = L.embed(L.gathered(params["embed"], ("embed",)), cfg, tokens, seq)
     remat = cfg.remat and torch.is_grad_enabled()
     for i, p in enumerate(params["blocks"]):
-        h = _call(_gathered_block, remat, p, i, cfg, h)
-    return _finish(cfg, params, h)
+        h = _call(_gathered_block, remat, p, i, cfg, h, seq)
+    return _finish(cfg, params, h, seq)
 
 
 def apply_ssm_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor
@@ -158,22 +165,25 @@ def apply_hybrid_lm_hidden(cfg: ModelConfig, params: dict,
     on its own, as the reference's nested remat is. Under a training
     placement each block gathers its fsdp leaves inside its checkpoint,
     and the shared block is gathered inside each call site's, one
-    gather a call: autograd sums its gradient over the call sites."""
+    gather a call: autograd sums its gradient over the call sites.
+    Under sequence parallelism the residual is the rank's block of the
+    sequence."""
     b, s = tokens.shape
-    h = L.embed(L.gathered(params["embed"], ("embed",)), cfg, tokens)
+    seq = L.seq_mesh(s)
+    h = L.embed(L.gathered(params["embed"], ("embed",)), cfg, tokens, seq)
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     shared = params["shared_attn"]
     remat = cfg.remat and torch.is_grad_enabled()
 
     def attn(p, h2):
         return T.layer_apply(L.gathered(p, ("shared_attn",)), cfg, h2,
-                             positions, ("causal", None))[0]
+                             positions, ("causal", None), seq=seq)[0]
 
     for i, p in enumerate(params["blocks"]):
-        h = _call(_gathered_block, remat, p, i, cfg, h)
+        h = _call(_gathered_block, remat, p, i, cfg, h, seq)
         if _shared_after(cfg, i) >= 0:
             h = _call(attn, remat, shared, h)
-    return _finish(cfg, params, h)
+    return _finish(cfg, params, h, seq)
 
 
 def apply_hybrid_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor

@@ -50,6 +50,16 @@ scores are partial sums: decode runs the kernel's scores mode on the
 block of the rope'd q and K, sums the f32 scores over the row, runs
 the apply mode over the block of V and gathers the outputs along the
 head dim. Cross layers do the same in plain PyTorch.
+
+Sequence parallelism (``set_batch_sharding(..., seq_axis="model")``,
+:func:`seq_mesh`): a full-sequence pass whose length the model axis
+divides keeps the residual stream as this rank's block of the sequence
+between blocks; each block's column-parallel entry gathers the sequence
+(``distributed.gather_seq``) and its row-parallel exit reduce-scatters
+(``distributed.scatter_seq``), so the block's inside is unchanged. A
+layer whose leaves are whole computes its rows only (q against the
+gathered K/V), and the head gathers the sequence back. Decode never
+splits.
 """
 from __future__ import annotations
 
@@ -76,6 +86,7 @@ Q_CHUNK = 512
 # --------------------------------------------------------------------------
 
 _MESH = None                          # the declared mesh (None: unset)
+_SEQ_AXIS = None                      # "model": sequence parallelism
 
 
 def set_batch_sharding(batch_axes: Optional[tuple],
@@ -86,34 +97,119 @@ def set_batch_sharding(batch_axes: Optional[tuple],
     signature). ``batch_axes`` says the batch is split over the data
     axis (the train step shards it, ``data.pipeline.shard_batch``;
     serving splits slots with ``Mesh.data_block``); the model code reads
-    the model rows only. Sequence parallelism (``seq_axis``) is the
-    dry run's (ROADMAP item 10). ``set_batch_sharding(None)`` clears
-    it."""
-    global _MESH
-    if seq_axis is not None:
-        from repro_torch.distributed import SEQUENCE_PARALLEL_PENDING
-        raise NotImplementedError(f"seq_axis={seq_axis!r}: "
-                                  f"{SEQUENCE_PARALLEL_PENDING}")
+    the model rows only. ``seq_axis="model"`` declares sequence
+    parallelism (:func:`seq_mesh`); it stays declared inside
+    :func:`batch_sharding` and :func:`training`.
+    ``set_batch_sharding(None)`` clears both."""
+    global _MESH, _SEQ_AXIS
+    if seq_axis not in (None, "model"):
+        raise ValueError(f"seq_axis={seq_axis!r}: the sequence splits over "
+                         f"the model axis only")
     if mesh is not None and int(mesh.shape["model"]) != model_size:
         raise ValueError(f"model_size {model_size} but the mesh's model "
                          f"axis is {mesh.shape['model']}")
-    _MESH = mesh if batch_axes is not None and model_size > 1 else None
+    keep = batch_axes is not None or seq_axis is not None
+    _MESH = mesh if keep and model_size > 1 else None
+    _SEQ_AXIS = seq_axis if _MESH is not None else None
 
 
 @contextlib.contextmanager
 def batch_sharding(mesh):
     """:func:`set_batch_sharding` for ``mesh`` inside the block (nothing
     for ``None`` or a mesh without a model axis), the previous state
-    after."""
+    after; a declared sequence axis stays declared."""
     global _MESH
     saved = _MESH
     if mesh is not None:
-        set_batch_sharding(("data",), model_size=mesh.shape["model"],
-                           mesh=mesh)
+        _MESH = mesh if mesh.shape["model"] > 1 else None
     try:
         yield
     finally:
         _MESH = saved
+
+
+def seq_mesh(s: int):
+    """The mesh whose model row splits a full-sequence pass of ``s``
+    positions (sequence parallelism), or None: a sequence axis is
+    declared (``set_batch_sharding(..., seq_axis="model")``), the
+    declared mesh has a model axis of M > 1, ``s`` > 1 and M divides
+    ``s`` (the reference's condition, ``launch/dryrun.py``). The
+    reference pads a sequence M does not divide (whisper's 1500 encoder
+    frames at M = 16); that stack runs here without the split, which
+    computes the same function.
+
+    Under sequence parallelism the residual stream between blocks is
+    this rank's block ``[B, S/M, D]`` of the sequence: norms and
+    residual adds run on those rows, and the tensor a layer saves for
+    its backward (the remat boundary) is 1/M of the unsplit one. At a
+    block's column-parallel entry the sequence is gathered
+    (``distributed.gather_seq``, where the unsplit pass has
+    ``copy_to_row``), and its row-parallel exit is reduce-scattered
+    (``distributed.scatter_seq``, where it has ``sum_over_row``); inside
+    the block nothing changes. A block whose leaves are whole (no model
+    split) has no partial: its attention computes q for the rank's rows
+    against the gathered K/V, at their global positions (the
+    reference's ``shard_seq_q``), its MLP runs on the rank's rows; a
+    whole MoE or Mamba2 block, which route and scan over the whole
+    sequence, runs replicated on the gathered sequence and keeps the
+    rank's rows. Every leaf a rank then uses on its rows only (norm
+    scales, a cross layer's gate, a whole block's weights and table)
+    passes through ``copy_to_row``, so its gradient is summed over the
+    row. The head gathers the sequence before ``unembed`` and the loss.
+    Decode (``s == 1``) never splits."""
+    mesh = _MESH
+    if _SEQ_AXIS is None or mesh is None or s <= 1:
+        return None
+    m = int(mesh.shape["model"])
+    return mesh if m > 1 and s % m == 0 else None
+
+
+def seq_rows(x: torch.Tensor, seq, dim: int = 1) -> torch.Tensor:
+    """This rank's block of the sequence dim of ``x``, a tensor whole on
+    every rank that needs no gradient (tokens, frames); ``x`` when
+    ``seq`` is None."""
+    if seq is None:
+        return x
+    n = x.shape[dim] // seq.shape["model"]
+    return x.narrow(dim, seq.coords["model"] * n, n)
+
+
+def seq_whole(x: torch.Tensor, seq) -> torch.Tensor:
+    """The whole sequence of a residual ``x`` [B, S/M, ...] for
+    consumers that run replicated over the row (the head, the
+    encoder's output as a cross source, a whole MoE or Mamba2 block):
+    gathered (``gather_row``, counted as ``model_gather``), the backward
+    keeping the rank's block."""
+    if seq is None:
+        return x
+    from repro_torch.distributed import gather_row
+    return gather_row(x, seq, 1)
+
+
+def seq_replicated(fn, x: torch.Tensor, seq):
+    """``fn`` of the whole sequence, replicated over the row, and this
+    rank's rows of its output (the first of a tuple): a block whose
+    leaves are whole and which reads the whole sequence at once (MoE
+    capacity, the Mamba2 scan). ``fn(x)`` when ``seq`` is None."""
+    if seq is None:
+        return fn(x)
+    from repro_torch.distributed import row_block
+    out = fn(seq_whole(x, seq))
+    if isinstance(out, tuple):
+        return (row_block(out[0], seq, 1),) + out[1:]
+    return row_block(out, seq, 1)
+
+
+def seq_params(tree, seq):
+    """``tree`` with every tensor leaf through ``copy_to_row`` when
+    ``seq`` is set: leaves a rank uses on its rows of the sequence only,
+    whose gradients are partials summed over the row."""
+    if seq is None:
+        return tree
+    from repro_torch.distributed import copy_to_row
+    if isinstance(tree, dict):
+        return {k: seq_params(v, seq) for k, v in tree.items()}
+    return copy_to_row(tree, seq)
 
 
 _FSDP = None                          # the declared training Placement
@@ -139,12 +235,11 @@ def training(mesh, place=None):
     :func:`batch_sharding` declares them, its data column as
     :func:`data_column` names it, and ``place`` (a
     ``launch.sharding.Placement`` with fsdp) names the leaves split over
-    the data axis, which :func:`gathered` all-gathers. The previous
-    state after."""
+    the data axis, which :func:`gathered` all-gathers. A declared
+    sequence axis stays declared. The previous state after."""
     global _MESH, _FSDP, _COLUMN
     saved = _MESH, _FSDP, _COLUMN
-    set_batch_sharding(("data",), model_size=mesh.shape["model"],
-                       mesh=mesh)
+    _MESH = mesh if mesh.shape["model"] > 1 else None
     _FSDP = place if place is not None and mesh.shape["data"] > 1 \
         else None
     _COLUMN = mesh if mesh.shape["data"] > 1 else None
@@ -198,15 +293,30 @@ def _row_sum(y: torch.Tensor, local: int, full: int, what: str
     return sum_over_row(y, _row_mesh(local, full, what))
 
 
-def _col_in(x: torch.Tensor, local: int, full: int, what: str
-            ) -> torch.Tensor:
+def _row_exit(y: torch.Tensor, local: int, full: int, what: str,
+              seq=None) -> torch.Tensor:
+    """A row-parallel output: :func:`_row_sum`, or under sequence
+    parallelism (``seq``) the sum's block of the sequence
+    (``scatter_seq``)."""
+    if seq is None or local == full:
+        return _row_sum(y, local, full, what)
+    from repro_torch.distributed import scatter_seq
+    return scatter_seq(y, _row_mesh(local, full, what))
+
+
+def _col_in(x: torch.Tensor, local: int, full: int, what: str,
+            seq=None) -> torch.Tensor:
     """A column-parallel input (the leaf holds ``local`` of ``full``
     output rows): ``copy_to_row``, whose backward sums this rank's
-    partial gradient of ``x`` over the row; ``x`` when it is whole."""
+    partial gradient of ``x`` over the row, or under sequence
+    parallelism (``seq``: ``x`` is the rank's block of the sequence)
+    ``gather_seq``, whose backward reduce-scatters it; ``x`` when the
+    leaf is whole."""
     if local == full:
         return x
-    from repro_torch.distributed import copy_to_row
-    return copy_to_row(x, _row_mesh(local, full, what))
+    from repro_torch.distributed import copy_to_row, gather_seq
+    mesh = _row_mesh(local, full, what)
+    return copy_to_row(x, mesh) if seq is None else gather_seq(x, mesh)
 
 
 def _partial_use(w: torch.Tensor, local: int, full: int, what: str
@@ -437,9 +547,13 @@ def init_norm(cfg: ModelConfig, d: int, device) -> dict:
     return init_rmsnorm(d, cfg.pdtype, device)
 
 
-def norm(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+def norm(cfg: ModelConfig, params: dict, x: torch.Tensor, seq=None
+         ) -> torch.Tensor:
     """The reference's dispatch: LayerNorm when the params carry a
-    ``bias``, else RMSNorm."""
+    ``bias``, else RMSNorm. ``seq``: ``x`` is the rank's block of the
+    sequence, so the params' gradients are summed over the row
+    (:func:`seq_params`)."""
+    params = seq_params(params, seq)
     if "bias" in params:
         return layernorm(params, x, cfg.norm_eps)
     return rmsnorm(params, x, cfg.norm_eps)
@@ -468,15 +582,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def _qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
-         kv_src: Optional[torch.Tensor] = None):
+         kv_src: Optional[torch.Tensor] = None, seq=None):
     """Q from x, K and V from ``kv_src`` (x itself for self-attention),
     the weights cast to x's dtype. Over split heads, x
-    (and ``kv_src``) pass through ``copy_to_row``; so do a whole ``wk``
+    (and ``kv_src``) pass through ``copy_to_row`` (x through
+    ``gather_seq`` under sequence parallelism); so do a whole ``wk``
     / ``wv`` and their biases beside a split ``wq`` (the rank reads its
     heads' KV groups only)."""
     dt = x.dtype
     local, full = params["wq"].shape[1], cfg.num_heads
-    x = _col_in(x, local, full, "attention wq")
+    x = _col_in(x, local, full, "attention wq", seq)
     kv_in = x if kv_src is None else _col_in(kv_src, local, full,
                                              "attention wq")
     wk, wv = params["wk"], params["wv"]
@@ -567,30 +682,32 @@ def _block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
 
 def _out_proj(params: dict, cfg: ModelConfig, out: torch.Tensor,
-              dt) -> torch.Tensor:
+              dt, seq=None) -> torch.Tensor:
     """Attention's output projection over this rank's heads, summed
-    over the model row when the heads are split."""
+    over the model row when the heads are split (reduce-scattered over
+    the sequence under ``seq``)."""
     wo = params["wo"]
     y = torch.einsum("bshk,hkd->bsd", out, wo.to(dt))
-    return _row_sum(y, wo.shape[0], cfg.num_heads, "attention wo")
+    return _row_exit(y, wo.shape[0], cfg.num_heads, "attention wo", seq)
 
 
 def gqa_scores_apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     mask) -> torch.Tensor:
+                     mask, q0: int = 0) -> torch.Tensor:
     """q: [B,S,H,Dh], k/v: [B,T,Hkv,Dh]. ``mask`` is None, an additive
     tensor broadcastable to [B,1,S,T], or the lazy ``("causal",
-    window)`` predicate of the prefill path. Returns [B,S,H,Dh]."""
+    window)`` predicate of the prefill path. ``q0`` is the position of
+    q's first row among the keys (a rank's block of the sequence).
+    Returns [B,S,H,Dh]."""
     b, s, h, dh = q.shape
     hkv = k.shape[2]
 
-    if s == 1:
-        # one query: grouped contraction, f32 scores/softmax/probs·V
+    if s == 1 and not isinstance(mask, tuple):
+        # one query: grouped contraction, f32 scores/softmax/probs·V (a
+        # lazy mask, one row of a split sequence, takes the general path)
         grp = h // hkv
         qg = q.reshape(b, 1, hkv, grp, dh).float()
         scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) \
             / math.sqrt(dh)
-        if isinstance(mask, tuple):
-            raise ValueError("decode path expects an explicit mask")
         if mask is not None:
             scores = scores + mask[:, :, None]
         probs = torch.softmax(scores, dim=-1)
@@ -624,8 +741,11 @@ def gqa_scores_apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         probs = torch.softmax(scores, dim=-1).to(qq.dtype)
         return torch.einsum("bhst,bthd->bshd", probs, v)
 
+    if mask is not None and not isinstance(mask, tuple) and q0 \
+            and mask.shape[2] > 1:
+        mask = mask[:, :, q0:q0 + s]
     if s <= Q_CHUNK or s % Q_CHUNK != 0:
-        return full(q, mask, 0)
+        return full(q, mask, q0)
 
     # long sequences: loop over query chunks (exact, bounded memory)
     out = []
@@ -634,29 +754,67 @@ def gqa_scores_apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if mask is not None and not isinstance(mask, tuple) \
                 and mask.shape[2] > 1:
             mi = mask[:, :, off:off + Q_CHUNK]
-        out.append(full(q[:, off:off + Q_CHUNK], mi, off))
+        out.append(full(q[:, off:off + Q_CHUNK], mi, q0 + off))
     return torch.cat(out, dim=1)
 
 
 def attention(params: dict, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, mask, return_kv: bool = False, *,
               kv_src: Optional[torch.Tensor] = None,
-              use_rope: bool = True):
+              use_rope: bool = True, seq=None):
     """Self-attention over a full sequence, or cross-attention to
     ``kv_src`` [B,T,D] (no RoPE; pass ``mask=None``). ``return_kv=True``
     also returns K and V [B,T,Hkv,Dh] (rope'd for self-attention):
     exactly what decode writes into its cache, so a prefill forward can
-    dump a decode-ready cache."""
-    q, k, v = _qkv(params, x, cfg, kv_src)
+    dump a decode-ready cache. ``seq`` (sequence parallelism,
+    :func:`seq_mesh`): ``x`` and the output are the rank's block of the
+    sequence, ``positions`` [B, S] the whole sequence's, ``kv_src``
+    whole."""
+    if seq is not None and params["wq"].shape[1] == cfg.num_heads:
+        return _attention_seq_rows(params, cfg, x, positions, mask,
+                                   kv_src, use_rope, seq)
+    q, k, v = _qkv(params, x, cfg, kv_src, seq)
     if use_rope and kv_src is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     kq, vq = _query_kv(cfg, q, k, v)
     out = _out_proj(params, cfg, gqa_scores_apply(q, kq, vq, mask),
-                    x.dtype)
+                    x.dtype, seq)
     if return_kv:
         return out, (k, v)
     return out
+
+
+def _attention_seq_rows(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                        positions: torch.Tensor, mask,
+                        kv_src: Optional[torch.Tensor], use_rope: bool,
+                        seq) -> torch.Tensor:
+    """Attention whose heads are whole on every rank, under sequence
+    parallelism: q for this rank's rows of the sequence against the
+    whole sequence's K/V (the reference's ``shard_seq_q``), at the rows'
+    global positions for RoPE and the causal mask. K/V read the gathered
+    sequence (``gather_seq``: each rank's gradient of it is its rows'
+    partial) or the whole ``kv_src`` (``copy_to_row``); every leaf is
+    used on the rank's rows only, so its gradient is summed over the
+    row (:func:`seq_params`)."""
+    from repro_torch.distributed import copy_to_row, gather_seq
+    p = seq_params(params, seq)
+    dt, s = x.dtype, x.shape[1]
+    q0 = seq.coords["model"] * s
+    kv_in = gather_seq(x, seq) if kv_src is None else copy_to_row(kv_src,
+                                                                   seq)
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    k = torch.einsum("btd,dhk->bthk", kv_in, p["wk"].to(dt))
+    v = torch.einsum("btd,dhk->bthk", kv_in, p["wv"].to(dt))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    if use_rope and kv_src is None:
+        q = rope(q, positions[:, q0:q0 + s], cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    out = gqa_scores_apply(q, k, v, mask, q0)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
 
 
 def attention_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -777,10 +935,16 @@ def cross_attention_decode(params: dict, x: torch.Tensor, ck: torch.Tensor,
     return _out_proj(params, cfg, out, x.dtype)
 
 
-def mlp(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def mlp(params: dict, cfg: ModelConfig, x: torch.Tensor, seq=None
+        ) -> torch.Tensor:
     """Column-parallel ``wi`` / ``wg``, row-parallel ``wo`` over this
-    rank's d_ff block, summed over the model row when split."""
-    x = _col_in(x, params["wi"].shape[1], cfg.d_ff, "mlp wi")
+    rank's d_ff block, summed over the model row when split. ``seq``:
+    ``x`` is the rank's block of the sequence, gathered at the entry
+    and reduce-scattered at the exit of a split MLP; a whole MLP runs on
+    the rank's rows (:func:`seq_params`)."""
+    if seq is not None and params["wi"].shape[1] == cfg.d_ff:
+        params = seq_params(params, seq)
+    x = _col_in(x, params["wi"].shape[1], cfg.d_ff, "mlp wi", seq)
     h = x @ params["wi"].to(x.dtype)
     if cfg.act == "silu":
         g = x @ params["wg"].to(x.dtype)
@@ -789,16 +953,19 @@ def mlp(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(h, approximate="tanh")
     wo = params["wo"]
-    return _row_sum(h @ wo.to(x.dtype), wo.shape[0], cfg.d_ff, "mlp wo")
+    return _row_exit(h @ wo.to(x.dtype), wo.shape[0], cfg.d_ff, "mlp wo",
+                     seq)
 
 
 def _vocab_parallel_embed(table: torch.Tensor, tokens: torch.Tensor,
-                          vocab: int) -> torch.Tensor:
+                          vocab: int, seq=None) -> torch.Tensor:
     """Megatron-style vocab-parallel embedding: this rank gathers the
     tokens in its row range of the table, puts -0.0 (the exact additive
     identity) everywhere else, and the model row sums. Tokens are
     replicated over the row (every rank embeds the same positions), so
-    the sum holds one row and -0.0s: the M = 1 embedding bit for bit."""
+    the sum holds one row and -0.0s: the M = 1 embedding bit for bit.
+    Under sequence parallelism (``seq``) the sum is reduce-scattered:
+    the rank keeps its block of the sequence."""
     rows = table.shape[0]
     mesh = _row_mesh(rows, vocab, "embed table")
     loc = tokens - mesh.coords["model"] * rows
@@ -808,17 +975,22 @@ def _vocab_parallel_embed(table: torch.Tensor, tokens: torch.Tensor,
                     torch.full((), -0.0, dtype=x.dtype, device=x.device))
     # the backward is local: each rank scatters the whole gradient into
     # the rows of its tokens
-    from repro_torch.distributed import sum_over_row
-    return sum_over_row(x, mesh)
+    from repro_torch.distributed import scatter_seq, sum_over_row
+    return sum_over_row(x, mesh) if seq is None else scatter_seq(x, mesh)
 
 
-def embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor
+def embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor, seq=None
           ) -> torch.Tensor:
+    """Token embeddings [B, S, D] in the compute dtype, scaled by
+    sqrt(d_model). ``seq`` (sequence parallelism): the rank's block of
+    the sequence, [B, S/M, D]: a split table's sum reduce-scattered, a
+    whole table's rows of the rank's tokens (its gradient summed over
+    the row)."""
     table = params["table"]
     if table.shape[0] == cfg.vocab_size:
-        x = table[tokens]
+        x = seq_params(table, seq)[seq_rows(tokens, seq)]
     else:
-        x = _vocab_parallel_embed(table, tokens, cfg.vocab_size)
+        x = _vocab_parallel_embed(table, tokens, cfg.vocab_size, seq)
     x = x.to(cfg.cdtype)
     return x * math.sqrt(cfg.d_model)
 

@@ -174,16 +174,23 @@ def aux_losses(cfg: ModelConfig, r: Routing) -> MoEAux:
     return MoEAux(lb, z)
 
 
-def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor
+def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor, seq=None
               ) -> tuple[torch.Tensor, MoEAux]:
     """x: [B, S, d] -> (out [B, S, d], aux losses). Over experts split
     on the model row, the rank dispatches and combines the entries of
     its experts ``[e0, e0 + E/M)`` only and the row sums the partial
-    output."""
-    b, s, d = x.shape
+    output. ``seq`` (sequence parallelism): ``x`` and ``out`` are the
+    rank's block of the sequence; routing, capacity and drops stay the
+    whole sequence's (split experts: the sequence gathered at the
+    entry, the partial reduce-scattered at the exit; whole experts:
+    ``layers.seq_replicated``)."""
+    if seq is not None and params["wi"].shape[0] == cfg.num_experts:
+        return L.seq_replicated(lambda xs: moe_apply(params, cfg, xs), x,
+                                seq)
     k = cfg.experts_per_token
     e0, el, _ = _experts(params["wi"].shape[0], cfg)
-    x = L._col_in(x, el, cfg.num_experts, "moe experts")
+    x = L._col_in(x, el, cfg.num_experts, "moe experts", seq)
+    b, s, d = x.shape
     r = route(params, cfg, x)
     cap = r.cap
 
@@ -216,5 +223,5 @@ def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor
     w = (r.topk_probs.reshape(b, s * k, 1) * mine[..., None]).to(
         gathered.dtype)
     out = (gathered * w).reshape(b, s, k, d).sum(dim=2)
-    out = L._row_sum(out, el, cfg.num_experts, "moe wo")
+    out = L._row_exit(out, el, cfg.num_experts, "moe wo", seq)
     return out, aux_losses(cfg, r)

@@ -114,7 +114,9 @@ def get_model(cfg: ModelConfig) -> Model:
     def init(seed: int = 0, *, device="cuda", mesh=None,
              fsdp: bool = False) -> dict:
         dev = _device.resolve(device)
-        gen = torch.Generator(device=dev)
+        # a meta init draws nothing: its leaves are empty tensors of
+        # their shapes (the dry run's), from a CPU generator
+        gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
         gen.manual_seed(seed)
         if mesh is None or (mesh.shape["model"] == 1 and not fsdp):
             return init_fn(cfg, gen, dev)

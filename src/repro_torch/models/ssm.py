@@ -149,9 +149,17 @@ def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y.to(xh.dtype)
 
 
-def mamba_apply(params: dict, cfg: ModelConfig, x: torch.Tensor
-                ) -> torch.Tensor:
+def mamba_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                seq=None) -> torch.Tensor:
     """Full-sequence Mamba2 block. x: [B,S,d] -> [B,S,d].
+
+    ``seq`` (sequence parallelism): ``x`` and the output are the rank's
+    block of the sequence. Where both ``in_proj`` and ``out_proj`` are
+    split, the sequence is gathered at the projection
+    (``gather_seq``) and ``out_proj``'s partial reduce-scattered
+    (``scatter_seq``); the scan in between is unchanged. Otherwise the
+    block runs replicated on the gathered sequence
+    (``layers.seq_replicated``).
 
     On the model row (this rank's blocks of ``in_proj``'s columns,
     ``conv_w`` / ``conv_b``'s channels and ``out_proj``'s rows) the
@@ -168,11 +176,15 @@ def mamba_apply(params: dict, cfg: ModelConfig, x: torch.Tensor
     from repro_torch import distributed as dist_lib
     di, n, h, p = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_num_heads,
                    cfg.ssm_head_dim)
-    bsz, s = x.shape[0], x.shape[1]
     w_in, conv_w = params["in_proj"], params["conv_w"]
     width = 2 * di + 2 * n + h
-    proj = L._col_in(x, w_in.shape[1], width, "in_proj") \
-        @ w_in.to(x.dtype)
+    if seq is not None and (w_in.shape[1] == width
+                            or params["out_proj"].shape[0] == di):
+        return L.seq_replicated(lambda xs: mamba_apply(params, cfg, xs),
+                                x, seq)
+    x = L._col_in(x, w_in.shape[1], width, "in_proj", seq)
+    bsz, s = x.shape[0], x.shape[1]
+    proj = x @ w_in.to(x.dtype)
     if w_in.shape[1] != width:
         proj = dist_lib.gather_row(
             proj, L._row_mesh(w_in.shape[1], width, "in_proj"), -1)
@@ -231,6 +243,8 @@ def mamba_apply(params: dict, cfg: ModelConfig, x: torch.Tensor
     r = mesh.coords["model"]
     part = dist_lib.copy_to_row(y, mesh)[..., r * rows:(r + 1) * rows] \
         @ w_out.to(x.dtype)
+    if seq is not None:
+        return dist_lib.scatter_seq(part, mesh)
     return dist_lib.sum_over_row(part, mesh)
 
 

@@ -113,34 +113,38 @@ def _device(params: dict) -> torch.device:
 # full-sequence forward
 # --------------------------------------------------------------------------
 
-def _ffn(p: dict, cfg: ModelConfig, x: torch.Tensor):
+def _ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, seq=None):
     """The layer's MLP or MoE on x: (y, MoE aux or None)."""
     if "moe" in p:
-        return M.moe_apply(p["moe"], cfg, x)
-    return L.mlp(p["mlp"], cfg, x), None
+        return M.moe_apply(p["moe"], cfg, x, seq)
+    return L.mlp(p["mlp"], cfg, x, seq), None
 
 
-def _gated(p: dict, a: torch.Tensor) -> torch.Tensor:
-    """A cross layer's attention output scaled by tanh(gate)."""
-    return torch.tanh(p["gate"]).to(a.dtype) * a
+def _gated(p: dict, a: torch.Tensor, seq=None) -> torch.Tensor:
+    """A cross layer's attention output scaled by tanh(gate) (the gate's
+    gradient summed over the row when ``a`` is the rank's block of the
+    sequence)."""
+    return torch.tanh(L.seq_params(p["gate"], seq)).to(a.dtype) * a
 
 
 def layer_apply(p: dict, cfg: ModelConfig, h: torch.Tensor,
                 positions: torch.Tensor, mask, return_kv: bool = False,
                 kind: str = "attn",
-                kv_src: Optional[torch.Tensor] = None):
+                kv_src: Optional[torch.Tensor] = None, seq=None):
     """One layer over a full sequence: (h, aux), aux the MoE losses
     (None for an MLP layer); with ``return_kv``, (h, (k, v)) and the
     aux dropped, as the reference's prefill forward does. A cross layer
-    attends to ``kv_src`` through its gate."""
-    out = L.attention(p["attn"], cfg, L.norm(cfg, p["norm1"], h),
+    attends to ``kv_src`` through its gate. ``seq`` (sequence
+    parallelism, ``layers.seq_mesh``): ``h`` is the rank's block of the
+    sequence, ``positions`` the whole sequence's."""
+    out = L.attention(p["attn"], cfg, L.norm(cfg, p["norm1"], h, seq),
                       positions, mask, return_kv=return_kv,
-                      kv_src=kv_src, use_rope=kind != "cross")
+                      kv_src=kv_src, use_rope=kind != "cross", seq=seq)
     a, kv = out if return_kv else (out, None)
     if kind == "cross":
-        a = _gated(p, a)
+        a = _gated(p, a, seq)
     h = h + a
-    y, aux = _ffn(p, cfg, L.norm(cfg, p["norm2"], h))
+    y, aux = _ffn(p, cfg, L.norm(cfg, p["norm2"], h, seq), seq)
     h = h + y
     return (h, kv) if return_kv else (h, aux)
 
@@ -176,13 +180,13 @@ def _kv_src(cfg: ModelConfig, extra: Optional[torch.Tensor],
 
 def _gathered_layer(p: dict, i: int, cfg: ModelConfig, h: torch.Tensor,
                     positions: torch.Tensor, mask, kind: str,
-                    kv: Optional[torch.Tensor]):
+                    kv: Optional[torch.Tensor], seq=None):
     """Layer ``i`` on its leaves all-gathered over the data column first
     when a training placement splits them (``layers.gathered``; a no-op
     otherwise), so under remat the gather is redone in the
     recomputation and freed after each use."""
     return layer_apply(L.gathered(p, ("layers", i)), cfg, h, positions,
-                       mask, kind=kind, kv_src=kv)
+                       mask, kind=kind, kv_src=kv, seq=seq)
 
 
 def apply_lm_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -196,8 +200,11 @@ def apply_lm_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     backward), the counterpart of the reference's ``scan_layers``
     remat; it changes no value. Under a training placement
     (``layers.training``) each layer's fsdp leaves are gathered inside
-    its checkpoint."""
-    h = L.embed(L.gathered(params["embed"], ("embed",)), cfg, tokens)
+    its checkpoint. Under sequence parallelism (``layers.seq_mesh``)
+    the residual between layers is the rank's block of the sequence
+    and h is gathered whole at the end, for the head."""
+    seq = L.seq_mesh(tokens.shape[1])
+    h = L.embed(L.gathered(params["embed"], ("embed",)), cfg, tokens, seq)
     positions = _positions(tokens)
     masks = _masks(cfg)
     src = _kv_src(cfg, extra, h.dtype)
@@ -207,28 +214,33 @@ def apply_lm_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         kv = src if kind == "cross" else None
         if remat:
             h, a = checkpoint(_gathered_layer, p, i, cfg, h, positions,
-                              masks[kind], kind, kv, use_reentrant=False)
+                              masks[kind], kind, kv, seq,
+                              use_reentrant=False)
         else:
             h, a = _gathered_layer(p, i, cfg, h, positions, masks[kind],
-                                   kind, kv)
+                                   kind, kv, seq)
         if a is not None:
             aux = LMAux(aux.load_balance_loss + a.load_balance_loss,
                         aux.router_z_loss + a.router_z_loss)
     final = L.gathered(params["final_norm"], ("final_norm",))
-    return L.norm(cfg, final, h), aux
+    return L.seq_whole(L.norm(cfg, final, h, seq), seq), aux
 
 
 def apply_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
              extra: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence forward. tokens: [B,S] -> logits [B,S,V]."""
-    h = L.embed(params["embed"], cfg, tokens)
+    """Full-sequence forward. tokens: [B,S] -> logits [B,S,V]. Under
+    sequence parallelism the layers run on the rank's block of the
+    sequence and the head on the gathered whole."""
+    seq = L.seq_mesh(tokens.shape[1])
+    h = L.embed(params["embed"], cfg, tokens, seq)
     positions = _positions(tokens)
     masks = _masks(cfg)
     src = _kv_src(cfg, extra, h.dtype)
     for p, kind in zip(params["layers"], layer_kinds(cfg)):
         h, _ = layer_apply(p, cfg, h, positions, masks[kind], kind=kind,
-                           kv_src=src if kind == "cross" else None)
-    h = L.norm(cfg, params["final_norm"], h)
+                           kv_src=src if kind == "cross" else None,
+                           seq=seq)
+    h = L.seq_whole(L.norm(cfg, params["final_norm"], h, seq), seq)
     return L.unembed(params["embed"], cfg, h)
 
 

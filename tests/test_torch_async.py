@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread  # noqa: F401  (autouse)
 from repro.training.trainer import MetricRing as JMetricRing
 from repro_torch.core import build_optimizer
 from repro_torch.core.base import tree_leaves

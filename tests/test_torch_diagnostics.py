@@ -36,6 +36,7 @@ import pytest
 import torch
 from jax.flatten_util import ravel_pytree
 
+from torch_threads import one_thread  # noqa: F401  (autouse)
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.core import flatten as jflatten
 from repro.data.pipeline import stack_microbatches as jstack

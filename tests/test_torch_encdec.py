@@ -33,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401  (autouse)
 import torch_family as fam
 
 from repro import serving as jserving

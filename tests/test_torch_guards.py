@@ -124,8 +124,15 @@ def test_ops_dispatch_by_device_counts_only_kernel_launches():
     want = tad.attention_decode_ref(*_decode_operands(), window=8)
     np.testing.assert_array_equal(out.numpy(), want.numpy())
     assert ops.launches == before                 # plain path: no launch
-    with pytest.raises(RuntimeError, match="no implementation"):
-        ops.attention_decode(*_decode_operands("meta"), window=8)
+    # meta tensors (the dry run): out of q's shape and dtype, the launch
+    # and its q·K, p·V FLOPs counted apart
+    meta, flops = ops.meta_launches["attention_decode"], \
+        ops.meta_flops["attention_decode"]
+    got = ops.attention_decode(*_decode_operands("meta"), window=8)
+    assert got.device.type == "meta" and got.shape == out.shape
+    assert got.dtype == out.dtype and ops.launches == before
+    assert ops.meta_launches["attention_decode"] == meta + 1
+    assert ops.meta_flops["attention_decode"] == flops + 4 * out.numel() * 8
 
 
 def test_cuda_wrapper_refuses_cpu_tensors_before_building(monkeypatch):
@@ -240,9 +247,16 @@ def test_segmented_update_dispatch_counts_only_kernel_launches():
     bufs, delta = ops.segmented_update(w, g, (m,), **_seg_kwargs(ids))
     assert torch.equal(delta, want[1]) and torch.equal(m, want[0][0])
     assert ops.launches == before                 # plain path: no launch
+    # meta tensors (the dry run): the state in place, an f32 delta of
+    # the flat shape, both launches counted apart
     w, g, m, ids = _seg_operands("meta")
-    with pytest.raises(RuntimeError, match="no implementation"):
-        ops.segmented_update(w, g, (m,), **_seg_kwargs(ids, "meta"))
+    meta = dict(ops.meta_launches)
+    bufs, got = ops.segmented_update(w, g, (m,), **_seg_kwargs(ids, "meta"))
+    assert bufs[0] is m and got.device.type == "meta"
+    assert got.shape == delta.shape and got.dtype == torch.float32
+    assert ops.launches == before
+    for name in ("seg_norm_lars", "seg_apply_lars"):
+        assert ops.meta_launches[name] == meta[name] + 1
 
 
 def test_segmented_cuda_wrappers_refuse_cpu_tensors_before_building(

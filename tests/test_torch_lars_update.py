@@ -331,8 +331,16 @@ def test_lars_cuda_wrappers_refuse_cpu_tensors_before_building(
         lu.lars_apply_cuda([w], [g.bfloat16()], [m], torch.ones(2),
                            base_lr=0.1, eta=1e-3, weight_decay=0.0,
                            momentum_mu=0.9)
-    with pytest.raises(RuntimeError, match="no implementation"):
-        ops.lars_update(w.to("meta"), g.to("meta"), m.to("meta"), **HYPER)
+    # meta tensors (the dry run): the kernel's outputs, its two
+    # launches counted apart, nothing built or launched
+    before, meta = dict(ops.launches), dict(ops.meta_launches)
+    mm = m.to("meta")
+    new_m, delta = ops.lars_update(w.to("meta"), g.to("meta"), mm, **HYPER)
+    assert new_m is mm and delta.device.type == "meta"
+    assert delta.shape == w.shape and delta.dtype == torch.float32
+    assert ops.launches == before
+    assert ops.meta_launches["lars_norm2"] == meta["lars_norm2"] + 1
+    assert ops.meta_launches["lars_apply"] == meta["lars_apply"] + 1
 
 
 def test_lars_library_is_keyed_on_source_hash(tmp_path, monkeypatch):

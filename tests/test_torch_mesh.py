@@ -46,6 +46,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread  # noqa: F401  (autouse)
 import torch_mesh_ranks as ranks
 import torch_mesh_ref as ref_side
 from repro import checkpoint as jck

@@ -62,9 +62,13 @@ def test_rmsnorm_cuda_wrapper_refuses_before_building(monkeypatch):
     monkeypatch.setattr(_build, "load", no_build)
     with pytest.raises(ValueError, match="CUDA device"):
         trms.rmsnorm_cuda(torch.ones(2, 128), torch.ones(128))
-    with pytest.raises(RuntimeError, match="no implementation"):
-        ops.rmsnorm(torch.ones(2, 128, device="meta"),
-                    torch.ones(128, device="meta"))
+    # meta tensors (the dry run): the output's shape, counted apart
+    before, meta = dict(ops.launches), ops.meta_launches["rmsnorm"]
+    out = ops.rmsnorm(torch.ones(2, 128, device="meta", dtype=torch.bfloat16),
+                      torch.ones(128, device="meta"))
+    assert out.device.type == "meta" and out.shape == (2, 128)
+    assert out.dtype == torch.bfloat16 and ops.launches == before
+    assert ops.meta_launches["rmsnorm"] == meta + 1
     first = _build.library_path("rmsnorm")
     assert first.parent == _build.BUILD_DIR
     assert first != _build.library_path("lars_update")

@@ -464,11 +464,16 @@ def test_whisper_at_model_8_names_11b_4_before_drawing():
 
 
 def test_training_and_sequence_parallelism_over_the_model_axis_name_11c():
-    """Sequence parallelism names its item (10, the dry run's), training
-    over the model axis is ported (``test_torch_tp_train*.py``); the
+    """Sequence parallelism (item 10) and training over the model axis
+    are ported (``test_torch_seq_parallel.py``,
+    ``test_torch_tp_train*.py``): a sequence axis without a mesh
+    declares nothing, and only the model axis splits the sequence; the
     model axis still needs its ranks and its declared mesh."""
-    with pytest.raises(NotImplementedError, match="item 10$"):
-        L.set_batch_sharding(("data",), "model", model_size=2)
+    L.set_batch_sharding(("data",), "model", model_size=2)
+    assert L.seq_mesh(32) is None and L.declared_mesh() is None
+    with pytest.raises(ValueError, match="over the model axis only"):
+        L.set_batch_sharding(("data",), "data", model_size=2)
+    L.set_batch_sharding(None)
     with pytest.raises(ValueError, match="needs 2 ranks but only 1"):
         mesh_lib.make_host_mesh(1, 2)
     cfg = ModelConfig(**ranks.DECODE_LM)

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread  # noqa: F401  (autouse)
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.core import build_optimizer as jbuild
 from repro.models import get_model as jax_get_model
