@@ -387,7 +387,8 @@ script exits non-zero:
    the reference puts on a stacked dim (conv_w / conv_b) counted;
 19a. whisper-large-v3 and llama-3.2-vision-11b (one group) likewise on
    a (1, 2) mesh of two ranks, in f32 (printed: in bf16 the vlm gate's
-   and whisper's final norm's gradients round apart by up to 12%), on
+   one-device gradient is itself 10% from f32, and whisper's final
+   norm's misses by 3.8% at (1, 2): ROADMAP §3 P5), on
    seeded random frames and image embeddings (zero frames overflow
    whisper's LayerNorm backward, F11) and the vlm's cross gates
    opened;
@@ -492,6 +493,27 @@ script exits non-zero:
    process of their own while 22 runs: status, GiB a rank, dot FLOPs,
    collective GiB and seconds (predictions of the port, not card
    measurements).
+23. the four examples (``examples/torch_*.py``, the twins of the JAX
+   package's ``examples/``), each by its ``run`` function in this
+   process at its JAX twin's sizes, which are the whole of what it
+   defines. 23: the quickstart (the tiny dense LM, TVLARS at LR 2.0, 16
+   x 64, 30 steps): its loss line, the loss declining;
+23a. the classification example (B 1024, base 64, 200 steps, γ 1.0,
+   WA-LARS, NOWA-LARS, LAMB and TVLARS, the eval on 2048 samples): the
+   Table-1-style summary with the JAX example's numbers from a CPU
+   sandbox beside it (other samples: not a gate), the three LARS-family
+   runs finite, and no optimizer kernel launched (``build_optimizer``'s
+   default ``use_kernel=False``, as in the JAX script);
+23b. the Barlow-Twins example (B 512, 120 steps, LR 0.8, λ 1e-5, then
+   the SGD linear probe of 80 steps at B 256) for WA-LARS and TVLARS;
+23c. the serving example for every arch id at its smoke config: the
+   engine's tokens equal per-request ``generate``'s on 4 staggered
+   requests (``generate`` twice, deterministic, for the families without
+   a batched prefill), and the decode kernel launched once per attention
+   layer per decode step (zamba2: once per call site of its shared
+   block; mamba2 none);
+23d. ``tools/torch_validate_metrics.py`` (by ``main``) over every JSONL
+   file phases 10-11c wrote, with ``--min-records 1``: exit 0.
 
 Every phase prints its seconds (``phase {label}: {s} s``).
 
@@ -2371,6 +2393,7 @@ def phase_sharpness_full(run, ops, lu, sref, layerwise, flatten,
     ops.lars_apply = check
     watch = ProbeWatch(diag.LanczosProbe, ops, tree_leaves)
     tmp = tempfile.mkdtemp(prefix="phase10_")
+    JSONL_DIRS.append(tmp)
     metrics = f"{tmp}/metrics.jsonl"
     try:
         out = run(argv + ["--device", DEV, "--layerwise-every", "1",
@@ -2586,6 +2609,7 @@ def phase_sharpness_bench(sharpness_launch, diag) -> dict:
     lambda_max of WA-LARS and TVLARS and their ratio are reported, not
     gated (the JAX bench recorded about 1.25)."""
     tmp = tempfile.mkdtemp(prefix="phase10c_")
+    JSONL_DIRS.append(tmp)
     t0 = time.perf_counter()
     res = sharpness_launch.run(["--device", DEV, "--out", tmp],
                                log_fn=lambda line: print(
@@ -2688,6 +2712,7 @@ def phase_adaptive_full(run, ops, su, pipeline, synthetic, schedules,
         lambda obj, args, result, before, after: sums.append(
             batch_checksum(result)))
     tmp = tempfile.mkdtemp(prefix="phase11_")
+    JSONL_DIRS.append(tmp)
     metrics = f"{tmp}/metrics.jsonl"
     gc.collect()
     torch.cuda.empty_cache()
@@ -2942,6 +2967,7 @@ def phase_paper_runs(launchers: dict, ops, layerwise, flatten, cnn,
     per-tensor kernel per ADAPT leaf per step. Prints Table 1 and the
     adaptive switches."""
     tmp = tempfile.mkdtemp(prefix="phase11c_")
+    JSONL_DIRS.append(tmp)
     res, seconds = {}, {}
 
     def drive(name, module, argv=()):
@@ -6814,9 +6840,11 @@ FT_ARGV = ["--optimizer", "tvlars", "--use-kernel", "fused", "--precision",
 # block; whisper 2 + 2 layers; the vlm one group (4 + 1 cross); olmoe 1.
 # whisper and the vlm train in f32: in bf16 the gradients of the vlm
 # gate (one scalar) and whisper's final norm scale are sums over
-# 2048 x d products that cancel, whose M = 1 value itself rounds apart
-# from M = 2's by 11.7% and 3.8% (g_norm), where the same runs in f32
-# differ by 1.9e-7: bf16 there cannot tell a fault from rounding
+# 2048 x d products that cancel. The gate's M = 1 value is itself 10%
+# from the f32 step's on the same values, so M = 2's sits 11.7% from
+# it; whisper's final norm scale at M = 2 is 3.8% from both, through
+# the vocabulary-parallel head's bf16 partials (P5 in ROADMAP §3,
+# tests/torch_bf16_card.py). The same runs in f32 differ by 1.9e-7
 FT_F32 = dict(param_dtype="float32", compute_dtype="float32")
 FT_CUTS = {"mamba2-1.3b": dict(num_layers=6),
            "zamba2-1.2b": dict(num_layers=6),
@@ -8409,12 +8437,137 @@ def phase_seq_parallel(get_config) -> dict:
                          for r in ranks[:1] for k in SEG_LARS}}
 
 
+# ------------------------------------------------ 23-23d: the examples
+# the JAX package's examples on a CPU sandbox (examples/
+# large_batch_classification.py and ssl_barlow_twins.py as committed):
+# printed beside the card's numbers, not a gate (other samples)
+JAX_CLASSIFICATION = {"wa-lars": (0.7144, 221.360),
+                      "nowa-lars": (0.6851, 318.219),
+                      "lamb": (0.0244, 3.95e15), "tvlars": (0.7056, 256.978)}
+JAX_SSL = {"wa-lars": 0.0571, "tvlars": 0.0459}
+LARS_FAMILY = ("wa-lars", "nowa-lars", "tvlars")
+OPTIMIZER_KERNELS = ("seg_norm_lars", "seg_norm_lamb", "seg_apply_lars",
+                     "seg_apply_lamb", "lars_norm2", "lars_apply")
+# the directories phases 10-11c write their JSONL files to (23d reads them)
+JSONL_DIRS: list = []
+
+
+def load_file(rel: str, name: str):
+    """The module at ``rel`` (a file of the repository outside ``src``),
+    imported without running its ``__main__`` block."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, ROOT / rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def optimizer_launches(ops) -> dict:
+    return {k: ops.launches[k] for k in OPTIMIZER_KERNELS}
+
+
+def phase_examples(ops, ARCH_IDS) -> dict:
+    """23-23d (see the module docstring): each example's ``run`` in this
+    process on the card at its JAX twin's constants."""
+    out: dict = {}
+    with phase_clock("23"):
+        qs = load_file("examples/torch_quickstart.py", "torch_quickstart")
+        ops.reset_launches()
+        hist = qs.run(DEV)
+        print(qs.summary(hist).strip(), flush=True)
+        if not hist[-1]["loss"] < hist[0]["loss"]:
+            raise AssertionError(f"23: loss {hist[0]['loss']} -> "
+                                 f"{hist[-1]['loss']}")
+        out["23"] = optimizer_launches(ops)
+
+    with phase_clock("23a"):
+        clf = load_file("examples/torch_large_batch_classification.py",
+                        "torch_large_batch_classification")
+        ops.reset_launches()
+        results = clf.run(DEV)
+        launches = optimizer_launches(ops)
+        clf.report(results)
+        for name, (acc, s, hist) in results.items():
+            want_acc, want_lnr = JAX_CLASSIFICATION[name]
+            print(f"23a {name:10s} card acc={acc:.4f} max_init_LNR="
+                  f"{s['max_initial_lnr']:.3f} final loss "
+                  f"{hist[-1]['loss']:.4f}; JAX on a CPU sandbox acc="
+                  f"{want_acc:.4f} max_init_LNR={want_lnr:.6g} (other "
+                  f"samples: not a gate)", flush=True)
+        for name in LARS_FAMILY:
+            acc, s, hist = results[name]
+            if not all(math.isfinite(h["loss"]) for h in hist) \
+                    or not math.isfinite(s["max_initial_lnr"]):
+                raise AssertionError(f"23a {name}: not finite")
+        # build_optimizer's default use_kernel=False, as in the JAX
+        # script: the tree path, no optimizer kernel
+        if any(launches.values()):
+            raise AssertionError(f"23a: optimizer kernel launches "
+                                 f"{launches}, expected none")
+        print(f"23a: optimizer kernel launches {launches} (expected 0: "
+              f"use_kernel=False, as the JAX script)", flush=True)
+        out["23a"] = launches
+
+    with phase_clock("23b"):
+        ssl = load_file("examples/torch_ssl_barlow_twins.py",
+                        "torch_ssl_barlow_twins")
+        ops.reset_launches()
+        results = ssl.run(DEV)
+        for name, (acc, hist, phist) in results.items():
+            if not (0.0 <= acc <= 1.0 and all(
+                    math.isfinite(h["loss"]) for h in hist + phist)):
+                raise AssertionError(f"23b {name}: acc {acc}")
+            print(f"23b {name}: card linear-probe accuracy {acc:.4f}; JAX "
+                  f"on a CPU sandbox {JAX_SSL[name]:.4f} (other samples: "
+                  f"not a gate)", flush=True)
+        out["23b"] = optimizer_launches(ops)
+
+    with phase_clock("23c"):
+        serve = load_file("examples/torch_serve_lm.py", "torch_serve_lm")
+        per_arch = {}
+        for arch in ARCH_IDS:
+            ops.reset_launches()
+            got = serve.run(arch, device=DEV)
+            # the example holds engine == generate itself, and launches
+            # == attention layers x decode steps (held again here: its
+            # asserts go under -O)
+            if got["launches"] != got["expected"]:
+                raise AssertionError(f"23c {arch}: {got}")
+            per_arch[arch] = {"launches": got["launches"],
+                              "per_step": serve.attention_layers(
+                                  serve.get_smoke_config(arch)),
+                              "engine": got["stats"] is not None}
+            print(f"23c {arch}: decode launches {got['launches']} "
+                  f"({per_arch[arch]['per_step']} per decode step, "
+                  f"{'engine' if got['stats'] else 'generate x 2'})",
+                  flush=True)
+        out["23c"] = per_arch
+
+    with phase_clock("23d"):
+        vm = load_file("tools/torch_validate_metrics.py",
+                       "torch_validate_metrics")
+        paths = sorted(str(p) for d in JSONL_DIRS
+                       for p in Path(d).rglob("*.jsonl"))
+        if len(paths) < len(JSONL_DIRS):
+            raise AssertionError(f"23d: {len(paths)} JSONL files in "
+                                 f"{JSONL_DIRS}")
+        rc = vm.main(["--min-records", "1", *paths])
+        if rc != 0:
+            raise AssertionError(f"23d: torch_validate_metrics exited {rc}")
+        print(f"23d: torch_validate_metrics OK on {len(paths)} JSONL files "
+              f"of phases 10-11c", flush=True)
+        for d in JSONL_DIRS:
+            shutil.rmtree(d, ignore_errors=True)
+        out["23d"] = len(paths)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from repro_torch import serving, training
-    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
     from repro_torch.core import build_optimizer, flatten
     from repro_torch.core.base import tree_leaves, tree_map
     from repro_torch.data.synthetic import lm_iterator
@@ -8552,7 +8705,8 @@ def main() -> int:
                                           diag, synthetic, training,
                                           tree_map)
         phase_sharpness_bench(sharpness_launch, diag)
-        diag_smoke.main([])
+        JSONL_DIRS.append(tempfile.mkdtemp(prefix="phase10d_"))
+        diag_smoke.main(["--out", JSONL_DIRS[-1]])
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -8707,6 +8861,13 @@ def main() -> int:
     with phase_clock("22-22b"):
         sp = phase_seq_parallel(get_config)
 
+    # 23-23d: the four examples on the card at their JAX twins' sizes,
+    # and the validate tool's twin over the phases' JSONL files
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase_clock("23-23d"):
+        ex = phase_examples(ops, ARCH_IDS)
+
     # the serving path's mix: 40 local and 8 global launches per decode
     # step (bf16 pool); per-launch means weighted by that mix
     rows = kernel["rows"]
@@ -8774,7 +8935,10 @@ def main() -> int:
                     "20": ep["20"]["launches"],
                     "20a": ep["20a"]["launches"],
                     # per rank: whisper's self caches over T, heads whole
-                    "21a-t": dh["21a"]["t"]["launches"]["attention_decode"]}}]
+                    "21a-t": dh["21a"]["t"]["launches"]["attention_decode"],
+                    # the serving example at every arch's smoke config
+                    **{f"23c-{a}": r["launches"]
+                       for a, r in ex["23c"].items()}}}]
     # the head-dim split's two modes: card times at the main path's
     # shapes (21's bf16 global rows, rank 0's block), SDPA over the whole
     # cache as the yardstick; launches per rank on 21a's Dh run and 21b
@@ -8837,7 +9001,9 @@ def main() -> int:
                 "20b": ep["20b"]["launches"].get(name, 0),
                 "21c": dh["21c"]["launches"].get(name, 0),
                 # per rank: the split and the unsplit step
-                "22": sp["launches"].get(name, 0)},
+                "22": sp["launches"].get(name, 0),
+                # the examples: the tree path (use_kernel=False)
+                **{k: ex[k][name] for k in ("23", "23a", "23b")}},
             "on_a_ranks_block": tt["seg"]["times"][
                 "norm" if "norm" in name else "apply"]})
     # the per-tensor kernels: per-launch means over the 14 segments of a
@@ -8863,7 +9029,8 @@ def main() -> int:
                 "18b": tt["launches_pt"][name],
                 "19c": ft["probe_launches"].get(name, 0),
                 "20b": ep["20b"]["launches_pt"][name],
-                "20c": ep["20c"]["probe_launches"].get(name, 0)},
+                "20c": ep["20c"]["probe_launches"].get(name, 0),
+                **{k: ex[k][name] for k in ("23", "23a", "23b")}},
             "on_a_ranks_block": {
                 k: v for k, v in tt["lars"]["times"][
                     "norm" if "norm" in name else "apply"].items()

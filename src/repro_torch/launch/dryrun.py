@@ -150,15 +150,25 @@ class LiveBytes(TorchDispatchMode):
     (``live``) and their peak (``peak``): each new storage is counted
     once, when an op first returns it, and released when it is freed
     (views and in-place results share their input's storage and add
-    nothing). Storages made before the block are not counted."""
+    nothing). Storages made before the block are not counted.
 
-    def __init__(self):
+    With ``buffers=True`` it also keeps, for each live storage, ``(bytes,
+    shape, dtype, op)`` of the tensor that made it, and in ``at_peak``
+    a copy of that set each time ``peak`` rises: the buffers live at the
+    peak. Off by default: the copies cost time on a long trace."""
+
+    def __init__(self, buffers: bool = False):
         super().__init__()
         self.live = 0
         self.peak = 0
+        self.buffers = buffers
+        self.held: dict = {}
+        self.at_peak: list = []
+        self._serial = 0
 
-    def _free(self, n: int) -> None:
+    def _free(self, n: int, key=None) -> None:
         self.live -= n
+        self.held.pop(key, None)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -173,8 +183,17 @@ class LiveBytes(TorchDispatchMode):
             st._live_bytes_seen = True
             n = st.nbytes()
             self.live += n
-            weakref.finalize(st, self._free, n)
-        self.peak = max(self.peak, self.live)
+            key = None
+            if self.buffers:
+                key = self._serial = self._serial + 1
+                self.held[key] = (n, tuple(t.shape),
+                                  str(t.dtype).replace("torch.", ""),
+                                  str(func.overloadpacket))
+            weakref.finalize(st, self._free, n, key)
+        if self.live > self.peak:
+            self.peak = self.live
+            if self.buffers:
+                self.at_peak = list(self.held.values())
         return out
 
 
@@ -294,18 +313,22 @@ def build_step(arch_id: str, shape_name: str, mesh, *,
                    * specs["pos"].element_size(), kind)
 
 
-def trace(step: DryStep, mesh) -> dict:
+def trace(step: DryStep, mesh, *, buffers: bool = False) -> dict:
     """Run ``step`` once on meta; the measurements of the module
-    docstring (but the status), ``mesh``'s records included."""
+    docstring (but the status), ``mesh``'s records included. With
+    ``buffers``, also ``peak_buffers``: ``(bytes, shape, dtype, op)`` of
+    each storage the step created that is live at its peak
+    (:class:`LiveBytes`)."""
     from torch.utils.flop_counter import FlopCounterMode
     mesh.collectives.clear()
     ops.reset_meta_launches()
-    with FlopCounterMode(display=False) as flops, LiveBytes() as live:
+    with FlopCounterMode(display=False) as flops, \
+            LiveBytes(buffers) as live:
         out = step.fn(*step.args)
         del out
     colls = {k: {"count": v["calls"], "bytes": v["bytes"]}
              for k, v in sorted(mesh.collectives.items())}
-    return {
+    got = {
         "argument_bytes": step.argument_bytes,
         "peak_bytes": step.argument_bytes + live.peak,
         "flops": int(flops.get_total_flops())
@@ -314,14 +337,18 @@ def trace(step: DryStep, mesh) -> dict:
         "collective_bytes": sum(v["bytes"] for v in colls.values()),
         "launches": {k: v for k, v in ops.meta_launches.items() if v},
     }
+    if buffers:
+        got["peak_buffers"] = live.at_peak
+    return got
 
 
 def dryrun_one(arch_id: str, shape_name: str, *, multi_pod: bool = False,
                optimizer_name: str = "tvlars",
                save_dir: Optional[str] = SAVE_DIR, verbose: bool = True,
-               seq_parallel: bool = True) -> dict:
+               seq_parallel: bool = True, buffers: bool = False) -> dict:
     """Build and trace one (arch, shape, mesh) for rank 0; the result
-    dict (saved as JSON under ``save_dir``)."""
+    dict (saved as JSON under ``save_dir``; ``buffers``: :func:`trace`'s
+    ``peak_buffers`` too)."""
     mesh_name = "multi" if multi_pod else "single"
     ok, reason = supports_shape(get_config(arch_id), shape_name)
     if not ok:
@@ -337,7 +364,7 @@ def dryrun_one(arch_id: str, shape_name: str, *, multi_pod: bool = False,
         step = build_step(arch_id, shape_name, mesh,
                           optimizer_name=optimizer_name,
                           seq_parallel=seq_parallel)
-        got = trace(step, mesh)
+        got = trace(step, mesh, buffers=buffers)
     finally:
         L.set_batch_sharding(None)
     result = {"arch": arch_id, "shape": shape_name, "mesh": mesh_name,

@@ -17,7 +17,8 @@ arrays and unstacks it into the port's lists (layer ``g * n + i`` is
 ``groups["l{i}_{kind}"][g]``; hybrid block ``g * attn_every + i`` is
 ``groups[g, i]``, then the trailing blocks; encdec's ``encoder`` and
 ``decoder`` lists are their stacks' members), so both packages compute
-the same function. Leaf layouts are shared, so every leaf is a copy.
+the same function. Leaf layouts are shared, so every leaf is a copy of
+a numpy leaf or a view of a torch one.
 :func:`params_to_jax` is its inverse, which is how an LM's params cross
 packages in a checkpoint; :func:`jax_template` is that tree's shapes
 and dtypes on the meta device, a restore template that allocates
@@ -49,13 +50,17 @@ from repro_torch.models.transformer import _group_spec, check_model_axis
 
 
 def _tensor(x, dev: torch.device) -> torch.Tensor:
+    # torch leaves (a restore's own tree) are used in place on their
+    # device, so a restore never holds the params twice. A numpy leaf is
+    # always copied: the port's optimizers update params in place, and
+    # a tensor sharing the caller's array would write the step into it
     if isinstance(x, torch.Tensor):
         return x.to(dev)
-    a = np.asarray(x)
+    a = np.array(x, order="C")
     if a.dtype.name == "bfloat16":     # ml_dtypes bf16: reinterpret bits
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
-        return t.view(torch.bfloat16).to(dev)
-    return torch.from_numpy(np.array(a)).to(dev)
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            .to(dev)
+    return torch.from_numpy(a).to(dev)
 
 
 def _map(tree, fn):
@@ -92,7 +97,10 @@ def params_from_jax(cfg: ModelConfig, tree: dict, *,
                     device="cuda") -> dict:
     """Reference params (numpy leaves) -> the port's params on
     ``device``: the stacked layer / block axes unstacked into the
-    port's lists (``layers``, or ``blocks`` for ssm and hybrid)."""
+    port's lists (``layers``, or ``blocks`` for ssm and hybrid). Numpy
+    leaves are copied; torch leaves already on ``device`` are used in
+    place (views of the stacked tensors), for the restore paths that
+    hand over their tree."""
     dev = _device.resolve(device)
     out = {"embed": _map(tree["embed"], lambda x: _tensor(x, dev)),
            "final_norm": _map(tree["final_norm"],

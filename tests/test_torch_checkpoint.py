@@ -19,6 +19,10 @@
 * ``launch.landscape`` at a few steps: its checkpoints restore into the
   JAX template bitwise.
 * The new entry points default to the card and raise without it.
+* ``params_from_jax`` copies numpy inputs, bf16 included: a step on the
+  converted params leaves the caller's arrays bitwise as they were.
+  Torch inputs on the target device are used in place, so a restore
+  does not hold the params twice.
 """
 from __future__ import annotations
 
@@ -161,6 +165,47 @@ def test_restore_refuses_mismatch(tmp_path, fault):
         if fault == "mesh" else None
     with pytest.raises(exc, match=match):
         ck.restore(path, like, device="cpu", shardings=split)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_params_from_jax_copies_numpy_inputs(dtype):
+    """The port's optimizers update params in place. A bf16 leaf used to
+    share its input array's memory, so a step on the converted params
+    wrote itself into the caller's arrays (the JAX package's own, in the
+    tests that feed both packages the same weights)."""
+    jcfg = jax_smoke_config("qwen2.5-3b").replace(param_dtype=dtype)
+    cfg = get_smoke_config("qwen2.5-3b").replace(param_dtype=dtype)
+    arrays = jax.tree_util.tree_map(
+        np.array, jax_get_model(jcfg).init(jax.random.PRNGKey(0)))
+    before = [_bits(a).copy() for a in jax.tree_util.tree_leaves(arrays)]
+    model = get_model(cfg)
+    opt = build_optimizer("tvlars", total_steps=10, learning_rate=1.0,
+                          segments=model.segments, device="cpu")
+    state = TrainState.create(params_from_jax(cfg, arrays, device="cpu"),
+                              opt)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8),
+                         generator=torch.Generator().manual_seed(0))
+    new, _ = make_train_step(model, opt)(
+        state, {"tokens": toks, "labels": toks.roll(-1, 1)})
+    moved = [not np.array_equal(_bits(a), _bits(b)) for a, b in zip(
+        tree_leaves(params_to_jax(cfg, new.params)), before)]
+    assert any(moved)
+    for i, (a, b) in enumerate(zip(jax.tree_util.tree_leaves(arrays),
+                                   before)):
+        np.testing.assert_array_equal(_bits(a), b, err_msg=f"leaf {i}")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_params_from_jax_uses_torch_inputs_in_place(dtype):
+    """A restore hands over its stacked tree: every converted leaf is a
+    view of an input tensor's memory, none a copy."""
+    cfg = get_smoke_config("qwen2.5-3b").replace(param_dtype=dtype)
+    stacked = params_to_jax(cfg, get_model(cfg).init(0, device="cpu"),
+                            device="cpu")
+    inputs = {t.untyped_storage().data_ptr() for t in tree_leaves(stacked)}
+    got = tree_leaves(params_from_jax(cfg, stacked, device="cpu"))
+    assert got and all(t.untyped_storage().data_ptr() in inputs
+                       for t in got)
 
 
 @pytest.mark.parametrize("model", ["lm", "mlp"])

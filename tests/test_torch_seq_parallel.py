@@ -23,6 +23,13 @@ own smoke params and seeded batches (``torch_tp_train_families_ref
   scale's gradient sums its rows' partials over the row: another order).
 * At ``(1, 8)``, where the heads (whisper, the vlm) or experts (olmoe)
   stay whole, the split step gives the single-rank step within 1e-5.
+* Fault P4 (ROADMAP §3, fixed): at ``(2, 4)``, with and without the
+  sequence axis, the bf16 configs' vlm cross gate's and final norms'
+  layer-wise ``g_norm`` within :data:`BF16_G_NORM` (``TT_BOUNDS``' 1e-2)
+  of the single-rank step; the parent's ``convert.params_from_jax``
+  shared the bf16 input arrays' memory, so the single-rank step wrote
+  itself into the world's inputs and the gate missed by 12%. Its f32
+  control within ``torch_sp_ref.F32_CONTROL`` (1e-5).
 * A control that must miss: a ``scatter_seq`` that keeps the rank's
   block of its own partial without summing.
 * On meta (the dry run's live-bytes tracker), the residual a layer
@@ -45,6 +52,7 @@ from repro_torch.models import convert, get_model
 from repro_torch.models import layers as L
 
 SAME = 1e-6          # the split step against the unsplit one, relative
+BF16_G_NORM = 1e-2   # a bf16 (2, 4) step's g_norm against one device's
 PARAM_FLOOR = 1e-9   # an absolute floor for params that are near zero
 
 
@@ -112,6 +120,33 @@ def test_whole_heads_or_experts_split_step_matches_the_single_rank(
     gaps = fam.single_gaps(runs["world"][f"{arch}/1x8/sp"],
                            runs["single"][arch])
     assert all(v <= fam.F32 for v in gaps.values()), gaps
+
+
+@pytest.mark.parametrize("kind", ("mesh", "seq"))
+@pytest.mark.parametrize("arch", sp.Q1)
+def test_f32_gate_and_final_norms_match_the_single_rank(runs, arch, kind):
+    got = runs["world"][f"q1/{arch}/f32-mesh" if kind == "mesh"
+                        else f"{arch}/2x4/sp"]["layerwise/g_norm"]
+    want = runs["single"][arch]["layerwise/g_norm"]
+    names = sp.segment_names(arch)
+    held = [i for i, name in enumerate(names) if sp.held(name)]
+    assert held and len(names) == len(want)
+    for i in held:
+        np.testing.assert_allclose(got[i], want[i], rtol=sp.F32_CONTROL,
+                                   atol=0, err_msg=names[i])
+
+
+@pytest.mark.parametrize("kind", ("mesh", "seq"))
+@pytest.mark.parametrize("arch", sp.Q1)
+def test_bf16_gate_and_final_norms_match_the_single_rank(runs, arch, kind):
+    got = runs["world"][f"q1/{arch}/{kind}"]["layerwise/g_norm"]
+    want = runs["single"][f"q1/{arch}"]["layerwise/g_norm"]
+    names = sp.segment_names(arch)
+    held = [i for i, name in enumerate(names) if sp.held(name)]
+    assert held and len(names) == len(want)
+    for i in held:
+        np.testing.assert_allclose(got[i], want[i], rtol=BF16_G_NORM,
+                                   atol=0, err_msg=names[i])
 
 
 def test_unsummed_scatter_control_misses(runs):
