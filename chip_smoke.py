@@ -386,12 +386,13 @@ script exits non-zero:
    1 within ``TT_BOUNDS``, the step split; the leaves whose data axis
    the reference puts on a stacked dim (conv_w / conv_b) counted;
 19a. whisper-large-v3 and llama-3.2-vision-11b (one group) likewise on
-   a (1, 2) mesh of two ranks, in f32 (printed: in bf16 the vlm gate's
-   one-device gradient is itself 10% from f32, and whisper's final
-   norm's misses by 3.8% at (1, 2): ROADMAP §3 P5), on
-   seeded random frames and image embeddings (zero frames overflow
-   whisper's LayerNorm backward, F11) and the vlm's cross gates
-   opened;
+   a (1, 2) mesh of two ranks, whisper in bf16 (its vocabulary-parallel
+   head sums each rank's f32 partial of the hidden state's gradient
+   over the row and rounds once, as one device's head does), the vlm in
+   f32 (printed: in bf16 its gate's one-device gradient is itself 10%
+   from the f32 step's), on seeded random frames and image embeddings
+   (zero frames overflow whisper's LayerNorm backward, F11) and the
+   vlm's cross gates opened;
 19b. olmoe-1b-7b likewise on a (2, 1) mesh through the GSPMD
    ``--data-parallel 2``: its load balance within ``FT_LB_BOUND`` of M
    = 1 (the global batch's means), and the per-shard means' value on
@@ -6838,18 +6839,18 @@ FT_ARGV = ["--optimizer", "tvlars", "--use-kernel", "fused", "--precision",
 # axis to the stacked dim of conv_w / conv_b as at 48 (at 4 or fewer the
 # conv width takes it); zamba2 one group of 6 blocks and its shared
 # block; whisper 2 + 2 layers; the vlm one group (4 + 1 cross); olmoe 1.
-# whisper and the vlm train in f32: in bf16 the gradients of the vlm
-# gate (one scalar) and whisper's final norm scale are sums over
-# 2048 x d products that cancel. The gate's M = 1 value is itself 10%
-# from the f32 step's on the same values, so M = 2's sits 11.7% from
-# it; whisper's final norm scale at M = 2 is 3.8% from both, through
-# the vocabulary-parallel head's bf16 partials (P5 in ROADMAP §3,
-# tests/torch_bf16_card.py). The same runs in f32 differ by 1.9e-7
+# The vlm trains in f32: in bf16 the gradient of its gate (one scalar)
+# is a sum over 2048 x 4096 products that cancel, and its M = 1 value
+# is itself 10% from the f32 step's on the same values, so M = 2's sits
+# 11.7% from it (tests/torch_bf16_card.py). Whisper trains in bf16: its
+# vocabulary-parallel head sums each rank's f32 partial of the hidden
+# state's gradient over the row and rounds once, which its final norm
+# scale's g_norm needs to stay within TT_BOUNDS of M = 1's (bf16
+# partials rounded on each rank put it 3.8% off: fault P5, ROADMAP §3)
 FT_F32 = dict(param_dtype="float32", compute_dtype="float32")
 FT_CUTS = {"mamba2-1.3b": dict(num_layers=6),
            "zamba2-1.2b": dict(num_layers=6),
-           "whisper-large-v3": dict(num_layers=2, encoder_layers=2,
-                                    **FT_F32),
+           "whisper-large-v3": dict(num_layers=2, encoder_layers=2),
            "llama-3.2-vision-11b": dict(num_layers=5, **FT_F32),
            "olmoe-1b-7b": dict(num_layers=1)}
 FT_MESHES = {"19": (("mamba2-1.3b", "zamba2-1.2b"), (2, 2)),
@@ -7788,8 +7789,9 @@ DH_POOL = 1021
 DH_SLOTS = 4
 DH_NEW = (4, 8)               # new tokens a request (17a's 8-16 halved)
 # 21c: one fused TVLARS f32 step of whisper-large-v3 at (1, 8), 2 + 2
-# layers (19a's cut)
-DH_TRAIN_CUT = FT_CUTS["whisper-large-v3"]
+# layers (19a's depth cut), the model in f32 (8 does not divide its
+# vocabulary, so its head is whole: no split head to hold in bf16)
+DH_TRAIN_CUT = dict(FT_CUTS["whisper-large-v3"], **FT_F32)
 
 
 class DecodeWatch:

@@ -81,6 +81,81 @@ def _chunk_ce(h_blk, unembed_w, y_blk):
     return _ce_sum(h_blk @ unembed_w, y_blk)
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two matrices as an f32 product, unrounded. Narrower
+    operands (bf16) go to ``torch.mm(..., out_dtype=torch.float32)`` on
+    the card (tensor cores, no f32 copy of either operand) and on meta
+    (the dry run); on the CPU, which has no kernel for it, to the plain
+    f32 product of the same values. Operands of f32 or wider take the
+    plain product."""
+    if a.dtype == b.dtype and a.dtype.itemsize >= 4:
+        return a.mm(b)
+    if a.device.type == "cpu":
+        return a.float().mm(b.float())
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+class _F32Product(torch.autograd.Function):
+    """:func:`_mm_f32` under autograd (``mm``'s ``out_dtype`` form has
+    no derivative). The product is bilinear, so its backward is the two
+    products a single rank's head differentiates twice with, in the
+    operands' dtypes: ``c @ bᵀ`` and ``aᵀ @ c``."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, c):
+        a, b = ctx.saved_tensors
+        ga = c.to(a.dtype).mm(b.t()) if ctx.needs_input_grad[0] else None
+        gb = a.t().mm(c.to(b.dtype)) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+class _VocabParallelHead(torch.autograd.Function):
+    """``h @ w`` for this rank's columns ``w`` [D, V/M] of a head split
+    over the model row: the logits block in the operands' dtype. The
+    backward gives ``w`` the gradient autograd gives a product's second
+    operand (``hᵀ @ g``, the same call for the same layout), and ``h``
+    the row's sum of each rank's partial ``g @ wᵀ``: each partial an f32
+    product (:class:`_F32Product`), summed over the row in f32
+    (``sum_over_row``) and rounded to ``h``'s dtype once, after the sum.
+    A bf16 partial rounded on each rank first would lose the bits that
+    cancel in the sum. The backward is made of autograd functions, so
+    a Hessian-vector product differentiates through it."""
+
+    @staticmethod
+    def forward(ctx, h, w, mesh):
+        ctx.mesh = mesh
+        ctx.save_for_backward(h, w)
+        return h @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.distributed import copy_to_row, sum_over_row
+        h, w = ctx.saved_tensors
+        g2d = g.reshape(-1, g.shape[-1])
+        gh = gw = None
+        if ctx.needs_input_grad[0]:
+            part = _F32Product.apply(g2d, w.t())
+            gh = sum_over_row(part, ctx.mesh).to(h.dtype).view(h.shape)
+        if ctx.needs_input_grad[1]:
+            # h is whole on every rank of the row and this rank's
+            # gradient of w reads it: differentiated again, the row's
+            # parts of h's gradient are summed (copy_to_row)
+            h2d = copy_to_row(h, ctx.mesh).reshape(-1, h.shape[-1])
+            # as autograd's mm backward forms a second operand's
+            # gradient (column-major for a column-major operand), so
+            # w's gradient has the bits of the plain product's
+            if w.stride(0) == 1 and w.stride(1) == w.shape[0]:
+                gw = g2d.t().mm(h2d).t()
+            else:
+                gw = h2d.t().mm(g2d)
+        return gh, gw, None
+
+
 def _chunk_ce_vocab_parallel(h_blk, unembed_w, y_blk, mesh):
     """One chunk's Σ CE over a vocabulary split over the model row: this
     rank's logits block [B, c, V/M] only. The row max (a stabiliser, no
@@ -88,9 +163,10 @@ def _chunk_ce_vocab_parallel(h_blk, unembed_w, y_blk, mesh):
     owns it are each one collective over the row, so f32 logits are
     never gathered; the backward (softmax − one-hot on the rank's
     block, scaled by the upstream gradient) is local, and the gradient
-    of ``h_blk`` is summed over the row (``copy_to_row``)."""
-    from repro_torch.distributed import copy_to_row, sum_over_row
-    logits = (copy_to_row(h_blk, mesh) @ unembed_w).float()
+    of ``h_blk`` is summed over the row in f32 and rounded once
+    (:class:`_VocabParallelHead`)."""
+    from repro_torch.distributed import sum_over_row
+    logits = _VocabParallelHead.apply(h_blk, unembed_w, mesh).float()
     local = logits.shape[-1]
     m = mesh.row_max_(logits.detach().amax(dim=-1))
     sumexp = sum_over_row(torch.exp(logits - m[..., None]).sum(dim=-1),

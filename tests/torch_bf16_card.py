@@ -5,23 +5,26 @@ phase 19a of ``chip_smoke.py`` holds on the card (not collected).
 
 Phase 19a trains whisper-large-v3 and llama-3.2-vision-11b at full
 width, cut in depth (``chip_smoke.FT_CUTS``), one tree-TVLARS step on a
-``(1, 2)`` mesh against one device, in f32. In bf16 the vlm's cross
-gate and whisper's final norm scale miss ``TT_BOUNDS``' 1e-2 on
-``g_norm``. This script asks whether bf16 alone moves those numbers as
-far, on 19a's own launcher path (its seeded extra embeddings, the vlm's
-opened gates), with the same cut in bf16:
+``(1, 2)`` mesh against one device: whisper in bf16, the vlm in f32. In
+bf16 the vlm's cross gate misses ``TT_BOUNDS``' 1e-2 on ``g_norm``, and
+whisper's final norm scale did while the vocabulary-parallel head
+rounded each rank's partial of the hidden state's gradient to bf16
+before the row summed it. This script asks whether bf16 alone moves
+those numbers as far, on 19a's own launcher path (its seeded extra
+embeddings, the vlm's opened gates), with both archs in bf16:
 
 * ``m1``: one device (19a's reference run);
 * ``k2``: one device, the batch in 2 microbatches summed in f32: the
   same sums in another order, no mesh;
 * ``f32``: one device in f32 on the bf16 run's weights and embeddings
   (rounded to bf16): the value the bf16 runs round;
-* ``m2``: the ``(1, 2)`` mesh on two gloo ranks sharing the card;
-* ``m2h``: ``m2`` with the vocabulary-parallel head's input gradient
-  reduced in f32 on each rank and rounded once after the row sum
-  (:func:`chunk_ce_head_f32` in place of the port's
-  ``losses._chunk_ce_vocab_parallel``, whose bf16 product rounds each
-  rank's partial first): whether that rounding makes ``m2``'s gap.
+* ``m2``: the ``(1, 2)`` mesh on two gloo ranks sharing the card: the
+  head sums each rank's f32 partial over the row and rounds once;
+* ``m2r``: ``m2`` with the head before that
+  (``torch_vocab_head_ranks.parent_chunk_ce`` in place of
+  ``losses._chunk_ce_vocab_parallel``): each rank's partial a bf16
+  product, rounded before the row sum. The control that shows how far
+  that rounding moves ``g_norm``.
 
 For the held segments (a vlm gate, the final norms) and for the segment
 where ``m2`` is farthest from ``m1`` it prints each ``g_norm`` and its
@@ -115,60 +118,25 @@ def one_device(train_launch, arch: str, cut: dict, extra=(),
     return rec
 
 
-class _HeadF32Grad(torch.autograd.Function):
-    """``h32 @ w`` in ``w``'s dtype for an f32 ``h32`` that holds values
-    of that dtype; the backward returns ``h32``'s gradient in f32."""
-
-    @staticmethod
-    def forward(ctx, h32, w):
-        ctx.save_for_backward(h32, w)
-        return h32.to(w.dtype) @ w
-
-    @staticmethod
-    def backward(ctx, g):
-        h32, w = ctx.saved_tensors
-        h = h32.to(w.dtype)
-        dw = h.reshape(-1, h.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
-        return g.float() @ w.float().t(), dw
-
-
-def chunk_ce_head_f32(h_blk, unembed_w, y_blk, mesh):
-    """``losses._chunk_ce_vocab_parallel`` with the logits' product
-    through :class:`_HeadF32Grad`: the same forward, and each rank's
-    partial of ``h_blk``'s gradient summed over the row in f32."""
-    from repro_torch.distributed import copy_to_row, sum_over_row
-    HEAD_F32_CALLS[0] += 1
-    logits = _HeadF32Grad.apply(copy_to_row(h_blk.float(), mesh),
-                                unembed_w).float()
-    local = logits.shape[-1]
-    m = mesh.row_max_(logits.detach().amax(dim=-1))
-    sumexp = sum_over_row(torch.exp(logits - m[..., None]).sum(dim=-1),
-                          mesh)
-    loc = y_blk.long() - mesh.coords["model"] * local
-    mine = (loc >= 0) & (loc < local)
-    gold = torch.gather(logits, -1,
-                        torch.where(mine, loc, 0)[..., None])[..., 0]
-    gold = sum_over_row(torch.where(mine, gold, torch.zeros_like(gold)),
-                        mesh)
-    return torch.sum(torch.log(sumexp) + m - gold)
-
-
-HEAD_F32_CALLS = [0]
-
-
-def ft_rank_head_f32(arch: str, cut: dict, mesh_shape: tuple,
-                     ref_path: str) -> dict:
-    """``chip_smoke.ft_rank`` with :func:`chunk_ce_head_f32` as the
-    head's loss; its calls under ``head_f32_calls``."""
+def ft_rank_per_rank_rounding(arch: str, cut: dict, mesh_shape: tuple,
+                              ref_path: str) -> dict:
+    """``chip_smoke.ft_rank`` with the head before the fix
+    (``torch_vocab_head_ranks.parent_chunk_ce``) as the head's loss;
+    its calls under ``head_calls``."""
+    import torch_vocab_head_ranks as heads
     from repro_torch.training import losses
+    calls = [0]
+
+    def counted(*args):
+        calls[0] += 1
+        return heads.parent_chunk_ce(*args)
     real = losses._chunk_ce_vocab_parallel
-    losses._chunk_ce_vocab_parallel = chunk_ce_head_f32
-    HEAD_F32_CALLS[0] = 0
+    losses._chunk_ce_vocab_parallel = counted
     try:
         res = cs.ft_rank(arch, cut, mesh_shape, ref_path)
     finally:
         losses._chunk_ce_vocab_parallel = real
-    res["head_f32_calls"] = HEAD_F32_CALLS[0]
+    res["head_calls"] = calls[0]
     return res
 
 
@@ -195,11 +163,11 @@ def main() -> int:
         ranks = cs.on_ranks(cs.ft_rank, 2, args=(arch, cut, (1, 2),
                                                  ref_path(arch)), timeout=600)
         runs["m2"] = ranks[0]["history"][0]
-        ranks = cs.on_ranks(ft_rank_head_f32, 2, args=(
+        ranks = cs.on_ranks(ft_rank_per_rank_rounding, 2, args=(
             arch, cut, (1, 2), ref_path(arch)), timeout=600)
-        if not ranks[0]["head_f32_calls"]:
+        if not ranks[0]["head_calls"]:
             raise AssertionError(f"{arch}: the head is not split at (1, 2)")
-        runs["m2h"] = ranks[0]["history"][0]
+        runs["m2r"] = ranks[0]["history"][0]
         os.remove(ref_path(arch))
         norms = [k for k in runs["m1"] if k.endswith("/g_norm")]
         worst = max(norms, key=lambda k: abs(runs["m2"][k] - runs["m1"][k])
@@ -209,14 +177,14 @@ def main() -> int:
             v = {r: float(runs[r][key]) for r in runs}
             exact = v["f32"]
             gap = {r: abs(v[r] - exact) / abs(exact)
-                   for r in ("m1", "k2", "m2", "m2h")}
+                   for r in ("m1", "k2", "m2", "m2r")}
             gap["m2 to m1"] = abs(v["m2"] - v["m1"]) / abs(v["m1"])
             gap["rounding"] = gap["m2"] <= 2 * max(gap["m1"], gap["k2"])
             rows[key] = {"g_norm": v, "gaps": gap}
             print(f"{arch} {key}: g_norm " + ", ".join(
                 f"{r} {x:.6e}" for r, x in v.items()) + "; to f32: " +
                 ", ".join(f"{r} {gap[r]:.4%}"
-                          for r in ("m1", "k2", "m2", "m2h"))
+                          for r in ("m1", "k2", "m2", "m2r"))
                 + f"; m2 to m1 {gap['m2 to m1']:.4%}; rounding: "
                 f"{gap['rounding']}" + (" (worst m2 to m1)"
                                         if key == worst else ""),
@@ -224,7 +192,7 @@ def main() -> int:
         out[arch] = {"cut": cut, "loss": {r: float(runs[r]["loss"])
                                           for r in runs}, "segments": rows}
         print(f"{arch} loss: " + ", ".join(
-            f"{r} {x:.6f}" for r, x in out[arch]["loss"].items()),
+            f"{r} {x!r}" for r, x in out[arch]["loss"].items()),
             flush=True)
     cs.close_pools()
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
