@@ -34,13 +34,21 @@ script exits non-zero:
    version and bitwise equal over two launches; pass 2 fed the
    kernel's own table bitwise equal to the plain version. Times both
    passes, kernel and plain, beside their bounds;
-3c. the two per-tensor LARS kernels against their plain versions on
+3c. the two per-tensor LARS kernels, each one launch over a whole
+   pass of segments, against the plain pass (``ref.lars_norm2_pass`` /
+   ``lars_apply_pass``, segment by segment) on five passes:
    qwen2.5-3b's 14 kernel segments with the group axis cut to 4 layers,
-   on the CNN's 16 ADAPT leaves (init_cnn defaults) and on edge sizes
-   (9 elements, unaligned, 40 members of 35), bf16, f32 and bf16 w
-   with f32 g, heavy ball and nesterov: norms within ``LARS_NORM_RTOL``
-   and bitwise repeatable, the apply fed the kernel's sums bitwise equal (momentum,
-   delta, telemetry). Times both beside their bounds;
+   the CNN's 16 ADAPT leaves (init_cnn defaults), the edges (9
+   elements, unaligned, 40 members of 35), a segment of 80 members, and
+   1,280 members (40,960 B of pointers, beyond the kernel parameter
+   space); bf16, f32 and bf16 w with f32 g, heavy ball and nesterov;
+   and one pass mixing the three (w, g) dtype pairs:
+   sums within ``LARS_NORM_RTOL`` and bitwise repeatable, the apply fed
+   the kernel's sums (each segment at its column of a wider table)
+   bitwise equal (momentum, delta, telemetry). Times both passes (card,
+   eager, plain, ``torch._foreach_norm`` beside the norm) beside their
+   bounds at size (b), whisper-large-v3's kernel segments at full width
+   and depth in f32, and (c), the CNN's leaves;
 3d. RMSNorm against its plain version at gemma3-12b prefill (16,384 x
    3840, the block-per-row kernel) and qwen2.5-3b (4,096 x 2048, the
    warp-per-row kernel) shapes in bf16 and f32, at d 128-8192 (f16
@@ -80,12 +88,13 @@ script exits non-zero:
    on the run's own buffers (the main path's shapes);
 7c. the same model through ``launch.train.run`` with WA-LARS
    ``--use-kernel per_tensor`` (f32 momentum, bf16 weights, global
-   batch 8 x 512, 3 steps): exactly 14 launches of each per-tensor
-   kernel per step; at the last step every segment's norms against
+   batch 8 x 512, 3 steps): exactly one launch of each per-tensor
+   kernel per step, over its 14 kernel segments; at the last step every
+   segment's norms against
    ``torch.linalg.vector_norm``, its telemetry against the plain ratio
    and 4,096 elements of its momentum and delta against the plain
-   apply (bitwise); split, peak memory, both kernels timed on the run's
-   own tensors;
+   apply (bitwise); split, peak memory, both passes timed on the run's
+   own tensors (size (a));
 8. the qwen2.5-3b smoke LM in f32: 3 fused TVLARS, 3 fused LAMB and
    (8b) 3 per-tensor WA-LARS steps on the card against the CPU's plain
    path, same weights and batches;
@@ -95,7 +104,7 @@ script exits non-zero:
    WA-LARS, NOWA-LARS, LAMB and TVLARS, with accuracies, LNR summaries
    and whether the reference's ordering holds (reported);
    the CNN at init_cnn defaults, 20 WA-LARS steps through the
-   per-tensor kernels (2 launches per ADAPT leaf per step), each
+   per-tensor kernels (one pass a step: 1 + 1 launches), each
    step's update against the tree path's from the same state;
 10. the sharpness diagnostics at full width through
    ``launch.train.run``: qwen2.5-3b cut to ``PHASE10_LAYERS`` (2) of its
@@ -105,7 +114,7 @@ script exits non-zero:
    backward), 3 steps, a Lanczos lambda_max probe after every step (4
    iterations, no reorthogonalization: no basis on the card, the
    previous vector in host memory) on a held batch stacked K = 8,
-   streamed to JSONL. Exactly 14 launches of each per-tensor kernel per
+   streamed to JSONL. Exactly one launch of each per-tensor kernel per
    step and none inside a probe; params and momentum bitwise unchanged
    by every probe (checksums); lambda_max finite at steps 0-2, the file
    valid, lambda_max >= alpha_1. Then a SAM (rho 0.05) and a
@@ -140,8 +149,8 @@ script exits non-zero:
 11c. the paper's experiment launchers on the card at their reference constants
    (``launch.table1``, ``ssl``, ``fig2_lnr``, ``ablations``,
    ``schedules``, ``adaptive_batch``), their CSV and JSONL files
-   checked, Table 1 again with ``--use-kernel per_tensor`` (2 launches
-   of each per-tensor kernel per ADAPT leaf per step); prints Table 1
+   checked, Table 1 again with ``--use-kernel per_tensor`` (one launch
+   of each per-tensor kernel per step over the ADAPT leaves); prints Table 1
    and the adaptive bench's switches;
 12. codeqwen1.5-7b at full width and depth (32 layers, bf16, random
    weights from seed 0): the prediction (weights + KV pool) first,
@@ -211,8 +220,8 @@ script exits non-zero:
    a row): fused TVLARS f32 (then ``generate`` on its
    params: 4 prompts of 32 tokens through the token-by-token prefill
    plus 16 new tokens, 0 decode-attention launches) and per-tensor
-   WA-LARS (2 launches per kernel segment per step, the last step
-   checked as in 7c);
+   WA-LARS (1 + 1 launches per step over its 11 kernel segments, the
+   last step checked as in 7c);
 13e. zamba2-1.2b: the kernel at (4 slots, 32 / 32 heads, Dh 64, T 48,
    ``generate``'s cache), then trained at full width cut to 14 of 38
    blocks (two groups and the trailing two: the shared block at 2 call
@@ -239,7 +248,8 @@ script exits non-zero:
 14c. whisper-large-v3 trained at full width, 8 + 8 layers, through
    ``launch.train.run`` with random frames in place of the launcher's
    zero stub (``live_frontend``): fused TVLARS f32 8 x 512 (1 + 1
-   launches per step) and per-tensor WA-LARS (28 + 28), last steps
+   launches per step) and per-tensor WA-LARS (1 + 1 over 28 kernel
+   segments), last steps
    checked as in 7 / 7c; then one step of the launcher on its zero
    stub (the gradient overflows there, in both packages: F11);
 14d. llama-3.2-vision-11b trained cut in depth to whole groups (the
@@ -365,10 +375,10 @@ script exits non-zero:
 18a. the same on a (2, 2) mesh of four ranks: fsdp over the data axis
    (the leaves' data blocks gathered per layer, their gradients
    summed over the column);
-18b. per-tensor WA-LARS at (1, 2): 2 launches per kernel segment (by
-   whole size) a rank a step, the state bytes and the split as 18, the
-   per-tensor kernels on rank 0's blocks of the largest segment against
-   their plain versions, timed;
+18b. per-tensor WA-LARS at (1, 2): 1 + 1 launches a rank a step (one
+   pass over the kernel segments, chosen by whole size), the state
+   bytes and the split as 18, the per-tensor passes on rank 0's blocks
+   of the largest segment against the plain pass, timed;
 18c. 18a's state saved (``checkpoint.save_train_state``: rank 0 writes
    the gathered state) and restored here at M = 1, bitwise the gathered
    state, one request served from it through the decode kernel; the
@@ -401,7 +411,8 @@ script exits non-zero:
    qwen2.5-3b cut to ``TT_LAYERS`` after a per-tensor WA-LARS step at
    (1, 2) and (2, 2): λ_max within ``FT_PROBE_BOUND`` of the M = 1
    probe from the same seed vector, no kernel launched inside a probe,
-   the state bitwise unchanged by it;
+   the step before it 1 + 1 per-tensor launches a rank, the state
+   bitwise unchanged by it;
 19d. every family's smoke config in f32 at (2, 2) (the MoE's at (4,
    1)), 2 steps, the vlm's gates opened and seeded extra embeddings,
    against the CPU's single-rank losses (1e-5).
@@ -428,7 +439,7 @@ script exits non-zero:
    (32 of 64 experts a rank, fsdp over the data axis): fused TVLARS f32,
    4 x 512, 1 step after an M = 1 run on the same weights and batches,
    then one per-tensor WA-LARS step: 1 + 1 segmented launches a rank a
-   step and 2 per-tensor launches a kernel segment, the state bytes a
+   step and 1 + 1 per-tensor launches a rank a step, the state bytes a
    rank equal to the rules' blocks, the ranks holding one block bitwise
    equal, the gaps to M = 1 within ``TT_BOUNDS`` and the load balance
    within ``FT_LB_BOUND``, the step split; both kernels on rank 0's
@@ -436,7 +447,8 @@ script exits non-zero:
 20c. both MoE smoke configs in f32 at (2, 2) and (1, 4), 2 steps,
    against the CPU's single-rank losses (1e-5); a 4-iteration Lanczos
    probe of olmoe's smoke config at (2, 2) against M = 1
-   (``FT_PROBE_BOUND``), no kernel launched inside it.
+   (``FT_PROBE_BOUND``), no kernel launched inside it, the step before
+   it 1 + 1 per-tensor launches a rank.
 
 21. the decode kernel's two modes for a KV cache split over the head
    dim (scores: the append and the f32 partial scores; apply: mask,
@@ -520,8 +532,9 @@ Every phase prints its seconds (``phase {label}: {s} s``).
 
 The last lines are the script's total time, the ``nvidia-smi`` line,
 one JSON object describing each kernel (decode attention and RMSNorm
-with a row per timed shape under ``shapes``; decode attention and the
-optimizer kernels with their launches per phase under
+with a row per timed shape under ``shapes``; the per-tensor pair with
+its eager time, ``foreach_norm_ms`` and sizes (a)-(c) under ``sizes``;
+decode attention and the optimizer kernels with their launches per phase under
 ``launches_by_phase``), and ``{"ok":
 true, "device": {...}}``. Without CUDA, or
 without the rest of the repository beside it, the script fails before
@@ -534,6 +547,7 @@ import collections
 import contextlib
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import os
@@ -1426,12 +1440,17 @@ LARS_NORM_RTOL = 6e-6
 LARS_FLOPS = {"norm": 4, "apply": 7}   # f32 operations per element
 
 
-def lars_bound(lu, which: str, ws, gs) -> dict:
-    """Least time of one launch over these members: the bytes it must
-    move against its f32 operations."""
+def lars_bound(which: str, ws, gs, segments: int) -> dict:
+    """Least time of one pass over these members (of ``segments``
+    segments): the bytes it must move against its f32 operations. The
+    norm reads w and g once and writes two f32 sums a segment; the apply
+    reads w, g, the f32 momentum, a segment's two sums and base_lr, and
+    writes the momentum and the f32 delta."""
     n = sum(w.numel() for w in ws)
-    moved = lu.norm_bytes(ws, gs) if which == "norm" \
-        else lu.apply_bytes(ws, gs)
+    moved = sum(w.numel() * w.element_size() + g.numel() * g.element_size()
+                for w, g in zip(ws, gs)) + 8 * segments
+    if which == "apply":
+        moved += 12 * n + 4
     flops = LARS_FLOPS[which] * n
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOP_PER_S * 1e3
@@ -1440,43 +1459,50 @@ def lars_bound(lu, which: str, ws, gs) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def lars_case(lu, sref, ws, gs, ms, base_lr, nesterov: bool) -> dict:
-    """One segment, kernel against plain: the norm repeats bitwise and
-    lies within LARS_NORM_RTOL of the plain sums; the apply fed the
-    kernel's sums is bitwise equal to the plain apply (momentum, delta
-    and the telemetry triple)."""
-    s1 = lu.lars_norm2_cuda(ws, gs)
-    s2 = lu.lars_norm2_cuda(ws, gs)
-    sp = sref.lars_norm2(ws, gs)
+def lars_case(lu, sref, segs, base_lr, nesterov: bool) -> dict:
+    """One pass ``segs`` [(ws, gs, ms)], kernels against the plain pass:
+    the norm table repeats bitwise and lies within LARS_NORM_RTOL of the
+    plain sums; the apply fed the kernel's sums, each segment at column
+    2 s + 1 of a wider table (other segments' columns between, as the
+    tree path's table in the spec's order), is bitwise equal to the
+    plain apply (momentum, delta and the telemetry table), compared
+    segment by segment."""
+    wg = [(ws, gs) for ws, gs, _ in segs]
+    s1 = lu.lars_norm2_cuda(wg)
+    s2 = lu.lars_norm2_cuda(wg)
+    sp = sref.lars_norm2_pass(wg)
     torch.cuda.synchronize()
     if not torch.equal(s1, s2):
-        raise AssertionError("per-tensor norm differs between two launches")
+        raise AssertionError("per-tensor norm pass differs between two "
+                             "launches")
     if not torch.isfinite(s1).all():
-        raise AssertionError("per-tensor norm is not finite")
+        raise AssertionError("per-tensor norm pass is not finite")
     rel = ((s1 - sp).abs() / sp.abs().clamp_min(1e-30)).max().item()
     if rel > LARS_NORM_RTOL:
-        raise AssertionError(f"per-tensor norm {rel:.3e} relative from the "
-                             f"plain version (bound {LARS_NORM_RTOL})")
-    km = [m.clone() for m in ms]
-    kd, kstats = lu.lars_apply_cuda(ws, gs, km, s1, base_lr=base_lr,
-                                    nesterov=nesterov, stats=True,
-                                    **LARS_HYPER)
-    wn, gn, ratio, scale = sref.lars_ratio(
-        s1, base_lr, eta=LARS_HYPER["eta"],
-        weight_decay=LARS_HYPER["weight_decay"], eps=LARS_HYPER["eps"])
-    apply_abs = 0.0
-    same = torch.equal(kstats, torch.stack([wn, gn, ratio]))
-    for w, g, m, a, d in zip(ws, gs, ms, km, kd):
-        pm, pd = sref.lars_apply(w, g, m, scale,
-                                 weight_decay=LARS_HYPER["weight_decay"],
-                                 momentum_mu=LARS_HYPER["momentum_mu"],
-                                 nesterov=nesterov)
-        apply_abs = max(apply_abs, (pd - d).abs().max().item(),
-                        (pm - a).abs().max().item())
-        same = same and torch.equal(pm, a) and torch.equal(pd, d)
+        raise AssertionError(f"per-tensor norms {rel:.3e} relative from the "
+                             f"plain pass (bound {LARS_NORM_RTOL})")
+    wide = torch.zeros((2, 2 * len(segs)), dtype=torch.float32, device=DEV)
+    wide[:, 1::2] = s1
+    cols = [2 * j + 1 for j in range(len(segs))]
+    km = [[m.clone() for m in ms] for _, _, ms in segs]
+    kd, kstats = lu.lars_apply_cuda(
+        [(ws, gs, m) for (ws, gs, _), m in zip(segs, km)], wide,
+        base_lr=base_lr, nesterov=nesterov, stats=True, columns=cols,
+        **LARS_HYPER)
+    apply_abs, same = 0.0, True
+    for j, seg in enumerate(segs):
+        pm, pd, pst = sref.lars_apply_pass([seg], wide, base_lr,
+                                           columns=[cols[j]],
+                                           nesterov=nesterov, **LARS_HYPER)
+        same = same and torch.equal(kstats[:, j], pst[:, 0])
+        a = torch.cat([x.reshape(-1) for x in km[j] + kd[j]])
+        b = torch.cat([x.reshape(-1) for x in pm[0] + pd[0]])
+        apply_abs = max(apply_abs, (a - b).abs().max().item())
+        same = same and torch.equal(a, b)
+        del pm, pd, a, b
     if not same:
-        raise AssertionError(f"per-tensor apply differs from the plain "
-                             f"version ({apply_abs:.3e})")
+        raise AssertionError(f"per-tensor apply pass differs from the plain "
+                             f"pass ({apply_abs:.3e})")
     return {"norm_abs": (s1 - sp).abs().max().item(), "norm_rel": rel,
             "apply_abs": apply_abs}
 
@@ -1490,7 +1516,7 @@ LARS_DTYPES = {"bf16": (torch.bfloat16, torch.bfloat16),
 
 
 def lars_members(shapes_counts, wdtype, gdtype, gen) -> list:
-    """[(ws, gs, ms)] random members on the card: w ~ 0.02 at
+    """A pass [(ws, gs, ms)] of random members on the card: w ~ 0.02 at
     ``wdtype``, g ~ 1e-3 at ``gdtype``, f32 momentum ~ 1e-3."""
     out = []
     for shape, count in shapes_counts:
@@ -1502,12 +1528,56 @@ def lars_members(shapes_counts, wdtype, gdtype, gen) -> list:
     return out
 
 
+def model_kernel_segments(arch: str, flatten, layerwise, get_config,
+                          layers=None) -> list:
+    """[(member shape, member count)] of ``arch``'s kernel segments at
+    full width (``layers`` deep, else as published), in the spec's
+    order."""
+    from repro_torch.models import get_model
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    spec = flatten.build_spec(meta_params(cfg),
+                              segments=get_model(cfg).segments)
+    names = set(layerwise.kernel_segments(spec))
+    return [(tuple(spec.shapes[i][1:]) if len(paths) > 1
+             else tuple(spec.shapes[i]), len(paths))
+            for i, (name, paths) in enumerate(zip(spec.names, spec.paths))
+            if name in names]
+
+
+def cnn_kernel_leaves(cnn, tree_leaves) -> list:
+    """[(shape, 1)] of the CNN's kernel segments (``init_cnn``
+    defaults): its leaves of two or more axes, one member each."""
+    return [(tuple(x.shape), 1) for x in
+            tree_leaves(cnn.init_cnn(0, device="cpu")) if x.dim() >= 2]
+
+
+# 3c's passes: the pointers of a pass beyond the kernel parameter space
+# (32,764 B) take 1,024 members of 4 pointers; 16 segments of 80 members
+LARS_EDGES = [((9,), 1), ((3, 3), 1), ((8,), 1), ((13,), 3), ((129,), 2),
+              ((8193,), 2), ((5, 7), 40)]
+LARS_80 = [((96, 130), 80)]
+LARS_WIDE = [((16, 24 + j), 80) for j in range(16)]
+# a pass whose segments take the three (w, g) dtype pairs (mamba2-1.3b
+# keeps some leaves in f32 beside bf16 ones)
+LARS_MIXED = [(((256, 1024), 4), torch.bfloat16, torch.bfloat16),
+              (((1000,), 2), torch.float32, torch.float32),
+              (((33, 65), 3), torch.bfloat16, torch.float32),
+              (((24, 1024), 4), torch.float32, torch.float32)]
+
+
 def phase_lars_kernels(lu, sref, flatten, layerwise, convert, get_config,
                        cnn, tree_leaves) -> dict:
-    """3c: the per-tensor kernels against their plain versions on
-    qwen2.5-3b's kernel segments with the group axis cut to
-    KERNEL_GROUPS layers, and on the CNN's leaves (init_cnn defaults)
-    plus edge sizes (9 elements, unaligned, 40 members of 35)."""
+    """3c: the per-tensor passes against the plain pass, each in bf16,
+    f32 and bf16-w / f32-g, heavy ball and nesterov: qwen2.5-3b's kernel
+    segments with the group axis cut to KERNEL_GROUPS layers; the CNN's
+    leaves (init_cnn defaults); the edges in one pass (9 elements, an
+    unaligned member, 40 members of 35); a segment of 80 members; a pass
+    of 1,280 members (40,960 B of pointers); then one pass of mixed
+    (w, g) dtype pairs. Then both passes timed at
+    size (b), whisper-large-v3's kernel segments at full width and depth
+    in f32 (random members, as qwen's), and (c), the CNN's leaves."""
     gen = torch.Generator(device=DEV).manual_seed(11)
     cfg = get_config("qwen2.5-3b").replace(num_layers=KERNEL_GROUPS)
     tree = qwen_tree(cfg, KERNEL_GROUPS)
@@ -1518,96 +1588,137 @@ def phase_lars_kernels(lu, sref, flatten, layerwise, convert, get_config,
              else tuple(spec.shapes[i]), len(paths))
             for i, (name, paths) in enumerate(zip(spec.names, spec.paths))
             if name in names]
-    cnn_leaves = [(tuple(x.shape), 1) for x in
-                  tree_leaves(cnn.init_cnn(0, device="cpu")) if x.dim() >= 2]
-    edges = [((9,), 1), ((3, 3), 1), ((8,), 1), ((13,), 3), ((129,), 2),
-             ((8193,), 2), ((5, 7), 40)]
+    cnn_leaves = cnn_kernel_leaves(cnn, tree_leaves)
     base_lr = torch.tensor(0.35, device=DEV)
     errs = {k: 0.0 for k in LARS_KERNELS}
     norm_rel = 0.0
     timing = {}
+
+    def check(segs, nesterov):
+        nonlocal norm_rel
+        r = lars_case(lu, sref, segs, base_lr, nesterov)
+        errs["lars_norm2"] = max(errs["lars_norm2"], r["norm_abs"])
+        errs["lars_apply"] = max(errs["lars_apply"], r["apply_abs"])
+        norm_rel = max(norm_rel, r["norm_rel"])
+
     for label, cases in (("qwen2.5-3b x4", qwen), ("cnn", cnn_leaves),
-                         ("edges", edges)):
+                         ("edges", LARS_EDGES), ("80 members", LARS_80),
+                         ("1280 members", LARS_WIDE)):
         for dname, (wdtype, gdtype) in LARS_DTYPES.items():
             segs = lars_members(cases, wdtype, gdtype, gen)
             if label == "edges":      # an unaligned member: scalar path
                 buf = torch.randn(65, generator=gen, device=DEV)
-                segs.append(([buf[1:].to(wdtype)], [buf[:64] * 1e-3],
+                segs.append(([buf[1:].to(wdtype)],
+                             [(buf[:64] * 1e-3).to(gdtype)],
                              [torch.randn(64, generator=gen, device=DEV)]))
             for nesterov in (False, True):
-                for ws, gs, ms in segs:
-                    r = lars_case(lu, sref, ws, gs, ms, base_lr, nesterov)
-                    errs["lars_norm2"] = max(errs["lars_norm2"],
-                                             r["norm_abs"])
-                    errs["lars_apply"] = max(errs["lars_apply"],
-                                             r["apply_abs"])
-                    norm_rel = max(norm_rel, r["norm_rel"])
-            if label.startswith("qwen") and dname == "bf16":
-                timing = time_lars(lu, sref, [seg + (base_lr,)
-                                              for seg in segs])
-            print(f"kernel per-tensor {label} {dname}: "
-                  f"{len(segs)} segments of "
-                  f"{sum(len(s[0]) for s in segs)} members, heavy ball and "
-                  f"nesterov: norms repeat bitwise, apply bitwise equal "
-                  f"to plain", flush=True)
+                check(segs, nesterov)
+            members = sum(len(s[0]) for s in segs)
+            print(f"kernel per-tensor {label} {dname}: one pass of "
+                  f"{len(segs)} segments, {members} members "
+                  f"({32 * members} B of pointers), "
+                  f"{lu.pass_tiles(segs)} tiles, heavy ball and nesterov: "
+                  f"sums repeat bitwise, apply bitwise equal to the plain "
+                  f"pass", flush=True)
+            if label == "cnn" and dname == "f32":
+                timing["c"] = time_lars(lu, sref, segs, base_lr)
             del segs
             torch.cuda.empty_cache()
+    segs = [seg for shape, wdt, gdt in LARS_MIXED
+            for seg in lars_members([shape], wdt, gdt, gen)]
+    for nesterov in (False, True):
+        check(segs, nesterov)
+    print(f"kernel per-tensor mixed dtype pairs: one pass of {len(segs)} "
+          f"segments (bf16 / bf16, f32 / f32, bf16 / f32), heavy ball and "
+          f"nesterov: sums repeat bitwise, apply bitwise equal to the plain "
+          f"pass", flush=True)
+    # (b): whisper-large-v3 at full width and depth in f32
+    whisper = model_kernel_segments("whisper-large-v3", flatten, layerwise,
+                                    get_config)
+    segs = lars_members(whisper, torch.float32, torch.float32, gen)
+    timing["b"] = time_lars(lu, sref, segs, base_lr)
+    del segs
+    torch.cuda.empty_cache()
     print(f"kernel per-tensor: norms within {norm_rel:.3e} relative of the "
-          f"plain version (bound {LARS_NORM_RTOL}); max abs err {errs}",
+          f"plain pass (bound {LARS_NORM_RTOL}); max abs err {errs}",
           flush=True)
-    for which, t in timing.items():
-        print(f"  {which} bf16 at {KERNEL_GROUPS} layers, {t['launches']} "
-              f"segments: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']}, {t['bytes']} B) per step", flush=True)
+    for size, t in sorted(timing.items()):
+        print_lars_timing(f"({size}) "
+                          + ("whisper-large-v3 f32" if size == "b"
+                             else "CNN leaves f32"), t)
     return {"max_abs_err": errs, "norm_rel": norm_rel, "timing": timing}
 
 
-def time_lars(lu, sref, segs, iters: int = 5, plain_iters: int = 1) -> dict:
-    """Kernel and plain times of both kernels on each segment ``(ws,
-    gs, ms, base_lr)`` beside its bound (the apply runs in place on the
-    segment's momentum: values no longer checked). Returns per kernel
-    the sums over the segments (one step's launches) and the rows."""
+def lars_step_times(norm, apply, segs) -> dict:
+    """A whole step's norm and apply over ``segs`` [(ws, gs, ms)]:
+    ``norm(wg)`` over [(ws, gs)] returns the step's sums, ``apply(segs,
+    sums)`` the deltas (the port's two launches, or an older checkout's
+    loop over the segments: ``tools/chip_compare.py --lars``). Each call
+    takes the next of two sets of gradients, the second a copy at other
+    addresses, as a trainer's step gets fresh gradients. Per pass: the
+    card's ms (``device_ms``, a CUDA graph of 20 calls), eager ms
+    (``time_ms`` of 5 calls: the host's work included), the bound and,
+    beside the norm, ``torch._foreach_norm(ws + gs, dtype=float32)``
+    over the same members: the nearest library call, which gives each
+    member's norm and not the segments' sums, so not the same function.
+    The apply runs in place on the momentum (values no longer
+    checked)."""
+    alt = [(ws, [g.clone() for g in gs], ms) for ws, gs, ms in segs]
+    turns = itertools.cycle([segs, alt])
+    sums = norm([(ws, gs) for ws, gs, _ in segs])
+    ws_all = [w for ws, _, _ in segs for w in ws]
+    gs_all = [g for _, gs, _ in segs for g in gs]
     out = {}
-    for which in ("norm", "apply"):
-        rows = []
-        for ws, gs, ms, base_lr in segs:
-            sums = lu.lars_norm2_cuda(ws, gs)
-            if which == "norm":
-                kfn = (lambda ws=ws, gs=gs: lu.lars_norm2_cuda(ws, gs))
-                pfn = (lambda ws=ws, gs=gs: sref.lars_norm2(ws, gs))
-            else:
-                kfn = (lambda ws=ws, gs=gs, ms=ms, sums=sums, lr=base_lr:
-                       lu.lars_apply_cuda(ws, gs, ms, sums, base_lr=lr,
-                                          **LARS_HYPER))
-                pfn = (lambda ws=ws, gs=gs, ms=ms, sums=sums, lr=base_lr:
-                       plain_apply(sref, ws, gs, ms, sums, lr))
-            b = lars_bound(lu, which, ws, gs)
-            b.update(ms=time_ms(kfn, iters), plain_ms=time_ms(pfn,
-                                                               plain_iters),
-                     ops_ms=b["flops"] / F32_FLOP_PER_S * 1e3,
-                     elements=sum(w.numel() for w in ws))
-            rows.append(b)
-        tot = {k: sum(r[k] for r in rows)
-               for k in ("ms", "plain_ms", "bound_ms", "bytes", "ops_ms")}
-        tot.update(launches=len(rows), rows=rows,
-                   bound_by="bytes" if tot["bound_ms"] > tot["ops_ms"]
-                   else "operations")
-        out[which] = tot
+    for which, fn in (
+            ("norm", lambda: norm([(ws, gs) for ws, gs, _ in next(turns)])),
+            ("apply", lambda: apply(next(turns), sums))):
+        b = lars_bound(which, ws_all, gs_all, len(segs))
+        b.update(ms=device_ms(fn, iters=20), eager_ms=time_ms(fn, 5),
+                 segments=len(segs), members=len(ws_all),
+                 elements=sum(w.numel() for w in ws_all),
+                 foreach_norm_ms=device_ms(lambda: torch._foreach_norm(
+                     ws_all + gs_all, dtype=torch.float32), iters=20)
+                 if which == "norm" else None)
+        out[which] = b
+    del alt
     return out
 
 
-def plain_apply(sref, ws, gs, ms, sums, base_lr, nesterov=False):
-    """The plain apply of one segment (ratio from the sums, then each
-    member), as the kernel computes it."""
-    _, _, _, scale = sref.lars_ratio(
-        sums, base_lr, eta=LARS_HYPER["eta"],
-        weight_decay=LARS_HYPER["weight_decay"], eps=LARS_HYPER["eps"])
-    return [sref.lars_apply(w, g, m, scale,
-                            weight_decay=LARS_HYPER["weight_decay"],
-                            momentum_mu=LARS_HYPER["momentum_mu"],
-                            nesterov=nesterov)
-            for w, g, m in zip(ws, gs, ms)]
+def time_lars(lu, sref, segs, base_lr, plain_iters: int = 1) -> dict:
+    """Both passes over ``segs`` (one launch each, a whole step) timed
+    by ``lars_step_times``, beside the plain pass's ms (eager, segment
+    by segment)."""
+    lr = torch.as_tensor(base_lr, dtype=torch.float32).to(DEV)
+    out = lars_step_times(
+        lu.lars_norm2_cuda,
+        lambda s, sums: lu.lars_apply_cuda(s, sums, base_lr=lr,
+                                           **LARS_HYPER), segs)
+    wg = [(ws, gs) for ws, gs, _ in segs]
+    sums = lu.lars_norm2_cuda(wg)
+
+    def plain_apply():
+        for j, seg in enumerate(segs):
+            sref.lars_apply_pass([seg], sums, lr, columns=[j], **LARS_HYPER)
+
+    for which, pfn in (("norm", lambda: [sref.lars_norm2(ws, gs)
+                                         for ws, gs in wg]),
+                       ("apply", plain_apply)):
+        out[which].update(plain_ms=time_ms(pfn, plain_iters), launches=1)
+    return out
+
+
+def print_lars_timing(label: str, timing: dict) -> None:
+    for which, t in timing.items():
+        share = t["bound_ms"] / t["ms"]
+        print(f"  lars_{'norm2' if which == 'norm' else which} {label}: "
+              f"{t['segments']} segments, {t['members']} members, "
+              f"{t['elements']} elements, one launch a step: card "
+              f"{t['ms']:.4f} ms ({share:.0%} of the bound), eager "
+              f"{t['eager_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bytes']} B)"
+              + (f", _foreach_norm {t['foreach_norm_ms']:.4f} ms (member "
+                 f"norms: not the same function)" if which == "norm"
+                 else ""), flush=True)
 
 
 # RMSNorm at the shapes of the two configurations: gemma3-12b prefill
@@ -1924,86 +2035,101 @@ def phase_train_full(run, ops, su, sref, tree_leaves, argv: list,
 
 class LarsLastStepCheck:
     """Stands in for ``ops.lars_apply`` during a per-tensor training run
-    (the optimizer takes every kernel segment's sums with
-    ``ops.lars_norm2`` first, then applies each) and checks each kernel
-    segment at the run's last optimizer step: the sums it is handed
-    (the counted norm launch's) must have square roots within
-    LARS_NORM_RTOL / 2 of ``torch.linalg.vector_norm`` of the members (a
-    square root halves a relative error), the telemetry triple of the
-    counted apply must equal the plain ratio from those sums, and 4,096
-    random elements of the new momentum and the delta must equal the
-    plain apply on the same sums (bitwise). Keeps the last step's
-    segments for timing (without their gradients when ``keep_grads`` is
-    False, so that they are freed with the step)."""
+    (the optimizer takes every kernel segment's sums with one
+    ``ops.lars_norm2`` pass, then applies them all in one pass) and
+    checks every kernel segment of the run's last optimizer step: the
+    sums it is handed (the counted norm launch's, at the segment's
+    column) must have square roots within LARS_NORM_RTOL / 2 of
+    ``torch.linalg.vector_norm`` of the members (a square root halves a
+    relative error), the segment's column of the counted apply's
+    telemetry table must equal the plain ratio from those sums, and
+    4,096 random elements of its new momentum and delta must equal the
+    plain apply on the same sums (bitwise). Keeps the last step's pass
+    for timing (without its gradients when ``keep_grads`` is False, so
+    that they are freed with the step)."""
 
-    def __init__(self, real, lu, sref, steps: int, n_segments: int, *,
+    def __init__(self, real, lu, sref, steps: int, *,
                  keep_grads: bool = True):
         self.real, self.lu, self.sref = real, lu, sref
         self.keep_grads = keep_grads
-        self.last_from = (steps - 1) * n_segments
+        self.last_from = steps - 1
         self.calls = 0
         self.segments: list = []
+        self.base_lr = None
         self.norm_rel = 0.0
         self.elem_abs = 0.0
         self.peak_before_last_step = None
 
-    def __call__(self, w, g, m, sums, **kw):
+    def __call__(self, segments, sums, **kw):
         self.calls += 1
         if self.calls <= self.last_from:
-            return self.real(w, g, m, sums, **kw)
-        if self.peak_before_last_step is None:
-            torch.cuda.synchronize()
-            self.peak_before_last_step = torch.cuda.max_memory_allocated()
-        ws, gs, ms = list(w), list(g), list(m)
-        sums = sums.clone()
-        n = ws[0].numel()
-        gen = torch.Generator(device=DEV).manual_seed(self.calls)
-        idx = torch.randint(0, n * len(ws), (4096,), generator=gen,
-                            device=DEV)
-        member, off = idx // n, idx % n
-
-        def pick(xs):
-            vals = torch.empty(4096, dtype=xs[0].dtype, device=DEV)
-            for k, x in enumerate(xs):
-                sel = member == k
-                vals[sel] = x.reshape(-1)[off[sel]]
-            return vals
-
-        snap = (pick(ws), pick(gs), pick(ms))
-        out = self.real(w, g, m, sums, **kw)
+            return self.real(segments, sums, **kw)
         torch.cuda.synchronize()
-        wn = torch.sqrt(sum(torch.linalg.vector_norm(x.float()) ** 2
-                            for x in ws))
-        gn = torch.sqrt(sum(torch.linalg.vector_norm(x.float()) ** 2
-                            for x in gs))
+        self.peak_before_last_step = torch.cuda.max_memory_allocated()
+        segs = [tuple(list(xs) for xs in seg) for seg in segments]
+        cols = list(range(len(segs)) if kw.get("columns") is None
+                    else kw["columns"])
+        sums = sums.clone()
+        picks = []
+        for j, (ws, gs, ms) in enumerate(segs):
+            n = ws[0].numel()
+            gen = torch.Generator(device=DEV).manual_seed(1000 * self.calls
+                                                          + j)
+            idx = torch.randint(0, n * len(ws), (4096,), generator=gen,
+                                device=DEV)
+            pick = (idx // n, idx % n)
+            picks.append(pick + (tuple(self._pick(pick, xs)
+                                       for xs in (ws, gs, ms)),))
+        out = self.real(segments, sums, **kw)
+        torch.cuda.synchronize()
         kw_ratio = dict(eta=kw["eta"], weight_decay=kw["weight_decay"],
                         eps=kw["eps"])
-        pwn, pgn, pratio, scale = self.sref.lars_ratio(
-            sums, kw["base_lr"], **kw_ratio)
-        rel = max(((pwn - wn).abs() / wn).item(),
-                  ((pgn - gn).abs() / gn.clamp_min(1e-30)).item())
-        self.norm_rel = max(self.norm_rel, rel)
-        if not rel <= LARS_NORM_RTOL / 2:
-            raise AssertionError(f"last step: per-tensor norms {rel:.3e} "
-                                 f"relative from vector_norm (bound "
-                                 f"{LARS_NORM_RTOL / 2})")
         stats = out[1]
-        if not torch.equal(stats, torch.stack([pwn, pgn, pratio])):
-            raise AssertionError("last step: telemetry differs from the "
-                                 "plain ratio of the kernel's sums")
-        pm, pd = self.sref.lars_apply(
-            snap[0], snap[1], snap[2], scale,
-            weight_decay=kw["weight_decay"], momentum_mu=kw["momentum_mu"],
-            nesterov=kw["nesterov"])
-        km, kd = pick(ms), pick(out[0])
-        self.elem_abs = max(self.elem_abs, (pd - kd).abs().max().item(),
-                            (pm - km).abs().max().item())
-        if not (torch.equal(pm, km) and torch.equal(pd, kd)):
-            raise AssertionError(f"last step: 4096 elements differ from "
-                                 f"the plain apply ({self.elem_abs:.3e})")
-        self.segments.append((ws, gs if self.keep_grads else None, ms,
-                              kw["base_lr"]))
+        for j, ((ws, gs, ms), c, pick) in enumerate(zip(segs, cols, picks)):
+            wn = torch.sqrt(sum(torch.linalg.vector_norm(x.float()) ** 2
+                                for x in ws))
+            gn = torch.sqrt(sum(torch.linalg.vector_norm(x.float()) ** 2
+                                for x in gs))
+            pwn, pgn, pratio, scale = self.sref.lars_ratio(
+                sums[:, c], kw["base_lr"], **kw_ratio)
+            rel = max(((pwn - wn).abs() / wn).item(),
+                      ((pgn - gn).abs() / gn.clamp_min(1e-30)).item())
+            self.norm_rel = max(self.norm_rel, rel)
+            if not rel <= LARS_NORM_RTOL / 2:
+                raise AssertionError(f"last step, segment {j}: per-tensor "
+                                     f"norms {rel:.3e} relative from "
+                                     f"vector_norm (bound "
+                                     f"{LARS_NORM_RTOL / 2})")
+            if not torch.equal(stats[:, j], torch.stack([pwn, pgn, pratio])):
+                raise AssertionError(f"last step, segment {j}: telemetry "
+                                     f"differs from the plain ratio of the "
+                                     f"kernel's sums")
+            snap = pick[2]
+            pm, pd = self.sref.lars_apply(
+                snap[0], snap[1], snap[2], scale,
+                weight_decay=kw["weight_decay"],
+                momentum_mu=kw["momentum_mu"], nesterov=kw["nesterov"])
+            km, kd = self._pick(pick, ms), self._pick(pick, out[0][j])
+            self.elem_abs = max(self.elem_abs, (pd - kd).abs().max().item(),
+                                (pm - km).abs().max().item())
+            if not (torch.equal(pm, km) and torch.equal(pd, kd)):
+                raise AssertionError(f"last step, segment {j}: 4096 "
+                                     f"elements differ from the plain "
+                                     f"apply ({self.elem_abs:.3e})")
+        self.segments = [(ws, gs if self.keep_grads else None, ms)
+                         for ws, gs, ms in segs]
+        self.base_lr = kw["base_lr"]
         return out
+
+    @staticmethod
+    def _pick(pick, xs) -> torch.Tensor:
+        """The 4,096 elements ``pick`` = (member, offset) of ``xs``."""
+        member, off = pick[0], pick[1]
+        vals = torch.empty(4096, dtype=xs[0].dtype, device=DEV)
+        for k, x in enumerate(xs):
+            sel = member == k
+            vals[sel] = x.reshape(-1)[off[sel]]
+        return vals
 
 
 def meta_params(cfg) -> dict:
@@ -2019,9 +2145,10 @@ def phase_train_per_tensor(run, ops, lu, sref, layerwise, flatten,
                            want_layers: int = 36) -> dict:
     """7c: a full-width run (qwen2.5-3b unless ``argv`` names an
     ``--arch``) through ``launch.train.run`` with the per-tensor path:
-    exactly n_kernel_segments launches of each kernel per step, the
-    last step checked, then both kernels and their plain versions timed
-    on the last step's own tensors."""
+    exactly one launch of each kernel per step over every kernel
+    segment, the last step's segments checked, then both passes and the
+    plain pass timed on the last step's own tensors (size (a) of the
+    qwen2.5-3b run)."""
     steps = int(argv[argv.index("--steps") + 1])
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
@@ -2030,7 +2157,7 @@ def phase_train_per_tensor(run, ops, lu, sref, layerwise, flatten,
     model = get_model(get_config(arch))
     names = layerwise.kernel_segments(
         flatten.build_spec(meta_params(model.cfg), segments=model.segments))
-    check = LarsLastStepCheck(ops.lars_apply, lu, sref, steps, len(names))
+    check = LarsLastStepCheck(ops.lars_apply, lu, sref, steps)
     ops.reset_launches()
     ops.lars_apply = check
     try:
@@ -2041,12 +2168,11 @@ def phase_train_per_tensor(run, ops, lu, sref, layerwise, flatten,
         ops.lars_apply = check.real
     launches = dict(ops.launches)
     want = {k: 0 for k in launches}
-    want.update({"lars_norm2": steps * len(names),
-                 "lars_apply": steps * len(names)})
+    want.update({"lars_norm2": steps, "lars_apply": steps})
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected "
-                             f"{want} ({len(names)} kernel segments x "
-                             f"{steps} steps)")
+                             f"{want} (one pass of {len(names)} kernel "
+                             f"segments x {steps} steps)")
     if not np.all(np.isfinite(out["losses"])):
         raise AssertionError(f"{label}: losses {out['losses']}")
     cfg = out["model"].cfg
@@ -2057,7 +2183,7 @@ def phase_train_per_tensor(run, ops, lu, sref, layerwise, flatten,
     peak = out["peak_memory_bytes"] or 0
     print(f"train {label}: {cfg.arch_id} {cfg.num_layers} layers, "
           f"{n_params} params ({cfg.param_dtype}); {len(names)} kernel "
-          f"segments; "
+          f"segments in one pass; "
           f"losses {[round(x, 4) for x in out['losses']]}; per step "
           f"loss+grad "
           f"{[round(x * 1e3, 1) for x in out['loss_grad_seconds']]} ms, "
@@ -2069,25 +2195,13 @@ def phase_train_per_tensor(run, ops, lu, sref, layerwise, flatten,
           f"telemetry equal to the plain ratio, 4096 elements per segment "
           f"bitwise equal to the plain apply; {smi_line()}", flush=True)
     del out
-    timing = time_lars(lu, sref, check.segments)
+    timing = time_lars(lu, sref, check.segments, check.base_lr)
+    print_lars_timing(f"at {label}'s shapes", timing)
     res = {}
     for which, name in (("norm", "lars_norm2"), ("apply", "lars_apply")):
-        t = timing[which]
-        k = t["launches"]
-        big = max(t["rows"], key=lambda r: r["elements"])
-        res[name] = {"launches": launches[name], "ms": t["ms"] / k,
-                     "plain_ms": t["plain_ms"] / k,
-                     "bound_ms": t["bound_ms"] / k, "bound_by": t["bound_by"],
-                     "max_abs_err": check.elem_abs if which == "apply"
-                     else 0.0}
-        print(f"  {name} at the main path's shapes ({k} segments, "
-              f"{sum(r['elements'] for r in t['rows'])} elements, bf16 w and "
-              f"g): per step kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bytes']} B); largest segment ({big['elements']} "
-              f"elements) kernel {big['ms']:.4f} ms, bound "
-              f"{big['bound_ms']:.4f} ms; smallest segment kernel "
-              f"{min(r['ms'] for r in t['rows']):.4f} ms", flush=True)
+        res[name] = dict(timing[which], launches=launches[name],
+                         max_abs_err=check.elem_abs if which == "apply"
+                         else 0.0)
     return res
 
 
@@ -2131,8 +2245,7 @@ def phase_train_small_against_cpu(get_smoke_config, get_model,
             per_step = 1
         else:
             kernels = ("lars_norm2", "lars_apply")
-            per_step = len(layerwise.kernel_segments(flatten.build_spec(
-                pc, segments=model.segments)))
+            per_step = 1       # one pass over every kernel segment
         want = {k: 0 for k in kg}
         want.update({k: 3 * per_step for k in kernels})
         if kg != want or any(kc.values()):
@@ -2236,7 +2349,7 @@ def phase_paper_loop(classify, cnn, core, training, synthetic, ops,
     launches = dict(ops.launches)
     n_adapt = len(layerwise.kernel_segments(flatten.build_spec(params)))
     want = {k: 0 for k in launches}
-    want.update({"lars_norm2": 20 * n_adapt, "lars_apply": 20 * n_adapt})
+    want.update({"lars_norm2": 20, "lars_apply": 20})
     if launches != want:
         raise AssertionError(f"cnn: launches {launches}, expected {want}")
     if not np.all(np.isfinite(losses)):
@@ -2248,9 +2361,10 @@ def phase_paper_loop(classify, cnn, core, training, synthetic, ops,
           f"{sum(x.numel() for x in tree_leaves(params))} params) 20 "
           f"WA-LARS steps B=256 through the per-tensor kernels "
           f"({launches['lars_norm2']} + {launches['lars_apply']} "
-          f"launches): losses {losses[0]:.4f} -> {losses[-1]:.4f}; each "
+          f"launches, one pass a step): losses {losses[0]:.4f} -> {losses[-1]:.4f}; each "
           f"step's update within {max(gaps):.3e} of the tree path's from "
           f"the same state (bound 2e-5)", flush=True)
+    out["launches"] = launches
     return out
 
 
@@ -2336,6 +2450,17 @@ class ProbeWatch:
         self.cls.__call__ = self.real
 
 
+def check_one_pass(label: str, launches: dict) -> None:
+    """``launches`` of one per-tensor step: one ``lars_norm2`` and one
+    ``lars_apply`` launch (the step's pass over every kernel segment)
+    and nothing else."""
+    want = {k: 0 for k in launches}
+    want.update({"lars_norm2": 1, "lars_apply": 1})
+    if launches != want:
+        raise AssertionError(f"{label}: launches of one per-tensor step "
+                             f"{launches}, expected {want}")
+
+
 def check_probe_calls(label: str, calls: list, per_step: dict) -> None:
     """Every probe call: no launch inside it, the state bitwise unchanged
     and, given ``per_step`` launches of each kernel, exactly (step + 1)
@@ -2367,7 +2492,7 @@ def phase_sharpness_full(run, ops, lu, sref, layerwise, flatten,
     through ``launch.train.run`` with per-tensor WA-LARS and a Lanczos
     lambda_max
     probe after each of its steps (held batch stacked like the run, 4
-    iterations, no reorthogonalization): 14 launches of each per-tensor
+    iterations, no reorthogonalization): one launch of each per-tensor
     kernel per step and none inside a probe; params and momentum
     bitwise unchanged by every probe; a finite lambda_max at every step
     in the JSONL, which the port's ``validate_jsonl`` accepts;
@@ -2383,11 +2508,8 @@ def phase_sharpness_full(run, ops, lu, sref, layerwise, flatten,
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
     model = get_model(get_config("qwen2.5-3b"))
-    meta = qwen_tree(model.cfg, model.cfg.num_layers)
-    names = layerwise.kernel_segments(
-        flatten.build_spec(meta, segments=model.segments))
-    per_step = {"lars_norm2": len(names), "lars_apply": len(names)}
-    check = LarsLastStepCheck(ops.lars_apply, lu, sref, steps, len(names),
+    per_step = {"lars_norm2": 1, "lars_apply": 1}    # one pass a step
+    check = LarsLastStepCheck(ops.lars_apply, lu, sref, steps,
                               keep_grads=False)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -2527,23 +2649,16 @@ def phase_sharpness_full(run, ops, lu, sref, layerwise, flatten,
           f"the last loss+grad step); peak {peak / 2**30:.2f} GiB "
           f"({peak} B)", flush=True)
 
-    # the per-tensor kernels on this run's params and momentum
+    # the per-tensor passes on this run's params and momentum
     gen = torch.Generator(device=DEV).manual_seed(5)
     segs = [(ws, [1e-3 * torch.randn(w.shape, generator=gen, device=DEV)
-                  .to(w.dtype) for w in ws], ms, lr)
-            for ws, _, ms, lr in check.segments]
-    timing = time_lars(lu, sref, segs)
-    kernels = {}
-    for which, name in (("norm", "lars_norm2"), ("apply", "lars_apply")):
-        t = timing[which]
-        n = t["launches"]
-        kernels[name] = {"launches": launches[name], "ms": t["ms"] / n,
-                         "plain_ms": t["plain_ms"] / n,
-                         "bound_ms": t["bound_ms"] / n}
-        print(f"  {name} at phase 10's shapes ({n} segments): per step "
-              f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-              f"bound {t['bound_ms']:.4f} ms; mean per launch "
-              f"{t['ms'] / n:.4f} ms", flush=True)
+                  .to(w.dtype) for w in ws], ms)
+            for ws, _, ms in check.segments]
+    timing = time_lars(lu, sref, segs, check.base_lr)
+    print_lars_timing("at phase 10's shapes", timing)
+    kernels = {name: dict(timing[which], launches=launches[name])
+               for which, name in (("norm", "lars_norm2"),
+                                   ("apply", "lars_apply"))}
     return {"lambda_max": [lam[i] for i in range(steps)], "peak": peak,
             "matvec_s": matvec_s, "kernels": kernels,
             "probe_seconds": out["probe_seconds"]}
@@ -2964,8 +3079,8 @@ def phase_paper_runs(launchers: dict, ops, layerwise, flatten, cnn,
     reference constants (Table 1's 30 runs, SSL's 6, Fig. 2's 3, the
     ablations' 23, the schedules, the adaptive bench's 3), every CSV and
     JSONL checked; Table 1 again with ``--use-kernel per_tensor`` for
-    the optimizers that accept it, with exactly 2 launches of each
-    per-tensor kernel per ADAPT leaf per step. Prints Table 1 and the
+    the optimizers that accept it, with exactly one launch of each
+    per-tensor kernel per step. Prints Table 1 and the
     adaptive switches."""
     tmp = tempfile.mkdtemp(prefix="phase11c_")
     JSONL_DIRS.append(tmp)
@@ -2994,7 +3109,7 @@ def phase_paper_runs(launchers: dict, ops, layerwise, flatten, cnn,
                                      hidden=128, device=DEV)
     n_adapt = len(layerwise.kernel_segments(flatten.build_spec(params)))
     want = {k: 0 for k in launches}
-    n = len(pt_rows) * t1.STEPS * n_adapt
+    n = len(pt_rows) * t1.STEPS      # one pass a step
     want.update({"lars_norm2": n, "lars_apply": n})
     if launches != want or [r[0] for r in pt_rows] != \
             [o for o in t1.OPTS if o in paper_io.PER_TENSOR_OPTS] \
@@ -3022,8 +3137,8 @@ def phase_paper_runs(launchers: dict, ops, layerwise, flatten, cnn,
     print("paper runs: Table 1 per-tensor: " + "; ".join(
         f"{o} B{b} lr{lr} {a:.4f} {fl:.4f}" for o, b, lr, a, fl in pt_rows)
         + f"; launches {launches['lars_norm2']} + {launches['lars_apply']} "
-        f"= {len(pt_rows)} runs x {t1.STEPS} steps x {n_adapt} ADAPT "
-        f"leaves", flush=True)
+        f"= {len(pt_rows)} runs x {t1.STEPS} steps, one pass a step over "
+        f"{n_adapt} ADAPT leaves", flush=True)
     lnr = res["fig2_lnr"]["summaries"]
     print(f"paper runs: Table 1 TVLARS >= WA-LARS - 0.005 in "
           f"{res['table1']['wins']}/{res['table1']['cells']} cells; SSL "
@@ -6474,7 +6589,7 @@ def tt_seg_kernels(su, sref, flatten, model, params, place) -> dict:
 
 
 def tt_lars_kernels(lu, sref, cfg, params, names: list, mesh) -> dict:
-    """The per-tensor kernels on this rank's blocks of the largest
+    """The per-tensor passes on this rank's blocks of the largest
     kernel segment (its members, seeded gradients, zero momentum):
     sums within LARS_NORM_RTOL of plain, the apply bitwise, and on rank
     0 both timed."""
@@ -6489,9 +6604,10 @@ def tt_lars_kernels(lu, sref, cfg, params, names: list, mesh) -> dict:
           .to(w.dtype) * 1e-3 for w in ws]
     ms = [torch.zeros(w.shape, dtype=torch.float32, device=w.device)
           for w in ws]
-    case = lars_case(lu, sref, ws, gs, ms, 0.1, False)
+    lr = torch.tensor(0.1, device=ws[0].device)
+    case = lars_case(lu, sref, [(ws, gs, ms)], lr, False)
     mesh.barrier()
-    times = time_lars(lu, sref, [(ws, gs, [m.clone() for m in ms], 0.1)]) \
+    times = time_lars(lu, sref, [(ws, gs, [m.clone() for m in ms])], lr) \
         if mesh.rank == 0 else None
     mesh.barrier()
     return {"segment": seg.name, "case": case, "times": times,
@@ -6734,7 +6850,7 @@ def phase_model_axis_training(train_launch, ops, serving, checkpoint,
                                 single, rules[TT_MESH], preds[TT_MESH],
                                 seg)}
         n_pt = len(rules_pt["kernel_segments"])
-        pt = {"lars_norm2": n_pt, "lars_apply": n_pt}
+        pt = {"lars_norm2": 1, "lars_apply": 1}     # one pass a step
         for r in r12:
             if r["18b"]["kernel_segments"] != n_pt:
                 raise AssertionError("18b: kernel segments differ from the "
@@ -7077,7 +7193,8 @@ def phase_families_training(train_launch, get_config) -> dict:
         t0 = time.perf_counter()
         one = fp_rank(None)
         lam1 = one["lambda_max"]
-        pt = None
+        pt = one["calls"][0]["launches_before"]
+        check_one_pass("19c M=1", pt)
         for shape in ((1, 2), (2, 2)):
             ranks = on_ranks(fp_rank, shape[0] * shape[1], args=(shape,),
                              timeout=600)
@@ -7087,7 +7204,6 @@ def phase_families_training(train_launch, get_config) -> dict:
                     raise AssertionError(f"19c {shape}: ranks' lambda_max "
                                          f"differ")
                 launched = r["calls"][0]["launches_before"]
-                pt = launched if pt is None else pt
                 if launched != pt:
                     raise AssertionError(f"19c {shape}: launches before "
                                          f"the probe {launched}, M=1 {pt}")
@@ -7486,10 +7602,9 @@ def phase_experts(tad, ops, serving, train_launch, get_config,
         raise AssertionError(f"20b: load balance gap {lb_gap:.3e} over "
                              f"{FT_LB_BOUND}")
     pt_rules = tt_rules(cfg, shape, "per_tensor")
-    n = len(pt_rules["kernel_segments"])
     pt = [r["20b-pt"] for r in ranks]
     tt_report("20b per-tensor", shape, pt, None, pt_rules, None,
-              {"lars_norm2": n, "lars_apply": n}, arch=EP_OLMOE, steps=1)
+              {"lars_norm2": 1, "lars_apply": 1}, arch=EP_OLMOE, steps=1)
     s0 = fused[0]["seg"]
     l0 = pt[0]["lars"]
     print(f"20b {EP_OLMOE}: {cfg.num_experts // shape[1]} of "
@@ -7527,6 +7642,7 @@ def phase_experts(tad, ops, serving, train_launch, get_config,
     one = ep_probe_rank(None)
     ranks = on_ranks(ep_probe_rank, 4, args=((2, 2),), timeout=600)
     pt_before = one["calls"][0]["launches_before"]
+    check_one_pass("20c M=1", pt_before)
     for r in ranks:
         check_probe_calls("20c (2, 2)", r["calls"], None)
         if r["lambda_max"] != ranks[0]["lambda_max"] \
@@ -8680,7 +8796,8 @@ def main() -> int:
                                       lm_iterator, tree_leaves, tree_map,
                                       ops, su, layerwise, flatten)
     with phase_clock("9"):
-        phase_paper_loop(classify, cnn, core, training, synthetic, ops,
+        paper_loop = phase_paper_loop(
+            classify, cnn, core, training, synthetic, ops,
                          layerwise, flatten, tree_leaves, tree_map)
     gc.collect()
     torch.cuda.empty_cache()
@@ -8692,7 +8809,7 @@ def main() -> int:
           f"published)", flush=True)
     with phase_clock("10"), depth_cut(train_launch, "qwen2.5-3b",
                                       PHASE10_LAYERS):
-        phase_sharpness_full(
+        sharp = phase_sharpness_full(
             train_run, ops, lu, sref, layerwise, flatten, tree_leaves, diag,
             synthetic, training,
             ["--arch", "qwen2.5-3b", "--optimizer", "wa-lars",
@@ -9008,12 +9125,16 @@ def main() -> int:
                 **{k: ex[k][name] for k in ("23", "23a", "23b")}},
             "on_a_ranks_block": tt["seg"]["times"][
                 "norm" if "norm" in name else "apply"]})
-    # the per-tensor kernels: per-launch means over the 14 segments of a
-    # step at the main path's shapes; no single PyTorch call computes a
-    # multi-tensor norm pair or the trust-scaled momentum apply, so
-    # library_ms is null
+    # the per-tensor kernels: one launch a step over every kernel
+    # segment, timed on 7c's last step (size (a)); no single PyTorch
+    # call computes the segments' sums or the trust-scaled momentum
+    # apply, so library_ms is null (torch._foreach_norm, the nearest
+    # call, gives member norms: foreach_norm_ms beside the norm)
+    keep = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+            "foreach_norm_ms", "segments", "members", "elements")
     for name, replaces in LARS_KERNELS.items():
         t = train[name]
+        which = "norm" if "norm" in name else "apply"
         entries.append({
             "name": name, "route": "cuda", "source": LARS_SOURCE,
             "replaces": replaces, "launches": t["launches"],
@@ -9021,9 +9142,16 @@ def main() -> int:
                                t["max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None,
+            "library_ms": None, "eager_ms": t["eager_ms"],
+            "foreach_norm_ms": t["foreach_norm_ms"],
+            "sizes": {"a": {k: t[k] for k in keep},
+                      **{size: {k: lars["timing"][size][which][k]
+                                for k in keep}
+                         for size in ("b", "c")}},
             "launches_by_phase": {
                 "7c": t["launches"],
+                "9": paper_loop["launches"].get(name, 0),
+                "10": sharp["kernels"][name]["launches"],
                 "11c": paper["launches"].get(name, 0),
                 "13d": fam["13d-pt"][name]["launches"],
                 "14c": cross["14c-pt"][name]["launches"],

@@ -19,8 +19,8 @@ dispatch paths:
                              ADAPT segment of 8 or more elements goes
                              through the per-tensor LARS kernels
                              (``kernels.ops.lars_norm2``, then
-                             ``lars_apply``): two launches per such
-                             segment, heavy ball or
+                             ``lars_apply``): one launch of each per
+                             step over all such segments, heavy ball or
                              nesterov only (``_validate_use_kernel``
                              refuses the rest, as the reference does).
 
@@ -41,18 +41,18 @@ tensors on the state's device: a step reads nothing back.
 
 Every path takes all segments' Σw² and Σg² first and applies after:
 the fused path in its two launches, the tree and per-tensor paths in a
-pass of sums (a kernel segment's norm launch; a plain segment's terms
-kept for its apply) and a pass of applies. Over a mesh (``placement=``,
+pass of sums (the kernel segments' one norm launch; a plain segment's
+terms kept for its apply) and a pass of applies (the kernel segments'
+one apply launch, then the plain segments). Over a mesh (``placement=``,
 a ``launch.sharding.Placement``: training over fsdp and the model
 axis), each rank holds blocks of the leaves and packs or walks its
 blocks: the same segments in the same order on every rank, and the
 table of sums is summed over the mesh between the two, in ONE
 collective for all segments (``Mesh.sum_blocks_``: each distinct block
 counted once, so a segment replicated over the model row is not counted
-M times). The launches stay 1 + 1 per rank per step on the fused path
-and 2 per kernel segment per rank per step on the per-tensor path, the
-kernel chosen by the WHOLE segment's size so every rank enters the same
-collectives in the same order.
+M times). The launches stay 1 + 1 per rank per step on the fused and on the
+per-tensor path, a segment's kernel chosen by the WHOLE segment's size
+so every rank enters the same collectives in the same order.
 
 Precision (fused only): ``"f32"``, ``"bf16_master"`` (bf16 working
 params / grads / state, f32 norms, table and delta) and
@@ -138,8 +138,8 @@ def kernel_segments(spec: flatten.FlatSpec, placement=None) -> list:
     """Names of the segments the per-tensor path sends to its kernels:
     ADAPT and at least ``PER_TENSOR_MIN_SIZE`` elements (on an LM tree
     the size of the whole stacked leaf; under a ``placement``, of the
-    whole segment, not the rank's block). Each costs two launches per
-    step."""
+    whole segment, not the rank's block). They share the step's one
+    norm and one apply launch."""
     sizes = whole_sizes(spec, placement)
     return [name for name, adapt, size in zip(spec.names, spec.adapt,
                                               sizes)
@@ -316,46 +316,49 @@ def layerwise_transform(base_lr_fn: Callable, *,
             return ([tree_get(params, p).contiguous() for p in paths],
                     [tree_get(grads, p).contiguous() for p in paths])
 
-        # every segment's sums first (a kernel segment's first launch; a
-        # plain one's terms kept for its apply), then one collective over
-        # the placement's mesh (none on one device), then the applies
-        terms, parts = [], []
-        for paths, adapt, size in zip(spec.paths, spec.adapt, sizes):
-            if on_kernel(adapt, size):
-                terms.append(kernel_members(paths))
-                parts.append(kops.lars_norm2(*terms[-1]))
+        # 1. one norm launch over every kernel segment; 2. the plain
+        # segments' sums (their terms kept for the apply); 3. the table
+        # in the spec's segment order; 4. one collective over the
+        # placement's mesh (none on one device); 5. one apply launch
+        # over every kernel segment, then the plain applies
+        kernel = [on_kernel(adapt, size)
+                  for adapt, size in zip(spec.adapt, sizes)]
+        kcols = [i for i, k in enumerate(kernel) if k]
+        kpass = [kernel_members(spec.paths[i]) for i in kcols]
+        ktable = kops.lars_norm2(kpass) if kpass else None
+        terms, parts = {}, []
+        for i, paths in enumerate(spec.paths):
+            if kernel[i]:
+                parts.append(ktable[:, len(parts) - len(terms)])  # next col
             else:
-                kept, sums = plain_terms(paths, members(paths))
-                terms.append(kept)
+                terms[i], sums = plain_terms(paths, members(paths))
                 parts.append(sums)
-        table = block_reducer(spec, placement)(torch.stack(parts, dim=1))
-        rows = []
+        table = ktable if not terms else torch.stack(parts, dim=1)
+        table = block_reducer(spec, placement)(table)
         updates = {}
-        for s_i, (paths, adapt, size, kept) in enumerate(zip(
-                spec.paths, spec.adapt, sizes, terms)):
-            bs = members(paths)
-            if on_kernel(adapt, size):
-                ws, gs = kept
-                deltas, stats = kops.lars_apply(
-                    ws, gs, [b[0] for b in bs], table[:, s_i].contiguous(),
-                    base_lr=base_lr, eta=eta, weight_decay=weight_decay,
-                    momentum_mu=momentum, eps=eps, nesterov=nesterov,
-                    telemetry=telemetry)
-                updates.update(zip(paths, deltas))
-                if telemetry:
-                    rows.append(tuple(stats))
-                continue
-            ws, dirs = kept
+        if kpass:
+            deltas, kstats = kops.lars_apply(
+                [(ws, gs, [b[0] for b in members(spec.paths[i])])
+                 for (ws, gs), i in zip(kpass, kcols)], table,
+                columns=kcols, base_lr=base_lr, eta=eta,
+                weight_decay=weight_decay, momentum_mu=momentum,
+                eps=eps, nesterov=nesterov, telemetry=telemetry)
+            for i, ds in zip(kcols, deltas):
+                updates.update(zip(spec.paths[i], ds))
+        rows = []
+        for s_i, (ws, dirs) in terms.items():
+            paths, adapt = spec.paths[s_i], spec.adapt[s_i]
             w2, b2_ = table[0, s_i], table[1, s_i]
             adapt_t = torch.as_tensor(adapt, device=w2.device)
             wn, bn, ratio = ref.trust_ratio(
                 w2, b2_, adapt_t, mode=mode, eta=eta,
                 weight_decay=weight_decay, eps=eps, trust_clip=trust_clip)
             if telemetry:
-                rows.append((wn, bn, ratio))
+                rows.append((s_i, (wn, bn, ratio)))
             table_s = ref.scales_from_ratio(ratio, adapt_t, base_lr,
                                             weight_decay)
-            for p, w, b, (d, bufs2) in zip(paths, ws, bs, dirs):
+            for p, w, b, (d, bufs2) in zip(paths, ws, members(paths),
+                                           dirs):
                 scaled = table_s[0] * d + table_s[1] * w
                 nb, delta = ref.integrate(mode, w, bufs2, scaled,
                                           momentum=momentum,
@@ -363,11 +366,16 @@ def layerwise_transform(base_lr_fn: Callable, *,
                 updates[p] = delta
                 for buf, new in zip(b, nb):
                     buf.copy_(new)
-        if telemetry and rows:
+        if telemetry and not terms:
+            obs_layerwise.deposit({"w_norm": kstats[0], "g_norm": kstats[1],
+                                   "trust_ratio": kstats[2]})
+        elif telemetry:
+            rows += [(i, tuple(kstats[:, j])) for j, i in enumerate(kcols)]
+            rows.sort(key=lambda r: r[0])
             obs_layerwise.deposit({
-                "w_norm": torch.stack([r[0] for r in rows]),
-                "g_norm": torch.stack([r[1] for r in rows]),
-                "trust_ratio": torch.stack([r[2] for r in rows])})
+                key: torch.stack([r[1][k] for r in rows])
+                for k, key in enumerate(("w_norm", "g_norm",
+                                         "trust_ratio"))})
         return (tree_from_paths(params, updates),
                 state_cls(state.step + 1, *state[1:]))
 

@@ -6,11 +6,11 @@
   partial scores are summed over the model row between them;
 * :func:`segmented_update` — the fused optimizer step on the flat
   substrate (two launches: segmented norms, then the apply);
-* :func:`lars_update` — the per-tensor LARS step of one segment (two
-  launches: its norms, then the apply); :func:`lars_norm2` and
-  :func:`lars_apply` are its two launches alone, for a rank holding a
-  block of the segment, whose sums are reduced over the mesh between
-  them;
+* :func:`lars_norm2` and :func:`lars_apply` — the per-tensor LARS
+  step of the layer-wise optimizers: one norm launch and one apply
+  launch over every kernel segment of a step (a pass), whose table of
+  sums is reduced over the mesh between them on a rank holding blocks;
+  :func:`lars_update` is a pass of one segment;
 * :func:`rmsnorm` — RMSNorm with ``(1 + weight)`` scaling (one launch;
   off the models' path, as in the JAX package).
 
@@ -209,87 +209,93 @@ def lars_update(w, g, m, *, base_lr, eta: float, weight_decay: float,
     ``telemetry=True`` a third value ``[w_norm, g_norm, ratio]`` (f32)
     is returned, from the same sums, with no extra launch.
 
-    On CUDA: two launches, counted under ``lars_norm2`` and
-    ``lars_apply``. On the CPU: the plain version.
+    A pass of one segment: on CUDA :func:`lars_norm2` and
+    :func:`lars_apply`'s two launches, counted under ``lars_norm2`` and
+    ``lars_apply``; on the CPU the plain version.
     """
     single = isinstance(w, torch.Tensor)
     ws, gs, ms = ([w], [g], [m]) if single else (list(w), list(g), list(m))
     kw = dict(base_lr=base_lr, eta=eta, weight_decay=weight_decay,
               momentum_mu=momentum_mu, eps=eps, nesterov=nesterov)
-    dev = ws[0].device
-    if dev.type == "cuda":
-        ms, deltas, stats = _lu.lars_update_cuda(
-            ws, gs, ms, telemetry=telemetry, launches=launches, **kw)
-    elif dev.type == "cpu":
+    if ws[0].device.type == "cpu":
         new_ms, deltas, stats = _ref.lars_update_ref(ws, gs, ms, **kw)
         for buf, new in zip(ms, new_ms):
             buf.copy_(new)
-    elif dev.type == "meta":
-        meta_launches["lars_norm2"] += 1
-        meta_launches["lars_apply"] += 1
-        deltas = [_meta(w.shape, torch.float32) for w in ws]
-        stats = _meta((3,), torch.float32) if telemetry else None
     else:
-        raise RuntimeError(f"lars_update: no implementation for device "
-                           f"{dev}")
+        (deltas,), stats = lars_apply([(ws, gs, ms)],
+                                      lars_norm2([(ws, gs)]),
+                                      telemetry=telemetry, **kw)
+        stats = None if stats is None else stats[:, 0]
     out = (ms[0], deltas[0]) if single else (ms, deltas)
     return out + (stats,) if telemetry else out
 
 
-def lars_norm2(ws, gs) -> torch.Tensor:
-    """``[Σw², Σg²]`` f32 over one segment's member tensors (the first
-    of :func:`lars_update`'s launches, counted under ``lars_norm2`` on
-    CUDA; the plain version on the CPU)."""
-    ws, gs = list(ws), list(gs)
-    dev = ws[0].device
+def _pass_device(segments, name: str) -> torch.device:
+    if not segments or not segments[0][0]:
+        raise ValueError(f"{name}: an empty pass")
+    return segments[0][0][0].device
+
+
+def lars_norm2(segments) -> torch.Tensor:
+    """The per-tensor path's norm pass over a step's kernel segments
+    ``[(ws, gs), ...]`` -> a ``[2, S]`` f32 table, column s ``[Σw²,
+    Σg²]`` of segment s's members. On CUDA ONE launch for the whole
+    pass, counted under ``lars_norm2``; on the CPU the plain version
+    (``ref.lars_norm2_pass``, segment by segment); on meta one meta
+    launch."""
+    segments = [(list(seg[0]), list(seg[1])) for seg in segments]
+    dev = _pass_device(segments, "lars_norm2")
     if dev.type == "cuda":
-        out = _lu.lars_norm2_cuda(ws, gs)
+        out = _lu.lars_norm2_cuda(segments)
         launches["lars_norm2"] += 1
         return out
     if dev.type == "cpu":
-        return _ref.lars_norm2(ws, gs)
+        return _ref.lars_norm2_pass(segments)
     if dev.type == "meta":
         meta_launches["lars_norm2"] += 1
-        return _meta((2,), torch.float32)
+        return _meta((2, len(segments)), torch.float32)
     raise RuntimeError(f"lars_norm2: no implementation for device {dev}")
 
 
-def lars_apply(ws, gs, ms, sums, *, base_lr, eta: float,
-               weight_decay: float, momentum_mu: float, eps: float = 1e-9,
-               nesterov: bool = False, telemetry: bool = False):
-    """The second of :func:`lars_update`'s launches, from ``sums``
-    (``[Σw², Σg²]`` f32, e.g. summed over a mesh's blocks): the trust
-    ratio, ``ms`` updated IN PLACE, ``(deltas, stats)`` returned
-    (``stats`` ``[w_norm, g_norm, ratio]`` with ``telemetry``, else
-    None). Counted under ``lars_apply`` on CUDA."""
-    ws, gs, ms = list(ws), list(gs), list(ms)
+def lars_apply(segments, sums, *, base_lr, eta: float, weight_decay: float,
+               momentum_mu: float, eps: float = 1e-9, nesterov: bool = False,
+               telemetry: bool = False, columns=None):
+    """The per-tensor path's apply pass over segments ``[(ws, gs, ms),
+    ...]`` from ``sums``, a ``[2, N]`` f32 table (e.g. :func:`lars_norm2`'s,
+    summed over a mesh's blocks, with other segments' columns between):
+    segment s reads column ``columns[s]`` (default s), forms its trust
+    ratio, updates its ``ms`` IN PLACE and gets f32 deltas. Returns
+    ``(deltas, stats)``: deltas per segment, per member; ``stats`` the
+    ``[3, S]`` table ``[w_norm, g_norm, ratio]`` with ``telemetry``,
+    else None. On CUDA ONE launch for the whole pass, counted under
+    ``lars_apply``; on the CPU the plain version
+    (``ref.lars_apply_pass``); on meta one meta launch."""
+    segments = [(list(seg[0]), list(seg[1]), list(seg[2]))
+                for seg in segments]
     kw = dict(base_lr=base_lr, eta=eta, weight_decay=weight_decay,
               momentum_mu=momentum_mu, eps=eps, nesterov=nesterov)
-    dev = ws[0].device
+    dev = _pass_device(segments, "lars_apply")
     if dev.type == "cuda":
-        deltas, stats = _lu.lars_apply_cuda(ws, gs, ms, sums, stats=telemetry,
-                                            **kw)
+        out = _lu.lars_apply_cuda(segments, sums, stats=telemetry,
+                                  columns=columns, **kw)
         launches["lars_apply"] += 1
-        return deltas, stats
+        return out
     if dev.type == "meta":
         meta_launches["lars_apply"] += 1
-        return [_meta(w.shape, torch.float32) for w in ws], \
-            (_meta((3,), torch.float32) if telemetry else None)
+        return [[_meta(w.shape, torch.float32) for w in seg[0]]
+                for seg in segments], \
+            (_meta((3, len(segments)), torch.float32) if telemetry
+             else None)
     if dev.type != "cpu":
         raise RuntimeError(f"lars_apply: no implementation for device "
                            f"{dev}")
-    wn, gn, ratio, scale = _ref.lars_ratio(sums, base_lr, eta=eta,
-                                           weight_decay=weight_decay,
-                                           eps=eps)
-    deltas = []
-    for w, g, m in zip(ws, gs, ms):
-        new_m, delta = _ref.lars_apply(w, g, m, scale,
-                                       weight_decay=weight_decay,
-                                       momentum_mu=momentum_mu,
-                                       nesterov=nesterov)
-        m.copy_(new_m)
-        deltas.append(delta)
-    return deltas, (torch.stack([wn, gn, ratio]) if telemetry else None)
+    lr = kw.pop("base_lr")
+    new_ms, deltas, stats = _ref.lars_apply_pass(segments, sums, lr,
+                                                 columns=columns, **kw)
+    for seg, news in zip(segments, new_ms):
+        for m, new in zip(seg[2], news):
+            m.copy_(new)
+    return deltas, (stats if telemetry else None)
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *,

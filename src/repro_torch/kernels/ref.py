@@ -252,6 +252,38 @@ def lars_update_ref(ws, gs, ms, *, base_lr, eta: float, weight_decay: float,
         torch.stack([wn, gn, ratio])
 
 
+def lars_norm2_pass(segments) -> torch.Tensor:
+    """The plain norm pass: a ``[2, S]`` f32 table whose column s is
+    :func:`lars_norm2` of segment s ``(ws, gs)`` (the per-tensor path's
+    kernel takes every segment of a step in one launch)."""
+    return torch.stack([lars_norm2(seg[0], seg[1]) for seg in segments],
+                       dim=1)
+
+
+def lars_apply_pass(segments, sums: torch.Tensor, base_lr, *, eta: float,
+                    weight_decay: float, momentum_mu: float,
+                    eps: float = 1e-9, nesterov: bool = False,
+                    columns=None):
+    """The plain apply pass over segments ``(ws, gs, ms)``: segment s
+    takes :func:`lars_ratio` of column ``columns[s]`` (default s) of the
+    ``[2, N]`` table ``sums``, then :func:`lars_apply` on each member.
+    Returns ``(new_ms, deltas, stats)``: lists per segment of f32
+    tensors, and the ``[3, S]`` table of ``[w_norm, g_norm, ratio]``;
+    inputs unchanged."""
+    cols = range(len(segments)) if columns is None else columns
+    new_ms, deltas, stats = [], [], []
+    for (ws, gs, ms), c in zip(segments, cols):
+        wn, gn, ratio, scale = lars_ratio(sums[:, c], base_lr, eta=eta,
+                                          weight_decay=weight_decay, eps=eps)
+        out = [lars_apply(w, g, m, scale, weight_decay=weight_decay,
+                          momentum_mu=momentum_mu, nesterov=nesterov)
+               for w, g, m in zip(ws, gs, ms)]
+        new_ms.append([o[0] for o in out])
+        deltas.append([o[1] for o in out])
+        stats.append(torch.stack([wn, gn, ratio]))
+    return new_ms, deltas, torch.stack(stats, dim=1)
+
+
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
                 eps: float = 1e-6) -> torch.Tensor:
     """``x·rsqrt(mean(x²) + eps)·(1 + w)`` in f32, cast to x's dtype

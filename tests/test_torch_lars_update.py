@@ -241,15 +241,15 @@ def test_kernel_segments_match_reference_pallas_calls():
     # the 1-D final norm stays on the tree math
     assert "final_norm/scale" not in names
     # and the run launches nothing on the CPU but counts what the card
-    # would: the same segments go to ops.lars_norm2 and ops.lars_apply,
-    # once each per step
+    # would: one ops.lars_norm2 and one ops.lars_apply call per step,
+    # each over exactly those segments, with their member counts
     calls = {"lars_norm2": [], "lars_apply": []}
     real = {name: getattr(ops, name) for name in calls}
 
     def spy(name):
-        def call(w, *a, **kw):
-            calls[name].append(len(w))
-            return real[name](w, *a, **kw)
+        def call(segments, *a, **kw):
+            calls[name].append([len(seg[0]) for seg in segments])
+            return real[name](segments, *a, **kw)
         return call
 
     topt = core.build_optimizer("wa-lars", total_steps=10,
@@ -264,10 +264,11 @@ def test_kernel_segments_match_reference_pallas_calls():
     finally:
         for name, fn in real.items():
             setattr(ops, name, fn)
-    assert calls["lars_norm2"] == calls["lars_apply"]
-    assert len(calls["lars_apply"]) == len(names)
+    counts = [len(paths) for name, paths in zip(spec.names, spec.paths)
+              if name in names]
+    assert calls["lars_norm2"] == calls["lars_apply"] == [counts]
     # stacked group members
-    assert max(calls["lars_apply"]) == cfg.num_layers
+    assert max(counts) == cfg.num_layers
 
 
 # ---------------------------------------------------------------------------
@@ -320,15 +321,16 @@ def test_lars_cuda_wrappers_refuse_cpu_tensors_before_building(
     monkeypatch.setattr(_build, "load", no_build)
     w, g, m = torch.ones(16), torch.ones(16), torch.zeros(16)
     with pytest.raises(ValueError, match="CUDA device"):
-        lu.lars_norm2_cuda([w], [g])
+        lu.lars_norm2_cuda([([w], [g])])
     with pytest.raises(ValueError, match="CUDA device"):
-        lu.lars_apply_cuda([w], [g], [m], torch.ones(2), base_lr=0.1,
+        lu.lars_apply_cuda([([w], [g], [m])], torch.ones(2, 1), base_lr=0.1,
                            eta=1e-3, weight_decay=0.0, momentum_mu=0.9)
-    with pytest.raises(ValueError, match="at most"):
-        lu.lars_norm2_cuda([w] * (lu.MAX_MEMBERS + 1),
-                           [g] * (lu.MAX_MEMBERS + 1))
+    # no cap on the members of a segment: 100 members are refused only
+    # for lying on the CPU
+    with pytest.raises(ValueError, match="CUDA device"):
+        lu.lars_norm2_cuda([([w] * 100, [g] * 100)])
     with pytest.raises(ValueError, match="f32 weights with bf16"):
-        lu.lars_apply_cuda([w], [g.bfloat16()], [m], torch.ones(2),
+        lu.lars_apply_cuda([([w], [g.bfloat16()], [m])], torch.ones(2, 1),
                            base_lr=0.1, eta=1e-3, weight_decay=0.0,
                            momentum_mu=0.9)
     # meta tensors (the dry run): the kernel's outputs, its two
@@ -409,3 +411,283 @@ def test_tree_path_updates_state_in_place_with_functional_values(case):
         for i, b in enumerate(tree_leaves(state[1 + k])):
             assert b is bl[i]                        # updated in place
             assert torch.equal(b, want[k][i])
+
+
+# ---------------------------------------------------------------------------
+# the pass: every kernel segment of a step in one norm and one apply launch
+# ---------------------------------------------------------------------------
+
+PASS_SHAPES = [((7,), 1), ((33, 65), 5), ((3, 3, 4, 8), 2), ((129,), 3),
+               ((5, 7), 40)]
+
+
+def _pass(rng, dtype=torch.float32, shapes=PASS_SHAPES):
+    """Segments ``(ws, gs, ms)`` of seeded members (w ~ 0.05, g ~ 1e-3,
+    m ~ 1e-4; ms f32)."""
+    segs = []
+    for shape, count in shapes:
+        segs.append(tuple(
+            [torch.from_numpy(_rand(rng, shape, scale)).to(dt)
+             for _ in range(count)]
+            for scale, dt in ((0.05, dtype), (1e-3, dtype),
+                              (1e-4, torch.float32))))
+    return segs
+
+
+@pytest.mark.parametrize("nesterov", [False, True], ids=["hb", "nesterov"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_plain_pass_is_the_per_segment_plain_functions(dtype, nesterov):
+    """``ref.lars_norm2_pass`` / ``lars_apply_pass`` (and ``ops`` on the
+    CPU, which runs them) are bitwise the per-segment plain functions,
+    a segment reading its own column of a wider table."""
+    segs = _pass(np.random.default_rng(8), dtype)
+    table = ref.lars_norm2_pass([s[:2] for s in segs])
+    assert table.shape == (2, len(segs)) and table.dtype == torch.float32
+    for j, (ws, gs, _) in enumerate(segs):
+        assert torch.equal(table[:, j], ref.lars_norm2(ws, gs))
+    # the table with other segments' columns between (the tree path's
+    # table in the spec's order): segment j reads column 2 j + 1
+    wide = torch.zeros(2, 2 * len(segs))
+    wide[:, 1::2] = table
+    cols = [2 * j + 1 for j in range(len(segs))]
+    hyper = {k: v for k, v in HYPER.items() if k != "base_lr"}
+    new_ms, deltas, stats = ref.lars_apply_pass(
+        segs, wide, HYPER["base_lr"], columns=cols, nesterov=nesterov,
+        **hyper)
+    for j, (ws, gs, ms) in enumerate(segs):
+        nm, d, st = ref.lars_update_ref(ws, gs, ms, nesterov=nesterov,
+                                        **HYPER)
+        assert torch.equal(stats[:, j], st)
+        for a, b in zip(nm + d, new_ms[j] + deltas[j]):
+            assert torch.equal(a, b)
+    # ops on the CPU: one call per pass, momentum in place, no launch
+    before = dict(ops.launches)
+    assert torch.equal(ops.lars_norm2([s[:2] for s in segs]), table)
+    kms = [[m.clone() for m in s[2]] for s in segs]
+    got, got_stats = ops.lars_apply(
+        [(s[0], s[1], m) for s, m in zip(segs, kms)], wide, columns=cols,
+        nesterov=nesterov, telemetry=True, **HYPER)
+    assert ops.launches == before
+    assert torch.equal(got_stats, stats)
+    for j in range(len(segs)):
+        for a, b in zip(kms[j] + got[j], new_ms[j] + deltas[j]):
+            assert torch.equal(a, b)
+
+
+def _walk(rec: np.ndarray, nseg: int, ntiles: int, tile: int):
+    """The kernels' walk of a pass's table, as ``lars_update.cu`` does
+    it: each tile's (segment, member record, element range)."""
+    segs = rec[:8 * nseg].reshape(nseg, 8)
+    out, s = [], 0
+    for t in range(ntiles):
+        while s + 1 < nseg and segs[s + 1, 0] <= t:
+            s += 1
+        tile0, n, tiles, member0 = (int(x) for x in segs[s, :4])
+        k, r = divmod(t - tile0, tiles)
+        out.append((s, member0 + k, r * tile, min(r * tile + tile, n)))
+    return out
+
+
+def _pointers(segs) -> list:
+    """A pass's pointers a component, as the wrappers' check reads
+    them."""
+    return [[x.data_ptr() for seg in segs for x in seg[c]]
+            for c in range(len(segs[0]))]
+
+
+@pytest.mark.parametrize("with_m", [False, True], ids=["norm", "apply"])
+def test_pass_table_covers_every_element_once(with_m):
+    """The host half of the kernels' contract: the table's records, the
+    kernels' walk of it (emulated) covering every element of every
+    member exactly once, tile by tile in segment order; deltas at
+    16-byte aligned offsets of one buffer, without overlap; zeroed
+    tickets at the end."""
+    segs = _pass(np.random.default_rng(9),
+                 shapes=[((3,), 1), ((lu.TILE + 5,), 2), ((40,), 3),
+                         ((2, lu.TILE), 1)])
+    # a pass of mixed (w, g) dtype pairs, as mamba2-1.3b's
+    bf = torch.bfloat16
+    segs[1] = ([w.to(bf) for w in segs[1][0]],
+               [g.to(bf) for g in segs[1][1]], segs[1][2])
+    segs[2] = ([w.to(bf) for w in segs[2][0]],) + segs[2][1:]
+    cols = [4, 0, 2, 1]
+    part = segs if with_m else [s[:2] for s in segs]
+    rec, ntiles, offsets, total = lu._table(part, _pointers(part), cols)
+    assert ntiles == lu.pass_tiles(segs) == 1 + 2 * 2 + 3 + 2
+    nseg, nmem = len(segs), sum(len(s[0]) for s in segs)
+    assert len(rec) == 8 * nseg + 4 * nmem + 2 + 2
+    assert not rec[8 * nseg + 4 * nmem:].any()      # tickets, counters
+    assert list(rec[:8 * nseg].reshape(nseg, 8)[:, 5]) == cols
+    mems = rec[8 * nseg:8 * nseg + 4 * nmem].reshape(nmem, 4)
+    members = [(w, g, m) for s in segs for w, g, m in zip(*s)]
+    covered = [np.zeros(w.numel(), np.int64) for w, _, _ in members]
+    for s, k, e0, e1 in _walk(rec, nseg, ntiles, lu.TILE):
+        w, g, m = members[k]
+        assert k in range(sum(len(x[0]) for x in segs[:s]),
+                          sum(len(x[0]) for x in segs[:s + 1]))
+        assert mems[k, 0] == w.data_ptr() and mems[k, 1] == g.data_ptr()
+        assert mems[k, 2] == (m.data_ptr() if with_m else 0)
+        covered[k][e0:e1] += 1
+        ptrs = (w.data_ptr(), g.data_ptr()) + ((m.data_ptr(),) if with_m
+                                               else ())
+        assert int(mems[k, 3]) & 7 == ((w.dtype == bf) << 2
+                                       | (g.dtype == bf) << 1
+                                       | all(p % 16 == 0 for p in ptrs))
+    assert all((c == 1).all() for c in covered)
+    if with_m:
+        ends = [o + w.numel() for o, (w, _, _) in zip(offsets, members)]
+        assert [int(x) >> lu.FLAG_BITS for x in mems[:, 3]] == offsets
+        assert all(o % lu.DELTA_ALIGN == 0 for o in offsets)
+        assert all(a <= b for a, b in zip(ends, offsets[1:]))
+        assert total >= ends[-1]
+    else:
+        assert not offsets and total == 0
+
+
+def test_delta_views_are_the_members_slots():
+    """Each member's delta is a contiguous view of the pass's buffer of
+    the member's shape, starting at its offset in the table: writing
+    every view fills exactly those slots."""
+    segs = _pass(np.random.default_rng(10),
+                 shapes=[((3,), 1), ((5, 7), 3), ((2, 4), 2)])
+    segs.insert(2, tuple([torch.tensor(0.5) for _ in range(2)]
+                         for _ in range(3)))        # 0-d members
+    _, _, offsets, total = lu._table(segs, _pointers(segs),
+                                     range(len(segs)))
+    flat = torch.zeros(total)
+    deltas = lu._delta_views(flat, segs, offsets)
+    members = [w for s in segs for w in s[0]]
+    views = [d for ds in deltas for d in ds]
+    assert [len(ds) for ds in deltas] == [len(s[0]) for s in segs]
+    want = torch.zeros(total)
+    for k, (w, d, o) in enumerate(zip(members, views, offsets)):
+        assert d.shape == w.shape and d.is_contiguous()
+        assert d.data_ptr() == flat.data_ptr() + 4 * o
+        d.fill_(k + 1)
+        want[o:o + w.numel()] = k + 1
+    assert torch.equal(flat, want)
+
+
+def test_pass_summation_depth_stays_at_the_old_bound():
+    """The depth the source's note states, from the wrapper's tile: on
+    qwen2.5-3b's deepest segment (36 MLP members of 2048 x 11008) the
+    kernel adds at most 445 times on a term's path, the depth that
+    ``chip_smoke.LARS_NORM_RTOL`` rests on."""
+    threads, block = 256, 13
+    tiles = 36 * -(-2048 * 11008 // lu.TILE)
+    depth = lu.TILE // threads + block + -(-tiles // threads) + block
+    assert (tiles, depth) == (99072, 445)
+
+
+PASS_REFUSALS = {
+    "cpu": (lambda w, g, m: [([w], [g], [m])], "CUDA device"),
+    "mixed-w-dtypes": (lambda w, g, m: [([w, w.bfloat16()], [g, g],
+                                         [m, m])], "share one dtype"),
+    "mixed-g-dtypes": (lambda w, g, m: [([w.bfloat16()] * 2,
+                                         [g, g.bfloat16()], [m, m])],
+                       "share one dtype"),
+    # segments of different (w, g) pairs share a pass (mamba2-1.3b keeps
+    # some leaves in f32): refused here only for lying on the CPU
+    "mixed-pairs-across-segments": (
+        lambda w, g, m: [([w], [g], [m]), ([w.bfloat16()], [g], [m]),
+                         ([w.bfloat16()], [g.bfloat16()], [m])],
+        "CUDA device"),
+    "f32-w-bf16-g": (lambda w, g, m: [([w.bfloat16()], [g], [m]),
+                                      ([w], [g.bfloat16()], [m])],
+                     "f32 weights with bf16"),
+    "other-device": (lambda w, g, m: [([w], [g], [m]),
+                                      ([w.to("meta")], [g.to("meta")],
+                                       [m.to("meta")])],
+                     "more than one device"),
+    "bf16-momentum": (lambda w, g, m: [([w], [g], [m.bfloat16()])],
+                      "momentum is f32", "CUDA device"),
+    "ragged-members": (lambda w, g, m: [([w, w[:8]], [g, g[:8]],
+                                         [m, m[:8]])], "16 elements each"),
+    "strided": (lambda w, g, m: [([w.view(4, 4).t()], [g], [m])],
+                "contiguous"),
+    "empty-pass": (lambda w, g, m: [], "empty pass"),
+}
+
+
+@pytest.mark.parametrize("case", list(PASS_REFUSALS))
+def test_pass_wrappers_refuse_before_building(case, monkeypatch):
+    def no_build(name):
+        raise AssertionError("must not build for a refused call")
+    monkeypatch.setattr(_build, "load", no_build)
+    make, match, *norm_match = PASS_REFUSALS[case]
+    segs = make(torch.ones(16), torch.ones(16), torch.zeros(16))
+    # the norm takes no momentum: there a CPU pass is refused as such
+    with pytest.raises(ValueError, match=(norm_match or [match])[0]):
+        lu.lars_norm2_cuda([s[:2] for s in segs])
+    with pytest.raises(ValueError, match=match):
+        lu.lars_apply_cuda(segs, torch.ones(2, 2), base_lr=0.1, eta=1e-3,
+                           weight_decay=0.0, momentum_mu=0.9)
+
+
+def test_meta_pass_counts_one_launch_each():
+    """A pass on meta (the dry run) stands for one launch of each,
+    whatever its segment count, with outputs of the kernels' shapes."""
+    segs = [tuple([x.to("meta") for x in xs] for xs in seg)
+            for seg in _pass(np.random.default_rng(2))]
+    before, meta = dict(ops.launches), dict(ops.meta_launches)
+    table = ops.lars_norm2([s[:2] for s in segs])
+    deltas, stats = ops.lars_apply(segs, table, telemetry=True, **HYPER)
+    assert table.shape == (2, len(segs)) and table.device.type == "meta"
+    assert stats.shape == (3, len(segs))
+    assert [[d.shape for d in ds] for ds in deltas] == \
+        [[w.shape for w in s[0]] for s in segs]
+    assert ops.launches == before
+    assert ops.meta_launches["lars_norm2"] == meta["lars_norm2"] + 1
+    assert ops.meta_launches["lars_apply"] == meta["lars_apply"] + 1
+
+
+def _tiny_tree(count=40):
+    rng = np.random.default_rng(5)
+    shapes = [(2, 3), (3, 3), (8,), (4, 2, 2), (5, 7), (9,), (1, 8)]
+    return {f"l{i}": (rng.normal(size=shapes[i % len(shapes)]) * 0.3)
+            .astype(np.float32) for i in range(count)}
+
+
+@pytest.mark.parametrize("name,kw", PER_TENSOR, ids=[n for n, _ in PER_TENSOR])
+def test_per_tensor_many_tiny_segments_match_reference(name, kw):
+    """40 leaves of 6-16 elements, most of them ADAPT kernel segments
+    of one pass: the port equals the JAX per-tensor path after 3 steps,
+    and each step is one norm and one apply call."""
+    params = _tiny_tree()
+    rng = np.random.default_rng(6)
+    grads = [{k: rng.normal(size=v.shape).astype(np.float32)
+              for k, v in params.items()} for _ in range(STEPS)]
+    calls = []
+    real = ops.lars_apply
+
+    def spy(segments, *a, **k):
+        calls.append(len(segments))
+        return real(segments, *a, **k)
+
+    ops.lars_apply = spy
+    try:
+        jp, tp, js, ts = _run_pair(name, kw, params, grads)
+    finally:
+        ops.lars_apply = real
+    names = layerwise.kernel_segments(flatten.build_spec(_torch_tree(
+        params)))
+    assert len(names) > 20 and calls == [len(names)] * STEPS
+    for a, b in zip(tree_leaves(tp), jax.tree_util.tree_leaves(jp)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=OPT_RTOL,
+                                   atol=OPT_ATOL)
+
+
+@pytest.mark.parametrize("arch,mesh", [("qwen2.5-3b", (1, 1)),
+                                       ("qwen2.5-3b", (2, 2)),
+                                       ("whisper-large-v3", (1, 2))],
+                         ids=["qwen-1x1", "qwen-2x2", "whisper-1x2"])
+def test_dry_run_predicts_one_norm_and_one_apply_per_step(arch, mesh):
+    """The dry run of a per-tensor WA-LARS step (meta, a rank of a
+    ``DryMesh``) counts 1 + 1 per-tensor launches, whatever the number
+    of kernel segments."""
+    import torch_sp_ref as sp
+    from repro_torch.launch import dryrun
+    got = sp.dry_trace(arch, "tiny_train", dryrun.DryMesh(*mesh),
+                       optimizer_name="wa-lars", use_kernel="per_tensor")
+    assert got["launches"] == {"lars_norm2": 1, "lars_apply": 1}

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the port's decode-attention and RMSNorm kernels of several
-checkouts on one GPU, in turns.
+"""Time the port's decode-attention and RMSNorm kernels, or its
+per-tensor LARS kernels, of several checkouts on one GPU, in turns.
 
     python3 tools/chip_compare.py archive/parent . . archive/parent
     python3 tools/chip_compare.py --serving archive/parent . . archive/parent
+    python3 tools/chip_compare.py --lars archive/parent . . archive/parent
 
 Each ROOT is the root of a checkout of this repository (for example a
 ``git archive`` of the parent commit unpacked into ``archive/``, which
@@ -22,8 +23,21 @@ and ``library_ms`` are the card's time per call (a CUDA graph of the
 calls, replayed); ``eager_ms`` the time of back-to-back calls, the
 host's cost included. A tree whose ``chip_smoke.py`` times eagerly
 runs its phases a second time with the kernel's and the library
-call's timings through the graph. Needs a CUDA GPU; exits non-zero
-if any run fails.
+call's timings through the graph.
+
+With ``--lars`` each process builds that checkout's ``lars_update``
+kernels and times one optimizer step's norm and apply over three sets
+of kernel segments, random members made from a seed as in
+``chip_smoke.py`` phase 3c: (a) qwen2.5-3b at full width and depth,
+bf16; (b) whisper-large-v3 at full width and depth, f32; (c) the CNN's
+leaves, f32. The timer, the members and the bound are THIS checkout's
+(``chip_smoke.lars_step_times``), so every root is timed alike; the
+only difference is the call: a checkout whose wrappers take a pass
+(``lars_norm2_cuda(segments)``) makes one launch of each a step, an
+older one loops over the segments. Prints one JSON line per run,
+``{"root", "run", "lars": {size: {"norm": {...}, "apply": {...}}}}``.
+
+Needs a CUDA GPU; exits non-zero if any run fails.
 """
 from __future__ import annotations
 
@@ -123,12 +137,62 @@ print("RESULT " + json.dumps(out), flush=True)
 """
 
 
+LARS_CHILD = r"""
+import gc, json, sys
+root, tool_root = sys.argv[1], sys.argv[2]
+sys.path.insert(0, tool_root)
+import chip_smoke as cs                   # this checkout's timer
+sys.path.insert(0, root + "/src")         # the timed checkout's port
+import torch
+from repro_torch.configs import get_config
+from repro_torch.core import flatten, layerwise
+from repro_torch.core.base import tree_leaves
+from repro_torch.kernels import _build
+from repro_torch.kernels import lars_update as lu
+from repro_torch.models import cnn
+_build.build(["lars_update"])
+one_pass = hasattr(lu, "TILE")
+lr = torch.tensor(0.35, device=cs.DEV)
+if one_pass:
+    norm = lu.lars_norm2_cuda
+    apply = lambda segs, sums: lu.lars_apply_cuda(segs, sums, base_lr=lr,
+                                                  **cs.LARS_HYPER)
+else:
+    norm = lambda wg: [lu.lars_norm2_cuda(ws, gs) for ws, gs in wg]
+    apply = lambda segs, sums: [
+        lu.lars_apply_cuda(ws, gs, ms, s, base_lr=lr, **cs.LARS_HYPER)
+        for (ws, gs, ms), s in zip(segs, sums)]
+gen = torch.Generator(device=cs.DEV).manual_seed(3)
+out = {}
+for size, shapes, dt in (
+        ("a", cs.model_kernel_segments("qwen2.5-3b", flatten, layerwise,
+                                       get_config), torch.bfloat16),
+        ("b", cs.model_kernel_segments("whisper-large-v3", flatten,
+                                       layerwise, get_config),
+         torch.float32),
+        ("c", cs.cnn_kernel_leaves(cnn, tree_leaves), torch.float32)):
+    segs = cs.lars_members(shapes, dt, dt, gen)
+    out[size] = cs.lars_step_times(norm, apply, segs)
+    for t in out[size].values():
+        t["launches"] = 1 if one_pass else len(segs)
+    print(f"{size}: {json.dumps(out[size])}", flush=True)
+    del segs
+    gc.collect()
+    torch.cuda.empty_cache()
+print("RESULT " + json.dumps({"one_pass": one_pass, "lars": out}),
+      flush=True)
+"""
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("roots", nargs="+", help="checkout roots, in turn")
     ap.add_argument("--serving", action="store_true",
                     help="also run phase 4 (gemma3-12b serving)")
+    ap.add_argument("--lars", action="store_true",
+                    help="time the per-tensor LARS kernels instead")
     args = ap.parse_args()
+    tool_root = str(Path(__file__).resolve().parents[1])
     import torch
     if not torch.cuda.is_available():
         print("chip_compare: CUDA is not available", file=sys.stderr)
@@ -138,10 +202,11 @@ def main() -> int:
         root = str(Path(root).resolve())
         print(f"=== run {run}: {root}", flush=True)
         env = dict(os.environ, PYTHONPATH=str(Path(root) / "src"))
-        proc = subprocess.run(
-            [sys.executable, "-c", CHILD, root,
-             "1" if args.serving else "0"],
-            cwd=root, env=env, capture_output=True, text=True)
+        cmd = [sys.executable, "-c", LARS_CHILD, root, tool_root] \
+            if args.lars else [sys.executable, "-c", CHILD, root,
+                               "1" if args.serving else "0"]
+        proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                              text=True)
         result = None
         for line in proc.stdout.splitlines():
             if line.startswith("RESULT "):
